@@ -1,0 +1,130 @@
+"""DLRM: bottom MLP -> embedding lookups -> dot interaction -> top MLP.
+
+Counterpart of ``distributed_embeddings_tpu/models/dlrm.py``, forward only.
+MLP kernels keep the JAX package's [in, out] layout, so weights map across
+as they are.
+"""
+
+import math
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from distributed_embeddings_tpu_torch.layers.dist_model_parallel import (
+    DistributedEmbedding)
+from distributed_embeddings_tpu_torch.layers.embedding import Embedding
+from distributed_embeddings_tpu_torch.utils.device import (DeviceLike,
+                                                           default_generator,
+                                                           resolve_device)
+
+
+def dlrm_initializer():
+    """Uniform(+-1/sqrt(rows)) embedding init (reference utils.py:27-41)."""
+    def init(out: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+        maxval = 1.0 / math.sqrt(out.shape[0])
+        return out.uniform_(-maxval, maxval, generator=generator)
+    return init
+
+
+def dot_interact(emb_outs: Sequence[torch.Tensor],
+                 bottom_mlp_out: torch.Tensor) -> torch.Tensor:
+    """Pairwise-dot feature interaction: the strictly-lower-triangular
+    entries of the Gram matrix of [bottom_mlp_out] + emb_outs, then the
+    bottom MLP output re-concatenated."""
+    feats = torch.stack([bottom_mlp_out] + list(emb_outs), dim=1)  # [B, n, d]
+    gram = torch.bmm(feats, feats.transpose(1, 2))
+    n = feats.shape[1]
+    rows, cols = np.tril_indices(n, k=-1)
+    idx = torch.as_tensor(rows * n + cols, device=feats.device)
+    pairwise = gram.reshape(gram.shape[0], n * n)[:, idx]
+    return torch.cat([pairwise, bottom_mlp_out], dim=1)
+
+
+class Dense(nn.Module):
+    """``x @ w + b`` with w [in, out], as the JAX package lays it out."""
+
+    def __init__(self, in_dim: int, out_dim: int, device: torch.device,
+                 generator: torch.Generator):
+        super().__init__()
+        # glorot-normal kernel, bias ~ N(0, 1/out) (reference main.py:127-139)
+        std = math.sqrt(2.0 / (in_dim + out_dim))
+        self.w = nn.Parameter(torch.empty((in_dim, out_dim), device=device)
+                              .normal_(0.0, std, generator=generator))
+        self.b = nn.Parameter(torch.empty((out_dim,), device=device).normal_(
+            0.0, math.sqrt(1.0 / out_dim), generator=generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.matmul(x, self.w) + self.b
+
+
+class MLP(nn.ModuleList):
+    """Dense layers with relu between them (and after the last with
+    `final_activation`); ``mlp[i].w`` / ``mlp[i].b`` are the JAX package's
+    ``params[i]['w']`` / ``['b']``."""
+
+    def __init__(self, dims: List[int], in_dim: int, device: torch.device,
+                 generator: torch.Generator, final_activation: bool = False):
+        layers = []
+        for out_dim in dims:
+            layers.append(Dense(in_dim, out_dim, device, generator))
+            in_dim = out_dim
+        super().__init__(layers)
+        self.final_activation = final_activation
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i, layer in enumerate(self):
+            x = layer(x)
+            if i < len(self) - 1 or self.final_activation:
+                x = torch.relu(x)
+        return x
+
+
+class DLRM(nn.Module):
+    """DLRM with fused table-parallel embeddings.
+
+    Args mirror the JAX package's class; `dist_kwargs` go to
+    `DistributedEmbedding` (strategy 'memory_balanced' unless given).
+    ``device`` (None = cuda) and ``generator`` (default: seed 0 on
+    `device`) place and draw every parameter. Forward:
+    ``[B, num_numerical]`` + categorical ids -> ``[B, 1]`` logits.
+    """
+
+    def __init__(self,
+                 table_sizes: Sequence[int],
+                 embedding_dim: int = 128,
+                 bottom_mlp_dims: Sequence[int] = (512, 256, 128),
+                 top_mlp_dims: Sequence[int] = (1024, 1024, 512, 256, 1),
+                 num_numerical_features: int = 13,
+                 *,
+                 device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None,
+                 **dist_kwargs):
+        super().__init__()
+        device = resolve_device(device)
+        gen = default_generator(device, generator)
+        self.table_sizes = list(table_sizes)
+        self.embedding_dim = embedding_dim
+        self.num_numerical_features = num_numerical_features
+        embeddings = [
+            Embedding(v, embedding_dim,
+                      embeddings_initializer=dlrm_initializer(),
+                      device="meta")
+            for v in self.table_sizes
+        ]
+        dist_kwargs.setdefault("strategy", "memory_balanced")
+        self.embedding = DistributedEmbedding(
+            embeddings, device=device, generator=gen, **dist_kwargs)
+        n_feats = len(self.table_sizes) + 1
+        interact_dim = n_feats * (n_feats - 1) // 2 + bottom_mlp_dims[-1]
+        self.bottom_mlp = MLP(list(bottom_mlp_dims), num_numerical_features,
+                              device, gen, final_activation=True)
+        self.top_mlp = MLP(list(top_mlp_dims), interact_dim, device, gen)
+
+    def forward(self, numerical, categorical) -> torch.Tensor:
+        dev = self.embedding.device
+        x = torch.as_tensor(numerical, dtype=torch.float32, device=dev)
+        bottom = self.bottom_mlp(x)
+        emb_outs = self.embedding(list(categorical))
+        return self.top_mlp(dot_interact(emb_outs, bottom))
