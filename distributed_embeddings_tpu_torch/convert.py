@@ -10,6 +10,12 @@ state dict one leaf to one tensor:
 
 The data-parallel and row-sliced groups are empty at world size 1; a tree
 that fills them (or carries hot shards or quantization scales) is refused.
+
+The sparse train step's optimizer state maps the same way
+(`opt_state_from_jax`, `opt_state_to_numpy`): ``emb['tp'][b]`` is a tuple
+of ``[1, rows_max, w]`` state arrays (adam adds its step count), and the
+dense part's optax state becomes the port's `training.DenseOptimizer`
+state, keyed by parameter name.
 """
 
 from typing import Dict
@@ -21,7 +27,8 @@ from distributed_embeddings_tpu_torch.layers.dist_model_parallel import (
     DistributedEmbedding)
 from distributed_embeddings_tpu_torch.models.dlrm import MLP
 
-__all__ = ["params_from_jax", "params_to_numpy"]
+__all__ = ["params_from_jax", "params_to_numpy", "opt_state_from_jax",
+           "opt_state_to_numpy"]
 
 
 def _tensor(a) -> torch.Tensor:
@@ -88,3 +95,89 @@ def params_to_numpy(model) -> dict:
                            "b": layer.b.detach().cpu().numpy()}
                           for layer in child]
     return tree
+
+
+def _mlp_children(model):
+    return [(name, child) for name, child in model.named_children()
+            if isinstance(child, MLP)]
+
+
+def _named_from_tree(tree: dict, model) -> Dict[str, torch.Tensor]:
+    """{parameter name: tensor} from a dense-part tree ({mlp name: [{'w',
+    'b'}, ...], 'embedding': {'dp': []}})."""
+    out = {}
+    for name, child in _mlp_children(model):
+        for i, layer in enumerate(tree[name]):
+            out[f"{name}.{i}.w"] = _tensor(layer["w"])
+            out[f"{name}.{i}.b"] = _tensor(layer["b"])
+    return out
+
+
+def _tree_from_named(named: Dict[str, torch.Tensor], model) -> dict:
+    tree = {"embedding": {"dp": []}}
+    for name, child in _mlp_children(model):
+        tree[name] = [{"w": named[f"{name}.{i}.w"].detach().cpu().numpy(),
+                       "b": named[f"{name}.{i}.b"].detach().cpu().numpy()}
+                      for i in range(len(child))]
+    return tree
+
+
+def _device(model) -> torch.device:
+    return model.embedding.tp[0].device
+
+
+def opt_state_from_jax(np_state: dict, model) -> dict:
+    """The port's opt state (`training.make_sparse_train_step`) from the
+    JAX package's, every leaf already ``np.asarray``-ed: ``{"emb": {"tp":
+    [(acc[1, rows, w],)], "row": []}, "dense": optax chain state}`` (plus
+    ``"count"`` under a schedule). Tensors land on `model`'s device."""
+    dev = _device(model)
+    emb = np_state["emb"]
+    if len(emb.get("row", [])):
+        raise ValueError("opt state for row-sliced tables: the port runs "
+                         "world size 1, where every table is table-parallel")
+    tp = []
+    for entry in emb["tp"]:
+        tp.append(tuple(
+            _tensor(np.asarray(x)[0]).to(dev) if np.ndim(x) == 3
+            else int(np.asarray(x)) for x in entry))
+    dense: dict = {}
+    for part in np_state["dense"]:
+        # optax states are NamedTuples: read their fields (`count` is also
+        # a tuple method)
+        fields = getattr(part, "_fields", ())
+        if "sum_of_squares" in fields:
+            dense["sum_of_squares"] = {
+                n: t.to(dev) for n, t in
+                _named_from_tree(part.sum_of_squares, model).items()}
+        elif "mu" in fields and "nu" in fields:
+            dense["count"] = int(np.asarray(part.count))
+            dense["mu"] = {n: t.to(dev) for n, t in
+                           _named_from_tree(part.mu, model).items()}
+            dense["nu"] = {n: t.to(dev) for n, t in
+                           _named_from_tree(part.nu, model).items()}
+        elif "count" in fields:
+            dense["schedule_count"] = int(np.asarray(part.count))
+    state = {"emb": {"tp": tp, "row": []}, "dense": dense}
+    if "count" in np_state:
+        state["count"] = int(np.asarray(np_state["count"]))
+    return state
+
+
+def opt_state_to_numpy(opt_state: dict, model) -> dict:
+    """The port's opt state in the JAX package's layout with numpy leaves:
+    ``emb['tp'][b]`` a tuple of ``[1, rows_max, w]`` arrays (and adam's
+    int count); the dense part a dict of optax's field names
+    (``sum_of_squares`` / ``count``, ``mu``, ``nu`` / ``schedule_count``)
+    over dense-part trees."""
+    tp = [tuple(x.detach().cpu().numpy()[None] if torch.is_tensor(x)
+                else int(x) for x in entry)
+          for entry in opt_state["emb"]["tp"]]
+    dense = {}
+    for key, val in opt_state["dense"].items():
+        dense[key] = (_tree_from_named(val, model) if isinstance(val, dict)
+                      else int(val))
+    out = {"emb": {"tp": tp, "row": []}, "dense": dense}
+    if "count" in opt_state:
+        out["count"] = int(opt_state["count"])
+    return out

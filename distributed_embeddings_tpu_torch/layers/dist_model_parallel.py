@@ -12,9 +12,14 @@ The group structure is the JAX package's: inputs of one bucket and hotness
 are stacked into ``[B, f, k]``, their row offsets inside the fused table
 are added, one lookup serves the whole group, and the ``[1, B, f, w]``
 result (the rank-0 block of the mp->dp exchange) is sliced back into
-per-input outputs. Multi-GPU exchange, offload, hot rows, quantized
-storage and the training taps come in later slices (ROADMAP Queue A) and
-raise NotImplementedError here.
+per-input outputs. Multi-GPU exchange, offload, hot rows and quantized
+storage come in later slices (ROADMAP Queue A) and raise
+NotImplementedError here.
+
+Training: a tapped forward (`make_taps`, ``forward(taps=...,
+return_residuals=True)``) makes each group output a leaf of the autograd
+graph, whose ``.grad`` is the JAX package's tap gradient; `sparse_update`
+turns those into row-wise table updates through `ops.sparse_update`.
 """
 
 from typing import List, Optional, Sequence, Tuple
@@ -27,6 +32,8 @@ from distributed_embeddings_tpu_torch.layers.embedding import Embedding
 from distributed_embeddings_tpu_torch.ops import cuda_lookup, embedding_ops
 from distributed_embeddings_tpu_torch.ops.embedding_ops import (RaggedIds,
                                                                 SparseIds)
+from distributed_embeddings_tpu_torch.ops.sparse_update import (
+    SparseOptimizer, SparseRowGrad, concat_grads)
 from distributed_embeddings_tpu_torch.parallel.plan import (ShardedPlan,
                                                             lower_strategy)
 from distributed_embeddings_tpu_torch.parallel.planner import (
@@ -37,7 +44,7 @@ from distributed_embeddings_tpu_torch.utils.device import (DeviceLike,
 from distributed_embeddings_tpu_torch.utils.initializers import (
     get_initializer)
 
-__all__ = ["DistEmbeddingStrategy", "DistributedEmbedding"]
+__all__ = ["DistEmbeddingStrategy", "DistributedEmbedding", "TapResiduals"]
 
 
 def _combine(emb: torch.Tensor, weights: Optional[torch.Tensor],
@@ -80,6 +87,23 @@ def _overrides_forward(cls) -> bool:
         return False
     return getattr(cls, "forward", None) not in (None, Embedding.forward,
                                                  nn.Module.forward)
+
+
+class TapResiduals:
+    """Residuals of a tapped forward, consumed by `sparse_update`: per
+    exchange group the absolute row ids after the exchange and the row
+    offset add, ``tp_ids[g]`` ``[world, B, f_g, k_g]``, and the effective
+    combine weights ``tp_w[g]`` (None = uniform; the scale is recomputed
+    from the group). `key` is the exchange-group cache key. The JAX
+    package's sort-folding and row-sliced fields are not ported (ROADMAP
+    Queue A2, A4)."""
+
+    __slots__ = ("key", "tp_ids", "tp_w")
+
+    def __init__(self, key, tp_ids, tp_w):
+        self.key = key
+        self.tp_ids = tp_ids
+        self.tp_w = tp_w
 
 
 class _PreparedInput:
@@ -347,28 +371,47 @@ class DistributedEmbedding(nn.Module):
         w_x = None if w is None else w.index_select(1, grp.sel_t)
         return ids_x, w_x
 
-    def _forward_local(self, group_ids, group_w, groups) -> List[torch.Tensor]:
+    def _forward_local(self, group_ids, group_w, groups, taps=None,
+                       res_ids=None, res_w=None) -> List[torch.Tensor]:
         """Per exchange group: id exchange, row-offset add, fused lookup.
-        Returns per group the [world_src=1, B, f_max, wf] output block."""
+        Returns per group the [world_src=1, B, f_max, wf] output block.
+        With `taps`, each block is detached into a leaf that requires grad
+        and appended to ``taps["tp"]``; with `res_ids`/`res_w`, the group's
+        absolute ids and effective weights are appended there."""
         ex_list = []
         for g, grp in enumerate(groups):
             ids_x, w_x = self._padded_id_exchange(grp, group_ids[g],
                                                   group_w[g])
             ids_x = ids_x + grp.offs_t[None, :, None]
-            out = self._tp_group_out(grp, ids_x, w_x)
-            ex_list.append(out[None])
+            out = self._tp_group_out(grp, ids_x, w_x)[None]
+            if taps is not None:
+                out = out.detach().requires_grad_()
+                taps["tp"].append(out)
+            if res_ids is not None:
+                bucket = self.plan.tp_buckets[grp.bucket]
+                eff_w, _ = _effective_weights(w_x, grp.k, bucket.combiner)
+                res_ids.append(ids_x[None])
+                res_w.append(None if eff_w is None else eff_w[None])
+            ex_list.append(out)
         return ex_list
 
     def forward(self, inputs: Sequence, taps=None,
-                return_residuals: bool = False) -> List[torch.Tensor]:
+                return_residuals: bool = False):
         """Forward pass with data-parallel input: one [B] / [B, k] id
         array per feature (numpy or tensor), RaggedIds, SparseIds or
         (ids, weights) tuples. Returns one [B, width] tensor per input (or
-        [B, k, width] for combiner=None multi-hot), in input order."""
-        if taps is not None or return_residuals:
-            raise NotImplementedError(
-                "taps and residuals are not ported yet (ROADMAP Queue A2, "
-                "training step)")
+        [B, k, width] for combiner=None multi-hot), in input order.
+
+        taps: the container from `make_taps`. The forward fills
+        ``taps["tp"]`` with one leaf per exchange group, the group's
+        ``[1, B, f_max, w_out]`` output, detached from the (gradient-free)
+        tables and requiring grad, so that autograd delivers at each leaf
+        the gradient the JAX package reads at its zero tap.
+        return_residuals: also return the `TapResiduals` for
+        `sparse_update`, as ``(outputs, residuals)``."""
+        if taps is not None:
+            taps["tp"].clear()
+            taps["row"].clear()
         prepped = self._prepare_inputs(inputs)
         strat = self.strategy
         batch = prepped[0].ids.shape[0]
@@ -395,10 +438,17 @@ class DistributedEmbedding(nn.Module):
                 else:
                     group_w.append(None)
 
-        ex_list = self._forward_local(group_ids, group_w, groups)
+        res_ids = [] if return_residuals else None
+        res_w = [] if return_residuals else None
+        ex_list = self._forward_local(group_ids, group_w, groups, taps,
+                                      res_ids, res_w)
         outputs = self._assemble_tp_outputs(ex_list, tp_prep, batch, groups,
                                             assembly)
-        return [outputs[idx] for idx in strat.rev_group_ids]
+        outputs = [outputs[idx] for idx in strat.rev_group_ids]
+        if return_residuals:
+            key = tuple((p.k, p.weights is not None) for p in tp_prep)
+            return outputs, TapResiduals(key, res_ids, res_w)
+        return outputs
 
     def _assemble_tp_outputs(self, ex_list, tp_preps, batch, groups,
                              assembly) -> List[torch.Tensor]:
@@ -406,12 +456,17 @@ class DistributedEmbedding(nn.Module):
         slot, re-concat column slices."""
         strat = self.strategy
         tp_final = []
+        # one unbind per (group, rank) block: its backward is one stack,
+        # where a slice per input would add a zero-filled block per input
+        columns: dict = {}
         for i, p in enumerate(tp_preps):
             parts = []
             for (rank, g, j_g) in assembly[i]:
                 grp = groups[g]
                 bucket = self.plan.tp_buckets[grp.bucket]
-                part = ex_list[g][rank, :, j_g, :]          # [B, wf]
+                if (g, rank) not in columns:
+                    columns[(g, rank)] = ex_list[g][rank].unbind(1)
+                part = columns[(g, rank)][j_g]              # [B, wf]
                 if bucket.combiner is None:
                     part = part.reshape(batch, grp.k, bucket.width)
                 parts.append(part)
@@ -432,6 +487,77 @@ class DistributedEmbedding(nn.Module):
         if p.orig_1d:
             out = out[:, 0, :]
         return out
+
+    # ------------------------------------------------- sparse training path
+    def make_taps(self, inputs) -> dict:
+        """The tap container for ``forward(inputs, taps=...)``: ``{"tp":
+        [], "row": []}``. The JAX package returns zero arrays
+        ``[world, B, f_max_g, w_out]`` that its forward adds to each group
+        output; here the forward fills ``taps["tp"]`` with the group outputs
+        themselves, made leaves (the tables need no grad), whose ``.grad``
+        after backward is the tap gradient. Saves a pass over a zeros
+        tensor per group."""
+        if len(inputs) != self._n_inputs:
+            raise ValueError(
+                f"Expected {self._n_inputs} inputs, got {len(inputs)}")
+        return {"tp": [], "row": []}
+
+    def init_sparse_state(self, opt: SparseOptimizer) -> dict:
+        """Sparse-optimizer state for the bucket tables: ``{"tp":
+        [opt.init(table) per bucket], "row": []}``. Table-shaped state
+        (adagrad's accumulator, adam's moments) is allocated directly on
+        the tables' device at bucket shape ``[rows_max, w]``."""
+        return {"tp": [opt.init(t.data) for t in self.tp], "row": []}
+
+    def _group_contrib(self, g: int, grp: _ExchangeGroup, res_tp_ids,
+                       res_tp_w, tp_g) -> SparseRowGrad:
+        """One exchange group's SparseRowGrad from the residual ids and
+        effective weights and the tap gradient ``[1, B, f, w_out]``."""
+        bucket = self.plan.tp_buckets[grp.bucket]
+        ids_x = res_tp_ids[g][0]                       # [B, f, k]
+        gtap = tp_g[g][0]                              # [B, f, w_out]
+        k, wf = grp.k, bucket.width
+        lead = tuple(gtap.shape[:-1])
+        if bucket.combiner is None:
+            gk = gtap.reshape(lead + (k, wf))
+        else:
+            gk = gtap[..., None, :]
+        eff = res_tp_w[g]
+        if eff is None:
+            _, scale = _effective_weights(None, k, bucket.combiner)
+            gk = gk.float()
+            if scale != 1.0:
+                gk = gk * scale
+            contrib = gk.expand(tuple(ids_x.shape) + (wf,))
+        else:
+            contrib = gk.float() * eff[0][..., None]
+        return SparseRowGrad(ids_x.reshape(-1),
+                             contrib.reshape(-1, wf).contiguous())
+
+    @torch.no_grad()
+    def sparse_update(self, opt_states: dict, tap_grads: dict,
+                      residuals: TapResiduals,
+                      opt: SparseOptimizer) -> dict:
+        """Row-wise sparse optimizer step for the bucket tables, IN PLACE
+        (the JAX package returns new, donated arrays): per bucket, the
+        SparseRowGrads of its exchange groups are concatenated and handed
+        to ``opt.update``, which dedups them and updates each touched row
+        of the table and its state once. `tap_grads` is ``{"tp": [grad of
+        each taps["tp"] leaf], "row": []}``. Returns the new state pytree
+        (adam's step count is a new tuple entry; tensors are updated in
+        place)."""
+        groups, _ = self._exchange_groups_for_key(residuals.key)
+        bucket_groups: dict = {}
+        for g, grp in enumerate(groups):
+            bucket_groups.setdefault(grp.bucket, []).append(g)
+        new_tp = list(opt_states["tp"])
+        for b, gs in bucket_groups.items():
+            grads = [self._group_contrib(g, groups[g], residuals.tp_ids,
+                                         residuals.tp_w, tap_grads["tp"])
+                     for g in gs]
+            _, new_tp[b] = opt.update(self.tp[b].data, tuple(new_tp[b]),
+                                      concat_grads(grads))
+        return {**opt_states, "tp": new_tp}
 
     # --------------------------------------------------------- weights I/O
     def get_weights(self) -> List[np.ndarray]:

@@ -1,8 +1,8 @@
 """DLRM: bottom MLP -> embedding lookups -> dot interaction -> top MLP.
 
-Counterpart of ``distributed_embeddings_tpu/models/dlrm.py``, forward only.
-MLP kernels keep the JAX package's [in, out] layout, so weights map across
-as they are.
+Counterpart of ``distributed_embeddings_tpu/models/dlrm.py``: the forward,
+the BCE loss and the learning-rate schedule. MLP kernels keep the JAX
+package's [in, out] layout, so weights map across as they are.
 """
 
 import math
@@ -122,9 +122,58 @@ class DLRM(nn.Module):
                               device, gen, final_activation=True)
         self.top_mlp = MLP(list(top_mlp_dims), interact_dim, device, gen)
 
-    def forward(self, numerical, categorical) -> torch.Tensor:
+    def forward(self, numerical, categorical, taps=None,
+                return_residuals: bool = False):
+        """With `return_residuals`, ``(logits, TapResiduals)`` (see
+        `DistributedEmbedding.forward` for `taps`)."""
         dev = self.embedding.device
         x = torch.as_tensor(numerical, dtype=torch.float32, device=dev)
         bottom = self.bottom_mlp(x)
-        emb_outs = self.embedding(list(categorical))
-        return self.top_mlp(dot_interact(emb_outs, bottom))
+        emb_outs = self.embedding(list(categorical), taps=taps,
+                                  return_residuals=return_residuals)
+        emb_outs, res = (emb_outs if return_residuals else (emb_outs, None))
+        out = self.top_mlp(dot_interact(emb_outs, bottom))
+        return (out, res) if return_residuals else out
+
+    def loss_fn(self, numerical, categorical, labels, taps=None,
+                return_residuals: bool = False):
+        """Sigmoid binary cross-entropy, mean over the batch."""
+        return bce_loss(self, numerical, categorical, labels, taps,
+                        return_residuals)
+
+
+def bce_loss(model, numerical, cats, labels, taps=None,
+             return_residuals: bool = False):
+    """The JAX package's loss: ``mean(max(l, 0) - l*y + log1p(exp(-|l|)))``
+    over the logits l of ``model(numerical, cats)`` and labels y; with
+    `return_residuals`, ``(loss, TapResiduals)``."""
+    out = model(numerical, cats, taps=taps,
+                return_residuals=return_residuals)
+    logits, res = out if return_residuals else (out, None)
+    logits = logits[:, 0].float()
+    labels = torch.as_tensor(labels, dtype=torch.float32,
+                             device=logits.device).reshape(-1)
+    loss = torch.mean(torch.clamp_min(logits, 0) - logits * labels
+                      + torch.log1p(torch.exp(-torch.abs(logits))))
+    return (loss, res) if return_residuals else loss
+
+
+def make_lr_schedule(base_lr: float, warmup_steps: int, decay_start_step: int,
+                     decay_steps: int, poly_power: int = 2):
+    """Warmup -> constant -> polynomial decay (the JAX package's schedule,
+    reference utils.py:45-88): step -> lr, a host float computed in
+    float32 arithmetic as the JAX package computes it."""
+    f32 = np.float32
+
+    def schedule(step) -> float:
+        step = f32(int(step))
+        with np.errstate(divide="ignore", invalid="ignore"):
+            warmup = (f32(1.0)
+                      - (f32(warmup_steps) - step) / f32(warmup_steps))
+            decay_end = decay_start_step + decay_steps
+            decay = np.clip((f32(decay_end) - step) / f32(decay_steps),
+                            f32(0.0), f32(1.0)) ** poly_power
+        factor = (warmup if step < warmup_steps
+                  else (f32(1.0) if step < decay_start_step else decay))
+        return float(f32(base_lr) * f32(factor))
+    return schedule

@@ -4,8 +4,8 @@ Counterpart of ``distributed_embeddings_tpu/models/synthetic.py``: the same
 seven configurations (numerically identical to the reference's
 config_v3.py), the same power-law input generator (it draws from
 ``np.random.RandomState`` in the same order, so a seed gives identical ids
-in both packages), and the forward: embeddings -> concat (or strided
-average pooling) -> MLP -> logit.
+in both packages), the forward: embeddings -> concat (or strided
+average pooling) -> MLP -> logit, and the BCE loss of the training step.
 """
 
 from typing import List, NamedTuple, Optional
@@ -17,7 +17,7 @@ from torch import nn
 from distributed_embeddings_tpu_torch.layers.dist_model_parallel import (
     DistributedEmbedding)
 from distributed_embeddings_tpu_torch.layers.embedding import Embedding
-from distributed_embeddings_tpu_torch.models.dlrm import MLP
+from distributed_embeddings_tpu_torch.models.dlrm import MLP, bce_loss
 from distributed_embeddings_tpu_torch.utils.device import (DeviceLike,
                                                            default_generator,
                                                            resolve_device)
@@ -237,10 +237,24 @@ class SyntheticModel(nn.Module):
         self.mlp = MLP(self.mlp_sizes, self.mlp_in, device, gen)
         self.device = device
 
-    def forward(self, numerical, cat_features) -> torch.Tensor:
-        x = torch.cat(self.embedding(list(cat_features)), dim=1)
+    def forward(self, numerical, cat_features, taps=None,
+                return_residuals: bool = False):
+        """[B, n] numerical + categorical ids -> [B, 1] logits; with
+        `return_residuals`, ``(logits, TapResiduals)`` (see
+        `DistributedEmbedding.forward` for `taps`)."""
+        embs = self.embedding(list(cat_features), taps=taps,
+                              return_residuals=return_residuals)
+        embs, res = embs if return_residuals else (embs, None)
+        x = torch.cat(embs, dim=1)
         if self.interact_stride is not None:
             x = _avg_pool_1d(x, self.interact_stride)
         numerical = torch.as_tensor(numerical, dtype=torch.float32,
                                     device=self.device)
-        return self.mlp(torch.cat([x, numerical], dim=1))
+        out = self.mlp(torch.cat([x, numerical], dim=1))
+        return (out, res) if return_residuals else out
+
+    def loss_fn(self, numerical, cat_features, labels, taps=None,
+                return_residuals: bool = False):
+        """Sigmoid binary cross-entropy, mean over the batch."""
+        return bce_loss(self, numerical, cat_features, labels, taps,
+                        return_residuals)

@@ -15,8 +15,14 @@ flops); see the source for its design.
 `lookup_combine_plain`, the plain PyTorch version the tests and
 ``chip_smoke.py`` hold the kernel against; a CUDA tensor launches the kernel
 or raises. ``launches`` counts kernel launches, so a run can show its main
-path went through the kernel. Forward only: the backward kernel comes with
-the training slice.
+path went through the kernel.
+
+`fused_embedding_lookup` is differentiable in the table and the weights,
+like the JAX function: its backward is `_fused_bwd`'s (a dense table
+gradient by scatter-add of ``w * g``, and ``dweights = einsum(rows, g)``),
+which the JAX package computes in XLA, so plain PyTorch is its counterpart.
+The training step does not use it: its tables take row-wise sparse updates
+(`ops.sparse_update`).
 """
 
 import ctypes
@@ -114,6 +120,32 @@ def lookup_combine(table: torch.Tensor, ids: torch.Tensor,
     return out
 
 
+class _FusedLookup(torch.autograd.Function):
+    """The gather-combine with the JAX package's `_fused_bwd` as backward.
+    ids arrive clamped into [0, V-1]."""
+
+    @staticmethod
+    def forward(ctx, params, ids, weights):
+        ctx.save_for_backward(params, ids, weights)
+        return lookup_combine(params, ids, weights)
+
+    @staticmethod
+    def backward(ctx, g):
+        params, ids, weights = ctx.saved_tensors
+        flat_ids = ids.reshape(-1).long()
+        dtable = dweights = None
+        if ctx.needs_input_grad[0]:
+            contrib = (weights[..., None] * g[:, None, :]).reshape(
+                -1, g.shape[-1])
+            dtable = torch.zeros_like(params).index_add_(0, flat_ids,
+                                                         contrib)
+        if ctx.needs_input_grad[2]:
+            rows = params.index_select(0, flat_ids).reshape(
+                ids.shape + (params.shape[1],))
+            dweights = torch.einsum("bkw,bw->bk", rows, g)
+        return dtable, None, dweights
+
+
 def fused_embedding_lookup(params: torch.Tensor, ids: torch.Tensor,
                            weights: Optional[torch.Tensor] = None,
                            combiner: str = "sum") -> torch.Tensor:
@@ -122,7 +154,8 @@ def fused_embedding_lookup(params: torch.Tensor, ids: torch.Tensor,
     Same contract as the JAX package's `pallas_lookup.
     fused_embedding_lookup`: weights [B, K] carry 0.0 in padded slots (None
     = all ones); mean pre-normalizes the weights so the kernel only ever
-    computes a weighted sum; ids clamp into [0, V-1]."""
+    computes a weighted sum; ids clamp into [0, V-1]. Differentiable in
+    `params` and `weights` (see `_FusedLookup`)."""
     if combiner not in ("sum", "mean"):
         raise ValueError(f"Unsupported combiner {combiner}")
     if weights is None:
@@ -131,5 +164,6 @@ def fused_embedding_lookup(params: torch.Tensor, ids: torch.Tensor,
     if combiner == "mean":
         denom = weights.sum(dim=1, keepdim=True).clamp_min(1.0)
         weights = weights / denom
-    return lookup_combine(params.contiguous(), ids.contiguous(),
-                          weights.to(torch.float32).contiguous())
+    ids = ids.clamp(0, params.shape[0] - 1)
+    return _FusedLookup.apply(params.contiguous(), ids.contiguous(),
+                              weights.to(torch.float32).contiguous())

@@ -26,3 +26,10 @@ def default_generator(device: torch.device,
     if generator is not None:
         return generator
     return torch.Generator(device=device).manual_seed(seed)
+
+
+def device_scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+    """A 0-d float32 tensor on `like`'s device. Dividing by it is a true
+    division on CUDA too, where a Python-number divisor becomes a multiply
+    by its reciprocal."""
+    return torch.full((), value, dtype=torch.float32, device=like.device)

@@ -4,7 +4,8 @@ It imports neither jax nor the JAX package (at run time or in its source,
 nor does chip_smoke.py); its entry points default to the card and refuse
 to run without one; its CUDA wrapper launches the kernel or raises, never
 falling back to the plain version; features outside the slice raise
-NotImplementedError.
+NotImplementedError. The sparse kernels' wrappers and the train step
+follow the same rules.
 """
 
 import ast
@@ -12,7 +13,6 @@ import os
 import subprocess
 import sys
 
-import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -22,7 +22,10 @@ from distributed_embeddings_tpu_torch.layers.embedding import Embedding  # noqa:
 from distributed_embeddings_tpu_torch.models.dlrm import DLRM  # noqa: E402
 from distributed_embeddings_tpu_torch.models.synthetic import (  # noqa: E402
     SYNTHETIC_MODELS, SyntheticModel)
-from distributed_embeddings_tpu_torch.ops import cuda_lookup  # noqa: E402
+from distributed_embeddings_tpu_torch.ops import cuda_lookup, cuda_sparse  # noqa: E402
+from distributed_embeddings_tpu_torch.ops import sparse_update  # noqa: E402
+from distributed_embeddings_tpu_torch.training import (  # noqa: E402
+    fit, make_sparse_train_step)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "distributed_embeddings_tpu_torch")
@@ -76,7 +79,7 @@ def _tiny_tables():
 
 
 @pytest.mark.parametrize("entry", ["embedding", "distributed", "synthetic",
-                                   "dlrm", "engine"])
+                                   "dlrm", "engine", "train_step"])
 def test_entry_points_default_to_the_card(entry):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
@@ -87,6 +90,8 @@ def test_entry_points_default_to_the_card(entry):
         "dlrm": lambda: DLRM([10, 20], embedding_dim=8),
         "engine": lambda: InferenceEngine(
             DistributedEmbedding(_tiny_tables(), device="cpu")),
+        "train_step": lambda: make_sparse_train_step(
+            DLRM([10, 20], embedding_dim=8)),
     }[entry]
     with pytest.raises(RuntimeError, match='device="cpu"'):
         build()
@@ -112,6 +117,77 @@ def test_cuda_tensor_launches_the_kernel_or_raises(monkeypatch):
             cuda_lookup.lookup_combine(table, ids)
         with pytest.raises(RuntimeError, match="nvcc"):
             cuda_lookup.fused_embedding_lookup(table, ids, combiner="mean")
+
+
+@pytest.mark.parametrize("kernel", ["segment_sum_sorted", "sgd_rows",
+                                    "adagrad_rows", "adam_rows"])
+def test_sparse_wrappers_launch_the_kernel_or_raise(kernel, monkeypatch):
+    """A CUDA tensor never reaches a sparse kernel's plain version: here,
+    with no nvcc, building the kernel raises."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def plain(*args):
+        raise AssertionError("plain version reached with a CUDA tensor")
+
+    monkeypatch.setattr(cuda_sparse, f"{kernel}_plain", plain)
+    monkeypatch.setattr(cuda_sparse.kernel_build, "_LIBS", {})
+    monkeypatch.setattr(cuda_sparse.kernel_build.shutil, "which",
+                        lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    before = dict(cuda_sparse.launches)
+    with FakeTensorMode():
+        table = torch.zeros((100, 8), device="cuda")
+        rep = torch.zeros((6,), dtype=torch.int32, device="cuda")
+        sums = torch.zeros((6, 8), device="cuda")
+        call = {
+            "segment_sum_sorted": lambda: cuda_sparse.segment_sum_sorted(
+                sums, rep.long(), torch.zeros(7, dtype=torch.int64,
+                                              device="cuda")),
+            "sgd_rows": lambda: cuda_sparse.sgd_rows(table, rep, sums, 0.1),
+            "adagrad_rows": lambda: cuda_sparse.adagrad_rows(
+                table, torch.zeros_like(table), rep, sums, 0.1, 1e-7),
+            "adam_rows": lambda: cuda_sparse.adam_rows(
+                table, torch.zeros_like(table), torch.zeros_like(table),
+                rep, sums, 0.1, 0.9, 0.999, 1e-8, 0.1, 0.001),
+        }[kernel]
+        with pytest.raises(RuntimeError, match="nvcc"):
+            call()
+    assert cuda_sparse.launches == before
+
+
+@pytest.mark.parametrize("bad", [
+    dict(table=torch.zeros(5, 4, dtype=torch.float64)),
+    dict(rep=torch.zeros(3)),
+    dict(sums=torch.zeros(3, 5)),
+    dict(rep=torch.zeros(3, 1, dtype=torch.int32)),
+    dict(state=torch.zeros(5, 3)),
+])
+def test_sparse_wrappers_refuse_what_the_kernel_does_not_take(bad):
+    args = dict(table=torch.zeros(5, 4), rep=torch.zeros(3, dtype=torch.int32),
+                sums=torch.zeros(3, 4), state=torch.zeros(5, 4))
+    args.update(bad)
+    with pytest.raises((TypeError, ValueError)):
+        cuda_sparse.adagrad_rows(args["table"], args["state"], args["rep"],
+                                 args["sums"], 0.1, 1e-7)
+
+
+@pytest.mark.parametrize("kwargs", [dict(strategy="dense"),
+                                    dict(strategy="tiled")])
+def test_train_step_outside_the_slice_raises(kwargs):
+    model = DLRM([10, 20], embedding_dim=8, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A2"):
+        make_sparse_train_step(model, **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(sparse=False), dict(lookahead=1), dict(store=object()),
+    dict(vocab=object()), dict(hot_sync_every=4), dict(eval_data=[]),
+    dict(pipelined=True), dict(registry=object()),
+])
+def test_fit_outside_the_slice_raises(kwargs):
+    model = DLRM([10, 20], embedding_dim=8, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
+        fit(model, [], 0, **kwargs)
 
 
 @pytest.mark.parametrize("bad", [
@@ -151,4 +227,5 @@ def test_engine_features_outside_the_slice_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
         eng.poll_updates("somewhere")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A2"):
-        layer([np.zeros(4, np.int32)] * 2, taps={})
+        sparse_update.make_sparse_optimizer("adagrad", 0.1,
+                                            strategy="dense")
