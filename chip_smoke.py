@@ -7,7 +7,8 @@ Phases, each printing JSON lines before the last line:
   1. device: the card's name and power limit; TF32 off for matmuls and
      convolutions, so float32 means float32.
   2. build: nvcc compiles every kernel of the paths from ``csrc/`` (one
-     nvcc per source, all at once): lookup_combine.cu, sparse_apply.cu.
+     nvcc per source, all at once): lookup_combine.cu, sparse_apply.cu,
+     sorted_stream.cu (the last two share row_rules.cuh).
   3. kernel: `lookup_combine` against its plain PyTorch version at the
      zoo's widths (8..256), hotness 1/10/30, sum/mean, weighted (with
      zero-weight slots) and unweighted, int32 and int64 ids, some of them
@@ -23,6 +24,11 @@ Phases, each printing JSON lines before the last line:
      `index_add_` (atomics, another order each run); the row
      kernels bit-equal to their plain versions on the card (else the
      largest ulp difference is printed and rtol 1e-6 holds).
+     sorted_kernel (3c): `gather_sorted`, weighted and not, at widths
+     8..256 with keys >= V, and `sgd_stream` / `adagrad_stream` /
+     `adam_stream` over 3 accumulating steps on duplicate-heavy streams
+     with invalid ids, each bit-equal to its plain version; both sorted
+     lookups' forward and backward against their plain versions.
   4. slice: Tiny V3 at full table size (55 tables, 4.2 GiB) built on the
      card, an InferenceEngine warmed at [4096, 65536], power-law requests
      (alpha 1.05, seed 0) of 1 .. 65536 rows served through `predict` and a
@@ -45,8 +51,9 @@ Phases, each printing JSON lines before the last line:
      lr=0.01)` on power-law batches of 65536 rows (alpha 1.05, seed 0).
      Main path: 3 steps with launches 4 / 2 / 2 per step (lookup_combine /
      segment_sum_sorted / adagrad_rows), each held against a CPU trainer
-     (the same weights, plain versions) started from the card's state:
-     losses rtol 1e-5; the change of every touched table and accumulator
+     (the same weights, plain versions) started from the card's state,
+     whose step takes the card's ReLU masks (`forced_relu`; a flip past
+     rounding fails): losses rtol 1e-5; the change of every touched table and accumulator
      element within rtol 1e-4 of it plus one ulp, the MLPs at rtol 1e-4 /
      atol 1e-6; a sample of untouched rows bit-unchanged. Then the median
      of 10 synchronized steps after 2 warm ones, samples/s, peak memory,
@@ -54,12 +61,27 @@ Phases, each printing JSON lines before the last line:
      step gives them (the segment sum bit-equal to its plain version on
      CPU copies), timed like phase 4's, with U (unique rows) and the
      longest segment per bucket.
+     5b. train_fused: the same model from its initial weights through
+     ``lookup_path="fused"`` + ``strategy="pallas"``, adagrad: 3 steps
+     held like phase 5's (the change bar widened by `gradient_scale`'s
+     conditioning), launches 4 / 2 / 2 / 0 per step (gather_sorted /
+     segment_sum_sorted / adagrad_rows / lookup_combine), 6 sorts per
+     step under the profiler; step time and profile; `gather_sorted` per
+     group beside `lookup_combine`.
   6. sgd and adam: Tiny with every table cut to at most 100,000 rows
      (widths, hotness, sharing kept), 3 steps each held like phase 5's
      but by value (rtol 1e-4 / atol 1e-6); adam by 1e-2 * lr where the
      step's gradient is a sum that cancels. `sgd_rows` / `adam_rows`
      launch once per bucket per step and are timed at the shapes those
      steps give them.
+     6b. train_tiled: full-size criteo (26 tables x 100,000 x 128) through
+     ``lookup_path="tiled"`` + ``strategy="tiled"``: adagrad, sgd and adam
+     (adam on the MLP too), 3 held steps each (adagrad and sgd by change,
+     adam by value with phase 6's rule); launches 1 / 1 per step
+     (gather_sorted / <opt>_stream); 1 sort per step, 2 with
+     ``fold_sort=False`` and the same step bit for bit; step times and a
+     profile; the stream kernels at the step's shapes, with N, U and the
+     longest segment.
   7. the kernels line, the card's line, and the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -67,6 +89,7 @@ Exits non-zero, printing no result, without a CUDA device or when the port
 is not beside this script.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -76,7 +99,7 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-KERNELS = ["lookup_combine", "sparse_apply"]
+KERNELS = ["lookup_combine", "sparse_apply", "sorted_stream"]
 BATCH = 65536
 REQUEST_ROWS = (1, 1000, 4096, 30000, 65536)
 BATCHER_SPANS = ((0, 100), (100, 2100), (2100, 7100), (7100, 37100))
@@ -88,10 +111,18 @@ TRAIN_TOL = dict(rtol=1e-4, atol=1e-6)
 # a gradient below this share of the sum of its terms' magnitudes is a sum
 # that cancels (`training.gradient_scale`)
 ILL_SCALE = 1e-3
+# how far two float32 sums of the same terms, each a digit or two off
+# between the trainers, may differ, relative to the sum of the terms'
+# magnitudes: about sqrt(n) * 2**-24 for n terms, 1.5e-5 at the 66,607
+# contributions of Tiny's hottest row
+SUM_EPS = 2e-5
 TRAIN_LR = 0.01
 TRAIN_STEPS = 3
 CUT_ROWS = 100_000
 UNTOUCHED_SAMPLE = 4096
+# steps of the sorted-stream paths held against a CPU trainer
+FUSED_HELD_STEPS = 3
+TILED_HELD_STEPS = 3
 SPARSE_WIDTHS = (8, 16, 32, 64, 128, 256)
 TPU_SITES = {
     "lookup_combine": ["distributed_embeddings_tpu/ops/pallas_lookup.py:116",
@@ -102,7 +133,15 @@ TPU_SITES = {
     "adagrad_rows": ["distributed_embeddings_tpu/ops/pallas_tiled.py:340",
                      "distributed_embeddings_tpu/ops/pallas_scatter.py:244"],
     "adam_rows": ["distributed_embeddings_tpu/ops/pallas_tiled.py:340"],
+    "gather_sorted": ["distributed_embeddings_tpu/ops/pallas_tiled.py:576"],
+    "sgd_stream": ["distributed_embeddings_tpu/ops/pallas_tiled.py:340 (via tiled_sgd :382)"],
+    "adagrad_stream": ["distributed_embeddings_tpu/ops/pallas_tiled.py:340 (via tiled_adagrad :398)"],
+    "adam_stream": ["distributed_embeddings_tpu/ops/pallas_tiled.py:340 (via tiled_adam :470)"],
 }
+# the kernels of every path, by the module that counts their launches
+ALL_KERNELS = ("lookup_combine", "segment_sum_sorted", "sgd_rows",
+               "adagrad_rows", "adam_rows", "gather_sorted", "sgd_stream",
+               "adagrad_stream", "adam_stream")
 # device memory rate by card (NVIDIA data sheets); float32 outside the
 # tensor cores: 67 TFLOP/s (H100 SXM)
 HBM_BYTES_PER_S = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
@@ -119,7 +158,11 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+T_START = time.perf_counter()
+
+
 def emit(**fields):
+    fields["elapsed_s"] = round(time.perf_counter() - T_START, 1)
     print(json.dumps(fields), flush=True)
 
 
@@ -355,18 +398,20 @@ def tiny_bucket_kernels(torch, cuda_lookup, captured, rate):
 
 
 class Capture:
-    """Within the block, records the arguments of every call of
-    ``module.name`` (which still runs)."""
+    """Within the block, records the positional (``calls``) and keyword
+    (``kwargs``) arguments of every call of ``module.name`` (which still
+    runs)."""
 
     def __init__(self, module, name):
-        self.module, self.name, self.calls = module, name, []
+        self.module, self.name, self.calls, self.kwargs = module, name, [], []
 
     def __enter__(self):
         self.real = getattr(self.module, self.name)
 
-        def record(*args):
+        def record(*args, **kwargs):
             self.calls.append(args)
-            return self.real(*args)
+            self.kwargs.append(kwargs)
+            return self.real(*args, **kwargs)
         setattr(self.module, self.name, record)
         return self
 
@@ -477,14 +522,26 @@ def sparse_kernel_cases(torch, cuda_sparse, sparse_update):
     return worst
 
 
-def set_counts(cuda_lookup, cuda_sparse, value=0):
-    cuda_lookup.launches = value
-    for key in cuda_sparse.launches:
-        cuda_sparse.launches[key] = value
+def set_counts(cuda_lookup, *counted):
+    """Every launch count to 0: `cuda_lookup`'s integer and the dicts of
+    the `counted` modules."""
+    cuda_lookup.launches = 0
+    for module in counted:
+        for key in module.launches:
+            module.launches[key] = 0
 
 
-def read_counts(cuda_lookup, cuda_sparse) -> dict:
-    return {"lookup_combine": cuda_lookup.launches, **cuda_sparse.launches}
+def read_counts(cuda_lookup, *counted) -> dict:
+    out = {"lookup_combine": cuda_lookup.launches}
+    for module in counted:
+        out.update(module.launches)
+    return out
+
+
+def per_step(launched: dict, steps: int) -> dict:
+    """The launch counts `steps` steps give when each step launches the
+    kernels of `launched` so often and no other kernel."""
+    return {k: launched.get(k, 0) * steps for k in ALL_KERNELS}
 
 
 def dense_names(model):
@@ -497,18 +554,27 @@ def ulp(torch, x):
     return torch.nextafter(x, torch.full_like(x, math.inf)) - x
 
 
-def hold(torch, what, got, want, before, steps, mode, ill=None, lr=None):
+def hold(torch, what, got, want, before, steps, mode, cond=None, lr=None):
     """The card's trainer (`got`) against the CPU trainer (`want`) after
     `steps` steps from `before`, on the same elements (CPU tensors).
+    `cond` (optional): per element t/|g| of the step's gradient g and the
+    sum t of its terms' magnitudes (`training.gradient_scale`). The two
+    trainers' terms differ in their last digits (cuBLAS against the CPU's
+    BLAS), so the float32 sums differ by up to about SUM_EPS * t, and by
+    SUM_EPS * t/|g| relative to g; above 1/ILL_SCALE the gradient is a
+    sum that cancels, "ill".
     mode "change": |change(got) - change(want)| within rtol 1e-4 of the
     change plus `steps` ulps of the values (each step rounds once on each
-    side); sgd and adagrad at batch 65,536 move most table elements by far
-    less than TRAIN_TOL's atol, where a value check would not see a row
-    left out. mode "value": TRAIN_TOL (adam moves each element by about lr per
-    step), but 1e-2 * lr at `ill` elements, whose gradient is a sum that
-    cancels: adam's step does not scale with the gradient, so the low
-    digits that the summation order sets (cuBLAS against the CPU's BLAS)
-    move such an element by a share of lr. Returns (max |got - want|,
+    side), plus, with `cond`, 2 * SUM_EPS * t/|g| of the change (a change
+    of sgd or adagrad carries its gradient's relative error, the
+    accumulator's square twice); sgd and adagrad at batch 65,536 move
+    most table elements by far less than TRAIN_TOL's atol, where a value
+    check would not see a row left out. Sums that cancel exactly (g == 0
+    from terms, t/|g| infinite) are not held. mode "value": TRAIN_TOL
+    (adam moves each element by about lr per step), but, with `cond` and
+    adam's `lr`, 1e-2 * lr at ill elements: adam's step does not scale
+    with the gradient, so its low digits move such an element by a share
+    of lr. Returns (max |got - want| over the held elements,
     |change(want)|, how many changes exceed the rounding allowance)."""
     got64, want64 = got.double(), want.double()
     change = (want64 - before.double()).abs()
@@ -517,18 +583,26 @@ def hold(torch, what, got, want, before, steps, mode, ill=None, lr=None):
         torch.maximum(got.abs(), want.abs()), before.abs())).double()
     if mode == "change":
         bar = TRAIN_TOL["rtol"] * change + rounding
+        if cond is not None:
+            cond64 = cond.double()
+            bar = torch.where(torch.isinf(cond64), math.inf,
+                              bar + 2 * SUM_EPS * cond64 * change)
     else:
         bar = TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * want64.abs()
-        if ill is not None:
-            bar = torch.where(ill, torch.full_like(bar, 1e-2 * lr), bar)
+        if cond is not None and lr is not None:
+            bar = torch.where(cond > 1 / ILL_SCALE,
+                              torch.full_like(bar, 1e-2 * lr), bar)
     bad = diff > bar
     if bool(bad.any()):
         i = int((diff - bar).flatten().argmax())
+        cond_i = None if cond is None else cond.flatten()[i].item()
         raise SmokeFailure(
             f"{what}: {int(bad.sum())} of {diff.numel()} elements disagree "
             f"with the CPU trainer; worst {diff.flatten()[i].item()} "
-            f"against a change of {change.flatten()[i].item()}")
-    err = diff.max().item() if diff.numel() else 0.0
+            f"against a change of {change.flatten()[i].item()} "
+            f"(t/|g| {cond_i})")
+    held = torch.isfinite(bar)
+    err = diff[held].max().item() if bool(held.any()) else 0.0
     return err, change, int((change > rounding).sum())
 
 
@@ -554,69 +628,100 @@ def hold_trainers(torch, label, after, cpu_after, before, touched, steps,
     steps), by `hold`: the touched table and state rows, which the kernels
     update, in `mode`; the MLPs by value (their gradients sum all 65,536
     rows of a batch, and where such a sum cancels, its change carries the
-    low digits that cuBLAS's summation order and the CPU's set). `scale`
-    (adam): `gradient_scale` of the step, whose ill-conditioned
-    elements `hold` gives the wider bar (the state arrays never get it).
-    Returns (max abs error, |change| of the touched table elements, how
-    many of them moved past the rounding allowance)."""
+    low digits that cuBLAS's summation order and the CPU's set). `scale`:
+    `gradient_scale` of the step, whose conditioning (t/|g|) `hold` turns
+    into the wider bars of its docstring; adam's moments, held by value,
+    never get it. `lr`: adam's, for its ill-element bar (None for sgd and
+    adagrad). Returns (max abs error, |change| of the touched table
+    elements, how many of them moved past the rounding allowance)."""
     worst, table_change, moved = 0.0, [], 0
 
-    def ill(name, rows=None):
+    def cond(name, rows=None):
+        """t/|g| per element (0 without terms, infinite where terms cancel
+        exactly), or None without a scale."""
         if scale is None:
             return None
         g, t = scale[name]
         if rows is not None:
             g, t = g.index_select(0, rows), t.index_select(0, rows)
-        return (t > 0) & (g.abs() < ILL_SCALE * t)
+        return torch.where(t > 0, t / g.abs(), torch.zeros_like(t))
     for name, got in after[0].items():
         err, _, _ = hold(torch, f"{label}: {name}", got, cpu_after[0][name],
-                         before[0][name], steps, "value", ill(name), lr)
+                         before[0][name], steps, "value", cond(name), lr)
         worst = max(worst, err)
     for b, (got_b, want_b, before_b) in enumerate(zip(after[1], cpu_after[1],
                                                       before[1])):
+        table_cond = cond(f"embedding.tp.{b}", touched[b])
         for i, (got, want, old) in enumerate(zip(got_b, want_b, before_b)):
             what = f"{label}: bucket {b} " + ("table" if i == 0
                                                 else f"state {i - 1}")
             if i == 0:
                 err, change, n = hold(torch, what, got, want, old, steps,
-                                      mode, ill(f"embedding.tp.{b}",
-                                                touched[b]), lr)
+                                      mode, table_cond, lr)
                 worst = max(worst, err)
                 table_change.append(change.flatten())
                 moved += n
             else:
-                hold(torch, what, got, want, old, steps, mode)
+                # by change (adagrad's accumulator) with the table's
+                # conditioning; by value (adam's moments) without
+                hold(torch, what, got, want, old, steps, mode,
+                     table_cond if mode == "change" else None)
     return worst, torch.cat(table_change), moved
 
 
-def train_against_cpu(torch, cuda_sparse, kind, mode, step, model, state,
-                      cpu_step, cpu_model, batches):
+def rows_capture(cuda_sparse, kind):
+    """Where a step's touched rows show on the deduplicated-row route:
+    the `<kind>_rows` call's table and rep."""
+    i = {"sgd": 1, "adagrad": 2, "adam": 3}[kind]
+    return cuda_sparse, f"{kind}_rows", lambda args: (args[0], args[i])
+
+
+def stream_capture(cuda_tiled, kind):
+    """Where they show on the raw-stream route: the `<kind>_stream`
+    call's table and sorted keys."""
+    i = {"sgd": 2, "adagrad": 3, "adam": 4}[kind]
+    return cuda_tiled, f"{kind}_stream", lambda args: (args[0], args[i])
+
+
+def train_against_cpu(torch, capture, kind, mode, step, model, state,
+                      cpu_step, cpu_model, batches, scaled=None):
     """Drive the card's trainer over `batches`, each step held against a
     CPU trainer started from the card's state before it (the model runs
     chaotically at lr 0.01: over several steps the two trainers' rounding
     differences grow until they move well-conditioned gradients too). The
-    CPU step runs first and names the rows the step touches. The tables
-    and their state are held in `mode` (`hold`); adam's ill-conditioned
-    elements are named by `gradient_scale` on the CPU. Returns the card's
-    state and a dict of what was held."""
+    card's step runs first and names the rows the step touches (from the
+    update kernel's calls, `capture`: `rows_capture` or `stream_capture`)
+    and the ReLU masks of the MLP's hidden layers, which the CPU step then
+    takes (`forced_relu`). The tables and their state are held in `mode`
+    (`hold`), with `gradient_scale`'s conditioning on the CPU for adam and
+    where `scaled` asks for it. Returns the card's state and a dict of
+    what was held."""
     from distributed_embeddings_tpu_torch.training import gradient_scale
     out = dict(losses=[], cpu_losses=[], max_abs_err=0.0, changes=[],
-               moved=0, touched=[], ill=0, with_gradient=0)
+               moved=0, touched=[], ill=0, with_gradient=0, relu_flips=[])
     for batch in batches:
         cpu_model.load_state_dict(model.state_dict())
-        scale = (gradient_scale(cpu_model, *batch) if kind == "adam"
-                 else None)
-        cpu_state, cpu_loss, touched = run_trainer(
-            cpu_step, cpu_model, to_cpu(torch, state), [batch], kind,
-            cuda_sparse)
-        touched = touched_rows(torch, cpu_model, touched)
+        cpu_state = to_cpu(torch, state)
+        (state, loss, touched), masks = relu_masks(
+            model, lambda: run_trainer(step, model, state, [batch], capture))
+        touched = touched_rows(torch, model, touched)
+        before = trained_arrays(torch, cpu_model, cpu_state, touched)
+        with forced_relu(torch, cpu_model, masks) as flips:
+            scale = (gradient_scale(cpu_model, *batch)
+                     if (kind == "adam" if scaled is None else scaled)
+                     else None)
+            cpu_state, cpu_loss, _ = run_trainer(cpu_step, cpu_model,
+                                                 cpu_state, [batch])
+        del masks
         cpu_after = trained_arrays(torch, cpu_model, cpu_state, touched)
         del cpu_state
-        before = trained_arrays(torch, model, state, touched)
-        state, loss, _ = run_trainer(step, model, state, [batch])
         err, change, moved = hold_trainers(
             torch, kind, trained_arrays(torch, model, state, touched),
-            cpu_after, before, touched, 1, mode, scale, TRAIN_LR)
+            cpu_after, before, touched, 1, mode, scale,
+            TRAIN_LR if kind == "adam" else None)
+        out["relu_flips"].append(flips[-1])
+        emit(phase="held_step", kind=kind, loss=loss[0], cpu_loss=cpu_loss[0],
+             relu_flips=flips[-1])
         out["losses"] += loss
         out["cpu_losses"] += cpu_loss
         out["max_abs_err"] = max(out["max_abs_err"], err)
@@ -638,6 +743,78 @@ def train_against_cpu(torch, cuda_sparse, kind, mode, step, model, state,
     return state, out
 
 
+@contextlib.contextmanager
+def forced_relu(torch, cpu_model, masks):
+    """Within the block, every forward of the CPU model's MLP takes the
+    card's ReLU masks (`masks`: `relu_masks` of the card's step, one per
+    hidden layer). A unit whose pre-activation z lies within rounding of 0
+    may take the other side on cuBLAS and on the CPU, and would change
+    every gradient of its batch row; where the CPU's z takes the other
+    side, it becomes |z| or -|z|, keeping z's gradient (z plus a detached
+    correction, exactly z where nothing flips). A flip is a rounding
+    difference only where |z| is within SUM_EPS of the sum t of its
+    terms' magnitudes (the forward by absolute values from the MLP's
+    input, under the card's masks): a flip past that fails the phase.
+    Yields a list that gets each forward's count of flipped units."""
+    layers = list(cpu_model.mlp)
+    check(len(masks) == len(layers) - 1,
+          f"{len(masks)} ReLU masks from the card's step, want one per "
+          f"hidden layer ({len(layers) - 1})")
+    flips, first_input = [], {}
+
+    def hook(i):
+        def fn(mod, inp, z):
+            if i == 0:
+                first_input["x"] = inp[0].detach()
+                flips.append(0)
+            flip = (z > 0) != masks[i]
+            if not bool(flip.any()):
+                return None
+            flips[-1] += int(flip.sum())
+            rows = flip.any(dim=1).nonzero().flatten()
+            t = first_input["x"][rows].abs()
+            for j in range(i + 1):
+                t = t @ layers[j].w.detach().abs() + layers[j].b.detach().abs()
+                if j < i:
+                    t = t * masks[j][rows]
+            zr = z.detach()[rows]
+            past = flip[rows] & (zr.abs() > SUM_EPS * t)
+            check(not bool(past.any()),
+                  f"MLP layer {i}: {int(past.sum())} ReLU units take the "
+                  "other side on the card and on the CPU with |z| past "
+                  f"{SUM_EPS} of its terms' magnitudes")
+            target = torch.where(masks[i][rows],
+                                 zr.abs().clamp_min(torch.finfo(z.dtype).tiny),
+                                 -zr.abs())
+            fix = torch.zeros_like(z)
+            fix[rows] = torch.where(flip[rows], target - zr,
+                                    torch.zeros_like(zr))
+            return z + fix
+        return fn
+    hooks = [layer.register_forward_hook(hook(i))
+             for i, layer in enumerate(layers[:-1])]
+    try:
+        yield flips
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def relu_masks(model, fn):
+    """(fn(), the ReLU masks (z > 0, on the CPU) of the model's MLP hidden
+    layers in every forward fn ran)."""
+    masks = []
+    hooks = [layer.register_forward_hook(
+        lambda mod, inp, out: masks.append((out > 0).cpu()))
+        for layer in list(model.mlp)[:-1]]
+    try:
+        result = fn()
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return result, masks
+
+
 def to_cpu(torch, tree):
     """A copy of an optimizer state on the CPU (ints kept)."""
     if isinstance(tree, dict):
@@ -647,14 +824,31 @@ def to_cpu(torch, tree):
     return tree.detach().cpu().clone() if torch.is_tensor(tree) else tree
 
 
-def run_trainer(step, model, state, batches, capture_kind=None,
-                cuda_sparse=None):
-    """Steps over `batches`; returns (state, losses, touched rep per table
-    data pointer) — the latter recorded from the row kernel's calls."""
+def clone_tree(torch, tree):
+    """A copy of an optimizer state on its device (ints kept)."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(torch, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(clone_tree(torch, v) for v in tree)
+    return tree.detach().clone() if torch.is_tensor(tree) else tree
+
+
+def tree_tensors(torch, tree) -> list:
+    """The tensors of a state tree, in a fixed order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in tree_tensors(torch, tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tree_tensors(torch, v)]
+    return [tree] if torch.is_tensor(tree) else []
+
+
+def run_trainer(step, model, state, batches, capture=None):
+    """Steps over `batches`; returns (state, losses, touched rows per table
+    data pointer) — the latter recorded from the update kernel's calls
+    (`capture`: module, name, args -> (table, row keys))."""
     losses = []
     touched: dict = {}
-    cap = (Capture(cuda_sparse, f"{capture_kind}_rows")
-           if capture_kind else None)
+    cap = Capture(*capture[:2]) if capture else None
     if cap:
         cap.__enter__()
     try:
@@ -665,17 +859,18 @@ def run_trainer(step, model, state, batches, capture_kind=None,
         if cap:
             cap.__exit__()
     if cap:
-        rep_arg = {"sgd": 1, "adagrad": 2, "adam": 3}[capture_kind]
         for args in cap.calls:
-            table, rep = args[0], args[rep_arg]
-            valid = rep[(rep >= 0) & (rep < table.shape[0])].long()
-            touched.setdefault(table.data_ptr(), []).append(valid)
+            table, keys = capture[2](args)
+            valid = keys[(keys >= 0) & (keys < table.shape[0])].long()
+            touched.setdefault(table.data_ptr(), []).append(valid.cpu())
     return state, losses, touched
 
 
-def touched_rows(torch, cpu_model, touched_by_ptr):
+def touched_rows(torch, model, touched_by_ptr):
+    """Per bucket of `model` (whose trainer `run_trainer` captured), the
+    sorted unique rows its update kernels touched (CPU tensors)."""
     out = []
-    for t in cpu_model.embedding.tp:
+    for t in model.embedding.tp:
         parts = touched_by_ptr.get(t.data_ptr(), [])
         out.append(torch.unique(torch.cat(parts)) if parts
                    else torch.zeros(0, dtype=torch.long))
@@ -793,16 +988,22 @@ def time_segment_calls(torch, cuda_sparse, calls, rate):
 
 # device-time categories of a training step, by kernel name
 CATEGORIES = (("lookup", ("lookup_combine",)),
+              ("gather_sorted", ("gather_sorted",)),
               ("segment_sum", ("segment_sum_sorted",)),
               ("row_update", ("_rows_kernel",)),
+              ("stream_update", ("_stream_kernel",)),
               ("sort", ("sort", "Sort", "radix", "Radix")),
               ("mlp_gemm", ("gemm", "Gemm", "xmma", "cutlass", "sm90")),
               ("host_to_device", ("HtoD",)),
               ("device_to_host", ("DtoH",)))
 
 
-def profile_step(torch, step_once):
+def profile_step(torch, step_once, label):
+    """One step under torch.profiler (`profile_call`): device busy time,
+    idle share, device time by category and kernel, host time by
+    operator, and the sorts it ran. Returns the sort count."""
     busy_us, wall_us, device, prof = profile_call(torch, step_once)
+    sorts = top_level_sorts(prof)
     by_kernel = _by_name(device)
     cats = {name: 0.0 for name, _ in CATEGORIES}
     cats["other"] = 0.0
@@ -816,8 +1017,8 @@ def profile_step(torch, step_once):
             cats["other"] += us / 1e3
             other[kname] = us
     measured = bool(device)
-    emit(phase="train_profile", wall_ms=wall_us / 1e3,
-         device_events=len(device),
+    emit(phase="train_profile", path=label, wall_ms=wall_us / 1e3,
+         device_events=len(device), sorts=sorts,
          device_busy_ms=busy_us / 1e3 if measured else None,
          device_idle_share=1 - busy_us / wall_us if measured else None,
          device_ms_by_category=cats,
@@ -826,6 +1027,305 @@ def profile_step(torch, step_once):
          other_top=[[n[:80], us / 1e3] for n, us in sorted(
              other.items(), key=lambda kv: -kv[1])[:6]],
          host_self_ms_by_op=_host_ops(prof, top=10))
+    return sorts
+
+
+def hold_bit_equal(torch, name, got, want):
+    """The bar for a sorted-stream kernel against its plain version: bit
+    for bit (the largest ulp difference is printed on a failure). Returns
+    the max absolute error."""
+    err = (got - want).abs().max().item() if got.numel() else 0.0
+    if not torch.equal(got, want):
+        emit(phase="not_bit_equal", kernel=name, max_abs_err=err,
+             max_ulp=max_ulp(torch, got, want))
+        raise SmokeFailure(f"{name} differs from its plain version: {err}")
+    return err
+
+
+def sorted_kernel_cases(torch, cuda_tiled, embedding_ops, sparse_update):
+    """Phase 3c: `gather_sorted` (weighted and not, int32 and int64 keys,
+    keys < 0 and >= V) and the three stream kernels (three accumulating
+    steps on duplicate-heavy streams with ids out of range) bit-equal to
+    their plain versions on the card at widths 8..256; both sorted
+    lookups' forward and backward against the same calls on CPU copies.
+    Returns the max absolute error per kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    vocab, n = 5000, 20000
+    worst = dict.fromkeys(["gather_sorted", "sgd_stream", "adagrad_stream",
+                           "adam_stream", "lookups"], 0.0)
+    for width in SPARSE_WIDTHS:
+        errs = {}
+        table = torch.empty((vocab, width), device="cuda").uniform_(
+            -0.05, 0.05, generator=gen)
+        sid, _ = torch.sort(torch.randint(-3, vocab + 5, (n,), device="cuda",
+                                          generator=gen))
+        w = torch.rand((n,), device="cuda", generator=gen)
+        for key_dtype in (torch.int32, torch.int64):
+            for weights in (None, w):
+                keys = sid.to(key_dtype)
+                got = cuda_tiled.gather_sorted(table, keys, weights)
+                want = cuda_tiled.gather_sorted_plain(table, keys, weights)
+                torch.cuda.synchronize()
+                errs["gather_sorted"] = max(
+                    errs.get("gather_sorted", 0.0),
+                    hold_bit_equal(torch, "gather_sorted", got, want))
+        for kind, n_state in (("sgd", 0), ("adagrad", 1), ("adam", 2)):
+            table = torch.empty((vocab, width), device="cuda").uniform_(
+                -0.05, 0.05, generator=gen)
+            states = [torch.full_like(table, 0.1 if kind == "adagrad"
+                                      else 0.0) for _ in range(n_state)]
+            ref = [t.clone() for t in [table] + states]
+            kernel = getattr(cuda_tiled, f"{kind}_stream")
+            plain = getattr(cuda_tiled, f"{kind}_stream_plain")
+            for step in range(1, 4):
+                ids, contribs = _sparse_stream(torch, gen, vocab, n, width)
+                gs = embedding_ops.canonical_id_sort(ids, vocab)
+                starts, _ = embedding_ops.segment_bounds(gs.seg_start)
+                args = (contribs, gs.sid, gs.perm, starts, TRAIN_LR)
+                if kind == "adagrad":
+                    args += (1e-7,)
+                elif kind == "adam":
+                    c1, c2 = sparse_update.bias_corrections(step, 0.9, 0.999)
+                    args += (0.9, 0.999, 1e-8, c1, c2)
+                kernel(table, *states, *args)
+                plain(*ref, *args)
+            torch.cuda.synchronize()
+            errs[f"{kind}_stream"] = max(
+                hold_bit_equal(torch, f"{kind}_stream", got, want)
+                for got, want in zip([table] + states, ref))
+        errs["lookups"] = lookup_backward_case(torch, cuda_tiled, gen, width)
+        for key in worst:
+            worst[key] = max(worst[key], errs[key])
+        emit(phase="sorted_kernel", width=width, ok=True, max_abs_err=errs)
+    return worst
+
+
+def lookup_backward_case(torch, cuda_tiled, gen, width):
+    """Both sorted lookups, sum and mean, weighted, at hotness 10 with ids
+    out of range: forward, d/d table and d/d weights on the card against
+    the same calls on CPU copies (plain versions). The table gradient of
+    a sum bit for bit (`sgd_stream` at lr -1 adds in sorted order on
+    both), the rest at KERNEL_TOL (hotness sums, einsums and the mean's
+    weight sums run in each library's own order). Returns the max abs
+    error."""
+    vocab, batch, hot = 5000, 2048, 10
+    table = torch.empty((vocab, width), device="cuda").uniform_(
+        -0.05, 0.05, generator=gen)
+    ids = torch.randint(-2, vocab + 2, (batch, hot), device="cuda",
+                        generator=gen).int()
+    weights = torch.rand((batch, hot), device="cuda", generator=gen)
+    cot = torch.randn((batch, width), device="cuda", generator=gen)
+    worst = 0.0
+    for fn in (cuda_tiled.tiled_embedding_lookup,
+               cuda_tiled.fused_lookup_combine):
+        for combiner in ("sum", "mean"):
+            outs = []
+            for dev in ("cuda", "cpu"):
+                t = table.to(dev).requires_grad_()
+                w = weights.to(dev).requires_grad_()
+                out = fn(t, ids.to(dev), w, combiner)
+                dt, dw = torch.autograd.grad((out * cot.to(dev)).sum(),
+                                             [t, w])
+                outs.append([x.detach().cpu() for x in (out, dt, dw)])
+            torch.cuda.synchronize()
+            what = f"{fn.__name__} {combiner} w{width}"
+            for name, got, want in zip(("forward", "dtable", "dweights"),
+                                       *outs):
+                err = (got - want).abs().max().item()
+                if name == "dtable" and combiner == "sum":
+                    check(torch.equal(got, want), f"{what} {name}: {err}")
+                check(torch.allclose(got, want, **KERNEL_TOL),
+                      f"{what} {name}: {err}")
+                worst = max(worst, err)
+    return worst
+
+
+def top_level_sorts(prof) -> int:
+    """Sorts in a profiled run: ``aten::sort`` events not inside another."""
+    return sum(1 for e in prof.events() if e.name == "aten::sort"
+               and (e.cpu_parent is None
+                    or e.cpu_parent.name != "aten::sort"))
+
+
+def profiled_sorts(torch, fn):
+    """(fn(), the sorts it ran), under torch.profiler's CPU activity."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, top_level_sorts(prof)
+
+
+def gather_bound(table, keys, weights, rate, u):
+    """(bytes_ms, ops_ms) of `gather_sorted`: the U distinct rows read,
+    keys (and weights) read and the output written once; one multiply per
+    element when weighted."""
+    n, width = keys.numel(), table.shape[1]
+    n_bytes = (u * width * 4 + n * keys.element_size()
+               + (0 if weights is None else n * 4) + n * width * 4)
+    ops = 0 if weights is None else n * width
+    return n_bytes / rate * 1e3, ops / F32_FLOP_PER_S * 1e3
+
+
+def time_gather_calls(torch, cuda_tiled, calls, rate, label):
+    """`gather_sorted` at the shapes one step gives it: bit-equal to its
+    plain version, then kernel / plain / library time and the bound.
+    The library call: `index_select` unweighted, `F.embedding_bag` with
+    per-sample weights and bags of one weighted. Returns totals."""
+    import torch.nn.functional as F
+    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
+                  ops_ms=0.0, library_ms=0.0, max_abs_err=0.0)
+    for g, (table, keys, weights) in enumerate(calls):
+        got = cuda_tiled.gather_sorted(table, keys, weights)
+        want = cuda_tiled.gather_sorted_plain(table, keys, weights)
+        torch.cuda.synchronize()
+        err = hold_bit_equal(torch, "gather_sorted", got, want)
+        del got, want
+        valid = bool(((keys >= 0) & (keys < table.shape[0])).all())
+        check(valid, "a key of the path's gather lies outside the table")
+        u = int(torch.unique_consecutive(keys).numel())
+        ms = device_ms(lambda: cuda_tiled.gather_sorted(table, keys,
+                                                        weights), reps=20)
+        plain_ms = device_ms(lambda: cuda_tiled.gather_sorted_plain(
+            table, keys, weights), reps=5)
+        if weights is None:
+            library_ms = device_ms(lambda: torch.index_select(table, 0, keys),
+                                   reps=20)
+        else:
+            offsets = torch.arange(keys.numel(), device="cuda")
+            library_ms = device_ms(lambda: F.embedding_bag(
+                keys, table, offsets, mode="sum",
+                per_sample_weights=weights), reps=20)
+        bytes_ms, ops_ms = gather_bound(table, keys, weights, rate, u)
+        emit(phase="gather_sorted_kernel", path=label, call=g,
+             table=list(table.shape), rows=keys.numel(),
+             weighted=weights is not None, unique_rows=u, max_abs_err=err,
+             ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+             bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ok=True)
+        for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                         ("library_ms", library_ms),
+                         ("bound_ms", max(bytes_ms, ops_ms)),
+                         ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
+            totals[key] += val
+        totals["max_abs_err"] = max(totals["max_abs_err"], err)
+    return totals
+
+
+def fused_against_lookup_combine(torch, cuda_tiled, cuda_lookup, calls,
+                                 kwargs):
+    """Per Tiny group of one fused step: the whole fused lookup with the
+    step's folded sort, the same without it (its own sort and inverse),
+    the gather alone, and `lookup_combine` on the same ids and weights:
+    where the sorted gather pays on this card."""
+    for g, (args, kw) in enumerate(zip(calls, kwargs)):
+        table, ids, weights, combiner = args
+        presorted = kw.get("presorted")
+        check(presorted is not None, f"group {g} carried no folded sort")
+        want = cuda_lookup.lookup_combine(table, ids, weights)
+        got = cuda_tiled.fused_lookup_combine(table, ids, weights, combiner,
+                                              presorted=presorted)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(torch.allclose(got, want, **KERNEL_TOL),
+              f"group {g}: fused lookup against lookup_combine: {err}")
+        sid, perm, _ = presorted
+        w_sorted = weights.reshape(-1).index_select(0, perm)
+        keys = sid.clamp(max=table.shape[0] - 1)
+        emit(phase="fused_vs_lookup_combine", group=g,
+             table=list(table.shape), ids=list(ids.shape),
+             max_abs_err=err,
+             fused_folded_ms=device_ms(lambda: cuda_tiled.fused_lookup_combine(
+                 table, ids, weights, combiner, presorted=presorted), reps=10),
+             fused_unfolded_ms=device_ms(
+                 lambda: cuda_tiled.fused_lookup_combine(table, ids, weights,
+                                                         combiner), reps=10),
+             gather_sorted_ms=device_ms(lambda: cuda_tiled.gather_sorted(
+                 table, keys, w_sorted), reps=10),
+             lookup_combine_ms=device_ms(lambda: cuda_lookup.lookup_combine(
+                 table, ids, weights), reps=10))
+
+
+def stream_bound(kind, keys, width, u, rate):
+    """(bytes_ms, ops_ms) of a stream kernel: contributions, keys, perm
+    and starts read once; the U valid rows of the table and its state
+    read and written once; one add per contribution element and about
+    2/5/12 flops per row element (sgd/adagrad/adam)."""
+    n = keys.numel()
+    n_state = {"sgd": 0, "adagrad": 1, "adam": 2}[kind]
+    n_bytes = (n * width * 4 + n * keys.element_size() + n * 8
+               + (n + 1) * 8 + 8 * width * u * (1 + n_state))
+    flops = (n * width
+             + {"sgd": 2, "adagrad": 5, "adam": 12}[kind] * u * width)
+    return n_bytes / rate * 1e3, flops / F32_FLOP_PER_S * 1e3
+
+
+def time_stream_calls(torch, cuda_tiled, kind, calls, rate):
+    """The stream kernel at the shapes of one step: bit-equal to its
+    plain version on copies of the arrays, N, U and the longest segment,
+    kernel / plain / library time (`index_add_` of the contributions
+    scaled by -lr for sgd; none for adagrad and adam) and the bound.
+    Returns totals."""
+    n_arrays = {"sgd": 1, "adagrad": 2, "adam": 3}[kind]
+    kernel = getattr(cuda_tiled, f"{kind}_stream")
+    plain = getattr(cuda_tiled, f"{kind}_stream_plain")
+    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
+                  ops_ms=0.0, library_ms=0.0 if kind == "sgd" else None,
+                  max_abs_err=0.0)
+    for c, args in enumerate(calls):
+        arrays, rest = args[:n_arrays], args[n_arrays:]
+        contribs, keys, perm, starts = rest[:4]
+        vocab, width = arrays[0].shape
+        got = [a.clone() for a in arrays]
+        want = [a.clone() for a in arrays]
+        kernel(*got, *rest)
+        plain(*want, *rest)
+        torch.cuda.synchronize()
+        err = max(hold_bit_equal(torch, f"{kind}_stream", a, b)
+                  for a, b in zip(got, want))
+        del want
+        lengths = starts[1:] - starts[:-1]
+        u = int((lengths > 0).sum().item())
+        longest = int(lengths.max().item())
+        ms = device_ms(lambda: kernel(*got, *rest), reps=3)
+        plain_ms = eager_ms(lambda: plain(*got, *rest), reps=3)
+        library_ms = None
+        if kind == "sgd":
+            ids = torch.empty_like(keys)
+            ids[perm] = keys
+            library_ms = device_ms(lambda: got[0].index_add_(
+                0, ids, contribs, alpha=-rest[4]), reps=3)
+            totals["library_ms"] += library_ms
+        del got
+        bytes_ms, ops_ms = stream_bound(kind, keys, width, u, rate)
+        emit(phase=f"{kind}_stream_kernel", call=c, table=[vocab, width],
+             rows=keys.numel(), unique_rows=u, longest_segment=longest,
+             max_abs_err=err, ms=ms, plain_ms=plain_ms,
+             library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
+             bytes_ms=bytes_ms, ops_ms=ops_ms, ok=True)
+        for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                         ("bound_ms", max(bytes_ms, ops_ms)),
+                         ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
+            totals[key] += val
+        totals["max_abs_err"] = max(totals["max_abs_err"], err)
+    return totals
+
+
+def step_time(torch, step, model, state, batches, label):
+    """Median of 10 synchronized steps after 2 warm ones, samples/s and
+    peak memory since the last reset. Returns the state."""
+    times = []
+    for i in range(12):
+        num, cats, labels = batches[i % len(batches)]
+        t0 = time.perf_counter()
+        _, state, loss = step(model, state, num, cats, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = statistics.median(times[2:])
+    emit(phase="train_step_time", path=label, batch=BATCH,
+         median_ms=med * 1e3, min_ms=min(times[2:]) * 1e3,
+         max_ms=max(times[2:]) * 1e3, samples_per_s=BATCH / med,
+         final_loss=float(loss),
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    return state
 
 
 def main() -> int:
@@ -842,6 +1342,8 @@ def main() -> int:
     from distributed_embeddings_tpu_torch.models.synthetic import (
         SYNTHETIC_MODELS, InputGenerator, SyntheticModel)
     from distributed_embeddings_tpu_torch.ops import (cuda_lookup, cuda_sparse,
+                                                      cuda_tiled,
+                                                      embedding_ops,
                                                       kernel_build,
                                                       sparse_update)
     from distributed_embeddings_tpu_torch.serving.batcher import MicroBatcher
@@ -866,6 +1368,8 @@ def main() -> int:
     # ---- 3. kernels against their plain versions
     worst = kernel_cases(torch, cuda_lookup)
     sparse_worst = sparse_kernel_cases(torch, cuda_sparse, sparse_update)
+    sorted_worst = sorted_kernel_cases(torch, cuda_tiled, embedding_ops,
+                                       sparse_update)
 
     # ---- 4. the slice at full width
     torch.cuda.reset_peak_memory_stats()
@@ -887,13 +1391,13 @@ def main() -> int:
              for lo, hi in BATCHER_SPANS]
 
     # the serving path: counts to 0, drive, read
-    set_counts(cuda_lookup, cuda_sparse)
+    set_counts(cuda_lookup, cuda_sparse, cuda_tiled)
     outs = [engine.predict(req) for req in requests]
     batcher = MicroBatcher(engine)
     handles = [batcher.submit(req) for req in spans]
     flushed = batcher.flush()
     torch.cuda.synchronize()
-    serve_counts = read_counts(cuda_lookup, cuda_sparse)
+    serve_counts = read_counts(cuda_lookup, cuda_sparse, cuda_tiled)
     launches = serve_counts["lookup_combine"]
     forwards = len(requests) + batcher.batches
     emit(phase="main_path", path="serve", forwards=forwards,
@@ -981,26 +1485,29 @@ def main() -> int:
               for b, t in enumerate(model.embedding.tp)]
     sampled = [t.detach().index_select(0, i.cuda()).cpu()
                for t, i in zip(model.embedding.tp, sample)]
+    # the weights before any step, on the host (not counted in the
+    # device's peak): train_fused starts from them again
+    initial_tiny = {k: v.detach().cpu()
+                    for k, v in model.state_dict().items()}
 
     # the training path: counts to 0, drive, read; each step is held
     # against the CPU trainer (same weights, plain versions) from the
     # card's state before it
     t0 = time.perf_counter()
     _, cpu_step = make_sparse_train_step(cpu_model, "adagrad", lr=TRAIN_LR)
-    set_counts(cuda_lookup, cuda_sparse)
-    state, held = train_against_cpu(torch, cuda_sparse, "adagrad", "change",
-                                    step, model, state, cpu_step, cpu_model,
-                                    batches)
+    set_counts(cuda_lookup, cuda_sparse, cuda_tiled)
+    state, held = train_against_cpu(torch, rows_capture(cuda_sparse,
+                                                        "adagrad"),
+                                    "adagrad", "change", step, model, state,
+                                    cpu_step, cpu_model, batches)
     torch.cuda.synchronize()
-    train_counts = read_counts(cuda_lookup, cuda_sparse)
-    del cpu_model
+    train_counts = read_counts(cuda_lookup, cuda_sparse, cuda_tiled)
     losses = held["losses"]
     emit(phase="main_path", path="train_adagrad", steps=TRAIN_STEPS,
          launches=train_counts, losses=losses)
     want_counts = {"lookup_combine": 4, "segment_sum_sorted": 2,
-                   "adagrad_rows": 2, "sgd_rows": 0, "adam_rows": 0}
-    check(train_counts == {k: v * TRAIN_STEPS
-                           for k, v in want_counts.items()},
+                   "adagrad_rows": 2}
+    check(train_counts == per_step(want_counts, TRAIN_STEPS),
           f"training launches {train_counts}, want {want_counts} per step")
     check(all(map(math.isfinite, losses)), f"non-finite losses {losses}")
     touched = held["touched"]
@@ -1025,6 +1532,7 @@ def main() -> int:
          table_change_median=change.median().item(),
          table_change_max=change.max().item(),
          table_changes_past_rounding=held["moved"],
+         relu_flips=held["relu_flips"],
          untouched_rows_checked=untouched, ok=True)
     del change, held
 
@@ -1048,7 +1556,7 @@ def main() -> int:
     def step_once():
         holder["state"] = step(model, holder["state"], num, cats,
                                labels)[1]
-    profile_step(torch, step_once)
+    profile_step(torch, step_once, "train_adagrad")
     # the dense optimizer alone, at the MLP's shapes (timed apart: its
     # elementwise kernels carry no name of their own in the profile)
     params = {n: p.detach().clone() for n, p in model.named_parameters()
@@ -1070,7 +1578,70 @@ def main() -> int:
                                              seg_cap.calls, rate)
     ada_totals, ada_err = time_row_calls(torch, cuda_sparse, "adagrad",
                                          row_cap.calls, rate)
-    del state, holder, seg_cap, row_cap
+    del seg_cap, row_cap
+
+    # ---- 5b. train_fused: the same model through the fused lookup and the
+    # pallas strategy (the JAX package's DET_LOOKUP_PATH=fused +
+    # DET_SCATTER_IMPL=pallas); counts to 0, drive, read; each step held
+    # against the CPU trainer, from phase 5's initial weights and fresh
+    # accumulators, so its held steps are phase 5's through the other
+    # lookup and strategy
+    t0 = time.perf_counter()
+    del holder
+    model.load_state_dict(initial_tiny)
+    del initial_tiny
+    for m in (model, cpu_model):
+        m.embedding.lookup_path = "fused"
+    init, step = make_sparse_train_step(model, "adagrad", lr=TRAIN_LR,
+                                        strategy="pallas")
+    state = init(model)
+    _, cpu_step = make_sparse_train_step(cpu_model, "adagrad", lr=TRAIN_LR,
+                                         strategy="pallas")
+    set_counts(cuda_lookup, cuda_sparse, cuda_tiled)
+    state, held = train_against_cpu(
+        torch, rows_capture(cuda_sparse, "adagrad"), "adagrad", "change",
+        step, model, state, cpu_step, cpu_model, batches[:FUSED_HELD_STEPS],
+        scaled=True)
+    torch.cuda.synchronize()
+    fused_counts = read_counts(cuda_lookup, cuda_sparse, cuda_tiled)
+    del cpu_model
+    want_counts = {"gather_sorted": 4, "segment_sum_sorted": 2,
+                   "adagrad_rows": 2}
+    check(fused_counts == per_step(want_counts, FUSED_HELD_STEPS),
+          f"fused launches {fused_counts}, want {want_counts} per step")
+    emit(phase="main_path", path="train_fused", steps=FUSED_HELD_STEPS,
+         seconds=time.perf_counter() - t0, launches=fused_counts,
+         losses=held["losses"], cpu_losses=held["cpu_losses"],
+         max_abs_err=held["max_abs_err"],
+         table_elements_held=int(held["changes"].numel()),
+         table_change_median=held["changes"].median().item(),
+         table_change_max=held["changes"].max().item(),
+         table_changes_past_rounding=held["moved"],
+         elements_with_gradient=held["with_gradient"],
+         ill_conditioned_elements=held["ill"],
+         relu_flips=held["relu_flips"], ok=True)
+    del held
+    torch.cuda.reset_peak_memory_stats()
+    holder = {"state": step_time(torch, step, model, state, batches,
+                                 "train_fused")}
+    del state
+
+    def fused_once():
+        holder["state"] = step(model, holder["state"], num, cats,
+                               labels)[1]
+    sorts = profile_step(torch, fused_once, "train_fused")
+    check(sorts == 6, f"train_fused ran {sorts} sorts per step, want 6 "
+                      "(4 group sorts, 2 bucket dedup sorts)")
+    with Capture(cuda_tiled, "gather_sorted") as g_cap, \
+            Capture(cuda_tiled, "fused_lookup_combine") as f_cap:
+        fused_once()
+    torch.cuda.synchronize()
+    gather_totals = {"train_fused": time_gather_calls(
+        torch, cuda_tiled, [a + (None,) * (3 - len(a)) for a in g_cap.calls],
+        rate, "train_fused")}
+    fused_against_lookup_combine(torch, cuda_tiled, cuda_lookup,
+                                 f_cap.calls, f_cap.kwargs)
+    del g_cap, f_cap, holder
     engine = None
     del model
     torch.cuda.empty_cache()
@@ -1092,17 +1663,17 @@ def main() -> int:
         cpu_cut = SyntheticModel(cut, device="cpu")
         init, step = make_sparse_train_step(cut_model, kind, lr=TRAIN_LR)
         _, cpu_step = make_sparse_train_step(cpu_cut, kind, lr=TRAIN_LR)
-        set_counts(cuda_lookup, cuda_sparse)
+        set_counts(cuda_lookup, cuda_sparse, cuda_tiled)
         state, held = train_against_cpu(
-            torch, cuda_sparse, kind, "value", step, cut_model,
-            init(cut_model), cpu_step, cpu_cut, cut_batches[:TRAIN_STEPS])
+            torch, rows_capture(cuda_sparse, kind), kind, "value", step,
+            cut_model, init(cut_model), cpu_step, cpu_cut,
+            cut_batches[:TRAIN_STEPS])
         torch.cuda.synchronize()
-        counts = read_counts(cuda_lookup, cuda_sparse)
+        counts = read_counts(cuda_lookup, cuda_sparse, cuda_tiled)
         cut_counts[kind] = counts
         want = {"lookup_combine": 4, "segment_sum_sorted": 2,
-                "sgd_rows": 0, "adagrad_rows": 0, "adam_rows": 0,
                 f"{kind}_rows": 2}
-        check(counts == {k: v * TRAIN_STEPS for k, v in want.items()},
+        check(counts == per_step(want, TRAIN_STEPS),
               f"{kind} launches {counts}, want {want} per step")
         emit(phase="main_path", path=f"train_{kind}_cut", steps=TRAIN_STEPS,
              launches=counts, losses=held["losses"],
@@ -1110,7 +1681,8 @@ def main() -> int:
              table_change_median=held["changes"].median().item(),
              table_change_max=held["changes"].max().item(),
              elements_with_gradient=held["with_gradient"],
-             ill_conditioned_elements=held["ill"], ok=True)
+             ill_conditioned_elements=held["ill"],
+             relu_flips=held["relu_flips"], ok=True)
         with Capture(cuda_sparse, f"{kind}_rows") as cap:
             num, cats, labels = cut_batches[TRAIN_STEPS]
             step(cut_model, state, num, cats, labels)
@@ -1118,6 +1690,115 @@ def main() -> int:
         rows[f"{kind}_rows"] = time_row_calls(torch, cuda_sparse, kind,
                                               cap.calls, rate)
         del cpu_cut, state, held, cap
+    del cut_model
+    torch.cuda.empty_cache()
+
+    # ---- 6b. train_tiled: full-size criteo through the tiled lookup and
+    # the tiled strategy (the raw-stream kernels), adagrad, then sgd and
+    # adam; counts to 0, drive, read; each step held against the CPU
+    # trainer
+    criteo = SYNTHETIC_MODELS["criteo"]
+    t0 = time.perf_counter()
+    cri_batches = list(InputGenerator(criteo, BATCH, alpha=1.05,
+                                      num_batches=TILED_HELD_STEPS + 1,
+                                      seed=0))
+    cmodel = SyntheticModel(criteo, device="cuda", lookup_path="tiled",
+                            generator=torch.Generator(device="cuda")
+                            .manual_seed(0))
+    cpu_c = SyntheticModel(criteo, device="cpu", lookup_path="tiled")
+    c_initial = {k: v.cpu() for k, v in cmodel.state_dict().items()}
+    torch.cuda.synchronize()
+    emit(phase="model", config=criteo.name, seconds=time.perf_counter() - t0,
+         buckets=[list(t.shape) for t in cmodel.embedding.tp],
+         table_bytes=sum(t.numel() * 4 for t in cmodel.embedding.tp))
+    tiled_counts, stream_totals = {}, {}
+    for kind in ("adagrad", "sgd", "adam"):
+        t0 = time.perf_counter()
+        cmodel.load_state_dict(c_initial)
+        # sgd and adagrad held by change, adam by value (dense adam on
+        # the MLP, the step's default, under phase 6's rule)
+        init, step = make_sparse_train_step(cmodel, kind, lr=TRAIN_LR,
+                                            strategy="tiled")
+        _, cpu_step = make_sparse_train_step(cpu_c, kind, lr=TRAIN_LR,
+                                             strategy="tiled")
+        set_counts(cuda_lookup, cuda_sparse, cuda_tiled)
+        state, held = train_against_cpu(
+            torch, stream_capture(cuda_tiled, kind), kind,
+            "value" if kind == "adam" else "change", step, cmodel,
+            init(cmodel), cpu_step, cpu_c, cri_batches[:TILED_HELD_STEPS],
+            scaled=True)
+        torch.cuda.synchronize()
+        counts = read_counts(cuda_lookup, cuda_sparse, cuda_tiled)
+        tiled_counts[kind] = counts
+        want = {"gather_sorted": 1, f"{kind}_stream": 1}
+        check(counts == per_step(want, TILED_HELD_STEPS),
+              f"tiled {kind} launches {counts}, want {want} per step")
+        emit(phase="main_path", path=f"train_tiled_{kind}",
+             steps=TILED_HELD_STEPS, seconds=time.perf_counter() - t0,
+             launches=counts, losses=held["losses"],
+             cpu_losses=held["cpu_losses"], max_abs_err=held["max_abs_err"],
+             table_elements_held=int(held["changes"].numel()),
+             table_change_median=held["changes"].median().item(),
+             table_change_max=held["changes"].max().item(),
+             table_changes_past_rounding=held["moved"],
+             elements_with_gradient=held["with_gradient"],
+             ill_conditioned_elements=held["ill"],
+             relu_flips=held["relu_flips"], ok=True)
+        del held
+        num, cats, labels = cri_batches[TILED_HELD_STEPS]
+        if kind == "adagrad":
+            # fold_sort off: one more sort per step, the same step bit for
+            # bit
+            _, step_unfolded = make_sparse_train_step(
+                cmodel, kind, lr=TRAIN_LR, strategy="tiled", fold_sort=False)
+            before = ({k: v.clone() for k, v in cmodel.state_dict().items()},
+                      clone_tree(torch, state))
+            runs = []
+            for fn in (step, step_unfolded):
+                cmodel.load_state_dict(before[0])
+                state = clone_tree(torch, before[1])
+                (_, state, loss), sorts = profiled_sorts(
+                    torch, lambda: fn(cmodel, state, num, cats, labels))
+                torch.cuda.synchronize()
+                runs.append((float(loss), sorts, {
+                    k: v.clone() for k, v in cmodel.state_dict().items()},
+                    tree_tensors(torch, state)))
+            (l1, s1, m1, a1), (l2, s2, m2, a2) = runs
+            same = (l1 == l2 and all(torch.equal(m1[k], m2[k]) for k in m1)
+                    and len(a1) == len(a2)
+                    and all(torch.equal(x, y) for x, y in zip(a1, a2)))
+            emit(phase="fold_sort", path="train_tiled_adagrad",
+                 sorts_folded=s1, sorts_unfolded=s2, bit_identical=same)
+            check(s1 == 1 and s2 == 2,
+                  f"sorts per criteo step {s1} folded, {s2} unfolded; "
+                  "want 1 and 2")
+            check(same, "fold_sort=False changed the criteo step")
+            del before, runs, m1, m2, a1, a2
+        torch.cuda.reset_peak_memory_stats()
+        holder = {"state": step_time(torch, step, cmodel, state, cri_batches,
+                                     f"train_tiled_{kind}")}
+        del state
+
+        def tiled_once():
+            holder["state"] = step(cmodel, holder["state"], num, cats,
+                                   labels)[1]
+        sorts = profile_step(torch, tiled_once, f"train_tiled_{kind}")
+        check(sorts == 1, f"train_tiled_{kind} ran {sorts} sorts per step, "
+                          "want 1")
+        with Capture(cuda_tiled, "gather_sorted") as g_cap, \
+                Capture(cuda_tiled, f"{kind}_stream") as s_cap:
+            tiled_once()
+        torch.cuda.synchronize()
+        stream_totals[kind] = time_stream_calls(torch, cuda_tiled, kind,
+                                                s_cap.calls, rate)
+        if kind == "adagrad":
+            gather_totals["train_tiled"] = time_gather_calls(
+                torch, cuda_tiled,
+                [a + (None,) * (3 - len(a)) for a in g_cap.calls], rate,
+                "train_tiled")
+        del g_cap, s_cap, holder
+    del cmodel, cpu_c
+    torch.cuda.empty_cache()
 
     # ---- 7. result lines
     def entry(kname, source, by_path, tot, err):
@@ -1134,7 +1815,9 @@ def main() -> int:
 
     paths = {"serve": serve_counts, "train_adagrad": train_counts,
              "train_sgd_cut": cut_counts["sgd"],
-             "train_adam_cut": cut_counts["adam"]}
+             "train_adam_cut": cut_counts["adam"],
+             "train_fused": fused_counts,
+             **{f"train_tiled_{k}": c for k, c in tiled_counts.items()}}
 
     def by_path(kname):
         return {p: c[kname] for p, c in paths.items() if c[kname]}
@@ -1149,6 +1832,21 @@ def main() -> int:
         tot, err = rows[kname]
         kernels.append(entry(kname, "sparse_apply.cu", by_path(kname), tot,
                              max(err, sparse_worst[kname])))
+    # gather_sorted: one step of each path (4 Tiny groups, 1 criteo call)
+    gather_row = {key: sum(t[key] for t in gather_totals.values())
+                  for key in gather_totals["train_fused"]}
+    kernels.append(entry("gather_sorted", "sorted_stream.cu",
+                         by_path("gather_sorted"), gather_row,
+                         max(gather_row["max_abs_err"],
+                             sorted_worst["gather_sorted"])))
+    for kind in ("sgd", "adagrad", "adam"):
+        tot = stream_totals[kind]
+        kernels.append(entry(f"{kind}_stream", "sorted_stream.cu",
+                             by_path(f"{kind}_stream"), tot,
+                             max(tot["max_abs_err"],
+                                 sorted_worst[f"{kind}_stream"])))
+    emit(phase="sorted_lookups_backward",
+         max_abs_err=sorted_worst["lookups"], ok=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,235 @@
+// Sorted-stream embedding kernels for Hopper (sm_90a): the gather over an
+// ascending id stream, and the row-wise optimizer updates that aggregate a
+// raw (undeduplicated) gradient stream in its sorted order.
+//
+// gather_sorted:
+//   out[k, :] = w[k] * table[sid[k], :]   (w == nullptr: table[sid[k], :])
+//   rows with sid[k] < 0 or sid[k] >= V are zeros, whatever the weight.
+// Replaces distributed_embeddings_tpu/ops/pallas_tiled.py `_gather_kernel`
+// (both variants, through `_gather_call`): tiled_gather_sorted(_weighted),
+// tiled_gather, tiled_embedding_lookup, fused_lookup_combine and the
+// dweights gather of `_tiled_lookup_bwd`. The TPU kernel walks (table tile,
+// id chunk) pairs and contracts a one-hot slab on the MXU because the TPU's
+// row gather was descriptor-bound; on this card a row gather is a plain
+// load, so each output row reads its one table row. The product is one
+// rounded multiply, as the one-hot contraction's single non-zero term is.
+// Bound: bytes, 4*W*U table bytes for the U distinct rows the stream reads,
+// plus the ids (and weights) once and the 4*N*W output once.
+//
+// sgd_stream / adagrad_stream / adam_stream, over a sorted stream given as
+// (sid, perm, starts): segment s covers sorted positions
+// [starts[s], starts[s+1]) (empty past the last segment), all with key
+// r = sid[starts[s]]. The segment's thread group sums contribs[perm[j], :]
+// for j ascending into registers, then applies row_rules.cuh's sgd /
+// adagrad / adam rule once to row r, in place (keys outside [0, V) are
+// skipped; lazy adam: every row with a valid id in the stream moves, even
+// with s == 0).
+// Each equals sparse_apply.cu's segment_sum_sorted followed by the matching
+// *_rows kernel, bit for bit, without the [N, W] sums array between them.
+// Replace pallas_tiled.py `_sgd_kernel` / `_adagrad_kernel` / `_adam_kernel`
+// through `_update_call` on raw streams (tiled_sgd, tiled_adagrad,
+// tiled_adam; the lookup backward's dense table gradient is sgd_stream at
+// lr = -1 over a zero table). The TPU kernels aggregate duplicates inside a
+// one-hot matmul over every visited table tile; here one thread group walks
+// one segment, so no two groups touch a row and no atomics are needed: the
+// same step gives the same table every time.
+// Bound: bytes. The 4*N*W bytes of contributions, the perm and starts
+// entries and the segments' keys read once, and 8*W*U*(1 + n_state): the U
+// valid rows of the table and of each of its n_state state arrays (0 sgd,
+// 1 adagrad, 2 adam) read and written once.
+// Known hazard (not fixed here, as in segment_sum_sorted): the hottest row
+// of a power-law stream is one long segment that one thread group walks
+// serially, and it sets the time.
+//
+// Design, as lookup_combine.cu and sparse_apply.cu: one thread group per
+// output row or segment, float4 column slices, every operation rounded on
+// its own (so the plain PyTorch versions, which round per operation, are
+// bit-exact yardsticks); the layout, the launch shape and the row rules are
+// row_rules.cuh's, shared with sparse_apply.cu's *_rows kernels. Index
+// arithmetic is 64-bit.
+
+#include "row_rules.cuh"
+
+namespace {
+
+using row_rules::AdamHp;
+using row_rules::Group;
+using row_rules::Vec;
+using row_rules::group_of;
+using row_rules::kThreads;
+
+template <typename IdT, bool kVec4>
+__global__ void __launch_bounds__(kThreads)
+gather_sorted_kernel(const float* __restrict__ table, int64_t vocab,
+                     int64_t width, const IdT* __restrict__ sid,
+                     const float* __restrict__ weights, int64_t n,
+                     float* __restrict__ out, int lane_shift) {
+  constexpr int kVec = kVec4 ? 4 : 1;
+  const Group g = group_of(lane_shift);
+  if (g.slot >= n) return;
+  const int64_t r = static_cast<int64_t>(sid[g.slot]);
+  const bool valid = r >= 0 && r < vocab;
+  const float w = weights == nullptr ? 1.f : weights[g.slot];
+  for (int64_t c = static_cast<int64_t>(g.lane) * kVec; c < width;
+       c += static_cast<int64_t>(g.lanes) * kVec) {
+    float v[kVec];
+    if (valid) {
+      Vec<kVec>::load(table + r * width + c, v);
+      if (weights != nullptr) {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) v[e] = __fmul_rn(w, v[e]);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) v[e] = 0.f;
+    }
+    Vec<kVec>::store(out + g.slot * width + c, v);
+  }
+}
+
+// The table row of this group's segment, or -1 when the slot holds no
+// segment or the segment's key lies outside [0, V). Sets [*lo, *hi).
+template <typename IdT>
+__device__ __forceinline__ int64_t segment_row(const IdT* sid,
+                                               const int64_t* starts,
+                                               int64_t slot, int64_t vocab,
+                                               int64_t* lo, int64_t* hi) {
+  *lo = starts[slot];
+  *hi = starts[slot + 1];
+  if (*lo >= *hi) return -1;
+  const int64_t r = static_cast<int64_t>(sid[*lo]);
+  return (r < 0 || r >= vocab) ? -1 : r;
+}
+
+// This thread's columns [c, c + kVec) of the segment's total, summed in
+// ascending sorted position from 0.
+template <int kVec>
+__device__ __forceinline__ void segment_total(const float* contribs,
+                                              int64_t width,
+                                              const int64_t* perm, int64_t lo,
+                                              int64_t hi, int64_t c,
+                                              float (&acc)[kVec]) {
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) acc[e] = 0.f;
+#pragma unroll 4
+  for (int64_t j = lo; j < hi; ++j) {
+    float v[kVec];
+    Vec<kVec>::load(contribs + perm[j] * width + c, v);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) acc[e] = __fadd_rn(acc[e], v[e]);
+  }
+}
+
+template <typename IdT, bool kVec4>
+__global__ void __launch_bounds__(kThreads)
+sgd_stream_kernel(float* __restrict__ table, int64_t vocab, int64_t width,
+                  const float* __restrict__ contribs,
+                  const IdT* __restrict__ sid,
+                  const int64_t* __restrict__ perm,
+                  const int64_t* __restrict__ starts, int64_t n, float neg_lr,
+                  int lane_shift) {
+  constexpr int kVec = kVec4 ? 4 : 1;
+  const Group g = group_of(lane_shift);
+  if (g.slot >= n) return;
+  int64_t lo, hi;
+  const int64_t r = segment_row(sid, starts, g.slot, vocab, &lo, &hi);
+  if (r < 0) return;
+  for (int64_t c = static_cast<int64_t>(g.lane) * kVec; c < width;
+       c += static_cast<int64_t>(g.lanes) * kVec) {
+    float s[kVec];
+    segment_total<kVec>(contribs, width, perm, lo, hi, c, s);
+    row_rules::sgd_row<kVec>(table + r * width + c, s, neg_lr);
+  }
+}
+
+template <typename IdT, bool kVec4>
+__global__ void __launch_bounds__(kThreads)
+adagrad_stream_kernel(float* __restrict__ table, float* __restrict__ acc,
+                      int64_t vocab, int64_t width,
+                      const float* __restrict__ contribs,
+                      const IdT* __restrict__ sid,
+                      const int64_t* __restrict__ perm,
+                      const int64_t* __restrict__ starts, int64_t n,
+                      float neg_lr, float eps, int lane_shift) {
+  constexpr int kVec = kVec4 ? 4 : 1;
+  const Group g = group_of(lane_shift);
+  if (g.slot >= n) return;
+  int64_t lo, hi;
+  const int64_t r = segment_row(sid, starts, g.slot, vocab, &lo, &hi);
+  if (r < 0) return;
+  for (int64_t c = static_cast<int64_t>(g.lane) * kVec; c < width;
+       c += static_cast<int64_t>(g.lanes) * kVec) {
+    float s[kVec];
+    segment_total<kVec>(contribs, width, perm, lo, hi, c, s);
+    row_rules::adagrad_row<kVec>(table + r * width + c, acc + r * width + c,
+                                 s, neg_lr, eps);
+  }
+}
+
+template <typename IdT, bool kVec4>
+__global__ void __launch_bounds__(kThreads)
+adam_stream_kernel(float* __restrict__ table, float* __restrict__ mu,
+                   float* __restrict__ nu, int64_t vocab, int64_t width,
+                   const float* __restrict__ contribs,
+                   const IdT* __restrict__ sid,
+                   const int64_t* __restrict__ perm,
+                   const int64_t* __restrict__ starts, int64_t n, AdamHp hp,
+                   int lane_shift) {
+  constexpr int kVec = kVec4 ? 4 : 1;
+  const Group g = group_of(lane_shift);
+  if (g.slot >= n) return;
+  int64_t lo, hi;
+  const int64_t r = segment_row(sid, starts, g.slot, vocab, &lo, &hi);
+  if (r < 0) return;
+  for (int64_t c = static_cast<int64_t>(g.lane) * kVec; c < width;
+       c += static_cast<int64_t>(g.lanes) * kVec) {
+    float s[kVec];
+    segment_total<kVec>(contribs, width, perm, lo, hi, c, s);
+    row_rules::adam_row<kVec>(table + r * width + c, mu + r * width + c,
+                              nu + r * width + c, s, hp);
+  }
+}
+
+}  // namespace
+
+// Plain C entry points, bound with ctypes, one per key type (i32 / i64).
+// `vec4` selects float4 access and needs width % 4 == 0 and 16-byte aligned
+// float pointers. Each returns cudaGetLastError() after its launch; none
+// synchronizes.
+#define SORTED_STREAM_ENTRY_POINTS(suffix, IdT)                               \
+  extern "C" int gather_sorted_f32_##suffix(                                 \
+      const float* table, int64_t vocab, int64_t width, const IdT* sid,      \
+      const float* weights, int64_t n, float* out, int vec4, void* stream) { \
+    ROW_RULES_LAUNCH(gather_sorted_kernel, IdT, n, width, vec4, stream,      \
+                     table, vocab, width, sid, weights, n, out);             \
+  }                                                                          \
+  extern "C" int sgd_stream_f32_##suffix(                                    \
+      float* table, int64_t vocab, int64_t width, const float* contribs,     \
+      const IdT* sid, const int64_t* perm, const int64_t* starts, int64_t n, \
+      float neg_lr, int vec4, void* stream) {                                \
+    ROW_RULES_LAUNCH(sgd_stream_kernel, IdT, n, width, vec4, stream, table,  \
+                     vocab, width, contribs, sid, perm, starts, n, neg_lr);  \
+  }                                                                          \
+  extern "C" int adagrad_stream_f32_##suffix(                                \
+      float* table, float* acc, int64_t vocab, int64_t width,                \
+      const float* contribs, const IdT* sid, const int64_t* perm,            \
+      const int64_t* starts, int64_t n, float neg_lr, float eps, int vec4,   \
+      void* stream) {                                                        \
+    ROW_RULES_LAUNCH(adagrad_stream_kernel, IdT, n, width, vec4, stream,     \
+                     table, acc, vocab, width, contribs, sid, perm, starts,  \
+                     n, neg_lr, eps);                                        \
+  }                                                                          \
+  extern "C" int adam_stream_f32_##suffix(                                   \
+      float* table, float* mu, float* nu, int64_t vocab, int64_t width,      \
+      const float* contribs, const IdT* sid, const int64_t* perm,            \
+      const int64_t* starts, int64_t n, float neg_lr, float b1, float omb1,  \
+      float b2, float omb2, float c1, float c2, float eps, int vec4,         \
+      void* stream) {                                                        \
+    const AdamHp hp{neg_lr, b1, omb1, b2, omb2, c1, c2, eps};                \
+    ROW_RULES_LAUNCH(adam_stream_kernel, IdT, n, width, vec4, stream, table, \
+                     mu, nu, vocab, width, contribs, sid, perm, starts, n,   \
+                     hp);                                                    \
+  }
+
+SORTED_STREAM_ENTRY_POINTS(i32, int32_t)
+SORTED_STREAM_ENTRY_POINTS(i64, int64_t)

@@ -17,12 +17,9 @@
 // sgd_rows / adagrad_rows / adam_rows, over the unique rows `rep` that
 // dedup_sum produces (one read-modify-write per row, no conflicts, no
 // atomics; rows with rep < 0 or rep >= V are skipped without reading their
-// sums, the filler contract of pallas_scatter.py):
-//   sgd:     table[r] += (-lr) * s
-//   adagrad: acc[r] += s*s;  table[r] += ((-lr) * s) * rsqrt(acc[r] + eps)
-//   adam:    mu[r] = b1*mu[r] + (1-b1)*s;  nu[r] = b2*nu[r] + (1-b2)*(s*s)
-//            table[r] += ((-lr) * (mu[r]/c1)) / (sqrt(nu[r]/c2) + eps)
-//            (lazy adam: every valid row is updated, even with s == 0)
+// sums, the filler contract of pallas_scatter.py), each applying
+// row_rules.cuh's rule to its row's slot of `sums` (lazy adam: every valid
+// row is updated, even with s == 0).
 // Replace, in distributed_embeddings_tpu/ops: pallas_tiled.py
 // `_sgd_kernel` / `_adagrad_kernel` / `_adam_kernel` through `_update_call`
 // (tiled_{sgd,adagrad,adam}_rows); pallas_scatter.py `_scatter_kernel`
@@ -35,63 +32,21 @@
 // pallas_tiled.py:305-307) because a one-hot matmul was the TPU's fast
 // scatter; here a thread group touches only the rows in `rep`.
 //
-// Design, as lookup_combine.cu: a group of `lanes = min(32, ceil(W / 4))`
-// threads owns one slot (a power of two, so a group never straddles a warp),
-// each thread a float4 column slice where W % 4 == 0, looping over column
-// chunks past 128. Every product, quotient, root and sum is rounded on its
-// own (__fmul_rn, __fdiv_rn, __fsqrt_rn, __fadd_rn): nvcc would otherwise
-// contract a*b+c into an FMA and break the rounding seams the JAX package
-// pins with `fp_round`, and the plain PyTorch versions round each operation
-// separately. rsqrtf is the function PyTorch's CUDA `rsqrt` calls. Known
-// hazard (not fixed here): a power-law stream gives its hottest row one long
-// segment, which one thread group walks serially.
+// Design, as lookup_combine.cu: one thread group per slot, float4 column
+// slices, every operation rounded on its own; the layout, the launch shape
+// and the row rules are row_rules.cuh's, shared with sorted_stream.cu.
+// Known hazard (not fixed here): a power-law stream gives its hottest row
+// one long segment, which one thread group walks serially.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "row_rules.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
-template <int kVec>
-struct Vec;
-
-template <>
-struct Vec<4> {
-  static __device__ __forceinline__ void load(const float* p, float (&v)[4]) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-  }
-  static __device__ __forceinline__ void store(float* p, const float (&v)[4]) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
-
-template <>
-struct Vec<1> {
-  static __device__ __forceinline__ void load(const float* p, float (&v)[1]) {
-    v[0] = *p;
-  }
-  static __device__ __forceinline__ void store(float* p, const float (&v)[1]) {
-    *p = v[0];
-  }
-};
-
-// The slot of this thread's group, its lane, and the group's lane count.
-struct Group {
-  int64_t slot;
-  int lane;
-  int lanes;
-};
-
-__device__ __forceinline__ Group group_of(int lane_shift) {
-  Group g;
-  g.lanes = 1 << lane_shift;
-  g.slot = static_cast<int64_t>(blockIdx.x) * (kThreads >> lane_shift) +
-           (threadIdx.x >> lane_shift);
-  g.lane = threadIdx.x & (g.lanes - 1);
-  return g;
-}
+using row_rules::AdamHp;
+using row_rules::Group;
+using row_rules::Vec;
+using row_rules::group_of;
+using row_rules::kThreads;
 
 template <bool kVec4>
 __global__ void __launch_bounds__(kThreads)
@@ -140,12 +95,9 @@ sgd_rows_kernel(float* __restrict__ table, int64_t vocab, int64_t width,
   if (r < 0) return;
   for (int64_t c = static_cast<int64_t>(g.lane) * kVec; c < width;
        c += static_cast<int64_t>(g.lanes) * kVec) {
-    float s[kVec], t[kVec];
+    float s[kVec];
     Vec<kVec>::load(sums + g.slot * width + c, s);
-    Vec<kVec>::load(table + r * width + c, t);
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) t[e] = __fadd_rn(t[e], __fmul_rn(neg_lr, s[e]));
-    Vec<kVec>::store(table + r * width + c, t);
+    row_rules::sgd_row<kVec>(table + r * width + c, s, neg_lr);
   }
 }
 
@@ -162,19 +114,10 @@ adagrad_rows_kernel(float* __restrict__ table, float* __restrict__ acc,
   if (r < 0) return;
   for (int64_t c = static_cast<int64_t>(g.lane) * kVec; c < width;
        c += static_cast<int64_t>(g.lanes) * kVec) {
-    float s[kVec], t[kVec], a[kVec];
+    float s[kVec];
     Vec<kVec>::load(sums + g.slot * width + c, s);
-    Vec<kVec>::load(acc + r * width + c, a);
-    Vec<kVec>::load(table + r * width + c, t);
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) {
-      a[e] = __fadd_rn(a[e], __fmul_rn(s[e], s[e]));
-      const float d =
-          __fmul_rn(__fmul_rn(neg_lr, s[e]), rsqrtf(__fadd_rn(a[e], eps)));
-      t[e] = __fadd_rn(t[e], d);
-    }
-    Vec<kVec>::store(acc + r * width + c, a);
-    Vec<kVec>::store(table + r * width + c, t);
+    row_rules::adagrad_row<kVec>(table + r * width + c, acc + r * width + c,
+                                 s, neg_lr, eps);
   }
 }
 
@@ -183,8 +126,7 @@ __global__ void __launch_bounds__(kThreads)
 adam_rows_kernel(float* __restrict__ table, float* __restrict__ mu,
                  float* __restrict__ nu, int64_t vocab, int64_t width,
                  const IdT* __restrict__ rep, const float* __restrict__ sums,
-                 int64_t n, float neg_lr, float b1, float omb1, float b2,
-                 float omb2, float c1, float c2, float eps, int lane_shift) {
+                 int64_t n, AdamHp hp, int lane_shift) {
   constexpr int kVec = kVec4 ? 4 : 1;
   const Group g = group_of(lane_shift);
   if (g.slot >= n) return;
@@ -192,71 +134,27 @@ adam_rows_kernel(float* __restrict__ table, float* __restrict__ mu,
   if (r < 0) return;
   for (int64_t c = static_cast<int64_t>(g.lane) * kVec; c < width;
        c += static_cast<int64_t>(g.lanes) * kVec) {
-    float s[kVec], t[kVec], m[kVec], v[kVec];
+    float s[kVec];
     Vec<kVec>::load(sums + g.slot * width + c, s);
-    Vec<kVec>::load(mu + r * width + c, m);
-    Vec<kVec>::load(nu + r * width + c, v);
-    Vec<kVec>::load(table + r * width + c, t);
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) {
-      m[e] = __fadd_rn(__fmul_rn(b1, m[e]), __fmul_rn(omb1, s[e]));
-      v[e] = __fadd_rn(__fmul_rn(b2, v[e]),
-                       __fmul_rn(omb2, __fmul_rn(s[e], s[e])));
-      const float num = __fmul_rn(neg_lr, __fdiv_rn(m[e], c1));
-      const float den = __fadd_rn(__fsqrt_rn(__fdiv_rn(v[e], c2)), eps);
-      t[e] = __fadd_rn(t[e], __fdiv_rn(num, den));
-    }
-    Vec<kVec>::store(mu + r * width + c, m);
-    Vec<kVec>::store(nu + r * width + c, v);
-    Vec<kVec>::store(table + r * width + c, t);
+    row_rules::adam_row<kVec>(table + r * width + c, mu + r * width + c,
+                              nu + r * width + c, s, hp);
   }
 }
-
-// Launch shape: lane_shift and block count for n slots of `width` columns.
-// Returns false when the grid would not fit.
-bool grid_for(int64_t n, int64_t width, int vec4, int* lane_shift,
-              unsigned* blocks) {
-  const int64_t per_thread = vec4 ? 4 : 1;
-  int64_t need = (width + per_thread - 1) / per_thread;
-  if (need > 32) need = 32;
-  int shift = 0;
-  while ((int64_t{1} << shift) < need) ++shift;
-  const int64_t per_block = kThreads >> shift;
-  const int64_t b = (n + per_block - 1) / per_block;
-  if (b > 0x7fffffffLL) return false;
-  *lane_shift = shift;
-  *blocks = static_cast<unsigned>(b);
-  return true;
-}
-
-#define SPARSE_LAUNCH(kernel, IdT, n, width, vec4, stream, ...)               \
-  {                                                                          \
-    int shift_;                                                              \
-    unsigned blocks_;                                                        \
-    if (!grid_for((n), (width), (vec4), &shift_, &blocks_))                  \
-      return static_cast<int>(cudaErrorInvalidValue);                        \
-    cudaStream_t s_ = static_cast<cudaStream_t>(stream);                     \
-    if (vec4)                                                                \
-      kernel<IdT, true><<<blocks_, kThreads, 0, s_>>>(__VA_ARGS__, shift_);  \
-    else                                                                     \
-      kernel<IdT, false><<<blocks_, kThreads, 0, s_>>>(__VA_ARGS__, shift_); \
-    return static_cast<int>(cudaGetLastError());                             \
-  }
 
 template <typename IdT>
 int sgd_rows(float* table, int64_t vocab, int64_t width, const IdT* rep,
              const float* sums, int64_t n, float neg_lr, int vec4,
              void* stream) {
-  SPARSE_LAUNCH(sgd_rows_kernel, IdT, n, width, vec4, stream, table, vocab,
-                width, rep, sums, n, neg_lr);
+  ROW_RULES_LAUNCH(sgd_rows_kernel, IdT, n, width, vec4, stream, table, vocab,
+                   width, rep, sums, n, neg_lr);
 }
 
 template <typename IdT>
 int adagrad_rows(float* table, float* acc, int64_t vocab, int64_t width,
                  const IdT* rep, const float* sums, int64_t n, float neg_lr,
                  float eps, int vec4, void* stream) {
-  SPARSE_LAUNCH(adagrad_rows_kernel, IdT, n, width, vec4, stream, table, acc,
-                vocab, width, rep, sums, n, neg_lr, eps);
+  ROW_RULES_LAUNCH(adagrad_rows_kernel, IdT, n, width, vec4, stream, table,
+                   acc, vocab, width, rep, sums, n, neg_lr, eps);
 }
 
 template <typename IdT>
@@ -264,9 +162,9 @@ int adam_rows(float* table, float* mu, float* nu, int64_t vocab,
               int64_t width, const IdT* rep, const float* sums, int64_t n,
               float neg_lr, float b1, float omb1, float b2, float omb2,
               float c1, float c2, float eps, int vec4, void* stream) {
-  SPARSE_LAUNCH(adam_rows_kernel, IdT, n, width, vec4, stream, table, mu, nu,
-                vocab, width, rep, sums, n, neg_lr, b1, omb1, b2, omb2, c1,
-                c2, eps);
+  const AdamHp hp{neg_lr, b1, omb1, b2, omb2, c1, c2, eps};
+  ROW_RULES_LAUNCH(adam_rows_kernel, IdT, n, width, vec4, stream, table, mu,
+                   nu, vocab, width, rep, sums, n, hp);
 }
 
 }  // namespace
@@ -280,7 +178,7 @@ extern "C" int segment_sum_sorted_f32(const float* contribs, int64_t width,
                                       float* sums, int vec4, void* stream) {
   int shift;
   unsigned blocks;
-  if (!grid_for(n, width, vec4, &shift, &blocks))
+  if (!row_rules::grid_for(n, width, vec4, &shift, &blocks))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vec4)

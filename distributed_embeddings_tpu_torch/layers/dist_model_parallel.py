@@ -6,7 +6,9 @@ tables. This slice covers world size 1 with data-parallel input: every
 table sits in the table-parallel group, tables of one (width, combiner)
 key are fused into one bucket, and the forward runs one gather-combine per
 (bucket, hotness) exchange group through the CUDA kernel of
-`ops.cuda_lookup` (its plain version when the tables are on the CPU).
+`ops.cuda_lookup` (its plain version when the tables are on the CPU), or,
+with ``lookup_path="tiled"`` or ``"fused"``, through the sorted-stream
+lookups of `ops.cuda_tiled`.
 
 The group structure is the JAX package's: inputs of one bucket and hotness
 are stacked into ``[B, f, k]``, their row offsets inside the fused table
@@ -20,8 +22,13 @@ Training: a tapped forward (`make_taps`, ``forward(taps=...,
 return_residuals=True)``) makes each group output a leaf of the autograd
 graph, whose ``.grad`` is the JAX package's tap gradient; `sparse_update`
 turns those into row-wise table updates through `ops.sparse_update`.
+Inside `residual_sort_scope` (the train step's, with ``fold_sort``), a
+tapped forward sorts each exchange group's id stream once
+(`embedding_ops.canonical_id_sort`); the sorted lookups and the sparse
+update of a one-group bucket consume that sort instead of sorting again.
 """
 
+import contextlib
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -29,9 +36,10 @@ import torch
 from torch import nn
 
 from distributed_embeddings_tpu_torch.layers.embedding import Embedding
-from distributed_embeddings_tpu_torch.ops import cuda_lookup, embedding_ops
-from distributed_embeddings_tpu_torch.ops.embedding_ops import (RaggedIds,
-                                                                SparseIds)
+from distributed_embeddings_tpu_torch.ops import (cuda_lookup, cuda_tiled,
+                                                  embedding_ops)
+from distributed_embeddings_tpu_torch.ops.embedding_ops import (
+    GroupSort, RaggedIds, SparseIds, canonical_id_sort)
 from distributed_embeddings_tpu_torch.ops.sparse_update import (
     SparseOptimizer, SparseRowGrad, concat_grads)
 from distributed_embeddings_tpu_torch.parallel.plan import (ShardedPlan,
@@ -44,7 +52,12 @@ from distributed_embeddings_tpu_torch.utils.device import (DeviceLike,
 from distributed_embeddings_tpu_torch.utils.initializers import (
     get_initializer)
 
-__all__ = ["DistEmbeddingStrategy", "DistributedEmbedding", "TapResiduals"]
+__all__ = ["DistEmbeddingStrategy", "DistributedEmbedding", "TapResiduals",
+           "LOOKUP_PATHS"]
+
+# the JAX package's DET_LOOKUP_PATH values: "auto", "xla" and "pallas" take
+# the gather-combine kernel, "tiled" and "fused" the sorted-stream lookups
+LOOKUP_PATHS = ("auto", "xla", "pallas", "tiled", "fused")
 
 
 def _combine(emb: torch.Tensor, weights: Optional[torch.Tensor],
@@ -92,18 +105,21 @@ def _overrides_forward(cls) -> bool:
 class TapResiduals:
     """Residuals of a tapped forward, consumed by `sparse_update`: per
     exchange group the absolute row ids after the exchange and the row
-    offset add, ``tp_ids[g]`` ``[world, B, f_g, k_g]``, and the effective
+    offset add, ``tp_ids[g]`` ``[world, B, f_g, k_g]``, the effective
     combine weights ``tp_w[g]`` (None = uniform; the scale is recomputed
-    from the group). `key` is the exchange-group cache key. The JAX
-    package's sort-folding and row-sliced fields are not ported (ROADMAP
-    Queue A2, A4)."""
+    from the group), and ``tp_sort[g]``, the `GroupSort` of the group's
+    flattened ids when the forward sorted them (sort folding; None
+    otherwise, and the update sorts afresh). `key` is the exchange-group
+    cache key. The JAX package's row-sliced fields are not ported (ROADMAP
+    Queue A4)."""
 
-    __slots__ = ("key", "tp_ids", "tp_w")
+    __slots__ = ("key", "tp_ids", "tp_w", "tp_sort")
 
-    def __init__(self, key, tp_ids, tp_w):
+    def __init__(self, key, tp_ids, tp_w, tp_sort=None):
         self.key = key
         self.tp_ids = tp_ids
         self.tp_w = tp_w
+        self.tp_sort = tp_sort
 
 
 class _PreparedInput:
@@ -145,8 +161,14 @@ class DistributedEmbedding(nn.Module):
 
     Args mirror the JAX package's class. ``device`` (None = cuda) is where
     the fused bucket tables live; ``generator`` draws their initial values
-    (default: seed 0 on `device`). Parameters: ``tp[b]`` is bucket b's fused
-    table ``[rows_max, width]`` (the JAX package's ``params['tp'][b][0]``).
+    (default: seed 0 on `device`). ``lookup_path`` (one of `LOOKUP_PATHS`;
+    the JAX package reads it from ``DET_LOOKUP_PATH``) picks the lookup of
+    the combined groups: "auto", "xla" and "pallas" the gather-combine
+    kernel, "tiled" the sorted gather then a weighted sum
+    (`cuda_tiled.tiled_embedding_lookup`), "fused" the weighted sorted
+    gather then a hotness sum (`cuda_tiled.fused_lookup_combine`).
+    Parameters: ``tp[b]`` is bucket b's fused table ``[rows_max, width]``
+    (the JAX package's ``params['tp'][b][0]``).
     """
 
     def __init__(self,
@@ -167,8 +189,12 @@ class DistributedEmbedding(nn.Module):
                  storage_dtype: Optional[str] = None,
                  *,
                  device: DeviceLike = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 lookup_path: str = "auto"):
         super().__init__()
+        if lookup_path not in LOOKUP_PATHS:
+            raise ValueError(f"lookup_path must be one of {LOOKUP_PATHS}, "
+                             f"got {lookup_path!r}")
         unported = [
             (mesh is not None or (world_size or 1) > 1,
              "world size > 1 or a mesh", "A3 (multi-GPU exchange)"),
@@ -210,6 +236,10 @@ class DistributedEmbedding(nn.Module):
                                   if input_max_hotness is not None else None)
         self._n_inputs = len(self.strategy.input_table_map)
         self._groups_cache: dict = {}
+        self.lookup_path = lookup_path
+        # True while a train step's forward runs inside
+        # `residual_sort_scope`: tapped forwards carry their groups' sorts
+        self._fold_sort = False
         self.tp = nn.ParameterList([
             nn.Parameter(torch.empty((max(b.rows_max, 1), b.width),
                                      dtype=torch.float32, device=self.device),
@@ -332,15 +362,82 @@ class DistributedEmbedding(nn.Module):
         self._groups_cache[key] = res = (groups, assembly)
         return res
 
+    # ---------------------------------------------------------- sort folding
+    @contextlib.contextmanager
+    def residual_sort_scope(self, enabled: bool = True):
+        """Within the scope, tapped forwards (``return_residuals=True``)
+        sort each exchange group's id stream once wherever the sorted
+        lookups or the sparse update will consume it, and carry the sorts
+        in `TapResiduals.tp_sort`; ``enabled=False`` turns folding off.
+        `make_sparse_train_step` wraps its forward in it (``fold_sort``).
+        The JAX package's scope takes (optimizer, strategy) to ask whether
+        the update consumes a sort; every update route of the port sorts
+        its stream, so only on or off remains. Re-entrant, not
+        thread-safe."""
+        prev = self._fold_sort
+        self._fold_sort = bool(enabled)
+        try:
+            yield self
+        finally:
+            self._fold_sort = prev
+
+    def _fwd_tiled_active(self, bucket, k: int) -> bool:
+        """Does `_group_lookup` take a sorted lookup ("tiled" or "fused")
+        for this (bucket, hotness)? Both consume a sort's inverse
+        permutation."""
+        if self.lookup_path not in ("tiled", "fused"):
+            return False
+        return bucket.combiner is not None or k == 1
+
+    def _sort_plan(self, groups) -> List[Optional[str]]:
+        """Per exchange group: None (no sort artifact), "plain" (sid, perm
+        and segment starts, for the sparse update) or "inv" (with the
+        inverse permutation, for a sorted lookup as well). A bucket whose
+        update concatenates several groups gets no "plain" sort: one
+        group's sort cannot serve the concatenated stream."""
+        if not self._fold_sort:
+            return [None] * len(groups)
+        per_bucket: dict = {}
+        for grp in groups:
+            per_bucket[grp.bucket] = per_bucket.get(grp.bucket, 0) + 1
+        plan: List[Optional[str]] = []
+        for grp in groups:
+            bucket = self.plan.tp_buckets[grp.bucket]
+            plan.append("inv" if self._fwd_tiled_active(bucket, grp.k)
+                        else ("plain" if per_bucket[grp.bucket] == 1
+                              else None))
+        return plan
+
     # --------------------------------------------------------------- lookup
     def _group_lookup(self, table: torch.Tensor, ids: torch.Tensor,
                       weights: Optional[torch.Tensor],
-                      combiner: Optional[str]) -> torch.Tensor:
+                      combiner: Optional[str],
+                      presorted: Optional[GroupSort] = None) -> torch.Tensor:
         """Local fused-bucket lookup: ids [B, f, k] -> [B, f, wf]. A
         combined group ('sum': `_tp_group_out` has already folded mean into
-        the weights or the scale) is one gather-combine kernel launch; the
-        combiner-None passthrough is a plain gather."""
+        the weights or the scale) is one gather-combine kernel launch, or
+        under lookup_path "tiled" / "fused" one sorted lookup, which takes
+        the group's `presorted` sort when it carries the inverse
+        permutation; the combiner-None passthrough is a plain gather
+        (at hotness 1 the combined paths take it as a sum, the same
+        result)."""
         b_sz, f, k = ids.shape
+        path = self.lookup_path
+        if combiner is None and k == 1 and path in ("pallas", "tiled",
+                                                    "fused"):
+            combiner = "sum"
+        if combiner is not None and path in ("tiled", "fused"):
+            lookup = (cuda_tiled.fused_lookup_combine if path == "fused"
+                      else cuda_tiled.tiled_embedding_lookup)
+            w = (weights if weights is not None
+                 else torch.ones(ids.shape, dtype=torch.float32,
+                                 device=ids.device))
+            ps = None
+            if presorted is not None and presorted.inv is not None:
+                ps = (presorted.sid, presorted.perm, presorted.inv)
+            out = lookup(table, ids.reshape(b_sz * f, k),
+                         w.reshape(b_sz * f, k), combiner, presorted=ps)
+            return out.reshape(b_sz, f, out.shape[-1])
         if combiner is None:
             rows = table[ids.clamp(0, table.shape[0] - 1)]   # [B, f, k, w]
             return _combine(rows, None, None)
@@ -351,14 +448,16 @@ class DistributedEmbedding(nn.Module):
         return out.reshape(b_sz, f, out.shape[-1])
 
     def _tp_group_out(self, grp: _ExchangeGroup, ids_x: torch.Tensor,
-                      w_x: Optional[torch.Tensor]) -> torch.Tensor:
+                      w_x: Optional[torch.Tensor],
+                      presorted: Optional[GroupSort] = None) -> torch.Tensor:
         """One exchange group's bucket output [B, f, w_out], via the
         explicit weighted-sum form: effective weights into the kernel, the
         unweighted-mean scale applied after the sum."""
         bucket = self.plan.tp_buckets[grp.bucket]
         eff_w, scale = _effective_weights(w_x, grp.k, bucket.combiner)
         out = self._group_lookup(self.tp[grp.bucket], ids_x, eff_w,
-                                 None if bucket.combiner is None else "sum")
+                                 None if bucket.combiner is None else "sum",
+                                 presorted=presorted)
         if scale != 1.0:
             out = out * scale
         return out
@@ -372,18 +471,25 @@ class DistributedEmbedding(nn.Module):
         return ids_x, w_x
 
     def _forward_local(self, group_ids, group_w, groups, taps=None,
-                       res_ids=None, res_w=None) -> List[torch.Tensor]:
+                       res_ids=None, res_w=None, res_sort=None,
+                       sort_plan=None) -> List[torch.Tensor]:
         """Per exchange group: id exchange, row-offset add, fused lookup.
         Returns per group the [world_src=1, B, f_max, wf] output block.
         With `taps`, each block is detached into a leaf that requires grad
-        and appended to ``taps["tp"]``; with `res_ids`/`res_w`, the group's
-        absolute ids and effective weights are appended there."""
+        and appended to ``taps["tp"]``; with `res_ids`/`res_w`/`res_sort`,
+        the group's absolute ids, effective weights and the `GroupSort`
+        its `sort_plan` entry asks for (or None) are appended there."""
         ex_list = []
         for g, grp in enumerate(groups):
             ids_x, w_x = self._padded_id_exchange(grp, group_ids[g],
                                                   group_w[g])
             ids_x = ids_x + grp.offs_t[None, :, None]
-            out = self._tp_group_out(grp, ids_x, w_x)[None]
+            sort_g = None
+            if sort_plan is not None and sort_plan[g]:
+                sort_g = canonical_id_sort(
+                    ids_x, max(self.plan.tp_buckets[grp.bucket].rows_max, 1),
+                    want_inv=sort_plan[g] == "inv")
+            out = self._tp_group_out(grp, ids_x, w_x, presorted=sort_g)[None]
             if taps is not None:
                 out = out.detach().requires_grad_()
                 taps["tp"].append(out)
@@ -392,6 +498,7 @@ class DistributedEmbedding(nn.Module):
                 eff_w, _ = _effective_weights(w_x, grp.k, bucket.combiner)
                 res_ids.append(ids_x[None])
                 res_w.append(None if eff_w is None else eff_w[None])
+                res_sort.append(sort_g)
             ex_list.append(out)
         return ex_list
 
@@ -408,7 +515,8 @@ class DistributedEmbedding(nn.Module):
         tables and requiring grad, so that autograd delivers at each leaf
         the gradient the JAX package reads at its zero tap.
         return_residuals: also return the `TapResiduals` for
-        `sparse_update`, as ``(outputs, residuals)``."""
+        `sparse_update`, as ``(outputs, residuals)``; inside
+        `residual_sort_scope` they carry the groups' sorts."""
         if taps is not None:
             taps["tp"].clear()
             taps["row"].clear()
@@ -440,14 +548,16 @@ class DistributedEmbedding(nn.Module):
 
         res_ids = [] if return_residuals else None
         res_w = [] if return_residuals else None
+        res_sort = [] if return_residuals else None
+        sort_plan = self._sort_plan(groups) if return_residuals else None
         ex_list = self._forward_local(group_ids, group_w, groups, taps,
-                                      res_ids, res_w)
+                                      res_ids, res_w, res_sort, sort_plan)
         outputs = self._assemble_tp_outputs(ex_list, tp_prep, batch, groups,
                                             assembly)
         outputs = [outputs[idx] for idx in strat.rev_group_ids]
         if return_residuals:
             key = tuple((p.k, p.weights is not None) for p in tp_prep)
-            return outputs, TapResiduals(key, res_ids, res_w)
+            return outputs, TapResiduals(key, res_ids, res_w, res_sort)
         return outputs
 
     def _assemble_tp_outputs(self, ex_list, tp_preps, batch, groups,
@@ -542,10 +652,11 @@ class DistributedEmbedding(nn.Module):
         (the JAX package returns new, donated arrays): per bucket, the
         SparseRowGrads of its exchange groups are concatenated and handed
         to ``opt.update``, which dedups them and updates each touched row
-        of the table and its state once. `tap_grads` is ``{"tp": [grad of
-        each taps["tp"] leaf], "row": []}``. Returns the new state pytree
-        (adam's step count is a new tuple entry; tensors are updated in
-        place)."""
+        of the table and its state once; a bucket of one group passes the
+        group's sort from the residuals as ``presorted=`` when the forward
+        made one. `tap_grads` is ``{"tp": [grad of each taps["tp"] leaf],
+        "row": []}``. Returns the new state pytree (adam's step count is a
+        new tuple entry; tensors are updated in place)."""
         groups, _ = self._exchange_groups_for_key(residuals.key)
         bucket_groups: dict = {}
         for g, grp in enumerate(groups):
@@ -555,8 +666,13 @@ class DistributedEmbedding(nn.Module):
             grads = [self._group_contrib(g, groups[g], residuals.tp_ids,
                                          residuals.tp_w, tap_grads["tp"])
                      for g in gs]
+            sort_b = (residuals.tp_sort[gs[0]]
+                      if len(gs) == 1 and residuals.tp_sort else None)
+            # the keyword only with an artifact: an update callable of three
+            # arguments keeps working wherever nothing was folded
+            kw = {} if sort_b is None else {"presorted": sort_b}
             _, new_tp[b] = opt.update(self.tp[b].data, tuple(new_tp[b]),
-                                      concat_grads(grads))
+                                      concat_grads(grads), **kw)
         return {**opt_states, "tp": new_tp}
 
     # --------------------------------------------------------- weights I/O

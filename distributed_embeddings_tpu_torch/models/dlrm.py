@@ -85,7 +85,8 @@ class DLRM(nn.Module):
     """DLRM with fused table-parallel embeddings.
 
     Args mirror the JAX package's class; `dist_kwargs` go to
-    `DistributedEmbedding` (strategy 'memory_balanced' unless given).
+    `DistributedEmbedding` (strategy 'memory_balanced' unless given;
+    ``lookup_path`` picks its lookup, as ``DET_LOOKUP_PATH`` does there).
     ``device`` (None = cuda) and ``generator`` (default: seed 0 on
     `device`) place and draw every parameter. Forward:
     ``[B, num_numerical]`` + categorical ids -> ``[B, 1]`` logits.

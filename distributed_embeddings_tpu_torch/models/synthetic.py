@@ -204,7 +204,8 @@ class SyntheticModel(nn.Module):
     """Synthetic recommender: embeddings -> interact -> MLP -> logit.
 
     The tables are fused through `DistributedEmbedding` (hotness hints
-    always passed; `dist_kwargs` go to it). ``device`` (None = cuda) and
+    always passed; `dist_kwargs` go to it, ``lookup_path`` among them: the
+    JAX package's ``DET_LOOKUP_PATH``). ``device`` (None = cuda) and
     ``generator`` (default: seed 0 on `device`) place and draw every
     parameter, embedding tables included, on the device itself.
     """

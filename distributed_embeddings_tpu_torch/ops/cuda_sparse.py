@@ -25,6 +25,7 @@ kernels' bit-exact yardstick.
 import ctypes
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from distributed_embeddings_tpu_torch.ops import kernel_build
@@ -32,7 +33,7 @@ from distributed_embeddings_tpu_torch.utils.device import device_scalar
 
 __all__ = ["segment_sum_sorted", "sgd_rows", "adagrad_rows", "adam_rows",
            "segment_sum_sorted_plain", "sgd_rows_plain", "adagrad_rows_plain",
-           "adam_rows_plain", "launches"]
+           "adam_rows_plain", "bias_corrections", "launches"]
 
 _KERNEL = "sparse_apply"
 
@@ -60,10 +61,11 @@ def _kernel_fn(stem: str, symbol: str):
     return fn
 
 
-def _checked(stem: str, err: int) -> None:
+def _checked_launch(counts: Dict[str, int], stem: str, err: int) -> None:
+    """Raise on a refused launch, else count it in `counts`."""
     if err != 0:
         raise RuntimeError(f"{stem} kernel launch failed: CUDA error {err}")
-    launches[stem] += 1
+    counts[stem] += 1
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -133,7 +135,7 @@ def segment_sum_sorted(contribs: torch.Tensor, perm: torch.Tensor,
     sums = torch.empty((n, width), dtype=torch.float32, device=contribs.device)
     if n == 0 or width == 0:
         return sums
-    _checked("segment_sum_sorted", fn(
+    _checked_launch(launches, "segment_sum_sorted", fn(
         contribs.data_ptr(), width, perm.data_ptr(), starts.data_ptr(), n,
         sums.data_ptr(), int(_vec4(width, contribs, sums)),
         _stream(contribs)))
@@ -182,6 +184,15 @@ def adam_rows_plain(table, mu, nu, rep, sums, lr, b1, b2, eps, c1, c2):
     return table, mu, nu
 
 
+def bias_corrections(count: int, b1: float, b2: float):
+    """float32 ``1 - b1**count`` and ``1 - b2**count``, adam's c1 and c2,
+    as the JAX package computes them (float32 power of the float32
+    decay)."""
+    cf = np.float32(count)
+    return (float(np.float32(1.0) - np.float32(b1) ** cf),
+            float(np.float32(1.0) - np.float32(b2) ** cf))
+
+
 def _check_rows(what, table, states, rep, sums):
     if table.dim() != 2 or table.dtype != torch.float32:
         raise TypeError(f"{what}: table must be float32 [V, W], got "
@@ -212,7 +223,7 @@ def sgd_rows(table: torch.Tensor, rep: torch.Tensor, sums: torch.Tensor,
     fn = _kernel_fn("sgd_rows", f"sgd_rows_f32_{_ID_SUFFIX[rep.dtype]}")
     vocab, width = table.shape
     if rep.shape[0] and width:
-        _checked("sgd_rows", fn(
+        _checked_launch(launches, "sgd_rows", fn(
             table.data_ptr(), vocab, width, rep.data_ptr(), sums.data_ptr(),
             rep.shape[0], -float(lr), int(_vec4(width, table, sums)),
             _stream(table)))
@@ -231,7 +242,7 @@ def adagrad_rows(table: torch.Tensor, acc: torch.Tensor, rep: torch.Tensor,
                     f"adagrad_rows_f32_{_ID_SUFFIX[rep.dtype]}")
     vocab, width = table.shape
     if rep.shape[0] and width:
-        _checked("adagrad_rows", fn(
+        _checked_launch(launches, "adagrad_rows", fn(
             table.data_ptr(), acc.data_ptr(), vocab, width, rep.data_ptr(),
             sums.data_ptr(), rep.shape[0], -float(lr), float(eps),
             int(_vec4(width, table, acc, sums)), _stream(table)))
@@ -252,7 +263,7 @@ def adam_rows(table: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
     fn = _kernel_fn("adam_rows", f"adam_rows_f32_{_ID_SUFFIX[rep.dtype]}")
     vocab, width = table.shape
     if rep.shape[0] and width:
-        _checked("adam_rows", fn(
+        _checked_launch(launches, "adam_rows", fn(
             table.data_ptr(), mu.data_ptr(), nu.data_ptr(), vocab, width,
             rep.data_ptr(), sums.data_ptr(), rep.shape[0], -float(lr),
             float(b1), 1 - float(b1), float(b2), 1 - float(b2), float(c1),

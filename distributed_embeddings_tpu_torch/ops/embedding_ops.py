@@ -3,7 +3,12 @@
 Counterpart of ``distributed_embeddings_tpu/ops/embedding_ops.py``: dense,
 ragged (CSR) and sparse (COO) id inputs, gathered with ``index_select`` and
 reduced with ``index_add_``. The hot multi-hot path of the layers goes
-through the CUDA kernel in `ops.cuda_lookup` instead.
+through the CUDA kernels in `ops.cuda_lookup` and `ops.cuda_tiled` instead.
+
+`GroupSort` / `canonical_id_sort` are the sort artifacts one exchange group's
+id stream shares between its lookup and its sparse update (sort folding),
+and `segment_bounds` turns a sorted stream's segment starts into the
+per-segment positions the sparse kernels walk.
 """
 
 from typing import NamedTuple, Optional, Tuple, Union
@@ -32,6 +37,92 @@ class RaggedIds(NamedTuple):
         row_splits = torch.cat([row_lengths.new_zeros(1),
                                 torch.cumsum(row_lengths, 0)])
         return RaggedIds(values=values, row_splits=row_splits)
+
+
+def canonical_keys(ids: torch.Tensor, rows: int) -> torch.Tensor:
+    """The canonical sort key of an id stream: ids in [0, rows) keep their
+    value, negative ids and ids >= rows key to `rows`. int32 where the
+    keys and the ``rows + n`` fillers `dedup_sum` builds from them fit,
+    else int64."""
+    n = ids.shape[0]
+    dtype = torch.int32 if rows + n < 2**31 else torch.int64
+    oob = (ids < 0) | (ids >= rows)
+    return torch.where(oob, torch.full((), rows, dtype=ids.dtype,
+                                       device=ids.device), ids).to(dtype)
+
+
+class GroupSort(NamedTuple):
+    """Sort artifacts of one flattened id stream, produced once by the
+    tapped forward and shared by its lookup and its sparse update (the
+    JAX package's `GroupSort`; the original library's CUDA backward reuses
+    the forward's sorted ids the same way).
+
+      sid:       [N] ascending canonical keys (`canonical_keys`).
+      perm:      [N] int64, ``ids.reshape(-1)[perm[n]]`` has key sid[n].
+      seg_start: [N] bool, True where sid starts a new segment.
+      inv:       [N] int64 inverse permutation (``inv[perm[n]] == n``), or
+                 None when no consumer restores the original order.
+    """
+
+    sid: torch.Tensor
+    perm: torch.Tensor
+    seg_start: torch.Tensor
+    inv: Optional[torch.Tensor] = None
+
+
+def segment_starts(sid: torch.Tensor) -> torch.Tensor:
+    """[N] bool: True where the sorted keys `sid` start a new segment."""
+    is_start = torch.ones(sid.shape[0], dtype=torch.bool, device=sid.device)
+    if sid.shape[0] > 1:
+        torch.ne(sid[1:], sid[:-1], out=is_start[1:])
+    return is_start
+
+
+def inverse_permutation(perm: torch.Tensor) -> torch.Tensor:
+    """``inv`` with ``inv[perm[n]] == n``: one index scatter, exact. (The
+    JAX package inverts with a second sort, because a scatter was slow on
+    the TPU.)"""
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], dtype=perm.dtype,
+                             device=perm.device)
+    return inv
+
+
+def canonical_id_sort(ids: torch.Tensor, rows: int,
+                      want_inv: bool = False) -> GroupSort:
+    """One stable sort (``torch.sort(stable=True)``) of a flattened id
+    stream under the canonical key. `rows` must be the consuming table's
+    ``shape[0]``, the sentinel `dedup_sum` uses, so that an update that
+    consumes the artifact is bit-identical to one that sorts afresh."""
+    sid, perm = torch.sort(canonical_keys(ids.reshape(-1), rows),
+                           stable=True)
+    return GroupSort(sid, perm, segment_starts(sid),
+                     inverse_permutation(perm) if want_inv else None)
+
+
+def segment_keys(sid: torch.Tensor, seg: torch.Tensor,
+                 sentinel: int) -> torch.Tensor:
+    """Per segment slot s of a sorted stream (`segment_bounds`' seg), the
+    key of segment s; an unused slot s holds ``sentinel + s``: unique and
+    strictly increasing, `dedup_sum`'s rep."""
+    rep = torch.arange(sid.shape[0], dtype=torch.int64,
+                       device=sid.device) + sentinel
+    return rep.to(sid.dtype).scatter_(0, seg, sid)
+
+
+def segment_bounds(seg_start: torch.Tensor):
+    """(starts [N+1] int64, seg [N] int64) of a sorted stream with segment
+    starts `seg_start`: segment s covers sorted positions
+    [starts[s], starts[s+1]); slots past the last segment hold N (empty);
+    ``seg[j]`` is the segment of position j. No host sync: a cumsum and
+    one scatter, whose non-starts land in a dump slot."""
+    n = seg_start.shape[0]
+    dev = seg_start.device
+    seg = torch.cumsum(seg_start, 0) - 1
+    iota = torch.arange(n, dtype=torch.int64, device=dev)
+    starts = torch.full((n + 2,), n, dtype=torch.int64, device=dev)
+    starts.scatter_(0, torch.where(seg_start, seg, n + 1), iota)
+    return starts[:n + 1], seg
 
 
 class SparseIds(NamedTuple):

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into its own shared library, loaded with ``ctypes`` (no PyTorch headers in
 the build, so one source compiles in seconds). Libraries land in
-``build/torch_ext/`` at the repository root, named by a hash of the source,
-so an edited source rebuilds and an unchanged one is reused. `build` starts
+``build/torch_ext/`` at the repository root, named by a hash of the source
+and of the shared headers (``csrc/*.cuh``), so an edited source or header
+rebuilds and an unchanged one is reused. `build` starts
 one ``nvcc`` per source, all at once, and waits for every one.
 """
 
@@ -39,9 +40,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``csrc/<name>.cu``, named by a hash of the source,
+    of every header in ``csrc/`` (which a source may include) and of the
+    flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for part in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, part), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

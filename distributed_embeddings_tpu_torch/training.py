@@ -5,12 +5,15 @@ Counterpart of ``distributed_embeddings_tpu/training.py``
 
 1. `DistributedEmbedding.make_taps` gives the tap container; the model's
    ``loss_fn(..., taps=, return_residuals=True)`` runs the forward, whose
-   exchange-group outputs become autograd leaves (the tables need no grad);
+   exchange-group outputs become autograd leaves (the tables need no grad),
+   inside the layer's `residual_sort_scope` when ``fold_sort`` is on, so
+   each exchange group's ids are sorted once for lookup and update;
 2. ``torch.autograd.grad`` over (dense parameters, tap leaves) gives the
    MLP gradients and the tap gradients;
 3. `ops.sparse_update.drain_sparse_apply` turns the tap gradients into
-   deduplicated row updates of the tables and their optimizer state, in
-   place, through the CUDA kernels on the card;
+   row updates of the tables and their optimizer state, in place, through
+   the CUDA kernels on the card (deduplicated rows, or the raw sorted
+   stream under ``strategy="tiled"``);
 4. the dense twin of optax's sgd / adagrad / adam updates the MLPs in place.
 
 The dense twins are written to optax's expressions (``scale_by_rss``,
@@ -141,10 +144,13 @@ def make_sparse_train_step(model, optimizer: str = "adagrad", lr=0.01,
     'adagrad' or 'adam', applied sparsely to the tables and densely (its
     optax twin, or `dense_optimizer`) to the rest; `lr` is a float or a
     schedule ``step -> lr`` (the sparse optimizer is rebuilt per step at
-    ``lr(opt_state["count"])``); `strategy` 'auto', 'sort' or 'pallas' (one
-    route, see `ops.sparse_update`). `fold_sort` is accepted with the JAX
-    default, and the step always sorts afresh: the JAX package pins the two
-    bit-identical, and folding is not ported yet (ROADMAP Queue A2).
+    ``lr(opt_state["count"])``); `strategy` 'auto', 'sort', 'pallas' (the
+    deduplicated-row route) or 'tiled' (the raw-stream route, see
+    `ops.sparse_update`). The lookup path is the layer's own
+    (`DistributedEmbedding(lookup_path=...)`). `fold_sort` (default on):
+    the tapped forward sorts each exchange group's ids once and the sorted
+    lookups and the update of a one-group bucket reuse that sort; off,
+    each sorts afresh. The two give bit-identical results.
 
     Returns (init_fn, step_fn):
       init_fn(model) -> opt_state ``{"emb": {"tp": [...], "row": []},
@@ -153,7 +159,6 @@ def make_sparse_train_step(model, optimizer: str = "adagrad", lr=0.01,
         -> (model, opt_state, loss): tables, state and MLPs are updated in
         place; loss is a 0-d tensor on the model's device (no host sync).
     """
-    del fold_sort
     check_strategy(strategy)
     if optimizer not in SPARSE_HP:
         raise ValueError(f"Unknown optimizer {optimizer!r}")
@@ -182,8 +187,9 @@ def make_sparse_train_step(model, optimizer: str = "adagrad", lr=0.01,
         cats = list(cats)
         layer = params.embedding
         taps = layer.make_taps(cats)
-        loss, res = params.loss_fn(numerical, cats, labels, taps=taps,
-                                   return_residuals=True)
+        with layer.residual_sort_scope(fold_sort):
+            loss, res = params.loss_fn(numerical, cats, labels, taps=taps,
+                                       return_residuals=True)
         dense = _dense_params(params)
         grads = torch.autograd.grad(loss, list(dense.values()) + taps["tp"])
         g_dense = dict(zip(dense, grads[:len(dense)]))
@@ -303,7 +309,8 @@ def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
         log_every: int = 100, log_fn: Callable = print, **unported):
     """Minimal training loop (the JAX package's `fit` at world size 1,
     sparse path): `data` is an iterable of (numerical, cats, labels)
-    batches or a callable ``step -> batch``. Callbacks may define
+    batches or a callable ``step -> batch``. The steps take the model
+    layer's lookup path and fold its sorts (`make_sparse_train_step`). Callbacks may define
     ``on_train_begin(model)`` and ``on_step(step, model, loss)`` (loss a
     device scalar). The loss is read back to the host only at `log_every`
     boundaries and at the end.
@@ -321,7 +328,7 @@ def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
     if not sparse:
         raise NotImplementedError(
             "fit(sparse=False), dense table gradients, is not ported yet "
-            "(ROADMAP Queue A2, open: the dense and tiled strategies)")
+            "(ROADMAP Queue A2, open: the dense strategy)")
     init_fn, step_fn = make_sparse_train_step(
         model, optimizer, lr=lr, dense_optimizer=dense_optimizer)
     if opt_state is None:

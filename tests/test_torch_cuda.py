@@ -139,3 +139,94 @@ def test_train_step_matches_cpu_trainer(gen, optimizer):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4,
                                    atol=1e-2 * 0.001 if optimizer == "adam"
                                    else 1e-6)
+
+
+# ------------------------------------------------ sorted-stream kernels
+from distributed_embeddings_tpu_torch.ops import cuda_tiled  # noqa: E402
+from distributed_embeddings_tpu_torch.ops import embedding_ops  # noqa: E402
+
+
+@pytest.mark.parametrize("width", [8, 16, 6, 128, 256])
+@pytest.mark.parametrize("key_dtype", ["int32", "int64"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_gather_sorted_matches_plain_bit_for_bit(gen, width, key_dtype,
+                                                 weighted):
+    vocab, n = 900, 5000
+    table = torch.empty((vocab, width), device="cuda").uniform_(
+        -0.05, 0.05, generator=gen)
+    sid, _ = torch.sort(torch.randint(-3, vocab + 4, (n,), device="cuda",
+                                      generator=gen))
+    sid = sid.to(getattr(torch, key_dtype))
+    w = (torch.rand((n,), device="cuda", generator=gen) if weighted
+         else None)
+    launches = cuda_tiled.launches["gather_sorted"]
+    got = cuda_tiled.gather_sorted(table, sid, w)
+    want = cuda_tiled.gather_sorted_plain(table, sid, w)
+    torch.cuda.synchronize()
+    assert cuda_tiled.launches["gather_sorted"] == launches + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("width", [8, 16, 6, 128, 256])
+@pytest.mark.parametrize("kind", ["sgd", "adagrad", "adam"])
+def test_stream_kernels_match_plain_bit_for_bit(gen, width, kind):
+    """Three accumulating steps on duplicate-heavy streams with ids out of
+    range, the kernel and its plain version on the card."""
+    vocab = 600
+    table = torch.empty((vocab, width), device="cuda").uniform_(
+        -0.05, 0.05, generator=gen)
+    init = 0.1 if kind == "adagrad" else 0.0
+    states = [torch.full_like(table, init)
+              for _ in range({"sgd": 0, "adagrad": 1, "adam": 2}[kind])]
+    ref = [t.clone() for t in [table] + states]
+    kernel = getattr(cuda_tiled, f"{kind}_stream")
+    plain = getattr(cuda_tiled, f"{kind}_stream_plain")
+    for step in range(1, 4):
+        ids, contribs = _stream(gen, vocab, 3000, width)
+        gs = embedding_ops.canonical_id_sort(ids, vocab)
+        starts, _ = embedding_ops.segment_bounds(gs.seg_start)
+        args = (contribs, gs.sid, gs.perm, starts, 0.05)
+        if kind == "adagrad":
+            args += (1e-7,)
+        elif kind == "adam":
+            c1, c2 = sparse_update.bias_corrections(step, 0.9, 0.999)
+            args += (0.9, 0.999, 1e-8, c1, c2)
+        launches = cuda_tiled.launches[f"{kind}_stream"]
+        kernel(table, *states, *args)
+        plain(*ref, *args)
+        torch.cuda.synchronize()
+        assert cuda_tiled.launches[f"{kind}_stream"] == launches + 1
+    for got, want in zip([table] + states, ref):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("path", ["tiled", "fused"])
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+def test_sorted_lookups_and_backward_match_the_cpu(gen, path, combiner):
+    """Forward and both gradients of the sorted lookups on the card against
+    the same calls on CPU copies (plain versions): the table gradient of
+    a sum bit for bit (the stream sgd at lr -1 sums in sorted order on
+    both), everything else at rtol 1e-5 (the hotness sums, einsums and the
+    mean's weight sums run in the libraries' own order)."""
+    fn = {"tiled": cuda_tiled.tiled_embedding_lookup,
+          "fused": cuda_tiled.fused_lookup_combine}[path]
+    vocab, batch, hot, width = 500, 700, 10, 16
+    table = torch.empty((vocab, width), device="cuda").uniform_(
+        -0.05, 0.05, generator=gen)
+    ids = torch.randint(-2, vocab + 2, (batch, hot), device="cuda",
+                        generator=gen).int()
+    weights = torch.rand((batch, hot), device="cuda", generator=gen)
+    cot = torch.randn((batch, width), device="cuda", generator=gen)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        t = table.to(dev).requires_grad_()
+        w = weights.to(dev).requires_grad_()
+        out = fn(t, ids.to(dev), w, combiner)
+        dt, dw = torch.autograd.grad((out * cot.to(dev)).sum(), [t, w])
+        outs.append([x.detach().cpu() for x in (out, dt, dw)])
+    (out, dt, dw), (out_c, dt_c, dw_c) = outs
+    if combiner == "sum":
+        assert torch.equal(dt, dt_c)
+    torch.testing.assert_close(dt, dt_c, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(out, out_c, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(dw, dw_c, rtol=1e-5, atol=1e-6)

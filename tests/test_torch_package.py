@@ -172,7 +172,7 @@ def test_sparse_wrappers_refuse_what_the_kernel_does_not_take(bad):
 
 
 @pytest.mark.parametrize("kwargs", [dict(strategy="dense"),
-                                    dict(strategy="tiled")])
+                                    dict(strategy="dense", optimizer="sgd")])
 def test_train_step_outside_the_slice_raises(kwargs):
     model = DLRM([10, 20], embedding_dim=8, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A2"):

@@ -186,9 +186,11 @@ def test_sparse_optimizers_match_jax_sort_strategy(optimizer):
 
 
 def test_unported_strategies_raise():
-    for strategy in ("dense", "tiled"):
+    for kind in ("sgd", "adagrad", "adam"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue A2"):
-            pt_su.make_sparse_optimizer("adagrad", 0.1, strategy=strategy)
+            pt_su.make_sparse_optimizer(kind, 0.1, strategy="dense")
+        assert pt_su.make_sparse_optimizer(kind, 0.1,
+                                           strategy="tiled").kind == kind
     with pytest.raises(ValueError):
         pt_su.make_sparse_optimizer("adagrad", 0.1, strategy="nope")
 
