@@ -6,6 +6,26 @@
 Phases, each printing JSON lines before the last line:
   1. device: the card's name and power limit; TF32 off for matmuls and
      convolutions, so float32 means float32.
+  2a. ladder: the Hopper feature ladder
+     (`distributed_embeddings_tpu_torch.tools.cuda_feature_probe`, the
+     counterpart of tools/tpu_mosaic_probe.py), before the production
+     build, so a build fault there arrives with the feature matrix
+     printed. The toolkit's release, then nine rungs, each built by its
+     own nvcc (all at once) and run even after a failure: vmem (static
+     shared memory, the sm_90a target), anyspace (a TMA tensor map as a
+     kernel parameter, 128 KB of shared memory), dma (a bulk copy on an
+     mbarrier), dyn_dma (cp.async at a runtime row), prefetch (a TMA load
+     at a runtime coordinate), loop_dma (8 TMA loads in flight on 8
+     mbarriers), blockspec_gather (index-driven tiles, a carried
+     accumulator, in place), rmw_scatter (`sgd_rows` at lr -1) and
+     tiled_kernels (the stream kernels and `gather_sorted`). Every kernel
+     bit-equal to its plain version on the JAX rung's inputs and on
+     distinct-row inputs (t[r, c] = r * 128 + c). One line per rung
+     (registers, shared memory and spills from the compiler's log); then
+     the run fails if any rung failed. Launches: 2 per rung kernel, 1 each
+     of sgd_rows, gather_sorted and the three stream kernels. Then each
+     rung kernel timed at the JAX rung's inputs beside its plain version,
+     one library call and its bound.
   2. build: nvcc compiles every kernel of the paths from ``csrc/`` (one
      nvcc per source, all at once): lookup_combine.cu, sparse_apply.cu,
      sorted_stream.cu (the last two share row_rules.cuh).
@@ -137,11 +157,20 @@ TPU_SITES = {
     "sgd_stream": ["distributed_embeddings_tpu/ops/pallas_tiled.py:340 (via tiled_sgd :382)"],
     "adagrad_stream": ["distributed_embeddings_tpu/ops/pallas_tiled.py:340 (via tiled_adagrad :398)"],
     "adam_stream": ["distributed_embeddings_tpu/ops/pallas_tiled.py:340 (via tiled_adam :470)"],
+    "probe_vmem": ["tools/tpu_mosaic_probe.py:42"],
+    "probe_anyspace": ["tools/tpu_mosaic_probe.py:53"],
+    "probe_dma": ["tools/tpu_mosaic_probe.py:70"],
+    "probe_dyn_dma": ["tools/tpu_mosaic_probe.py:90"],
+    "probe_prefetch": ["tools/tpu_mosaic_probe.py:119"],
+    "probe_loop_dma": ["tools/tpu_mosaic_probe.py:148"],
+    "probe_blockspec_gather": ["tools/tpu_mosaic_probe.py:222"],
 }
 # the kernels of every path, by the module that counts their launches
 ALL_KERNELS = ("lookup_combine", "segment_sum_sorted", "sgd_rows",
                "adagrad_rows", "adam_rows", "gather_sorted", "sgd_stream",
-               "adagrad_stream", "adam_stream")
+               "adagrad_stream", "adam_stream", "probe_vmem", "probe_anyspace",
+               "probe_dma", "probe_dyn_dma", "probe_prefetch",
+               "probe_loop_dma", "probe_blockspec_gather")
 # device memory rate by card (NVIDIA data sheets); float32 outside the
 # tensor cores: 67 TFLOP/s (H100 SXM)
 HBM_BYTES_PER_S = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
@@ -202,26 +231,10 @@ def eager_ms(fn, reps, warmup=2):
 def device_ms(fn, reps, replays=3):
     """Device time of one `fn` call: `reps` calls captured in one CUDA
     graph, replayed `replays` times (CUDA events), so no host launch cost
-    sits between the kernels."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-
-    def run():
-        for _ in range(replays):
-            graph.replay()
-    ms = _event_ms(run, reps * replays)
-    del graph
-    return ms
+    sits between the kernels (the feature ladder's timer)."""
+    from distributed_embeddings_tpu_torch.tools.cuda_feature_probe import (
+        graph_us)
+    return graph_us(fn, reps, replays) / 1e3
 
 
 def mean_weights(weights, combiner):
@@ -1328,6 +1341,83 @@ def step_time(torch, step, model, state, batches, label):
     return state
 
 
+def ladder_work(rung, args):
+    """(bytes, float32 operations) the rung's function needs on `args`
+    (the JAX rung's inputs): each input byte it reads once, each output
+    byte written once; gathered rows counted once each."""
+    row = args[-1].shape[1] * 4
+    if rung == "vmem":
+        return 2 * args[0].numel() * 4, args[0].numel()
+    if rung == "anyspace":              # zeros; the table is not read
+        return 256 * row, 0
+    if rung == "dma":                   # t[0:256] read, out written
+        return 2 * 256 * row, 0
+    if rung in ("dyn_dma", "prefetch", "loop_dma"):
+        ids = args[0][:1] if rung == "dyn_dma" else args[0]
+        unique = int(ids.unique().numel())
+        out_rows = 1 if rung != "prefetch" else ids.numel()
+        adds = (ids.numel() - 1) * row // 4 if rung == "loop_dma" else 0
+        return ids.numel() * 4 + unique * row + out_rows * row, adds
+    if rung == "blockspec_gather":      # tof, cof, the chunks, hp, the tile
+        tof, cof, ids, _, _ = args
+        steps, chunk = tof.numel(), ids.shape[1]
+        chunks = int(cof.unique().numel())
+        tile = 8 * row
+        return (2 * steps * 4 + chunks * chunk * 4 + 4 + 2 * tile,
+                steps * chunk + 2 * steps * 8 + tile // 4)
+    raise KeyError(rung)
+
+
+def ladder_library(torch, rung, args):
+    """One PyTorch call computing the rung's function (a yardstick only)."""
+    if rung == "anyspace":
+        out = torch.empty((256, args[0].shape[1]), device=args[0].device)
+        return out.zero_
+    if rung == "vmem":
+        return lambda: torch.mul(args[0], 2.0)
+    if rung == "dma":
+        out = torch.empty((256, args[0].shape[1]), device=args[0].device)
+        return lambda: out.copy_(args[0][:256])
+    if rung in ("dyn_dma", "prefetch"):
+        ids = args[0][:1] if rung == "dyn_dma" else args[0]
+        return lambda: torch.index_select(args[1], 0, ids)
+    if rung == "loop_dma":
+        return lambda: torch.index_select(args[1], 0, args[0]).sum(0)
+    if rung == "blockspec_gather":
+        # table rows of tile tof[-1] += hp once per occurrence
+        tof, cof, ids, hp, table = args
+        rows = []
+        for t, c in zip(tof.tolist(), cof.tolist()):
+            local = ids[c].long() - t * 8
+            rows.append(local[(local >= 0) & (local < 8)] + tof[-1] * 8)
+        rows = torch.cat(rows)
+        src = hp.reshape(1, 1).expand(rows.numel(), table.shape[1])
+        work = table.clone()
+        return lambda: work.index_add_(0, rows, src)
+    raise KeyError(rung)
+
+
+def ladder_kernels(torch, probe, rate):
+    """Phase 2a timing: each rung kernel at the JAX rung's inputs, device
+    ms per launch (CUDA graph replays) beside its plain version (eager),
+    one library call and its bound. Returns totals per kernel."""
+    totals = {}
+    for rung, (kernel, fn, plain, _) in probe.KERNEL_RUNGS.items():
+        args = [torch.from_numpy(a).cuda() for a in probe.rung_inputs(rung)]
+        n_bytes, n_ops = ladder_work(rung, args)
+        ms = device_ms(lambda: fn(*args), reps=100)
+        plain_ms = eager_ms(lambda: plain(*args), reps=20)
+        library_ms = device_ms(ladder_library(torch, rung, args), reps=100)
+        bytes_ms = n_bytes / rate * 1e3
+        ops_ms = n_ops / F32_FLOP_PER_S * 1e3
+        totals[kernel] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                              bound_ms=max(bytes_ms, ops_ms),
+                              bytes_ms=bytes_ms, ops_ms=ops_ms)
+        emit(phase="ladder_kernel", rung=rung, kernel=kernel, bytes=n_bytes,
+             operations=n_ops, **totals[kernel])
+    return totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1349,6 +1439,8 @@ def main() -> int:
     from distributed_embeddings_tpu_torch.serving.batcher import MicroBatcher
     from distributed_embeddings_tpu_torch.serving.engine import (
         InferenceEngine)
+    from distributed_embeddings_tpu_torch.tools import cuda_feature_probe
+    counted = (cuda_sparse, cuda_tiled, cuda_feature_probe)
 
     # ---- 1. device
     card = card_line()
@@ -1358,6 +1450,27 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     emit(phase="device", name=name, count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda)
+    rate = hbm_rate(name)
+
+    # ---- 2a. the feature ladder: every rung printed, then held
+    emit(phase="nvcc", release=kernel_build.nvcc_version())
+    t0 = time.perf_counter()
+    set_counts(cuda_lookup, *counted)
+    matrix = cuda_feature_probe.run_ladder("cuda")
+    ladder_counts = read_counts(cuda_lookup, *counted)
+    for rung in matrix:
+        emit(phase="ladder", **rung)
+    failed = [rung["rung"] for rung in matrix if not rung["ok"]]
+    check(not failed, f"feature ladder rungs failed: {failed}")
+    torch.cuda.synchronize()
+    want_counts = {**dict.fromkeys(cuda_feature_probe.launches, 2),
+                   "sgd_rows": 1, "gather_sorted": 1, "sgd_stream": 1,
+                   "adagrad_stream": 1, "adam_stream": 1}
+    emit(phase="main_path", path="ladder", rungs=len(matrix),
+         seconds=time.perf_counter() - t0, launches=ladder_counts)
+    check(ladder_counts == per_step(want_counts, 1),
+          f"ladder launches {ladder_counts}, want {want_counts}")
+    ladder_rows = ladder_kernels(torch, cuda_feature_probe, rate)
 
     # ---- 2. build
     t0 = time.perf_counter()
@@ -1391,13 +1504,13 @@ def main() -> int:
              for lo, hi in BATCHER_SPANS]
 
     # the serving path: counts to 0, drive, read
-    set_counts(cuda_lookup, cuda_sparse, cuda_tiled)
+    set_counts(cuda_lookup, *counted)
     outs = [engine.predict(req) for req in requests]
     batcher = MicroBatcher(engine)
     handles = [batcher.submit(req) for req in spans]
     flushed = batcher.flush()
     torch.cuda.synchronize()
-    serve_counts = read_counts(cuda_lookup, cuda_sparse, cuda_tiled)
+    serve_counts = read_counts(cuda_lookup, *counted)
     launches = serve_counts["lookup_combine"]
     forwards = len(requests) + batcher.batches
     emit(phase="main_path", path="serve", forwards=forwards,
@@ -1454,7 +1567,6 @@ def main() -> int:
         engine.predict(requests[-1])
     captured = [args + (None,) * (3 - len(args)) for args in cap.calls]
     check(len(captured) == 4, f"{len(captured)} groups captured, want 4")
-    rate = hbm_rate(name)
     tiny_worst, totals = tiny_bucket_kernels(torch, cuda_lookup, captured,
                                              rate)
     emit(phase="tiny_kernel_total", hbm_bytes_per_s=rate, **totals)
@@ -1495,13 +1607,13 @@ def main() -> int:
     # card's state before it
     t0 = time.perf_counter()
     _, cpu_step = make_sparse_train_step(cpu_model, "adagrad", lr=TRAIN_LR)
-    set_counts(cuda_lookup, cuda_sparse, cuda_tiled)
+    set_counts(cuda_lookup, *counted)
     state, held = train_against_cpu(torch, rows_capture(cuda_sparse,
                                                         "adagrad"),
                                     "adagrad", "change", step, model, state,
                                     cpu_step, cpu_model, batches)
     torch.cuda.synchronize()
-    train_counts = read_counts(cuda_lookup, cuda_sparse, cuda_tiled)
+    train_counts = read_counts(cuda_lookup, *counted)
     losses = held["losses"]
     emit(phase="main_path", path="train_adagrad", steps=TRAIN_STEPS,
          launches=train_counts, losses=losses)
@@ -1597,13 +1709,13 @@ def main() -> int:
     state = init(model)
     _, cpu_step = make_sparse_train_step(cpu_model, "adagrad", lr=TRAIN_LR,
                                          strategy="pallas")
-    set_counts(cuda_lookup, cuda_sparse, cuda_tiled)
+    set_counts(cuda_lookup, *counted)
     state, held = train_against_cpu(
         torch, rows_capture(cuda_sparse, "adagrad"), "adagrad", "change",
         step, model, state, cpu_step, cpu_model, batches[:FUSED_HELD_STEPS],
         scaled=True)
     torch.cuda.synchronize()
-    fused_counts = read_counts(cuda_lookup, cuda_sparse, cuda_tiled)
+    fused_counts = read_counts(cuda_lookup, *counted)
     del cpu_model
     want_counts = {"gather_sorted": 4, "segment_sum_sorted": 2,
                    "adagrad_rows": 2}
@@ -1663,13 +1775,13 @@ def main() -> int:
         cpu_cut = SyntheticModel(cut, device="cpu")
         init, step = make_sparse_train_step(cut_model, kind, lr=TRAIN_LR)
         _, cpu_step = make_sparse_train_step(cpu_cut, kind, lr=TRAIN_LR)
-        set_counts(cuda_lookup, cuda_sparse, cuda_tiled)
+        set_counts(cuda_lookup, *counted)
         state, held = train_against_cpu(
             torch, rows_capture(cuda_sparse, kind), kind, "value", step,
             cut_model, init(cut_model), cpu_step, cpu_cut,
             cut_batches[:TRAIN_STEPS])
         torch.cuda.synchronize()
-        counts = read_counts(cuda_lookup, cuda_sparse, cuda_tiled)
+        counts = read_counts(cuda_lookup, *counted)
         cut_counts[kind] = counts
         want = {"lookup_combine": 4, "segment_sum_sorted": 2,
                 f"{kind}_rows": 2}
@@ -1721,14 +1833,14 @@ def main() -> int:
                                             strategy="tiled")
         _, cpu_step = make_sparse_train_step(cpu_c, kind, lr=TRAIN_LR,
                                              strategy="tiled")
-        set_counts(cuda_lookup, cuda_sparse, cuda_tiled)
+        set_counts(cuda_lookup, *counted)
         state, held = train_against_cpu(
             torch, stream_capture(cuda_tiled, kind), kind,
             "value" if kind == "adam" else "change", step, cmodel,
             init(cmodel), cpu_step, cpu_c, cri_batches[:TILED_HELD_STEPS],
             scaled=True)
         torch.cuda.synchronize()
-        counts = read_counts(cuda_lookup, cuda_sparse, cuda_tiled)
+        counts = read_counts(cuda_lookup, *counted)
         tiled_counts[kind] = counts
         want = {"gather_sorted": 1, f"{kind}_stream": 1}
         check(counts == per_step(want, TILED_HELD_STEPS),
@@ -1813,7 +1925,8 @@ def main() -> int:
                              else "operations"),
                 "library_ms": tot["library_ms"]}
 
-    paths = {"serve": serve_counts, "train_adagrad": train_counts,
+    paths = {"ladder": ladder_counts, "serve": serve_counts,
+             "train_adagrad": train_counts,
              "train_sgd_cut": cut_counts["sgd"],
              "train_adam_cut": cut_counts["adam"],
              "train_fused": fused_counts,
@@ -1845,6 +1958,10 @@ def main() -> int:
                              by_path(f"{kind}_stream"), tot,
                              max(tot["max_abs_err"],
                                  sorted_worst[f"{kind}_stream"])))
+    ladder_err = {rung["library"]: rung["max_abs_err"] for rung in matrix}
+    for kname, tot in ladder_rows.items():
+        kernels.append(entry(kname, f"{kname}.cu", by_path(kname), tot,
+                             ladder_err[kname]))
     emit(phase="sorted_lookups_backward",
          max_abs_err=sorted_worst["lookups"], ok=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -23,6 +23,10 @@ from distributed_embeddings_tpu_torch.serving.batcher import MicroBatcher
 from distributed_embeddings_tpu_torch.serving.engine import InferenceEngine
 from distributed_embeddings_tpu_torch.training import (fit,
                                                        make_sparse_train_step)
+from distributed_embeddings_tpu_torch.utils.device import (
+    settle_cpu_vector_math)
+
+settle_cpu_vector_math()
 
 __all__ = [
     "embedding_lookup",

@@ -6,12 +6,15 @@ the build, so one source compiles in seconds). Libraries land in
 ``build/torch_ext/`` at the repository root, named by a hash of the source
 and of the shared headers (``csrc/*.cuh``), so an edited source or header
 rebuilds and an unchanged one is reused. `build` starts
-one ``nvcc`` per source, all at once, and waits for every one.
+one ``nvcc`` per source, all at once, and waits for every one. ``nvcc``
+runs with ``-Xptxas -v``, and each library's compiler log (registers,
+shared memory and spills per kernel) is kept beside it (`log_path`).
 """
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -21,7 +24,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_ext")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -39,6 +42,13 @@ def _nvcc() -> str:
         "source on the machine with the card")
 
 
+def nvcc_version() -> str:
+    """The last line of ``nvcc --version`` (the toolkit's release)."""
+    out = subprocess.run([_nvcc(), "--version"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[-1]
+
+
 def library_path(name: str) -> str:
     """The library of ``csrc/<name>.cu``, named by a hash of the source,
     of every header in ``csrc/`` (which a source may include) and of the
@@ -51,10 +61,16 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
+def log_path(name: str) -> str:
+    """The compiler log of ``csrc/<name>.cu``, beside its library."""
+    return library_path(name)[:-len(".so")] + ".log"
+
+
 def build(names: Sequence[str]) -> Dict[str, str]:
     """Compile every named source that has no up-to-date library, one
     ``nvcc`` each, all started together. Returns name -> library path.
-    Raises with the compiler's output when a build fails."""
+    Each compiler log is written to `log_path`, on failure too. Raises
+    with the compiler's output when a build fails."""
     paths = {n: library_path(n) for n in names}
     todo = {n: p for n, p in paths.items() if not os.path.exists(p)}
     if not todo:
@@ -71,14 +87,46 @@ def build(names: Sequence[str]) -> Dict[str, str]:
                                      stderr=subprocess.STDOUT), tmp)
     failed = []
     for n, (proc, tmp) in procs.items():
-        log, _ = proc.communicate()
+        log = proc.communicate()[0].decode(errors="replace")
+        with open(log_path(n), "w") as f:
+            f.write(log)
         if proc.returncode != 0:
-            failed.append(f"{n}.cu:\n{log.decode(errors='replace')}")
+            failed.append(f"{n}.cu:\n{log}")
         else:
             os.replace(tmp, todo[n])
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return paths
+
+
+def ptxas_usage(name: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel of ``csrc/<name>.cu`` (its mangled name), from the
+    compiler log: ``registers`` a thread, static ``shared_bytes`` and
+    ``spill_bytes`` (spill stores + loads)."""
+    usage: Dict[str, Dict[str, int]] = {}
+    kernel = None
+    with open(log_path(name)) as f:
+        for line in f:
+            entry = re.search(r"Compiling entry function '([^']+)'", line)
+            if entry:
+                kernel = entry.group(1)
+                usage[kernel] = dict(registers=0, shared_bytes=0,
+                                     spill_bytes=0)
+                continue
+            if kernel is None:
+                continue
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                               r"loads", line)
+            if spills:
+                usage[kernel]["spill_bytes"] = (int(spills.group(1))
+                                                + int(spills.group(2)))
+            regs = re.search(r"Used (\d+) registers", line)
+            if regs:
+                usage[kernel]["registers"] = int(regs.group(1))
+                smem = re.search(r"(\d+) bytes smem", line)
+                if smem:
+                    usage[kernel]["shared_bytes"] = int(smem.group(1))
+    return usage
 
 
 def load(name: str) -> ctypes.CDLL:

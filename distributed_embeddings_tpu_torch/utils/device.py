@@ -33,3 +33,14 @@ def device_scalar(value: float, like: torch.Tensor) -> torch.Tensor:
     division on CUDA too, where a Python-number divisor becomes a multiply
     by its reciprocal."""
     return torch.full((), value, dtype=torch.float32, device=like.device)
+
+
+def settle_cpu_vector_math() -> None:
+    """Make the process's first call into MKL's vector math library (behind
+    torch's CPU ``sqrt``, ``exp``, ``log1p``, ...) on one thread. Its lazy
+    set-up races when that first call runs on several intra-op threads at
+    once: in about one process in ten, one thread's block of the result then
+    comes from a low-accuracy kernel (``x`` times a 12-bit reciprocal square
+    root estimate for ``sqrt``, about 3e-4 off). A one-element call, below
+    the intra-op grain, settles the set-up on the calling thread."""
+    torch.sqrt(torch.ones(1))

@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 
 from distributed_embeddings_tpu_torch.ops import cuda_lookup, cuda_sparse  # noqa: E402
 from distributed_embeddings_tpu_torch.ops import sparse_update  # noqa: E402
+from distributed_embeddings_tpu_torch.tools import cuda_feature_probe  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -230,3 +231,18 @@ def test_sorted_lookups_and_backward_match_the_cpu(gen, path, combiner):
     torch.testing.assert_close(dt, dt_c, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(out, out_c, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(dw, dw_c, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("rung", [r.name for r in cuda_feature_probe.RUNGS])
+def test_feature_ladder_rung_matches_plain_bit_for_bit(gen, rung):
+    """Every rung of the feature ladder on the card: each kernel bit-equal
+    to its plain version on the JAX rung's inputs and on the distinct-row
+    inputs (rungs 1-7), launched once per input set."""
+    (entry,) = [r for r in cuda_feature_probe.RUNGS if r.name == rung]
+    counts = dict(cuda_feature_probe.launches)
+    err, _ = entry.run(torch.device("cuda"))
+    torch.cuda.synchronize()
+    assert err == 0.0
+    if entry.library in cuda_feature_probe.launches:
+        assert (cuda_feature_probe.launches[entry.library]
+                == counts[entry.library] + 2)

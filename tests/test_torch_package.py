@@ -4,8 +4,8 @@ It imports neither jax nor the JAX package (at run time or in its source,
 nor does chip_smoke.py); its entry points default to the card and refuse
 to run without one; its CUDA wrapper launches the kernel or raises, never
 falling back to the plain version; features outside the slice raise
-NotImplementedError. The sparse kernels' wrappers and the train step
-follow the same rules.
+NotImplementedError. The sparse kernels' wrappers, the feature ladder's
+and the train step follow the same rules.
 """
 
 import ast
@@ -24,6 +24,7 @@ from distributed_embeddings_tpu_torch.models.synthetic import (  # noqa: E402
     SYNTHETIC_MODELS, SyntheticModel)
 from distributed_embeddings_tpu_torch.ops import cuda_lookup, cuda_sparse  # noqa: E402
 from distributed_embeddings_tpu_torch.ops import sparse_update  # noqa: E402
+from distributed_embeddings_tpu_torch.tools import cuda_feature_probe  # noqa: E402
 from distributed_embeddings_tpu_torch.training import (  # noqa: E402
     fit, make_sparse_train_step)
 
@@ -153,6 +154,32 @@ def test_sparse_wrappers_launch_the_kernel_or_raise(kernel, monkeypatch):
         with pytest.raises(RuntimeError, match="nvcc"):
             call()
     assert cuda_sparse.launches == before
+
+
+@pytest.mark.parametrize("rung", list(cuda_feature_probe.KERNEL_RUNGS))
+def test_probe_wrappers_launch_the_kernel_or_raise(rung, monkeypatch):
+    """A CUDA tensor never reaches a feature-ladder rung's plain version:
+    here, with no nvcc, building the rung's kernel raises."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    _, wrapper, plain, _ = cuda_feature_probe.KERNEL_RUNGS[rung]
+
+    def reached(*args):
+        raise AssertionError("plain version reached with a CUDA tensor")
+
+    monkeypatch.setattr(cuda_feature_probe, plain.__name__, reached)
+    monkeypatch.setattr(cuda_feature_probe.kernel_build, "_LIBS", {})
+    monkeypatch.setattr(cuda_feature_probe.kernel_build.shutil, "which",
+                        lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    before = dict(cuda_feature_probe.launches)
+    arrays = cuda_feature_probe.rung_inputs(rung)
+    with FakeTensorMode():
+        args = [torch.empty(a.shape, dtype=getattr(torch, str(a.dtype)),
+                            device="cuda") for a in arrays]
+        with pytest.raises(RuntimeError, match="nvcc"):
+            wrapper(*args)
+    assert cuda_feature_probe.launches == before
 
 
 @pytest.mark.parametrize("bad", [
