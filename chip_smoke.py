@@ -37,8 +37,9 @@ Phases, each printing JSON lines before the last line:
      like the model's (uniform +-0.05).
      sparse_kernel: `segment_sum_sorted` (through `dedup_sum`) and the
      three row kernels against their plain versions at widths 8..256, on
-     streams with duplicates, negative ids, ids >= V and the dedup filler
-     tail, three accumulating steps each. The segment sum bit-equal to its
+     streams with duplicates (a hot row about 4,000 rows long and a warm
+     one of 3T + 1 rows, T the segment walk's threshold), negative ids,
+     ids >= V and the dedup filler tail, three accumulating steps each. The segment sum bit-equal to its
      plain version on a CPU copy (both add in sorted order) and within
      atol 1e-6 + rtol 1e-5 of the segment's sum of magnitudes of the card's
      `index_add_` (atomics, another order each run); the row
@@ -79,8 +80,11 @@ Phases, each printing JSON lines before the last line:
      of 10 synchronized steps after 2 warm ones, samples/s, peak memory,
      one step under torch.profiler, and the new kernels at the shapes one
      step gives them (the segment sum bit-equal to its plain version on
-     CPU copies), timed like phase 4's, with U (unique rows) and the
-     longest segment per bucket.
+     CPU copies), timed like phase 4's, with U (unique rows), the
+     longest segment per bucket and ``chain_ms``: the longest segment
+     times 4 cycles (one dependent add a row, the chain its sorted-order
+     sum forces) at the SM clock nvidia-smi reads while the kernel runs,
+     printed beside the bound.
      5b. train_fused: the same model from its initial weights through
      ``lookup_path="fused"`` + ``strategy="pallas"``, adagrad: 3 steps
      held like phase 5's (the change bar widened by `gradient_scale`'s
@@ -100,8 +104,8 @@ Phases, each printing JSON lines before the last line:
      adam by value with phase 6's rule); launches 1 / 1 per step
      (gather_sorted / <opt>_stream); 1 sort per step, 2 with
      ``fold_sort=False`` and the same step bit for bit; step times and a
-     profile; the stream kernels at the step's shapes, with N, U and the
-     longest segment.
+     profile; the stream kernels at the step's shapes, with N, U, the
+     longest segment and ``chain_ms``.
   7. the kernels line, the card's line, and the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -463,10 +467,15 @@ def hold_segment_sum(torch, got, want):
 
 
 def _sparse_stream(torch, gen, vocab, n, width):
-    """Ids with a hot row, negative ids and ids >= V; contribution rows."""
+    """Ids with a hot row (about n / 5 rows), a warm row of 3T + 1 rows
+    spread over the stream (T: the segment walk's threshold), negative ids
+    and ids >= V; contribution rows."""
+    from distributed_embeddings_tpu_torch.ops import cuda_sparse
     ids = torch.randint(0, vocab, (n,), device="cuda", generator=gen)
     hot = torch.rand((n,), device="cuda", generator=gen) < 0.2
     ids[hot] = 7
+    t = cuda_sparse.long_rows()
+    ids[torch.arange(2, n, n // (3 * t + 1), device="cuda")[:3 * t + 1]] = 11
     ids[::97] = -1
     ids[1::89] = vocab + 5
     return ids.int(), torch.randn((n, width), device="cuda", generator=gen)
@@ -957,9 +966,12 @@ def time_segment_calls(torch, cuda_sparse, calls, rate):
     """`segment_sum_sorted` at the shapes of one step (one call per
     bucket): the kernel bit-equal to its plain version on CPU copies of
     the same inputs, U, the longest segment, kernel / plain / `index_add_`
-    time and the bound. Returns (totals, worst abs error)."""
+    time, the bound and `chain_ms` (the longest segment's chain of adds
+    at the SM clock read while the kernel runs). Returns (totals, worst
+    abs error)."""
+    from distributed_embeddings_tpu_torch.tools import segment_tail
     totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
-                  ops_ms=0.0, library_ms=0.0)
+                  ops_ms=0.0, library_ms=0.0, chain_ms=0.0)
     worst = 0.0
     for b, (contribs, perm, starts) in enumerate(calls):
         n, width = contribs.shape
@@ -969,15 +981,16 @@ def time_segment_calls(torch, cuda_sparse, calls, rate):
         err = hold_segment_sum(torch, got, want)
         worst = max(worst, err)
         del got, want
-        lengths = starts[1:] - starts[:-1]
-        unique = int((lengths > 0).sum().item())
-        longest = int(lengths.max().item())
+        unique, longest = segment_tail.segment_stats(starts)
         seg = cuda_sparse._segment_ids(starts, n)
         seg_of_row = torch.empty_like(seg)
         seg_of_row[perm] = seg
         out = torch.zeros((n, width), device="cuda")
         ms = device_ms(lambda: cuda_sparse.segment_sum_sorted(
             contribs, perm, starts), reps=3)
+        mhz = segment_tail.sm_clock_mhz(
+            lambda: cuda_sparse.segment_sum_sorted(contribs, perm, starts))
+        chain = segment_tail.chain_ms(longest, mhz)
         plain_ms = device_ms(lambda: cuda_sparse.segment_sum_sorted_plain(
             contribs, perm, starts), reps=3)
         library_ms = device_ms(
@@ -990,9 +1003,10 @@ def time_segment_calls(torch, cuda_sparse, calls, rate):
              unique_rows=unique, longest_segment=longest, max_abs_err=err,
              ms=ms,
              plain_ms=plain_ms, library_ms=library_ms,
-             bound_ms=max(bytes_ms, ops_ms), bytes=n_bytes)
+             bound_ms=max(bytes_ms, ops_ms), chain_ms=chain,
+             sm_clock_mhz=mhz, bytes=n_bytes)
         for key, val in (("ms", ms), ("plain_ms", plain_ms),
-                         ("library_ms", library_ms),
+                         ("library_ms", library_ms), ("chain_ms", chain or 0.0),
                          ("bound_ms", max(bytes_ms, ops_ms)),
                          ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
             totals[key] += val
@@ -1275,14 +1289,15 @@ def time_stream_calls(torch, cuda_tiled, kind, calls, rate):
     """The stream kernel at the shapes of one step: bit-equal to its
     plain version on copies of the arrays, N, U and the longest segment,
     kernel / plain / library time (`index_add_` of the contributions
-    scaled by -lr for sgd; none for adagrad and adam) and the bound.
-    Returns totals."""
+    scaled by -lr for sgd; none for adagrad and adam), the bound and
+    `chain_ms`, as `time_segment_calls`. Returns totals."""
+    from distributed_embeddings_tpu_torch.tools import segment_tail
     n_arrays = {"sgd": 1, "adagrad": 2, "adam": 3}[kind]
     kernel = getattr(cuda_tiled, f"{kind}_stream")
     plain = getattr(cuda_tiled, f"{kind}_stream_plain")
     totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
                   ops_ms=0.0, library_ms=0.0 if kind == "sgd" else None,
-                  max_abs_err=0.0)
+                  max_abs_err=0.0, chain_ms=0.0)
     for c, args in enumerate(calls):
         arrays, rest = args[:n_arrays], args[n_arrays:]
         contribs, keys, perm, starts = rest[:4]
@@ -1295,10 +1310,10 @@ def time_stream_calls(torch, cuda_tiled, kind, calls, rate):
         err = max(hold_bit_equal(torch, f"{kind}_stream", a, b)
                   for a, b in zip(got, want))
         del want
-        lengths = starts[1:] - starts[:-1]
-        u = int((lengths > 0).sum().item())
-        longest = int(lengths.max().item())
+        u, longest = segment_tail.segment_stats(starts)
         ms = device_ms(lambda: kernel(*got, *rest), reps=3)
+        mhz = segment_tail.sm_clock_mhz(lambda: kernel(*got, *rest))
+        chain = segment_tail.chain_ms(longest, mhz)
         plain_ms = eager_ms(lambda: plain(*got, *rest), reps=3)
         library_ms = None
         if kind == "sgd":
@@ -1313,8 +1328,10 @@ def time_stream_calls(torch, cuda_tiled, kind, calls, rate):
              rows=keys.numel(), unique_rows=u, longest_segment=longest,
              max_abs_err=err, ms=ms, plain_ms=plain_ms,
              library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
-             bytes_ms=bytes_ms, ops_ms=ops_ms, ok=True)
+             chain_ms=chain, sm_clock_mhz=mhz, bytes_ms=bytes_ms,
+             ops_ms=ops_ms, ok=True)
         for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                         ("chain_ms", chain or 0.0),
                          ("bound_ms", max(bytes_ms, ops_ms)),
                          ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
             totals[key] += val
@@ -1923,7 +1940,9 @@ def main() -> int:
                 "bound_ms": tot["bound_ms"],
                 "bound_by": ("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
                              else "operations"),
-                "library_ms": tot["library_ms"]}
+                "library_ms": tot["library_ms"],
+                **({"chain_ms": tot["chain_ms"]} if "chain_ms" in tot
+                   else {})}
 
     paths = {"ladder": ladder_counts, "serve": serve_counts,
              "train_adagrad": train_counts,

@@ -30,16 +30,22 @@
 // through `_update_call` on raw streams (tiled_sgd, tiled_adagrad,
 // tiled_adam; the lookup backward's dense table gradient is sgd_stream at
 // lr = -1 over a zero table). The TPU kernels aggregate duplicates inside a
-// one-hot matmul over every visited table tile; here one thread group walks
-// one segment, so no two groups touch a row and no atomics are needed: the
-// same step gives the same table every time.
+// one-hot matmul over every visited table tile; here one worker (a thread
+// group, or a block for a long segment) walks one segment, so no two
+// workers touch a row and no atomics are needed: the same step gives the
+// same table every time.
 // Bound: bytes. The 4*N*W bytes of contributions, the perm and starts
 // entries and the segments' keys read once, and 8*W*U*(1 + n_state): the U
 // valid rows of the table and of each of its n_state state arrays (0 sgd,
-// 1 adagrad, 2 adam) read and written once.
-// Known hazard (not fixed here, as in segment_sum_sorted): the hottest row
-// of a power-law stream is one long segment that one thread group walks
-// serially, and it sets the time.
+// 1 adagrad, 2 adam) read and written once. Beside it, the chain of
+// dependent adds the sorted order forces on the longest segment (about 4
+// cycles a row). The walk is segment_walk.cuh's, shared with
+// segment_sum_sorted: a segment of at most kLongRows rows is summed by its
+// thread group, a longer one (the hottest row of a power-law stream) by a
+// block of the persistent long pass, which streams it through a cp.async
+// ring in shared memory and applies the rule once, after the total. One
+// call: a memset of the worklist count, the short pass, the long pass
+// (three CUDA launches).
 //
 // Design, as lookup_combine.cu and sparse_apply.cu: one thread group per
 // output row or segment, float4 column slices, every operation rounded on
@@ -49,6 +55,7 @@
 // arithmetic is 64-bit.
 
 #include "row_rules.cuh"
+#include "segment_walk.cuh"
 
 namespace {
 
@@ -101,25 +108,6 @@ __device__ __forceinline__ int64_t segment_row(const IdT* sid,
   return (r < 0 || r >= vocab) ? -1 : r;
 }
 
-// This thread's columns [c, c + kVec) of the segment's total, summed in
-// ascending sorted position from 0.
-template <int kVec>
-__device__ __forceinline__ void segment_total(const float* contribs,
-                                              int64_t width,
-                                              const int64_t* perm, int64_t lo,
-                                              int64_t hi, int64_t c,
-                                              float (&acc)[kVec]) {
-#pragma unroll
-  for (int e = 0; e < kVec; ++e) acc[e] = 0.f;
-#pragma unroll 4
-  for (int64_t j = lo; j < hi; ++j) {
-    float v[kVec];
-    Vec<kVec>::load(contribs + perm[j] * width + c, v);
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) acc[e] = __fadd_rn(acc[e], v[e]);
-  }
-}
-
 template <typename IdT, bool kVec4>
 __global__ void __launch_bounds__(kThreads)
 sgd_stream_kernel(float* __restrict__ table, int64_t vocab, int64_t width,
@@ -127,17 +115,18 @@ sgd_stream_kernel(float* __restrict__ table, int64_t vocab, int64_t width,
                   const IdT* __restrict__ sid,
                   const int64_t* __restrict__ perm,
                   const int64_t* __restrict__ starts, int64_t n, float neg_lr,
-                  int lane_shift) {
+                  int64_t* scratch, int lane_shift) {
   constexpr int kVec = kVec4 ? 4 : 1;
   const Group g = group_of(lane_shift);
   if (g.slot >= n) return;
   int64_t lo, hi;
   const int64_t r = segment_row(sid, starts, g.slot, vocab, &lo, &hi);
   if (r < 0) return;
+  if (segment_walk::defer_long(lo, hi, g.lane, g.slot, scratch)) return;
   for (int64_t c = static_cast<int64_t>(g.lane) * kVec; c < width;
        c += static_cast<int64_t>(g.lanes) * kVec) {
     float s[kVec];
-    segment_total<kVec>(contribs, width, perm, lo, hi, c, s);
+    segment_walk::segment_total<kVec>(contribs, width, perm, lo, hi, c, s);
     row_rules::sgd_row<kVec>(table + r * width + c, s, neg_lr);
   }
 }
@@ -150,17 +139,19 @@ adagrad_stream_kernel(float* __restrict__ table, float* __restrict__ acc,
                       const IdT* __restrict__ sid,
                       const int64_t* __restrict__ perm,
                       const int64_t* __restrict__ starts, int64_t n,
-                      float neg_lr, float eps, int lane_shift) {
+                      float neg_lr, float eps, int64_t* scratch,
+                      int lane_shift) {
   constexpr int kVec = kVec4 ? 4 : 1;
   const Group g = group_of(lane_shift);
   if (g.slot >= n) return;
   int64_t lo, hi;
   const int64_t r = segment_row(sid, starts, g.slot, vocab, &lo, &hi);
   if (r < 0) return;
+  if (segment_walk::defer_long(lo, hi, g.lane, g.slot, scratch)) return;
   for (int64_t c = static_cast<int64_t>(g.lane) * kVec; c < width;
        c += static_cast<int64_t>(g.lanes) * kVec) {
     float s[kVec];
-    segment_total<kVec>(contribs, width, perm, lo, hi, c, s);
+    segment_walk::segment_total<kVec>(contribs, width, perm, lo, hi, c, s);
     row_rules::adagrad_row<kVec>(table + r * width + c, acc + r * width + c,
                                  s, neg_lr, eps);
   }
@@ -174,28 +165,100 @@ adam_stream_kernel(float* __restrict__ table, float* __restrict__ mu,
                    const IdT* __restrict__ sid,
                    const int64_t* __restrict__ perm,
                    const int64_t* __restrict__ starts, int64_t n, AdamHp hp,
-                   int lane_shift) {
+                   int64_t* scratch, int lane_shift) {
   constexpr int kVec = kVec4 ? 4 : 1;
   const Group g = group_of(lane_shift);
   if (g.slot >= n) return;
   int64_t lo, hi;
   const int64_t r = segment_row(sid, starts, g.slot, vocab, &lo, &hi);
   if (r < 0) return;
+  if (segment_walk::defer_long(lo, hi, g.lane, g.slot, scratch)) return;
   for (int64_t c = static_cast<int64_t>(g.lane) * kVec; c < width;
        c += static_cast<int64_t>(g.lanes) * kVec) {
     float s[kVec];
-    segment_total<kVec>(contribs, width, perm, lo, hi, c, s);
+    segment_walk::segment_total<kVec>(contribs, width, perm, lo, hi, c, s);
     row_rules::adam_row<kVec>(table + r * width + c, mu + r * width + c,
                               nu + r * width + c, s, hp);
   }
 }
+
+// The long passes: each worklist segment's total, then the segment's rule
+// once on its row, one column a thread (the short pass queued only
+// segments whose key lies in [0, V)). Their names keep `_stream_kernel`.
+template <typename IdT>
+__global__ void __launch_bounds__(segment_walk::kLongThreads)
+sgd_long_stream_kernel(float* __restrict__ table, int64_t vocab,
+                       int64_t width, const float* __restrict__ contribs,
+                       const IdT* __restrict__ sid,
+                       const int64_t* __restrict__ perm,
+                       const int64_t* __restrict__ starts, int64_t n,
+                       float neg_lr, int64_t* scratch) {
+  segment_walk::long_walk(
+      contribs, width, perm, starts, scratch,
+      [=](int64_t, int64_t lo, int64_t col, float total) {
+        const float s[1] = {total};
+        row_rules::sgd_row<1>(
+            table + static_cast<int64_t>(sid[lo]) * width + col, s, neg_lr);
+      });
+}
+
+template <typename IdT>
+__global__ void __launch_bounds__(segment_walk::kLongThreads)
+adagrad_long_stream_kernel(float* __restrict__ table, float* __restrict__ acc,
+                           int64_t vocab, int64_t width,
+                           const float* __restrict__ contribs,
+                           const IdT* __restrict__ sid,
+                           const int64_t* __restrict__ perm,
+                           const int64_t* __restrict__ starts, int64_t n,
+                           float neg_lr, float eps, int64_t* scratch) {
+  segment_walk::long_walk(
+      contribs, width, perm, starts, scratch,
+      [=](int64_t, int64_t lo, int64_t col, float total) {
+        const float s[1] = {total};
+        const int64_t at = static_cast<int64_t>(sid[lo]) * width + col;
+        row_rules::adagrad_row<1>(table + at, acc + at, s, neg_lr, eps);
+      });
+}
+
+template <typename IdT>
+__global__ void __launch_bounds__(segment_walk::kLongThreads)
+adam_long_stream_kernel(float* __restrict__ table, float* __restrict__ mu,
+                        float* __restrict__ nu, int64_t vocab, int64_t width,
+                        const float* __restrict__ contribs,
+                        const IdT* __restrict__ sid,
+                        const int64_t* __restrict__ perm,
+                        const int64_t* __restrict__ starts, int64_t n,
+                        AdamHp hp, int64_t* scratch) {
+  segment_walk::long_walk(
+      contribs, width, perm, starts, scratch,
+      [=](int64_t, int64_t lo, int64_t col, float total) {
+        const float s[1] = {total};
+        const int64_t at = static_cast<int64_t>(sid[lo]) * width + col;
+        row_rules::adam_row<1>(table + at, mu + at, nu + at, s, hp);
+      });
+}
+
+// One stream call: segment_walk::launch of kernel<IdT, vec4> and its long
+// pass, returned from the enclosing entry point.
+#define STREAM_LAUNCH(name, IdT, n, width, vec4, scratch, workers, stream,   \
+                      ...)                                                   \
+  return (vec4) ? segment_walk::launch(                                      \
+                      name##_stream_kernel<IdT, true>,                       \
+                      name##_long_stream_kernel<IdT>, (n), (width),    \
+                      (vec4), (scratch), (workers), (stream), __VA_ARGS__)   \
+                : segment_walk::launch(                                      \
+                      name##_stream_kernel<IdT, false>,                      \
+                      name##_long_stream_kernel<IdT>, (n), (width),   \
+                      (vec4), (scratch), (workers), (stream), __VA_ARGS__)
 
 }  // namespace
 
 // Plain C entry points, bound with ctypes, one per key type (i32 / i64).
 // `vec4` selects float4 access and needs width % 4 == 0 and 16-byte aligned
 // float pointers. Each returns cudaGetLastError() after its launch; none
-// synchronizes.
+// synchronizes. The stream updates also take the walk's scratch (int64,
+// 2 + at least n / (kLongRows + 1) entries) and the long pass's block count
+// (the SM count), and return the first error of their three launches.
 #define SORTED_STREAM_ENTRY_POINTS(suffix, IdT)                               \
   extern "C" int gather_sorted_f32_##suffix(                                 \
       const float* table, int64_t vocab, int64_t width, const IdT* sid,      \
@@ -206,29 +269,29 @@ adam_stream_kernel(float* __restrict__ table, float* __restrict__ mu,
   extern "C" int sgd_stream_f32_##suffix(                                    \
       float* table, int64_t vocab, int64_t width, const float* contribs,     \
       const IdT* sid, const int64_t* perm, const int64_t* starts, int64_t n, \
-      float neg_lr, int vec4, void* stream) {                                \
-    ROW_RULES_LAUNCH(sgd_stream_kernel, IdT, n, width, vec4, stream, table,  \
-                     vocab, width, contribs, sid, perm, starts, n, neg_lr);  \
+      float neg_lr, int vec4, int64_t* scratch, int workers, void* stream) { \
+    STREAM_LAUNCH(sgd, IdT, n, width, vec4, scratch, workers, stream, table, \
+                  vocab, width, contribs, sid, perm, starts, n, neg_lr);     \
   }                                                                          \
   extern "C" int adagrad_stream_f32_##suffix(                                \
       float* table, float* acc, int64_t vocab, int64_t width,                \
       const float* contribs, const IdT* sid, const int64_t* perm,            \
       const int64_t* starts, int64_t n, float neg_lr, float eps, int vec4,   \
-      void* stream) {                                                        \
-    ROW_RULES_LAUNCH(adagrad_stream_kernel, IdT, n, width, vec4, stream,     \
-                     table, acc, vocab, width, contribs, sid, perm, starts,  \
-                     n, neg_lr, eps);                                        \
+      int64_t* scratch, int workers, void* stream) {                         \
+    STREAM_LAUNCH(adagrad, IdT, n, width, vec4, scratch, workers, stream,    \
+                  table, acc, vocab, width, contribs, sid, perm, starts, n,  \
+                  neg_lr, eps);                                              \
   }                                                                          \
   extern "C" int adam_stream_f32_##suffix(                                   \
       float* table, float* mu, float* nu, int64_t vocab, int64_t width,      \
       const float* contribs, const IdT* sid, const int64_t* perm,            \
       const int64_t* starts, int64_t n, float neg_lr, float b1, float omb1,  \
       float b2, float omb2, float c1, float c2, float eps, int vec4,         \
-      void* stream) {                                                        \
+      int64_t* scratch, int workers, void* stream) {                         \
     const AdamHp hp{neg_lr, b1, omb1, b2, omb2, c1, c2, eps};                \
-    ROW_RULES_LAUNCH(adam_stream_kernel, IdT, n, width, vec4, stream, table, \
-                     mu, nu, vocab, width, contribs, sid, perm, starts, n,   \
-                     hp);                                                    \
+    STREAM_LAUNCH(adam, IdT, n, width, vec4, scratch, workers, stream,       \
+                  table, mu, nu, vocab, width, contribs, sid, perm, starts,  \
+                  n, hp);                                                    \
   }
 
 SORTED_STREAM_ENTRY_POINTS(i32, int32_t)

@@ -12,7 +12,9 @@
 // from run to run (the same step would not give the same table twice). It
 // also folds in the gather of the contribution rows by `perm`.
 // Bound: bytes, about N*(4W + 8) + 4*N*W (read each contribution row and
-// its perm/starts entries once, write each slot once).
+// its perm/starts entries once, write each slot once), and the chain of
+// dependent adds the order forces on the longest segment (about 4 cycles a
+// row; segment_walk.cuh).
 //
 // sgd_rows / adagrad_rows / adam_rows, over the unique rows `rep` that
 // dedup_sum produces (one read-modify-write per row, no conflicts, no
@@ -35,10 +37,17 @@
 // Design, as lookup_combine.cu: one thread group per slot, float4 column
 // slices, every operation rounded on its own; the layout, the launch shape
 // and the row rules are row_rules.cuh's, shared with sorted_stream.cu.
-// Known hazard (not fixed here): a power-law stream gives its hottest row
-// one long segment, which one thread group walks serially.
+// segment_sum_sorted is segment_walk.cuh's walk, shared with the stream
+// kernels: a power-law stream's hottest row is one long segment, whose
+// sorted-order sum is a chain of one dependent add a row; segments of at
+// most kLongRows rows are summed by their thread group, longer ones are
+// deferred to a persistent long pass that streams them through a cp.async
+// ring in shared memory, so the chain and the bytes, not the latency of
+// each row's load, bound the kernel. One call: a memset of the worklist
+// count, the short pass, the long pass (three CUDA launches).
 
 #include "row_rules.cuh"
+#include "segment_walk.cuh"
 
 namespace {
 
@@ -53,26 +62,34 @@ __global__ void __launch_bounds__(kThreads)
 segment_sum_sorted_kernel(const float* __restrict__ contribs, int64_t width,
                           const int64_t* __restrict__ perm,
                           const int64_t* __restrict__ starts, int64_t n,
-                          float* __restrict__ sums, int lane_shift) {
+                          float* __restrict__ sums, int64_t* scratch,
+                          int lane_shift) {
   constexpr int kVec = kVec4 ? 4 : 1;
   const Group g = group_of(lane_shift);
   if (g.slot >= n) return;
   const int64_t lo = starts[g.slot];
   const int64_t hi = starts[g.slot + 1];
+  if (segment_walk::defer_long(lo, hi, g.lane, g.slot, scratch)) return;
   for (int64_t c = static_cast<int64_t>(g.lane) * kVec; c < width;
        c += static_cast<int64_t>(g.lanes) * kVec) {
     float acc[kVec];
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) acc[e] = 0.f;
-#pragma unroll 4
-    for (int64_t j = lo; j < hi; ++j) {
-      float v[kVec];
-      Vec<kVec>::load(contribs + perm[j] * width + c, v);
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) acc[e] = __fadd_rn(acc[e], v[e]);
-    }
+    segment_walk::segment_total<kVec>(contribs, width, perm, lo, hi, c, acc);
     Vec<kVec>::store(sums + g.slot * width + c, acc);
   }
+}
+
+// The long pass: each worklist segment's total, written to its slot.
+__global__ void __launch_bounds__(segment_walk::kLongThreads)
+segment_sum_sorted_long_kernel(const float* __restrict__ contribs,
+                               int64_t width, const int64_t* __restrict__ perm,
+                               const int64_t* __restrict__ starts, int64_t n,
+                               float* __restrict__ sums,
+                               int64_t* scratch) {
+  segment_walk::long_walk(
+      contribs, width, perm, starts, scratch,
+      [=](int64_t slot, int64_t, int64_t col, float total) {
+        sums[slot * width + col] = total;
+      });
 }
 
 // The table row of this group's slot, or -1 for a filler / negative id.
@@ -172,22 +189,23 @@ int adam_rows(float* table, float* mu, float* nu, int64_t vocab,
 // Plain C entry points, bound with ctypes. `vec4` selects float4 access and
 // needs width % 4 == 0 and 16-byte aligned float pointers. Each returns
 // cudaGetLastError() after its launch; none synchronizes.
+// segment_sum_sorted_f32 also takes the walk's scratch (int64, 2 + at least
+// n / (kLongRows + 1) entries) and the long pass's block count (the SM
+// count), and returns the first error of its three launches.
 extern "C" int segment_sum_sorted_f32(const float* contribs, int64_t width,
                                       const int64_t* perm,
                                       const int64_t* starts, int64_t n,
-                                      float* sums, int vec4, void* stream) {
-  int shift;
-  unsigned blocks;
-  if (!row_rules::grid_for(n, width, vec4, &shift, &blocks))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                                      float* sums, int vec4, int64_t* scratch,
+                                      int workers, void* stream) {
   if (vec4)
-    segment_sum_sorted_kernel<true><<<blocks, kThreads, 0, s>>>(
-        contribs, width, perm, starts, n, sums, shift);
-  else
-    segment_sum_sorted_kernel<false><<<blocks, kThreads, 0, s>>>(
-        contribs, width, perm, starts, n, sums, shift);
-  return static_cast<int>(cudaGetLastError());
+    return segment_walk::launch(segment_sum_sorted_kernel<true>,
+                                segment_sum_sorted_long_kernel, n, width,
+                                vec4, scratch, workers, stream, contribs,
+                                width, perm, starts, n, sums);
+  return segment_walk::launch(segment_sum_sorted_kernel<false>,
+                              segment_sum_sorted_long_kernel, n, width,
+                              vec4, scratch, workers, stream, contribs, width,
+                              perm, starts, n, sums);
 }
 
 #define ROW_ENTRY_POINTS(suffix, IdT)                                          \

@@ -6,7 +6,11 @@ update path (``distributed_embeddings_tpu/ops/sparse_update.py``):
 * `segment_sum_sorted`: the segment sum inside `dedup_sum`,
   ``sums[s] = sum_{j in [starts[s], starts[s+1])} contribs[perm[j]]`` with j
   ascending (XLA's ``segment_sum`` there; no TPU kernel). Hand-written so the
-  sum order is fixed: CUDA ``index_add_`` adds with atomics.
+  sum order is fixed: CUDA ``index_add_`` adds with atomics. Its walk
+  (``csrc/segment_walk.cuh``, shared with the stream kernels of
+  `ops.cuda_tiled`) sums short segments in one pass and streams the long
+  ones through shared memory in a second; one call is three CUDA launches
+  (a memset of the worklist count, the two passes) and counts 1.
 * `sgd_rows`, `adagrad_rows`, `adam_rows`: one read-modify-write per unique
   row of ``rep``, in place; rows with ``rep < 0`` or ``rep >= V`` are skipped.
   They replace ``pallas_tiled._sgd_kernel`` / ``_adagrad_kernel`` /
@@ -33,7 +37,8 @@ from distributed_embeddings_tpu_torch.utils.device import device_scalar
 
 __all__ = ["segment_sum_sorted", "sgd_rows", "adagrad_rows", "adam_rows",
            "segment_sum_sorted_plain", "sgd_rows_plain", "adagrad_rows_plain",
-           "adam_rows_plain", "bias_corrections", "launches"]
+           "adam_rows_plain", "bias_corrections", "long_rows",
+           "walk_scratch_len", "launches"]
 
 _KERNEL = "sparse_apply"
 
@@ -44,7 +49,7 @@ launches: Dict[str, int] = {"segment_sum_sorted": 0, "sgd_rows": 0,
 _P, _I64, _F, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, ctypes.c_int
 # argument types per C symbol stem (the stream pointer comes last)
 _ARGTYPES = {
-    "segment_sum_sorted": [_P, _I64, _P, _P, _I64, _P, _I, _P],
+    "segment_sum_sorted": [_P, _I64, _P, _P, _I64, _P, _I, _P, _I, _P],
     "sgd_rows": [_P, _I64, _I64, _P, _P, _I64, _F, _I, _P],
     "adagrad_rows": [_P, _P, _I64, _I64, _P, _P, _I64, _F, _F, _I, _P],
     "adam_rows": [_P, _P, _P, _I64, _I64, _P, _P, _I64, _F, _F, _F, _F, _F,
@@ -66,6 +71,33 @@ def _checked_launch(counts: Dict[str, int], stem: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{stem} kernel launch failed: CUDA error {err}")
     counts[stem] += 1
+
+
+def walk_scratch_len(n: int, long_rows: int) -> int:
+    """Entries of the segment walk's int64 scratch for n sorted rows: the
+    worklist's count and the long pass's next entry, then room for every
+    segment of more than `long_rows` rows (at most n // (long_rows + 1) of
+    them; at least 1)."""
+    return 2 + max(1, n // (long_rows + 1))
+
+
+def long_rows(kernel: str = _KERNEL) -> int:
+    """The segment walk's threshold (``kLongRows``, csrc/segment_walk.cuh),
+    read from the built library of ``csrc/<kernel>.cu``: segments of more
+    rows go to the long pass."""
+    fn = kernel_build.load(kernel).segment_walk_long_rows
+    fn.restype = ctypes.c_int64
+    return int(fn())
+
+
+def _walk_scratch(kernel: str, n: int, device: torch.device):
+    """(scratch, long-pass blocks) of one segment-walk call of
+    ``csrc/<kernel>.cu`` on `device`: one block a streaming
+    multiprocessor."""
+    scratch = torch.empty(walk_scratch_len(n, long_rows(kernel)),
+                          dtype=torch.int64, device=device)
+    return scratch, torch.cuda.get_device_properties(
+        device).multi_processor_count
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -135,10 +167,11 @@ def segment_sum_sorted(contribs: torch.Tensor, perm: torch.Tensor,
     sums = torch.empty((n, width), dtype=torch.float32, device=contribs.device)
     if n == 0 or width == 0:
         return sums
+    scratch, workers = _walk_scratch(_KERNEL, n, contribs.device)
     _checked_launch(launches, "segment_sum_sorted", fn(
         contribs.data_ptr(), width, perm.data_ptr(), starts.data_ptr(), n,
         sums.data_ptr(), int(_vec4(width, contribs, sums)),
-        _stream(contribs)))
+        scratch.data_ptr(), workers, _stream(contribs)))
     return sums
 
 

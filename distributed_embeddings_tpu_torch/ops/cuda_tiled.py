@@ -11,7 +11,10 @@ its deduplicated-row appliers (those are `ops.cuda_sparse`):
 * `sgd_stream`, `adagrad_stream`, `adam_stream`: the row-wise optimizers
   on a raw gradient stream in its sorted order, each segment summed in
   registers and applied once (`tiled_sgd`, `tiled_adagrad`, `tiled_adam`;
-  the lookups' backward is `sgd_stream` at lr -1 over a zero table).
+  the lookups' backward is `sgd_stream` at lr -1 over a zero table). Their
+  walk is `cuda_sparse.segment_sum_sorted`'s (``csrc/segment_walk.cuh``):
+  one call is three CUDA launches (a memset of the worklist count, the
+  short-segment pass, the long-segment pass) and counts 1.
 
 The TPU kernels walk table tiles against id chunks with one-hot matmuls;
 these compute the same functions row by row (see the source). Sorting is
@@ -35,7 +38,7 @@ import torch
 
 from distributed_embeddings_tpu_torch.ops import kernel_build
 from distributed_embeddings_tpu_torch.ops.cuda_sparse import (
-    _check_same, _checked_launch, _on_cuda, _stream, _vec4,
+    _check_same, _checked_launch, _on_cuda, _stream, _vec4, _walk_scratch,
     adagrad_rows_plain, adam_rows_plain, bias_corrections,
     segment_sum_sorted_plain, sgd_rows_plain)
 from distributed_embeddings_tpu_torch.ops.embedding_ops import (
@@ -59,11 +62,11 @@ _P, _I64, _F, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, ctypes.c_int
 # argument types per C symbol stem (the stream pointer comes last)
 _ARGTYPES = {
     "gather_sorted": [_P, _I64, _I64, _P, _P, _I64, _P, _I, _P],
-    "sgd_stream": [_P, _I64, _I64, _P, _P, _P, _P, _I64, _F, _I, _P],
+    "sgd_stream": [_P, _I64, _I64, _P, _P, _P, _P, _I64, _F, _I, _P, _I, _P],
     "adagrad_stream": [_P, _P, _I64, _I64, _P, _P, _P, _P, _I64, _F, _F, _I,
-                       _P],
+                       _P, _I, _P],
     "adam_stream": [_P, _P, _P, _I64, _I64, _P, _P, _P, _P, _I64, _F, _F, _F,
-                    _F, _F, _F, _F, _F, _I, _P],
+                    _F, _F, _F, _F, _F, _I, _P, _I, _P],
 }
 _KEY_SUFFIX = {torch.int32: "i32", torch.int64: "i64"}
 
@@ -217,10 +220,13 @@ def sgd_stream(table: torch.Tensor, contribs: torch.Tensor,
     fn = _kernel_fn("sgd_stream", sid.dtype)
     vocab, width = table.shape
     if sid.shape[0] and width:
+        scratch, workers = _walk_scratch(_KERNEL, sid.shape[0],
+                                         table.device)
         _checked_launch(launches, "sgd_stream", fn(
             table.data_ptr(), vocab, width, contribs.data_ptr(),
             sid.data_ptr(), perm.data_ptr(), starts.data_ptr(), sid.shape[0],
-            -float(lr), int(_vec4(width, table, contribs)), _stream(table)))
+            -float(lr), int(_vec4(width, table, contribs)),
+            scratch.data_ptr(), workers, _stream(table)))
     return table
 
 
@@ -238,11 +244,14 @@ def adagrad_stream(table: torch.Tensor, acc: torch.Tensor,
     fn = _kernel_fn("adagrad_stream", sid.dtype)
     vocab, width = table.shape
     if sid.shape[0] and width:
+        scratch, workers = _walk_scratch(_KERNEL, sid.shape[0],
+                                         table.device)
         _checked_launch(launches, "adagrad_stream", fn(
             table.data_ptr(), acc.data_ptr(), vocab, width,
             contribs.data_ptr(), sid.data_ptr(), perm.data_ptr(),
             starts.data_ptr(), sid.shape[0], -float(lr), float(eps),
-            int(_vec4(width, table, acc, contribs)), _stream(table)))
+            int(_vec4(width, table, acc, contribs)), scratch.data_ptr(),
+            workers, _stream(table)))
     return table, acc
 
 
@@ -262,13 +271,15 @@ def adam_stream(table: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
     fn = _kernel_fn("adam_stream", sid.dtype)
     vocab, width = table.shape
     if sid.shape[0] and width:
+        scratch, workers = _walk_scratch(_KERNEL, sid.shape[0],
+                                         table.device)
         _checked_launch(launches, "adam_stream", fn(
             table.data_ptr(), mu.data_ptr(), nu.data_ptr(), vocab, width,
             contribs.data_ptr(), sid.data_ptr(), perm.data_ptr(),
             starts.data_ptr(), sid.shape[0], -float(lr), float(b1),
             1 - float(b1), float(b2), 1 - float(b2), float(c1), float(c2),
             float(eps), int(_vec4(width, table, mu, nu, contribs)),
-            _stream(table)))
+            scratch.data_ptr(), workers, _stream(table)))
     return table, mu, nu
 
 

@@ -7,6 +7,7 @@ with the card (no jax there, so without the repository's conftest):
         tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -246,3 +247,98 @@ def test_feature_ladder_rung_matches_plain_bit_for_bit(gen, rung):
     if entry.library in cuda_feature_probe.launches:
         assert (cuda_feature_probe.launches[entry.library]
                 == counts[entry.library] + 2)
+
+
+# ------------------------------------------------------ the segment walk
+# The shared walk of `segment_sum_sorted` and the stream kernels
+# (csrc/segment_walk.cuh): segments of at most T = `cuda_sparse.long_rows()`
+# rows are summed by their thread group, longer ones by the long pass.
+WALK_SHAPES = ["one_segment", "around_threshold", "more_long_than_workers",
+               "long_invalid_keys", "empty"]
+WALK_WIDTHS = [1, 3, 8, 16, 128, 132, 256]
+
+
+def _walk_stream(shape, vocab):
+    """(sid, perm, starts) on the card of a sorted stream whose segment
+    lengths are chosen around T: one segment covering all N; lengths T-1,
+    T and T+1 among short ones; more segments longer than T than the long
+    pass has blocks; long segments keyed -2 and V+1 (the stream kernels
+    skip them unread) beside a long valid one; N = 0. Keys are drawn
+    shuffled (numpy, seeded), so perm is no identity."""
+    t = cuda_sparse.long_rows()
+    workers = torch.cuda.get_device_properties(0).multi_processor_count
+    rng = np.random.RandomState(5)
+    if shape == "one_segment":
+        keys, lengths = [7], [4 * t + 3]
+    elif shape == "around_threshold":
+        keys = list(range(60))
+        lengths = [t - 1, t, t + 1] + list(rng.randint(1, 9, size=57))
+    elif shape == "more_long_than_workers":
+        keys = list(range(2 * workers + 5))
+        lengths = list(t + 1 + rng.randint(0, 2 * t, size=len(keys)))
+    elif shape == "long_invalid_keys":
+        keys = [-2, 3, 4, 9, vocab + 1]
+        lengths = [t + 5, 2, t + 1, 3 * t, 2 * t + 3]
+    else:
+        keys, lengths = [], []
+    ids = rng.permutation(np.repeat(np.array(keys, dtype=np.int64),
+                                    np.array(lengths, dtype=np.int64)))
+    dtype = torch.int64 if shape in ("one_segment", "more_long_than_workers") \
+        else torch.int32
+    sid, perm = torch.sort(torch.from_numpy(ids).to("cuda", dtype),
+                           stable=True)
+    starts, _ = embedding_ops.segment_bounds(embedding_ops.segment_starts(sid))
+    return sid, perm, starts
+
+
+@pytest.mark.parametrize("width", WALK_WIDTHS)
+@pytest.mark.parametrize("shape", WALK_SHAPES)
+def test_segment_walk_sum_matches_plain_bit_for_bit(gen, shape, width):
+    """`segment_sum_sorted` on every segment shape: bit-equal to its plain
+    version on CPU copies (both add each segment in sorted order), zeros in
+    the slots past the last segment; one counted launch a call (none for
+    N = 0)."""
+    _, perm, starts = _walk_stream(shape, 600)
+    n = perm.shape[0]
+    contribs = torch.randn((n, width), device="cuda", generator=gen)
+    launches = cuda_sparse.launches["segment_sum_sorted"]
+    got = cuda_sparse.segment_sum_sorted(contribs, perm, starts)
+    torch.cuda.synchronize()
+    assert cuda_sparse.launches["segment_sum_sorted"] == launches + (n > 0)
+    want = cuda_sparse.segment_sum_sorted_plain(contribs.cpu(), perm.cpu(),
+                                                starts.cpu())
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("width", WALK_WIDTHS)
+@pytest.mark.parametrize("shape", WALK_SHAPES)
+@pytest.mark.parametrize("kind", ["sgd", "adagrad", "adam"])
+def test_segment_walk_streams_match_plain_bit_for_bit(gen, kind, shape,
+                                                      width):
+    """The stream kernels on every segment shape: table and state bit-equal
+    to the plain versions (sums on the CPU in sorted order); segments keyed
+    outside [0, V) leave every row alone; one counted launch a call (none
+    for N = 0)."""
+    vocab = 600
+    sid, perm, starts = _walk_stream(shape, vocab)
+    n = sid.shape[0]
+    contribs = torch.randn((n, width), device="cuda", generator=gen)
+    table = torch.empty((vocab, width), device="cuda").uniform_(
+        -0.05, 0.05, generator=gen)
+    init = 0.1 if kind == "adagrad" else 0.0
+    states = [torch.full_like(table, init)
+              for _ in range({"sgd": 0, "adagrad": 1, "adam": 2}[kind])]
+    ref = [t.clone() for t in [table] + states]
+    args = (contribs, sid, perm, starts, 0.05)
+    if kind == "adagrad":
+        args += (1e-7,)
+    elif kind == "adam":
+        args += (0.9, 0.999, 1e-8) + sparse_update.bias_corrections(1, 0.9,
+                                                                    0.999)
+    launches = cuda_tiled.launches[f"{kind}_stream"]
+    getattr(cuda_tiled, f"{kind}_stream")(table, *states, *args)
+    torch.cuda.synchronize()
+    assert cuda_tiled.launches[f"{kind}_stream"] == launches + (n > 0)
+    getattr(cuda_tiled, f"{kind}_stream_plain")(*ref, *args)
+    for got, want in zip([table] + states, ref):
+        assert torch.equal(got, want)

@@ -22,6 +22,7 @@ from distributed_embeddings_tpu.ops import pallas_scatter as jax_scatter  # noqa
 from distributed_embeddings_tpu.ops import pallas_tiled as jax_tiled  # noqa: E402
 from distributed_embeddings_tpu.ops import sparse_update as jax_su  # noqa: E402
 from distributed_embeddings_tpu_torch.ops import cuda_lookup, cuda_sparse  # noqa: E402
+from distributed_embeddings_tpu_torch.ops import cuda_tiled, embedding_ops  # noqa: E402
 from distributed_embeddings_tpu_torch.ops import sparse_update as pt_su  # noqa: E402
 
 ROW_TOL = dict(rtol=1e-6, atol=1e-7)
@@ -71,6 +72,60 @@ def test_segment_sum_plain_adds_in_sorted_order():
     _, sums = pt_su.dedup_sum(torch.from_numpy(ids),
                               torch.from_numpy(contribs), 20)
     np.testing.assert_array_equal(sums.numpy(), want)
+
+
+
+@pytest.mark.parametrize("plain", ["segment_sum_sorted_plain",
+                                   "ordered_segment_sums"])
+def test_long_segment_sums_are_sequential_in_sorted_order(plain):
+    """The order the card's segment walk keeps, pinned at a long segment:
+    both plain versions the kernels are held against (`cuda_sparse`'s, and
+    `cuda_tiled`'s for the stream updates) give each segment, the
+    20,000-row one among short ones, bit for bit the float32 sequential
+    sum of its rows in sorted order (``np.add.accumulate``), and zeros past
+    the last segment. A pairwise sum of the long segment differs, so the
+    pin tells the orders apart."""
+    rng = np.random.RandomState(11)
+    n, width = 20_400, 8
+    ids = rng.randint(0, 40, size=n)
+    ids[rng.permutation(n)[:20_000]] = 7
+    contribs = rng.randn(n, width).astype(np.float32)
+    perm = np.argsort(ids, kind="stable")
+    sid = torch.from_numpy(ids[perm])
+    starts, _ = embedding_ops.segment_bounds(embedding_ops.segment_starts(sid))
+    fn = (cuda_sparse.segment_sum_sorted_plain if plain ==
+          "segment_sum_sorted_plain" else cuda_tiled._ordered_segment_sums)
+    got = fn(torch.from_numpy(contribs), torch.from_numpy(perm), starts)
+    bounds = starts.numpy()
+    segments = int((bounds[1:] > bounds[:-1]).sum())
+    for s in range(segments):
+        rows = contribs[perm[bounds[s]:bounds[s + 1]]]
+        np.testing.assert_array_equal(got[s].numpy(),
+                                      np.add.accumulate(rows, axis=0)[-1])
+        if len(rows) >= 20_000:
+            pairwise = np.ascontiguousarray(rows.T).sum(axis=1)
+            assert not np.array_equal(pairwise,
+                                      np.add.accumulate(rows, axis=0)[-1])
+    assert not got[segments:].any()
+
+
+@pytest.mark.parametrize("long_rows", [32, 64, 256])
+def test_walk_scratch_holds_every_long_segment(long_rows):
+    """The segment walk's scratch: two counters (the worklist's count, the
+    long pass's next entry), then one entry for each segment longer than
+    `long_rows` that any n-row stream can hold, and never none (so the
+    worklist is a valid pointer at n = 0)."""
+    rng = np.random.RandomState(long_rows)
+    for n in [0, 1, long_rows, long_rows + 1, 2 * long_rows + 2, 20_000]:
+        size = cuda_sparse.walk_scratch_len(n, long_rows)
+        assert size == 2 + max(1, n // (long_rows + 1))
+        # as many long segments as fit: all of length long_rows + 1
+        assert n // (long_rows + 1) <= size - 2
+        for _ in range(20):
+            cuts = np.sort(rng.randint(0, n + 1, size=rng.randint(0, 40)))
+            lengths = np.diff(np.concatenate([[0], cuts, [n]]))
+            assert lengths.sum() == n
+            assert (lengths > long_rows).sum() <= size - 2
 
 
 def _rows_inputs(rng, vocab, width):
