@@ -45,8 +45,11 @@ Phases, each printing JSON lines before the last line:
      `index_add_` (atomics, another order each run); the row
      kernels bit-equal to their plain versions on the card (else the
      largest ulp difference is printed and rtol 1e-6 holds).
-     sorted_kernel (3c): `gather_sorted`, weighted and not, at widths
-     8..256 with keys >= V, and `sgd_stream` / `adagrad_stream` /
+     sorted_kernel (3c): `gather_sorted`, weighted and not, int32 and
+     int64 keys, at widths 6 and 8..256 with keys < 0 and >= V, in its
+     sorted form and in its perm form (each row stored at its place in
+     a random stream; also bit-equal to the sorted form's rows
+     unpermuted), and `sgd_stream` / `adagrad_stream` /
      `adam_stream` over 3 accumulating steps on duplicate-heavy streams
      with invalid ids, each bit-equal to its plain version; both sorted
      lookups' forward and backward against their plain versions.
@@ -90,8 +93,13 @@ Phases, each printing JSON lines before the last line:
      held like phase 5's (the change bar widened by `gradient_scale`'s
      conditioning), launches 4 / 2 / 2 / 0 per step (gather_sorted /
      segment_sum_sorted / adagrad_rows / lookup_combine), 6 sorts per
-     step under the profiler; step time and profile; `gather_sorted` per
-     group beside `lookup_combine`.
+     step under the profiler; step time and profile (with the device
+     time of the step's `index_select` calls by caller); `gather_sorted`
+     per group in the perm form the step calls, beside its sorted form
+     on the same keys and `lookup_combine`; the whole fused lookup
+     beside its old composition (weights permuted, sorted gather,
+     `index_select` by the inverse permutation, hotness sum), bit-equal
+     and timed in the same run.
   6. sgd and adam: Tiny with every table cut to at most 100,000 rows
      (widths, hotness, sharing kept), 3 steps each held like phase 5's
      but by value (rtol 1e-4 / atol 1e-6); adam by 1e-2 * lr where the
@@ -104,8 +112,9 @@ Phases, each printing JSON lines before the last line:
      adam by value with phase 6's rule); launches 1 / 1 per step
      (gather_sorted / <opt>_stream); 1 sort per step, 2 with
      ``fold_sort=False`` and the same step bit for bit; step times and a
-     profile; the stream kernels at the step's shapes, with N, U, the
-     longest segment and ``chain_ms``.
+     profile (`index_select` by caller, as 5b); `gather_sorted` and the
+     stream kernels at the step's shapes, with N, U, the longest segment
+     and ``chain_ms``.
   7. the kernels line, the card's line, and the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -301,7 +310,8 @@ def kernel_cases(torch, cuda_lookup):
 def profile_call(torch, fn):
     """One synchronized `fn()` under torch.profiler (after one warm call):
     the device's busy time (the union of its kernel and copy intervals),
-    the wall time, the device events and the profiler. The profiler's own
+    the wall time, the device events (without the device side of
+    `index_select_ranges`' ranges) and the profiler. The profiler's own
     host cost inflates the wall time, so an idle share from it is an upper
     bound."""
     from torch.autograd import DeviceType
@@ -314,7 +324,8 @@ def profile_call(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not e.name.startswith(SELECT_RANGE)]
     busy_us, reach = 0.0, None
     for start, end in sorted((e.time_range.start, e.time_range.end)
                              for e in device):
@@ -1025,11 +1036,73 @@ CATEGORIES = (("lookup", ("lookup_combine",)),
               ("device_to_host", ("DtoH",)))
 
 
+# the name prefix of `index_select_ranges`' profiler ranges
+SELECT_RANGE = "index_select@"
+PACKAGE = "distributed_embeddings_tpu_torch" + os.sep
+
+
+@contextlib.contextmanager
+def index_select_ranges(torch):
+    """Within the block, every ``index_select`` call (the tensor method or
+    ``torch.index_select``) runs inside a `record_function` range named
+    for its caller: "index_select@<path>:<line> <function> [rows|vector]",
+    the innermost frame of the port on the Python stack (path under the
+    package) and the rank of the tensor it selects from (1-D: vector)."""
+    from torch.profiler import record_function
+    real = {"method": torch.Tensor.index_select,
+            "function": torch.index_select}
+
+    def caller():
+        frame = sys._getframe(2)
+        while frame is not None:
+            path = frame.f_code.co_filename
+            at = path.find(PACKAGE)
+            if at >= 0:
+                return (f"{path[at + len(PACKAGE):]}:{frame.f_lineno} "
+                        f"{frame.f_code.co_name}")
+            frame = frame.f_back
+        return "outside the package"
+
+    def ranged(fn):
+        def select(x, *args, **kwargs):
+            kind = "vector" if x.dim() == 1 else "rows"
+            with record_function(f"{SELECT_RANGE}{caller()} [{kind}]"):
+                return fn(x, *args, **kwargs)
+        return select
+    torch.Tensor.index_select = ranged(real["method"])
+    torch.index_select = ranged(real["function"])
+    try:
+        yield
+    finally:
+        torch.Tensor.index_select = real["method"]
+        torch.index_select = real["function"]
+
+
+def index_select_split(prof) -> dict:
+    """Device ms and calls of a run's ``index_select`` calls by caller,
+    from the host side of `index_select_ranges`' ranges; the profile must
+    have run inside them."""
+    from torch.autograd import DeviceType
+    split: dict = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.name.startswith(
+                SELECT_RANGE):
+            continue
+        key = e.name[len(SELECT_RANGE):]
+        ms, calls = split.get(key, (0.0, 0))
+        split[key] = (ms + e.device_time_total / 1e3, calls + 1)
+    return {k: {"device_ms": ms, "calls": n}
+            for k, (ms, n) in sorted(split.items(), key=lambda kv: -kv[1][0])}
+
+
 def profile_step(torch, step_once, label):
     """One step under torch.profiler (`profile_call`): device busy time,
     idle share, device time by category and kernel, host time by
-    operator, and the sorts it ran. Returns the sort count."""
-    busy_us, wall_us, device, prof = profile_call(torch, step_once)
+    operator, the sorts it ran, and the device time of its
+    ``index_select`` calls by caller (`index_select_ranges`,
+    `index_select_split`). Returns the sort count."""
+    with index_select_ranges(torch):
+        busy_us, wall_us, device, prof = profile_call(torch, step_once)
     sorts = top_level_sorts(prof)
     by_kernel = _by_name(device)
     cats = {name: 0.0 for name, _ in CATEGORIES}
@@ -1053,6 +1126,7 @@ def profile_step(torch, step_once, label):
              by_kernel.items(), key=lambda kv: -kv[1])[:12]],
          other_top=[[n[:80], us / 1e3] for n, us in sorted(
              other.items(), key=lambda kv: -kv[1])[:6]],
+         index_select_by_caller=index_select_split(prof),
          host_self_ms_by_op=_host_ops(prof, top=10))
     return sorts
 
@@ -1069,33 +1143,56 @@ def hold_bit_equal(torch, name, got, want):
     return err
 
 
+def gather_cases(torch, cuda_tiled, gen, vocab, n, width):
+    """`gather_sorted` in both forms, weighted and not, int32 and int64
+    keys, on the sort of a random stream with keys < 0 and >= V: the
+    sorted form, and the perm form (rows at their places in the stream,
+    weights in stream order) also against the sorted form's rows
+    unpermuted. Returns the max absolute error."""
+    table = torch.empty((vocab, width), device="cuda").uniform_(
+        -0.05, 0.05, generator=gen)
+    sid, perm = torch.sort(torch.randint(-3, vocab + 5, (n,), device="cuda",
+                                         generator=gen), stable=True)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(n, device="cuda")
+    w = torch.rand((n,), device="cuda", generator=gen)
+    worst = 0.0
+    for key_dtype in (torch.int32, torch.int64):
+        keys = sid.to(key_dtype)
+        for weights in (None, w):
+            got = cuda_tiled.gather_sorted(table, keys, weights)
+            want = cuda_tiled.gather_sorted_plain(table, keys, weights)
+            got_p = cuda_tiled.gather_sorted(table, keys, weights, perm=perm)
+            want_p = cuda_tiled.gather_sorted_plain(table, keys, weights,
+                                                    perm=perm)
+            w_sorted = None if weights is None else weights[perm]
+            old = cuda_tiled.gather_sorted(table, keys, w_sorted)[inv]
+            torch.cuda.synchronize()
+            worst = max(worst,
+                        hold_bit_equal(torch, "gather_sorted", got, want),
+                        hold_bit_equal(torch, "gather_sorted", got_p, want_p),
+                        hold_bit_equal(torch, "gather_sorted", got_p, old))
+    return worst
+
+
 def sorted_kernel_cases(torch, cuda_tiled, embedding_ops, sparse_update):
-    """Phase 3c: `gather_sorted` (weighted and not, int32 and int64 keys,
-    keys < 0 and >= V) and the three stream kernels (three accumulating
-    steps on duplicate-heavy streams with ids out of range) bit-equal to
-    their plain versions on the card at widths 8..256; both sorted
-    lookups' forward and backward against the same calls on CPU copies.
-    Returns the max absolute error per kernel."""
+    """Phase 3c: `gather_sorted` (`gather_cases`, at width 6 and at
+    widths 8..256) and the three stream kernels (three accumulating steps
+    on duplicate-heavy streams with ids out of range) bit-equal to their
+    plain versions on the card at widths 8..256; both sorted lookups'
+    forward and backward against the same calls on CPU copies. Returns
+    the max absolute error per kernel."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     vocab, n = 5000, 20000
     worst = dict.fromkeys(["gather_sorted", "sgd_stream", "adagrad_stream",
                            "adam_stream", "lookups"], 0.0)
+    errs = {"gather_sorted": gather_cases(torch, cuda_tiled, gen, vocab, n,
+                                          6)}
+    worst["gather_sorted"] = errs["gather_sorted"]
+    emit(phase="sorted_kernel", width=6, ok=True, max_abs_err=errs)
     for width in SPARSE_WIDTHS:
-        errs = {}
-        table = torch.empty((vocab, width), device="cuda").uniform_(
-            -0.05, 0.05, generator=gen)
-        sid, _ = torch.sort(torch.randint(-3, vocab + 5, (n,), device="cuda",
-                                          generator=gen))
-        w = torch.rand((n,), device="cuda", generator=gen)
-        for key_dtype in (torch.int32, torch.int64):
-            for weights in (None, w):
-                keys = sid.to(key_dtype)
-                got = cuda_tiled.gather_sorted(table, keys, weights)
-                want = cuda_tiled.gather_sorted_plain(table, keys, weights)
-                torch.cuda.synchronize()
-                errs["gather_sorted"] = max(
-                    errs.get("gather_sorted", 0.0),
-                    hold_bit_equal(torch, "gather_sorted", got, want))
+        errs = {"gather_sorted": gather_cases(torch, cuda_tiled, gen, vocab,
+                                              n, width)}
         for kind, n_state in (("sgd", 0), ("adagrad", 1), ("adam", 2)):
             table = torch.empty((vocab, width), device="cuda").uniform_(
                 -0.05, 0.05, generator=gen)
@@ -1182,54 +1279,76 @@ def profiled_sorts(torch, fn):
     return out, top_level_sorts(prof)
 
 
-def gather_bound(table, keys, weights, rate, u):
+def gather_bound(table, keys, weights, perm, rate, u):
     """(bytes_ms, ops_ms) of `gather_sorted`: the U distinct rows read,
-    keys (and weights) read and the output written once; one multiply per
-    element when weighted."""
+    keys (and weights, and perm) read and the output written once; one
+    multiply per element when weighted."""
     n, width = keys.numel(), table.shape[1]
     n_bytes = (u * width * 4 + n * keys.element_size()
-               + (0 if weights is None else n * 4) + n * width * 4)
+               + (0 if weights is None else n * 4)
+               + (0 if perm is None else n * 8) + n * width * 4)
     ops = 0 if weights is None else n * width
     return n_bytes / rate * 1e3, ops / F32_FLOP_PER_S * 1e3
 
 
-def time_gather_calls(torch, cuda_tiled, calls, rate, label):
-    """`gather_sorted` at the shapes one step gives it: bit-equal to its
-    plain version, then kernel / plain / library time and the bound.
-    The library call: `index_select` unweighted, `F.embedding_bag` with
-    per-sample weights and bags of one weighted. Returns totals."""
+def time_gather_calls(torch, cuda_tiled, calls, kwargs, rate, label):
+    """`gather_sorted` at the shapes and in the form one step gives it
+    (`calls` / `kwargs` of its captured calls: the perm form on both
+    paths): bit-equal to its plain version, then kernel / plain / library
+    time and the bound. The library call computes the same rows in
+    stream order: `index_select` of the stream's ids unweighted,
+    `F.embedding_bag` of them with bags of one and per-sample weights
+    weighted. Beside them, ``sorted_store_ms``: the sorted form (rows in
+    sorted order, the weights permuted beforehand, untimed) on the same
+    keys, the kernel as the path called it before it stored rows at their
+    places in the stream. Returns totals."""
     import torch.nn.functional as F
     totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
-                  ops_ms=0.0, library_ms=0.0, max_abs_err=0.0)
-    for g, (table, keys, weights) in enumerate(calls):
-        got = cuda_tiled.gather_sorted(table, keys, weights)
-        want = cuda_tiled.gather_sorted_plain(table, keys, weights)
+                  ops_ms=0.0, library_ms=0.0, sorted_store_ms=0.0,
+                  max_abs_err=0.0)
+    for g, (args, kw) in enumerate(zip(calls, kwargs)):
+        table, keys, weights = args + (None,) * (3 - len(args))
+        perm = kw.get("perm")
+        check(perm is not None, f"{label} call {g}: the path's gather "
+                                "took no perm")
+        got = cuda_tiled.gather_sorted(table, keys, weights, perm=perm)
+        want = cuda_tiled.gather_sorted_plain(table, keys, weights,
+                                              perm=perm)
         torch.cuda.synchronize()
         err = hold_bit_equal(torch, "gather_sorted", got, want)
         del got, want
         valid = bool(((keys >= 0) & (keys < table.shape[0])).all())
         check(valid, "a key of the path's gather lies outside the table")
         u = int(torch.unique_consecutive(keys).numel())
-        ms = device_ms(lambda: cuda_tiled.gather_sorted(table, keys,
-                                                        weights), reps=20)
+        ms = device_ms(lambda: cuda_tiled.gather_sorted(
+            table, keys, weights, perm=perm), reps=20)
         plain_ms = device_ms(lambda: cuda_tiled.gather_sorted_plain(
-            table, keys, weights), reps=5)
+            table, keys, weights, perm=perm), reps=5)
+        w_sorted = None if weights is None else weights[perm]
+        sorted_store_ms = device_ms(lambda: cuda_tiled.gather_sorted(
+            table, keys, w_sorted), reps=20)
+        stream_ids = torch.empty_like(keys)
+        stream_ids[perm] = keys
         if weights is None:
-            library_ms = device_ms(lambda: torch.index_select(table, 0, keys),
-                                   reps=20)
+            library_ms = device_ms(
+                lambda: torch.index_select(table, 0, stream_ids), reps=20)
         else:
-            offsets = torch.arange(keys.numel(), device="cuda")
+            offsets = torch.arange(keys.numel(), device="cuda",
+                                   dtype=keys.dtype)
             library_ms = device_ms(lambda: F.embedding_bag(
-                keys, table, offsets, mode="sum",
+                stream_ids, table, offsets, mode="sum",
                 per_sample_weights=weights), reps=20)
-        bytes_ms, ops_ms = gather_bound(table, keys, weights, rate, u)
+        del w_sorted, stream_ids
+        bytes_ms, ops_ms = gather_bound(table, keys, weights, perm, rate, u)
         emit(phase="gather_sorted_kernel", path=label, call=g,
              table=list(table.shape), rows=keys.numel(),
              weighted=weights is not None, unique_rows=u, max_abs_err=err,
-             ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-             bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ok=True)
+             ms=ms, sorted_store_ms=sorted_store_ms, plain_ms=plain_ms,
+             library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
+             bytes_ms=bytes_ms, ok=True)
         for key, val in (("ms", ms), ("plain_ms", plain_ms),
                          ("library_ms", library_ms),
+                         ("sorted_store_ms", sorted_store_ms),
                          ("bound_ms", max(bytes_ms, ops_ms)),
                          ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
             totals[key] += val
@@ -1237,38 +1356,83 @@ def time_gather_calls(torch, cuda_tiled, calls, rate, label):
     return totals
 
 
+def old_fused_composition(cuda_tiled, table, ids, weights, combiner,
+                          presorted, inv):
+    """The fused lookup's forward as it was composed before
+    `gather_sorted` stored rows at their places in the stream: the same
+    prologue, then the weights permuted into sorted order, the sorted
+    gather, the unpermute by `inv`, the hotness sum."""
+    b, k = ids.shape
+    _, weights, (keys, perm) = cuda_tiled._combine_prologue(
+        table, ids, weights, combiner, presorted)
+    w_sorted = weights.reshape(-1).index_select(0, perm)
+    rows = cuda_tiled.gather_sorted(table, keys, w_sorted)
+    return rows.index_select(0, inv).reshape(b, k, -1).sum(dim=1)
+
+
 def fused_against_lookup_combine(torch, cuda_tiled, cuda_lookup, calls,
                                  kwargs):
     """Per Tiny group of one fused step: the whole fused lookup with the
-    step's folded sort, the same without it (its own sort and inverse),
-    the gather alone, and `lookup_combine` on the same ids and weights:
-    where the sorted gather pays on this card."""
+    step's folded sort (its sid and perm), the same without it (its own
+    sort), the gather alone, `lookup_combine` on the same ids and
+    weights, and the old composition (`old_fused_composition`, given the
+    inverse permutation), held bit-equal to the new lookup: the before
+    and after of the redesign, in one run. Beside them, the old
+    composition's two `index_select` passes alone (the weight permutation
+    and the unpermute) and the inverse permutation's own scatter, which
+    the old forward's sort made; then the totals over the groups."""
+    totals = dict(fused_folded_ms=0.0, old_composition_ms=0.0,
+                  weight_permute_ms=0.0, unpermute_ms=0.0, inverse_ms=0.0)
     for g, (args, kw) in enumerate(zip(calls, kwargs)):
         table, ids, weights, combiner = args
         presorted = kw.get("presorted")
-        check(presorted is not None, f"group {g} carried no folded sort")
+        check(presorted is not None and len(presorted) == 2,
+              f"group {g} carried no folded (sid, perm)")
         want = cuda_lookup.lookup_combine(table, ids, weights)
         got = cuda_tiled.fused_lookup_combine(table, ids, weights, combiner,
                                               presorted=presorted)
+        sid, perm = presorted
+        keys = sid.clamp(max=table.shape[0] - 1)
+        w_flat = weights.reshape(-1).contiguous()
+        inv = torch.empty_like(perm)
+        inverse = lambda: inv.index_put_(
+            (perm,), torch.arange(perm.numel(), device="cuda"))
+        inverse()
+        old = old_fused_composition(cuda_tiled, table, ids, weights,
+                                    combiner, presorted, inv)
+        rows = cuda_tiled.gather_sorted(table, keys, w_flat[perm])
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         check(torch.allclose(got, want, **KERNEL_TOL),
               f"group {g}: fused lookup against lookup_combine: {err}")
-        sid, perm, _ = presorted
-        w_sorted = weights.reshape(-1).index_select(0, perm)
-        keys = sid.clamp(max=table.shape[0] - 1)
+        hold_bit_equal(torch, "fused lookup against its old composition",
+                       got, old)
+        del got, want, old
+        times = dict(
+            fused_folded_ms=device_ms(lambda: cuda_tiled.fused_lookup_combine(
+                table, ids, weights, combiner, presorted=presorted), reps=10),
+            old_composition_ms=device_ms(lambda: old_fused_composition(
+                cuda_tiled, table, ids, weights, combiner, presorted, inv),
+                reps=10),
+            weight_permute_ms=device_ms(
+                lambda: w_flat.index_select(0, perm), reps=10),
+            unpermute_ms=device_ms(lambda: rows.index_select(0, inv),
+                                   reps=10),
+            inverse_ms=device_ms(inverse, reps=10))
+        del rows
+        for key, val in times.items():
+            totals[key] += val
         emit(phase="fused_vs_lookup_combine", group=g,
              table=list(table.shape), ids=list(ids.shape),
-             max_abs_err=err,
-             fused_folded_ms=device_ms(lambda: cuda_tiled.fused_lookup_combine(
-                 table, ids, weights, combiner, presorted=presorted), reps=10),
+             max_abs_err=err, old_bit_equal=True, **times,
              fused_unfolded_ms=device_ms(
                  lambda: cuda_tiled.fused_lookup_combine(table, ids, weights,
                                                          combiner), reps=10),
              gather_sorted_ms=device_ms(lambda: cuda_tiled.gather_sorted(
-                 table, keys, w_sorted), reps=10),
+                 table, keys, w_flat, perm=perm), reps=10),
              lookup_combine_ms=device_ms(lambda: cuda_lookup.lookup_combine(
                  table, ids, weights), reps=10))
+    emit(phase="fused_vs_old_total", groups=len(calls), **totals)
 
 
 def stream_bound(kind, keys, width, u, rate):
@@ -1766,8 +1930,7 @@ def main() -> int:
         fused_once()
     torch.cuda.synchronize()
     gather_totals = {"train_fused": time_gather_calls(
-        torch, cuda_tiled, [a + (None,) * (3 - len(a)) for a in g_cap.calls],
-        rate, "train_fused")}
+        torch, cuda_tiled, g_cap.calls, g_cap.kwargs, rate, "train_fused")}
     fused_against_lookup_combine(torch, cuda_tiled, cuda_lookup,
                                  f_cap.calls, f_cap.kwargs)
     del g_cap, f_cap, holder
@@ -1922,8 +2085,7 @@ def main() -> int:
                                                 s_cap.calls, rate)
         if kind == "adagrad":
             gather_totals["train_tiled"] = time_gather_calls(
-                torch, cuda_tiled,
-                [a + (None,) * (3 - len(a)) for a in g_cap.calls], rate,
+                torch, cuda_tiled, g_cap.calls, g_cap.kwargs, rate,
                 "train_tiled")
         del g_cap, s_cap, holder
     del cmodel, cpu_c

@@ -2,19 +2,39 @@
 // ascending id stream, and the row-wise optimizer updates that aggregate a
 // raw (undeduplicated) gradient stream in its sorted order.
 //
-// gather_sorted:
-//   out[k, :] = w[k] * table[sid[k], :]   (w == nullptr: table[sid[k], :])
-//   rows with sid[k] < 0 or sid[k] >= V are zeros, whatever the weight.
+// gather_sorted, over an ascending key stream sid with its stable sort
+// order perm (the stream's position of each sorted position):
+//   perm given: out[perm[k], :] = w[perm[k]] * table[sid[k], :]
+//   perm null:  out[k, :]       = w[k]       * table[sid[k], :]
+// (w == nullptr: no product); rows whose key lies outside [0, V) are
+// zeros, whatever the weight. With perm, the weights are in the stream's
+// order and so are the rows: the call is the sorted gather, the weight
+// permutation before it and the unpermute after it in one pass.
 // Replaces distributed_embeddings_tpu/ops/pallas_tiled.py `_gather_kernel`
-// (both variants, through `_gather_call`): tiled_gather_sorted(_weighted),
-// tiled_gather, tiled_embedding_lookup, fused_lookup_combine and the
-// dweights gather of `_tiled_lookup_bwd`. The TPU kernel walks (table tile,
-// id chunk) pairs and contracts a one-hot slab on the MXU because the TPU's
-// row gather was descriptor-bound; on this card a row gather is a plain
-// load, so each output row reads its one table row. The product is one
-// rounded multiply, as the one-hot contraction's single non-zero term is.
+// (both variants, through `_gather_call`) together with the JAX package's
+// unpermute `jnp.take(rows, inv)` (pallas_tiled.py:632 in `tiled_gather`,
+// :826 in `_fused_lookup_impl`) and the fused lookup's weight permutation
+// (`jnp.take(weights, perm)`, :819): tiled_gather, tiled_embedding_lookup,
+// fused_lookup_combine and the dweights gather of `_tiled_lookup_bwd` take
+// the perm form; tiled_gather_sorted(_weighted) keep the sorted order. The
+// TPU kernel walks (table tile, id chunk) pairs and contracts a one-hot
+// slab on the MXU because the TPU's row gather was descriptor-bound, and
+// XLA permutes the rows in two more passes; on this card a row gather is a
+// plain load, so each sorted position reads its one table row and stores
+// it straight at its place in the stream. The product is one rounded
+// multiply, as the one-hot contraction's single non-zero term is, so the
+// rows are bit-identical to the sorted gather followed by the unpermute.
+// Design: one thread group per sorted position, float4 column slices.
+// Table reads go in ascending key order (neighbouring groups share a hot
+// row in L2) and each group stores one whole output row at perm[k] (at
+// W = 8 one 32-byte sector), so the scattered store costs whole sectors,
+// never a partial one; its weight read at perm[k] is scattered too. The
+// other order (one group per output row, reading sid[inv[i]]) was timed on
+// the card and was slower once the inverse it needs is counted (PERF.md).
+// No TMA: it has no gather by a list of rows.
 // Bound: bytes, 4*W*U table bytes for the U distinct rows the stream reads,
-// plus the ids (and weights) once and the 4*N*W output once.
+// plus the keys, perm (8*N) and the weights (4*N) once and the 4*N*W
+// output once.
 //
 // sgd_stream / adagrad_stream / adam_stream, over a sorted stream given as
 // (sid, perm, starts): segment s covers sorted positions
@@ -69,14 +89,17 @@ template <typename IdT, bool kVec4>
 __global__ void __launch_bounds__(kThreads)
 gather_sorted_kernel(const float* __restrict__ table, int64_t vocab,
                      int64_t width, const IdT* __restrict__ sid,
-                     const float* __restrict__ weights, int64_t n,
+                     const float* __restrict__ weights,
+                     const int64_t* __restrict__ perm, int64_t n,
                      float* __restrict__ out, int lane_shift) {
   constexpr int kVec = kVec4 ? 4 : 1;
   const Group g = group_of(lane_shift);
   if (g.slot >= n) return;
+  // this sorted position's output row o (its weight's too)
+  const int64_t o = perm == nullptr ? g.slot : perm[g.slot];
   const int64_t r = static_cast<int64_t>(sid[g.slot]);
   const bool valid = r >= 0 && r < vocab;
-  const float w = weights == nullptr ? 1.f : weights[g.slot];
+  const float w = weights == nullptr ? 1.f : weights[o];
   for (int64_t c = static_cast<int64_t>(g.lane) * kVec; c < width;
        c += static_cast<int64_t>(g.lanes) * kVec) {
     float v[kVec];
@@ -90,7 +113,7 @@ gather_sorted_kernel(const float* __restrict__ table, int64_t vocab,
 #pragma unroll
       for (int e = 0; e < kVec; ++e) v[e] = 0.f;
     }
-    Vec<kVec>::store(out + g.slot * width + c, v);
+    Vec<kVec>::store(out + o * width + c, v);
   }
 }
 
@@ -256,15 +279,17 @@ adam_long_stream_kernel(float* __restrict__ table, float* __restrict__ mu,
 // Plain C entry points, bound with ctypes, one per key type (i32 / i64).
 // `vec4` selects float4 access and needs width % 4 == 0 and 16-byte aligned
 // float pointers. Each returns cudaGetLastError() after its launch; none
-// synchronizes. The stream updates also take the walk's scratch (int64,
+// synchronizes. gather_sorted takes perm or null. The
+// stream updates also take the walk's scratch (int64,
 // 2 + at least n / (kLongRows + 1) entries) and the long pass's block count
 // (the SM count), and return the first error of their three launches.
 #define SORTED_STREAM_ENTRY_POINTS(suffix, IdT)                               \
   extern "C" int gather_sorted_f32_##suffix(                                 \
       const float* table, int64_t vocab, int64_t width, const IdT* sid,      \
-      const float* weights, int64_t n, float* out, int vec4, void* stream) { \
+      const float* weights, const int64_t* perm, int64_t n, float* out,      \
+      int vec4, void* stream) {                                              \
     ROW_RULES_LAUNCH(gather_sorted_kernel, IdT, n, width, vec4, stream,      \
-                     table, vocab, width, sid, weights, n, out);             \
+                     table, vocab, width, sid, weights, perm, n, out);       \
   }                                                                          \
   extern "C" int sgd_stream_f32_##suffix(                                    \
       float* table, int64_t vocab, int64_t width, const float* contribs,     \

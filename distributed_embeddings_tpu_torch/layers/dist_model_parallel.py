@@ -383,30 +383,26 @@ class DistributedEmbedding(nn.Module):
 
     def _fwd_tiled_active(self, bucket, k: int) -> bool:
         """Does `_group_lookup` take a sorted lookup ("tiled" or "fused")
-        for this (bucket, hotness)? Both consume a sort's inverse
-        permutation."""
+        for this (bucket, hotness)? Both consume the group's sort (its
+        sid and perm)."""
         if self.lookup_path not in ("tiled", "fused"):
             return False
         return bucket.combiner is not None or k == 1
 
-    def _sort_plan(self, groups) -> List[Optional[str]]:
-        """Per exchange group: None (no sort artifact), "plain" (sid, perm
-        and segment starts, for the sparse update) or "inv" (with the
-        inverse permutation, for a sorted lookup as well). A bucket whose
-        update concatenates several groups gets no "plain" sort: one
-        group's sort cannot serve the concatenated stream."""
+    def _sort_plan(self, groups) -> List[bool]:
+        """Per exchange group: does the tapped forward sort its id stream
+        (`canonical_id_sort`: sid, perm and segment starts)? Yes for a
+        sorted lookup, and for the sparse update of a one-group bucket; a
+        bucket whose update concatenates several groups gets no sort for
+        it alone: one group's sort cannot serve the concatenated stream."""
         if not self._fold_sort:
-            return [None] * len(groups)
+            return [False] * len(groups)
         per_bucket: dict = {}
         for grp in groups:
             per_bucket[grp.bucket] = per_bucket.get(grp.bucket, 0) + 1
-        plan: List[Optional[str]] = []
-        for grp in groups:
-            bucket = self.plan.tp_buckets[grp.bucket]
-            plan.append("inv" if self._fwd_tiled_active(bucket, grp.k)
-                        else ("plain" if per_bucket[grp.bucket] == 1
-                              else None))
-        return plan
+        return [self._fwd_tiled_active(self.plan.tp_buckets[grp.bucket],
+                                       grp.k)
+                or per_bucket[grp.bucket] == 1 for grp in groups]
 
     # --------------------------------------------------------------- lookup
     def _group_lookup(self, table: torch.Tensor, ids: torch.Tensor,
@@ -417,8 +413,8 @@ class DistributedEmbedding(nn.Module):
         combined group ('sum': `_tp_group_out` has already folded mean into
         the weights or the scale) is one gather-combine kernel launch, or
         under lookup_path "tiled" / "fused" one sorted lookup, which takes
-        the group's `presorted` sort when it carries the inverse
-        permutation; the combiner-None passthrough is a plain gather
+        the group's `presorted` sort (its sid and perm) when the forward
+        made one; the combiner-None passthrough is a plain gather
         (at hotness 1 the combined paths take it as a sum, the same
         result)."""
         b_sz, f, k = ids.shape
@@ -432,9 +428,8 @@ class DistributedEmbedding(nn.Module):
             w = (weights if weights is not None
                  else torch.ones(ids.shape, dtype=torch.float32,
                                  device=ids.device))
-            ps = None
-            if presorted is not None and presorted.inv is not None:
-                ps = (presorted.sid, presorted.perm, presorted.inv)
+            ps = (None if presorted is None
+                  else (presorted.sid, presorted.perm))
             out = lookup(table, ids.reshape(b_sz * f, k),
                          w.reshape(b_sz * f, k), combiner, presorted=ps)
             return out.reshape(b_sz, f, out.shape[-1])
@@ -477,8 +472,9 @@ class DistributedEmbedding(nn.Module):
         Returns per group the [world_src=1, B, f_max, wf] output block.
         With `taps`, each block is detached into a leaf that requires grad
         and appended to ``taps["tp"]``; with `res_ids`/`res_w`/`res_sort`,
-        the group's absolute ids, effective weights and the `GroupSort`
-        its `sort_plan` entry asks for (or None) are appended there."""
+        the group's absolute ids, effective weights and its `GroupSort`
+        (where its `sort_plan` entry asks for one, else None) are appended
+        there."""
         ex_list = []
         for g, grp in enumerate(groups):
             ids_x, w_x = self._padded_id_exchange(grp, group_ids[g],
@@ -487,8 +483,7 @@ class DistributedEmbedding(nn.Module):
             sort_g = None
             if sort_plan is not None and sort_plan[g]:
                 sort_g = canonical_id_sort(
-                    ids_x, max(self.plan.tp_buckets[grp.bucket].rows_max, 1),
-                    want_inv=sort_plan[g] == "inv")
+                    ids_x, max(self.plan.tp_buckets[grp.bucket].rows_max, 1))
             out = self._tp_group_out(grp, ids_x, w_x, presorted=sort_g)[None]
             if taps is not None:
                 out = out.detach().requires_grad_()

@@ -5,9 +5,12 @@ Counterpart of ``distributed_embeddings_tpu/ops/pallas_tiled.py`` outside
 its deduplicated-row appliers (those are `ops.cuda_sparse`):
 
 * `gather_sorted`: ``rows[k] = (w[k] *) table[sid[k]]`` over an ascending
-  key stream, zero rows for keys outside [0, V). Serves
-  `tiled_gather_sorted`, `tiled_gather_sorted_weighted`, `tiled_gather`
-  and both lookups, `tiled_embedding_lookup` and `fused_lookup_combine`.
+  key stream, zero rows for keys outside [0, V); given the sort order
+  `perm`, it stores each row at its place in the unsorted stream instead,
+  ``rows[perm[k]] = (w[perm[k]] *) table[sid[k]]``, weights in stream
+  order. The sorted form serves `tiled_gather_sorted` and
+  `tiled_gather_sorted_weighted`; the perm form serves `tiled_gather` and
+  both lookups, `tiled_embedding_lookup` and `fused_lookup_combine`.
 * `sgd_stream`, `adagrad_stream`, `adam_stream`: the row-wise optimizers
   on a raw gradient stream in its sorted order, each segment summed in
   registers and applied once (`tiled_sgd`, `tiled_adagrad`, `tiled_adam`;
@@ -19,8 +22,10 @@ its deduplicated-row appliers (those are `ops.cuda_sparse`):
 The TPU kernels walk table tiles against id chunks with one-hot matmuls;
 these compute the same functions row by row (see the source). Sorting is
 ``torch.sort(stable=True)``, as XLA's sort stays outside the Pallas kernels.
-The unpermute (``rows[inv]``) and the hotness sum stay in PyTorch, as they
-stay in XLA there.
+The JAX package permutes the weights into sorted order and unpermutes the
+gathered rows (``rows[inv]``) in XLA around its kernel; here the perm form
+of `gather_sorted` does both in its one pass, so no lookup reads an inverse
+permutation. The hotness sum stays in PyTorch, as it stays in XLA there.
 
 Each wrapper checks device, dtype, shape and contiguity, takes its plain
 PyTorch version (``*_plain``, beside it) only for CPU tensors, and on CUDA
@@ -61,7 +66,7 @@ launches: Dict[str, int] = {"gather_sorted": 0, "sgd_stream": 0,
 _P, _I64, _F, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, ctypes.c_int
 # argument types per C symbol stem (the stream pointer comes last)
 _ARGTYPES = {
-    "gather_sorted": [_P, _I64, _I64, _P, _P, _I64, _P, _I, _P],
+    "gather_sorted": [_P, _I64, _I64, _P, _P, _P, _I64, _P, _I, _P],
     "sgd_stream": [_P, _I64, _I64, _P, _P, _P, _P, _I64, _F, _I, _P, _I, _P],
     "adagrad_stream": [_P, _P, _I64, _I64, _P, _P, _P, _P, _I64, _F, _F, _I,
                        _P, _I, _P],
@@ -99,25 +104,38 @@ def _check_keys(what, sid):
 
 # ----------------------------------------------------------------- gather
 def gather_sorted_plain(table: torch.Tensor, sid: torch.Tensor,
-                        weights: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
-    """Plain version of `gather_sorted`: ``index_select``, one multiply,
-    zeros where the key is outside [0, V)."""
+                        weights: Optional[torch.Tensor] = None,
+                        perm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of `gather_sorted`: ``index_select``, one multiply
+    (by the weights taken at `perm`), zeros where the key is outside
+    [0, V), then, with `perm`, ``index_copy_`` of each row to its place
+    in the stream."""
     vocab = table.shape[0]
     valid = (sid >= 0) & (sid < vocab)
     rows = table.index_select(0, sid.clamp(0, vocab - 1))
     if weights is not None:
+        if perm is not None:
+            weights = weights.index_select(0, perm)
         rows = rows * weights[:, None]
-    return torch.where(valid[:, None], rows, torch.zeros((), device=rows.device))
+    rows = torch.where(valid[:, None], rows,
+                       torch.zeros((), device=rows.device))
+    if perm is None:
+        return rows
+    return torch.empty_like(rows).index_copy_(0, perm, rows)
 
 
 def gather_sorted(table: torch.Tensor, sid: torch.Tensor,
-                  weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  weights: Optional[torch.Tensor] = None,
+                  perm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``rows[k] = w[k] * table[sid[k]]`` (weights None: ``table[sid[k]]``)
     for keys sid [N] int32/int64; keys outside [0, V) give zero rows,
     whatever the weight. table [V, W] float32, weights [N] float32 ->
-    rows [N, W] float32. (The kernel reads any key order; the callers pass
-    ascending keys, as the TPU kernel requires.)"""
+    rows [N, W] float32. With `perm` ([N] int64, the stream position of
+    each sorted key, as `torch.sort` returns it; it must be a permutation
+    of 0..N-1, which is not checked), weights and rows are in stream
+    order: ``rows[perm[k]] = w[perm[k]] * table[sid[k]]``. (The kernel
+    reads any key order; the callers pass ascending keys, as the TPU kernel
+    requires.)"""
     _check_table("gather_sorted", table)
     _check_keys("gather_sorted", sid)
     if table.shape[0] == 0:
@@ -129,9 +147,15 @@ def gather_sorted(table: torch.Tensor, sid: torch.Tensor,
                              f"{tuple(sid.shape)}, got {weights.dtype} "
                              f"{tuple(weights.shape)}")
         tensors.append(weights)
+    if perm is not None:
+        if perm.dtype != torch.int64 or perm.shape != sid.shape:
+            raise ValueError(f"gather_sorted: perm must be int64 "
+                             f"{tuple(sid.shape)}, got {perm.dtype} "
+                             f"{tuple(perm.shape)}")
+        tensors.append(perm)
     _check_same("gather_sorted", table, *tensors)
     if not _on_cuda("gather_sorted", table):
-        return gather_sorted_plain(table, sid, weights)
+        return gather_sorted_plain(table, sid, weights, perm)
     fn = _kernel_fn("gather_sorted", sid.dtype)
     vocab, width = table.shape
     n = sid.shape[0]
@@ -140,7 +164,8 @@ def gather_sorted(table: torch.Tensor, sid: torch.Tensor,
         return out
     _checked_launch(launches, "gather_sorted", fn(
         table.data_ptr(), vocab, width, sid.data_ptr(),
-        None if weights is None else weights.data_ptr(), n, out.data_ptr(),
+        None if weights is None else weights.data_ptr(),
+        None if perm is None else perm.data_ptr(), n, out.data_ptr(),
         int(_vec4(width, table, out)), _stream(table)))
     return out
 
@@ -294,11 +319,20 @@ def _sort_ids(ids: torch.Tensor, vocab: int):
 
 def _sort_with_inv(flat_ids: torch.Tensor, vocab: int, presorted):
     """(sid, perm, inv) of a flat id stream: the caller's triple as given,
-    or one fresh sort plus its inverse permutation."""
+    or one fresh sort plus its inverse permutation (the JAX package's
+    `_sort_with_inv`; the port's lookups take `_sort_pair`)."""
     if presorted is not None:
         return presorted
     sid, perm = _sort_ids(flat_ids, vocab)
     return sid, perm, inverse_permutation(perm)
+
+
+def _sort_pair(flat_ids: torch.Tensor, vocab: int, presorted):
+    """(sid, perm) of a flat id stream: the first two of the caller's
+    (sid, perm) or (sid, perm, inv), or one fresh sort."""
+    if presorted is not None:
+        return presorted[0], presorted[1]
+    return _sort_ids(flat_ids, vocab)
 
 
 def tiled_gather_sorted(table: torch.Tensor, sid: torch.Tensor
@@ -318,27 +352,25 @@ def tiled_gather_sorted_weighted(table: torch.Tensor, sid: torch.Tensor,
 def tiled_gather(table: torch.Tensor, ids: torch.Tensor,
                  presorted=None) -> torch.Tensor:
     """rows[k] = table[ids[k]] for ids in any order (ids outside [0, V)
-    give zero rows): sort, sorted gather, unpermute. `presorted` reuses a
-    prior (sid, perm) or (sid, perm, inv) of this id stream."""
+    give zero rows): one sort, then `gather_sorted` storing each row at
+    its place in the stream. `presorted` reuses a prior (sid, perm) or
+    (sid, perm, inv) of this id stream (inv is not read)."""
     if ids.shape[0] == 0:
         return torch.zeros((0, table.shape[1]), dtype=torch.float32,
                            device=table.device)
-    if presorted is not None and len(presorted) == 2:
-        sid, perm = presorted
-        inv = inverse_permutation(perm)
-    else:
-        sid, perm, inv = _sort_with_inv(ids, table.shape[0], presorted)
-    return tiled_gather_sorted(table, sid).index_select(0, inv)
+    sid, perm = _sort_pair(ids, table.shape[0], presorted)
+    return gather_sorted(table, sid, perm=perm)
 
 
 # ----------------------------------------------------------------- lookups
 def _combine_prologue(params, ids, weights, combiner, presorted):
     """The lookups' shared prologue: check the combiner, default the
     weights to ones (mean divides them by their row sum, at least 1), clip
-    ids into [0, V-1], and cap a presorted triple's keys at V-1. So
-    positive out-of-range ids read row V-1 on both routes, while negative
-    ids read row 0 when sorted here but row V-1 through a presorted triple
-    (their canonical key is V), as in the JAX package."""
+    ids into [0, V-1], and cap a presorted pair's or triple's keys at V-1
+    (returning the pair). So positive out-of-range ids read row V-1 on
+    both routes, while negative ids read row 0 when sorted here but row
+    V-1 through a presorted stream (their canonical key is V), as in the
+    JAX package."""
     if combiner not in ("sum", "mean"):
         raise ValueError(f"Unsupported combiner {combiner}")
     if weights is None:
@@ -350,18 +382,14 @@ def _combine_prologue(params, ids, weights, combiner, presorted):
     vocab = params.shape[0]
     ids = ids.clamp(0, vocab - 1)
     if presorted is not None:
-        sid, perm, inv = presorted
-        presorted = (sid.clamp(max=vocab - 1), perm, inv)
+        presorted = (presorted[0].clamp(max=vocab - 1), presorted[1])
     return ids, weights, presorted
 
 
 def _sorted_stream(ids: torch.Tensor, vocab: int, presorted):
     """(sid, perm, starts) of a raw update stream: a fresh sort, or the
     caller's (sid, perm) of this stream."""
-    if presorted is None:
-        sid, perm = _sort_ids(ids, vocab)
-    else:
-        sid, perm = presorted
+    sid, perm = _sort_pair(ids, vocab, presorted)
     starts, _ = segment_bounds(segment_starts(sid))
     return sid, perm, starts
 
@@ -370,7 +398,7 @@ def _tiled_lookup_bwd(ctx, g):
     """The backward of both lookups (the JAX package's `_tiled_lookup_bwd`):
     the dense table gradient by `sgd_stream` at lr = -1 over a zero table
     on the forward's sort, and dweights from the unweighted gather."""
-    params, ids, weights, sid, perm, inv = ctx.saved_tensors
+    params, ids, weights, sid, perm = ctx.saved_tensors
     flat_ids = ids.reshape(-1)
     dtable = dweights = None
     if ctx.needs_input_grad[0]:
@@ -381,40 +409,39 @@ def _tiled_lookup_bwd(ctx, g):
                            flat_ids, contrib.contiguous(), -1.0,
                            presorted=(sid, perm))
     if ctx.needs_input_grad[2]:
-        rows = tiled_gather(params, flat_ids, presorted=(sid, perm, inv))
+        rows = tiled_gather(params, flat_ids, presorted=(sid, perm))
         dweights = torch.einsum("bkw,bw->bk",
                                 rows.reshape(ids.shape + (-1,)), g)
     return dtable, None, dweights, None
 
 
 class _TiledLookup(torch.autograd.Function):
-    """Unweighted sorted gather, then ``einsum`` with the weights."""
+    """Unweighted gather in stream order, then ``einsum`` with the
+    weights."""
 
     @staticmethod
     def forward(ctx, params, ids, weights, presorted):
         b, k = ids.shape
-        sid, perm, inv = _sort_with_inv(ids.reshape(-1), params.shape[0],
-                                        presorted)
-        ctx.save_for_backward(params, ids, weights, sid, perm, inv)
+        sid, perm = _sort_pair(ids.reshape(-1), params.shape[0], presorted)
+        ctx.save_for_backward(params, ids, weights, sid, perm)
         rows = tiled_gather(params, ids.reshape(-1),
-                            presorted=(sid, perm, inv)).reshape(b, k, -1)
+                            presorted=(sid, perm)).reshape(b, k, -1)
         return torch.einsum("bk,bkw->bw", weights, rows)
 
     backward = staticmethod(_tiled_lookup_bwd)
 
 
 class _FusedLookup(torch.autograd.Function):
-    """Weighted sorted gather, unpermute, plain hotness sum."""
+    """Weighted gather in stream order (the weights applied inside
+    `gather_sorted`), then a plain hotness sum."""
 
     @staticmethod
     def forward(ctx, params, ids, weights, presorted):
         b, k = ids.shape
-        sid, perm, inv = _sort_with_inv(ids.reshape(-1), params.shape[0],
-                                        presorted)
-        ctx.save_for_backward(params, ids, weights, sid, perm, inv)
-        w_sorted = weights.reshape(-1).index_select(0, perm)
-        rows = tiled_gather_sorted_weighted(params, sid, w_sorted)
-        return rows.index_select(0, inv).reshape(b, k, -1).sum(dim=1)
+        sid, perm = _sort_pair(ids.reshape(-1), params.shape[0], presorted)
+        ctx.save_for_backward(params, ids, weights, sid, perm)
+        rows = gather_sorted(params, sid, weights.reshape(-1), perm=perm)
+        return rows.reshape(b, k, -1).sum(dim=1)
 
     backward = staticmethod(_tiled_lookup_bwd)
 
@@ -426,9 +453,10 @@ def tiled_embedding_lookup(params: torch.Tensor, ids: torch.Tensor,
     """Padded multi-hot lookup over the sorted gather: [V, W] table, [B, K]
     ids -> [B, W]. Weights [B, K] carry 0.0 in padded slots (None = all
     ones); mean pre-normalizes them; ids clip into [0, V-1] (see
-    `_combine_prologue`). `presorted`: the canonical (sid, perm, inv) of
-    the flattened ids, e.g. the tapped forward's `GroupSort`, which folds
-    the lookup's own sort away. Differentiable in params and weights."""
+    `_combine_prologue`). `presorted`: the canonical (sid, perm) or
+    (sid, perm, inv) of the flattened ids, e.g. from the tapped forward's
+    `GroupSort`, which folds the lookup's own sort away. Differentiable in
+    params and weights."""
     ids, weights, presorted = _combine_prologue(params, ids, weights,
                                                 combiner, presorted)
     return _TiledLookup.apply(params.contiguous(), ids.contiguous(),
@@ -440,8 +468,8 @@ def fused_lookup_combine(params: torch.Tensor, ids: torch.Tensor,
                          combiner: str = "sum",
                          presorted=None) -> torch.Tensor:
     """The same function as `tiled_embedding_lookup`, with the weights
-    applied inside the gather (`gather_sorted` weighted), then a plain
-    hotness sum after the unpermute. Differentiable in params and
+    applied inside the gather (`gather_sorted` weighted, in stream
+    order), then a plain hotness sum. Differentiable in params and
     weights; same backward."""
     ids, weights, presorted = _combine_prologue(params, ids, weights,
                                                 combiner, presorted)

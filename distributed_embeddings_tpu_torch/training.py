@@ -288,6 +288,8 @@ def gradient_scale(model, numerical, cats, labels) -> dict:
 _FIT_UNPORTED = {
     "eval_data": (None, "A2, open: fit's eval"),
     "eval_every": (0, "A2, open: fit's eval"),
+    "eval_steps": (16, "A2, open: fit's eval"),
+    "sync_every": (None, "A3 (multi-GPU exchange)"),
     "stage": (None, "A11 (ingest)"),
     "preprocess": (None, "A11 (ingest)"),
     "pipelined": (False, "A11 (ingest)"),
@@ -297,6 +299,7 @@ _FIT_UNPORTED = {
     "publish_every": (None, "A12 (store and vocab)"),
     "publish_dir": (None, "A12 (store and vocab)"),
     "vocab": (None, "A12 (store and vocab)"),
+    "vocab_every": (16, "A12 (store and vocab)"),
     "lookahead": (None, "A14 (lookahead)"),
     "stale_ok": (False, "A14 (lookahead)"),
     "registry": (None, "A15 (obs)"),

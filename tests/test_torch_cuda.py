@@ -170,6 +170,45 @@ def test_gather_sorted_matches_plain_bit_for_bit(gen, width, key_dtype,
 
 
 @pytest.mark.parametrize("width", [8, 16, 6, 128, 256])
+@pytest.mark.parametrize("key_dtype", ["int32", "int64"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_gather_sorted_perm_matches_plain_bit_for_bit(gen, width, key_dtype,
+                                                      weighted):
+    """The perm form (each row stored at its place in the stream, weights
+    in stream order) on the sort of a random stream with keys < 0 and
+    >= V, one launch a call; the inv form (by output row) gives the same
+    rows."""
+    vocab, n = 900, 5000
+    table = torch.empty((vocab, width), device="cuda").uniform_(
+        -0.05, 0.05, generator=gen)
+    ids = torch.randint(-3, vocab + 4, (n,), device="cuda", generator=gen)
+    sid, perm = torch.sort(ids, stable=True)
+    sid = sid.to(getattr(torch, key_dtype))
+    w = (torch.rand((n,), device="cuda", generator=gen) if weighted
+         else None)
+    launches = cuda_tiled.launches["gather_sorted"]
+    got = cuda_tiled.gather_sorted(table, sid, w, perm=perm)
+    want = cuda_tiled.gather_sorted_plain(table, sid, w, perm=perm)
+    torch.cuda.synchronize()
+    assert cuda_tiled.launches["gather_sorted"] == launches + 1
+    assert torch.equal(got, want)
+    valid = (ids >= 0) & (ids < vocab)
+    assert torch.equal(got[valid], (table[ids[valid]] if w is None
+                                    else table[ids[valid]] * w[valid, None]))
+    assert not got[~valid].any()
+
+
+def test_gather_sorted_perm_on_an_empty_stream(gen):
+    table = torch.ones((10, 8), device="cuda")
+    empty = torch.zeros(0, dtype=torch.int64, device="cuda")
+    launches = cuda_tiled.launches["gather_sorted"]
+    got = cuda_tiled.gather_sorted(table, empty, torch.zeros(0, device="cuda"),
+                                   perm=empty)
+    assert got.shape == (0, 8)
+    assert cuda_tiled.launches["gather_sorted"] == launches
+
+
+@pytest.mark.parametrize("width", [8, 16, 6, 128, 256])
 @pytest.mark.parametrize("kind", ["sgd", "adagrad", "adam"])
 def test_stream_kernels_match_plain_bit_for_bit(gen, width, kind):
     """Three accumulating steps on duplicate-heavy streams with ids out of

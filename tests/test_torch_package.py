@@ -217,6 +217,21 @@ def test_fit_outside_the_slice_raises(kwargs):
         fit(model, [], 0, **kwargs)
 
 
+@pytest.mark.parametrize("name,default,other,item", [
+    ("eval_steps", 16, 4, "A2"), ("sync_every", None, 1, "A3"),
+    ("vocab_every", 16, 4, "A12"),
+])
+def test_fit_takes_the_reference_arguments_at_their_defaults(name, default,
+                                                             other, item):
+    """The JAX `fit`'s arguments without a port yet: the default is
+    accepted, any other value raises naming the ROADMAP item."""
+    model = DLRM([10, 20], embedding_dim=8, device="cpu")
+    fit(model, [], 0, **{name: default})
+    with pytest.raises(NotImplementedError,
+                       match=rf"ROADMAP Queue {item}[ ,]"):
+        fit(model, [], 0, **{name: other})
+
+
 @pytest.mark.parametrize("bad", [
     dict(table=torch.zeros(5, 4, dtype=torch.float64)),
     dict(ids=torch.zeros(3, 2)),

@@ -68,6 +68,53 @@ def test_sorted_gathers_match_jax(vocab, n, width):
 
 
 @pytest.mark.parametrize("vocab,n,width", [(50, 300, 8), (700, 129, 16),
+                                           (9, 40, 6), (300, 0, 4)])
+@pytest.mark.parametrize("key_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_gather_sorted_perm_form(vocab, n, width, key_dtype, weighted):
+    """`gather_sorted_plain` with `perm` (rows at their places in the
+    stream, weights in stream order) on the sort of ids in any order, ids
+    out of range included: bit for bit the sorted gather with the weights
+    permuted before it and the rows unpermuted after it, and the inv
+    form (by output row), and against the
+    JAX package's ``jnp.take(tiled_gather_sorted_weighted(table, sid,
+    w[perm]), inv)`` at GATHER_TOL."""
+    rng = np.random.RandomState(vocab + n + width)
+    table = rng.randn(vocab, width).astype(np.float32)
+    ids = _raw_ids(rng, vocab, n, 0.2)
+    w = rng.rand(n).astype(np.float32) if weighted else None
+    sid, perm, inv = cuda_tiled._sort_with_inv(_t(ids), vocab, None)
+    sid = sid.to(key_dtype)
+    tw = None if w is None else _t(w)
+    got = cuda_tiled.gather_sorted_plain(_t(table), sid, tw, perm=perm)
+    old = cuda_tiled.gather_sorted_plain(
+        _t(table), sid, None if tw is None else tw.index_select(0, perm))
+    assert torch.equal(got, old.index_select(0, inv))
+    assert torch.equal(got, cuda_tiled.gather_sorted(_t(table), sid, tw,
+                                                     perm=perm))
+    jsid, jperm, jinv = jax_tiled._sort_with_inv(jnp.asarray(ids), vocab,
+                                                 None)
+    jw = jnp.asarray(w if w is not None else np.ones(n, np.float32))
+    want = jnp.take(jax_tiled.tiled_gather_sorted_weighted(
+        jnp.asarray(table), jsid, jnp.take(jw, jperm), interpret=True),
+        jinv, axis=0) if n else np.zeros((0, width), np.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **GATHER_TOL)
+
+
+@pytest.mark.parametrize("bad", [
+    dict(perm=torch.zeros(5, dtype=torch.int32)),
+    dict(perm=torch.zeros(4, dtype=torch.int64)),
+    dict(perm=torch.zeros(10, dtype=torch.int64)[::2]),
+    dict(perm=torch.zeros(5, dtype=torch.float32)),
+    dict(perm=torch.zeros((5, 1), dtype=torch.int64)),
+])
+def test_gather_sorted_refuses_a_bad_perm(bad):
+    with pytest.raises(ValueError):
+        cuda_tiled.gather_sorted(torch.zeros(6, 4),
+                                 torch.zeros(5, dtype=torch.int64), **bad)
+
+
+@pytest.mark.parametrize("vocab,n,width", [(50, 300, 8), (700, 129, 16),
                                            (300, 0, 4)])
 def test_tiled_gather_and_sort_artifacts_match_jax(vocab, n, width):
     """tiled_gather on ids in any order (fresh sort, then with the sort
@@ -149,6 +196,45 @@ def test_lookups_and_gradients_match_jax(path, combiner, weighted, presorted):
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out),
                                rtol=1e-5, atol=1e-6)
     dt, dw = torch.autograd.grad((out * _t(cot)).sum(), [t, w])
+    np.testing.assert_allclose(dt.numpy(), np.asarray(want_t), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(dw.numpy(), np.asarray(want_w), rtol=1e-4,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("path", sorted(LOOKUPS))
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+def test_lookups_take_a_presorted_pair_or_triple(path, combiner):
+    """A presorted (sid, perm) gives the forward and both gradients of a
+    presorted (sid, perm, inv) bit for bit (no lookup reads inv), and
+    matches the JAX lookup given its triple at the tolerances of
+    `test_lookups_and_gradients_match_jax`."""
+    vocab, batch, hot, width = 40, 12, 5, 8
+    table, ids, weights, cot = _lookup_case(7, vocab, batch, hot, width)
+    jfn, pfn = LOOKUPS[path]
+    gs = pt_eo.canonical_id_sort(_t(ids), vocab, want_inv=True)
+    got = []
+    for presorted in ((gs.sid, gs.perm, gs.inv), (gs.sid, gs.perm)):
+        t = _t(table.copy()).requires_grad_()
+        w = _t(weights.copy()).requires_grad_()
+        out = pfn(t, _t(ids), w, combiner, presorted=presorted)
+        got.append((out.detach(),) + torch.autograd.grad(
+            (out * _t(cot)).sum(), [t, w]))
+    for a, b in zip(*got):
+        assert torch.equal(a, b)
+    jgs = jax_eo.canonical_id_sort(jnp.asarray(ids), vocab, want_inv=True)
+
+    def jloss(t, w):
+        out = jfn(t, jnp.asarray(ids), w, combiner, interpret=True,
+                  presorted=(jgs.sid, jgs.perm, jgs.inv))
+        return jnp.sum(out * cot), out
+
+    (_, want_out), (want_t, want_w) = jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True)(jnp.asarray(table),
+                                             jnp.asarray(weights))
+    out, dt, dw = got[1]
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out), rtol=1e-5,
+                               atol=1e-6)
     np.testing.assert_allclose(dt.numpy(), np.asarray(want_t), rtol=1e-5,
                                atol=1e-6)
     np.testing.assert_allclose(dw.numpy(), np.asarray(want_w), rtol=1e-4,
