@@ -115,7 +115,39 @@ Phases, each printing JSON lines before the last line:
      profile (`index_select` by caller, as 5b); `gather_sorted` and the
      stream kernels at the step's shapes, with N, U, the longest segment
      and ``chain_ms``.
-  7. the kernels line, the card's line, and the last line
+  8. world (after 6b): the port at world size > 1. Tiny (full width,
+     adagrad, gather-combine and deduplicated rows) on 2 ranks, then criteo
+     (full width, ``lookup_path="tiled"`` + ``strategy="tiled"``, adagrad)
+     on 4, each rank a spawned process: on ``cuda:0`` over gloo (passed
+     explicitly) when the machine has fewer cards than ranks, else rank r
+     on ``cuda:r`` over NCCL; the backend and the device count printed
+     (``"nccl": "not run: 1 card"``). Each rank first probes the exchange
+     (an id and a float all_to_all of CUDA tensors), builds the config
+     with every table drawn from a seed by its index and the MLP from a
+     seed (`seed_weights`; no weight file), saves its forward of its
+     slice of batch 0, runs 3 adagrad steps over its slices of the global
+     batches (launches counted: per step one gather-combine or sorted
+     gather per exchange group and one segment sum and row update, or one
+     stream update, per bucket, the numbers from the rank's plan), then 10
+     timed steps after 2 warm ones and one profiled step (device time by
+     kernel and category, gloo's pinned copies, the exchange's ranges
+     from `ops.wire`, 3 a group or the phase fails). The card's idle
+     share merges every rank's device intervals (`card_profile`): the
+     ranks share it. This process then runs
+     the world-1 trainer over the same global batches, each step from rank
+     0's MLP and dense optimizer state before it (as phase 5's CPU trainer
+     starts from the card's; the tables train apart over all 3): each
+     rank's
+     forward bit-identical to its slice of world 1's (else rtol 1e-5,
+     printed), losses at rtol 1e-5, every touched row of each rank's
+     tables and accumulators by change (rtol 1e-4 plus one ulp a step,
+     the bar widened by the largest conditioning `gradient_scale` gives
+     the element over the steps, as in 5b: after the first step the two
+     worlds' MLPs differ in their last digits), the MLPs by value (rtol
+     1e-4 / atol 1e-6) and bit-equal across ranks. A rank that fails fails the phase; the ranks are joined with a
+     timeout.
+  7. the kernels line (each kernel's launches by path, the world paths'
+     summed over the ranks), the card's line, and the last line
      ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device or when the port
@@ -126,9 +158,11 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -307,35 +341,44 @@ def kernel_cases(torch, cuda_lookup):
     return worst
 
 
+def busy_union(intervals):
+    """The length of the union of (start, end) intervals."""
+    busy, reach = 0.0, None
+    for start, end in sorted(intervals):
+        if reach is None or start >= reach:
+            busy += end - start
+            reach = end
+        elif end > reach:
+            busy += end - reach
+            reach = end
+    return busy
+
+
 def profile_call(torch, fn):
     """One synchronized `fn()` under torch.profiler (after one warm call):
     the device's busy time (the union of its kernel and copy intervals),
-    the wall time, the device events (without the device side of
-    `index_select_ranges`' ranges) and the profiler. The profiler's own
-    host cost inflates the wall time, so an idle share from it is an upper
-    bound."""
+    the wall time, the device events (without the device side of the
+    host's annotated ranges: `index_select_ranges`', the exchange's,
+    gloo's and NCCL's), the profiler, and the call's window (start, end)
+    in µs of the Unix clock, the clock of the profiler's trace. The
+    profiler's own host cost inflates the wall time, so an idle share from
+    it is an upper bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+        t0 = time.time_ns() / 1e3
         fn()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        t1 = time.time_ns() / 1e3
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-              and not e.name.startswith(SELECT_RANGE)]
-    busy_us, reach = 0.0, None
-    for start, end in sorted((e.time_range.start, e.time_range.end)
-                             for e in device):
-        if reach is None or start >= reach:
-            busy_us += end - start
-            reach = end
-        elif end > reach:
-            busy_us += end - reach
-            reach = end
-    return busy_us, wall_us, device, prof
+              and not getattr(e, "is_user_annotation", False)
+              and not e.name.startswith(ANNOTATED_RANGES)]
+    busy_us = busy_union((e.time_range.start, e.time_range.end)
+                         for e in device)
+    return busy_us, t1 - t0, device, prof, (t0, t1)
 
 
 def _by_name(device):
@@ -356,7 +399,7 @@ def _host_ops(prof, top=8):
 def profile_request(torch, engine, request):
     """One synchronized `predict` under torch.profiler: device busy time,
     idle share, device time by kernel, host self time by operator."""
-    busy_us, wall_us, device, prof = profile_call(
+    busy_us, wall_us, device, prof, _ = profile_call(
         torch, lambda: engine.predict(request))
     top_device = sorted(_by_name(device).items(), key=lambda kv: -kv[1])[:8]
     measured = bool(device)
@@ -631,7 +674,7 @@ def hold(torch, what, got, want, before, steps, mode, cond=None, lr=None):
         cond_i = None if cond is None else cond.flatten()[i].item()
         raise SmokeFailure(
             f"{what}: {int(bad.sum())} of {diff.numel()} elements disagree "
-            f"with the CPU trainer; worst {diff.flatten()[i].item()} "
+            f"with the reference trainer; worst {diff.flatten()[i].item()} "
             f"against a change of {change.flatten()[i].item()} "
             f"(t/|g| {cond_i})")
     held = torch.isfinite(bar)
@@ -1038,6 +1081,30 @@ CATEGORIES = (("lookup", ("lookup_combine",)),
 
 # the name prefix of `index_select_ranges`' profiler ranges
 SELECT_RANGE = "index_select@"
+# `ops.wire.EXCHANGE_RANGE`, the range of every exchange collective
+# (phase 8; the top level imports no part of the package)
+EXCHANGE_RANGE = "exchange:all_to_all"
+# host ranges whose device-side spans are annotations, not device work
+ANNOTATED_RANGES = (SELECT_RANGE, EXCHANGE_RANGE, "gloo:", "nccl:")
+
+
+def by_category(by_kernel):
+    """(device ms by CATEGORIES, the rest under "other"; the µs of each
+    kernel in no category)."""
+    cats = {name: 0.0 for name, _ in CATEGORIES}
+    cats["other"] = 0.0
+    other = {}
+    for kname, us in by_kernel.items():
+        for cat, keys in CATEGORIES:
+            if any(k in kname for k in keys):
+                cats[cat] += us / 1e3
+                break
+        else:
+            cats["other"] += us / 1e3
+            other[kname] = us
+    return cats, other
+
+
 PACKAGE = "distributed_embeddings_tpu_torch" + os.sep
 
 
@@ -1102,20 +1169,10 @@ def profile_step(torch, step_once, label):
     ``index_select`` calls by caller (`index_select_ranges`,
     `index_select_split`). Returns the sort count."""
     with index_select_ranges(torch):
-        busy_us, wall_us, device, prof = profile_call(torch, step_once)
+        busy_us, wall_us, device, prof, _ = profile_call(torch, step_once)
     sorts = top_level_sorts(prof)
     by_kernel = _by_name(device)
-    cats = {name: 0.0 for name, _ in CATEGORIES}
-    cats["other"] = 0.0
-    other = {}
-    for kname, us in by_kernel.items():
-        for cat, keys in CATEGORIES:
-            if any(k in kname for k in keys):
-                cats[cat] += us / 1e3
-                break
-        else:
-            cats["other"] += us / 1e3
-            other[kname] = us
+    cats, other = by_category(by_kernel)
     measured = bool(device)
     emit(phase="train_profile", path=label, wall_ms=wall_us / 1e3,
          device_events=len(device), sorts=sorts,
@@ -1597,6 +1654,452 @@ def ladder_kernels(torch, probe, rate):
         emit(phase="ladder_kernel", rung=rung, kernel=kernel, bytes=n_bytes,
              operations=n_ops, **totals[kernel])
     return totals
+
+
+# ---- phase 8: world size > 1
+# (config, world, model kwargs, train strategy): Tiny through the
+# gather-combine kernel and the deduplicated rows, criteo through the
+# sorted-stream lookup and the raw-stream update
+WORLD_RUNS = (("tiny", 2, {}, "auto"),
+              ("criteo", 4, {"lookup_path": "tiled"}, "tiled"))
+WORLD_SEED = 7
+WORLD_TIMED_STEPS = 10
+WORLD_JOIN_S = 600
+# how far a device interval may lie outside its rank's host window (the
+# profiler's conversion of the card's timestamps to the host clock)
+CLOCK_SLACK_US = 1000.0
+
+
+def table_rows(torch, strat, gtid, seed, device):
+    """Table `gtid` of a plan's tables, whole, drawn from seed + gtid:
+    uniform +-0.05, like the model's initializer."""
+    cfg = strat.global_configs[gtid]
+    gen = torch.Generator(device=device).manual_seed(seed + gtid)
+    return torch.empty((cfg["input_dim"], cfg["output_dim"]),
+                       device=device).uniform_(-0.05, 0.05, generator=gen)
+
+
+def seed_weights(torch, model, seed):
+    """The same weights at every world size, no weight file written: each
+    table this rank holds (`table_rows`, by its index in the model) copied
+    into its bucket rows; MLP parameter i from seed + 10,000 + i,
+    glorot-normal kernels and N(0, 1/out) biases like `Dense`."""
+    layer = model.embedding
+    strat = layer.strategy
+    with torch.no_grad():
+        for pl_ in layer.plan.tp_placements:
+            if pl_.rank != layer.rank:
+                continue
+            rows = table_rows(torch, strat,
+                              strat.table_groups[1][pl_.table_id], seed,
+                              layer.device)
+            layer.tp[pl_.bucket][pl_.row_offset:pl_.row_offset
+                                 + pl_.rows].copy_(
+                rows[:, pl_.col_start:pl_.col_end])
+        dense = [p for p in model.parameters() if p.requires_grad]
+        for i, p in enumerate(dense):
+            gen = torch.Generator(device=p.device).manual_seed(
+                seed + 10_000 + i)
+            std = (math.sqrt(2.0 / sum(p.shape)) if p.dim() == 2
+                   else math.sqrt(1.0 / p.shape[0]))
+            p.normal_(0.0, std, generator=gen)
+
+
+def world_rank(rank, world, name, backend, init_method, out_dir, model_kw,
+               strategy):
+    """One rank of phase 8, in a process of its own (torch.multiprocessing,
+    spawn): the gloo or NCCL exchange probed on CUDA tensors, then the
+    config built at full width with `seed_weights`, its forward before any
+    step saved, 3 held adagrad steps over this rank's slices of the global
+    batches (launches counted), the touched rows of its tables and its MLP
+    saved (and the MLP and its optimizer state before each step), then
+    the step timed and profiled. Everything it measured goes
+    to ``out_dir/rank<r>.pt``; a failure raises, and the parent's join
+    raises it again."""
+    import torch
+    check("jax" not in sys.modules, f"rank {rank} imported jax")
+    import torch.distributed as dist
+    from distributed_embeddings_tpu_torch.models.synthetic import (
+        SYNTHETIC_MODELS, InputGenerator, SyntheticModel)
+    from distributed_embeddings_tpu_torch.ops import (cuda_lookup, cuda_sparse,
+                                                      cuda_tiled, wire)
+    from distributed_embeddings_tpu_torch.parallel.mesh import (
+        initialize_distributed)
+    from distributed_embeddings_tpu_torch.parallel.staging import (
+        stage_dp_batch)
+    from distributed_embeddings_tpu_torch.tools import cuda_feature_probe
+    from distributed_embeddings_tpu_torch.training import (
+        make_sparse_train_step)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // (world + 1)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    initialize_distributed(backend, init_method, world, rank)
+    try:
+        # the exchange on CUDA tensors first: ids and floats, block d of
+        # rank r holding 100 r + 3 d + j
+        ids = (torch.arange(world * 3, dtype=torch.int32, device=dev)
+               .reshape(world, 3) + 100 * rank)
+        got_ids = wire.wire_id_all_to_all(ids)
+        got_vals = wire.wire_all_to_all(ids.float() * 0.5)
+        want = torch.stack([torch.arange(3, dtype=torch.int32, device=dev)
+                            + 3 * rank + 100 * s for s in range(world)])
+        check(torch.equal(got_ids, want)
+              and torch.equal(got_vals, want.float() * 0.5),
+              f"rank {rank}: the {backend} all_to_all of CUDA tensors gave "
+              f"{got_ids.tolist()} and {got_vals.tolist()}, want "
+              f"{want.tolist()}")
+        out = {"rank": rank, "device": str(dev), "probe_ok": True}
+        cfg = SYNTHETIC_MODELS[name]
+        t0 = time.perf_counter()
+        batches = [stage_dp_batch(b, device=dev) for b in InputGenerator(
+            cfg, BATCH, alpha=1.05, num_batches=TRAIN_STEPS, seed=0)]
+        model = SyntheticModel(cfg, device=dev,
+                               generator=torch.Generator(device=dev)
+                               .manual_seed(rank), **model_kw)
+        seed_weights(torch, model, WORLD_SEED)
+        layer = model.embedding
+        out["setup_s"] = time.perf_counter() - t0
+        out["table_bytes"] = sum(t.numel() * 4 for t in layer.tp)
+        with torch.no_grad():
+            torch.save(torch.cat(layer(batches[0][1]), dim=1).cpu(),
+                       os.path.join(out_dir, f"forward{rank}.pt"))
+        init, step = make_sparse_train_step(model, "adagrad", lr=TRAIN_LR,
+                                            strategy=strategy)
+        state = init(model)
+        capture = (stream_capture(cuda_tiled, "adagrad")
+                   if strategy == "tiled"
+                   else rows_capture(cuda_sparse, "adagrad"))
+        counted = (cuda_sparse, cuda_tiled, cuda_feature_probe)
+        set_counts(cuda_lookup, *counted)
+        losses, touched, dense_before = [], {}, []
+        for batch in batches:
+            dense_before.append(to_cpu(torch, (
+                {n: p for n, p in model.named_parameters()
+                 if p.requires_grad}, state["dense"])))
+            state, loss, step_rows = run_trainer(step, model, state, [batch],
+                                                 capture)
+            losses += loss
+            for ptr, parts in step_rows.items():
+                touched.setdefault(ptr, []).extend(parts)
+        torch.cuda.synchronize()
+        out["launches"] = read_counts(cuda_lookup, *counted)
+        out["losses"] = losses
+        out["dense_before"] = dense_before
+        key = tuple((c.shape[1], False) for c in batches[0][1])
+        groups, _ = layer._exchange_groups_for_key(key)
+        out["groups"] = len(groups)
+        out["buckets"] = len({g.bucket for g in groups})
+        rows = touched_rows(torch, model, touched)
+        tables = {}
+        for pl_ in layer.plan.tp_placements:
+            if pl_.rank != rank:
+                continue
+            idx = rows[pl_.bucket]
+            idx = idx[(idx >= pl_.row_offset)
+                      & (idx < pl_.row_offset + pl_.rows)]
+            on_dev = idx.to(dev)
+            tables[layer.strategy.table_groups[1][pl_.table_id]] = (
+                idx - pl_.row_offset,
+                layer.tp[pl_.bucket].detach().index_select(0, on_dev).cpu(),
+                state["emb"]["tp"][pl_.bucket][0].index_select(
+                    0, on_dev).cpu())
+        out["tables"] = tables
+        out["mlp"] = {n: p.detach().cpu().clone() for n, p in
+                      model.named_parameters() if p.requires_grad}
+        times = []
+        for i in range(2 + WORLD_TIMED_STEPS):
+            num, cats, labels = batches[i % TRAIN_STEPS]
+            t0 = time.perf_counter()
+            _, state, loss = step(model, state, num, cats, labels)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out["step_ms"] = [t * 1e3 for t in times[2:]]
+        holder = {"state": state}
+        del state
+
+        def step_once():
+            holder["state"] = step(model, holder["state"], *batches[0])[1]
+        check(wire.EXCHANGE_RANGE == EXCHANGE_RANGE,
+              f"ops.wire names its range {wire.EXCHANGE_RANGE!r}, this "
+              f"script reads {EXCHANGE_RANGE!r}")
+        busy_us, wall_us, device, prof, window = profile_call(torch,
+                                                              step_once)
+        from torch.autograd import DeviceType
+        by_kernel = _by_name(device)
+        host = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+        ranges = [e for e in host if e.name == EXCHANGE_RANGE]
+        # per group: the ids, the activations, their gradients back (the
+        # synthetic inputs carry no weights, which would add one)
+        check(len(ranges) == 3 * out["groups"],
+              f"rank {rank}: {len(ranges)} exchange collectives in a step, "
+              f"want 3 a group x {out['groups']} groups")
+        collectives: dict = {}
+        for e in host:
+            if e.name.startswith(("gloo:", "nccl:")):
+                ms, n = collectives.get(e.name, (0.0, 0))
+                collectives[e.name] = (ms + e.cpu_time_total / 1e3, n + 1)
+        cats, _ = by_category(by_kernel)
+        origin = prof.profiler.kineto_results.trace_start_ns() / 1e3
+        out["window_us"] = window
+        out["device_intervals_us"] = [
+            (origin + e.time_range.start, origin + e.time_range.end)
+            for e in device]
+        out["profile"] = dict(
+            wall_ms=wall_us / 1e3,
+            # this rank's own device work over its own wall time; the
+            # ranks share the card, whose idle share `world_phase` reads
+            # from every rank's intervals merged
+            rank_device_busy_ms=busy_us / 1e3,
+            rank_device_busy_share=busy_us / wall_us,
+            device_ms_by_category=cats,
+            # gloo stages every collective through pinned host memory and
+            # the port pins none: the pinned copies are the collectives'
+            # device time (the other host copies are not)
+            collective_copies_ms=sum(
+                us for n, us in by_kernel.items()
+                if n.startswith("Memcpy") and "Pinned" in n) / 1e3,
+            device_ms_by_kernel=[[n[:80], us / 1e3] for n, us in sorted(
+                by_kernel.items(), key=lambda kv: -kv[1])[:12]],
+            exchange_calls=len(ranges),
+            exchange_host_ms=sum(e.cpu_time_total for e in ranges) / 1e3,
+            collective_host_ms={k: {"ms": ms, "calls": n} for k, (ms, n)
+                                in collectives.items()})
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+        check("jax" not in sys.modules, f"rank {rank} imported jax")
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def card_profile(ranks):
+    """The card's busy time and idle share over the ranks' profiled step:
+    every rank's device intervals merged (processes time-slice the card),
+    over the union of the ranks' windows, both on the Unix clock of the
+    profiler's traces. Device work a rank did outside its own window is
+    not traced, so the idle share is an upper bound. None where a rank's
+    intervals fall outside its window by more than CLOCK_SLACK_US: the
+    traces' clocks then disagree with the host's."""
+    start = min(r["window_us"][0] for r in ranks)
+    end = max(r["window_us"][1] for r in ranks)
+    aligned = all(r["window_us"][0] - CLOCK_SLACK_US <= a
+                  and b <= r["window_us"][1] + CLOCK_SLACK_US
+                  for r in ranks for a, b in r["device_intervals_us"])
+    busy = busy_union(iv for r in ranks for iv in r["device_intervals_us"])
+    return dict(window_ms=(end - start) / 1e3,
+                clocks_aligned=aligned,
+                card_busy_ms=busy / 1e3 if aligned else None,
+                card_idle_share=1 - busy / (end - start) if aligned
+                else None,
+                rank_busy_ms_sum=sum(r["profile"]["rank_device_busy_ms"]
+                                     for r in ranks))
+
+
+def world_phase(torch, name, world, model_kw, strategy):
+    """Phase 8 for one config: `world` ranks (`world_rank`) on the card(s),
+    then the port's world-1 trainer in this process over the same global
+    batches and weights, each step from rank 0's dense state before it;
+    every rank held against it. Returns the launch counts of the ranks'
+    held steps, summed over the ranks."""
+    import torch.multiprocessing as torch_mp
+    from distributed_embeddings_tpu_torch.models.synthetic import (
+        SYNTHETIC_MODELS, InputGenerator, SyntheticModel)
+    from distributed_embeddings_tpu_torch.ops import cuda_sparse, cuda_tiled
+    from distributed_embeddings_tpu_torch.training import (
+        gradient_scale, make_sparse_train_step)
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= world else "gloo"
+    label = f"world{world}_{name}"
+    emit(phase="world_setup", path=label, config=name, world=world,
+         backend=backend, device_count=cards,
+         **({} if backend == "nccl" else
+            {"nccl": f"not run: {cards} card" + ("s" if cards > 1 else "")}))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_world")
+    try:
+        t0 = time.perf_counter()
+        ctx = torch_mp.start_processes(
+            world_rank, args=(world, name, backend, f"file://{tmp}/pg", tmp,
+                              model_kw, strategy),
+            nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + WORLD_JOIN_S
+        try:
+            while not ctx.join(timeout=5):
+                check(time.monotonic() < deadline,
+                      f"{label}: the ranks did not finish in {WORLD_JOIN_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join(30)
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(world)]
+        ranks_s = time.perf_counter() - t0
+
+        # the world-1 trainer on this card: the same weights and batches
+        t0 = time.perf_counter()
+        cfg = SYNTHETIC_MODELS[name]
+        batches = list(InputGenerator(cfg, BATCH, alpha=1.05,
+                                      num_batches=TRAIN_STEPS, seed=0))
+        model = SyntheticModel(cfg, device="cuda",
+                               generator=torch.Generator(device="cuda")
+                               .manual_seed(0), **model_kw)
+        seed_weights(torch, model, WORLD_SEED)
+        layer = model.embedding
+        with torch.no_grad():
+            fwd = torch.cat(layer(batches[0][1]), dim=1)
+        b_l = BATCH // world
+        identical, fwd_err = True, 0.0
+        for r in range(world):
+            got = torch.load(os.path.join(tmp, f"forward{r}.pt")).cuda()
+            want = fwd[r * b_l:(r + 1) * b_l]
+            check(got.shape == want.shape,
+                  f"{label}: rank {r} forward {tuple(got.shape)}, want "
+                  f"{tuple(want.shape)}")
+            identical = identical and torch.equal(got, want)
+            fwd_err = max(fwd_err, (got - want).abs().max().item())
+            check(torch.allclose(got, want, rtol=1e-5, atol=0.0),
+                  f"{label}: rank {r}'s forward disagrees with world 1 by "
+                  f"{fwd_err}")
+        del fwd, got, want
+        emit(phase="world_forward", path=label, bit_identical=identical,
+             max_abs_err=fwd_err)
+        init, step = make_sparse_train_step(model, "adagrad", lr=TRAIN_LR,
+                                            strategy=strategy)
+        state = init(model)
+        capture = (stream_capture(cuda_tiled, "adagrad")
+                   if strategy == "tiled"
+                   else rows_capture(cuda_sparse, "adagrad"))
+        strat = layer.strategy
+        placed = {strat.table_groups[1][pl_.table_id]: pl_
+                  for pl_ in layer.plan.tp_placements}
+        # each step's conditioning (t/|g|, `gradient_scale`) at the rows the
+        # ranks hold, the largest over the steps: the worlds' terms differ
+        # in their last digits (other gemm shapes, the ranks' all-reduce),
+        # which moves a gradient that is a sum that cancels by a share of
+        # itself
+        cond: dict = {}
+        losses, touched = [], {}
+        dense = {n: p for n, p in model.named_parameters()
+                 if p.requires_grad}
+        for s, batch in enumerate(batches):
+            # the step starts from rank 0's MLP and dense optimizer state
+            # before it, as phase 5's CPU trainer starts from the card's
+            mlp_r, dense_state_r = ranks[0]["dense_before"][s]
+            with torch.no_grad():
+                for n, p in dense.items():
+                    p.copy_(mlp_r[n])
+                for n, a in state["dense"]["sum_of_squares"].items():
+                    a.copy_(dense_state_r["sum_of_squares"][n])
+            scale = gradient_scale(model, *batch)
+            for r in ranks:
+                for gtid, (idx, _, _) in r["tables"].items():
+                    pl_ = placed[gtid]
+                    g, t = scale[f"embedding.tp.{pl_.bucket}"]
+                    at = (idx + pl_.row_offset).cuda()
+                    g, t = g.index_select(0, at), t.index_select(0, at)
+                    c = torch.where(t > 0, t / g.abs(),
+                                    torch.zeros_like(t)).cpu()
+                    cond[gtid] = (c if gtid not in cond
+                                  else torch.maximum(cond[gtid], c))
+            del scale, g, t
+            state, loss, step_rows = run_trainer(step, model, state, [batch],
+                                                 capture)
+            losses += loss
+            for ptr, parts in step_rows.items():
+                touched.setdefault(ptr, []).extend(parts)
+        torch.cuda.synchronize()
+        rows1 = touched_rows(torch, model, touched)
+
+        # launches a step, from each rank's plan
+        want_kernels = ({"gather_sorted": "groups",
+                         "adagrad_stream": "buckets"} if strategy == "tiled"
+                        else {"lookup_combine": "groups",
+                              "segment_sum_sorted": "buckets",
+                              "adagrad_rows": "buckets"})
+        summed = dict.fromkeys(ALL_KERNELS, 0)
+        for r in ranks:
+            want_r = {k: r[v] for k, v in want_kernels.items()}
+            check(r["launches"] == per_step(want_r, TRAIN_STEPS),
+                  f"{label}: rank {r['rank']} launches {r['launches']}, "
+                  f"want {want_r} per step")
+            for k, v in r["launches"].items():
+                summed[k] += v
+        # losses, MLPs (the same on every rank), touched rows by change
+        for r in ranks:
+            check(torch.allclose(torch.tensor(r["losses"]),
+                                 torch.tensor(losses), **LOSS_TOL),
+                  f"{label}: rank {r['rank']} losses {r['losses']}, world "
+                  f"1 {losses}")
+            for n, p in r["mlp"].items():
+                check(torch.equal(p, ranks[0]["mlp"][n]),
+                      f"{label}: rank {r['rank']}'s {n} differs from rank "
+                      "0's")
+        worst = 0.0
+        for n, p in dense.items():
+            err, _, _ = hold(torch, f"{label}: {n}", ranks[0]["mlp"][n],
+                             p.detach().cpu(), mlp_r[n], 1, "value")
+            worst = max(worst, err)
+        held_rows, changes, moved = 0, [], 0
+        for r in ranks:
+            for gtid, (idx, vals, acc) in r["tables"].items():
+                pl_ = placed[gtid]
+                on_dev = (idx + pl_.row_offset).cuda()
+                one = rows1[pl_.bucket]
+                one = one[(one >= pl_.row_offset)
+                          & (one < pl_.row_offset + pl_.rows)]
+                check(bool(torch.isin(one - pl_.row_offset, idx).all()),
+                      f"{label}: table {gtid}: world 1 touched rows rank "
+                      f"{r['rank']} did not")
+                before = table_rows(torch, strat, gtid, WORLD_SEED,
+                                    "cuda").index_select(0, idx.cuda()).cpu()
+                err, change, n = hold(
+                    torch, f"{label}: table {gtid}", vals,
+                    layer.tp[pl_.bucket].detach().index_select(
+                        0, on_dev).cpu(), before, TRAIN_STEPS, "change",
+                    cond[gtid])
+                hold(torch, f"{label}: table {gtid} accumulator", acc,
+                     state["emb"]["tp"][pl_.bucket][0].index_select(
+                         0, on_dev).cpu(), torch.full_like(acc, 0.1),
+                     TRAIN_STEPS, "change", cond[gtid])
+                worst = max(worst, err)
+                changes.append(change.flatten())
+                moved += n
+                held_rows += int(idx.numel())
+        check(len(placed) == sum(len(r["tables"]) for r in ranks),
+              f"{label}: the ranks hold {sum(len(r['tables']) for r in ranks)}"
+              f" tables, the model has {len(placed)}")
+        change = torch.cat(changes)
+        emit(phase="main_path", path=label, backend=backend, world=world,
+             steps=TRAIN_STEPS, ranks_seconds=ranks_s,
+             world1_seconds=time.perf_counter() - t0,
+             launches_by_rank=[r["launches"] for r in ranks],
+             launches_per_step_from_plan={k: ranks[0][v] for k, v in
+                                          want_kernels.items()},
+             losses=ranks[0]["losses"], world1_losses=losses,
+             max_abs_err=worst, touched_rows_held=held_rows,
+             table_change_median=change.median().item(),
+             table_change_max=change.max().item(),
+             table_changes_past_rounding=moved, ok=True)
+        del model, layer, state, change, changes
+        torch.cuda.empty_cache()
+        for r in ranks:
+            med = statistics.median(r["step_ms"])
+            emit(phase="world_step_time", path=label, rank=r["rank"],
+                 backend=backend, device=r["device"], median_ms=med,
+                 min_ms=min(r["step_ms"]), max_ms=max(r["step_ms"]),
+                 samples_per_s=BATCH / (med / 1e3),
+                 setup_s=r["setup_s"], table_bytes=r["table_bytes"],
+                 max_memory_allocated=r["max_memory_allocated"])
+            emit(phase="world_profile", path=label, rank=r["rank"],
+                 backend=backend, **r["profile"])
+        if backend == "gloo":
+            # the ranks share one card
+            emit(phase="world_card_profile", path=label, backend=backend,
+                 **card_profile(ranks))
+        return summed
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> int:
@@ -2091,6 +2594,13 @@ def main() -> int:
     del cmodel, cpu_c
     torch.cuda.empty_cache()
 
+    # ---- 8. world size > 1: W ranks on the card(s), each held against the
+    # world-1 trainer; counts to 0 in each rank, drive, read
+    world_counts = {}
+    for config, world, model_kw, strategy in WORLD_RUNS:
+        world_counts[f"world{world}_{config}"] = world_phase(
+            torch, config, world, model_kw, strategy)
+
     # ---- 7. result lines
     def entry(kname, source, by_path, tot, err):
         return {"name": kname, "route": "cuda",
@@ -2111,7 +2621,8 @@ def main() -> int:
              "train_sgd_cut": cut_counts["sgd"],
              "train_adam_cut": cut_counts["adam"],
              "train_fused": fused_counts,
-             **{f"train_tiled_{k}": c for k, c in tiled_counts.items()}}
+             **{f"train_tiled_{k}": c for k, c in tiled_counts.items()},
+             **world_counts}
 
     def by_path(kname):
         return {p: c[kname] for p, c in paths.items() if c[kname]}

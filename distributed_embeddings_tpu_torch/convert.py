@@ -1,21 +1,25 @@
 """Weights carried across between the JAX package and the port.
 
-The JAX package's parameter tree at world size 1 maps onto the port's
-state dict one leaf to one tensor:
+The JAX package's parameter tree maps onto the port's state dict one leaf
+to one tensor, on every rank of a world of the same size:
 
   * ``embedding['tp'][b]`` ``[world, rows_max, w]`` -> ``embedding.tp.{b}``
-    (rank 0; the port's plan reproduces the bucket order and row offsets);
+    (rank r takes ``[r]``; the port's plan reproduces the bucket order,
+    the placement and the row offsets);
   * ``mlp[i]['w']`` / ``['b']`` -> ``mlp.{i}.w`` / ``.b`` (likewise
     ``bottom_mlp`` / ``top_mlp`` for DLRM), in the same [in, out] layout.
 
-The data-parallel and row-sliced groups are empty at world size 1; a tree
-that fills them (or carries hot shards or quantization scales) is refused.
+The port's layers keep the data-parallel and row-sliced groups empty; a
+tree that fills them (or carries hot shards or quantization scales) is
+refused.
 
 The sparse train step's optimizer state maps the same way
 (`opt_state_from_jax`, `opt_state_to_numpy`): ``emb['tp'][b]`` is a tuple
-of ``[1, rows_max, w]`` state arrays (adam adds its step count), and the
-dense part's optax state becomes the port's `training.DenseOptimizer`
-state, keyed by parameter name.
+of ``[world, rows_max, w]`` state arrays (adam adds its step count), and
+the dense part's optax state becomes the port's `training.DenseOptimizer`
+state, keyed by parameter name. Towards the JAX layout, at world size > 1,
+each rank-local array is gathered from every rank (a collective: every
+rank calls `params_to_numpy` and `opt_state_to_numpy`).
 """
 
 from typing import Dict
@@ -26,6 +30,7 @@ import torch
 from distributed_embeddings_tpu_torch.layers.dist_model_parallel import (
     DistributedEmbedding)
 from distributed_embeddings_tpu_torch.models.dlrm import MLP
+from distributed_embeddings_tpu_torch.parallel.mesh import gather_stack
 
 __all__ = ["params_from_jax", "params_to_numpy", "opt_state_from_jax",
            "opt_state_to_numpy"]
@@ -35,35 +40,48 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
 
 
+def _array(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy of `t` (on the CPU, `.numpy()` alone would share the
+    live parameter's storage, which later steps update in place)."""
+    return t.detach().cpu().numpy().copy()
+
+
+def _stacked(t: torch.Tensor) -> np.ndarray:
+    """A rank-local ``[rows_max, w]`` array as the JAX package's ``[world,
+    rows_max, w]`` stack (gathered from every rank at world size > 1)."""
+    return _array(gather_stack(t.detach()))
+
+
 def _embedding_state(tree: dict, emb: DistributedEmbedding,
                      prefix: str) -> Dict[str, torch.Tensor]:
     extra = set(tree) - {"dp", "tp", "row"}
     if extra:
         raise ValueError(f"embedding params carry {sorted(extra)}, which the "
-                         "port does not hold at world size 1")
+                         "port does not hold yet")
     for group in ("dp", "row"):
         if len(tree.get(group, [])):
             raise ValueError(f"embedding params['{group}'] is not empty; the "
-                             "port runs world size 1, where every table is "
-                             "table-parallel")
+                             "port's layers hold every table table-parallel")
     if len(tree["tp"]) != len(emb.tp):
         raise ValueError(f"{len(tree['tp'])} tp buckets, the port's plan has "
                          f"{len(emb.tp)}")
     state = {}
     for b, arr in enumerate(tree["tp"]):
         arr = np.asarray(arr)
-        if arr.ndim != 3 or tuple(arr.shape[1:]) != tuple(emb.tp[b].shape):
+        want = (emb.world_size,) + tuple(emb.tp[b].shape)
+        if tuple(arr.shape) != want:
             raise ValueError(f"tp bucket {b}: shape {arr.shape}, the port "
-                             f"expects [world, {tuple(emb.tp[b].shape)}]")
-        state[f"{prefix}tp.{b}"] = _tensor(arr[0])
+                             f"expects {want}")
+        state[f"{prefix}tp.{b}"] = _tensor(arr[emb.rank])
     return state
 
 
 def params_from_jax(np_params: dict, model) -> Dict[str, torch.Tensor]:
     """A state dict for `model` (a `DistributedEmbedding`, `SyntheticModel`
     or `DLRM` of the port) from the JAX package's parameter tree of the same
-    configuration, every leaf already ``np.asarray``-ed. Load it with
-    ``model.load_state_dict`` or `InferenceEngine.set_params`."""
+    configuration and world size, every leaf already ``np.asarray``-ed:
+    this rank's shard of each bucket. Load it with ``model.load_state_dict``
+    or `InferenceEngine.set_params`."""
     if isinstance(model, DistributedEmbedding):
         return _embedding_state(np_params, model, "")
     state = _embedding_state(np_params["embedding"], model.embedding,
@@ -81,18 +99,17 @@ def params_from_jax(np_params: dict, model) -> Dict[str, torch.Tensor]:
 
 
 def params_to_numpy(model) -> dict:
-    """The JAX package's parameter tree (numpy leaves) of `model`."""
+    """The JAX package's parameter tree (numpy leaves) of `model`;
+    collective at world size > 1."""
     def emb_tree(emb: DistributedEmbedding) -> dict:
-        return {"dp": [], "row": [],
-                "tp": [t.detach().cpu().numpy()[None] for t in emb.tp]}
+        return {"dp": [], "row": [], "tp": [_stacked(t) for t in emb.tp]}
 
     if isinstance(model, DistributedEmbedding):
         return emb_tree(model)
     tree = {"embedding": emb_tree(model.embedding)}
     for name, child in model.named_children():
         if isinstance(child, MLP):
-            tree[name] = [{"w": layer.w.detach().cpu().numpy(),
-                           "b": layer.b.detach().cpu().numpy()}
+            tree[name] = [{"w": _array(layer.w), "b": _array(layer.b)}
                           for layer in child]
     return tree
 
@@ -116,30 +133,30 @@ def _named_from_tree(tree: dict, model) -> Dict[str, torch.Tensor]:
 def _tree_from_named(named: Dict[str, torch.Tensor], model) -> dict:
     tree = {"embedding": {"dp": []}}
     for name, child in _mlp_children(model):
-        tree[name] = [{"w": named[f"{name}.{i}.w"].detach().cpu().numpy(),
-                       "b": named[f"{name}.{i}.b"].detach().cpu().numpy()}
+        tree[name] = [{"w": _array(named[f"{name}.{i}.w"]),
+                       "b": _array(named[f"{name}.{i}.b"])}
                       for i in range(len(child))]
     return tree
 
 
-def _device(model) -> torch.device:
-    return model.embedding.tp[0].device
 
 
 def opt_state_from_jax(np_state: dict, model) -> dict:
     """The port's opt state (`training.make_sparse_train_step`) from the
     JAX package's, every leaf already ``np.asarray``-ed: ``{"emb": {"tp":
-    [(acc[1, rows, w],)], "row": []}, "dense": optax chain state}`` (plus
-    ``"count"`` under a schedule). Tensors land on `model`'s device."""
-    dev = _device(model)
+    [(acc[world, rows, w],)], "row": []}, "dense": optax chain state}``
+    (plus ``"count"`` under a schedule); this rank takes its ``[rank]``
+    shard of each state array. Tensors land on `model`'s device."""
+    layer = model.embedding
+    dev = layer.tp[0].device
     emb = np_state["emb"]
     if len(emb.get("row", [])):
-        raise ValueError("opt state for row-sliced tables: the port runs "
-                         "world size 1, where every table is table-parallel")
+        raise ValueError("opt state for row-sliced tables: the port's "
+                         "layers hold every table table-parallel")
     tp = []
     for entry in emb["tp"]:
         tp.append(tuple(
-            _tensor(np.asarray(x)[0]).to(dev) if np.ndim(x) == 3
+            _tensor(np.asarray(x)[layer.rank]).to(dev) if np.ndim(x) == 3
             else int(np.asarray(x)) for x in entry))
     dense: dict = {}
     for part in np_state["dense"]:
@@ -166,12 +183,14 @@ def opt_state_from_jax(np_state: dict, model) -> dict:
 
 def opt_state_to_numpy(opt_state: dict, model) -> dict:
     """The port's opt state in the JAX package's layout with numpy leaves:
-    ``emb['tp'][b]`` a tuple of ``[1, rows_max, w]`` arrays (and adam's
-    int count); the dense part a dict of optax's field names
-    (``sum_of_squares`` / ``count``, ``mu``, ``nu`` / ``schedule_count``)
-    over dense-part trees."""
-    tp = [tuple(x.detach().cpu().numpy()[None] if torch.is_tensor(x)
-                else int(x) for x in entry)
+    ``emb['tp'][b]`` a tuple of ``[world, rows_max, w]`` arrays (and
+    adam's int count; collective at world size > 1); the dense part a
+    dict of optax's field names (``sum_of_squares`` / ``count``, ``mu``,
+    ``nu`` / ``schedule_count``) over dense-part trees."""
+    layer = (model if isinstance(model, DistributedEmbedding)
+             else model.embedding)
+    tp = [tuple(_stacked(x) if torch.is_tensor(x) else int(x)
+                for x in entry)
           for entry in opt_state["emb"]["tp"]]
     dense = {}
     for key, val in opt_state["dense"].items():

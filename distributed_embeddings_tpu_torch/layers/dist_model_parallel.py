@@ -1,31 +1,38 @@
 """Distributed embedding: planned, fused table-parallel lookups.
 
 Counterpart of ``distributed_embeddings_tpu/layers/dist_model_parallel.py``
-`DistributedEmbedding`, as an ``nn.Module`` that owns its fused bucket
-tables. This slice covers world size 1 with data-parallel input: every
-table sits in the table-parallel group, tables of one (width, combiner)
-key are fused into one bucket, and the forward runs one gather-combine per
-(bucket, hotness) exchange group through the CUDA kernel of
-`ops.cuda_lookup` (its plain version when the tables are on the CPU), or,
-with ``lookup_path="tiled"`` or ``"fused"``, through the sorted-stream
-lookups of `ops.cuda_tiled`.
+`DistributedEmbedding`, as an ``nn.Module`` that owns its rank's fused
+bucket tables. This slice covers data-parallel input with every table in
+the table-parallel group: tables of one (width, combiner) key are fused
+into one bucket, and the forward runs one gather-combine per (bucket,
+hotness) exchange group through the CUDA kernel of `ops.cuda_lookup` (its
+plain version when the tables are on the CPU), or, with
+``lookup_path="tiled"`` or ``"fused"``, through the sorted-stream lookups
+of `ops.cuda_tiled`.
 
 The group structure is the JAX package's: inputs of one bucket and hotness
-are stacked into ``[B, f, k]``, their row offsets inside the fused table
-are added, one lookup serves the whole group, and the ``[1, B, f, w]``
-result (the rank-0 block of the mp->dp exchange) is sliced back into
-per-input outputs. Multi-GPU exchange, offload, hot rows and quantized
-storage come in later slices (ROADMAP Queue A) and raise
+are stacked into ``[B_l, f, k]``, moved dp->mp as ``[world, B_l, f_max, k]``
+blocks (`ops.wire.wire_id_all_to_all`), their row offsets inside the fused
+table are added, one lookup serves the whole group over the global batch,
+and the ``[world, B_l, f_max, w]`` result goes back mp->dp
+(`ops.wire.wire_all_to_all`, whose backward carries the gradients back)
+and is sliced into per-input outputs. At world size 1 both exchanges are
+the identity. The ranks are those of the default ``torch.distributed``
+process group (`parallel.mesh.initialize_distributed`); each rank passes
+its own slice of the global batch (`parallel.staging.stage_dp_batch`).
+The dp group, column slicing at world > 1, row slicing, offload, hot rows
+and quantized storage come in later slices (ROADMAP Queue A) and raise
 NotImplementedError here.
 
 Training: a tapped forward (`make_taps`, ``forward(taps=...,
-return_residuals=True)``) makes each group output a leaf of the autograd
-graph, whose ``.grad`` is the JAX package's tap gradient; `sparse_update`
-turns those into row-wise table updates through `ops.sparse_update`.
-Inside `residual_sort_scope` (the train step's, with ``fold_sort``), a
-tapped forward sorts each exchange group's id stream once
-(`embedding_ops.canonical_id_sort`); the sorted lookups and the sparse
-update of a one-group bucket consume that sort instead of sorting again.
+return_residuals=True)``) makes each group's mp-side output a leaf of the
+autograd graph, whose ``.grad`` is the JAX package's tap gradient on the
+owning rank; `sparse_update` turns those into row-wise updates of this
+rank's tables through `ops.sparse_update`. Inside `residual_sort_scope`
+(the train step's, with ``fold_sort``), a tapped forward sorts each
+exchange group's id stream once (`embedding_ops.canonical_id_sort`); the
+sorted lookups and the sparse update of a one-group bucket consume that
+sort instead of sorting again.
 """
 
 import contextlib
@@ -33,15 +40,17 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from distributed_embeddings_tpu_torch.layers.embedding import Embedding
 from distributed_embeddings_tpu_torch.ops import (cuda_lookup, cuda_tiled,
-                                                  embedding_ops)
+                                                  embedding_ops, wire)
 from distributed_embeddings_tpu_torch.ops.embedding_ops import (
     GroupSort, RaggedIds, SparseIds, canonical_id_sort)
 from distributed_embeddings_tpu_torch.ops.sparse_update import (
     SparseOptimizer, SparseRowGrad, concat_grads)
+from distributed_embeddings_tpu_torch.parallel import mesh as pg
 from distributed_embeddings_tpu_torch.parallel.plan import (ShardedPlan,
                                                             lower_strategy)
 from distributed_embeddings_tpu_torch.parallel.planner import (
@@ -53,7 +62,7 @@ from distributed_embeddings_tpu_torch.utils.initializers import (
     get_initializer)
 
 __all__ = ["DistEmbeddingStrategy", "DistributedEmbedding", "TapResiduals",
-           "LOOKUP_PATHS"]
+           "LOOKUP_PATHS", "broadcast_variables"]
 
 # the JAX package's DET_LOOKUP_PATH values: "auto", "xla" and "pallas" take
 # the gather-combine kernel, "tiled" and "fused" the sorted-stream lookups
@@ -105,7 +114,8 @@ def _overrides_forward(cls) -> bool:
 class TapResiduals:
     """Residuals of a tapped forward, consumed by `sparse_update`: per
     exchange group the absolute row ids after the exchange and the row
-    offset add, ``tp_ids[g]`` ``[world, B, f_g, k_g]``, the effective
+    offset add, ``tp_ids[g]`` ``[1, B, f_g, k_g]`` (B the global batch,
+    this rank's stacked shard of the JAX package's array), the effective
     combine weights ``tp_w[g]`` (None = uniform; the scale is recomputed
     from the group), and ``tp_sort[g]``, the `GroupSort` of the group's
     flattened ids when the forward sorted them (sort folding; None
@@ -137,13 +147,15 @@ class _PreparedInput:
 class _ExchangeGroup:
     """The slots of one tp bucket whose inputs share hotness k: one
     gather-combine. `sel`/`offs` are the JAX package's [world, f_max]
-    planning constants; `sel_t`/`offs_t` their rank-0 rows on the device."""
+    planning constants; on the device, `sel_t` is `sel` flattened
+    destination-major (the send block's member order) and `offs_t` this
+    rank's row of `offs`."""
 
     __slots__ = ("bucket", "k", "class_inputs", "sel", "offs", "f_max",
                  "need_w", "sel_t", "offs_t")
 
     def __init__(self, bucket, k, class_inputs, sel, offs, f_max, need_w,
-                 id_dtype, device):
+                 id_dtype, device, rank):
         self.bucket = bucket
         self.k = k
         self.class_inputs = class_inputs
@@ -151,8 +163,10 @@ class _ExchangeGroup:
         self.offs = offs
         self.f_max = f_max
         self.need_w = need_w
-        self.sel_t = torch.as_tensor(sel[0], dtype=torch.int64, device=device)
-        self.offs_t = torch.as_tensor(offs[0], dtype=id_dtype, device=device)
+        self.sel_t = torch.as_tensor(sel.reshape(-1), dtype=torch.int64,
+                                     device=device)
+        self.offs_t = torch.as_tensor(offs[rank], dtype=id_dtype,
+                                      device=device)
 
 
 class DistributedEmbedding(nn.Module):
@@ -167,8 +181,11 @@ class DistributedEmbedding(nn.Module):
     kernel, "tiled" the sorted gather then a weighted sum
     (`cuda_tiled.tiled_embedding_lookup`), "fused" the weighted sorted
     gather then a hotness sum (`cuda_tiled.fused_lookup_combine`).
-    Parameters: ``tp[b]`` is bucket b's fused table ``[rows_max, width]``
-    (the JAX package's ``params['tp'][b][0]``).
+    The world is the default process group's (`world_size`, if given,
+    must equal it); in a group of more than one rank, every rank builds
+    the layer with the same tables, and the forward and `get_weights` are
+    collective. Parameters: ``tp[b]`` is this rank's shard of bucket b,
+    ``[rows_max, width]`` (the JAX package's ``params['tp'][b][rank]``).
     """
 
     def __init__(self,
@@ -195,9 +212,19 @@ class DistributedEmbedding(nn.Module):
         if lookup_path not in LOOKUP_PATHS:
             raise ValueError(f"lookup_path must be one of {LOOKUP_PATHS}, "
                              f"got {lookup_path!r}")
+        if mesh is not None:
+            raise NotImplementedError(
+                "a mesh is not ported (ROADMAP Queue A3, multi-GPU "
+                "exchange): the port's ranks are a torch.distributed "
+                "process group; start one with "
+                "parallel.mesh.initialize_distributed and leave mesh=None")
+        world = pg.world_size()
+        if world_size is not None and world_size != world:
+            raise ValueError(
+                f"world_size={world_size}, but the process group has "
+                f"{world} rank(s); start one with "
+                "parallel.mesh.initialize_distributed")
         unported = [
-            (mesh is not None or (world_size or 1) > 1,
-             "world size > 1 or a mesh", "A3 (multi-GPU exchange)"),
             (not dp_input, "dp_input=False", "A4 (remaining placement)"),
             (row_slice_threshold is not None, "row slicing",
              "A4 (remaining placement)"),
@@ -209,21 +236,33 @@ class DistributedEmbedding(nn.Module):
             (storage_dtype not in (None, "f32"), "a non-f32 storage_dtype",
              "A6 (wire formats and quantized storage)"),
             (bool(vocab_slack), "vocab_slack", "A12 (store and vocab)"),
+            (world > 1 and data_parallel_threshold is not None,
+             "the data-parallel group (data_parallel_threshold) at world "
+             "size > 1", "A4 (remaining placement)"),
         ]
         for hit, what, item in unported:
             if hit:
                 raise NotImplementedError(
                     f"{what} is not ported yet (ROADMAP Queue {item})")
         self.device = resolve_device(device)
-        self.world_size = 1
-        # world size 1: pure table-parallel, like the reference; the dp and
-        # row groups are empty by construction
+        self.world_size = world
+        self.rank = pg.rank()
+        # the dp and row groups stay empty: no threshold reaches the
+        # planner (world size 1 plans pure table-parallel, like the
+        # reference)
         self.strategy = DistEmbeddingStrategy(
             embeddings, self.world_size, strategy,
             input_table_map=input_table_map,
             column_slice_threshold=column_slice_threshold,
             input_hotness=input_max_hotness)
         self.plan: ShardedPlan = lower_strategy(self.strategy)
+        if world > 1 and len(self.plan.tp_placements) > len(
+                self.strategy.table_groups[1]):
+            raise NotImplementedError(
+                "column slicing at world size > 1 is not ported yet (ROADMAP "
+                "Queue A4 (remaining placement)); the plan slices a table "
+                "into columns when there are fewer tables than ranks or "
+                "with column_slice_threshold")
         for gtid in self.strategy.table_groups[1]:
             cls = self.strategy.global_configs[gtid].get("layer_class")
             if _overrides_forward(cls):
@@ -250,19 +289,20 @@ class DistributedEmbedding(nn.Module):
     # ------------------------------------------------------------------ init
     @torch.no_grad()
     def init(self, generator: Optional[torch.Generator] = None) -> None:
-        """Fill every bucket table in place on its device: each fused
-        table's segment from its own table's initializer. A layer on the
-        ``meta`` device (plan introspection only) holds nothing to fill."""
+        """Fill this rank's bucket tables in place on its device: each
+        fused table's segment from its own table's initializer, the rows
+        past this rank's tables with zeros. A layer on the ``meta`` device
+        (plan introspection only) holds nothing to fill."""
         if self.device.type == "meta":
             return
         gen = default_generator(self.device, generator)
         for b, bucket in enumerate(self.plan.tp_buckets):
             tbl = self.tp[b]
             for (_, row_offset, rows, init_spec,
-                 _) in bucket.init_segments[0]:
+                 _) in bucket.init_segments[self.rank]:
                 get_initializer(init_spec)(tbl[row_offset:row_offset + rows],
                                            gen)
-            tbl[bucket.rows[0]:].zero_()
+            tbl[bucket.rows[self.rank]:].zero_()
 
     # ----------------------------------------------------------- input prep
     def _prepare_one(self, x, max_hotness: Optional[int]) -> _PreparedInput:
@@ -354,7 +394,7 @@ class DistributedEmbedding(nn.Module):
             need_w = any(key[i][1] for i in class_inputs)
             groups.append(_ExchangeGroup(b, k, class_inputs, sel, offs,
                                          f_max, need_w, self._id_dtype(b),
-                                         self.device))
+                                         self.device, self.rank))
         assembly = [
             [(rank, *slot_map[(bb, rank, jj)]) for (rank, bb, jj) in slots]
             for slots in self.plan.tp_input_slots
@@ -459,56 +499,87 @@ class DistributedEmbedding(nn.Module):
 
     def _padded_id_exchange(self, grp: _ExchangeGroup, ids: torch.Tensor,
                             w: Optional[torch.Tensor]):
-        """The dp->mp id (+weight) exchange at world size 1: select the
-        group's member inputs into this rank's slot order, [B, f_max, k]."""
+        """Fixed-shape dp->mp id (+weight) exchange: the group's member
+        inputs selected into the send block [world, B_l, f_max, k],
+        destination-major (block r holds rank r's slots), through
+        `wire.wire_id_all_to_all` (weights through `wire.wire_all_to_all`).
+        The blocks arrive source-major, so flattening them gives the
+        global batch in order: [B, f_max, k]. At world size 1 the
+        selection alone."""
+        world, b_l = self.world_size, ids.shape[0]
         ids_x = ids.index_select(1, grp.sel_t)
         w_x = None if w is None else w.index_select(1, grp.sel_t)
-        return ids_x, w_x
+        if world == 1:
+            return ids_x, w_x
+        bucket = self.plan.tp_buckets[grp.bucket]
+
+        def block(x):
+            return x.reshape(b_l, world, grp.f_max, grp.k).transpose(0, 1)
+        ids_x = wire.wire_id_all_to_all(block(ids_x), bucket.id_wire_dtype)
+        if w_x is not None:
+            w_x = wire.wire_all_to_all(block(w_x), bucket.wire_dtype)
+            w_x = w_x.reshape(-1, grp.f_max, grp.k)
+        return ids_x.reshape(-1, grp.f_max, grp.k), w_x
+
+    def _tp_bucket_exchange(self, out: torch.Tensor,
+                            wire_dtype: str = "f32") -> torch.Tensor:
+        """mp->dp movement of one group's output blocks [world_dst, B_l, f,
+        wf] -> [world_src, B_l, f, wf] through `wire.wire_all_to_all`,
+        whose backward moves the gradients back; the identity at world
+        size 1."""
+        if self.world_size == 1:
+            return out
+        return wire.wire_all_to_all(out, wire_dtype)
 
     def _forward_local(self, group_ids, group_w, groups, taps=None,
                        res_ids=None, res_w=None, res_sort=None,
                        sort_plan=None) -> List[torch.Tensor]:
-        """Per exchange group: id exchange, row-offset add, fused lookup.
-        Returns per group the [world_src=1, B, f_max, wf] output block.
-        With `taps`, each block is detached into a leaf that requires grad
-        and appended to ``taps["tp"]``; with `res_ids`/`res_w`/`res_sort`,
-        the group's absolute ids, effective weights and its `GroupSort`
-        (where its `sort_plan` entry asks for one, else None) are appended
-        there."""
+        """Per exchange group: id exchange, row-offset add, fused lookup
+        over the global batch, exchange back. Returns per group the
+        [world_src, B_l, f_max, wf] block. With `taps`, each mp-side
+        output, [world_dst, B_l, f_max, wf], is detached into a leaf that
+        requires grad and appended to ``taps["tp"]`` before it is
+        exchanged; with `res_ids`/`res_w`/`res_sort`, the group's absolute
+        ids, effective weights and its `GroupSort` (where its `sort_plan`
+        entry asks for one, else None) are appended there."""
         ex_list = []
         for g, grp in enumerate(groups):
+            bucket = self.plan.tp_buckets[grp.bucket]
             ids_x, w_x = self._padded_id_exchange(grp, group_ids[g],
                                                   group_w[g])
             ids_x = ids_x + grp.offs_t[None, :, None]
             sort_g = None
             if sort_plan is not None and sort_plan[g]:
-                sort_g = canonical_id_sort(
-                    ids_x, max(self.plan.tp_buckets[grp.bucket].rows_max, 1))
-            out = self._tp_group_out(grp, ids_x, w_x, presorted=sort_g)[None]
+                sort_g = canonical_id_sort(ids_x, max(bucket.rows_max, 1))
+            out = self._tp_group_out(grp, ids_x, w_x, presorted=sort_g)
+            out = out.reshape((self.world_size, -1) + tuple(out.shape[1:]))
             if taps is not None:
                 out = out.detach().requires_grad_()
                 taps["tp"].append(out)
             if res_ids is not None:
-                bucket = self.plan.tp_buckets[grp.bucket]
                 eff_w, _ = _effective_weights(w_x, grp.k, bucket.combiner)
                 res_ids.append(ids_x[None])
                 res_w.append(None if eff_w is None else eff_w[None])
                 res_sort.append(sort_g)
-            ex_list.append(out)
+            ex_list.append(self._tp_bucket_exchange(out, bucket.wire_dtype))
         return ex_list
 
     def forward(self, inputs: Sequence, taps=None,
                 return_residuals: bool = False):
-        """Forward pass with data-parallel input: one [B] / [B, k] id
+        """Forward pass with data-parallel input: one [B_l] / [B_l, k] id
         array per feature (numpy or tensor), RaggedIds, SparseIds or
-        (ids, weights) tuples. Returns one [B, width] tensor per input (or
-        [B, k, width] for combiner=None multi-hot), in input order.
+        (ids, weights) tuples, B_l this rank's slice of the global batch
+        (the whole batch at world size 1). Returns one [B_l, width] tensor
+        per input (or [B_l, k, width] for combiner=None multi-hot), in
+        input order. Collective at world size > 1: every rank calls it,
+        with the same batch size.
 
         taps: the container from `make_taps`. The forward fills
         ``taps["tp"]`` with one leaf per exchange group, the group's
-        ``[1, B, f_max, w_out]`` output, detached from the (gradient-free)
-        tables and requiring grad, so that autograd delivers at each leaf
-        the gradient the JAX package reads at its zero tap.
+        mp-side output over the global batch, ``[world, B_l, f_max,
+        w_out]``, detached from the (gradient-free) tables and requiring
+        grad, so that autograd delivers at each leaf the gradient the JAX
+        package reads at its zero tap on this rank.
         return_residuals: also return the `TapResiduals` for
         `sparse_update`, as ``(outputs, residuals)``; inside
         `residual_sort_scope` they carry the groups' sorts."""
@@ -598,10 +669,11 @@ class DistributedEmbedding(nn.Module):
         """The tap container for ``forward(inputs, taps=...)``: ``{"tp":
         [], "row": []}``. The JAX package returns zero arrays
         ``[world, B, f_max_g, w_out]`` that its forward adds to each group
-        output; here the forward fills ``taps["tp"]`` with the group outputs
-        themselves, made leaves (the tables need no grad), whose ``.grad``
-        after backward is the tap gradient. Saves a pass over a zeros
-        tensor per group."""
+        output; here the forward fills ``taps["tp"]`` with the rank's
+        mp-side group outputs themselves, made leaves (the tables need no
+        grad), whose ``.grad`` after backward is this rank's block of the
+        tap gradient, reshaped ``[world, B_l, f_max_g, w_out]``. Saves a
+        pass over a zeros tensor per group."""
         if len(inputs) != self._n_inputs:
             raise ValueError(
                 f"Expected {self._n_inputs} inputs, got {len(inputs)}")
@@ -617,10 +689,11 @@ class DistributedEmbedding(nn.Module):
     def _group_contrib(self, g: int, grp: _ExchangeGroup, res_tp_ids,
                        res_tp_w, tp_g) -> SparseRowGrad:
         """One exchange group's SparseRowGrad from the residual ids and
-        effective weights and the tap gradient ``[1, B, f, w_out]``."""
+        effective weights and the tap gradient ``[world, B_l, f,
+        w_out]``."""
         bucket = self.plan.tp_buckets[grp.bucket]
         ids_x = res_tp_ids[g][0]                       # [B, f, k]
-        gtap = tp_g[g][0]                              # [B, f, w_out]
+        gtap = tp_g[g].reshape(tuple(ids_x.shape[:2]) + (-1,))  # [B, f, w]
         k, wf = grp.k, bucket.width
         lead = tuple(gtap.shape[:-1])
         if bucket.combiner is None:
@@ -643,8 +716,8 @@ class DistributedEmbedding(nn.Module):
     def sparse_update(self, opt_states: dict, tap_grads: dict,
                       residuals: TapResiduals,
                       opt: SparseOptimizer) -> dict:
-        """Row-wise sparse optimizer step for the bucket tables, IN PLACE
-        (the JAX package returns new, donated arrays): per bucket, the
+        """Row-wise sparse optimizer step for this rank's bucket tables, IN
+        PLACE (the JAX package returns new, donated arrays): per bucket, the
         SparseRowGrads of its exchange groups are concatenated and handed
         to ``opt.update``, which dedups them and updates each touched row
         of the table and its state once; a bucket of one group passes the
@@ -671,25 +744,58 @@ class DistributedEmbedding(nn.Module):
         return {**opt_states, "tp": new_tp}
 
     # --------------------------------------------------------- weights I/O
-    def get_weights(self) -> List[np.ndarray]:
-        """Global per-table weights in original table order, as numpy."""
+    # rows of a bucket gathered per collective: at most this many elements
+    # over all ranks (the JAX package's DET_GATHER_CHUNK_ELEMS default)
+    GATHER_CHUNK_ELEMS = 128 * 1024 * 1024
+
+    def get_weights(self, all_ranks: bool = False
+                    ) -> Optional[List[np.ndarray]]:
+        """Global per-table weights in original table order, as numpy.
+
+        Collective at world size > 1: every rank calls it. Each bucket's
+        ``[world, rows_max, w]`` stack is gathered in row chunks of at most
+        `GATHER_CHUNK_ELEMS` elements (`parallel.mesh.gather_stack`), one
+        bucket at a time, and each chunk's rows are copied out to the
+        tables on the host. With `all_ranks` False (the reference's
+        default) only rank 0 assembles and returns the weights; the other
+        ranks take part in the gathers and return None."""
         strat = self.strategy
+        keep = all_ranks or self.rank == 0
         out: List[Optional[np.ndarray]] = [None] * len(strat.global_configs)
-        for t_local, gtid in enumerate(strat.table_groups[1]):
-            cols = []
-            for pl_ in sorted((p for p in self.plan.tp_placements
-                               if p.table_id == t_local),
-                              key=lambda p: p.col_start):
-                cols.append(self.tp[pl_.bucket].detach()[
-                    pl_.row_offset:pl_.row_offset + pl_.rows].cpu().numpy())
-            out[gtid] = (np.concatenate(cols, axis=1) if len(cols) > 1
-                         else cols[0])
-        return out
+        if keep:
+            for t_local, gtid in enumerate(strat.table_groups[1]):
+                cfg = strat.global_configs[gtid]
+                out[gtid] = np.empty((cfg["input_dim"], cfg["output_dim"]),
+                                     np.float32)
+        world = self.world_size
+        for b, table in enumerate(self.tp):
+            table = table.detach()
+            rows, width = table.shape
+            chunk = max(1, self.GATHER_CHUNK_ELEMS // max(world * width, 1))
+            places = [p for p in self.plan.tp_placements if p.bucket == b]
+            for r0 in range(0, rows, chunk):
+                r1 = min(rows, r0 + chunk)
+                stack = pg.gather_stack(table[r0:r1])
+                if not keep:
+                    continue
+                host = stack.cpu().numpy()
+                for pl_ in places:
+                    lo = max(r0, pl_.row_offset)
+                    hi = min(r1, pl_.row_offset + pl_.rows)
+                    if lo >= hi:
+                        continue
+                    gtid = strat.table_groups[1][pl_.table_id]
+                    out[gtid][lo - pl_.row_offset:hi - pl_.row_offset,
+                              pl_.col_start:pl_.col_end] = \
+                        host[pl_.rank, lo - r0:hi - r0]
+        return out if keep else None
 
     @torch.no_grad()
     def set_weights(self, weights: Sequence) -> None:
         """Write global per-table weights (numpy arrays, tensors or .npy
-        paths, which are memory-mapped) into the bucket tables in place."""
+        paths, which are memory-mapped) into this rank's bucket tables in
+        place: every rank passes the same list and writes its own
+        placements only."""
         strat = self.strategy
         if len(weights) != len(strat.global_configs):
             raise ValueError(f"Expected {len(strat.global_configs)} weights, "
@@ -702,8 +808,39 @@ class DistributedEmbedding(nn.Module):
                 raise ValueError(
                     f"Weight shape {tuple(w.shape)} != expected {expect}")
         for pl_ in self.plan.tp_placements:
+            if pl_.rank != self.rank:
+                continue
             w = weights[strat.table_groups[1][pl_.table_id]]
             src = torch.from_numpy(np.array(
                 w[:, pl_.col_start:pl_.col_end], dtype=np.float32, order="C"))
             self.tp[pl_.bucket][pl_.row_offset:pl_.row_offset
                                 + pl_.rows].copy_(src)
+
+
+def _local_tables(module: nn.Module) -> set:
+    """The ids of the rank-local bucket tables of every
+    `DistributedEmbedding` inside `module`."""
+    return {id(t) for m in module.modules()
+            if isinstance(m, DistributedEmbedding) for t in m.tp}
+
+
+@torch.no_grad()
+def broadcast_variables(variables, root_rank: int = 0):
+    """Rank `root_rank`'s values of `variables` on every rank, in place
+    (the reference's broadcast of the initial data-parallel weights,
+    which skips the model-parallel ones). `variables`: a module, whose
+    parameters and buffers are broadcast except the rank-local bucket
+    tables of its `DistributedEmbedding` layers, or a sequence of
+    tensors. Collective: every rank calls it. Returns `variables`; at
+    world size 1, untouched."""
+    if pg.world_size() == 1:
+        return variables
+    if isinstance(variables, nn.Module):
+        local = _local_tables(variables)
+        tensors = [t for t in list(variables.parameters())
+                   + list(variables.buffers()) if id(t) not in local]
+    else:
+        tensors = list(variables)
+    for t in tensors:
+        dist.broadcast(t.data, src=root_rank)
+    return variables

@@ -13,7 +13,7 @@ import torch
 from torch import nn
 
 from distributed_embeddings_tpu_torch.layers.dist_model_parallel import (
-    DistributedEmbedding)
+    DistributedEmbedding, broadcast_variables)
 from distributed_embeddings_tpu_torch.layers.embedding import Embedding
 from distributed_embeddings_tpu_torch.utils.device import (DeviceLike,
                                                            default_generator,
@@ -88,8 +88,10 @@ class DLRM(nn.Module):
     `DistributedEmbedding` (strategy 'memory_balanced' unless given;
     ``lookup_path`` picks its lookup, as ``DET_LOOKUP_PATH`` does there).
     ``device`` (None = cuda) and ``generator`` (default: seed 0 on
-    `device`) place and draw every parameter. Forward:
-    ``[B, num_numerical]`` + categorical ids -> ``[B, 1]`` logits.
+    `device`) place and draw every parameter; in a process group of more
+    than one rank, each rank holds its share of the tables and every rank
+    takes rank 0's MLPs. Forward: ``[B, num_numerical]`` + categorical ids
+    -> ``[B, 1]`` logits.
     """
 
     def __init__(self,
@@ -122,6 +124,9 @@ class DLRM(nn.Module):
         self.bottom_mlp = MLP(list(bottom_mlp_dims), num_numerical_features,
                               device, gen, final_activation=True)
         self.top_mlp = MLP(list(top_mlp_dims), interact_dim, device, gen)
+        # every rank starts from rank 0's dense parameters (each drew them
+        # after its own share of the tables)
+        broadcast_variables(self)
 
     def forward(self, numerical, categorical, taps=None,
                 return_residuals: bool = False):

@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from distributed_embeddings_tpu_torch.layers.dist_model_parallel import (
-    DistributedEmbedding)
+    DistributedEmbedding, broadcast_variables)
 from distributed_embeddings_tpu_torch.layers.embedding import Embedding
 from distributed_embeddings_tpu_torch.models.dlrm import MLP, bce_loss
 from distributed_embeddings_tpu_torch.utils.device import (DeviceLike,
@@ -207,7 +207,9 @@ class SyntheticModel(nn.Module):
     always passed; `dist_kwargs` go to it, ``lookup_path`` among them: the
     JAX package's ``DET_LOOKUP_PATH``). ``device`` (None = cuda) and
     ``generator`` (default: seed 0 on `device`) place and draw every
-    parameter, embedding tables included, on the device itself.
+    parameter, embedding tables included, on the device itself. In a
+    process group of more than one rank the layer spans its ranks, each
+    holding its share of the tables, and every rank takes rank 0's MLP.
     """
 
     def __init__(self, model_config: ModelConfig, *,
@@ -237,6 +239,9 @@ class SyntheticModel(nn.Module):
         self.mlp_sizes = list(model_config.mlp_sizes) + [1]
         self.mlp = MLP(self.mlp_sizes, self.mlp_in, device, gen)
         self.device = device
+        # every rank starts from rank 0's dense parameters (each drew them
+        # after its own share of the tables)
+        broadcast_variables(self)
 
     def forward(self, numerical, cat_features, taps=None,
                 return_residuals: bool = False):

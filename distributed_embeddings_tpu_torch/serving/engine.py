@@ -61,6 +61,9 @@ class InferenceEngine:
         else:
             self._model = model
             self.embedding = model.embedding
+        if self.embedding.world_size > 1:
+            raise _not_ported("an InferenceEngine at world size > 1",
+                              "A3 (multi-GPU exchange)")
         if self.embedding.device != self.device:
             raise ValueError(
                 f"the model lives on {self.embedding.device}, the engine "

@@ -1,20 +1,30 @@
-"""Training: the sparse train step and a minimal `fit`.
+"""Training: the sparse train step, a minimal `fit` and the reference's
+training shims.
 
 Counterpart of ``distributed_embeddings_tpu/training.py``
-(`make_sparse_train_step`, `fit`) at world size 1. One step:
+(`make_sparse_train_step`, `fit`, `DistributedGradientTape`,
+`DistributedOptimizer`, `BroadcastGlobalVariablesCallback`). One step, on
+every rank of the process group with its slice of the global batch:
 
 1. `DistributedEmbedding.make_taps` gives the tap container; the model's
    ``loss_fn(..., taps=, return_residuals=True)`` runs the forward, whose
-   exchange-group outputs become autograd leaves (the tables need no grad),
-   inside the layer's `residual_sort_scope` when ``fold_sort`` is on, so
-   each exchange group's ids are sorted once for lookup and update;
+   mp-side exchange-group outputs become autograd leaves (the tables need
+   no grad), inside the layer's `residual_sort_scope` when ``fold_sort``
+   is on, so each exchange group's ids are sorted once for lookup and
+   update; the loss is the mean over the rank's slice;
 2. ``torch.autograd.grad`` over (dense parameters, tap leaves) gives the
-   MLP gradients and the tap gradients;
-3. `ops.sparse_update.drain_sparse_apply` turns the tap gradients into
-   row updates of the tables and their optimizer state, in place, through
-   the CUDA kernels on the card (deduplicated rows, or the raw sorted
-   stream under ``strategy="tiled"``);
-4. the dense twin of optax's sgd / adagrad / adam updates the MLPs in place.
+   MLP gradients and the tap gradients (the activation exchange's
+   backward carries the latter to the ranks that own the rows);
+3. at world size W > 1 the step takes the gradient of the global-batch
+   mean, as the JAX package's SPMD step does: the tap gradients are
+   scaled by 1/W, and the MLP gradients and the loss are averaged over
+   the ranks in one all-reduce (`parallel.mesh.average_across_ranks`);
+4. `ops.sparse_update.drain_sparse_apply` turns the tap gradients into
+   row updates of the rank's tables and their optimizer state, in place,
+   through the CUDA kernels on the card (deduplicated rows, or the raw
+   sorted stream under ``strategy="tiled"``);
+5. the dense twin of optax's sgd / adagrad / adam updates the MLPs in
+   place, the same on every rank.
 
 The dense twins are written to optax's expressions (``scale_by_rss``,
 ``scale_by_adam``, ``scale_by_learning_rate``), not taken from
@@ -22,17 +32,23 @@ The dense twins are written to optax's expressions (``scale_by_rss``,
 the accumulator at 0, and its Adam groups the bias correction differently.
 """
 
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from distributed_embeddings_tpu_torch.layers.dist_model_parallel import (
+    broadcast_variables)
 from distributed_embeddings_tpu_torch.ops.sparse_update import (
     SparseOptimizer, bias_corrections, check_strategy, dedup_sum,
     drain_sparse_apply, make_sparse_optimizer)
+from distributed_embeddings_tpu_torch.parallel.mesh import (
+    average_across_ranks)
 from distributed_embeddings_tpu_torch.utils.device import device_scalar
 
 __all__ = ["DenseOptimizer", "sgd", "adagrad", "adam",
-           "make_sparse_train_step", "fit", "gradient_scale"]
+           "make_sparse_train_step", "fit", "gradient_scale",
+           "DistributedGradientTape", "DistributedOptimizer",
+           "BroadcastGlobalVariablesCallback", "broadcast_variables"]
 
 # the sparse rule's hyperparameters per optimizer: adagrad's eps matches
 # optax's, so the tables and the MLPs see the same rule
@@ -157,7 +173,10 @@ def make_sparse_train_step(model, optimizer: str = "adagrad", lr=0.01,
         "dense": ...}`` (+ ``"count"`` under a schedule);
       step_fn(model, opt_state, numerical, cats, labels)
         -> (model, opt_state, loss): tables, state and MLPs are updated in
-        place; loss is a 0-d tensor on the model's device (no host sync).
+        place; loss is a 0-d tensor on the model's device (no host sync),
+        the mean over the global batch. At world size > 1 every rank
+        calls it with its slice of the global batch
+        (`parallel.staging.stage_dp_batch`).
     """
     check_strategy(strategy)
     if optimizer not in SPARSE_HP:
@@ -192,8 +211,16 @@ def make_sparse_train_step(model, optimizer: str = "adagrad", lr=0.01,
                                        return_residuals=True)
         dense = _dense_params(params)
         grads = torch.autograd.grad(loss, list(dense.values()) + taps["tp"])
+        g_tp = list(grads[len(dense):])
+        if layer.world_size > 1:
+            # the gradient of the global-batch mean: each rank's loss is
+            # the mean over its slice
+            scale = device_scalar(layer.world_size, loss)
+            g_tp = [g / scale for g in g_tp]
+            *grads, loss = average_across_ranks(
+                list(grads[:len(dense)]) + [loss.detach()])
         g_dense = dict(zip(dense, grads[:len(dense)]))
-        g_taps = {"tp": list(grads[len(dense):]), "row": []}
+        g_taps = {"tp": g_tp, "row": []}
         new_state = {"emb": drain_sparse_apply(layer, opt_state["emb"],
                                                g_taps, res,
                                                sopt_for(opt_state)),
@@ -289,7 +316,6 @@ _FIT_UNPORTED = {
     "eval_data": (None, "A2, open: fit's eval"),
     "eval_every": (0, "A2, open: fit's eval"),
     "eval_steps": (16, "A2, open: fit's eval"),
-    "sync_every": (None, "A3 (multi-GPU exchange)"),
     "stage": (None, "A11 (ingest)"),
     "preprocess": (None, "A11 (ingest)"),
     "pipelined": (False, "A11 (ingest)"),
@@ -309,14 +335,18 @@ _FIT_UNPORTED = {
 def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
         sparse: bool = True, opt_state=None,
         dense_optimizer: Optional[DenseOptimizer] = None, callbacks=(),
-        log_every: int = 100, log_fn: Callable = print, **unported):
-    """Minimal training loop (the JAX package's `fit` at world size 1,
-    sparse path): `data` is an iterable of (numerical, cats, labels)
-    batches or a callable ``step -> batch``. The steps take the model
-    layer's lookup path and fold its sorts (`make_sparse_train_step`). Callbacks may define
-    ``on_train_begin(model)`` and ``on_step(step, model, loss)`` (loss a
-    device scalar). The loss is read back to the host only at `log_every`
-    boundaries and at the end.
+        log_every: int = 100, log_fn: Callable = print,
+        sync_every: Optional[int] = None, **unported):
+    """Minimal training loop (the JAX package's `fit`, sparse path):
+    `data` is an iterable of (numerical, cats, labels) batches or a
+    callable ``step -> batch``, each this rank's slice at world size > 1
+    (`parallel.staging.stage_dp_batch`). The steps take the model layer's
+    lookup path and fold its sorts (`make_sparse_train_step`). Callbacks
+    may define ``on_train_begin(model)`` and ``on_step(step, model,
+    loss)`` (loss a device scalar). The loss is read back to the host at
+    `log_every` boundaries, every `sync_every` steps (None: 1 in a process
+    group of more than one rank, keeping the ranks in lockstep, else 0,
+    never) and at the end.
 
     Returns (model, opt_state, history) with ``history["loss"]`` as floats.
     Every other argument of the JAX package's `fit` raises
@@ -334,6 +364,8 @@ def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
             "(ROADMAP Queue A2, open: the dense strategy)")
     init_fn, step_fn = make_sparse_train_step(
         model, optimizer, lr=lr, dense_optimizer=dense_optimizer)
+    if sync_every is None:
+        sync_every = 1 if model.embedding.world_size > 1 else 0
     if opt_state is None:
         opt_state = init_fn(model)
     for cb in callbacks:
@@ -354,6 +386,8 @@ def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
         model, opt_state, loss = step_fn(model, opt_state, numerical, cats,
                                          labels)
         pending.append(loss)
+        if sync_every and (step + 1) % sync_every == 0:
+            drain()
         if log_every and step % log_every == 0:
             drain()
             log_fn(f"step {step}/{steps}: loss={history['loss'][-1]:.5f}")
@@ -362,3 +396,62 @@ def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
                 cb.on_step(step, model, loss)
     drain()
     return model, opt_state, history
+
+
+class DistributedGradientTape:
+    """The reference's ``DistributedGradientTape``: ``tape.gradient(
+    loss_fn, model, *args)`` -> (loss, {name: gradient}) over the model's
+    trainable parameters, with ``loss = loss_fn(model, *args, **kwargs)``.
+    The gradients are data-parallel (the bucket tables carry none), so
+    they and the loss are averaged over the ranks, as the reference's
+    allreduce does; a rank's `loss_fn` takes the mean over its slice.
+    `sparse_as_dense` is accepted and has no effect, as in the JAX
+    package."""
+
+    def __init__(self, sparse_as_dense: bool = True):
+        del sparse_as_dense
+
+    def gradient(self, loss_fn: Callable, model, *args, **kwargs):
+        params = _dense_params(model)
+        loss = loss_fn(model, *args, **kwargs)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        *grads, loss = average_across_ranks(list(grads) + [loss.detach()])
+        return loss, dict(zip(params, grads))
+
+
+class DistributedOptimizer:
+    """The reference's ``DistributedOptimizer`` over a `DenseOptimizer`:
+    ``init(params)``; ``update(grads, opt_state, params)`` runs the
+    optional ``postprocess(grads)`` hook, then updates `params` in place
+    and returns the new state. No gradient communication is added: the
+    tape's gradients are averaged already."""
+
+    def __init__(self, optimizer: DenseOptimizer,
+                 postprocess: Optional[Callable[[Any], Any]] = None):
+        self._opt = optimizer
+        self._postprocess = postprocess
+
+    def init(self, params: Dict[str, torch.Tensor]) -> dict:
+        return self._opt.init(params)
+
+    def update(self, grads: Dict[str, torch.Tensor], opt_state: dict,
+               params: Dict[str, torch.Tensor]) -> dict:
+        if self._postprocess is not None:
+            grads = self._postprocess(grads)
+        return self._opt.update(params, grads, opt_state)
+
+
+class BroadcastGlobalVariablesCallback:
+    """The reference's Keras callback as a `fit` callback: at
+    ``on_train_begin(model)``, once, every rank takes `root_rank`'s
+    data-parallel parameters (`broadcast_variables`)."""
+
+    def __init__(self, root_rank: int = 0):
+        self.root_rank = root_rank
+        self._done = False
+
+    def on_train_begin(self, model):
+        if not self._done:
+            self._done = True
+            broadcast_variables(model, root_rank=self.root_rank)
+        return model

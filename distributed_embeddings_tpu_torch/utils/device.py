@@ -3,14 +3,22 @@
 from typing import Optional, Union
 
 import torch
+import torch.distributed as dist
 
 DeviceLike = Union[str, torch.device, None]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` means ``cuda``. A CUDA device on a host without one raises
-    instead of quietly running on the CPU."""
-    dev = torch.device("cuda" if device is None else device)
+    """``None`` means ``cuda``: in a process group of more than one rank,
+    ``cuda:{rank % device_count}``, one card a rank (a caller whose ranks
+    share a card passes `device`). A CUDA device on a host without one
+    raises instead of quietly running on the CPU."""
+    if device is None:
+        device = "cuda"
+        if (dist.is_initialized() and dist.get_world_size() > 1
+                and torch.cuda.is_available()):
+            device = f"cuda:{dist.get_rank() % torch.cuda.device_count()}"
+    dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; distributed_embeddings_tpu_torch "

@@ -218,8 +218,7 @@ def test_fit_outside_the_slice_raises(kwargs):
 
 
 @pytest.mark.parametrize("name,default,other,item", [
-    ("eval_steps", 16, 4, "A2"), ("sync_every", None, 1, "A3"),
-    ("vocab_every", 16, 4, "A12"),
+    ("eval_steps", 16, 4, "A2"), ("vocab_every", 16, 4, "A12"),
 ])
 def test_fit_takes_the_reference_arguments_at_their_defaults(name, default,
                                                              other, item):
@@ -230,6 +229,23 @@ def test_fit_takes_the_reference_arguments_at_their_defaults(name, default,
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP Queue {item}[ ,]"):
         fit(model, [], 0, **{name: other})
+
+
+def test_fit_sync_every_reads_the_loss_every_n_steps():
+    """`sync_every` (ported with the multi-GPU slice) blocks on the loss
+    every N steps; the history is the same with and without it."""
+    def run(sync_every):
+        model = DLRM([10, 20], embedding_dim=8, bottom_mlp_dims=(16, 8),
+                     top_mlp_dims=(16, 1), device="cpu")
+        rng = torch.Generator().manual_seed(3)
+        batches = [(torch.rand(8, 13, generator=rng),
+                    [torch.randint(0, v, (8,), generator=rng)
+                     for v in (10, 20)],
+                    torch.randint(0, 2, (8, 1), generator=rng).float())
+                   for _ in range(3)]
+        return fit(model, batches, 3, "sgd", log_every=0,
+                   sync_every=sync_every)[2]["loss"]
+    assert run(2) == run(0) and len(run(1)) == 3
 
 
 @pytest.mark.parametrize("bad", [
@@ -250,7 +266,8 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(world_size=2), dict(mesh=object()), dict(dp_input=False),
+    dict(mesh=object(), world_size=2), dict(mesh=object()),
+    dict(dp_input=False),
     dict(row_slice_threshold=100), dict(gpu_embedding_size=100),
     dict(hot_rows=8), dict(exchange_wire="bf16"),
     dict(storage_dtype="int8"), dict(vocab_slack=4),
@@ -258,6 +275,14 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
 def test_features_outside_the_slice_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
         DistributedEmbedding(_tiny_tables(), device="cpu", **kwargs)
+
+
+def test_world_size_without_a_process_group_raises():
+    """The world is the process group's: `world_size` must match it."""
+    with pytest.raises(ValueError, match="process group"):
+        DistributedEmbedding(_tiny_tables(), device="cpu", world_size=2)
+    layer = DistributedEmbedding(_tiny_tables(), device="cpu", world_size=1)
+    assert (layer.world_size, layer.rank) == (1, 0)
 
 
 def test_engine_features_outside_the_slice_raise():
