@@ -73,12 +73,17 @@ Phases, each printing JSON lines before the last line:
   5. train: the same full-size Tiny model and its adagrad accumulators
      (4.49 GB more) trained by `make_sparse_train_step(model, "adagrad",
      lr=0.01)` on power-law batches of 65536 rows (alpha 1.05, seed 0).
-     Main path: 3 steps with launches 4 / 2 / 2 per step (lookup_combine /
-     segment_sum_sorted / adagrad_rows), each held against a CPU trainer
+     Main path: 3 steps with launches 4 / 1 / 1 per step (lookup_combine /
+     segment_sum_sorted / adagrad_rows: bucket 0, 60,160 x 8, takes the
+     dense strategy under "auto", whose touched rows show in its
+     `_dense_update` call), each held against a CPU trainer
      (the same weights, plain versions) started from the card's state,
      whose step takes the card's ReLU masks (`forced_relu`; a flip past
      rounding fails): losses rtol 1e-5; the change of every touched table and accumulator
-     element within rtol 1e-4 of it plus one ulp, the MLPs at rtol 1e-4 /
+     element within rtol 1e-4 of it plus one ulp, widened by the step's
+     conditioning (`gradient_scale`) and, on a row the dense strategy
+     summed from n contributions, by (n - 1) 2^-24 (`sum_eps`: the card's
+     atomics add them in another order than the CPU), the MLPs at rtol 1e-4 /
      atol 1e-6; a sample of untouched rows bit-unchanged. Then the median
      of 10 synchronized steps after 2 warm ones, samples/s, peak memory,
      one step under torch.profiler, and the new kernels at the shapes one
@@ -103,9 +108,18 @@ Phases, each printing JSON lines before the last line:
   6. sgd and adam: Tiny with every table cut to at most 100,000 rows
      (widths, hotness, sharing kept), 3 steps each held like phase 5's
      but by value (rtol 1e-4 / atol 1e-6); adam by 1e-2 * lr where the
-     step's gradient is a sum that cancels. `sgd_rows` / `adam_rows`
-     launch once per bucket per step and are timed at the shapes those
+     step's gradient is a sum that cancels. `sgd_rows` launches once per
+     bucket per step (sgd's "auto" is the deduplicated-row route),
+     `adam_rows` once (bucket 0 dense), each timed at the shapes those
      steps give them.
+     6c. dense_path: the same cut Tiny with ``strategy="dense"`` against
+     ``"sort"``, adagrad and adam, each of 3 steps from the same state,
+     by value (launches 4 lookup_combine a step, no segment sum or row
+     kernel); then full criteo (tiled lookup) through ``fit(sparse=False,
+     "sgd")`` against ``fit(sparse=True, "sgd")`` from one state, 3
+     steps: launches 1 / 1 (gather_sorted / sgd_stream, the lookup's
+     backward), the touched rows within rtol 1e-5, every other row
+     bit-identical, the MLPs by value.
      6b. train_tiled: full-size criteo (26 tables x 100,000 x 128) through
      ``lookup_path="tiled"`` + ``strategy="tiled"``: adagrad, sgd and adam
      (adam on the MLP too), 3 held steps each (adagrad and sgd by change,
@@ -144,8 +158,34 @@ Phases, each printing JSON lines before the last line:
      the bar widened by the largest conditioning `gradient_scale` gives
      the element over the steps, as in 5b: after the first step the two
      worlds' MLPs differ in their last digits), the MLPs by value (rtol
-     1e-4 / atol 1e-6) and bit-equal across ranks. A rank that fails fails the phase; the ranks are joined with a
+     1e-4 / atol 1e-6) and bit-equal across ranks. Before any step each
+     rank runs `evaluate` over the global batches (its slices, the
+     histograms summed over the ranks): its AUC equals world 1's to the
+     bit. Tiny's bucket 0 is dense at W = 2 too (launches a rank step 4 /
+     1 / 1, from the rank's plan). A rank that fails fails the phase; the ranks are joined with a
      timeout.
+  9. (after 6c, before 8) DLRM at the example's widths (width 128, bottom
+     512-256-128, top 1024-1024-512-256-1, 13 numerical features, batch
+     65,536, ``lookup_path="pallas"``: one-hot gathers through
+     lookup_combine). dlrm_against_cpu: Criteo sizes x 0.02 (1.92 GB), 3
+     sparse sgd steps held against the CPU trainer like phase 5's (its
+     two MLPs' ReLU masks forced; the row sums' conditioning from the
+     CPU step's contributions, `contribution_cond`), launches 1 / 1 / 1.
+     dlrm_fit: Criteo sizes x 0.4 (38.5 GB; the full 96.1 GB do not fit
+     one card); a seeded ClickGenerator stream written as train/ and
+     test/ in the split-binary layout to a temporary directory (removed
+     after), read by `RawBinaryDataset` through ``fit(raw_batches,
+     preprocess=, pipelined=True, eval_data=, eval_every=6,
+     eval_steps=4)``, sparse sgd at the example's schedule, 12 steps;
+     then the same from the same weights with ``pipelined=False``:
+     losses, eval AUCs, tables (`table_digest`) and MLPs bit-identical.
+     Printed: launches (1 / 1 / 1 a step, 1 lookup a eval forward), step
+     times and samples/s, peak memory, ingest stage means, one profiled
+     step each (`StepWindow`: idle share, HtoD copies pageable / pinned),
+     the on-card AUC against `auc_exact` (1e-3) and a CPU StreamingAUC.
+     convergence: `tools.convergence_demo.run` at
+     docs/convergence_r05.json's settings, its curve beside r05's; the
+     last AUC must pass 0.70.
   7. the kernels line (each kernel's launches by path, the world paths'
      summed over the ranks), the card's line, and the last line
      ``{"ok": true, "device": {...}}``.
@@ -418,9 +458,11 @@ def hbm_rate(name: str) -> float:
     return HBM_BYTES_PER_S[-1][1]
 
 
-def tiny_bucket_kernels(torch, cuda_lookup, captured, rate):
+def tiny_bucket_kernels(torch, cuda_lookup, captured, rate,
+                        phase="tiny_kernel"):
     """Phase 4b: the kernel at the real buckets and group shapes captured
-    from one 65536-row forward: check, time, bound, yardstick."""
+    from one 65536-row forward: check, time, bound, yardstick (one
+    `phase` line a group)."""
     import torch.nn.functional as F
     totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
                   bytes_ms=0.0, ops_ms=0.0)
@@ -435,7 +477,8 @@ def tiny_bucket_kernels(torch, cuda_lookup, captured, rate):
         exact = k == 1 and weights is None
         ok = (torch.equal(got, want) if exact
               else torch.allclose(got, want, **KERNEL_TOL))
-        check(ok, f"kernel disagrees at Tiny group {g}: max abs err {err}")
+        check(ok, f"kernel disagrees at {phase} group {g}: max abs err "
+                  f"{err}")
         worst = max(worst, err)
         kernel = lambda: cuda_lookup.lookup_combine(table, ids, weights)
         ms = device_ms(kernel, reps=20)
@@ -456,7 +499,7 @@ def tiny_bucket_kernels(torch, cuda_lookup, captured, rate):
         bytes_ms = n_bytes / rate * 1e3
         ops_ms = 2 * n * k * width / F32_FLOP_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
-        emit(phase="tiny_kernel", group=g, table=list(table.shape),
+        emit(phase=phase, group=g, table=list(table.shape),
              ids=list(ids.shape), weighted=weights is not None,
              unique_rows=unique_rows, bytes=n_bytes, max_abs_err=err,
              ms=ms, eager_ms=eager, plain_ms=plain_ms,
@@ -630,7 +673,8 @@ def ulp(torch, x):
     return torch.nextafter(x, torch.full_like(x, math.inf)) - x
 
 
-def hold(torch, what, got, want, before, steps, mode, cond=None, lr=None):
+def hold(torch, what, got, want, before, steps, mode, cond=None, lr=None,
+         eps=SUM_EPS):
     """The card's trainer (`got`) against the CPU trainer (`want`) after
     `steps` steps from `before`, on the same elements (CPU tensors).
     `cond` (optional): per element t/|g| of the step's gradient g and the
@@ -643,7 +687,10 @@ def hold(torch, what, got, want, before, steps, mode, cond=None, lr=None):
     change plus `steps` ulps of the values (each step rounds once on each
     side), plus, with `cond`, 2 * SUM_EPS * t/|g| of the change (a change
     of sgd or adagrad carries its gradient's relative error, the
-    accumulator's square twice); sgd and adagrad at batch 65,536 move
+    accumulator's square twice; `eps`, SUM_EPS by default, may be a tensor
+    broadcast over the elements: `sum_eps` widens it on rows that a dense
+    aggregation summed in another order); sgd and adagrad at batch 65,536
+    move
     most table elements by far less than TRAIN_TOL's atol, where a value
     check would not see a row left out. Sums that cancel exactly (g == 0
     from terms, t/|g| infinite) are not held. mode "value": TRAIN_TOL
@@ -661,8 +708,10 @@ def hold(torch, what, got, want, before, steps, mode, cond=None, lr=None):
         bar = TRAIN_TOL["rtol"] * change + rounding
         if cond is not None:
             cond64 = cond.double()
+            eps64 = (eps.double() if torch.is_tensor(eps)
+                     else torch.tensor(eps, dtype=torch.float64))
             bar = torch.where(torch.isinf(cond64), math.inf,
-                              bar + 2 * SUM_EPS * cond64 * change)
+                              bar + 2 * eps64 * cond64 * change)
     else:
         bar = TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * want64.abs()
         if cond is not None and lr is not None:
@@ -698,7 +747,7 @@ def trained_arrays(torch, model, state, touched):
 
 
 def hold_trainers(torch, label, after, cpu_after, before, touched, steps,
-                  mode, scale=None, lr=None):
+                  mode, scale=None, lr=None, eps=None, table_cond=None):
     """Every trained array of the card's trainer against the CPU
     trainer's (`trained_arrays` of each, and of the card's before the
     steps), by `hold`: the touched table and state rows, which the kernels
@@ -708,14 +757,17 @@ def hold_trainers(torch, label, after, cpu_after, before, touched, steps,
     `gradient_scale` of the step, whose conditioning (t/|g|) `hold` turns
     into the wider bars of its docstring; adam's moments, held by value,
     never get it. `lr`: adam's, for its ill-element bar (None for sgd and
-    adagrad). Returns (max abs error, |change| of the touched table
-    elements, how many of them moved past the rounding allowance)."""
+    adagrad). `eps`: per bucket, `hold`'s sum eps at the touched rows
+    (None: SUM_EPS). `table_cond`: per bucket, t/|g| at the touched rows
+    for a model without `gradient_scale` (DLRM: `contribution_cond`).
+    Returns (max abs error, |change| of the touched table elements, how
+    many of them moved past the rounding allowance)."""
     worst, table_change, moved = 0.0, [], 0
 
     def cond(name, rows=None):
         """t/|g| per element (0 without terms, infinite where terms cancel
-        exactly), or None without a scale."""
-        if scale is None:
+        exactly), or None where the scale has none."""
+        if scale is None or name not in scale:
             return None
         g, t = scale[name]
         if rows is not None:
@@ -727,13 +779,15 @@ def hold_trainers(torch, label, after, cpu_after, before, touched, steps,
         worst = max(worst, err)
     for b, (got_b, want_b, before_b) in enumerate(zip(after[1], cpu_after[1],
                                                       before[1])):
-        table_cond = cond(f"embedding.tp.{b}", touched[b])
+        t_cond = (table_cond[b] if table_cond is not None
+                  else cond(f"embedding.tp.{b}", touched[b]))
+        eps_b = SUM_EPS if eps is None else eps[b]
         for i, (got, want, old) in enumerate(zip(got_b, want_b, before_b)):
             what = f"{label}: bucket {b} " + ("table" if i == 0
                                                 else f"state {i - 1}")
             if i == 0:
                 err, change, n = hold(torch, what, got, want, old, steps,
-                                      mode, table_cond, lr)
+                                      mode, t_cond, lr, eps_b)
                 worst = max(worst, err)
                 table_change.append(change.flatten())
                 moved += n
@@ -741,26 +795,85 @@ def hold_trainers(torch, label, after, cpu_after, before, touched, steps,
                 # by change (adagrad's accumulator) with the table's
                 # conditioning; by value (adam's moments) without
                 hold(torch, what, got, want, old, steps, mode,
-                     table_cond if mode == "change" else None)
+                     t_cond if mode == "change" else None, eps=eps_b)
     return worst, torch.cat(table_change), moved
 
 
+def _dense_rows(args):
+    """The table and the stream's ids of a `sparse_update._dense_update`
+    call (kind, table, state, grad, lr): the dense route's touched rows,
+    each id once per contribution."""
+    return args[1], args[3].ids, True
+
+
 def rows_capture(cuda_sparse, kind):
-    """Where a step's touched rows show on the deduplicated-row route:
-    the `<kind>_rows` call's table and rep."""
+    """Where a step's touched rows show on the deduplicated-row route (the
+    `<kind>_rows` call's table and rep) and on the dense route, which a
+    bucket of at most `DENSE_ELEMS_MAX` elements takes under "auto" for
+    adagrad and adam (`_dense_rows`)."""
+    from distributed_embeddings_tpu_torch.ops import sparse_update
     i = {"sgd": 1, "adagrad": 2, "adam": 3}[kind]
-    return cuda_sparse, f"{kind}_rows", lambda args: (args[0], args[i])
+    return [(cuda_sparse, f"{kind}_rows",
+             lambda args: (args[0], args[i], False)),
+            (sparse_update, "_dense_update", _dense_rows)]
 
 
 def stream_capture(cuda_tiled, kind):
     """Where they show on the raw-stream route: the `<kind>_stream`
     call's table and sorted keys."""
     i = {"sgd": 2, "adagrad": 3, "adam": 4}[kind]
-    return cuda_tiled, f"{kind}_stream", lambda args: (args[0], args[i])
+    return [(cuda_tiled, f"{kind}_stream",
+             lambda args: (args[0], args[i], False))]
+
+
+def sum_eps(torch, model, counts, touched):
+    """Per bucket, `hold`'s sum eps at the touched rows, [rows, 1]: SUM_EPS,
+    plus (n - 1) * 2^-24 on a row a dense aggregation summed from n
+    contributions (the most over the steps, `run_trainer`'s counts). The
+    card's ``index_add_`` adds them in its atomics' order, the CPU in the
+    stream's: two orders of an n-term float32 sum differ by at most
+    2 (n - 1) 2^-24 times the sum of the terms' magnitudes."""
+    out = []
+    for t, idx in zip(model.embedding.tp, touched):
+        eps = torch.full((idx.numel(), 1), SUM_EPS, dtype=torch.float64)
+        parts = counts.get(t.data_ptr(), [])
+        if parts:
+            n = torch.stack(parts).amax(0).index_select(0, idx).double()
+            eps += ((n - 1).clamp_min(0) * 2.0 ** -24)[:, None]
+        out.append(eps)
+    return out
+
+
+def contribution_cond(torch, model, calls, touched):
+    """Per bucket, t/|g| at the touched rows from the CPU step's
+    `dedup_sum` calls (`calls`: (positional, keyword) arguments of each:
+    ids, contribs, sentinel): g the row's sum of contributions, t the sum of their
+    magnitudes (0 without terms, infinite where they cancel exactly). The
+    conditioning of the row sums alone, for a model without
+    `gradient_scale` (DLRM): each contribution row is one sample's
+    gradient, which the two trainers compute to a few ulps."""
+    from distributed_embeddings_tpu_torch.ops.sparse_update import dedup_sum
+    out = [torch.zeros((idx.numel(), 1), dtype=torch.float64)
+           for idx in touched]
+    for args, kwargs in calls:
+        ids, contribs = args[:2]
+        sentinel = kwargs["sentinel"] if "sentinel" in kwargs else args[2]
+        b = [t.shape[0] for t in model.embedding.tp].index(sentinel)
+        rep, g = dedup_sum(ids, contribs, sentinel)
+        _, t = dedup_sum(ids, contribs.abs(), sentinel)
+        valid = rep < sentinel
+        rep, g, t = rep[valid].long(), g[valid].double(), t[valid].double()
+        at = torch.searchsorted(rep, touched[b])
+        check(bool((rep.index_select(0, at) == touched[b]).all()),
+              "a touched row has no dedup segment on the CPU")
+        g, t = g.index_select(0, at), t.index_select(0, at)
+        out[b] = torch.where(t > 0, t / g.abs(), torch.zeros_like(t))
+    return out
 
 
 def train_against_cpu(torch, capture, kind, mode, step, model, state,
-                      cpu_step, cpu_model, batches, scaled=None):
+                      cpu_step, cpu_model, batches, scaled=None,
+                      contrib=False):
     """Drive the card's trainer over `batches`, each step held against a
     CPU trainer started from the card's state before it (the model runs
     chaotically at lr 0.01: over several steps the two trainers' rounding
@@ -770,31 +883,46 @@ def train_against_cpu(torch, capture, kind, mode, step, model, state,
     and the ReLU masks of the MLP's hidden layers, which the CPU step then
     takes (`forced_relu`). The tables and their state are held in `mode`
     (`hold`), with `gradient_scale`'s conditioning on the CPU for adam and
-    where `scaled` asks for it. Returns the card's state and a dict of
-    what was held."""
+    where `scaled` asks for it (True: every bucket; "dense": only the
+    buckets the dense strategy updated, whose row sums the card's atomics
+    add in their own order, the others keeping the plain bar), or, with
+    `contrib`, the row sums' conditioning alone (`contribution_cond`).
+    Returns the card's state and a dict of what was held."""
+    from distributed_embeddings_tpu_torch.ops import sparse_update
     from distributed_embeddings_tpu_torch.training import gradient_scale
     out = dict(losses=[], cpu_losses=[], max_abs_err=0.0, changes=[],
                moved=0, touched=[], ill=0, with_gradient=0, relu_flips=[])
     for batch in batches:
         cpu_model.load_state_dict(model.state_dict())
         cpu_state = to_cpu(torch, state)
-        (state, loss, touched), masks = relu_masks(
+        (state, loss, touched, counts), masks = relu_masks(
             model, lambda: run_trainer(step, model, state, [batch], capture))
         touched = touched_rows(torch, model, touched)
+        eps = sum_eps(torch, model, counts, touched)
         before = trained_arrays(torch, cpu_model, cpu_state, touched)
         with forced_relu(torch, cpu_model, masks) as flips:
             scale = (gradient_scale(cpu_model, *batch)
                      if (kind == "adam" if scaled is None else scaled)
                      else None)
-            cpu_state, cpu_loss, _ = run_trainer(cpu_step, cpu_model,
-                                                 cpu_state, [batch])
-        del masks
+            sums = Capture(sparse_update, "dedup_sum") if contrib else None
+            with sums or contextlib.nullcontext():
+                cpu_state, cpu_loss, _, _ = run_trainer(
+                    cpu_step, cpu_model, cpu_state, [batch])
+        table_cond = (contribution_cond(torch, cpu_model,
+                                        zip(sums.calls, sums.kwargs),
+                                        touched) if contrib else None)
+        del sums, masks
+        if scale is not None and scaled == "dense":
+            scale = {k: v for k, v in scale.items()
+                     if not k.startswith("embedding.tp.")
+                     or model.embedding.tp[int(k.rsplit(".", 1)[1])]
+                     .data_ptr() in counts}
         cpu_after = trained_arrays(torch, cpu_model, cpu_state, touched)
         del cpu_state
         err, change, moved = hold_trainers(
             torch, kind, trained_arrays(torch, model, state, touched),
             cpu_after, before, touched, 1, mode, scale,
-            TRAIN_LR if kind == "adam" else None)
+            TRAIN_LR if kind == "adam" else None, eps, table_cond)
         out["relu_flips"].append(flips[-1])
         emit(phase="held_step", kind=kind, loss=loss[0], cpu_loss=cpu_loss[0],
              relu_flips=flips[-1])
@@ -819,47 +947,60 @@ def train_against_cpu(torch, capture, kind, mode, step, model, state,
     return state, out
 
 
+def relu_groups(model):
+    """The model's MLPs as (layers, how many of them a ReLU follows), in
+    forward order: `SyntheticModel`'s `mlp` (all but its last layer);
+    DLRM's `bottom_mlp` (every layer) and `top_mlp` (all but its last)."""
+    if hasattr(model, "mlp"):
+        return [(list(model.mlp), len(model.mlp) - 1)]
+    return [(list(model.bottom_mlp), len(model.bottom_mlp)),
+            (list(model.top_mlp), len(model.top_mlp) - 1)]
+
+
 @contextlib.contextmanager
 def forced_relu(torch, cpu_model, masks):
-    """Within the block, every forward of the CPU model's MLP takes the
+    """Within the block, every forward of the CPU model's MLPs takes the
     card's ReLU masks (`masks`: `relu_masks` of the card's step, one per
-    hidden layer). A unit whose pre-activation z lies within rounding of 0
-    may take the other side on cuBLAS and on the CPU, and would change
-    every gradient of its batch row; where the CPU's z takes the other
-    side, it becomes |z| or -|z|, keeping z's gradient (z plus a detached
-    correction, exactly z where nothing flips). A flip is a rounding
-    difference only where |z| is within SUM_EPS of the sum t of its
-    terms' magnitudes (the forward by absolute values from the MLP's
-    input, under the card's masks): a flip past that fails the phase.
-    Yields a list that gets each forward's count of flipped units."""
-    layers = list(cpu_model.mlp)
-    check(len(masks) == len(layers) - 1,
+    layer a ReLU follows, `relu_groups`' order). A unit whose
+    pre-activation z lies within rounding of 0 may take the other side on
+    cuBLAS and on the CPU, and would change every gradient of its batch
+    row; where the CPU's z takes the other side, it becomes |z| or -|z|,
+    keeping z's gradient (z plus a detached correction, exactly z where
+    nothing flips). A flip is a rounding difference only where |z| is
+    within SUM_EPS of the sum t of its terms' magnitudes (the forward by
+    absolute values from its MLP's input, under the card's masks): a flip
+    past that fails the phase. Yields a list that gets each forward's
+    count of flipped units."""
+    groups = relu_groups(cpu_model)
+    want = sum(n for _, n in groups)
+    check(len(masks) == want,
           f"{len(masks)} ReLU masks from the card's step, want one per "
-          f"hidden layer ({len(layers) - 1})")
+          f"layer a ReLU follows ({want})")
     flips, first_input = [], {}
 
-    def hook(i):
+    def hook(g, layers, base, i):
         def fn(mod, inp, z):
             if i == 0:
-                first_input["x"] = inp[0].detach()
-                flips.append(0)
-            flip = (z > 0) != masks[i]
+                first_input[g] = inp[0].detach()
+                if g == 0:
+                    flips.append(0)
+            flip = (z > 0) != masks[base + i]
             if not bool(flip.any()):
                 return None
             flips[-1] += int(flip.sum())
             rows = flip.any(dim=1).nonzero().flatten()
-            t = first_input["x"][rows].abs()
+            t = first_input[g][rows].abs()
             for j in range(i + 1):
                 t = t @ layers[j].w.detach().abs() + layers[j].b.detach().abs()
                 if j < i:
-                    t = t * masks[j][rows]
+                    t = t * masks[base + j][rows]
             zr = z.detach()[rows]
             past = flip[rows] & (zr.abs() > SUM_EPS * t)
             check(not bool(past.any()),
-                  f"MLP layer {i}: {int(past.sum())} ReLU units take the "
+                  f"MLP {g} layer {i}: {int(past.sum())} ReLU units take the "
                   "other side on the card and on the CPU with |z| past "
                   f"{SUM_EPS} of its terms' magnitudes")
-            target = torch.where(masks[i][rows],
+            target = torch.where(masks[base + i][rows],
                                  zr.abs().clamp_min(torch.finfo(z.dtype).tiny),
                                  -zr.abs())
             fix = torch.zeros_like(z)
@@ -867,8 +1008,11 @@ def forced_relu(torch, cpu_model, masks):
                                     torch.zeros_like(zr))
             return z + fix
         return fn
-    hooks = [layer.register_forward_hook(hook(i))
-             for i, layer in enumerate(layers[:-1])]
+    hooks, base = [], 0
+    for g, (layers, n) in enumerate(groups):
+        hooks += [layer.register_forward_hook(hook(g, layers, base, i))
+                  for i, layer in enumerate(layers[:n])]
+        base += n
     try:
         yield flips
     finally:
@@ -877,12 +1021,12 @@ def forced_relu(torch, cpu_model, masks):
 
 
 def relu_masks(model, fn):
-    """(fn(), the ReLU masks (z > 0, on the CPU) of the model's MLP hidden
-    layers in every forward fn ran)."""
+    """(fn(), the ReLU masks (z > 0, on the CPU) of the model's layers a
+    ReLU follows (`relu_groups`) in every forward fn ran)."""
     masks = []
     hooks = [layer.register_forward_hook(
         lambda mod, inp, out: masks.append((out > 0).cpu()))
-        for layer in list(model.mlp)[:-1]]
+        for layers, n in relu_groups(model) for layer in layers[:n]]
     try:
         result = fn()
     finally:
@@ -918,28 +1062,34 @@ def tree_tensors(torch, tree) -> list:
     return [tree] if torch.is_tensor(tree) else []
 
 
-def run_trainer(step, model, state, batches, capture=None):
+def run_trainer(step, model, state, batches, capture=()):
     """Steps over `batches`; returns (state, losses, touched rows per table
-    data pointer) — the latter recorded from the update kernel's calls
-    (`capture`: module, name, args -> (table, row keys))."""
+    data pointer, dense counts per table data pointer): the rows recorded
+    from the update kernels' calls (`capture`: (module, name, args ->
+    (table, row keys, dense)) triples), and, for a dense route's call,
+    each row's contribution count (a table-length tensor per call)."""
     losses = []
     touched: dict = {}
-    cap = Capture(*capture[:2]) if capture else None
-    if cap:
+    counts: dict = {}
+    caps = [Capture(module, name) for module, name, _ in capture]
+    for cap in caps:
         cap.__enter__()
     try:
         for num, cats, labels in batches:
             _, state, loss = step(model, state, num, cats, labels)
             losses.append(float(loss))
     finally:
-        if cap:
+        for cap in caps:
             cap.__exit__()
-    if cap:
+    for cap, (_, _, rows_of) in zip(caps, capture):
         for args in cap.calls:
-            table, keys = capture[2](args)
+            table, keys, dense = rows_of(args)
             valid = keys[(keys >= 0) & (keys < table.shape[0])].long()
             touched.setdefault(table.data_ptr(), []).append(valid.cpu())
-    return state, losses, touched
+            if dense:
+                counts.setdefault(table.data_ptr(), []).append(
+                    valid.bincount(minlength=table.shape[0]).cpu())
+    return state, losses, touched, counts
 
 
 def touched_rows(torch, model, touched_by_ptr):
@@ -964,10 +1114,11 @@ def sparse_bound(kind, rep, width, n_valid, rate):
     return n_bytes / rate * 1e3, flops / F32_FLOP_PER_S * 1e3
 
 
-def time_row_calls(torch, cuda_sparse, kind, calls, rate):
+def time_row_calls(torch, cuda_sparse, kind, calls, rate, path=None):
     """The row kernel at the shapes of one step (one call per bucket):
     a check against its plain version on compact copies of the touched
-    rows, then kernel / plain / library time and the bound. Returns
+    rows, then kernel / plain / library time and the bound (the timing
+    runs update the tables). `path` names the step in the lines. Returns
     (totals, worst abs error)."""
     totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
                   ops_ms=0.0, library_ms=0.0 if kind == "sgd" else None)
@@ -1005,7 +1156,8 @@ def time_row_calls(torch, cuda_sparse, kind, calls, rate):
                 lambda: arrays[0].index_add_(0, rows, delta), reps=10)
             totals["library_ms"] += library_ms
         bytes_ms, ops_ms = sparse_bound(kind, rep, width, u, rate)
-        emit(phase=f"{kind}_rows_kernel", bucket=b, table=[vocab, width],
+        emit(phase=f"{kind}_rows_kernel", path=path, bucket=b,
+             table=[vocab, width],
              slots=int(rep.numel()), unique_rows=u, max_abs_err=err, ms=ms,
              plain_ms=plain_ms, library_ms=library_ms,
              bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ok=True)
@@ -1016,13 +1168,13 @@ def time_row_calls(torch, cuda_sparse, kind, calls, rate):
     return totals, worst
 
 
-def time_segment_calls(torch, cuda_sparse, calls, rate):
+def time_segment_calls(torch, cuda_sparse, calls, rate, path=None):
     """`segment_sum_sorted` at the shapes of one step (one call per
     bucket): the kernel bit-equal to its plain version on CPU copies of
     the same inputs, U, the longest segment, kernel / plain / `index_add_`
     time, the bound and `chain_ms` (the longest segment's chain of adds
-    at the SM clock read while the kernel runs). Returns (totals, worst
-    abs error)."""
+    at the SM clock read while the kernel runs). `path` names the step
+    in the lines. Returns (totals, worst abs error)."""
     from distributed_embeddings_tpu_torch.tools import segment_tail
     totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
                   ops_ms=0.0, library_ms=0.0, chain_ms=0.0)
@@ -1053,7 +1205,8 @@ def time_segment_calls(torch, cuda_sparse, calls, rate):
                    + starts.numel() * 8 + n * width * 4)
         bytes_ms = n_bytes / rate * 1e3
         ops_ms = n * width / F32_FLOP_PER_S * 1e3
-        emit(phase="segment_sum_kernel", bucket=b, rows=n, width=width,
+        emit(phase="segment_sum_kernel", path=path, bucket=b, rows=n,
+             width=width,
              unique_rows=unique, longest_segment=longest, max_abs_err=err,
              ms=ms,
              plain_ms=plain_ms, library_ms=library_ms,
@@ -1722,14 +1875,15 @@ def world_rank(rank, world, name, backend, init_method, out_dir, model_kw,
     from distributed_embeddings_tpu_torch.models.synthetic import (
         SYNTHETIC_MODELS, InputGenerator, SyntheticModel)
     from distributed_embeddings_tpu_torch.ops import (cuda_lookup, cuda_sparse,
-                                                      cuda_tiled, wire)
+                                                      cuda_tiled,
+                                                      sparse_update, wire)
     from distributed_embeddings_tpu_torch.parallel.mesh import (
         initialize_distributed)
     from distributed_embeddings_tpu_torch.parallel.staging import (
-        stage_dp_batch)
+        DeviceStager, stage_dp_batch)
     from distributed_embeddings_tpu_torch.tools import cuda_feature_probe
     from distributed_embeddings_tpu_torch.training import (
-        make_sparse_train_step)
+        evaluate, make_sparse_train_step)
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // (world + 1)))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1753,8 +1907,10 @@ def world_rank(rank, world, name, backend, init_method, out_dir, model_kw,
         out = {"rank": rank, "device": str(dev), "probe_ok": True}
         cfg = SYNTHETIC_MODELS[name]
         t0 = time.perf_counter()
-        batches = [stage_dp_batch(b, device=dev) for b in InputGenerator(
-            cfg, BATCH, alpha=1.05, num_batches=TRAIN_STEPS, seed=0)]
+        global_batches = list(InputGenerator(cfg, BATCH, alpha=1.05,
+                                             num_batches=TRAIN_STEPS, seed=0))
+        stager = DeviceStager(dev)       # the rank's own
+        batches = [stage_dp_batch(b, stager) for b in global_batches]
         model = SyntheticModel(cfg, device=dev,
                                generator=torch.Generator(device=dev)
                                .manual_seed(rank), **model_kw)
@@ -1765,6 +1921,10 @@ def world_rank(rank, world, name, backend, init_method, out_dir, model_kw,
         with torch.no_grad():
             torch.save(torch.cat(layer(batches[0][1]), dim=1).cpu(),
                        os.path.join(out_dir, f"forward{rank}.pt"))
+        # the streaming AUC over the global batches before any step (each
+        # rank its slice, the histograms summed over the ranks)
+        out["eval_auc"] = evaluate(model, lambda s: global_batches[s],
+                                   steps=TRAIN_STEPS)
         init, step = make_sparse_train_step(model, "adagrad", lr=TRAIN_LR,
                                             strategy=strategy)
         state = init(model)
@@ -1778,8 +1938,8 @@ def world_rank(rank, world, name, backend, init_method, out_dir, model_kw,
             dense_before.append(to_cpu(torch, (
                 {n: p for n, p in model.named_parameters()
                  if p.requires_grad}, state["dense"])))
-            state, loss, step_rows = run_trainer(step, model, state, [batch],
-                                                 capture)
+            state, loss, step_rows, _ = run_trainer(step, model, state,
+                                                    [batch], capture)
             losses += loss
             for ptr, parts in step_rows.items():
                 touched.setdefault(ptr, []).extend(parts)
@@ -1790,7 +1950,13 @@ def world_rank(rank, world, name, backend, init_method, out_dir, model_kw,
         key = tuple((c.shape[1], False) for c in batches[0][1])
         groups, _ = layer._exchange_groups_for_key(key)
         out["groups"] = len(groups)
-        out["buckets"] = len({g.bucket for g in groups})
+        buckets = {g.bucket for g in groups}
+        out["buckets"] = len(buckets)
+        # the buckets whose update takes the deduplicated-row route (the
+        # rest, under "auto", the dense one)
+        out["sort_buckets"] = sum(
+            sparse_update._pick(strategy, *layer.tp[b].shape) != "dense"
+            for b in buckets)
         rows = touched_rows(torch, model, touched)
         tables = {}
         for pl_ in layer.plan.tp_placements:
@@ -1907,7 +2073,7 @@ def world_phase(torch, name, world, model_kw, strategy):
         SYNTHETIC_MODELS, InputGenerator, SyntheticModel)
     from distributed_embeddings_tpu_torch.ops import cuda_sparse, cuda_tiled
     from distributed_embeddings_tpu_torch.training import (
-        gradient_scale, make_sparse_train_step)
+        evaluate, gradient_scale, make_sparse_train_step)
     cards = torch.cuda.device_count()
     backend = "nccl" if cards >= world else "gloo"
     label = f"world{world}_{name}"
@@ -1964,6 +2130,15 @@ def world_phase(torch, name, world, model_kw, strategy):
         del fwd, got, want
         emit(phase="world_forward", path=label, bit_identical=identical,
              max_abs_err=fwd_err)
+        # `evaluate` on the same weights and batches: each rank's AUC (its
+        # slices' histograms summed over the ranks) equals world 1's to
+        # the bit: the forwards are bit-identical and the counts exact
+        auc1 = evaluate(model, lambda s: batches[s], steps=TRAIN_STEPS)
+        emit(phase="world_evaluate", path=label, world1_auc=auc1,
+             rank_auc=[r["eval_auc"] for r in ranks])
+        check(all(r["eval_auc"] == auc1 for r in ranks),
+              f"{label}: the ranks' AUCs {[r['eval_auc'] for r in ranks]} "
+              f"against world 1's {auc1}")
         init, step = make_sparse_train_step(model, "adagrad", lr=TRAIN_LR,
                                             strategy=strategy)
         state = init(model)
@@ -1979,7 +2154,7 @@ def world_phase(torch, name, world, model_kw, strategy):
         # which moves a gradient that is a sum that cancels by a share of
         # itself
         cond: dict = {}
-        losses, touched = [], {}
+        losses, touched, counts = [], {}, {}
         dense = {n: p for n, p in model.named_parameters()
                  if p.requires_grad}
         for s, batch in enumerate(batches):
@@ -2003,20 +2178,26 @@ def world_phase(torch, name, world, model_kw, strategy):
                     cond[gtid] = (c if gtid not in cond
                                   else torch.maximum(cond[gtid], c))
             del scale, g, t
-            state, loss, step_rows = run_trainer(step, model, state, [batch],
-                                                 capture)
+            state, loss, step_rows, step_counts = run_trainer(
+                step, model, state, [batch], capture)
             losses += loss
             for ptr, parts in step_rows.items():
                 touched.setdefault(ptr, []).extend(parts)
+            for ptr, parts in step_counts.items():
+                counts.setdefault(ptr, []).extend(parts)
         torch.cuda.synchronize()
         rows1 = touched_rows(torch, model, touched)
+        # per bucket, the most contributions a row took in a step of the
+        # dense route (both worlds sum them by atomics)
+        most = {b: torch.stack(counts[t.data_ptr()]).amax(0)
+                for b, t in enumerate(layer.tp) if t.data_ptr() in counts}
 
         # launches a step, from each rank's plan
         want_kernels = ({"gather_sorted": "groups",
                          "adagrad_stream": "buckets"} if strategy == "tiled"
                         else {"lookup_combine": "groups",
-                              "segment_sum_sorted": "buckets",
-                              "adagrad_rows": "buckets"})
+                              "segment_sum_sorted": "sort_buckets",
+                              "adagrad_rows": "sort_buckets"})
         summed = dict.fromkeys(ALL_KERNELS, 0)
         for r in ranks:
             want_r = {k: r[v] for k, v in want_kernels.items()}
@@ -2053,15 +2234,21 @@ def world_phase(torch, name, world, model_kw, strategy):
                       f"{r['rank']} did not")
                 before = table_rows(torch, strat, gtid, WORLD_SEED,
                                     "cuda").index_select(0, idx.cuda()).cpu()
+                eps = SUM_EPS
+                if pl_.bucket in most:
+                    n_row = most[pl_.bucket].index_select(
+                        0, (idx + pl_.row_offset)).double()
+                    eps = (SUM_EPS + (n_row - 1).clamp_min(0)
+                           * 2.0 ** -24)[:, None]
                 err, change, n = hold(
                     torch, f"{label}: table {gtid}", vals,
                     layer.tp[pl_.bucket].detach().index_select(
                         0, on_dev).cpu(), before, TRAIN_STEPS, "change",
-                    cond[gtid])
+                    cond[gtid], eps=eps)
                 hold(torch, f"{label}: table {gtid} accumulator", acc,
                      state["emb"]["tp"][pl_.bucket][0].index_select(
                          0, on_dev).cpu(), torch.full_like(acc, 0.1),
-                     TRAIN_STEPS, "change", cond[gtid])
+                     TRAIN_STEPS, "change", cond[gtid], eps=eps)
                 worst = max(worst, err)
                 changes.append(change.flatten())
                 moved += n
@@ -2100,6 +2287,554 @@ def world_phase(torch, name, world, model_kw, strategy):
         return summed
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---- the eighth slice: DLRM trained and evaluated through `fit`, the
+# dense path, the convergence demo
+DLRM_TABLE_SCALE = 0.4        # 38.5 GB of tables; the full 96.1 GB do not fit
+DLRM_CPU_SCALE = 0.02         # 1.92 GB: the CPU trainer's copy stays under 2
+DLRM_SEED = 11
+DLRM_FIT_STEPS = 12
+DLRM_EVAL_EVERY = 6
+DLRM_EVAL_STEPS = 4
+DLRM_PROFILED_STEP = 2        # the window runs from its end to the next's
+# the DLRM example's defaults: make_lr_schedule(24.0, 8000, 48000, 24000)
+DLRM_LR = (24.0, 8000, 48000, 24000)
+AUC_EXACT_TOL = 1e-3
+CONVERGENCE = dict(steps=1500, batch=512, eval_every=250, eval_steps=8,
+                   lr=0.08)
+CONVERGENCE_AUC = 0.70        # tests/test_convergence.py's threshold
+
+
+def write_split_binary(root, split, batches, sizes):
+    """`batches` (ClickGenerator's) in the Criteo split-binary layout under
+    root/split: label.bin (bool), numerical.bin (float16), cat_<i>.bin (the
+    smallest int dtype that holds table i)."""
+    import numpy as np
+    from distributed_embeddings_tpu_torch.models.data import (
+        get_categorical_feature_type)
+    base = os.path.join(root, split)
+    os.makedirs(base, exist_ok=True)
+    np.concatenate([b[2] for b in batches]).astype(np.bool_).tofile(
+        os.path.join(base, "label.bin"))
+    np.concatenate([b[0] for b in batches]).astype(np.float16).tofile(
+        os.path.join(base, "numerical.bin"))
+    for i, size in enumerate(sizes):
+        np.concatenate([b[1][i] for b in batches]).astype(
+            get_categorical_feature_type(size)).tofile(
+            os.path.join(base, f"cat_{i}.bin"))
+
+
+def table_digest(torch, t):
+    """An exact fingerprint of a float32 table: the wrapping int64 sum of
+    its bit patterns times odd weights that differ by position (row
+    chunks of 2^24 elements); any one element's change moves it."""
+    rows, width = t.shape
+    chunk = max(1, (1 << 24) // width)
+    col = torch.arange(width, device=t.device, dtype=torch.int64) * 2 + 1
+    total = torch.zeros((), dtype=torch.int64, device=t.device)
+    for r0 in range(0, rows, chunk):
+        r1 = min(rows, r0 + chunk)
+        bits = t[r0:r1].detach().view(torch.int32).to(torch.int64)
+        weight = (torch.arange(r0, r1, device=t.device,
+                               dtype=torch.int64)[:, None] * (2 * width)
+                  + col)
+        total += (bits * weight).sum()
+    return int(total)
+
+
+def htod_copies(device):
+    """Host-to-device copies among a profile's device events: count and ms
+    of the pageable and of the pinned ones."""
+    out = {"pageable": [0, 0.0], "pinned": [0, 0.0]}
+    for e in device:
+        if "HtoD" not in e.name:
+            continue
+        kind = "pageable" if "Pageable" in e.name else "pinned"
+        out[kind][0] += 1
+        out[kind][1] += e.time_range.elapsed_us() / 1e3
+    return {k: {"count": n, "ms": ms} for k, (n, ms) in out.items()}
+
+
+class StepWindow:
+    """A `fit` callback: each step's end (after a synchronize) on the host
+    clock, and one step under torch.profiler, from the end of step
+    `profiled` to the end of the next: the card's busy time and idle share
+    over that window and its host-to-device copies."""
+
+    def __init__(self, torch, profiled):
+        self.torch, self.profiled = torch, profiled
+        self.ends, self.prof, self.window = [], None, None
+
+    def on_step(self, step, model, loss):
+        torch = self.torch
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if step == self.profiled:
+            from torch.profiler import ProfilerActivity, profile
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.start()
+            self.window = [time.time_ns() / 1e3]
+            now = time.perf_counter()
+        elif step == self.profiled + 1:
+            self.window.append(time.time_ns() / 1e3)
+            self.prof.stop()
+            now = time.perf_counter()
+        self.ends.append(now)
+
+    def profile(self):
+        from torch.autograd import DeviceType
+        device = [e for e in self.prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)
+                  and not e.name.startswith(ANNOTATED_RANGES)]
+        wall = self.window[1] - self.window[0]
+        busy = busy_union((e.time_range.start, e.time_range.end)
+                          for e in device)
+        by_kernel = _by_name(device)
+        cats, _ = by_category(by_kernel)
+        return dict(wall_ms=wall / 1e3, device_busy_ms=busy / 1e3,
+                    device_idle_share=1 - busy / wall if device else None,
+                    htod=htod_copies(device), device_ms_by_category=cats,
+                    device_ms_by_kernel=[[n[:80], us / 1e3] for n, us in sorted(
+                        by_kernel.items(), key=lambda kv: -kv[1])[:10]])
+
+    def step_ms(self, skip):
+        """Each step's time (end to end), but the first two and `skip`."""
+        return [(b - a) * 1e3 for i, (a, b) in enumerate(
+            zip(self.ends, self.ends[1:]), start=1)
+            if i >= 2 and i not in skip]
+
+
+def dlrm_step_kernels(torch, cuda_lookup, cuda_sparse, model, batch, rate):
+    """The kernels of DLRM's sparse sgd step at the main path's shapes: one
+    step on `batch` (after the fit's tables were fingerprinted: it and the
+    timing runs move them) with its `lookup_combine`,
+    `segment_sum_sorted` and `sgd_rows` calls captured, each held against
+    its plain version and timed beside its bound and library call, as
+    phases 4b and 5 do at Tiny's. Returns {kernel: (totals, worst abs
+    error)}."""
+    from distributed_embeddings_tpu_torch.models.dlrm import make_lr_schedule
+    from distributed_embeddings_tpu_torch.parallel.staging import (
+        DeviceStager)
+    from distributed_embeddings_tpu_torch.training import (
+        make_sparse_train_step)
+    init, step = make_sparse_train_step(model, "sgd",
+                                        lr=make_lr_schedule(*DLRM_LR))
+    num, cats, labels = DeviceStager(model.embedding.device)(batch)
+    with Capture(cuda_lookup, "lookup_combine") as look, \
+            Capture(cuda_sparse, "segment_sum_sorted") as seg, \
+            Capture(cuda_sparse, "sgd_rows") as rows:
+        step(model, init(model), num, list(cats), labels)
+    torch.cuda.synchronize()
+    check(len(look.calls) == len(seg.calls) == len(rows.calls) == 1,
+          f"DLRM step: {len(look.calls)} lookups, {len(seg.calls)} segment "
+          f"sums, {len(rows.calls)} sgd_rows calls captured, want 1 each")
+    captured = [args + (None,) * (3 - len(args)) for args in look.calls]
+    look_err, look_tot = tiny_bucket_kernels(torch, cuda_lookup, captured,
+                                             rate, phase="dlrm_kernel")
+    out = {"lookup_combine": (look_tot, look_err),
+           "segment_sum_sorted": time_segment_calls(
+               torch, cuda_sparse, seg.calls, rate, path="dlrm_fit"),
+           "sgd_rows": time_row_calls(torch, cuda_sparse, "sgd", rows.calls,
+                                      rate, path="dlrm_fit")}
+    emit(phase="dlrm_kernels", hbm_bytes_per_s=rate,
+         **{k: dict(tot, max_abs_err=err) for k, (tot, err) in out.items()})
+    return out
+
+
+def dlrm_fit_phase(torch, cuda_lookup, cuda_sparse, counted, rate):
+    """DLRM at the example's widths (Criteo sizes x DLRM_TABLE_SCALE, width
+    128, bottom 512-256-128, top 1024-1024-512-256-1, 13 numerical
+    features, batch 65,536) trained by sparse sgd at the example's
+    schedule through `fit` from a split-binary dataset (a seeded
+    ClickGenerator stream written to a temporary directory, read by
+    `RawBinaryDataset`: ``raw_batches`` + ``preprocess``) with eval
+    every DLRM_EVAL_EVERY steps, pipelined, then again from the same
+    weights with ``pipelined=False``: losses, eval AUCs, tables (by
+    `table_digest`) and MLPs bit-identical. The on-card AUC against
+    `auc_exact` and a CPU `StreamingAUC` of the same logits. Then the
+    step's kernels held and timed at its shapes (`dlrm_step_kernels`, on
+    the serial run's model). Returns the launch counts of the pipelined
+    run and of the serial one, and `dlrm_step_kernels`' totals."""
+    import numpy as np
+    from distributed_embeddings_tpu_torch.models.data import (
+        RawBinaryDataset)
+    from distributed_embeddings_tpu_torch.models.dlrm import (
+        DLRM, make_lr_schedule, scaled_table_sizes)
+    from distributed_embeddings_tpu_torch.models.synthetic import (
+        ClickGenerator)
+    from distributed_embeddings_tpu_torch.parallel.staging import (
+        DeviceStager)
+    from distributed_embeddings_tpu_torch.training import fit
+    from distributed_embeddings_tpu_torch.utils.metrics import (
+        StreamingAUC, auc_exact)
+    sizes = scaled_table_sizes(DLRM_TABLE_SCALE)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dlrm")
+    try:
+        t0 = time.perf_counter()
+        gen = ClickGenerator(sizes, 13, BATCH, seed=DLRM_SEED)
+        write_split_binary(tmp, "train",
+                           [gen.batch(s) for s in range(DLRM_FIT_STEPS)],
+                           sizes)
+        write_split_binary(tmp, "test", [gen.batch(1_000_000 + j)
+                                         for j in range(DLRM_EVAL_STEPS)],
+                           sizes)
+        del gen
+        emit(phase="dlrm_data", seconds=time.perf_counter() - t0,
+             tables=len(sizes), rows=sum(sizes), batch=BATCH,
+             train_batches=DLRM_FIT_STEPS, test_batches=DLRM_EVAL_STEPS,
+             bytes=sum(os.path.getsize(os.path.join(tmp, d, f))
+                       for d in ("train", "test")
+                       for f in os.listdir(os.path.join(tmp, d))))
+
+        def dataset(valid):
+            return RawBinaryDataset(
+                tmp, batch_size=BATCH, numerical_features=13,
+                categorical_features=range(len(sizes)),
+                categorical_feature_sizes=sizes, valid=valid)
+        evals = DLRM_FIT_STEPS // DLRM_EVAL_EVERY
+        want = {"lookup_combine": DLRM_FIT_STEPS + evals * DLRM_EVAL_STEPS,
+                "segment_sum_sorted": DLRM_FIT_STEPS,
+                "sgd_rows": DLRM_FIT_STEPS}
+        runs, counts = {}, {}
+        for pipelined in (True, False):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            model = DLRM(sizes, device="cuda", lookup_path="pallas",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(DLRM_SEED))
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            train, test = dataset(False), dataset(True)
+            window = StepWindow(torch, DLRM_PROFILED_STEP)
+            set_counts(cuda_lookup, *counted)
+            t0 = time.perf_counter()
+            _, _, hist = fit(
+                model, train.raw_batches(DLRM_FIT_STEPS), DLRM_FIT_STEPS,
+                "sgd", lr=make_lr_schedule(*DLRM_LR),
+                preprocess=train.preprocess, pipelined=pipelined,
+                eval_data=lambda j: test[j % len(test)],
+                eval_every=DLRM_EVAL_EVERY, eval_steps=DLRM_EVAL_STEPS,
+                log_every=0, callbacks=[window])
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            label = "dlrm_fit" if pipelined else "dlrm_fit_serial"
+            counts[label] = read_counts(cuda_lookup, *counted)
+            check(counts[label] == per_step(want, 1),
+                  f"{label} launches {counts[label]}, want {want} "
+                  f"({DLRM_FIT_STEPS} steps, {evals} evals of "
+                  f"{DLRM_EVAL_STEPS} forwards)")
+            check(all(map(math.isfinite, hist["loss"])),
+                  f"{label}: non-finite losses {hist['loss']}")
+            skip = {DLRM_PROFILED_STEP + 1} | {
+                s for s in range(DLRM_FIT_STEPS) if s % DLRM_EVAL_EVERY == 0}
+            step_ms = window.step_ms(skip)
+            med = statistics.median(step_ms)
+            emit(phase="main_path", path=label, steps=DLRM_FIT_STEPS,
+                 build_s=build_s, fit_s=fit_s, launches=counts[label],
+                 launches_per_step={k: counts[label][k] / DLRM_FIT_STEPS
+                                    for k in want},
+                 losses=hist["loss"], eval_auc=hist["eval_auc"],
+                 table_bytes=sum(t.numel() * 4 for t in model.embedding.tp),
+                 median_step_ms=med, samples_per_s=BATCH / (med / 1e3),
+                 step_ms=step_ms,
+                 max_memory_allocated=torch.cuda.max_memory_allocated(),
+                 ingest_stage_mean_ms={
+                     k: v["mean_ms"]
+                     for k, v in hist["ingest_stages"].items()},
+                 profiled_step=window.profile())
+            runs[pipelined] = (hist["loss"], hist["eval_auc"],
+                               [table_digest(torch, t)
+                                for t in model.embedding.tp],
+                               {n: p.detach().clone() for n, p in
+                                model.named_parameters() if p.requires_grad})
+            if pipelined:
+                # the on-card AUC of the trained model's logits against the
+                # exact AUC and a CPU StreamingAUC of the same logits
+                stage = DeviceStager("cuda")
+                metric = StreamingAUC()
+                state = metric.init("cuda")
+                logits, labels = [], []
+                with torch.no_grad():
+                    for j in range(DLRM_EVAL_STEPS):
+                        num, cats, lab = stage(test[j])
+                        out = model(num, cats).reshape(-1)
+                        metric.update(state, lab, out)
+                        logits.append(out.cpu())
+                        labels.append(lab.reshape(-1).cpu())
+                card_auc = metric.result(state)
+                logits, labels = torch.cat(logits), torch.cat(labels)
+                exact = auc_exact(labels.numpy(), logits.numpy())
+                cpu_metric = StreamingAUC()
+                cpu_state = cpu_metric.update(cpu_metric.init("cpu"), labels,
+                                              logits)
+                cpu_auc = cpu_metric.result(cpu_state)
+                # the histograms of the card's own sigmoid, binned on the
+                # host: the counts must be the card's exactly
+                probs = torch.sigmoid(logits.cuda()).cpu()
+                host = StreamingAUC(from_logits=False)
+                host_state = host.update(host.init("cpu"), labels, probs)
+                exact_counts = (torch.equal(host_state.tp, state.tp.cpu())
+                                and torch.equal(host_state.fp,
+                                                state.fp.cpu()))
+                emit(phase="dlrm_auc", samples=int(labels.numel()),
+                     bins=metric.bins, card_auc=card_auc, exact_auc=exact,
+                     cpu_streaming_auc=cpu_auc,
+                     card_minus_exact=card_auc - exact,
+                     card_equals_cpu=card_auc == cpu_auc,
+                     bins_differing_from_cpu=int(
+                         ((state.tp.cpu() != cpu_state.tp)
+                          | (state.fp.cpu() != cpu_state.fp)).sum()),
+                     histograms_exact=exact_counts)
+                check(abs(card_auc - exact) <= AUC_EXACT_TOL,
+                      f"on-card AUC {card_auc} against the exact "
+                      f"{exact}")
+                check(exact_counts, "the card's AUC histograms differ from "
+                                    "its own probabilities binned on the host")
+                check(abs(card_auc - cpu_auc) <= 1e-4,
+                      f"on-card AUC {card_auc}, CPU StreamingAUC {cpu_auc}")
+                check(card_auc == hist["eval_auc"][-1],
+                      f"fit's last eval AUC {hist['eval_auc'][-1]} against "
+                      f"the phase's {card_auc}")
+            else:
+                step_kernels = dlrm_step_kernels(torch, cuda_lookup,
+                                                 cuda_sparse, model,
+                                                 train[0], rate)
+            del model, train, test
+            torch.cuda.empty_cache()
+        (l1, a1, d1, m1), (l2, a2, d2, m2) = runs[True], runs[False]
+        same = (l1 == l2 and a1 == a2 and d1 == d2
+                and all(torch.equal(m1[n], m2[n]) for n in m1))
+        emit(phase="dlrm_pipelined_vs_serial", bit_identical=same,
+             losses_equal=l1 == l2, eval_auc_equal=a1 == a2,
+             table_digests_equal=d1 == d2)
+        check(same, "the pipelined and the serial fit differ")
+        return counts, step_kernels
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def dlrm_against_cpu_phase(torch, cuda_lookup, cuda_sparse, counted):
+    """The same DLRM at DLRM_CPU_SCALE, 3 sgd steps at batch 65,536, each
+    held against a CPU trainer from the card's state (phase 5's way:
+    losses, touched table rows by change, the MLPs by value; the row
+    sums' conditioning from the CPU step's contributions). Returns the
+    launch counts."""
+    from distributed_embeddings_tpu_torch.models.dlrm import (
+        DLRM, scaled_table_sizes)
+    from distributed_embeddings_tpu_torch.models.synthetic import (
+        ClickGenerator)
+    from distributed_embeddings_tpu_torch.training import (
+        make_sparse_train_step)
+    sizes = scaled_table_sizes(DLRM_CPU_SCALE)
+    t0 = time.perf_counter()
+    model = DLRM(sizes, device="cuda", lookup_path="pallas",
+                 generator=torch.Generator(device="cuda").manual_seed(3))
+    cpu_model = DLRM(sizes, device="cpu", lookup_path="pallas")
+    gen = ClickGenerator(sizes, 13, BATCH, seed=DLRM_SEED + 1)
+    batches = [gen.batch(s) for s in range(TRAIN_STEPS)]
+    init, step = make_sparse_train_step(model, "sgd", lr=TRAIN_LR)
+    _, cpu_step = make_sparse_train_step(cpu_model, "sgd", lr=TRAIN_LR)
+    set_counts(cuda_lookup, *counted)
+    _, held = train_against_cpu(torch, rows_capture(cuda_sparse, "sgd"),
+                                "sgd", "change", step, model, init(model),
+                                cpu_step, cpu_model, batches, scaled=False,
+                                contrib=True)
+    torch.cuda.synchronize()
+    counts = read_counts(cuda_lookup, *counted)
+    want = {"lookup_combine": 1, "segment_sum_sorted": 1, "sgd_rows": 1}
+    check(counts == per_step(want, TRAIN_STEPS),
+          f"dlrm_against_cpu launches {counts}, want {want} per step")
+    emit(phase="main_path", path="dlrm_against_cpu", steps=TRAIN_STEPS,
+         seconds=time.perf_counter() - t0, rows=sum(sizes),
+         table_bytes=sum(t.numel() * 4 for t in model.embedding.tp),
+         launches=counts, losses=held["losses"],
+         cpu_losses=held["cpu_losses"], max_abs_err=held["max_abs_err"],
+         touched_rows=[int(t.numel()) for t in held["touched"]],
+         table_change_median=held["changes"].median().item(),
+         table_change_max=held["changes"].max().item(),
+         table_changes_past_rounding=held["moved"],
+         relu_flips=held["relu_flips"], ok=True)
+    del model, cpu_model, held
+    torch.cuda.empty_cache()
+    return counts
+
+
+def dense_criteo_phase(torch, cuda_lookup, cuda_sparse, counted):
+    """Full criteo through the tiled lookup: 3 steps of `fit(sparse=False,
+    "sgd")` (the table gradients through the sorted lookup's backward)
+    against 3 of `fit(sparse=True, "sgd")` from one state and the same
+    batches: the rows the sparse steps touched by value (rtol 1e-5), every
+    other row bit-identical, the MLPs by value. Returns the launch counts
+    of the dense run."""
+    from distributed_embeddings_tpu_torch.models.synthetic import (
+        SYNTHETIC_MODELS, InputGenerator, SyntheticModel)
+    from distributed_embeddings_tpu_torch.training import fit
+    criteo = SYNTHETIC_MODELS["criteo"]
+    t0 = time.perf_counter()
+    batches = list(InputGenerator(criteo, BATCH, alpha=1.05,
+                                  num_batches=TRAIN_STEPS, seed=5))
+    model = SyntheticModel(criteo, device="cuda", lookup_path="tiled",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(5))
+    initial = {k: v.clone() for k, v in model.state_dict().items()}
+    with Capture(cuda_sparse, "sgd_rows") as cap:
+        _, _, sparse_hist = fit(model, batches, TRAIN_STEPS, "sgd",
+                                lr=TRAIN_LR, log_every=0)
+        torch.cuda.synchronize()
+    touched = [torch.unique(torch.cat([
+        a[1][(a[1] >= 0) & (a[1] < t.shape[0])].long() for a in cap.calls
+        if a[0].data_ptr() == t.data_ptr()])) for t in model.embedding.tp]
+    del cap
+    sparse_after = {k: v.clone() for k, v in model.state_dict().items()}
+    model.load_state_dict(initial)
+    set_counts(cuda_lookup, *counted)
+    _, _, dense_hist = fit(model, batches, TRAIN_STEPS, "sgd", lr=TRAIN_LR,
+                           sparse=False, log_every=0)
+    torch.cuda.synchronize()
+    counts = read_counts(cuda_lookup, *counted)
+    want = {"gather_sorted": 1, "sgd_stream": 1}
+    check(counts == per_step(want, TRAIN_STEPS),
+          f"dense criteo launches {counts}, want {want} per step")
+    check(all(not t.requires_grad for t in model.embedding.tp),
+          "a table kept requires_grad after the dense step")
+    dense_after = model.state_dict()
+    worst, changed_rows = 0.0, 0
+    for name, got in dense_after.items():
+        want_t = sparse_after[name]
+        if name.startswith("embedding.tp."):
+            b = int(name.rsplit(".", 1)[1])
+            rows = touched[b]
+            moved = (got != initial[name]).any(dim=1).nonzero().flatten()
+            check(bool(torch.isin(moved, rows).all()),
+                  f"{name}: the dense step moved a row no sparse step "
+                  "touched")
+            untouched = torch.ones(got.shape[0], dtype=torch.bool,
+                                   device=got.device)
+            untouched[rows] = False
+            check(torch.equal(got[untouched], initial[name][untouched]),
+                  f"{name}: an untouched row changed")
+            got, want_t = got.index_select(0, rows), want_t.index_select(
+                0, rows)
+            changed_rows += int(moved.numel())
+            tol = dict(rtol=1e-5, atol=0.0)
+        else:
+            tol = TRAIN_TOL
+        err = (got - want_t).abs().max().item() if got.numel() else 0.0
+        check(torch.allclose(got, want_t, **tol),
+              f"dense criteo: {name} differs from the sparse run by {err}")
+        worst = max(worst, err)
+    check(torch.allclose(torch.tensor(dense_hist["loss"]),
+                         torch.tensor(sparse_hist["loss"]), **LOSS_TOL),
+          f"dense criteo losses {dense_hist['loss']} against the sparse "
+          f"{sparse_hist['loss']}")
+    emit(phase="main_path", path="dense_criteo", steps=TRAIN_STEPS,
+         seconds=time.perf_counter() - t0, launches=counts,
+         losses=dense_hist["loss"], sparse_losses=sparse_hist["loss"],
+         touched_rows=[int(t.numel()) for t in touched],
+         rows_moved=changed_rows, max_abs_err=worst, ok=True)
+    del model, initial, sparse_after, dense_after
+    torch.cuda.empty_cache()
+    return counts
+
+
+def dense_tiny_phase(torch, cuda_lookup, cuda_sparse, counted, cut,
+                     batches):
+    """Tiny cut to CUT_ROWS rows per table: ``strategy="dense"`` against
+    ``"sort"`` for adagrad and adam, each step of 3 from the same state,
+    by value (`hold`: TRAIN_TOL, adam's ill elements by 1e-2 lr, with the
+    step's `gradient_scale` on the card): the dense sums are added by
+    ``index_add_``'s atomics, the sort route's in sorted order. Returns
+    each dense run's launch counts."""
+    from distributed_embeddings_tpu_torch.models.synthetic import (
+        SyntheticModel)
+    from distributed_embeddings_tpu_torch.training import (
+        gradient_scale, make_sparse_train_step)
+    model = SyntheticModel(cut, device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(2))
+    initial = {k: v.clone() for k, v in model.state_dict().items()}
+    out = {}
+    for kind in ("adagrad", "adam"):
+        t0 = time.perf_counter()
+        model.load_state_dict(initial)
+        init, sort_step = make_sparse_train_step(model, kind, lr=TRAIN_LR,
+                                                 strategy="sort")
+        _, dense_step = make_sparse_train_step(model, kind, lr=TRAIN_LR,
+                                               strategy="dense")
+        state = init(model)
+        counts = dict.fromkeys(ALL_KERNELS, 0)
+        worst = 0.0
+        for batch in batches:
+            snap = ({k: v.clone() for k, v in model.state_dict().items()},
+                    clone_tree(torch, state))
+            scale = {k: (g.cpu(), t.cpu()) for k, (g, t) in
+                     gradient_scale(model, *batch).items()}
+            sort_state, _, rows, _ = run_trainer(
+                sort_step, model, clone_tree(torch, snap[1]), [batch],
+                rows_capture(cuda_sparse, kind))
+            touched = touched_rows(torch, model, rows)
+            want = trained_arrays(torch, model, sort_state, touched)
+            del sort_state
+            model.load_state_dict(snap[0])
+            before = trained_arrays(torch, model, snap[1], touched)
+            set_counts(cuda_lookup, *counted)
+            state, _, rows, _ = run_trainer(
+                dense_step, model, snap[1], [batch],
+                rows_capture(cuda_sparse, kind))
+            torch.cuda.synchronize()
+            for k, v in read_counts(cuda_lookup, *counted).items():
+                counts[k] += v
+            check(all(torch.equal(a, b) for a, b in zip(
+                touched, touched_rows(torch, model, rows))),
+                  f"dense {kind}: other rows than the sort step's")
+            err, _, _ = hold_trainers(
+                torch, f"dense {kind}",
+                trained_arrays(torch, model, state, touched), want, before,
+                touched, 1, "value", scale,
+                TRAIN_LR if kind == "adam" else None)
+            worst = max(worst, err)
+            del snap, scale, want, before
+        label = f"dense_tiny_{kind}"
+        want_counts = {"lookup_combine": 4}
+        check(counts == per_step(want_counts, TRAIN_STEPS),
+              f"{label} launches {counts}, want {want_counts} per step")
+        emit(phase="main_path", path=label, steps=TRAIN_STEPS,
+             seconds=time.perf_counter() - t0, launches=counts,
+             max_abs_err=worst, ok=True)
+        out[label] = counts
+    del model, initial
+    torch.cuda.empty_cache()
+    return out
+
+
+def convergence_phase(torch, cuda_lookup, counted):
+    """The port's convergence demo at docs/convergence_r05.json's settings
+    on the card; its AUC curve beside r05's; the last AUC past
+    CONVERGENCE_AUC. Returns the launch counts."""
+    from distributed_embeddings_tpu_torch.tools import convergence_demo
+    with open(os.path.join(REPO, "docs", "convergence_r05.json")) as f:
+        r05 = json.load(f)
+    t0 = time.perf_counter()
+    set_counts(cuda_lookup, *counted)
+    result = convergence_demo.run(**CONVERGENCE, device="cuda",
+                                  log_fn=lambda *_: None)
+    torch.cuda.synchronize()
+    counts = read_counts(cuda_lookup, *counted)
+    curve = result["eval_auc"]
+    emit(phase="main_path", path="convergence", seconds=time.perf_counter()
+         - t0, launches=counts, eval_auc=curve, r05_eval_auc=r05["eval_auc"],
+         eval_every=result["eval_every"],
+         loss_first100_mean=result["loss_first100_mean"],
+         loss_last100_mean=result["loss_last100_mean"],
+         r05_loss_last100_mean=r05["loss_last100_mean"])
+    check(len(curve) == CONVERGENCE["steps"] // CONVERGENCE["eval_every"]
+          and curve[-1] > CONVERGENCE_AUC,
+          f"convergence: AUC curve {curve}, the last must pass "
+          f"{CONVERGENCE_AUC}")
+    return counts
 
 
 def main() -> int:
@@ -2292,17 +3027,23 @@ def main() -> int:
     t0 = time.perf_counter()
     _, cpu_step = make_sparse_train_step(cpu_model, "adagrad", lr=TRAIN_LR)
     set_counts(cuda_lookup, *counted)
+    # bucket 0 (60,160 x 8) takes the dense strategy under "auto", whose
+    # sums the card adds in its atomics' order: the conditioning
+    # (`gradient_scale`) and `sum_eps` size its bar; bucket 1 (the
+    # deduplicated-row route) keeps the plain one
     state, held = train_against_cpu(torch, rows_capture(cuda_sparse,
                                                         "adagrad"),
                                     "adagrad", "change", step, model, state,
-                                    cpu_step, cpu_model, batches)
+                                    cpu_step, cpu_model, batches,
+                                    scaled="dense")
     torch.cuda.synchronize()
     train_counts = read_counts(cuda_lookup, *counted)
     losses = held["losses"]
     emit(phase="main_path", path="train_adagrad", steps=TRAIN_STEPS,
          launches=train_counts, losses=losses)
-    want_counts = {"lookup_combine": 4, "segment_sum_sorted": 2,
-                   "adagrad_rows": 2}
+    # bucket 1 alone takes the deduplicated-row route
+    want_counts = {"lookup_combine": 4, "segment_sum_sorted": 1,
+                   "adagrad_rows": 1}
     check(train_counts == per_step(want_counts, TRAIN_STEPS),
           f"training launches {train_counts}, want {want_counts} per step")
     check(all(map(math.isfinite, losses)), f"non-finite losses {losses}")
@@ -2466,8 +3207,11 @@ def main() -> int:
         torch.cuda.synchronize()
         counts = read_counts(cuda_lookup, *counted)
         cut_counts[kind] = counts
-        want = {"lookup_combine": 4, "segment_sum_sorted": 2,
-                f"{kind}_rows": 2}
+        # adam's bucket 0 takes the dense strategy under "auto"; sgd's
+        # "auto" is the deduplicated-row route on both buckets
+        rows_buckets = 2 if kind == "sgd" else 1
+        want = {"lookup_combine": 4, "segment_sum_sorted": rows_buckets,
+                f"{kind}_rows": rows_buckets}
         check(counts == per_step(want, TRAIN_STEPS),
               f"{kind} launches {counts}, want {want} per step")
         emit(phase="main_path", path=f"train_{kind}_cut", steps=TRAIN_STEPS,
@@ -2487,6 +3231,13 @@ def main() -> int:
         del cpu_cut, state, held, cap
     del cut_model
     torch.cuda.empty_cache()
+
+    # ---- 6c. dense_path: the dense strategy against the sort route on
+    # cut Tiny, then full criteo's dense step against its sparse one
+    dense_counts = dense_tiny_phase(torch, cuda_lookup, cuda_sparse, counted,
+                                    cut, cut_batches[:TRAIN_STEPS])
+    dense_counts["dense_criteo"] = dense_criteo_phase(
+        torch, cuda_lookup, cuda_sparse, counted)
 
     # ---- 6b. train_tiled: full-size criteo through the tiled lookup and
     # the tiled strategy (the raw-stream kernels), adagrad, then sgd and
@@ -2594,6 +3345,17 @@ def main() -> int:
     del cmodel, cpu_c
     torch.cuda.empty_cache()
 
+    # ---- 9. DLRM at the example's widths: against the CPU trainer at a
+    # small table scale, then through `fit` from a split-binary dataset
+    # with eval, pipelined and serial; then the convergence demo
+    dlrm_counts = {"dlrm_against_cpu": dlrm_against_cpu_phase(
+        torch, cuda_lookup, cuda_sparse, counted)}
+    fit_counts, dlrm_kernels = dlrm_fit_phase(torch, cuda_lookup,
+                                              cuda_sparse, counted, rate)
+    dlrm_counts.update(fit_counts)
+    dlrm_counts["convergence"] = convergence_phase(torch, cuda_lookup,
+                                                   counted)
+
     # ---- 8. world size > 1: W ranks on the card(s), each held against the
     # world-1 trainer; counts to 0 in each rank, drive, read
     world_counts = {}
@@ -2601,8 +3363,16 @@ def main() -> int:
         world_counts[f"world{world}_{config}"] = world_phase(
             torch, config, world, model_kw, strategy)
 
-    # ---- 7. result lines
+    # ---- 7. result lines; the kernels of DLRM's step carry their times
+    # at its shapes too (`at_dlrm_fit`), and their worst error covers them
     def entry(kname, source, by_path, tot, err):
+        at_dlrm = {}
+        if kname in dlrm_kernels:
+            d_tot, d_err = dlrm_kernels[kname]
+            err = max(err, d_err)
+            at_dlrm = {"at_dlrm_fit": {
+                "max_abs_err": d_err, **{k: d_tot[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "library_ms")}}}
         return {"name": kname, "route": "cuda",
                 "source": f"distributed_embeddings_tpu_torch/csrc/{source}",
                 "replaces": ", ".join(TPU_SITES[kname]) or None,
@@ -2614,7 +3384,7 @@ def main() -> int:
                              else "operations"),
                 "library_ms": tot["library_ms"],
                 **({"chain_ms": tot["chain_ms"]} if "chain_ms" in tot
-                   else {})}
+                   else {}), **at_dlrm}
 
     paths = {"ladder": ladder_counts, "serve": serve_counts,
              "train_adagrad": train_counts,
@@ -2622,7 +3392,7 @@ def main() -> int:
              "train_adam_cut": cut_counts["adam"],
              "train_fused": fused_counts,
              **{f"train_tiled_{k}": c for k, c in tiled_counts.items()},
-             **world_counts}
+             **dense_counts, **dlrm_counts, **world_counts}
 
     def by_path(kname):
         return {p: c[kname] for p, c in paths.items() if c[kname]}

@@ -49,15 +49,14 @@ from distributed_embeddings_tpu_torch.ops import (cuda_lookup, cuda_tiled,
 from distributed_embeddings_tpu_torch.ops.embedding_ops import (
     GroupSort, RaggedIds, SparseIds, canonical_id_sort)
 from distributed_embeddings_tpu_torch.ops.sparse_update import (
-    SparseOptimizer, SparseRowGrad, concat_grads)
+    SparseOptimizer, SparseRowGrad, concat_grads, update_consumes_sort)
 from distributed_embeddings_tpu_torch.parallel import mesh as pg
 from distributed_embeddings_tpu_torch.parallel.plan import (ShardedPlan,
                                                             lower_strategy)
 from distributed_embeddings_tpu_torch.parallel.planner import (
     DistEmbeddingStrategy)
-from distributed_embeddings_tpu_torch.utils.device import (DeviceLike,
-                                                           default_generator,
-                                                           resolve_device)
+from distributed_embeddings_tpu_torch.utils.device import (
+    DeviceLike, check_compute_dtype, default_generator, resolve_device)
 from distributed_embeddings_tpu_torch.utils.initializers import (
     get_initializer)
 
@@ -186,6 +185,16 @@ class DistributedEmbedding(nn.Module):
     the layer with the same tables, and the forward and `get_weights` are
     collective. Parameters: ``tp[b]`` is this rank's shard of bucket b,
     ``[rows_max, width]`` (the JAX package's ``params['tp'][b][rank]``).
+
+    Arguments of the JAX package that the port takes at their defaults
+    only: ``use_custom_kernel`` (True; False, the JAX package's XLA
+    lookup, has no counterpart: the port's lookups never fall back, ROADMAP
+    North star), ``compute_dtype`` (None or float32; anything else is
+    ROADMAP Queue A16, mixed precision), ``mesh`` (None; the ranks are the
+    process group's, A3), ``dp_input`` (True), ``row_slice_threshold``
+    (None, A4), ``gpu_embedding_size`` (None, A8), ``hot_rows`` (A7),
+    ``exchange_wire`` / ``storage_dtype`` (f32, A6) and ``vocab_slack``
+    (A12): any other value raises NotImplementedError naming its item.
     """
 
     def __init__(self,
@@ -200,6 +209,8 @@ class DistributedEmbedding(nn.Module):
                  mesh=None,
                  world_size: Optional[int] = None,
                  input_max_hotness: Optional[Sequence[Optional[int]]] = None,
+                 use_custom_kernel: bool = True,
+                 compute_dtype=None,
                  hot_rows: Optional[int] = None,
                  exchange_wire: Optional[str] = None,
                  vocab_slack: Optional[int] = None,
@@ -212,6 +223,12 @@ class DistributedEmbedding(nn.Module):
         if lookup_path not in LOOKUP_PATHS:
             raise ValueError(f"lookup_path must be one of {LOOKUP_PATHS}, "
                              f"got {lookup_path!r}")
+        if not use_custom_kernel:
+            raise NotImplementedError(
+                "use_custom_kernel=False has no counterpart in the port: its "
+                "lookups run their hand-written kernels on the card and never "
+                "fall back (ROADMAP, North star: no silent fallback)")
+        check_compute_dtype(compute_dtype, "DistributedEmbedding")
         if mesh is not None:
             raise NotImplementedError(
                 "a mesh is not ported (ROADMAP Queue A3, multi-GPU "
@@ -404,18 +421,20 @@ class DistributedEmbedding(nn.Module):
 
     # ---------------------------------------------------------- sort folding
     @contextlib.contextmanager
-    def residual_sort_scope(self, enabled: bool = True):
+    def residual_sort_scope(self, enabled: bool = True,
+                            optimizer: Optional[str] = None,
+                            strategy: str = "auto"):
         """Within the scope, tapped forwards (``return_residuals=True``)
         sort each exchange group's id stream once wherever the sorted
         lookups or the sparse update will consume it, and carry the sorts
         in `TapResiduals.tp_sort`; ``enabled=False`` turns folding off.
         `make_sparse_train_step` wraps its forward in it (``fold_sort``).
-        The JAX package's scope takes (optimizer, strategy) to ask whether
-        the update consumes a sort; every update route of the port sorts
-        its stream, so only on or off remains. Re-entrant, not
+        As in the JAX package, (`optimizer`, `strategy`) say whether the
+        update consumes a sort (`sparse_update.update_consumes_sort`: the
+        dense routes do not); None assumes it does. Re-entrant, not
         thread-safe."""
         prev = self._fold_sort
-        self._fold_sort = bool(enabled)
+        self._fold_sort = (optimizer, strategy) if enabled else False
         try:
             yield self
         finally:
@@ -437,12 +456,19 @@ class DistributedEmbedding(nn.Module):
         it alone: one group's sort cannot serve the concatenated stream."""
         if not self._fold_sort:
             return [False] * len(groups)
+        kind, strategy = self._fold_sort
         per_bucket: dict = {}
         for grp in groups:
             per_bucket[grp.bucket] = per_bucket.get(grp.bucket, 0) + 1
+
+        def update_sorts(b):
+            if kind is None:
+                return True
+            return update_consumes_sort(kind, strategy, *self.tp[b].shape)
         return [self._fwd_tiled_active(self.plan.tp_buckets[grp.bucket],
                                        grp.k)
-                or per_bucket[grp.bucket] == 1 for grp in groups]
+                or (per_bucket[grp.bucket] == 1 and update_sorts(grp.bucket))
+                for grp in groups]
 
     # --------------------------------------------------------------- lookup
     def _group_lookup(self, table: torch.Tensor, ids: torch.Tensor,
@@ -477,6 +503,12 @@ class DistributedEmbedding(nn.Module):
             rows = table[ids.clamp(0, table.shape[0] - 1)]   # [B, f, k, w]
             return _combine(rows, None, None)
         w = None if weights is None else weights.reshape(b_sz * f, k)
+        if table.requires_grad and torch.is_grad_enabled():
+            # the dense step (`training.make_train_step`): the kernel with
+            # the JAX package's `_fused_bwd` as its backward
+            out = cuda_lookup.fused_embedding_lookup(
+                table, ids.reshape(b_sz * f, k), w)
+            return out.reshape(b_sz, f, out.shape[-1])
         out = cuda_lookup.lookup_combine(
             table, ids.reshape(b_sz * f, k).contiguous(),
             None if w is None else w.contiguous())

@@ -15,9 +15,24 @@ from torch import nn
 from distributed_embeddings_tpu_torch.layers.dist_model_parallel import (
     DistributedEmbedding, broadcast_variables)
 from distributed_embeddings_tpu_torch.layers.embedding import Embedding
-from distributed_embeddings_tpu_torch.utils.device import (DeviceLike,
-                                                           default_generator,
-                                                           resolve_device)
+from distributed_embeddings_tpu_torch.utils.device import (
+    DeviceLike, check_compute_dtype, default_generator, resolve_device)
+
+
+# Criteo-1TB MLPerf vocab sizes (the JAX package's examples/dlrm/main.py,
+# reference examples/dlrm/main.py:47): 187,767,399 rows, 96.1 GB at width
+# 128 in float32; `scaled_table_sizes` cuts them as the example's
+# --table_scale does
+CRITEO_TABLE_SIZES = [
+    39884406, 39043, 17289, 7420, 20263, 3, 7120, 1543, 63, 38532951,
+    2953546, 403346, 10, 2208, 11938, 155, 4, 976, 14, 39979771, 25641295,
+    39664984, 585935, 12972, 108, 36,
+]
+
+
+def scaled_table_sizes(scale: float, sizes=CRITEO_TABLE_SIZES) -> List[int]:
+    """``max(4, int(v * scale))`` per table, the example's --table_scale."""
+    return [max(4, int(v * scale)) for v in sizes]
 
 
 def dlrm_initializer():
@@ -28,6 +43,20 @@ def dlrm_initializer():
     return init
 
 
+_TRIL: dict = {}
+
+
+def _tril_index(n: int, device: torch.device) -> torch.Tensor:
+    """The flat indices of the strictly-lower triangle of an [n, n]
+    matrix, on `device`, made once per (n, device): a forward copies
+    nothing from the host."""
+    key = (n, device)
+    if key not in _TRIL:
+        rows, cols = np.tril_indices(n, k=-1)
+        _TRIL[key] = torch.as_tensor(rows * n + cols, device=device)
+    return _TRIL[key]
+
+
 def dot_interact(emb_outs: Sequence[torch.Tensor],
                  bottom_mlp_out: torch.Tensor) -> torch.Tensor:
     """Pairwise-dot feature interaction: the strictly-lower-triangular
@@ -36,9 +65,8 @@ def dot_interact(emb_outs: Sequence[torch.Tensor],
     feats = torch.stack([bottom_mlp_out] + list(emb_outs), dim=1)  # [B, n, d]
     gram = torch.bmm(feats, feats.transpose(1, 2))
     n = feats.shape[1]
-    rows, cols = np.tril_indices(n, k=-1)
-    idx = torch.as_tensor(rows * n + cols, device=feats.device)
-    pairwise = gram.reshape(gram.shape[0], n * n)[:, idx]
+    pairwise = gram.reshape(gram.shape[0], n * n)[:, _tril_index(
+        n, feats.device)]
     return torch.cat([pairwise, bottom_mlp_out], dim=1)
 
 
@@ -84,14 +112,20 @@ class MLP(nn.ModuleList):
 class DLRM(nn.Module):
     """DLRM with fused table-parallel embeddings.
 
-    Args mirror the JAX package's class; `dist_kwargs` go to
-    `DistributedEmbedding` (strategy 'memory_balanced' unless given;
-    ``lookup_path`` picks its lookup, as ``DET_LOOKUP_PATH`` does there).
-    ``device`` (None = cuda) and ``generator`` (default: seed 0 on
-    `device`) place and draw every parameter; in a process group of more
-    than one rank, each rank holds its share of the tables and every rank
-    takes rank 0's MLPs. Forward: ``[B, num_numerical]`` + categorical ids
-    -> ``[B, 1]`` logits.
+    Args mirror the JAX package's class. ``dist_strategy`` is the
+    placement strategy (the port's older name, ``strategy=``, is taken
+    too); ``mesh``, ``column_slice_threshold``, ``row_slice_threshold``,
+    ``data_parallel_threshold`` and ``dp_input`` go to
+    `DistributedEmbedding`, which raises NotImplementedError, naming the
+    ROADMAP item, on the values it has not ported; ``compute_dtype`` takes
+    float32 (or None) only (anything else: ROADMAP Queue A16, mixed
+    precision). Other `dist_kwargs` go to `DistributedEmbedding` too
+    (``lookup_path`` picks its lookup, as ``DET_LOOKUP_PATH`` does in the
+    JAX package). ``device`` (None = cuda) and ``generator`` (default:
+    seed 0 on `device`) place and draw every parameter; in a process group
+    of more than one rank, each rank holds its share of the tables and
+    every rank takes rank 0's MLPs. Forward: ``[B, num_numerical]`` +
+    categorical ids -> ``[B, 1]`` logits.
     """
 
     def __init__(self,
@@ -100,11 +134,25 @@ class DLRM(nn.Module):
                  bottom_mlp_dims: Sequence[int] = (512, 256, 128),
                  top_mlp_dims: Sequence[int] = (1024, 1024, 512, 256, 1),
                  num_numerical_features: int = 13,
+                 mesh=None,
+                 dist_strategy: str = "memory_balanced",
+                 column_slice_threshold: Optional[int] = None,
+                 row_slice_threshold: Optional[int] = None,
+                 data_parallel_threshold: Optional[int] = None,
+                 dp_input: bool = True,
+                 compute_dtype=None,
                  *,
                  device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None,
                  **dist_kwargs):
         super().__init__()
+        check_compute_dtype(compute_dtype, "DLRM")
+        dist_kwargs.setdefault("strategy", dist_strategy)
+        dist_kwargs.update(
+            mesh=mesh, column_slice_threshold=column_slice_threshold,
+            row_slice_threshold=row_slice_threshold,
+            data_parallel_threshold=data_parallel_threshold,
+            dp_input=dp_input)
         device = resolve_device(device)
         gen = default_generator(device, generator)
         self.table_sizes = list(table_sizes)
@@ -116,7 +164,6 @@ class DLRM(nn.Module):
                       device="meta")
             for v in self.table_sizes
         ]
-        dist_kwargs.setdefault("strategy", "memory_balanced")
         self.embedding = DistributedEmbedding(
             embeddings, device=device, generator=gen, **dist_kwargs)
         n_feats = len(self.table_sizes) + 1

@@ -18,9 +18,8 @@ from distributed_embeddings_tpu_torch.layers.dist_model_parallel import (
     DistributedEmbedding, broadcast_variables)
 from distributed_embeddings_tpu_torch.layers.embedding import Embedding
 from distributed_embeddings_tpu_torch.models.dlrm import MLP, bce_loss
-from distributed_embeddings_tpu_torch.utils.device import (DeviceLike,
-                                                           default_generator,
-                                                           resolve_device)
+from distributed_embeddings_tpu_torch.utils.device import (
+    DeviceLike, check_compute_dtype, default_generator, resolve_device)
 
 
 class EmbeddingConfig(NamedTuple):
@@ -187,6 +186,58 @@ class InputGenerator:
         return self.batches[idx]
 
 
+class ClickGenerator:
+    """Learnable synthetic click stream (the JAX package's, in numpy):
+    each table t has a hidden per-row score s_t ~ N(0,1), the numerical
+    features a hidden weight vector, and
+
+        logit* = scale * (sum_t s_t[id_t] + w . x) / sqrt(T + 1)
+        label  ~ Bernoulli(sigmoid(logit*))
+
+    With the default scale the Bayes AUC is about 0.85, so a model past
+    AUC 0.70 has learned embedding structure (random embeddings give 0.5).
+    Ids are power-law distributed (alpha > 0) or uniform. Deterministic
+    per (seed, step), and bit-equal to the JAX package's generator:
+    ``batch(step)`` draws from ``np.random.RandomState`` in the same order.
+    A batch is ``(x [B, n] f32, [ids [B] int32 per table], labels [B]
+    f32)``, numpy on the host; the object is a `fit` data callable."""
+
+    def __init__(self, table_sizes, num_numerical: int, batch_size: int,
+                 alpha: float = 1.05, scale: float = 3.0, seed: int = 0):
+        rng = np.random.RandomState(seed)
+        self.table_sizes = list(table_sizes)
+        self.num_numerical = num_numerical
+        self.batch_size = batch_size
+        self.alpha = alpha
+        self.scale = scale
+        self.seed = seed
+        self.scores = [rng.randn(v).astype(np.float32)
+                       for v in self.table_sizes]
+        self.w_num = rng.randn(num_numerical).astype(np.float32)
+
+    def batch(self, step: int):
+        rng = np.random.RandomState(
+            (self.seed * 1_000_003 + step) % (2 ** 31))
+        cats, total = [], 0.0
+        for t, rows in enumerate(self.table_sizes):
+            if self.alpha > 0:
+                ids = gen_power_law_data(self.batch_size, 1, rows,
+                                         self.alpha, rng)[:, 0]
+            else:
+                ids = rng.randint(0, rows, size=self.batch_size)
+            cats.append(ids.astype(np.int32))
+            total = total + self.scores[t][ids]
+        x = rng.rand(self.batch_size, self.num_numerical).astype(np.float32)
+        total = total + x @ self.w_num
+        logit = self.scale * total / np.sqrt(len(self.table_sizes) + 1)
+        labels = (rng.rand(self.batch_size)
+                  < 1.0 / (1.0 + np.exp(-logit))).astype(np.float32)
+        return x, cats, labels
+
+    def __call__(self, step: int):
+        return self.batch(step)
+
+
 def _avg_pool_1d(x: torch.Tensor, stride: int) -> torch.Tensor:
     """Strided 'same' average pooling along the feature axis; padding
     positions are excluded from each window's average."""
@@ -204,18 +255,34 @@ class SyntheticModel(nn.Module):
     """Synthetic recommender: embeddings -> interact -> MLP -> logit.
 
     The tables are fused through `DistributedEmbedding` (hotness hints
-    always passed; `dist_kwargs` go to it, ``lookup_path`` among them: the
-    JAX package's ``DET_LOOKUP_PATH``). ``device`` (None = cuda) and
+    always passed; ``mesh``, ``column_slice_threshold``, ``strategy``,
+    ``dp_input`` and `dist_kwargs` go to it, ``lookup_path`` among them:
+    the JAX package's ``DET_LOOKUP_PATH``). ``distributed=False`` (the JAX
+    package's per-table comparison model) raises NotImplementedError
+    (ROADMAP Queue A4), and so does a ``compute_dtype`` other than float32
+    (A16, mixed precision). ``device`` (None = cuda) and
     ``generator`` (default: seed 0 on `device`) place and draw every
     parameter, embedding tables included, on the device itself. In a
     process group of more than one rank the layer spans its ranks, each
     holding its share of the tables, and every rank takes rank 0's MLP.
     """
 
-    def __init__(self, model_config: ModelConfig, *,
+    def __init__(self, model_config: ModelConfig, mesh=None,
+                 column_slice_threshold=None, distributed: bool = True,
+                 strategy: str = "auto", dp_input: bool = True,
+                 compute_dtype=None, *,
                  device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None, **dist_kwargs):
         super().__init__()
+        if not distributed:
+            raise NotImplementedError(
+                "SyntheticModel(distributed=False), the per-table comparison "
+                "model, is not ported yet (ROADMAP Queue A4 (remaining "
+                "placement))")
+        check_compute_dtype(compute_dtype, "SyntheticModel")
+        dist_kwargs.update(mesh=mesh, strategy=strategy,
+                           column_slice_threshold=column_slice_threshold,
+                           dp_input=dp_input)
         device = resolve_device(device)
         gen = default_generator(device, generator)
         self.config = model_config

@@ -18,7 +18,18 @@ Strategies:
   (`cuda_tiled.tiled_sgd` / `tiled_adagrad` / `tiled_adam`). It gives the
   same tables as the deduplicated-row route, bit for bit, with no [N, W]
   sums array between two kernels.
-``"dense"`` is not ported yet.
+* ``"dense"``, the dense aggregation: `_dense_sum` sums the stream into a
+  table-shaped gradient with a count column (one widened ``index_add_``,
+  the counterpart of the JAX package's XLA scatter, no Pallas kernel), and
+  `apply_dense_rows` applies the masked rule to every touched row. Under
+  ``"auto"`` adagrad and adam take it for a table of at most
+  `DENSE_ELEMS_MAX` elements, as the JAX package does (`_pick`). For sgd,
+  ``"dense"`` is the JAX package's plain scatter of the raw stream, and
+  ``"auto"`` keeps the deduplicated-row route: its sums are made in a
+  fixed order on the card, where the scatter's atomics are not (the JAX
+  package's ``"auto"`` scatters; the two differ in the last ulps, within
+  its stated tolerance). On a card, ``index_add_``'s float atomics make
+  the dense sums' order vary from run to run.
 
 Each optimizer takes ``presorted=``, the `embedding_ops.GroupSort` of its id
 stream that a tapped forward produced (sort folding): the route then runs
@@ -33,23 +44,102 @@ from distributed_embeddings_tpu_torch.ops import cuda_sparse, cuda_tiled
 from distributed_embeddings_tpu_torch.ops.cuda_sparse import bias_corrections
 from distributed_embeddings_tpu_torch.ops.embedding_ops import (
     canonical_keys, segment_bounds, segment_keys, segment_starts)
+from distributed_embeddings_tpu_torch.utils.device import device_scalar
 
 __all__ = ["SparseRowGrad", "concat_grads", "dedup_sum", "sparse_sgd",
            "sparse_adagrad", "sparse_adam", "SparseOptimizer",
            "make_sparse_optimizer", "drain_sparse_apply",
-           "bias_corrections", "STRATEGIES"]
+           "apply_dense_rows", "update_consumes_sort", "bias_corrections",
+           "STRATEGIES", "DENSE_ELEMS_MAX"]
 
-# strategies of the port: the deduplicated-row route and the raw-stream one
-STRATEGIES = ("auto", "sort", "pallas", "tiled")
+# strategies of the port: the deduplicated-row route, the raw-stream one
+# and the dense aggregation
+STRATEGIES = ("auto", "sort", "pallas", "tiled", "dense")
+
+# "auto" aggregates a table of at most this many elements densely (the
+# JAX package's default; it reads DET_SPARSE_DENSE_MAX, the port takes no
+# switches)
+DENSE_ELEMS_MAX = 16 * 1024 * 1024
 
 
 def check_strategy(strategy: str) -> None:
-    if strategy == "dense":
-        raise NotImplementedError(
-            "strategy='dense' is not ported yet (ROADMAP Queue A2, open: "
-            "the dense strategy)")
     if strategy not in STRATEGIES:
         raise ValueError(f"Unknown sparse strategy {strategy!r}")
+
+
+def _pick(strategy: str, rows: int, width: int) -> str:
+    """The strategy a [rows, width] table takes: "auto" is "dense" up to
+    `DENSE_ELEMS_MAX` elements, else "sort"; any other is itself."""
+    if strategy != "auto":
+        return strategy
+    return "dense" if rows * width <= DENSE_ELEMS_MAX else "sort"
+
+
+def update_consumes_sort(kind: str, strategy: str, rows: int,
+                         width: int) -> bool:
+    """Would the update of a [rows, width] table use a presorted
+    `GroupSort` of its stream? The tapped forward sorts a group only where
+    the answer is yes (the JAX package's rule): the dense routes aggregate
+    by scatter and want no sort."""
+    if kind == "sgd":
+        return strategy != "dense"
+    return _pick(strategy, rows, width) != "dense"
+
+
+def _dense_sum(ids: torch.Tensor, contribs: torch.Tensor, rows: int):
+    """[rows, w] dense aggregation of the stream plus each row's
+    contribution count, out of one widened ``index_add_`` (each
+    contribution row carries a 1.0 count column). Ids < 0 or >= rows are
+    dropped (they land on a spare row past the table). Returns (g [rows,
+    w], counts [rows]) float32."""
+    w = contribs.shape[-1]
+    ext = torch.cat([contribs.float(),
+                     torch.ones((contribs.shape[0], 1), dtype=torch.float32,
+                                device=contribs.device)], dim=1)
+    safe = torch.where((ids < 0) | (ids >= rows),
+                       torch.full_like(ids, rows), ids).long()
+    dense = torch.zeros((rows + 1, w + 1), dtype=torch.float32,
+                        device=contribs.device).index_add_(0, safe, ext)
+    return dense[:rows, :w], dense[:rows, w]
+
+
+def apply_dense_rows(kind: str, table: torch.Tensor, state, g: torch.Tensor,
+                     touched: torch.Tensor, lr, **hp):
+    """Apply a dense aggregated gradient `g` [rows, w] to the rows where
+    `touched` [rows] is true, in place: the masked rules of the JAX
+    package's ``apply_dense_rows``, product for product (sgd moves every
+    row by ``-lr * g``, zero where untouched; adagrad and lazy adam move
+    only touched rows and their state). Returns (table, state)."""
+    t = touched[:, None]
+    zero = torch.zeros((), dtype=torch.float32, device=table.device)
+    if kind == "sgd":
+        table.add_(g * (-lr))
+        return table, tuple(state)
+    if kind == "adagrad":
+        (acc,) = state
+        eps = hp.get("eps", 1e-10)
+        acc.add_(torch.where(t, g * g, zero))
+        table.add_(torch.where(t, (g * (-lr)) * torch.rsqrt(acc + eps),
+                               zero))
+        return table, (acc,)
+    if kind == "adam":
+        mu, nu, count = state
+        b1, b2 = hp.get("b1", 0.9), hp.get("b2", 0.999)
+        eps = hp.get("eps", 1e-8)
+        count = int(count) + 1
+        c1, c2 = bias_corrections(count, b1, b2)
+        mu.copy_(torch.where(t, mu * b1 + g * (1 - b1), mu))
+        nu.copy_(torch.where(t, nu * b2 + (g * (1 - b2)) * g, nu))
+        upd = ((mu / device_scalar(c1, mu)) * (-lr)) / (
+            torch.sqrt(nu / device_scalar(c2, nu)) + eps)
+        table.add_(torch.where(t, upd, zero))
+        return table, (mu, nu, count)
+    raise ValueError(f"Unknown sparse optimizer {kind!r}")
+
+
+def _dense_update(kind, table, state, grad, lr, **hp):
+    g, counts = _dense_sum(grad.ids, grad.contribs, table.shape[0])
+    return apply_dense_rows(kind, table, state, g, counts > 0, lr, **hp)
 
 
 class SparseRowGrad(NamedTuple):
@@ -112,8 +202,19 @@ def _stream_sort(ps):
 def sparse_sgd(table: torch.Tensor, grad: SparseRowGrad, lr,
                strategy: str = "auto", presorted=None) -> torch.Tensor:
     """``table[r] -= lr * (sum of r's contribs)``, in place. Returns
-    table."""
+    table. ``"dense"``: the JAX package's plain scatter of the raw stream
+    (``table[ids] += -lr * contribs``, invalid ids dropped: they add -0.0
+    to row 0, which changes no value); every other strategy sums each
+    row first."""
     check_strategy(strategy)
+    if strategy == "dense":
+        rows = table.shape[0]
+        valid = (grad.ids >= 0) & (grad.ids < rows)
+        upd = torch.where(valid[:, None], grad.contribs.float() * (-lr),
+                          torch.full((), -0.0, device=table.device))
+        return table.index_add_(0, torch.where(valid, grad.ids,
+                                               torch.zeros_like(grad.ids))
+                                .long(), upd)
     ps = _usable_presorted(presorted, grad)
     if strategy == "tiled":
         return cuda_tiled.tiled_sgd(table, grad.ids, grad.contribs, lr,
@@ -130,13 +231,19 @@ def sparse_adagrad(table: torch.Tensor, accum: torch.Tensor,
     """Row-wise adagrad on the touched rows, in place:
         acc[r]   += (sum of contribs for r)^2
         table[r] -= lr * sum / sqrt(acc[r] + eps)
-    Returns (table, accum)."""
+    ``"dense"`` (and ``"auto"`` on a table of at most `DENSE_ELEMS_MAX`
+    elements): `_dense_sum` and `apply_dense_rows`. Returns (table,
+    accum)."""
     check_strategy(strategy)
     ps = _usable_presorted(presorted, grad)
     if strategy == "tiled":
         return cuda_tiled.tiled_adagrad(table, accum, grad.ids,
                                         grad.contribs, lr, eps=eps,
                                         presorted=_stream_sort(ps))
+    if _pick(strategy, *table.shape) == "dense":
+        table, (accum,) = _dense_update("adagrad", table, (accum,), grad, lr,
+                                        eps=eps)
+        return table, accum
     rep, sums = dedup_sum(grad.ids, grad.contribs, sentinel=table.shape[0],
                           presorted=ps)
     return cuda_sparse.adagrad_rows(table, accum, rep, sums, float(lr), eps)
@@ -148,14 +255,18 @@ def sparse_adam(table: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
                 b2: float = 0.999, eps: float = 1e-8,
                 strategy: str = "auto", presorted=None):
     """Lazy row-wise Adam: moments decay only on touched rows, in place.
-    `count` (a host int) is the step count before this step. Returns
-    (table, mu, nu, count + 1)."""
+    `count` (a host int) is the step count before this step; the dense
+    route as in `sparse_adagrad`. Returns (table, mu, nu, count + 1)."""
     check_strategy(strategy)
     ps = _usable_presorted(presorted, grad)
     if strategy == "tiled":
         return cuda_tiled.tiled_adam(table, mu, nu, count, grad.ids,
                                      grad.contribs, lr, b1=b1, b2=b2,
                                      eps=eps, presorted=_stream_sort(ps))
+    if _pick(strategy, *table.shape) == "dense":
+        table, (mu, nu, count) = _dense_update(
+            "adam", table, (mu, nu, count), grad, lr, b1=b1, b2=b2, eps=eps)
+        return table, mu, nu, count
     count = int(count) + 1
     c1, c2 = bias_corrections(count, b1, b2)
     rep, sums = dedup_sum(grad.ids, grad.contribs, sentinel=table.shape[0],

@@ -19,6 +19,7 @@ import torch
 from distributed_embeddings_tpu_torch.layers.dist_model_parallel import (
     DistributedEmbedding)
 from distributed_embeddings_tpu_torch.obs.registry import MetricRegistry
+from distributed_embeddings_tpu_torch.parallel.staging import DeviceStager
 from distributed_embeddings_tpu_torch.utils.device import (DeviceLike,
                                                            resolve_device)
 
@@ -44,13 +45,33 @@ class InferenceEngine:
       device: where the model runs (None = cuda); the model must live there.
       registry: optional `MetricRegistry` for the serving counters
         (``serve/predicts``, ``serve/rows_served``, ``serve/rows_padded``).
+      donate_batch: accepted, with no effect: nothing is donated in
+        PyTorch, and the engine's staged copies are its own.
+      cache_capacity (0), promote_threshold (2), replica (None) and
+        vocab_manager (None): the JAX package's hot-row cache, fleet label
+        and vocabulary; only these defaults are taken, any other value
+        raises NotImplementedError (ROADMAP Queue A13, serving remainder,
+        and A12, store and vocab).
+
+    Requests are staged to the device through a
+    `parallel.staging.DeviceStager`: one pinned copy a request on a side
+    stream, which the serving stream waits on; the host does not block.
     """
 
     def __init__(self, model, params=None, *, device: DeviceLike = None,
-                 cache_capacity=0, vocab_manager=None,
-                 registry: Optional[MetricRegistry] = None):
+                 cache_capacity=0, promote_threshold: int = 2,
+                 donate_batch: bool = False, vocab_manager=None,
+                 registry: Optional[MetricRegistry] = None,
+                 replica: Optional[str] = None):
+        del donate_batch
         if cache_capacity:
             raise _not_ported("the HotRowCache (cache_capacity)",
+                              "A13 (serving remainder)")
+        if promote_threshold != 2:
+            raise _not_ported("the HotRowCache (promote_threshold)",
+                              "A13 (serving remainder)")
+        if replica is not None:
+            raise _not_ported("fleet replicas (replica)",
                               "A13 (serving remainder)")
         if vocab_manager is not None:
             raise _not_ported("vocab_manager", "A12 (store and vocab)")
@@ -69,6 +90,7 @@ class InferenceEngine:
                 f"the model lives on {self.embedding.device}, the engine "
                 f"was asked for {self.device}")
         self._module = model
+        self._stager = DeviceStager(self.device)
         if params is not None:
             self.set_params(params)
         self._metrics = registry if registry is not None \
@@ -119,19 +141,23 @@ class InferenceEngine:
         world = max(self.embedding.world_size, 1)
         return int(math.ceil(b / world) * world)
 
-    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+    def _to_device(self, tree):
+        """A request's padded host arrays on the device, through the
+        engine's `DeviceStager` (one pinned copy, not blocking the
+        host)."""
+        return self._stager(tree)
 
     def _predict_padded(self, numerical, prepped: List, target: int):
-        cats = [tuple(self._to_device(self._pad_rows(a, target)) for a in x)
-                if isinstance(x, tuple)
-                else self._to_device(self._pad_rows(x, target))
+        cats = [tuple(self._pad_rows(a, target) for a in x)
+                if isinstance(x, tuple) else self._pad_rows(x, target)
                 for x in prepped]
+        if self._model is not None:
+            numerical = self._pad_rows(np.asarray(numerical, np.float32),
+                                       target)
+        num, cats = self._to_device((numerical, cats))
         with torch.inference_mode():
             if self._model is None:
                 return self.embedding(cats)
-            num = self._to_device(self._pad_rows(
-                np.asarray(numerical, np.float32), target))
             return self._model(num, cats)
 
     # --------------------------------------------------------------- API

@@ -1,10 +1,11 @@
-"""Training: the sparse train step, a minimal `fit` and the reference's
-training shims.
+"""Training: the sparse and the dense train step, `fit`, `evaluate` and
+the reference's training shims.
 
 Counterpart of ``distributed_embeddings_tpu/training.py``
-(`make_sparse_train_step`, `fit`, `DistributedGradientTape`,
-`DistributedOptimizer`, `BroadcastGlobalVariablesCallback`). One step, on
-every rank of the process group with its slice of the global batch:
+(`make_sparse_train_step`, `make_train_step`, `apply_updates`, `fit`,
+`evaluate`, `DistributedGradientTape`, `DistributedOptimizer`,
+`BroadcastGlobalVariablesCallback`). One sparse step, on every rank of the
+process group with its slice of the global batch:
 
 1. `DistributedEmbedding.make_taps` gives the tap container; the model's
    ``loss_fn(..., taps=, return_residuals=True)`` runs the forward, whose
@@ -26,29 +27,51 @@ every rank of the process group with its slice of the global batch:
 5. the dense twin of optax's sgd / adagrad / adam updates the MLPs in
    place, the same on every rank.
 
+The dense step (`make_train_step`, ``fit(sparse=False)``) differentiates
+the loss in every parameter, the tables included: the tables take
+``requires_grad`` for the step only, and the lookups' own backwards
+(`cuda_lookup.fused_embedding_lookup`, `cuda_tiled`'s sorted lookups, the
+activation exchange's transpose at world size > 1) give their dense
+gradients; the dense optimizer then updates every parameter.
+
+`fit` pulls iterable data through the ingest pipeline
+(`utils.pipeline.staged_batches`: read, preprocess and the staging to the
+card each in a worker thread, the copies pinned and on a side stream,
+`parallel.staging.DeviceStager`; the step's stream waits for a batch's
+copy when it takes the batch, `parallel.staging.ready`), and runs
+`evaluate` every `eval_every` steps: the streaming AUC (`utils.metrics.StreamingAUC`) of the model's
+logits, its histograms summed over the ranks.
+
 The dense twins are written to optax's expressions (``scale_by_rss``,
 ``scale_by_adam``, ``scale_by_learning_rate``), not taken from
 ``torch.optim``: its Adagrad adds eps outside the square root and starts
 the accumulator at 0, and its Adam groups the bias correction differently.
 """
 
+import itertools
 from typing import Any, Callable, Dict, Optional
 
 import torch
 
 from distributed_embeddings_tpu_torch.layers.dist_model_parallel import (
-    broadcast_variables)
+    _local_tables, broadcast_variables)
 from distributed_embeddings_tpu_torch.ops.sparse_update import (
     SparseOptimizer, bias_corrections, check_strategy, dedup_sum,
     drain_sparse_apply, make_sparse_optimizer)
 from distributed_embeddings_tpu_torch.parallel.mesh import (
     average_across_ranks)
+from distributed_embeddings_tpu_torch.parallel.staging import (
+    DeviceStager, ready, stage_dp_batch)
 from distributed_embeddings_tpu_torch.utils.device import device_scalar
+from distributed_embeddings_tpu_torch.utils.metrics import StreamingAUC
+from distributed_embeddings_tpu_torch.utils.pipeline import (
+    DEFAULT_DEPTH, staged_batches)
 
 __all__ = ["DenseOptimizer", "sgd", "adagrad", "adam",
-           "make_sparse_train_step", "fit", "gradient_scale",
-           "DistributedGradientTape", "DistributedOptimizer",
-           "BroadcastGlobalVariablesCallback", "broadcast_variables"]
+           "make_sparse_train_step", "make_train_step", "apply_updates",
+           "fit", "evaluate", "gradient_scale", "DistributedGradientTape",
+           "DistributedOptimizer", "BroadcastGlobalVariablesCallback",
+           "broadcast_variables"]
 
 # the sparse rule's hyperparameters per optimizer: adagrad's eps matches
 # optax's, so the tables and the MLPs see the same rule
@@ -151,7 +174,9 @@ def _dense_params(model) -> Dict[str, torch.Tensor]:
 
 def make_sparse_train_step(model, optimizer: str = "adagrad", lr=0.01,
                            dense_optimizer: Optional[DenseOptimizer] = None,
-                           strategy: str = "auto", fold_sort: bool = True):
+                           strategy: str = "auto",
+                           donate: Optional[bool] = None,
+                           fold_sort: bool = True):
     """Build a train step whose table updates are row-wise sparse.
 
     Args mirror the JAX package's: `model` exposes ``.embedding`` (a
@@ -162,11 +187,17 @@ def make_sparse_train_step(model, optimizer: str = "adagrad", lr=0.01,
     schedule ``step -> lr`` (the sparse optimizer is rebuilt per step at
     ``lr(opt_state["count"])``); `strategy` 'auto', 'sort', 'pallas' (the
     deduplicated-row route) or 'tiled' (the raw-stream route, see
-    `ops.sparse_update`). The lookup path is the layer's own
+    `ops.sparse_update`), or 'dense' (the dense aggregation; 'auto'
+    takes it for adagrad and adam on a table of at most
+    `sparse_update.DENSE_ELEMS_MAX` elements, as the JAX package does).
+    The lookup path is the layer's own
     (`DistributedEmbedding(lookup_path=...)`). `fold_sort` (default on):
     the tapped forward sorts each exchange group's ids once and the sorted
-    lookups and the update of a one-group bucket reuse that sort; off,
-    each sorts afresh. The two give bit-identical results.
+    lookups and the update of a one-group bucket reuse that sort (a dense
+    bucket's update wants none); off, each sorts afresh. The two give
+    bit-identical results. `donate` is accepted and has no effect: the
+    step updates the tables, their state and the MLPs in place, which is
+    what the JAX package's donation buys.
 
     Returns (init_fn, step_fn):
       init_fn(model) -> opt_state ``{"emb": {"tp": [...], "row": []},
@@ -178,6 +209,7 @@ def make_sparse_train_step(model, optimizer: str = "adagrad", lr=0.01,
         calls it with its slice of the global batch
         (`parallel.staging.stage_dp_batch`).
     """
+    del donate
     check_strategy(strategy)
     if optimizer not in SPARSE_HP:
         raise ValueError(f"Unknown optimizer {optimizer!r}")
@@ -206,7 +238,7 @@ def make_sparse_train_step(model, optimizer: str = "adagrad", lr=0.01,
         cats = list(cats)
         layer = params.embedding
         taps = layer.make_taps(cats)
-        with layer.residual_sort_scope(fold_sort):
+        with layer.residual_sort_scope(fold_sort, optimizer, strategy):
             loss, res = params.loss_fn(numerical, cats, labels, taps=taps,
                                        return_residuals=True)
         dense = _dense_params(params)
@@ -310,16 +342,150 @@ def gradient_scale(model, numerical, cats, labels) -> dict:
     return out
 
 
-# fit arguments of the JAX package that this slice does not cover, with
+def apply_updates(params: Dict[str, torch.Tensor],
+                  updates: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``params + updates`` (optax's convention), in place: each update is
+    cast to its parameter's dtype and added. None updates are skipped.
+    Returns `params`."""
+    with torch.no_grad():
+        for name, u in updates.items():
+            if u is not None:
+                params[name].add_(u.to(params[name].dtype))
+    return params
+
+
+def _all_params(model) -> Dict[str, torch.Tensor]:
+    """Every parameter, the bucket tables included: what the dense step
+    differentiates and updates."""
+    return dict(model.named_parameters())
+
+
+def make_train_step(loss_fn: Callable, optimizer,
+                    donate: Optional[bool] = None):
+    """The dense train step: gradients of every parameter, tables included.
+
+    Args:
+      loss_fn: ``(model, *batch) -> loss``, the mean over this rank's
+        slice of the global batch.
+      optimizer: a `DenseOptimizer` (the optax twins) or a
+        `DistributedOptimizer` over one; its state comes from
+        ``optimizer.init(dict(model.named_parameters()))``.
+      donate: accepted and has no effect (the step updates in place).
+
+    Returns ``step(model, opt_state, *batch) -> (model, opt_state, loss)``.
+    The bucket tables take ``requires_grad`` for the step only, so the
+    lookups' backwards give their dense gradients (the gather-combine
+    kernel's through `cuda_lookup.fused_embedding_lookup`, the sorted
+    lookups' through their `sgd_stream` at lr -1). At world size W > 1 the
+    gradient is the global-batch mean's: a rank's table gradients (its
+    own rows, summed over the ranks' slices by the activation exchange's
+    transpose) are scaled by 1/W, and the other gradients and the loss are
+    averaged over the ranks in one all-reduce. The loss is a 0-d tensor
+    on the model's device."""
+    del donate
+
+    def update(params, grads, state):
+        if isinstance(optimizer, DistributedOptimizer):
+            return optimizer.update(grads, state, params)
+        return optimizer.update(params, grads, state)
+
+    def step(model, opt_state, *batch):
+        params = _all_params(model)
+        frozen = [p for p in params.values() if not p.requires_grad]
+        for p in frozen:
+            p.requires_grad_(True)
+        try:
+            loss = loss_fn(model, *batch)
+            grads = torch.autograd.grad(loss, list(params.values()),
+                                        allow_unused=True)
+            grads = {n: torch.zeros_like(p) if g is None else g
+                     for (n, p), g in zip(params.items(), grads)}
+        finally:
+            for p in frozen:
+                p.requires_grad_(False)
+        world = _world(model)
+        if world > 1:
+            local = _local_tables(model)
+            scale = device_scalar(world, loss)
+            shared = [n for n, p in params.items() if id(p) not in local]
+            *avg, loss = average_across_ranks(
+                [grads[n] for n in shared] + [loss.detach()])
+            grads.update(zip(shared, avg))
+            for n, p in params.items():
+                if id(p) in local:
+                    grads[n] = grads[n] / scale
+        opt_state = update(params, grads, opt_state)
+        return model, opt_state, loss.detach()
+
+    return step
+
+
+def _world(model) -> int:
+    """The model's world size (its embedding layer's; 1 without one)."""
+    emb = getattr(model, "embedding", None)
+    return getattr(emb, "world_size", 1)
+
+
+def _model_device(model) -> torch.device:
+    emb = getattr(model, "embedding", None)
+    if emb is not None:
+        return emb.device
+    return next(model.parameters()).device
+
+
+def _default_stage(model) -> Callable:
+    """`fit`'s and `evaluate`'s staging: the ``stage`` half of a
+    `DeviceStager` on the model's device (the loop takes each batch with
+    `ready`); at world size > 1, `stage_dp_batch` through it (each rank
+    cuts its slice of the global batch)."""
+    stage = DeviceStager(_model_device(model)).stage
+    if _world(model) > 1:
+        return lambda batch: stage_dp_batch(batch, stage)
+    return stage
+
+
+def evaluate(model, data, steps: int = 16, preprocess=None,
+             pipelined: bool = True) -> float:
+    """Streaming AUC over `steps` batches (the JAX package's `evaluate`,
+    the reference's eval loop, examples/dlrm/main.py:223-243).
+
+    `data`: an iterable of global ``(numerical, cats, labels)`` batches, or
+    a callable ``step -> batch``. Iterable data is pulled through the
+    ingest pipeline (``itertools.islice`` to `steps` items, so a shared
+    source is never over-read), with `preprocess` and the staging each in
+    a worker (`pipelined`; False runs them inline); a callable's batches
+    are staged inline. Each rank's forward takes its slice of the batch
+    (`stage_dp_batch`), its `StreamingAUC` histograms accumulate on the
+    device, and at world size > 1 one all-reduce sums them over the ranks
+    (the reference's ``hvd.allgather``) before the host integrates them.
+    Collective at world size > 1: every rank calls it."""
+    device = _model_device(model)
+    auc = StreamingAUC()
+    state = auc.init(device)
+    stage = _default_stage(model)
+    get_batch = data if callable(data) else None
+    pipeline = None
+    if get_batch is None:
+        pipeline = staged_batches(itertools.islice(iter(data), steps), stage,
+                                  preprocess, pipelined=pipelined)
+    try:
+        with torch.no_grad():
+            for s in range(steps):
+                numerical, cats, labels = ready(
+                    stage(get_batch(s)) if pipeline is None
+                    else next(pipeline))
+                logits = model(numerical, list(cats))
+                auc.update(state, labels, logits)
+    finally:
+        if pipeline is not None:
+            pipeline.close()
+    auc.all_reduce(state)
+    return auc.result(state)
+
+
+# fit arguments of the JAX package that the port does not cover yet, with
 # the value that means "unused" and the ROADMAP item that ports them
 _FIT_UNPORTED = {
-    "eval_data": (None, "A2, open: fit's eval"),
-    "eval_every": (0, "A2, open: fit's eval"),
-    "eval_steps": (16, "A2, open: fit's eval"),
-    "stage": (None, "A11 (ingest)"),
-    "preprocess": (None, "A11 (ingest)"),
-    "pipelined": (False, "A11 (ingest)"),
-    "pipeline_depth": (None, "A11 (ingest)"),
     "hot_sync_every": (0, "A7 (hot-row replication)"),
     "store": (None, "A12 (store and vocab)"),
     "publish_every": (None, "A12 (store and vocab)"),
@@ -335,22 +501,59 @@ _FIT_UNPORTED = {
 def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
         sparse: bool = True, opt_state=None,
         dense_optimizer: Optional[DenseOptimizer] = None, callbacks=(),
-        log_every: int = 100, log_fn: Callable = print,
-        sync_every: Optional[int] = None, **unported):
-    """Minimal training loop (the JAX package's `fit`, sparse path):
-    `data` is an iterable of (numerical, cats, labels) batches or a
-    callable ``step -> batch``, each this rank's slice at world size > 1
-    (`parallel.staging.stage_dp_batch`). The steps take the model layer's
-    lookup path and fold its sorts (`make_sparse_train_step`). Callbacks
-    may define ``on_train_begin(model)`` and ``on_step(step, model,
-    loss)`` (loss a device scalar). The loss is read back to the host at
-    `log_every` boundaries, every `sync_every` steps (None: 1 in a process
-    group of more than one rank, keeping the ranks in lockstep, else 0,
-    never) and at the end.
+        eval_data=None, eval_every: int = 0, eval_steps: int = 16,
+        log_every: int = 100, log_fn: Callable = print, stage=None,
+        sync_every: Optional[int] = None, preprocess=None,
+        pipelined: bool = True, pipeline_depth: Optional[int] = None,
+        **unported):
+    """The training loop (the JAX package's `fit`, which has ``params``
+    where the port's model holds its own).
 
-    Returns (model, opt_state, history) with ``history["loss"]`` as floats.
-    Every other argument of the JAX package's `fit` raises
-    NotImplementedError naming its ROADMAP item."""
+    Args:
+      model: exposes ``.embedding`` and ``loss_fn(numerical, cats,
+        labels, taps=, return_residuals=)`` (`SyntheticModel`, `DLRM`),
+        and its forward for `evaluate`.
+      data: an iterable of global ``(numerical, cats, labels)`` batches
+        (numpy arrays or tensors), or a callable ``step -> batch``.
+      steps: optimizer steps.
+      optimizer / lr / dense_optimizer: see `make_sparse_train_step`.
+      sparse: the sparse tapped step (default), or the dense step over
+        every parameter, tables included (`make_train_step` with the
+        optimizer's optax twin, or `dense_optimizer`).
+      callbacks: objects with optional ``on_train_begin(model)`` and
+        ``on_step(step, model, loss)`` (loss a device scalar).
+      eval_data / eval_every / eval_steps: `evaluate` over `eval_steps`
+        batches of `eval_data` after every `eval_every` steps; history
+        gains ``"eval_auc"``.
+      stage: the per-batch staging function (default: a `DeviceStager`'s
+        ``stage`` on the model's device, whose batch the step's stream
+        waits for when the loop takes it; at world size > 1,
+        `stage_dp_batch` through it, so each rank takes its slice of the
+        global batch). What it returns is taken with
+        `parallel.staging.ready`.
+      preprocess: an optional host transform between the reader and the
+        staging (e.g. `RawBinaryDataset.preprocess` over
+        ``ds.raw_batches()``). Iterable data only.
+      pipelined: True (default) runs read, preprocess and stage each in a
+        worker thread (`utils.pipeline.IngestPipeline`), ahead of the
+        step; False runs them inline (`SerialPipeline`), in the same
+        order, with bit-identical results. Iterable data only; a
+        callable's batches are staged inline.
+      pipeline_depth: the bound of each inter-stage queue (None: 2, the
+        JAX package's default; its ``DET_PIPELINE_DEPTH`` tune seam is
+        ROADMAP Queue A15).
+      log_every / log_fn: log the loss every `log_every` steps.
+      sync_every: read the loss back every N steps (None: 1 in a process
+        group of more than one rank, keeping the ranks in lockstep, else
+        0, never); also at `log_every` boundaries and at the end.
+
+    Iterable data is taken as ``islice(iter(data), steps)``, so a shared
+    source is never read past this run's steps. Returns (model,
+    opt_state, history): ``history["loss"]`` as floats, ``"eval_auc"``
+    with `eval_every`, ``"ingest_stages"`` (per-stage wall-time summaries)
+    for iterable data. Every other argument of the JAX package's `fit` is
+    taken at its default only, and raises NotImplementedError naming its
+    ROADMAP item otherwise."""
     for name, value in unported.items():
         if name not in _FIT_UNPORTED:
             raise TypeError(f"fit() got an unexpected argument {name!r}")
@@ -358,20 +561,33 @@ def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
         if value != unused:
             raise NotImplementedError(
                 f"fit({name}=...) is not ported yet (ROADMAP Queue {item})")
-    if not sparse:
-        raise NotImplementedError(
-            "fit(sparse=False), dense table gradients, is not ported yet "
-            "(ROADMAP Queue A2, open: the dense strategy)")
-    init_fn, step_fn = make_sparse_train_step(
-        model, optimizer, lr=lr, dense_optimizer=dense_optimizer)
+    if sparse:
+        init_fn, step_fn = make_sparse_train_step(
+            model, optimizer, lr=lr, dense_optimizer=dense_optimizer)
+        if opt_state is None:
+            opt_state = init_fn(model)
+    else:
+        opt = dense_optimizer or {"sgd": sgd, "adagrad": adagrad,
+                                  "adam": adam}[optimizer](lr)
+        step_fn = make_train_step(
+            lambda m, numerical, cats, labels: m.loss_fn(numerical, cats,
+                                                         labels), opt)
+        if opt_state is None:
+            opt_state = opt.init(_all_params(model))
     if sync_every is None:
-        sync_every = 1 if model.embedding.world_size > 1 else 0
-    if opt_state is None:
-        opt_state = init_fn(model)
+        sync_every = 1 if _world(model) > 1 else 0
     for cb in callbacks:
         if hasattr(cb, "on_train_begin"):
             cb.on_train_begin(model)
-    batches = None if callable(data) else iter(data)
+    if stage is None:
+        stage = _default_stage(model)
+    pipeline = None
+    if not callable(data):
+        pipeline = staged_batches(
+            itertools.islice(iter(data), steps), stage,
+            preprocess=preprocess,
+            depth=DEFAULT_DEPTH if pipeline_depth is None
+            else pipeline_depth, pipelined=pipelined)
     history: dict = {"loss": []}
     pending = []
 
@@ -380,20 +596,32 @@ def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
             history["loss"].extend(torch.stack(pending).tolist())
             pending.clear()
 
-    for step in range(steps):
-        numerical, cats, labels = (data(step) if batches is None
-                                   else next(batches))
-        model, opt_state, loss = step_fn(model, opt_state, numerical, cats,
-                                         labels)
-        pending.append(loss)
-        if sync_every and (step + 1) % sync_every == 0:
-            drain()
-        if log_every and step % log_every == 0:
-            drain()
-            log_fn(f"step {step}/{steps}: loss={history['loss'][-1]:.5f}")
-        for cb in callbacks:
-            if hasattr(cb, "on_step"):
-                cb.on_step(step, model, loss)
+    try:
+        for step in range(steps):
+            numerical, cats, labels = ready(
+                stage(data(step)) if pipeline is None else next(pipeline))
+            model, opt_state, loss = step_fn(model, opt_state, numerical,
+                                             list(cats), labels)
+            pending.append(loss)
+            if sync_every and (step + 1) % sync_every == 0:
+                drain()
+            if log_every and step % log_every == 0:
+                drain()
+                log_fn(f"step {step}/{steps}: "
+                       f"loss={history['loss'][-1]:.5f}")
+            for cb in callbacks:
+                if hasattr(cb, "on_step"):
+                    cb.on_step(step, model, loss)
+            if eval_data is not None and eval_every and \
+                    (step + 1) % eval_every == 0:
+                auc = evaluate(model, eval_data, eval_steps,
+                               pipelined=pipelined)
+                history.setdefault("eval_auc", []).append(auc)
+                log_fn(f"step {step}: eval AUC={auc:.5f}")
+    finally:
+        if pipeline is not None:
+            history["ingest_stages"] = pipeline.stage_summaries()
+            pipeline.close()
     drain()
     return model, opt_state, history
 

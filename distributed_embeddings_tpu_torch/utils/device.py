@@ -2,6 +2,7 @@
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -25,6 +26,32 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "runs on the card by default — pass device=\"cpu\" to run on the "
             "CPU")
     return dev
+
+
+# the ROADMAP item that refuses a compute dtype other than float32
+MIXED_PRECISION_ITEM = "A16 (mixed precision)"
+
+
+def is_float32(dtype) -> bool:
+    """True for None and for float32 however it is named: ``torch.float32``,
+    ``"float32"``, ``np.float32`` or any type numpy reads as float32 (the
+    JAX package's default, ``jnp.float32``, among them)."""
+    if dtype is None or dtype is torch.float32:
+        return True
+    try:
+        return np.dtype(dtype) == np.float32
+    except TypeError:
+        return False
+
+
+def check_compute_dtype(dtype, what: str) -> None:
+    """Raise NotImplementedError naming the ROADMAP item unless `dtype` is
+    float32 (or None): the port computes in float32 only."""
+    if not is_float32(dtype):
+        raise NotImplementedError(
+            f"{what}(compute_dtype={dtype!r}): mixed precision is not ported "
+            f"yet (ROADMAP Queue {MIXED_PRECISION_ITEM}); the port computes "
+            "in float32")
 
 
 def default_generator(device: torch.device,

@@ -381,3 +381,32 @@ def test_segment_walk_streams_match_plain_bit_for_bit(gen, kind, shape,
     getattr(cuda_tiled, f"{kind}_stream_plain")(*ref, *args)
     for got, want in zip([table] + states, ref):
         assert torch.equal(got, want)
+
+
+def test_stager_stages_in_a_thread_and_the_consumer_takes(gen):
+    """The ingest pipeline's split: `DeviceStager.stage` in a worker thread
+    (more batches than pinned slots, so each slot is refilled), `take` in
+    this one, after a kernel queued on its stream: every batch arrives
+    whole, and the staged buffer is tied to the consumer's stream."""
+    import threading
+
+    from distributed_embeddings_tpu_torch.parallel.staging import (
+        PINNED_SLOTS, DeviceStager)
+    stager = DeviceStager("cuda")
+    rng = np.random.RandomState(0)
+    batches = [(rng.rand(4096, 13).astype(np.float32),
+                [rng.randint(0, 1 << 20, (4096, 3)).astype(np.int64)])
+               for _ in range(PINNED_SLOTS + 2)]
+    staged = []
+    worker = threading.Thread(
+        target=lambda: staged.extend(stager.stage(b) for b in batches))
+    worker.start()
+    worker.join(timeout=60)
+    assert not worker.is_alive() and len(staged) == len(batches)
+    busy = torch.randn(4096, 4096, device="cuda", generator=gen)
+    for want, item in zip(batches, staged):
+        busy = busy @ busy / 64.0          # work ahead on the stream
+        num, (ids,) = item.take()
+        assert num.device.type == ids.device.type == "cuda"
+        assert torch.equal(num.cpu(), torch.from_numpy(want[0]))
+        assert torch.equal(ids.cpu(), torch.from_numpy(want[1][0]))

@@ -160,7 +160,9 @@ def _top_level_sorts(prof) -> int:
 # name -> (lookup path, strategy, optimizer, sorts per step folded, unfolded)
 FOLD_CASES = {
     "tiny-fused-pallas-adagrad": ("tiny", "fused", "pallas", "adagrad", 6, 6),
-    "tiny-auto-auto-adagrad": ("tiny", "auto", "auto", "adagrad", 2, 2),
+    # cut Tiny's buckets are small: "auto" takes the dense strategy for
+    # both, whose update wants no sort, so the step sorts nothing
+    "tiny-auto-auto-adagrad": ("tiny", "auto", "auto", "adagrad", 0, 0),
     "criteo-tiled-tiled-sgd": ("criteo", "tiled", "tiled", "sgd", 1, 2),
     "criteo-fused-tiled-adam": ("criteo", "fused", "tiled", "adam", 1, 2),
     "criteo-auto-sort-adagrad": ("criteo", "auto", "sort", "adagrad", 1, 1),

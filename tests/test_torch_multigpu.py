@@ -24,7 +24,9 @@ compares one case:
   `broadcast_variables`, the training shims (`DistributedGradientTape`
   against the JAX package's, then a `DistributedOptimizer` sgd update),
   an indivisible batch, and what stays unported at W > 1 (column slicing,
-  the dp group: ROADMAP Queue A4).
+  the dp group: ROADMAP Queue A4);
+* at W = 2, a small DLRM's `evaluate` and three dense adagrad steps
+  (``fit(sparse=False)``) over global click-stream batches.
 """
 
 import os
@@ -198,6 +200,26 @@ def _dlrm_case(world, mesh):
                   "params": _np(new), "state": _np(state)}
 
 
+def _dlrm_fit_case(world, mesh):
+    """The JAX package's `evaluate` of the DLRM on the mesh, then three
+    dense adagrad steps (``fit(sparse=False)``) over global click-stream
+    batches, then `evaluate` again."""
+    jm = jax_dlrm.DLRM(DLRM_SIZES, mesh=mesh, **DLRM_KW)
+    params = jm.init(jax.random.PRNGKey(30 + world))
+    gen = pt_synth.ClickGenerator(DLRM_SIZES, 5, BATCH, seed=30 + world)
+    batches = [gen.batch(s) for s in range(STEPS)]
+    evals = [gen.batch(1000 + s) for s in range(4)]
+    auc0 = jax_training.evaluate(jm, params, lambda s: evals[s], steps=4)
+    new, _, hist = jax_training.fit(
+        jm, params, batches, STEPS, optimizer="adagrad", lr=LR,
+        sparse=False, log_every=0, log_fn=lambda *_: None)
+    auc1 = jax_training.evaluate(jm, new, lambda s: evals[s], steps=4)
+    spec = {"sizes": DLRM_SIZES, "kw": DLRM_KW, "params": _np(params),
+            "batches": batches, "evals": evals, "lr": LR}
+    return spec, {"auc": [auc0, auc1], "loss": hist["loss"],
+                  "params": _np(new)}
+
+
 def _plain_state(state) -> dict:
     """The JAX step's state with numpy leaves and its optax parts as field
     dicts: nothing in it needs jax to unpickle."""
@@ -279,6 +301,8 @@ def world_run(tmp_path_factory):
             if world == 2:
                 spec, refs["dlrm"] = _dlrm_case(world, mesh)
                 cases["dlrm"] = ("dlrm", spec)
+                spec, refs["dlrm_fit"] = _dlrm_fit_case(world, mesh)
+                cases["dlrm_fit"] = ("dlrm_fit", spec)
             ranks = _spawn(world, cases,
                            tmp_path_factory.mktemp(f"world{world}"))
             runs[world] = (ranks, refs)
@@ -464,3 +488,26 @@ def test_worker_module_imports_no_jax():
         source = f.read()
     assert "import jax" not in source and "distributed_embeddings_tpu." \
         not in source
+
+
+def test_dlrm_evaluate_and_dense_fit_match_jax(world_run):
+    """W = 2: `evaluate` (each rank's histograms of its slice, summed over
+    the ranks) before and after three dense adagrad steps
+    (``fit(sparse=False)``: the table gradients through the activation
+    exchange's transpose, scaled by 1/W), against the JAX package on the
+    mesh: AUCs within 1e-4, losses rtol 1e-5, every parameter rtol 1e-5 /
+    atol 1e-6."""
+    ranks, refs = world_run(2)
+    ref = refs["dlrm_fit"]
+    for r in ranks:
+        res = r["dlrm_fit"]
+        np.testing.assert_allclose(res["auc"], ref["auc"], rtol=0,
+                                   atol=1e-4)
+        np.testing.assert_allclose(res["loss"], ref["loss"], **LOSS_TOL)
+        got = jax.tree.leaves(res["params"])
+        want = jax.tree.leaves(ref["params"])
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
+    # the histograms are summed: every rank reads the same AUC
+    assert ranks[0]["dlrm_fit"]["auc"] == ranks[1]["dlrm_fit"]["auc"]

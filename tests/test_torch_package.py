@@ -13,6 +13,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -198,18 +199,21 @@ def test_sparse_wrappers_refuse_what_the_kernel_does_not_take(bad):
                                  args["sums"], 0.1, 1e-7)
 
 
-@pytest.mark.parametrize("kwargs", [dict(strategy="dense"),
-                                    dict(strategy="dense", optimizer="sgd")])
+@pytest.mark.parametrize("kwargs", [
+    dict(compute_dtype=torch.bfloat16),
+    dict(row_slice_threshold=100, dist_strategy="basic")])
 def test_train_step_outside_the_slice_raises(kwargs):
-    model = DLRM([10, 20], embedding_dim=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A2"):
-        make_sparse_train_step(model, **kwargs)
+    """A model the train step would train, built with what the port has
+    not ported (mixed precision, row slicing), raises at build time."""
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
+        make_sparse_train_step(DLRM([10, 20], embedding_dim=8, device="cpu",
+                                    **kwargs))
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(sparse=False), dict(lookahead=1), dict(store=object()),
-    dict(vocab=object()), dict(hot_sync_every=4), dict(eval_data=[]),
-    dict(pipelined=True), dict(registry=object()),
+    dict(publish_every=4), dict(lookahead=1), dict(store=object()),
+    dict(vocab=object()), dict(hot_sync_every=4), dict(stale_ok=True),
+    dict(publish_dir="somewhere"), dict(registry=object()),
 ])
 def test_fit_outside_the_slice_raises(kwargs):
     model = DLRM([10, 20], embedding_dim=8, device="cpu")
@@ -218,7 +222,7 @@ def test_fit_outside_the_slice_raises(kwargs):
 
 
 @pytest.mark.parametrize("name,default,other,item", [
-    ("eval_steps", 16, 4, "A2"), ("vocab_every", 16, 4, "A12"),
+    ("hot_sync_every", 0, 4, "A7"), ("vocab_every", 16, 4, "A12"),
 ])
 def test_fit_takes_the_reference_arguments_at_their_defaults(name, default,
                                                              other, item):
@@ -293,6 +297,120 @@ def test_engine_features_outside_the_slice_raise():
     eng = InferenceEngine(layer, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
         eng.poll_updates("somewhere")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A2"):
-        sparse_update.make_sparse_optimizer("adagrad", 0.1,
-                                            strategy="dense")
+    for kwargs in (dict(promote_threshold=3), dict(replica="r1")):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue A13"):
+            InferenceEngine(layer, device="cpu", **kwargs)
+
+
+# ------------------------------------------------ the JAX package's signatures
+# parameters of the JAX callables the port does not take, by idiom: its
+# models hold their own parameters
+IDIOM = {"params"}
+
+
+def _jax_signatures():
+    """(name, the JAX callable's parameters with their defaults)."""
+    import inspect
+    pytest.importorskip("jax")
+    from distributed_embeddings_tpu import training as jt
+    from distributed_embeddings_tpu.layers import dist_model_parallel as jd
+    from distributed_embeddings_tpu.models import dlrm as jdl
+    from distributed_embeddings_tpu.models import synthetic as js
+    from distributed_embeddings_tpu.serving import engine as je
+    out = {}
+    for name, fn in (("DistributedEmbedding", jd.DistributedEmbedding),
+                     ("DLRM", jdl.DLRM),
+                     ("SyntheticModel", js.SyntheticModel),
+                     ("InferenceEngine", je.InferenceEngine),
+                     ("make_sparse_train_step", jt.make_sparse_train_step),
+                     ("fit", jt.fit), ("evaluate", jt.evaluate)):
+        params = inspect.signature(fn).parameters
+        out[name] = {n: p.default for n, p in params.items()
+                     if n not in {"self"} | IDIOM
+                     and p.kind not in (p.VAR_KEYWORD, p.VAR_POSITIONAL)
+                     and p.default is not p.empty}
+    return out
+
+
+def _small_dlrm():
+    return DLRM([10, 20], embedding_dim=8, bottom_mlp_dims=(8,),
+                top_mlp_dims=(8, 1), num_numerical_features=3,
+                device="cpu")
+
+
+def _eval_batch(step):
+    rng = np.random.RandomState(step)
+    return (rng.rand(4, 3).astype(np.float32),
+            [rng.randint(0, 10, 4), rng.randint(0, 20, 4)],
+            rng.randint(0, 2, 4).astype(np.float32))
+
+
+@pytest.mark.parametrize("name", [
+    "DistributedEmbedding", "DLRM", "SyntheticModel", "InferenceEngine",
+    "make_sparse_train_step", "fit", "evaluate"])
+def test_port_takes_every_jax_parameter_at_its_default(name):
+    """Every parameter of the JAX callable with a default, passed at that
+    default (the JAX values themselves: ``jnp.float32``, ``print``, ...),
+    is accepted by the port's counterpart; only `IDIOM` is left out."""
+    from distributed_embeddings_tpu_torch import training
+    defaults = _jax_signatures()[name]
+    call = {
+        "DistributedEmbedding": lambda kw: DistributedEmbedding(
+            _tiny_tables(), device="cpu", **kw),
+        "DLRM": lambda kw: DLRM([10, 20], device="cpu", **kw),
+        "SyntheticModel": lambda kw: SyntheticModel(
+            SYNTHETIC_MODELS["criteo"]._replace(embedding_configs=[
+                SYNTHETIC_MODELS["criteo"].embedding_configs[0]._replace(
+                    num_tables=2, num_rows=10, width=4)],
+                mlp_sizes=[4]), device="cpu", **kw),
+        "InferenceEngine": lambda kw: InferenceEngine(
+            _small_dlrm(), device="cpu", **kw),
+        "make_sparse_train_step": lambda kw: make_sparse_train_step(
+            _small_dlrm(), **kw),
+        "fit": lambda kw: fit(_small_dlrm(), [], 0, **kw),
+        "evaluate": lambda kw: training.evaluate(
+            _small_dlrm(), _eval_batch, **kw),
+    }[name]
+    call(defaults)
+    for param, value in defaults.items():
+        call({param: value})
+
+
+@pytest.mark.parametrize("build,item", [
+    (lambda: DistributedEmbedding(_tiny_tables(), device="cpu",
+                                  compute_dtype="bfloat16"), "A16"),
+    (lambda: DistributedEmbedding(_tiny_tables(), device="cpu",
+                                  use_custom_kernel=False), "North star"),
+    (lambda: DLRM([10, 20], embedding_dim=8, device="cpu",
+                  compute_dtype=torch.float16), "A16"),
+    (lambda: DLRM([10, 20], embedding_dim=8, device="cpu",
+                  dp_input=False), "A4"),
+    (lambda: SyntheticModel(SYNTHETIC_MODELS["tiny"], device="cpu",
+                            distributed=False), "A4"),
+    (lambda: SyntheticModel(SYNTHETIC_MODELS["tiny"], device="cpu",
+                            compute_dtype="bfloat16"), "A16"),
+    (lambda: InferenceEngine(_small_dlrm(), device="cpu",
+                             promote_threshold=5), "A13"),
+])
+def test_refused_values_name_their_roadmap_item(build, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+        build()
+
+
+def test_dlrm_takes_the_strategy_under_both_names(monkeypatch):
+    """`dist_strategy` (the JAX name) and `strategy` (the port's older
+    keyword) reach `DistributedEmbedding` as its strategy."""
+    from distributed_embeddings_tpu_torch.models import dlrm as pt_dlrm
+    seen = []
+
+    class Recording(DistributedEmbedding):
+        def __init__(self, embeddings, strategy="auto", **kw):
+            seen.append(strategy)
+            super().__init__(embeddings, strategy, **kw)
+
+    monkeypatch.setattr(pt_dlrm, "DistributedEmbedding", Recording)
+    DLRM([10, 20], embedding_dim=8, device="cpu", dist_strategy="basic")
+    DLRM([10, 20], embedding_dim=8, device="cpu", strategy="comm_balanced")
+    DLRM([10, 20], embedding_dim=8, device="cpu")
+    assert seen == ["basic", "comm_balanced", "memory_balanced"]

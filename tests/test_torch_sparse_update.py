@@ -241,13 +241,95 @@ def test_sparse_optimizers_match_jax_sort_strategy(optimizer):
 
 
 def test_unported_strategies_raise():
+    """Every strategy of the JAX package builds (``"dense"`` since the
+    dense strategy was ported); an unknown one raises."""
     for kind in ("sgd", "adagrad", "adam"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A2"):
-            pt_su.make_sparse_optimizer(kind, 0.1, strategy="dense")
-        assert pt_su.make_sparse_optimizer(kind, 0.1,
-                                           strategy="tiled").kind == kind
+        for strategy in pt_su.STRATEGIES:
+            assert pt_su.make_sparse_optimizer(
+                kind, 0.1, strategy=strategy).kind == kind
     with pytest.raises(ValueError):
         pt_su.make_sparse_optimizer("adagrad", 0.1, strategy="nope")
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adagrad", "adam"])
+@pytest.mark.parametrize("strategy", ["dense", "auto"])
+def test_dense_strategy_matches_jax(optimizer, strategy):
+    """``strategy="dense"`` (and ``"auto"`` on a table under
+    DENSE_ELEMS_MAX, which takes it for adagrad and adam in both packages)
+    against the JAX package's, over three steps on streams with
+    duplicates, negative ids and ids >= V: sgd's dense route is the plain
+    scatter of the raw stream in both; sgd's ``"auto"`` is the port's
+    deduplicated route against the JAX package's plain scatter, the
+    difference its own last-ulp tolerance allows."""
+    vocab, width, lr = 120, 8, 0.03
+    assert pt_su._pick("auto", vocab, width) == "dense" == jax_su._pick(
+        "auto", vocab, width)
+    rng = np.random.RandomState(11)
+    table0 = rng.randn(vocab, width).astype(np.float32)
+    hp = {"eps": 1e-7} if optimizer == "adagrad" else {}
+    jopt = jax_su.make_sparse_optimizer(optimizer, lr, strategy=strategy,
+                                        **hp)
+    popt = pt_su.make_sparse_optimizer(optimizer, lr, strategy=strategy,
+                                       **hp)
+    jt, pt_t = jnp.asarray(table0), torch.from_numpy(table0.copy())
+    js, ps = jopt.init(jt), popt.init(pt_t)
+    before = table0.copy()
+    for _ in range(STEPS):
+        ids, contribs = _stream(rng, vocab, 400, width)
+        jt, js = jopt.update(jt, js, jax_su.SparseRowGrad(
+            jnp.asarray(ids), jnp.asarray(contribs)))
+        pt_t, ps = popt.update(pt_t, ps, pt_su.SparseRowGrad(
+            torch.from_numpy(ids), torch.from_numpy(contribs)))
+    _close(pt_t, jt)
+    for got, want in zip(ps, js):
+        if torch.is_tensor(got):
+            _close(got, want)
+        else:
+            assert got == int(want) == STEPS
+    # rows no stream touched keep their values (lazy adam too)
+    assert (pt_t.numpy() != before).any()
+
+
+def test_dense_sum_drops_invalid_ids_and_counts():
+    rng = np.random.RandomState(2)
+    ids, contribs = _stream(rng, 30, 200, 4)
+    g, counts = pt_su._dense_sum(torch.from_numpy(ids),
+                                 torch.from_numpy(contribs), 30)
+    jg, jcounts = jax_su._dense_sum(jnp.asarray(ids), jnp.asarray(contribs),
+                                    30)
+    np.testing.assert_allclose(g.numpy(), np.asarray(jg), rtol=1e-6,
+                               atol=1e-7)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(jcounts))
+    valid = ids[(ids >= 0) & (ids < 30)]
+    np.testing.assert_array_equal(counts.numpy(),
+                                  np.bincount(valid, minlength=30))
+
+
+def test_pick_matches_jax():
+    """`_pick` equals the JAX package's over a grid of shapes, both sides
+    of DENSE_ELEMS_MAX, for every strategy."""
+    assert pt_su.DENSE_ELEMS_MAX == jax_su.DENSE_ELEMS_MAX == 16 * 2**20
+    for rows in (1, 1000, 60_160, 2**20, 2**21, 2**21 + 1, 10**7, 10**8):
+        for width in (1, 8, 16, 128):
+            for strategy in ("auto", "sort", "dense", "tiled", "pallas"):
+                assert (pt_su._pick(strategy, rows, width)
+                        == jax_su._pick(strategy, rows, width)), (
+                    strategy, rows, width)
+
+
+@pytest.mark.parametrize("kind", ["sgd", "adagrad", "adam"])
+def test_update_consumes_sort_matches_jax(kind):
+    """Whether the update takes the forward's sort, as the JAX package
+    decides it, except sgd's ``"auto"``, whose deduplicated route (the
+    port's choice) consumes it where the JAX package's scatter does not."""
+    for rows, width in ((100, 8), (2**22, 16)):
+        for strategy in ("auto", "sort", "dense", "tiled"):
+            got = pt_su.update_consumes_sort(kind, strategy, rows, width)
+            want = jax_su.update_consumes_sort(kind, strategy, rows, width)
+            if kind == "sgd" and strategy == "auto":
+                assert got and not want
+            else:
+                assert got == want, (kind, strategy, rows, width)
 
 
 @pytest.mark.parametrize("combiner", ["sum", "mean"])

@@ -24,7 +24,11 @@ from distributed_embeddings_tpu_torch.layers.embedding import Embedding
 from distributed_embeddings_tpu_torch.models import dlrm as dlrm_model
 from distributed_embeddings_tpu_torch.models import synthetic
 from distributed_embeddings_tpu_torch.parallel import mesh
-from distributed_embeddings_tpu_torch.parallel.staging import stage_dp_batch
+from distributed_embeddings_tpu_torch.parallel.staging import (DeviceStager,
+                                                               stage_dp_batch)
+
+# each rank's slices stay on the CPU (a thread a rank: one stager each)
+CPU_STAGE = DeviceStager("cpu")
 
 
 def _no_jax():
@@ -61,7 +65,7 @@ def forward(spec) -> dict:
     layer = _layer(spec)
     state = convert.params_from_jax(spec["tree"], layer)
     layer.load_state_dict(state)
-    outs = layer(stage_dp_batch(spec["inputs"], device="cpu"))
+    outs = layer(stage_dp_batch(spec["inputs"], CPU_STAGE))
     return {"outputs": [o.detach().numpy() for o in outs],
             "tree": convert.params_to_numpy(layer)}
 
@@ -104,7 +108,7 @@ def shims(spec) -> dict:
     `DistributedOptimizer` (sgd) update of the MLP."""
     model = synthetic.SyntheticModel(_config(spec), device="cpu")
     model.load_state_dict(convert.params_from_jax(spec["params"], model))
-    num, cats, labels = stage_dp_batch(spec["batch"], device="cpu")
+    num, cats, labels = stage_dp_batch(spec["batch"], CPU_STAGE)
     loss, grads = training.DistributedGradientTape().gradient(
         lambda m, *batch: m.loss_fn(*batch), model, num, cats, labels)
     dense = {n: p for n, p in model.named_parameters() if p.requires_grad}
@@ -127,7 +131,7 @@ def raises(spec) -> dict:
         return None
     batch = spec["indivisible"]
     out["indivisible"] = message(
-        lambda: stage_dp_batch(batch, device="cpu"), ValueError)
+        lambda: stage_dp_batch(batch, CPU_STAGE), ValueError)
     out["column_threshold"] = message(
         lambda: _layer(spec, column_slice_threshold=spec["column"]),
         NotImplementedError)
@@ -157,7 +161,7 @@ def train(spec) -> dict:
             params, plain = spec["before"][i]
             model.load_state_dict(convert.params_from_jax(params, model))
             state = _opt_state(plain, model)
-        num, cats, labels = stage_dp_batch(batch, device="cpu")
+        num, cats, labels = stage_dp_batch(batch, CPU_STAGE)
         _, state, loss = step(model, state, num, cats, labels)
         steps.append({"loss": float(loss),
                       "params": convert.params_to_numpy(model),
@@ -171,7 +175,7 @@ def dlrm(spec) -> dict:
     rank's slice, then one ``sort`` adagrad step."""
     model = dlrm_model.DLRM(spec["sizes"], device="cpu", **spec["kw"])
     model.load_state_dict(convert.params_from_jax(spec["params"], model))
-    num, cats, labels = stage_dp_batch(spec["batch"], device="cpu")
+    num, cats, labels = stage_dp_batch(spec["batch"], CPU_STAGE)
     with torch.no_grad():
         logits = model(num, cats).numpy()
     init, step = training.make_sparse_train_step(
@@ -182,7 +186,24 @@ def dlrm(spec) -> dict:
             "state": convert.opt_state_to_numpy(state, model)}
 
 
-KINDS = {"dlrm": dlrm, "forward": forward, "weights": weights, "broadcast": broadcast,
+def dlrm_fit(spec) -> dict:
+    """The DLRM loaded from the JAX package's tree: `evaluate` over global
+    batches (each rank takes its slice and the histograms are summed),
+    three dense adagrad steps through `fit(sparse=False)` (global batches;
+    the default stage cuts this rank's slice), `evaluate` again."""
+    model = dlrm_model.DLRM(spec["sizes"], device="cpu", **spec["kw"])
+    model.load_state_dict(convert.params_from_jax(spec["params"], model))
+    evals = spec["evals"]
+    auc0 = training.evaluate(model, lambda s: evals[s], steps=len(evals))
+    _, _, hist = training.fit(model, spec["batches"], len(spec["batches"]),
+                              "adagrad", lr=spec["lr"], sparse=False,
+                              log_every=0)
+    auc1 = training.evaluate(model, iter(evals), steps=len(evals))
+    return {"auc": [auc0, auc1], "loss": hist["loss"],
+            "params": convert.params_to_numpy(model)}
+
+
+KINDS = {"dlrm": dlrm, "dlrm_fit": dlrm_fit, "forward": forward, "weights": weights, "broadcast": broadcast,
          "shims": shims, "raises": raises, "train": train}
 
 
