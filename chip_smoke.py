@@ -186,8 +186,42 @@ Phases, each printing JSON lines before the last line:
      convergence: `tools.convergence_demo.run` at
      docs/convergence_r05.json's settings, its curve beside r05's; the
      last AUC must pass 0.70.
+  10. (after 8) placement: DLRM at the example's widths with Criteo
+     sizes x 0.2 (19.2 GB) and its three thresholds (dp 262,144, column
+     64 Mi, row 512 Mi elements) on 2 ranks, placed as phase 8 places
+     them: 13 data-parallel tables, 8 table-parallel (9 placements: one
+     table in two 64-wide column slices; 2 buckets), 5 row-sliced (the
+     plan asserted). Each rank (`placement_rank`): its forward of its
+     slice; a layer of the same tables built with ``dp_input=False``, fed
+     the rank's own features at global batch size, bit-equal to it; 3
+     sgd steps at the example's schedule (launches a step: a
+     `lookup_combine` per tp group and per row table, a
+     `segment_sum_sorted` and an `sgd_rows` per tp bucket and per row
+     shard); `InferenceEngine` at W = 2 on the trained model, a 65,536-
+     and a 4,097-row request (the latter padded to 4,098); one more step
+     whose `lookup_combine`, `segment_sum_sorted` and `sgd_rows` calls on
+     row shard 0 rank 0 holds against their plain versions and times
+     (`placement_kernel`, ``path="placement"`` lines, ``at_placement``
+     in the kernels line); 10 timed steps; one profiled step (the
+     exchange's host ms by collective: ``exchange:all_to_all`` 3 a tp
+     group, ``exchange:all_gather`` 2 and ``exchange:reduce_scatter`` 1 a
+     row table, ``exchange:all_reduce`` 1, or the phase fails; gloo's own
+     events (its reduce-scatter is an all-reduce); the card's idle
+     share over the ranks); peak memory. Then the world-1 model in this
+     process (the thresholds ignored: one bucket of 26 tables) with the
+     same per-table weights: each rank's embedding outputs and logits
+     bit-equal to world 1's on the same rows; 3 steps, each from rank
+     0's MLP before it with the ranks' ReLU masks forced: losses at rtol
+     1e-5, every touched row of each tp placement and row shard by change
+     (`hold`, the conditioning from world 1's contributions), the dp
+     tables and MLPs by value and equal on every rank; then world 1 takes
+     the ranks' trained rows, dp tables and MLP, and its engine, on each
+     rank's block of each request (warmed at the block sizes), gives
+     every rank's logits bit for bit; latency printed beside phase 4's.
   7. the kernels line (each kernel's launches by path, the world paths'
-     summed over the ranks), the card's line, and the last line
+     summed over the ranks; `sgd_rows` with ``copy_ms``, an
+     `index_select` + `index_copy_` of the same rows, as a second
+     yardstick), the card's line, and the last line
      ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device or when the port
@@ -667,6 +701,13 @@ def dense_names(model):
     return [n for n, p in model.named_parameters() if p.requires_grad]
 
 
+def mlp_params(model) -> dict:
+    """The model's dense parameters outside its embedding layer (whose
+    data-parallel tables train densely too): {name: parameter}."""
+    return {n: p for n, p in model.named_parameters()
+            if p.requires_grad and not n.startswith("embedding.")}
+
+
 def ulp(torch, x):
     """The float32 spacing at |x|."""
     x = x.abs()
@@ -845,13 +886,14 @@ def sum_eps(torch, model, counts, touched):
 
 
 def contribution_cond(torch, model, calls, touched):
-    """Per bucket, t/|g| at the touched rows from the CPU step's
-    `dedup_sum` calls (`calls`: (positional, keyword) arguments of each:
-    ids, contribs, sentinel): g the row's sum of contributions, t the sum of their
-    magnitudes (0 without terms, infinite where they cancel exactly). The
-    conditioning of the row sums alone, for a model without
-    `gradient_scale` (DLRM): each contribution row is one sample's
-    gradient, which the two trainers compute to a few ulps."""
+    """Per bucket, t/|g| at the touched rows (on the CPU) from the
+    reference step's `dedup_sum` calls (`calls`: (positional, keyword)
+    arguments of each: ids, contribs, sentinel): g the row's sum of
+    contributions, t the sum of their magnitudes (0 without terms,
+    infinite where they cancel exactly). The conditioning of the row sums
+    alone, for a model without `gradient_scale` (DLRM): each contribution
+    row is one sample's gradient, which the two trainers compute to a few
+    ulps."""
     from distributed_embeddings_tpu_torch.ops.sparse_update import dedup_sum
     out = [torch.zeros((idx.numel(), 1), dtype=torch.float64)
            for idx in touched]
@@ -863,10 +905,11 @@ def contribution_cond(torch, model, calls, touched):
         _, t = dedup_sum(ids, contribs.abs(), sentinel)
         valid = rep < sentinel
         rep, g, t = rep[valid].long(), g[valid].double(), t[valid].double()
-        at = torch.searchsorted(rep, touched[b])
-        check(bool((rep.index_select(0, at) == touched[b]).all()),
-              "a touched row has no dedup segment on the CPU")
-        g, t = g.index_select(0, at), t.index_select(0, at)
+        rows = touched[b].to(rep.device)
+        at = torch.searchsorted(rep, rows)
+        check(bool((rep.index_select(0, at) == rows).all()),
+              "a touched row has no dedup segment in the reference step")
+        g, t = g.index_select(0, at).cpu(), t.index_select(0, at).cpu()
         out[b] = torch.where(t > 0, t / g.abs(), torch.zeros_like(t))
     return out
 
@@ -1149,17 +1192,23 @@ def time_row_calls(torch, cuda_sparse, kind, calls, rate, path=None):
         ms = device_ms(lambda: kernel(*arrays, rep, sums, *rest), reps=10)
         plain_ms = eager_ms(lambda: plain(*arrays, rep, sums, *rest),
                             reps=3)
-        library_ms = None
+        library_ms = copy_ms = None
         if kind == "sgd":
             delta = sums[valid] * (-rest[0])
             library_ms = device_ms(
                 lambda: arrays[0].index_add_(0, rows, delta), reps=10)
             totals["library_ms"] += library_ms
+            # a second yardstick: a plain copy of the same random rows
+            # (read each once, write each once), what a row's 512 bytes
+            # reach where the bound counts them at the peak rate
+            copy_ms = device_ms(lambda: arrays[0].index_copy_(
+                0, rows, arrays[0].index_select(0, rows)), reps=10)
+            totals["copy_ms"] = totals.get("copy_ms", 0.0) + copy_ms
         bytes_ms, ops_ms = sparse_bound(kind, rep, width, u, rate)
         emit(phase=f"{kind}_rows_kernel", path=path, bucket=b,
              table=[vocab, width],
              slots=int(rep.numel()), unique_rows=u, max_abs_err=err, ms=ms,
-             plain_ms=plain_ms, library_ms=library_ms,
+             plain_ms=plain_ms, library_ms=library_ms, copy_ms=copy_ms,
              bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ok=True)
         for key, val in (("ms", ms), ("plain_ms", plain_ms),
                          ("bound_ms", max(bytes_ms, ops_ms)),
@@ -1238,7 +1287,7 @@ SELECT_RANGE = "index_select@"
 # (phase 8; the top level imports no part of the package)
 EXCHANGE_RANGE = "exchange:all_to_all"
 # host ranges whose device-side spans are annotations, not device work
-ANNOTATED_RANGES = (SELECT_RANGE, EXCHANGE_RANGE, "gloo:", "nccl:")
+ANNOTATED_RANGES = (SELECT_RANGE, "exchange:", "gloo:", "nccl:")
 
 
 def by_category(by_kernel):
@@ -1832,14 +1881,16 @@ def table_rows(torch, strat, gtid, seed, device):
                        device=device).uniform_(-0.05, 0.05, generator=gen)
 
 
-def seed_weights(torch, model, seed):
-    """The same weights at every world size, no weight file written: each
-    table this rank holds (`table_rows`, by its index in the model) copied
-    into its bucket rows; MLP parameter i from seed + 10,000 + i,
-    glorot-normal kernels and N(0, 1/out) biases like `Dense`."""
-    layer = model.embedding
+def seed_tables(torch, layer, seed):
+    """Every table this rank holds (`table_rows`, by its index in the
+    model) written where its plan puts it: a dp table whole, a tp
+    placement's columns into its bucket rows, a row-sliced table's rows
+    of this rank into its shard (the shard's padding rows zero)."""
     strat = layer.strategy
     with torch.no_grad():
+        for j, gtid in enumerate(strat.table_groups[0]):
+            layer.dp[j].copy_(table_rows(torch, strat, gtid, seed,
+                                         layer.device))
         for pl_ in layer.plan.tp_placements:
             if pl_.rank != layer.rank:
                 continue
@@ -1849,7 +1900,21 @@ def seed_weights(torch, model, seed):
             layer.tp[pl_.bucket][pl_.row_offset:pl_.row_offset
                                  + pl_.rows].copy_(
                 rows[:, pl_.col_start:pl_.col_end])
-        dense = [p for p in model.parameters() if p.requires_grad]
+        for t, gtid in enumerate(strat.table_groups[2]):
+            rt = layer.plan.row_tables[t]
+            lo, n = int(rt.row_base[layer.rank]), rt.rows_per_rank[layer.rank]
+            layer.row[t][:n].copy_(table_rows(torch, strat, gtid, seed,
+                                              layer.device)[lo:lo + n])
+            layer.row[t][n:].zero_()
+
+
+def seed_weights(torch, model, seed):
+    """The same weights at every world size, no weight file written: the
+    tables by `seed_tables`; MLP parameter i from seed + 10,000 + i,
+    glorot-normal kernels and N(0, 1/out) biases like `Dense`."""
+    seed_tables(torch, model.embedding, seed)
+    with torch.no_grad():
+        dense = mlp_params(model).values()
         for i, p in enumerate(dense):
             gen = torch.Generator(device=p.device).manual_seed(
                 seed + 10_000 + i)
@@ -2288,6 +2353,601 @@ def world_phase(torch, name, world, model_kw, strategy):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+
+# ---- phase 10: the placement groups at world size > 1 (ninth slice):
+# DLRM with data-parallel, column-sliced table-parallel and row-sliced
+# tables on 2 ranks, against the world-1 trainer and engine
+PLACEMENT_SCALE = 0.2         # Criteo sizes x 0.2: 19.2 GB of tables
+PLACEMENT_WORLD = 2
+PLACEMENT_KW = dict(data_parallel_threshold=262_144,
+                    column_slice_threshold=67_108_864,
+                    row_slice_threshold=536_870_912)
+# dp tables, tp tables, tp placements, tp buckets, row tables
+PLACEMENT_PLAN = dict(dp=13, tp=8, placements=9, buckets=2, row=5)
+PLACEMENT_SEED = 13
+PLACEMENT_REQUESTS = (65536, 4097)
+PLACEMENT_LATENCY_REPS = 5
+
+
+def placement_model(torch, device, seed):
+    """The phase's DLRM on `device`: the example's widths, Criteo sizes x
+    PLACEMENT_SCALE, its three thresholds, one-hot gathers through
+    lookup_combine; tables then drawn by `seed_weights` alike at every
+    world size."""
+    from distributed_embeddings_tpu_torch.models.dlrm import (
+        DLRM, scaled_table_sizes)
+    model = DLRM(scaled_table_sizes(PLACEMENT_SCALE), device=device,
+                 lookup_path="pallas",
+                 generator=torch.Generator(device=device).manual_seed(seed),
+                 **PLACEMENT_KW)
+    seed_weights(torch, model, PLACEMENT_SEED)
+    return model
+
+
+def placement_batches(model, steps):
+    """The phase's global batches (a seeded ClickGenerator stream)."""
+    from distributed_embeddings_tpu_torch.models.synthetic import (
+        ClickGenerator)
+    gen = ClickGenerator(model.table_sizes, 13, BATCH, seed=PLACEMENT_SEED)
+    return [gen.batch(s) for s in range(steps)]
+
+
+def placement_request(model, rows):
+    """A serving request of `rows` rows, the same on every rank."""
+    from distributed_embeddings_tpu_torch.models.synthetic import (
+        ClickGenerator)
+    num, cats, _ = ClickGenerator(model.table_sizes, 13, rows,
+                                  seed=PLACEMENT_SEED + 1).batch(0)
+    return num, cats
+
+
+def placed_rows(torch, layer, touched):
+    """The rows a rank's update kernels touched (`run_trainer`'s capture),
+    where they live: per tp placement of the rank and per row shard, a
+    key ("tp" or "row", table index, placement or row table index) ->
+    (the local table, its touched rows (sorted, unique, on the CPU), the
+    offset that makes them rows of the whole table, its columns)."""
+    strat = layer.strategy
+    out = {}
+
+    def rows_of(table):
+        parts = touched.get(table.data_ptr(), [])
+        return (torch.unique(torch.cat(parts)) if parts
+                else torch.zeros(0, dtype=torch.long))
+    for i, pl_ in enumerate(layer.plan.tp_placements):
+        if pl_.rank != layer.rank:
+            continue
+        table = layer.tp[pl_.bucket]
+        idx = rows_of(table)
+        idx = idx[(idx >= pl_.row_offset)
+                  & (idx < pl_.row_offset + pl_.rows)]
+        out[("tp", strat.table_groups[1][pl_.table_id], i)] = (
+            table, idx, -pl_.row_offset, (pl_.col_start, pl_.col_end))
+    for t, gtid in enumerate(strat.table_groups[2]):
+        rt = layer.plan.row_tables[t]
+        out[("row", gtid, t)] = (layer.row[t], rows_of(layer.row[t]),
+                                 int(rt.row_base[layer.rank]),
+                                 (0, rt.width))
+    return out
+
+
+def placement_rank(rank, world, backend, init_method, out_dir):
+    """One rank of phase 10 (torch.multiprocessing, spawn): the placement
+    DLRM built and drawn by `seed_weights`, its plan; the forward of its
+    slice of batch 0 (embedding outputs and logits saved); the same
+    tables in a layer built with ``dp_input=False`` fed this rank's
+    features at global batch size, bit-equal to the dp-input forward; 3
+    held sgd steps at the example's schedule (launches counted, each
+    step's ReLU masks and MLP before it saved, the touched rows of its tp
+    placements and row shards, its dp tables and its MLP after); the
+    engine on the trained model (`PLACEMENT_REQUESTS`, logits and
+    latency); one more step whose kernel calls on the first row shard
+    rank 0 holds and times; then 10 timed steps after 2 warm ones, one
+    profiled step and the peak memory. Results go to ``out_dir``."""
+    import numpy as np
+    import torch
+    check("jax" not in sys.modules, f"rank {rank} imported jax")
+    import torch.distributed as dist
+    from distributed_embeddings_tpu_torch.layers.dist_model_parallel import (
+        DistributedEmbedding)
+    from distributed_embeddings_tpu_torch.layers.embedding import Embedding
+    from distributed_embeddings_tpu_torch.models.dlrm import make_lr_schedule
+    from distributed_embeddings_tpu_torch.ops import (cuda_lookup, cuda_sparse,
+                                                      cuda_tiled, wire)
+    from distributed_embeddings_tpu_torch.parallel.mesh import (
+        ALL_REDUCE_RANGE, initialize_distributed)
+    from distributed_embeddings_tpu_torch.parallel.staging import (
+        DeviceStager, stage_dp_batch)
+    from distributed_embeddings_tpu_torch.serving.engine import (
+        InferenceEngine)
+    from distributed_embeddings_tpu_torch.tools import cuda_feature_probe
+    from distributed_embeddings_tpu_torch.training import (
+        make_sparse_train_step)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // (world + 1)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    initialize_distributed(backend, init_method, world, rank)
+    try:
+        out = {"rank": rank, "device": str(dev)}
+        t0 = time.perf_counter()
+        model = placement_model(torch, dev, rank)
+        layer = model.embedding
+        groups = layer.strategy.table_groups
+        out["plan"] = dict(dp=len(groups[0]), tp=len(groups[1]),
+                           placements=len(layer.plan.tp_placements),
+                           buckets=len(layer.plan.tp_buckets),
+                           row=len(groups[2]))
+        out["table_bytes"] = sum(t.numel() * 4 for t in list(layer.dp)
+                                 + list(layer.tp) + list(layer.row))
+        global_batches = placement_batches(model, TRAIN_STEPS)
+        stager = DeviceStager(dev)
+        batches = [stage_dp_batch(b, stager) for b in global_batches]
+        out["setup_s"] = time.perf_counter() - t0
+        num0, cats0, _ = batches[0]
+        with torch.no_grad():
+            emb = layer(cats0)
+            logits = model(num0, cats0)
+        torch.save({"emb": torch.cat(emb, dim=1).cpu(),
+                    "logits": logits.cpu()},
+                   os.path.join(out_dir, f"forward{rank}.pt"))
+
+        # model-parallel input: the same tables, this rank's features
+        mp = DistributedEmbedding(
+            [Embedding(v, model.embedding_dim, device="meta")
+             for v in model.table_sizes], strategy="memory_balanced",
+            dp_input=False, input_max_hotness=[1] * len(model.table_sizes),
+            device=dev, lookup_path="pallas", **PLACEMENT_KW)
+        seed_tables(torch, mp, PLACEMENT_SEED)
+        strat = mp.strategy
+        own = [global_batches[0][1][strat.input_groups[1][pos]]
+               for pos in strat.input_ids_list[rank]]
+        with torch.no_grad():
+            mp_out = mp(own)
+        out["mp"] = dict(
+            features=len(own), tables=len(strat.table_groups[1]),
+            bit_identical=all(torch.equal(a, b) for a, b in zip(mp_out,
+                                                                emb)),
+            max_abs_err=max((a - b).abs().max().item()
+                            for a, b in zip(mp_out, emb)))
+        check(out["mp"]["bit_identical"],
+              f"rank {rank}: the dp_input=False forward disagrees with the "
+              f"dp-input one by {out['mp']['max_abs_err']}")
+        del mp, mp_out, emb, logits
+        torch.cuda.empty_cache()
+
+        # the main path: 3 sgd steps at the example's schedule
+        init, step = make_sparse_train_step(model, "sgd",
+                                            lr=make_lr_schedule(*DLRM_LR))
+        state = init(model)
+        counted = (cuda_sparse, cuda_tiled, cuda_feature_probe)
+        set_counts(cuda_lookup, *counted)
+        losses, touched, mlp_before, masks = [], {}, [], []
+        for batch in batches:
+            mlp_before.append({n: p.detach().cpu().clone()
+                               for n, p in mlp_params(model).items()})
+            (state, loss, step_rows, _), m = relu_masks(
+                model, lambda: run_trainer(step, model, state, [batch],
+                                           rows_capture(cuda_sparse, "sgd")))
+            masks.append([(tuple(x.shape), np.packbits(x.numpy(), axis=1))
+                          for x in m])
+            losses += loss
+            for ptr, parts in step_rows.items():
+                touched.setdefault(ptr, []).extend(parts)
+        torch.cuda.synchronize()
+        out["launches"] = read_counts(cuda_lookup, *counted)
+        out["losses"] = losses
+        key = tuple((1, False) for _ in layer.strategy.input_groups[1])
+        tp_groups, _ = layer._exchange_groups_for_key(key)
+        out["groups"] = len(tp_groups)
+        out["tp_buckets_updated"] = len({g.bucket for g in tp_groups})
+        out["row_tables"] = len(layer.row)
+        out["tables"] = {
+            where: (idx, table.detach().index_select(0, idx.to(dev)).cpu(),
+                    offset, cols)
+            for where, (table, idx, offset, cols)
+            in placed_rows(torch, layer, touched).items()}
+        out["dp_tables"] = {gtid: layer.dp[j].detach().cpu().clone()
+                            for j, gtid in enumerate(groups[0])}
+        out["mlp"] = {n: p.detach().cpu().clone()
+                      for n, p in mlp_params(model).items()}
+        torch.save({"masks": masks, "mlp_before": mlp_before},
+                   os.path.join(out_dir, f"steps{rank}.pt"))
+        del masks
+
+        # the engine on the trained model: every rank the same request
+        engine = InferenceEngine(model, device=dev)
+        served = {}
+        for rows in PLACEMENT_REQUESTS:
+            req = placement_request(model, rows)
+            logits = engine.predict(req)
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(PLACEMENT_LATENCY_REPS):
+                t1 = time.perf_counter()
+                engine.predict(req)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t1)
+            served[rows] = dict(logits=logits.cpu(),
+                                median_ms=statistics.median(times) * 1e3,
+                                padded_to=engine._target_batch(rows))
+        out["served"] = served
+        del engine
+
+        # the kernels at a row shard's shapes: one more step's calls
+        shard = layer.row[0].data_ptr()
+        with Capture(cuda_lookup, "lookup_combine") as look, \
+                Capture(cuda_sparse, "segment_sum_sorted") as seg, \
+                Capture(cuda_sparse, "sgd_rows") as rows_c:
+            _, state, _ = step(model, state, *batches[0])
+        torch.cuda.synchronize()
+        if rank == 0:
+            rate = hbm_rate(torch.cuda.get_device_name(dev))
+            look_calls = [a + (None,) * (3 - len(a)) for a in look.calls
+                          if a[0].data_ptr() == shard]
+            row_calls = [a for a in rows_c.calls if a[0].data_ptr() == shard]
+            # segment sums run bucket by bucket, then row table by table
+            seg_calls = seg.calls[out["tp_buckets_updated"]:][:1]
+            check(len(look_calls) == len(row_calls) == len(seg_calls) == 1,
+                  f"rank 0: {len(look_calls)} lookups, {len(seg_calls)} "
+                  f"segment sums, {len(row_calls)} sgd_rows calls on row "
+                  "shard 0, want 1 each")
+            look_err, look_tot = tiny_bucket_kernels(
+                torch, cuda_lookup, look_calls, rate,
+                phase="placement_kernel")
+            out["kernels"] = {
+                "lookup_combine": (look_tot, look_err),
+                "segment_sum_sorted": time_segment_calls(
+                    torch, cuda_sparse, seg_calls, rate, path="placement"),
+                "sgd_rows": time_row_calls(torch, cuda_sparse, "sgd",
+                                           row_calls, rate,
+                                           path="placement")}
+        del look, seg, rows_c
+        dist.barrier()
+
+        # step time, a profiled step, peak memory
+        times = []
+        for i in range(2 + WORLD_TIMED_STEPS):
+            num, cats, labels = batches[i % TRAIN_STEPS]
+            t1 = time.perf_counter()
+            _, state, loss = step(model, state, num, cats, labels)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        out["step_ms"] = [t * 1e3 for t in times[2:]]
+        holder = {"state": state}
+        del state
+
+        def step_once():
+            holder["state"] = step(model, holder["state"], *batches[0])[1]
+        busy_us, wall_us, device, prof, window = profile_call(torch,
+                                                              step_once)
+        from torch.autograd import DeviceType
+        by_kernel = _by_name(device)
+        host = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+        ranges = {name: [e for e in host if e.name == name]
+                  for name in (wire.EXCHANGE_RANGE, wire.GATHER_RANGE,
+                               wire.SCATTER_RANGE, ALL_REDUCE_RANGE)}
+        # per tp group the ids, the activations and their gradients; per
+        # row table the ids, and the gradients of the reduce-scatter; one
+        # all-reduce of the dense gradients and the loss
+        want = {wire.EXCHANGE_RANGE: 3 * out["groups"],
+                wire.GATHER_RANGE: 2 * out["row_tables"],
+                wire.SCATTER_RANGE: out["row_tables"],
+                ALL_REDUCE_RANGE: 1}
+        got = {k: len(v) for k, v in ranges.items()}
+        check(got == want, f"rank {rank}: exchange collectives {got} in a "
+                           f"step, want {want}")
+        collectives: dict = {}
+        for e in host:
+            if e.name.startswith(("gloo:", "nccl:")):
+                ms, n = collectives.get(e.name, (0.0, 0))
+                collectives[e.name] = (ms + e.cpu_time_total / 1e3, n + 1)
+        cats_ms, _ = by_category(by_kernel)
+        origin = prof.profiler.kineto_results.trace_start_ns() / 1e3
+        out["window_us"] = window
+        out["device_intervals_us"] = [
+            (origin + e.time_range.start, origin + e.time_range.end)
+            for e in device]
+        out["profile"] = dict(
+            wall_ms=wall_us / 1e3, rank_device_busy_ms=busy_us / 1e3,
+            rank_device_busy_share=busy_us / wall_us,
+            device_ms_by_category=cats_ms,
+            collective_copies_ms=sum(
+                us for n, us in by_kernel.items()
+                if n.startswith("Memcpy") and "Pinned" in n) / 1e3,
+            device_ms_by_kernel=[[n[:80], us / 1e3] for n, us in sorted(
+                by_kernel.items(), key=lambda kv: -kv[1])[:12]],
+            exchange_calls=got,
+            exchange_host_ms={k: sum(e.cpu_time_total for e in v) / 1e3
+                              for k, v in ranges.items()},
+            collective_host_ms={k: {"ms": ms, "calls": n} for k, (ms, n)
+                                in collectives.items()})
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+        check("jax" not in sys.modules, f"rank {rank} imported jax")
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def unpack_masks(torch, packed):
+    import numpy as np
+    return [torch.from_numpy(np.unpackbits(bits, axis=1,
+                                           count=shape[1]).astype(bool))
+            for shape, bits in packed]
+
+
+def placement_phase(torch, cuda_lookup, cuda_sparse, counted,
+                    serve_latency):
+    """Phase 10: `placement_rank` on PLACEMENT_WORLD ranks (on the card(s)
+    as phase 8 places them), then the world-1 model in this process (every
+    table table-parallel: the thresholds are ignored at world 1) with the
+    same per-table weights and batches, each rank held against it: the
+    plan (PLACEMENT_PLAN), the embedding outputs and the logits of each
+    rank's slice bit-equal to world 1's on the same rows (the ids are
+    one-hot: a row-sliced output is one shard's row plus zeros, column
+    slices concatenate), the dp_input=False forward (each rank's own
+    check), 3 sgd steps (each world-1 step from rank 0's MLP before it,
+    with the ranks' ReLU masks forced): losses at rtol 1e-5, the touched
+    rows of every tp placement and row shard by change (`hold`, the row
+    sums' conditioning from world 1's contributions), the dp tables and
+    the MLPs by value (and equal on every rank), the launches the plan
+    predicts; then world 1 takes the ranks' trained rows, dp tables and
+    MLP, and its engine, on each rank's block of each request, gives
+    every rank's logits bit for bit. Returns the launch counts of the
+    ranks' held steps, summed, and rank 0's kernel timings."""
+    import torch.multiprocessing as torch_mp
+    from distributed_embeddings_tpu_torch.models.dlrm import make_lr_schedule
+    from distributed_embeddings_tpu_torch.ops import sparse_update
+    from distributed_embeddings_tpu_torch.serving.engine import (
+        InferenceEngine)
+    from distributed_embeddings_tpu_torch.training import (
+        make_sparse_train_step)
+    world = PLACEMENT_WORLD
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= world else "gloo"
+    label = f"world{world}_placement"
+    emit(phase="placement_setup", path=label, world=world, backend=backend,
+         device_count=cards, table_scale=PLACEMENT_SCALE, **PLACEMENT_KW,
+         **({} if backend == "nccl" else
+            {"nccl": f"not run: {cards} card" + ("s" if cards > 1 else "")}))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_placement")
+    try:
+        t0 = time.perf_counter()
+        ctx = torch_mp.start_processes(
+            placement_rank, args=(world, backend, f"file://{tmp}/pg", tmp),
+            nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + WORLD_JOIN_S
+        try:
+            while not ctx.join(timeout=5):
+                check(time.monotonic() < deadline,
+                      f"{label}: the ranks did not finish in {WORLD_JOIN_S} "
+                      "s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join(30)
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(world)]
+        ranks_s = time.perf_counter() - t0
+        for r in ranks:
+            check(r["plan"] == PLACEMENT_PLAN,
+                  f"{label}: rank {r['rank']} plans {r['plan']}, want "
+                  f"{PLACEMENT_PLAN}")
+        emit(phase="placement_plan", path=label, **ranks[0]["plan"],
+             mp_input=[r["mp"] for r in ranks])
+
+        # the world-1 model: the same per-table weights and batches
+        t0 = time.perf_counter()
+        model = placement_model(torch, "cuda", 0)
+        layer = model.embedding
+        check(len(layer.tp) == 1 and not layer.dp and not layer.row,
+              f"{label}: world 1 plans {len(layer.dp)} dp tables, "
+              f"{len(layer.tp)} buckets, {len(layer.row)} row tables")
+        batches = placement_batches(model, TRAIN_STEPS)
+        b_l = BATCH // world
+        identical, fwd_err = True, 0.0
+        for r in range(world):
+            got = torch.load(os.path.join(tmp, f"forward{r}.pt"))
+            num, cats, _ = batches[0]
+            blk = slice(r * b_l, (r + 1) * b_l)
+            with torch.no_grad():
+                emb = torch.cat(layer([c[blk] for c in cats]), dim=1).cpu()
+                logits = model(num[blk], [c[blk] for c in cats]).cpu()
+            for what, a, b in (("embedding outputs", got["emb"], emb),
+                               ("logits", got["logits"], logits)):
+                check(a.shape == b.shape, f"{label}: rank {r} {what} "
+                      f"{tuple(a.shape)}, want {tuple(b.shape)}")
+                fwd_err = max(fwd_err, (a - b).abs().max().item())
+                identical = identical and torch.equal(a, b)
+        emit(phase="placement_forward", path=label, bit_identical=identical,
+             max_abs_err=fwd_err)
+        check(identical, f"{label}: the ranks' forwards differ from world "
+                         f"1's by {fwd_err}")
+
+        # 3 sgd steps, each from rank 0's MLP before it, the ranks' ReLU
+        # masks forced
+        init, step = make_sparse_train_step(model, "sgd",
+                                            lr=make_lr_schedule(*DLRM_LR))
+        state = init(model)
+        steps = [torch.load(os.path.join(tmp, f"steps{r}.pt"),
+                            weights_only=False) for r in range(world)]
+        mlp = mlp_params(model)
+        bucket = layer.tp[0]
+        cond = torch.zeros(bucket.shape[0], dtype=torch.float64)
+        losses, touched, flips = [], {}, []
+        for s, batch in enumerate(batches):
+            with torch.no_grad():
+                for n, p in mlp.items():
+                    p.copy_(steps[0]["mlp_before"][s][n])
+            masks = [torch.cat(parts).cuda() for parts in zip(
+                *(unpack_masks(torch, st["masks"][s]) for st in steps))]
+            with forced_relu(torch, model, masks) as flipped, \
+                    Capture(sparse_update, "dedup_sum") as sums:
+                state, loss, step_rows, _ = run_trainer(
+                    step, model, state, [batch],
+                    rows_capture(cuda_sparse, "sgd"))
+            flips.append(flipped[-1])
+            losses += loss
+            for ptr, parts in step_rows.items():
+                touched.setdefault(ptr, []).extend(parts)
+            rows_s = touched_rows(torch, model, step_rows)
+            c = contribution_cond(torch, model, zip(sums.calls, sums.kwargs),
+                                  rows_s)[0]
+            cond[rows_s[0]] = torch.maximum(cond[rows_s[0]], c[:, 0])
+            del sums, masks
+        torch.cuda.synchronize()
+        rows1 = touched_rows(torch, model, touched)[0]
+        mlp_last = steps[0]["mlp_before"][-1]
+        del steps
+
+        # launches a rank step, from its plan: a lookup per tp group and
+        # per row table, a segment sum and an sgd_rows per updated tp
+        # bucket and per row shard
+        summed = dict.fromkeys(ALL_KERNELS, 0)
+        for r in ranks:
+            want_r = {"lookup_combine": r["groups"] + r["row_tables"],
+                      "segment_sum_sorted": (r["tp_buckets_updated"]
+                                             + r["row_tables"]),
+                      "sgd_rows": r["tp_buckets_updated"] + r["row_tables"]}
+            check(r["launches"] == per_step(want_r, TRAIN_STEPS),
+                  f"{label}: rank {r['rank']} launches {r['launches']}, "
+                  f"want {want_r} per step")
+            for k, v in r["launches"].items():
+                summed[k] += v
+            check(torch.allclose(torch.tensor(r["losses"]),
+                                 torch.tensor(losses), **LOSS_TOL),
+                  f"{label}: rank {r['rank']} losses {r['losses']}, world "
+                  f"1 {losses}")
+            for n, p in r["mlp"].items():
+                check(torch.equal(p, ranks[0]["mlp"][n]),
+                      f"{label}: rank {r['rank']}'s {n} differs from rank "
+                      "0's")
+            for gtid, t in r["dp_tables"].items():
+                check(torch.equal(t, ranks[0]["dp_tables"][gtid]),
+                      f"{label}: rank {r['rank']}'s dp table {gtid} differs "
+                      "from rank 0's")
+        strat = layer.strategy
+        place1 = {strat.table_groups[1][p.table_id]: p
+                  for p in layer.plan.tp_placements}
+        worst = 0.0
+        for n, p in mlp.items():
+            err, _, _ = hold(torch, f"{label}: {n}", ranks[0]["mlp"][n],
+                             p.detach().cpu(), mlp_last[n], 1, "value")
+            worst = max(worst, err)
+        for gtid, t in ranks[0]["dp_tables"].items():
+            p1 = place1[gtid]
+            want = bucket.detach()[p1.row_offset:p1.row_offset
+                                   + p1.rows].cpu()
+            before = table_rows(torch, strat, gtid, PLACEMENT_SEED,
+                                "cuda").cpu()
+            err, _, _ = hold(torch, f"{label}: dp table {gtid}", t, want,
+                             before, TRAIN_STEPS, "value")
+            worst = max(worst, err)
+        held_rows, changes, moved, held = 0, [], 0, {}
+        for r in ranks:
+            for where, (idx, vals, offset, (c0, c1)) in r["tables"].items():
+                gtid = where[1]
+                p1 = place1[gtid]
+                rows = idx + offset
+                at1 = rows + p1.row_offset
+                held.setdefault(gtid, []).append(rows)
+                if where[0] == "tp":
+                    # a column slice's rank saw every id of its table
+                    one = rows1[(rows1 >= p1.row_offset)
+                                & (rows1 < p1.row_offset + p1.rows)]
+                    check(bool(torch.isin(one - p1.row_offset, rows).all()),
+                          f"{label}: table {gtid}: world 1 touched rows rank "
+                          f"{r['rank']} did not")
+                want = bucket.detach().index_select(0, at1.cuda())[
+                    :, c0:c1].cpu()
+                before = table_rows(torch, strat, gtid, PLACEMENT_SEED,
+                                    "cuda").index_select(
+                    0, rows.cuda())[:, c0:c1].cpu()
+                err, change, n = hold(
+                    torch, f"{label}: table {gtid} ({where[0]}, rank "
+                    f"{r['rank']})", vals, want, before, TRAIN_STEPS,
+                    "change", cond[at1][:, None])
+                worst = max(worst, err)
+                changes.append(change.flatten())
+                moved += n
+                held_rows += int(idx.numel())
+        # every world-1 touched row of a tp or row-sliced table is held
+        for gtid in strat.table_groups[1]:
+            if gtid in ranks[0]["dp_tables"]:
+                continue
+            p1 = place1[gtid]
+            one = rows1[(rows1 >= p1.row_offset)
+                        & (rows1 < p1.row_offset + p1.rows)] - p1.row_offset
+            check(gtid in held and bool(torch.isin(
+                one, torch.cat(held[gtid])).all()),
+                f"{label}: table {gtid}: world 1 touched rows no rank held")
+        change = torch.cat(changes)
+        emit(phase="main_path", path=label, backend=backend, world=world,
+             steps=TRAIN_STEPS, ranks_seconds=ranks_s,
+             world1_seconds=time.perf_counter() - t0,
+             launches_by_rank=[r["launches"] for r in ranks],
+             losses=ranks[0]["losses"], world1_losses=losses,
+             max_abs_err=worst, touched_rows_held=held_rows,
+             table_change_median=change.median().item(),
+             table_change_max=change.max().item(),
+             table_changes_past_rounding=moved, relu_flips=flips, ok=True)
+
+        # serving: world 1 takes the ranks' trained rows, dp tables and
+        # MLP (the rows world 1 touched are among them), then serves each
+        # rank's block of each request at the block's shape
+        with torch.no_grad():
+            for r in ranks:
+                for where, (idx, vals, offset, (c0, c1)) in \
+                        r["tables"].items():
+                    p1 = place1[where[1]]
+                    at1 = (idx + offset + p1.row_offset).cuda()
+                    bucket[at1, c0:c1] = vals.cuda()
+            for gtid, t in ranks[0]["dp_tables"].items():
+                p1 = place1[gtid]
+                bucket[p1.row_offset:p1.row_offset + p1.rows] = t.cuda()
+            for n, p in mlp.items():
+                p.copy_(ranks[0]["mlp"][n])
+        engine = InferenceEngine(model, device="cuda")
+        engine.warmup(sorted({ranks[0]["served"][rows]["padded_to"] // world
+                              for rows in PLACEMENT_REQUESTS}))
+        for rows in PLACEMENT_REQUESTS:
+            num, cats = placement_request(model, rows)
+            blk = ranks[0]["served"][rows]["padded_to"] // world
+            want = torch.cat([engine.predict(
+                (num[lo:lo + blk], [c[lo:lo + blk] for c in cats]))
+                for lo in range(0, rows, blk)]).cpu()
+            same = [torch.equal(r["served"][rows]["logits"], want)
+                    for r in ranks]
+            err = max((r["served"][rows]["logits"] - want).abs().max().item()
+                      for r in ranks)
+            emit(phase="placement_serving", path=label, rows=rows,
+                 padded_to=ranks[0]["served"][rows]["padded_to"],
+                 bit_identical=all(same), max_abs_err=err,
+                 median_ms_by_rank=[r["served"][rows]["median_ms"]
+                                    for r in ranks],
+                 world1_phase4_median_ms=serve_latency)
+            check(all(same), f"{label}: a {rows}-row request's logits differ "
+                             f"from world 1's by {err}")
+        del model, layer, state, engine, bucket
+        torch.cuda.empty_cache()
+        for r in ranks:
+            med = statistics.median(r["step_ms"])
+            emit(phase="world_step_time", path=label, rank=r["rank"],
+                 backend=backend, device=r["device"], median_ms=med,
+                 min_ms=min(r["step_ms"]), max_ms=max(r["step_ms"]),
+                 samples_per_s=BATCH / (med / 1e3),
+                 setup_s=r["setup_s"], table_bytes=r["table_bytes"],
+                 max_memory_allocated=r["max_memory_allocated"])
+            emit(phase="world_profile", path=label, rank=r["rank"],
+                 backend=backend, **r["profile"])
+        if backend == "gloo":
+            emit(phase="world_card_profile", path=label, backend=backend,
+                 **card_profile(ranks))
+        return summed, ranks[0]["kernels"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 # ---- the eighth slice: DLRM trained and evaluated through `fit`, the
 # dense path, the convergence demo
@@ -2964,6 +3624,7 @@ def main() -> int:
     del cpu_engine
 
     # per-request latency, synchronized
+    serve_latency = {}
     for req in requests:
         rows = req[0].shape[0]
         times = []
@@ -2973,6 +3634,7 @@ def main() -> int:
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         med = statistics.median(times[2:])
+        serve_latency[rows] = med * 1e3
         emit(phase="latency", rows=rows,
              padded_to=engine._target_batch(rows), median_ms=med * 1e3,
              min_ms=min(times[2:]) * 1e3, rows_per_s=rows / med)
@@ -3363,16 +4025,28 @@ def main() -> int:
         world_counts[f"world{world}_{config}"] = world_phase(
             torch, config, world, model_kw, strategy)
 
+    # ---- 10. the placement groups at world size > 1: DLRM with dp,
+    # column-sliced tp and row-sliced tables on 2 ranks; counts to 0 in
+    # each rank, drive, read
+    placement_counts, placement_kernels = placement_phase(
+        torch, cuda_lookup, cuda_sparse, counted, serve_latency)
+    world_counts[f"world{PLACEMENT_WORLD}_placement"] = placement_counts
+
     # ---- 7. result lines; the kernels of DLRM's step carry their times
-    # at its shapes too (`at_dlrm_fit`), and their worst error covers them
+    # at its shapes too (`at_dlrm_fit`), and at a row shard's of the
+    # placement phase (`at_placement`); their worst error covers them
     def entry(kname, source, by_path, tot, err):
         at_dlrm = {}
-        if kname in dlrm_kernels:
-            d_tot, d_err = dlrm_kernels[kname]
+        for key, timed in (("at_dlrm_fit", dlrm_kernels),
+                           ("at_placement", placement_kernels)):
+            if kname not in timed:
+                continue
+            d_tot, d_err = timed[kname]
             err = max(err, d_err)
-            at_dlrm = {"at_dlrm_fit": {
-                "max_abs_err": d_err, **{k: d_tot[k] for k in (
-                    "ms", "plain_ms", "bound_ms", "library_ms")}}}
+            at_dlrm[key] = {"max_abs_err": d_err, **{
+                k: d_tot[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "library_ms", "copy_ms")
+                if k in d_tot}}
         return {"name": kname, "route": "cuda",
                 "source": f"distributed_embeddings_tpu_torch/csrc/{source}",
                 "replaces": ", ".join(TPU_SITES[kname]) or None,
@@ -3383,8 +4057,8 @@ def main() -> int:
                 "bound_by": ("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
                              else "operations"),
                 "library_ms": tot["library_ms"],
-                **({"chain_ms": tot["chain_ms"]} if "chain_ms" in tot
-                   else {}), **at_dlrm}
+                **({k: tot[k] for k in ("chain_ms", "copy_ms") if k in tot}),
+                **at_dlrm}
 
     paths = {"ladder": ladder_counts, "serve": serve_counts,
              "train_adagrad": train_counts,

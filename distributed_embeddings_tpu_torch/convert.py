@@ -3,23 +3,29 @@
 The JAX package's parameter tree maps onto the port's state dict one leaf
 to one tensor, on every rank of a world of the same size:
 
+  * ``embedding['dp'][j]`` ``[V, w]`` -> ``embedding.dp.{j}`` (replicated:
+    every rank takes it whole);
   * ``embedding['tp'][b]`` ``[world, rows_max, w]`` -> ``embedding.tp.{b}``
     (rank r takes ``[r]``; the port's plan reproduces the bucket order,
     the placement and the row offsets);
+  * ``embedding['row'][t]`` ``[world, rows_max, w]`` -> ``embedding.row.{t}``
+    (rank r takes its shard ``[r]``);
   * ``mlp[i]['w']`` / ``['b']`` -> ``mlp.{i}.w`` / ``.b`` (likewise
-    ``bottom_mlp`` / ``top_mlp`` for DLRM), in the same [in, out] layout.
+    ``bottom_mlp`` / ``top_mlp`` for DLRM), in the same [in, out] layout;
+  * the per-table model's (``SyntheticModel(distributed=False)``)
+    ``embedding[t]['embeddings']`` -> ``embedding_layers.{t}.embeddings``.
 
-The port's layers keep the data-parallel and row-sliced groups empty; a
-tree that fills them (or carries hot shards or quantization scales) is
-refused.
+A tree that carries hot shards or quantization scales is refused.
 
 The sparse train step's optimizer state maps the same way
-(`opt_state_from_jax`, `opt_state_to_numpy`): ``emb['tp'][b]`` is a tuple
-of ``[world, rows_max, w]`` state arrays (adam adds its step count), and
-the dense part's optax state becomes the port's `training.DenseOptimizer`
-state, keyed by parameter name. Towards the JAX layout, at world size > 1,
-each rank-local array is gathered from every rank (a collective: every
-rank calls `params_to_numpy` and `opt_state_to_numpy`).
+(`opt_state_from_jax`, `opt_state_to_numpy`): ``emb['tp'][b]`` and
+``emb['row'][t]`` are tuples of ``[world, rows_max, w]`` state arrays
+(adam adds its step count), and the dense part's optax state (over the
+MLPs and ``embedding['dp']``) becomes the port's
+`training.DenseOptimizer` state, keyed by parameter name. Towards the JAX
+layout, at world size > 1, each rank-local array is gathered from every
+rank (a collective: every rank calls `params_to_numpy` and
+`opt_state_to_numpy`).
 """
 
 from typing import Dict
@@ -58,21 +64,21 @@ def _embedding_state(tree: dict, emb: DistributedEmbedding,
     if extra:
         raise ValueError(f"embedding params carry {sorted(extra)}, which the "
                          "port does not hold yet")
-    for group in ("dp", "row"):
-        if len(tree.get(group, [])):
-            raise ValueError(f"embedding params['{group}'] is not empty; the "
-                             "port's layers hold every table table-parallel")
-    if len(tree["tp"]) != len(emb.tp):
-        raise ValueError(f"{len(tree['tp'])} tp buckets, the port's plan has "
-                         f"{len(emb.tp)}")
     state = {}
-    for b, arr in enumerate(tree["tp"]):
-        arr = np.asarray(arr)
-        want = (emb.world_size,) + tuple(emb.tp[b].shape)
-        if tuple(arr.shape) != want:
-            raise ValueError(f"tp bucket {b}: shape {arr.shape}, the port "
-                             f"expects {want}")
-        state[f"{prefix}tp.{b}"] = _tensor(arr[emb.rank])
+    for group, stacked in (("dp", False), ("tp", True), ("row", True)):
+        arrays, tables = tree.get(group, []), getattr(emb, group)
+        if len(arrays) != len(tables):
+            raise ValueError(f"{len(arrays)} {group} tables, the port's plan "
+                             f"has {len(tables)}")
+        for i, arr in enumerate(arrays):
+            arr = np.asarray(arr)
+            want = (((emb.world_size,) if stacked else ())
+                    + tuple(tables[i].shape))
+            if tuple(arr.shape) != want:
+                raise ValueError(f"{group} table {i}: shape {arr.shape}, the "
+                                 f"port expects {want}")
+            state[f"{prefix}{group}.{i}"] = _tensor(
+                arr[emb.rank] if stacked else arr)
     return state
 
 
@@ -80,12 +86,17 @@ def params_from_jax(np_params: dict, model) -> Dict[str, torch.Tensor]:
     """A state dict for `model` (a `DistributedEmbedding`, `SyntheticModel`
     or `DLRM` of the port) from the JAX package's parameter tree of the same
     configuration and world size, every leaf already ``np.asarray``-ed:
-    this rank's shard of each bucket. Load it with ``model.load_state_dict``
+    the dp tables whole, this rank's shard of each bucket and row-sliced
+    table. Load it with ``model.load_state_dict``
     or `InferenceEngine.set_params`."""
     if isinstance(model, DistributedEmbedding):
         return _embedding_state(np_params, model, "")
-    state = _embedding_state(np_params["embedding"], model.embedding,
-                             "embedding.")
+    if getattr(model, "distributed", True):
+        state = _embedding_state(np_params["embedding"], model.embedding,
+                                 "embedding.")
+    else:
+        state = {f"embedding_layers.{t}.embeddings": _tensor(p["embeddings"])
+                 for t, p in enumerate(np_params["embedding"])}
     for name, child in model.named_children():
         if isinstance(child, MLP):
             layers = np_params[name]
@@ -102,11 +113,16 @@ def params_to_numpy(model) -> dict:
     """The JAX package's parameter tree (numpy leaves) of `model`;
     collective at world size > 1."""
     def emb_tree(emb: DistributedEmbedding) -> dict:
-        return {"dp": [], "row": [], "tp": [_stacked(t) for t in emb.tp]}
+        return {"dp": [_array(t) for t in emb.dp],
+                "tp": [_stacked(t) for t in emb.tp],
+                "row": [_stacked(t) for t in emb.row]}
 
     if isinstance(model, DistributedEmbedding):
         return emb_tree(model)
-    tree = {"embedding": emb_tree(model.embedding)}
+    tree = {"embedding": (
+        emb_tree(model.embedding) if getattr(model, "distributed", True)
+        else [{"embeddings": _array(layer.embeddings)}
+              for layer in model.embedding_layers])}
     for name, child in model.named_children():
         if isinstance(child, MLP):
             tree[name] = [{"w": _array(layer.w), "b": _array(layer.b)}
@@ -121,8 +137,9 @@ def _mlp_children(model):
 
 def _named_from_tree(tree: dict, model) -> Dict[str, torch.Tensor]:
     """{parameter name: tensor} from a dense-part tree ({mlp name: [{'w',
-    'b'}, ...], 'embedding': {'dp': []}})."""
-    out = {}
+    'b'}, ...], 'embedding': {'dp': [V, w] per dp table}})."""
+    out = {f"embedding.dp.{j}": _tensor(a)
+           for j, a in enumerate(tree.get("embedding", {}).get("dp", []))}
     for name, child in _mlp_children(model):
         for i, layer in enumerate(tree[name]):
             out[f"{name}.{i}.w"] = _tensor(layer["w"])
@@ -131,7 +148,10 @@ def _named_from_tree(tree: dict, model) -> Dict[str, torch.Tensor]:
 
 
 def _tree_from_named(named: Dict[str, torch.Tensor], model) -> dict:
-    tree = {"embedding": {"dp": []}}
+    emb = (model if isinstance(model, DistributedEmbedding)
+           else model.embedding)
+    tree = {"embedding": {"dp": [_array(named[f"embedding.dp.{j}"])
+                                 for j in range(len(emb.dp))]}}
     for name, child in _mlp_children(model):
         tree[name] = [{"w": _array(named[f"{name}.{i}.w"]),
                        "b": _array(named[f"{name}.{i}.b"])}
@@ -144,20 +164,22 @@ def _tree_from_named(named: Dict[str, torch.Tensor], model) -> dict:
 def opt_state_from_jax(np_state: dict, model) -> dict:
     """The port's opt state (`training.make_sparse_train_step`) from the
     JAX package's, every leaf already ``np.asarray``-ed: ``{"emb": {"tp":
-    [(acc[world, rows, w],)], "row": []}, "dense": optax chain state}``
-    (plus ``"count"`` under a schedule); this rank takes its ``[rank]``
-    shard of each state array. Tensors land on `model`'s device."""
+    [(acc[world, rows, w],)], "row": [...]}, "dense": optax chain
+    state}`` (plus ``"count"`` under a schedule); this rank takes its
+    ``[rank]`` shard of each state array. Tensors land on `model`'s
+    device."""
     layer = model.embedding
-    dev = layer.tp[0].device
+    dev = layer.device
     emb = np_state["emb"]
-    if len(emb.get("row", [])):
-        raise ValueError("opt state for row-sliced tables: the port's "
-                         "layers hold every table table-parallel")
-    tp = []
-    for entry in emb["tp"]:
-        tp.append(tuple(
-            _tensor(np.asarray(x)[layer.rank]).to(dev) if np.ndim(x) == 3
-            else int(np.asarray(x)) for x in entry))
+
+    def shards(entries):
+        return [tuple(_tensor(np.asarray(x)[layer.rank]).to(dev)
+                      if np.ndim(x) == 3 else int(np.asarray(x))
+                      for x in entry) for entry in entries]
+    tp, row = shards(emb["tp"]), shards(emb.get("row", []))
+    if len(row) != len(layer.row):
+        raise ValueError(f"opt state for {len(row)} row-sliced tables, the "
+                         f"port's plan has {len(layer.row)}")
     dense: dict = {}
     for part in np_state["dense"]:
         # optax states are NamedTuples: read their fields (`count` is also
@@ -175,7 +197,7 @@ def opt_state_from_jax(np_state: dict, model) -> dict:
                            _named_from_tree(part.nu, model).items()}
         elif "count" in fields:
             dense["schedule_count"] = int(np.asarray(part.count))
-    state = {"emb": {"tp": tp, "row": []}, "dense": dense}
+    state = {"emb": {"tp": tp, "row": row}, "dense": dense}
     if "count" in np_state:
         state["count"] = int(np.asarray(np_state["count"]))
     return state
@@ -183,20 +205,21 @@ def opt_state_from_jax(np_state: dict, model) -> dict:
 
 def opt_state_to_numpy(opt_state: dict, model) -> dict:
     """The port's opt state in the JAX package's layout with numpy leaves:
-    ``emb['tp'][b]`` a tuple of ``[world, rows_max, w]`` arrays (and
-    adam's int count; collective at world size > 1); the dense part a
-    dict of optax's field names (``sum_of_squares`` / ``count``, ``mu``,
-    ``nu`` / ``schedule_count``) over dense-part trees."""
-    layer = (model if isinstance(model, DistributedEmbedding)
-             else model.embedding)
-    tp = [tuple(_stacked(x) if torch.is_tensor(x) else int(x)
-                for x in entry)
-          for entry in opt_state["emb"]["tp"]]
+    ``emb['tp'][b]`` and ``emb['row'][t]`` tuples of ``[world, rows_max,
+    w]`` arrays (and adam's int count; collective at world size > 1); the
+    dense part a dict of optax's field names (``sum_of_squares`` /
+    ``count``, ``mu``, ``nu`` / ``schedule_count``) over dense-part trees
+    (the MLPs and ``embedding['dp']``)."""
+    def stacks(entries):
+        return [tuple(_stacked(x) if torch.is_tensor(x) else int(x)
+                      for x in entry) for entry in entries]
     dense = {}
     for key, val in opt_state["dense"].items():
         dense[key] = (_tree_from_named(val, model) if isinstance(val, dict)
                       else int(val))
-    out = {"emb": {"tp": tp, "row": []}, "dense": dense}
+    out = {"emb": {"tp": stacks(opt_state["emb"]["tp"]),
+                   "row": stacks(opt_state["emb"].get("row", []))},
+           "dense": dense}
     if "count" in opt_state:
         out["count"] = int(opt_state["count"])
     return out

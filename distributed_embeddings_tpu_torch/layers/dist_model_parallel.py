@@ -1,38 +1,57 @@
 """Distributed embedding: planned, fused table-parallel lookups.
 
 Counterpart of ``distributed_embeddings_tpu/layers/dist_model_parallel.py``
-`DistributedEmbedding`, as an ``nn.Module`` that owns its rank's fused
-bucket tables. This slice covers data-parallel input with every table in
-the table-parallel group: tables of one (width, combiner) key are fused
-into one bucket, and the forward runs one gather-combine per (bucket,
-hotness) exchange group through the CUDA kernel of `ops.cuda_lookup` (its
-plain version when the tables are on the CPU), or, with
-``lookup_path="tiled"`` or ``"fused"``, through the sorted-stream lookups
-of `ops.cuda_tiled`.
+`DistributedEmbedding`, as an ``nn.Module`` that owns its rank's share of
+the tables, in the JAX package's three placement groups:
 
-The group structure is the JAX package's: inputs of one bucket and hotness
-are stacked into ``[B_l, f, k]``, moved dp->mp as ``[world, B_l, f_max, k]``
-blocks (`ops.wire.wire_id_all_to_all`), their row offsets inside the fused
-table are added, one lookup serves the whole group over the global batch,
-and the ``[world, B_l, f_max, w]`` result goes back mp->dp
-(`ops.wire.wire_all_to_all`, whose backward carries the gradients back)
-and is sliced into per-input outputs. At world size 1 both exchanges are
-the identity. The ranks are those of the default ``torch.distributed``
-process group (`parallel.mesh.initialize_distributed`); each rank passes
-its own slice of the global batch (`parallel.staging.stage_dp_batch`).
-The dp group, column slicing at world > 1, row slicing, offload, hot rows
-and quantized storage come in later slices (ROADMAP Queue A) and raise
+  * data-parallel (``dp``): tables at most ``data_parallel_threshold``
+    elements, replicated on every rank; each input is a plain local
+    gather and combine over the rank's slice of the batch (a table whose
+    layer class overrides ``forward`` runs that forward instead);
+  * table-parallel (``tp``): tables of one (width, combiner) key are fused
+    into one bucket per rank (column slices of a table may land on several
+    ranks and in buckets of other widths), and the forward runs one
+    gather-combine per (bucket, hotness) exchange group through the CUDA
+    kernel of `ops.cuda_lookup` (its plain version when the tables are on
+    the CPU), or, with ``lookup_path="tiled"`` or ``"fused"``, through the
+    sorted-stream lookups of `ops.cuda_tiled`;
+  * row-sliced (``row``): tables of at least ``row_slice_threshold``
+    elements, split by rows over the ranks; each input's ids (and
+    weights) are all-gathered, every rank looks up the ids that fall in
+    its rows (the rest masked to weight 0) over the global batch with
+    `ops.cuda_lookup`, and a reduce-scatter sums the partial outputs back
+    to each rank's slice of the batch.
+
+The tp group structure is the JAX package's: inputs of one bucket and
+hotness are stacked into ``[B_l, f, k]``, moved dp->mp as ``[world, B_l,
+f_max, k]`` blocks (`ops.wire.wire_id_all_to_all`), their row offsets
+inside the fused table are added, one lookup serves the whole group over
+the global batch, and the ``[world, B_l, f_max, w]`` result goes back
+mp->dp (`ops.wire.wire_all_to_all`, whose backward carries the gradients
+back) and is sliced into per-input outputs, the column slices of a table
+read from their ranks' blocks and concatenated. At world size 1 the
+exchanges are the identity, and, as in the JAX package, both thresholds
+are ignored (every table table-parallel); so they are with
+``dp_input=False``, where each rank passes the ids of its own features
+at global batch size and the dp->mp exchange is skipped. The ranks are
+those of the default ``torch.distributed`` process group
+(`parallel.mesh.initialize_distributed`); with data-parallel input each
+rank passes its own slice of the global batch
+(`parallel.staging.stage_dp_batch`). Offload, hot rows and quantized
+storage come in later slices (ROADMAP Queue A) and raise
 NotImplementedError here.
 
 Training: a tapped forward (`make_taps`, ``forward(taps=...,
-return_residuals=True)``) makes each group's mp-side output a leaf of the
-autograd graph, whose ``.grad`` is the JAX package's tap gradient on the
-owning rank; `sparse_update` turns those into row-wise updates of this
-rank's tables through `ops.sparse_update`. Inside `residual_sort_scope`
-(the train step's, with ``fold_sort``), a tapped forward sorts each
-exchange group's id stream once (`embedding_ops.canonical_id_sort`); the
-sorted lookups and the sparse update of a one-group bucket consume that
-sort instead of sorting again.
+return_residuals=True)``) makes each tp group's mp-side output and each
+row input's partial output a leaf of the autograd graph, whose ``.grad``
+is the JAX package's tap gradient on the owning rank; `sparse_update`
+turns those into row-wise updates of this rank's tp buckets and row
+shards through `ops.sparse_update`. The dp tables require grad and train
+with the dense parameters. Inside `residual_sort_scope` (the train
+step's, with ``fold_sort``), a tapped forward sorts each exchange group's
+id stream once (`embedding_ops.canonical_id_sort`); the sorted lookups and
+the sparse update of a one-group bucket (or a one-input row table)
+consume that sort instead of sorting again.
 """
 
 import contextlib
@@ -118,17 +137,24 @@ class TapResiduals:
     combine weights ``tp_w[g]`` (None = uniform; the scale is recomputed
     from the group), and ``tp_sort[g]``, the `GroupSort` of the group's
     flattened ids when the forward sorted them (sort folding; None
-    otherwise, and the update sorts afresh). `key` is the exchange-group
-    cache key. The JAX package's row-sliced fields are not ported (ROADMAP
-    Queue A4)."""
+    otherwise, and the update sorts afresh); per row-sliced input the
+    shard-local ids over the global batch, ``row_ids[j]`` ``[1, B, k]``,
+    with ``rows_max`` (past the shard) where the id is not this rank's,
+    their effective weights ``row_w[j]`` (the scale folded in) and
+    ``row_sort[j]``. `key` is the exchange-group cache key."""
 
-    __slots__ = ("key", "tp_ids", "tp_w", "tp_sort")
+    __slots__ = ("key", "tp_ids", "tp_w", "tp_sort", "row_ids", "row_w",
+                 "row_sort")
 
-    def __init__(self, key, tp_ids, tp_w, tp_sort=None):
+    def __init__(self, key, tp_ids, tp_w, tp_sort=None, row_ids=(),
+                 row_w=(), row_sort=None):
         self.key = key
         self.tp_ids = tp_ids
         self.tp_w = tp_w
         self.tp_sort = tp_sort
+        self.row_ids = list(row_ids)
+        self.row_w = list(row_w)
+        self.row_sort = row_sort
 
 
 class _PreparedInput:
@@ -146,20 +172,21 @@ class _PreparedInput:
 class _ExchangeGroup:
     """The slots of one tp bucket whose inputs share hotness k: one
     gather-combine. `sel`/`offs` are the JAX package's [world, f_max]
-    planning constants; on the device, `sel_t` is `sel` flattened
-    destination-major (the send block's member order) and `offs_t` this
-    rank's row of `offs`."""
+    planning constants and `counts` the slots each rank fills; on the
+    device, `sel_t` is `sel` flattened destination-major (the send
+    block's member order) and `offs_t` this rank's row of `offs`."""
 
-    __slots__ = ("bucket", "k", "class_inputs", "sel", "offs", "f_max",
-                 "need_w", "sel_t", "offs_t")
+    __slots__ = ("bucket", "k", "class_inputs", "sel", "offs", "counts",
+                 "f_max", "need_w", "sel_t", "offs_t")
 
-    def __init__(self, bucket, k, class_inputs, sel, offs, f_max, need_w,
-                 id_dtype, device, rank):
+    def __init__(self, bucket, k, class_inputs, sel, offs, counts, f_max,
+                 need_w, id_dtype, device, rank):
         self.bucket = bucket
         self.k = k
         self.class_inputs = class_inputs
         self.sel = sel
         self.offs = offs
+        self.counts = counts
         self.f_max = f_max
         self.need_w = need_w
         self.sel_t = torch.as_tensor(sel.reshape(-1), dtype=torch.int64,
@@ -183,18 +210,26 @@ class DistributedEmbedding(nn.Module):
     The world is the default process group's (`world_size`, if given,
     must equal it); in a group of more than one rank, every rank builds
     the layer with the same tables, and the forward and `get_weights` are
-    collective. Parameters: ``tp[b]`` is this rank's shard of bucket b,
-    ``[rows_max, width]`` (the JAX package's ``params['tp'][b][rank]``).
+    collective, and so is building it (the dp tables are broadcast from
+    rank 0). Parameters: ``dp[j]``, the j-th data-parallel table ``[V,
+    w]``, the same on every rank and trained densely (it requires grad);
+    ``tp[b]``, this rank's shard of bucket b, ``[rows_max, width]`` (the
+    JAX package's ``params['tp'][b][rank]``); ``row[t]``, this rank's
+    rows of row-sliced table t, ``[rows_max, width]``, the rows past
+    ``rows_per_rank[rank]`` zero (``params['row'][t][rank]``).
+
+    With ``dp_input=False`` the forward takes model-parallel input (the
+    JAX package's `apply_mp`; see `forward`).
 
     Arguments of the JAX package that the port takes at their defaults
     only: ``use_custom_kernel`` (True; False, the JAX package's XLA
     lookup, has no counterpart: the port's lookups never fall back, ROADMAP
     North star), ``compute_dtype`` (None or float32; anything else is
     ROADMAP Queue A16, mixed precision), ``mesh`` (None; the ranks are the
-    process group's, A3), ``dp_input`` (True), ``row_slice_threshold``
-    (None, A4), ``gpu_embedding_size`` (None, A8), ``hot_rows`` (A7),
-    ``exchange_wire`` / ``storage_dtype`` (f32, A6) and ``vocab_slack``
-    (A12): any other value raises NotImplementedError naming its item.
+    process group's, A3), ``gpu_embedding_size`` (None, A8), ``hot_rows``
+    (A7), ``exchange_wire`` / ``storage_dtype`` (f32, A6) and
+    ``vocab_slack`` (A12): any other value raises NotImplementedError
+    naming its item.
     """
 
     def __init__(self,
@@ -242,9 +277,6 @@ class DistributedEmbedding(nn.Module):
                 f"{world} rank(s); start one with "
                 "parallel.mesh.initialize_distributed")
         unported = [
-            (not dp_input, "dp_input=False", "A4 (remaining placement)"),
-            (row_slice_threshold is not None, "row slicing",
-             "A4 (remaining placement)"),
             (gpu_embedding_size is not None, "host offload "
              "(gpu_embedding_size)", "A8 (offload)"),
             (bool(hot_rows), "hot_rows", "A7 (hot-row replication)"),
@@ -253,9 +285,6 @@ class DistributedEmbedding(nn.Module):
             (storage_dtype not in (None, "f32"), "a non-f32 storage_dtype",
              "A6 (wire formats and quantized storage)"),
             (bool(vocab_slack), "vocab_slack", "A12 (store and vocab)"),
-            (world > 1 and data_parallel_threshold is not None,
-             "the data-parallel group (data_parallel_threshold) at world "
-             "size > 1", "A4 (remaining placement)"),
         ]
         for hit, what, item in unported:
             if hit:
@@ -264,30 +293,39 @@ class DistributedEmbedding(nn.Module):
         self.device = resolve_device(device)
         self.world_size = world
         self.rank = pg.rank()
-        # the dp and row groups stay empty: no threshold reaches the
-        # planner (world size 1 plans pure table-parallel, like the
-        # reference)
+        self.dp_input = dp_input
+        # as in the JAX package: a single rank plans pure table-parallel,
+        # and model-parallel input leaves the dp and row groups empty
+        if world > 1 and dp_input:
+            row_thr, dp_thr = row_slice_threshold, data_parallel_threshold
+        else:
+            row_thr, dp_thr = None, None
         self.strategy = DistEmbeddingStrategy(
             embeddings, self.world_size, strategy,
             input_table_map=input_table_map,
             column_slice_threshold=column_slice_threshold,
+            row_slice_threshold=row_thr,
+            data_parallel_threshold=dp_thr,
             input_hotness=input_max_hotness)
+        if self.strategy.table_groups[1] and not all(
+                self.strategy.local_configs):
+            raise ValueError(
+                "Not enough tables after slicing to run on all devices. "
+                "Try decreasing column_slice_threshold or device count.")
         self.plan: ShardedPlan = lower_strategy(self.strategy)
-        if world > 1 and len(self.plan.tp_placements) > len(
-                self.strategy.table_groups[1]):
-            raise NotImplementedError(
-                "column slicing at world size > 1 is not ported yet (ROADMAP "
-                "Queue A4 (remaining placement)); the plan slices a table "
-                "into columns when there are fewer tables than ranks or "
-                "with column_slice_threshold")
-        for gtid in self.strategy.table_groups[1]:
-            cls = self.strategy.global_configs[gtid].get("layer_class")
-            if _overrides_forward(cls):
-                raise ValueError(
-                    f"table {gtid}: layer class {cls.__name__} overrides "
-                    "forward, but the fused bucket lookup implements plain "
-                    "gather+combine; set `det_gather_semantics = True` on "
-                    "the class if its forward is a plain gather+combine")
+        for group in (1, 2):
+            for gtid in self.strategy.table_groups[group]:
+                cls = self.strategy.global_configs[gtid].get("layer_class")
+                if _overrides_forward(cls):
+                    raise ValueError(
+                        f"table {gtid}: custom embedding layer class "
+                        f"{cls.__name__} overrides forward, but it was "
+                        "placed in a fused model-parallel group whose lookup "
+                        "implements plain gather+combine; raise "
+                        "data_parallel_threshold so the table is "
+                        "data-parallel (custom forwards run there), or set "
+                        "`det_gather_semantics = True` on the class if its "
+                        "forward is a plain gather+combine")
         self.input_max_hotness = (list(input_max_hotness)
                                   if input_max_hotness is not None else None)
         self._n_inputs = len(self.strategy.input_table_map)
@@ -296,23 +334,51 @@ class DistributedEmbedding(nn.Module):
         # True while a train step's forward runs inside
         # `residual_sort_scope`: tapped forwards carry their groups' sorts
         self._fold_sort = False
+        self.dp = nn.ParameterList([
+            nn.Parameter(torch.empty((cfg["input_dim"], cfg["output_dim"]),
+                                     dtype=torch.float32, device=self.device))
+            for cfg in self.strategy.dp_configs])
         self.tp = nn.ParameterList([
             nn.Parameter(torch.empty((max(b.rows_max, 1), b.width),
                                      dtype=torch.float32, device=self.device),
                          requires_grad=False)
             for b in self.plan.tp_buckets])
+        self.row = nn.ParameterList([
+            nn.Parameter(torch.empty((max(rt.rows_max, 1), rt.width),
+                                     dtype=torch.float32, device=self.device),
+                         requires_grad=False)
+            for rt in self.plan.row_tables])
+        # dp tables whose layer class overrides forward run that forward
+        # on their table (the JAX package's `_dp_custom_layers`); the
+        # layers are not submodules: the table is `dp[j]` itself
+        self._dp_custom_layers = {}
+        for j, gtid in enumerate(self.strategy.table_groups[0]):
+            cfg = self.strategy.global_configs[gtid]
+            cls = cfg.get("layer_class")
+            if _overrides_forward(cls):
+                layer = cls.from_config(
+                    {k: v for k, v in cfg.items() if k != "layer_class"})
+                layer.embeddings = self.dp[j]
+                self._dp_custom_layers[j] = layer
         self.init(generator)
 
     # ------------------------------------------------------------------ init
     @torch.no_grad()
     def init(self, generator: Optional[torch.Generator] = None) -> None:
-        """Fill this rank's bucket tables in place on its device: each
-        fused table's segment from its own table's initializer, the rows
-        past this rank's tables with zeros. A layer on the ``meta`` device
-        (plan introspection only) holds nothing to fill."""
+        """Fill this rank's tables in place on its device, each from its
+        own table's initializer: the dp tables, then each fused bucket
+        table's segments (the rows past this rank's tables zero), then the
+        rank's rows of each row-sliced table (its padding rows zero). At
+        world size > 1 the dp tables are then broadcast from rank 0, so
+        every rank starts from the same replicas (collective). A layer on
+        the ``meta`` device (plan introspection only) holds nothing to
+        fill."""
         if self.device.type == "meta":
             return
         gen = default_generator(self.device, generator)
+        for table, cfg in zip(self.dp, self.strategy.dp_configs):
+            get_initializer(cfg.get("embeddings_initializer", "uniform"))(
+                table.data, gen)
         for b, bucket in enumerate(self.plan.tp_buckets):
             tbl = self.tp[b]
             for (_, row_offset, rows, init_spec,
@@ -320,6 +386,13 @@ class DistributedEmbedding(nn.Module):
                 get_initializer(init_spec)(tbl[row_offset:row_offset + rows],
                                            gen)
             tbl[bucket.rows[self.rank]:].zero_()
+        for table, rt in zip(self.row, self.plan.row_tables):
+            rows = rt.rows_per_rank[self.rank]
+            get_initializer(rt.initializer)(table.data[:rows], gen)
+            table.data[rows:].zero_()
+        if self.world_size > 1:
+            for table in self.dp:
+                dist.broadcast(table.data, src=0)
 
     # ----------------------------------------------------------- input prep
     def _prepare_one(self, x, max_hotness: Optional[int]) -> _PreparedInput:
@@ -409,9 +482,9 @@ class DistributedEmbedding(nn.Module):
                     offs[r, j_g] = s.row_offset
                     slot_map[(b, r, j)] = (g, j_g)
             need_w = any(key[i][1] for i in class_inputs)
-            groups.append(_ExchangeGroup(b, k, class_inputs, sel, offs,
-                                         f_max, need_w, self._id_dtype(b),
-                                         self.device, self.rank))
+            groups.append(_ExchangeGroup(
+                b, k, class_inputs, sel, offs, [len(lst) for lst in ranks],
+                f_max, need_w, self._id_dtype(b), self.device, self.rank))
         assembly = [
             [(rank, *slot_map[(bb, rank, jj)]) for (rank, bb, jj) in slots]
             for slots in self.plan.tp_input_slots
@@ -469,6 +542,21 @@ class DistributedEmbedding(nn.Module):
                                        grp.k)
                 or (per_bucket[grp.bucket] == 1 and update_sorts(grp.bucket))
                 for grp in groups]
+
+    def _row_sort_plan(self) -> List[bool]:
+        """Per row-sliced input: does the tapped forward sort its shard-
+        local id stream? Yes where its table's update consumes a sort and
+        the table serves this input alone (a shared table's update
+        concatenates its inputs' streams)."""
+        n = len(self.strategy.input_groups[2])
+        if not self._fold_sort:
+            return [False] * n
+        kind, strategy = self._fold_sort
+        tables = self.strategy.map_groups[2]
+        return [tables.count(t) == 1
+                and (kind is None or update_consumes_sort(
+                    kind, strategy, *self.row[t].shape))
+                for t in tables]
 
     # --------------------------------------------------------------- lookup
     def _group_lookup(self, table: torch.Tensor, ids: torch.Tensor,
@@ -565,20 +653,25 @@ class DistributedEmbedding(nn.Module):
 
     def _forward_local(self, group_ids, group_w, groups, taps=None,
                        res_ids=None, res_w=None, res_sort=None,
-                       sort_plan=None) -> List[torch.Tensor]:
+                       sort_plan=None, mp_input=False) -> List[torch.Tensor]:
         """Per exchange group: id exchange, row-offset add, fused lookup
         over the global batch, exchange back. Returns per group the
-        [world_src, B_l, f_max, wf] block. With `taps`, each mp-side
-        output, [world_dst, B_l, f_max, wf], is detached into a leaf that
-        requires grad and appended to ``taps["tp"]`` before it is
-        exchanged; with `res_ids`/`res_w`/`res_sort`, the group's absolute
-        ids, effective weights and its `GroupSort` (where its `sort_plan`
-        entry asks for one, else None) are appended there."""
+        [world_src, B_l, f_max, wf] block. With `mp_input`, `group_ids` /
+        `group_w` are the rank's own [B, f_max, k] blocks already (model-
+        parallel input) and the id exchange is skipped. With `taps`, each
+        mp-side output, [world_dst, B_l, f_max, wf], is detached into a
+        leaf that requires grad and appended to ``taps["tp"]`` before it
+        is exchanged; with `res_ids`/`res_w`/`res_sort`, the group's
+        absolute ids, effective weights and its `GroupSort` (where its
+        `sort_plan` entry asks for one, else None) are appended there."""
         ex_list = []
         for g, grp in enumerate(groups):
             bucket = self.plan.tp_buckets[grp.bucket]
-            ids_x, w_x = self._padded_id_exchange(grp, group_ids[g],
-                                                  group_w[g])
+            if mp_input:
+                ids_x, w_x = group_ids[g], group_w[g]
+            else:
+                ids_x, w_x = self._padded_id_exchange(grp, group_ids[g],
+                                                      group_w[g])
             ids_x = ids_x + grp.offs_t[None, :, None]
             sort_g = None
             if sort_plan is not None and sort_plan[g]:
@@ -596,66 +689,297 @@ class DistributedEmbedding(nn.Module):
             ex_list.append(self._tp_bucket_exchange(out, bucket.wire_dtype))
         return ex_list
 
+    def _dp_forward(self, dp_prep) -> List[torch.Tensor]:
+        """The data-parallel inputs: a local gather and combine on the
+        replicated table over the rank's slice (ids clamped into the table,
+        as the tp lookups do), or the table's own layer's forward (JAX
+        `_forward_local` :1488-1520)."""
+        strat = self.strategy
+        outs = []
+        for j, p in enumerate(dp_prep):
+            t_dp = strat.map_groups[0][j]
+            cfg = strat.dp_configs[t_dp]
+            layer = self._dp_custom_layers.get(t_dp)
+            if layer is not None:
+                if p.weights is not None:
+                    raise NotImplementedError(
+                        f"dp table {t_dp}: (ids, weights) inputs are not "
+                        "supported for custom embedding layer classes: the "
+                        "layer's own forward defines its semantics")
+                out = layer(p.ids)
+                want_rank = 2 if cfg.get("combiner") else 3
+                if out.dim() != want_rank:
+                    raise ValueError(
+                        f"dp table {t_dp}: custom layer forward returned "
+                        f"rank-{out.dim()} output, expected rank {want_rank} "
+                        "([batch, width] with a combiner, [batch, hotness, "
+                        "width] without)")
+            else:
+                table = self.dp[t_dp]
+                ids = p.ids.reshape(-1).clamp(0, table.shape[0] - 1)
+                emb = table.index_select(0, ids).reshape(
+                    tuple(p.ids.shape) + (table.shape[1],))
+                out = _combine(emb, p.weights, cfg.get("combiner"))
+            outs.append(self._restore_shape(out, p, cfg.get("combiner"),
+                                            cfg["output_dim"]))
+        return outs
+
+    def _row_lookup(self, table: torch.Tensor, local: torch.Tensor,
+                    weights: torch.Tensor,
+                    combiner: Optional[str]) -> torch.Tensor:
+        """A row shard's lookup over the global batch: local ids [B, k]
+        (clamped into the shard) and per-slot weights [B, k] that carry 0
+        where the id is not this rank's. A combined table, or a
+        combiner-None one at hotness 1 under the kernel paths, is one
+        gather-combine (`cuda_lookup.lookup_combine`; the dense step's
+        differentiable `fused_embedding_lookup` when the table requires
+        grad) -> [B, w]; else a plain gather scaled by the weights -> [B,
+        k, w], as the tp groups take combiner None."""
+        k = local.shape[1]
+        if combiner is None and not (
+                k == 1 and self.lookup_path in ("pallas", "tiled", "fused")):
+            return table[local] * weights[..., None]
+        if table.requires_grad and torch.is_grad_enabled():
+            return cuda_lookup.fused_embedding_lookup(table, local, weights)
+        return cuda_lookup.lookup_combine(table, local.contiguous(),
+                                          weights.contiguous())
+
+    def _row_forward(self, row_prep, taps=None, res_ids=None, res_w=None,
+                     res_sort=None) -> List[torch.Tensor]:
+        """The row-sliced inputs (JAX `_row_slice_local` :2112-2171): ids
+        (and weights) all-gathered to the global batch, shifted to this
+        rank's shard, masked to the ids it holds (`rows_per_rank`: the
+        last ranks' shards end in padding rows), gather-combined over the
+        global batch, then reduce-scattered back to each rank's slice.
+        With `taps`, each partial output, [B, (k,) w] over the global
+        batch, becomes a leaf appended to ``taps["row"]``; with `res_ids`
+        the masked local ids (``rows_max`` where invalid), the effective
+        weights and the sorts of `_row_sort_plan` are appended."""
+        world, rank = self.world_size, self.rank
+        sort_plan = self._row_sort_plan() if res_ids is not None else None
+        outs = []
+        for j, p in enumerate(row_prep):
+            rt = self.plan.row_tables[self.strategy.map_groups[2][j]]
+            ids, weights = p.ids, p.weights
+            if world > 1:
+                ids = wire.wire_id_all_gather(ids, rt.id_wire_dtype)
+                if weights is not None:
+                    weights = wire.wire_all_gather(weights, rt.wire_dtype)
+            local = ids - int(rt.row_base[rank])
+            valid = (local >= 0) & (local < rt.rows_per_rank[rank])
+            local = local.clamp(0, max(rt.rows_max - 1, 0))
+            vmask = valid.to(torch.float32)
+            eff_w, scale = _effective_weights(weights, ids.shape[-1],
+                                              rt.combiner)
+            w_full = vmask if eff_w is None else eff_w * vmask
+            table = self.row[self.strategy.map_groups[2][j]]
+            out = self._row_lookup(table, local,
+                                   vmask if rt.combiner is None else w_full,
+                                   rt.combiner)
+            if scale != 1.0:
+                out = out * scale
+            if taps is not None:
+                out = out.detach().requires_grad_()
+                taps["row"].append(out)
+            if world > 1:
+                out = wire.wire_psum_scatter(out, rt.wire_dtype)
+            outs.append(self._restore_shape(out, p, rt.combiner, rt.width))
+            if res_ids is not None:
+                sent = torch.where(valid, local,
+                                   torch.full_like(local, rt.rows_max))
+                res_ids.append(sent[None])
+                res_w.append((w_full * scale)[None])
+                res_sort.append(canonical_id_sort(sent, max(rt.rows_max, 1))
+                                if sort_plan[j] else None)
+        return outs
+
+    def _stack_groups(self, tp_prep, batch):
+        """The tp inputs stacked per exchange group: ids [B, n_g, k_g] (+
+        weights where any member input carries them)."""
+        if not tp_prep:
+            return [], [], [], []
+        groups, assembly = self._exchange_groups(tp_prep)
+        group_ids: List[torch.Tensor] = []
+        group_w: List[Optional[torch.Tensor]] = []
+        for grp in groups:
+            members = [tp_prep[i] for i in grp.class_inputs]
+            dt = self._id_dtype(grp.bucket)
+            group_ids.append(torch.stack(
+                [p.ids.to(dt) for p in members], dim=1))
+            if grp.need_w:
+                group_w.append(torch.stack(
+                    [(p.weights if p.weights is not None
+                      else torch.ones((batch, p.k), dtype=torch.float32,
+                                      device=self.device))
+                     for p in members], dim=1))
+            else:
+                group_w.append(None)
+        return groups, assembly, group_ids, group_w
+
     def forward(self, inputs: Sequence, taps=None,
                 return_residuals: bool = False):
-        """Forward pass with data-parallel input: one [B_l] / [B_l, k] id
-        array per feature (numpy or tensor), RaggedIds, SparseIds or
-        (ids, weights) tuples, B_l this rank's slice of the global batch
-        (the whole batch at world size 1). Returns one [B_l, width] tensor
-        per input (or [B_l, k, width] for combiner=None multi-hot), in
-        input order. Collective at world size > 1: every rank calls it,
+        """Forward pass. With data-parallel input (``dp_input=True``): one
+        [B_l] / [B_l, k] id array per feature (numpy or tensor),
+        RaggedIds, SparseIds or (ids, weights) tuples, B_l this rank's
+        slice of the global batch (the whole batch at world size 1). With
+        ``dp_input=False``, see `forward_mp`. Returns one [B_l, width]
+        tensor per input (or [B_l, k, width] for combiner=None multi-hot),
+        in input order. Collective at world size > 1: every rank calls it,
         with the same batch size.
 
         taps: the container from `make_taps`. The forward fills
         ``taps["tp"]`` with one leaf per exchange group, the group's
         mp-side output over the global batch, ``[world, B_l, f_max,
-        w_out]``, detached from the (gradient-free) tables and requiring
-        grad, so that autograd delivers at each leaf the gradient the JAX
-        package reads at its zero tap on this rank.
+        w_out]``, and ``taps["row"]`` with one per row-sliced input, its
+        partial output over the global batch, ``[B, (k,) w]``, each
+        detached from the (gradient-free) tables and requiring grad, so
+        that autograd delivers at each leaf the gradient the JAX package
+        reads at its zero tap on this rank.
         return_residuals: also return the `TapResiduals` for
         `sparse_update`, as ``(outputs, residuals)``; inside
         `residual_sort_scope` they carry the groups' sorts."""
+        if not self.dp_input:
+            return self.forward_mp(inputs, taps, return_residuals)
         if taps is not None:
             taps["tp"].clear()
             taps["row"].clear()
         prepped = self._prepare_inputs(inputs)
         strat = self.strategy
         batch = prepped[0].ids.shape[0]
+        dp_prep = [prepped[i] for i in strat.input_groups[0]]
         tp_prep = [prepped[i] for i in strat.input_groups[1]]
-
-        # stack tp inputs per exchange group: [B, n_g, k_g] (+ weights where
-        # any member input carries them)
-        groups, assembly = ([], [])
-        group_ids: List[torch.Tensor] = []
-        group_w: List[Optional[torch.Tensor]] = []
-        if tp_prep:
-            groups, assembly = self._exchange_groups(tp_prep)
-            for grp in groups:
-                members = [tp_prep[i] for i in grp.class_inputs]
-                dt = self._id_dtype(grp.bucket)
-                group_ids.append(torch.stack(
-                    [p.ids.to(dt) for p in members], dim=1))
-                if grp.need_w:
-                    group_w.append(torch.stack(
-                        [(p.weights if p.weights is not None
-                          else torch.ones((batch, p.k), dtype=torch.float32,
-                                          device=self.device))
-                         for p in members], dim=1))
-                else:
-                    group_w.append(None)
-
-        res_ids = [] if return_residuals else None
-        res_w = [] if return_residuals else None
-        res_sort = [] if return_residuals else None
+        row_prep = [prepped[i] for i in strat.input_groups[2]]
+        groups, assembly, group_ids, group_w = self._stack_groups(tp_prep,
+                                                                  batch)
+        res = ([], [], [], [], [], []) if return_residuals else (None,) * 6
         sort_plan = self._sort_plan(groups) if return_residuals else None
+        dp_outs = self._dp_forward(dp_prep)
         ex_list = self._forward_local(group_ids, group_w, groups, taps,
-                                      res_ids, res_w, res_sort, sort_plan)
-        outputs = self._assemble_tp_outputs(ex_list, tp_prep, batch, groups,
+                                      *res[:3], sort_plan)
+        tp_outs = self._assemble_tp_outputs(ex_list, tp_prep, batch, groups,
                                             assembly)
+        row_outs = self._row_forward(row_prep, taps, *res[3:])
+        outputs = dp_outs + tp_outs + row_outs
         outputs = [outputs[idx] for idx in strat.rev_group_ids]
         if return_residuals:
             key = tuple((p.k, p.weights is not None) for p in tp_prep)
-            return outputs, TapResiduals(key, res_ids, res_w, res_sort)
+            return outputs, TapResiduals(key, *res[:3], *res[3:])
+        return outputs
+
+    def _mp_prepare(self, inputs):
+        """This rank's model-parallel inputs prepared, and a representative
+        `_PreparedInput` per tp input (the rank's own, or, for a feature
+        another rank owns, one without ids at its `input_max_hotness`, fed
+        1-D at hotness 1): (own {tp input: prep}, [prep per tp input],
+        global batch)."""
+        strat = self.strategy
+        world, rank = self.world_size, self.rank
+        if inputs and isinstance(inputs[0], list):
+            # the JAX package's nested per-rank form: this rank's list
+            if len(inputs) != world:
+                raise ValueError(f"forward_mp expects {world} per-rank "
+                                 f"input lists, got {len(inputs)}")
+            inputs = inputs[rank]
+        ids_list = strat.input_ids_list[rank] if strat.input_ids_list else []
+        if len(inputs) != len(ids_list):
+            raise ValueError(f"rank {rank}: expected {len(ids_list)} inputs "
+                             f"(features {ids_list}), got {len(inputs)}")
+        hints = self.input_max_hotness
+        if world > 1 and (hints is None or any(
+                hints[i] is None for i in strat.input_groups[1])):
+            raise ValueError(
+                "model-parallel input at world size > 1 requires "
+                "input_max_hotness for every input: every rank must plan "
+                "the same exchange groups from the features it does not "
+                "own")
+        own = {}
+        for x, pos in zip(inputs, ids_list):
+            orig = strat.input_groups[1][pos]
+            p = self._prepare_one(x, None if hints is None else hints[orig])
+            if world > 1 and p.k != hints[orig]:
+                raise ValueError(
+                    f"input {orig}: hotness {p.k} != input_max_hotness "
+                    f"{hints[orig]}; model-parallel ids must be padded to "
+                    "the declared max hotness")
+            combiner = strat.global_configs[strat.table_groups[1][
+                strat.map_groups[1][pos]]].get("combiner")
+            if world > 1 and p.k == 1 and not p.orig_1d and combiner is None:
+                raise ValueError(
+                    f"input {orig}: feed hotness-1 ids of a table without a "
+                    "combiner as 1-D [B] arrays: every rank restores the "
+                    "same output shapes")
+            own[pos] = p
+        if not own:
+            if world == 1:
+                return own, [], 0
+            raise ValueError(f"rank {rank} owns no feature: it cannot tell "
+                             "the global batch")
+        reps = [own[pos] if pos in own else _PreparedInput(
+            None, None, hints[orig] == 1, hints[orig])
+            for pos, orig in enumerate(strat.input_groups[1])]
+        return own, reps, next(iter(own.values())).ids.shape[0]
+
+    def forward_mp(self, inputs, taps=None, return_residuals: bool = False):
+        """Forward pass with model-parallel input (``dp_input=False``, the
+        JAX package's `apply_mp`): this rank's own features, at global
+        batch size B, in ``strategy.input_ids_list[rank]`` order (the
+        reference's mp-input contract; `models.data.RawBinaryDataset`
+        with ``categorical_features=`` reads them), or the JAX package's
+        nested per-rank lists, of which the rank takes its own. At world
+        size > 1 every input needs its `input_max_hotness` (each rank plans
+        the exchange groups of features it does not own from it), and
+        hotness-1 ids of a table without a combiner come 1-D. The dp->mp
+        id exchange is skipped; the lookups and the mp->dp exchange are
+        `forward`'s; a slot the rank does not fill holds id 0 at weight 0,
+        as in the JAX package. Returns one
+        [B / world, width] tensor per input (every feature, this rank's
+        slice of the batch), in input order. Collective at world size >
+        1."""
+        if self.dp_input:
+            raise ValueError("This layer was built with dp_input=True; "
+                             "use forward() with data-parallel inputs")
+        if taps is not None:
+            taps["tp"].clear()
+            taps["row"].clear()
+        own, reps, batch = self._mp_prepare(inputs)
+        if not reps:
+            return ([], TapResiduals((), [], [], [])) if return_residuals \
+                else []
+        world = self.world_size
+        if batch % world:
+            raise ValueError(
+                f"Global batch {batch} not divisible by device count {world}")
+        groups, assembly = self._exchange_groups(reps)
+        group_ids, group_w = [], []
+        for grp in groups:
+            dt = self._id_dtype(grp.bucket)
+            cols_i, cols_w = [], []
+            for j_g in range(grp.f_max):
+                p = (own[grp.class_inputs[grp.sel[self.rank, j_g]]]
+                     if j_g < grp.counts[self.rank] else None)
+                cols_i.append(p.ids.to(dt) if p is not None else torch.zeros(
+                    (batch, grp.k), dtype=dt, device=self.device))
+                if not grp.need_w:
+                    continue
+                if p is not None and p.weights is not None:
+                    cols_w.append(p.weights)
+                else:
+                    cols_w.append(torch.full((batch, grp.k),
+                                             0.0 if p is None else 1.0,
+                                             device=self.device))
+            group_ids.append(torch.stack(cols_i, dim=1))
+            group_w.append(torch.stack(cols_w, dim=1) if grp.need_w
+                           else None)
+        res = ([], [], []) if return_residuals else (None,) * 3
+        sort_plan = self._sort_plan(groups) if return_residuals else None
+        ex_list = self._forward_local(group_ids, group_w, groups, taps,
+                                      *res, sort_plan, mp_input=True)
+        outputs = self._assemble_tp_outputs(ex_list, reps, batch // world,
+                                            groups, assembly)
+        outputs = [outputs[idx] for idx in self.strategy.rev_group_ids]
+        if return_residuals:
+            key = tuple((p.k, p.weights is not None) for p in reps)
+            return outputs, TapResiduals(key, *res)
         return outputs
 
     def _assemble_tp_outputs(self, ex_list, tp_preps, batch, groups,
@@ -700,23 +1024,27 @@ class DistributedEmbedding(nn.Module):
     def make_taps(self, inputs) -> dict:
         """The tap container for ``forward(inputs, taps=...)``: ``{"tp":
         [], "row": []}``. The JAX package returns zero arrays
-        ``[world, B, f_max_g, w_out]`` that its forward adds to each group
-        output; here the forward fills ``taps["tp"]`` with the rank's
-        mp-side group outputs themselves, made leaves (the tables need no
-        grad), whose ``.grad`` after backward is this rank's block of the
-        tap gradient, reshaped ``[world, B_l, f_max_g, w_out]``. Saves a
-        pass over a zeros tensor per group."""
-        if len(inputs) != self._n_inputs:
+        ``[world, B, f_max_g, w_out]`` per exchange group and ``[world,
+        B, (k,) w]`` per row-sliced input, which its forward adds to each
+        output; here the forward fills the lists with the rank's outputs
+        themselves, made leaves (the tables need no grad), whose ``.grad``
+        after backward is this rank's block of the tap gradient: per
+        group ``[world, B_l, f_max_g, w_out]``, per row input ``[B, (k,)
+        w]``. Saves a pass over a zeros tensor per tap. `inputs`: the
+        forward's (this rank's own features with ``dp_input=False``)."""
+        if self.dp_input and len(inputs) != self._n_inputs:
             raise ValueError(
                 f"Expected {self._n_inputs} inputs, got {len(inputs)}")
         return {"tp": [], "row": []}
 
     def init_sparse_state(self, opt: SparseOptimizer) -> dict:
-        """Sparse-optimizer state for the bucket tables: ``{"tp":
-        [opt.init(table) per bucket], "row": []}``. Table-shaped state
-        (adagrad's accumulator, adam's moments) is allocated directly on
-        the tables' device at bucket shape ``[rows_max, w]``."""
-        return {"tp": [opt.init(t.data) for t in self.tp], "row": []}
+        """Sparse-optimizer state for the bucket tables and the row shards
+        (the dp tables train densely): ``{"tp": [opt.init(table) per
+        bucket], "row": [opt.init(shard) per row table]}``. Table-shaped
+        state (adagrad's accumulator, adam's moments) is allocated directly
+        on the tables' device at their shapes ``[rows_max, w]``."""
+        return {"tp": [opt.init(t.data) for t in self.tp],
+                "row": [opt.init(t.data) for t in self.row]}
 
     def _group_contrib(self, g: int, grp: _ExchangeGroup, res_tp_ids,
                        res_tp_w, tp_g) -> SparseRowGrad:
@@ -744,23 +1072,48 @@ class DistributedEmbedding(nn.Module):
         return SparseRowGrad(ids_x.reshape(-1),
                              contrib.reshape(-1, wf).contiguous())
 
+    def _row_contrib(self, j: int, residuals: TapResiduals,
+                     row_g) -> SparseRowGrad:
+        """One row input's SparseRowGrad: its masked local ids (the
+        sentinel ``rows_max`` lies past the shard, so the update drops it)
+        and the tap gradient times the effective weights."""
+        rt = self.plan.row_tables[self.strategy.map_groups[2][j]]
+        ids = residuals.row_ids[j][0]                  # [B, k]
+        gtap = row_g[j]                                # [B, w] | [B, k, w]
+        # combiner None at hotness 1 under the kernel paths taps [B, w]
+        gk = (gtap[:, None, :] if rt.combiner is not None
+              else gtap.reshape(tuple(ids.shape) + (rt.width,)))
+        contrib = gk.float() * residuals.row_w[j][0][..., None]
+        return SparseRowGrad(ids.reshape(-1),
+                             contrib.reshape(-1, rt.width).contiguous())
+
     @torch.no_grad()
     def sparse_update(self, opt_states: dict, tap_grads: dict,
                       residuals: TapResiduals,
                       opt: SparseOptimizer) -> dict:
-        """Row-wise sparse optimizer step for this rank's bucket tables, IN
-        PLACE (the JAX package returns new, donated arrays): per bucket, the
-        SparseRowGrads of its exchange groups are concatenated and handed
-        to ``opt.update``, which dedups them and updates each touched row
-        of the table and its state once; a bucket of one group passes the
-        group's sort from the residuals as ``presorted=`` when the forward
-        made one. `tap_grads` is ``{"tp": [grad of each taps["tp"] leaf],
-        "row": []}``. Returns the new state pytree (adam's step count is a
-        new tuple entry; tensors are updated in place)."""
+        """Row-wise sparse optimizer step for this rank's bucket tables and
+        row shards, IN PLACE (the JAX package returns new, donated arrays):
+        per bucket, the SparseRowGrads of its exchange groups, and per row
+        table those of its inputs, are concatenated and handed to
+        ``opt.update``, which dedups them and updates each touched row of
+        the table and its state once; a bucket of one group (a row table of
+        one input) passes its sort from the residuals as ``presorted=``
+        when the forward made one. The dp tables are not touched here: they
+        train with the dense parameters. `tap_grads` is ``{"tp": [grad of
+        each taps["tp"] leaf], "row": [grad of each taps["row"] leaf]}``.
+        Returns the new state pytree (adam's step count is a new tuple
+        entry; tensors are updated in place)."""
         groups, _ = self._exchange_groups_for_key(residuals.key)
         bucket_groups: dict = {}
         for g, grp in enumerate(groups):
             bucket_groups.setdefault(grp.bucket, []).append(g)
+
+        def update(table, state, grads, sort):
+            # the keyword only with an artifact: an update callable of
+            # three arguments keeps working wherever nothing was folded
+            kw = {} if sort is None else {"presorted": sort}
+            return opt.update(table, tuple(state), concat_grads(grads),
+                              **kw)[1]
         new_tp = list(opt_states["tp"])
         for b, gs in bucket_groups.items():
             grads = [self._group_contrib(g, groups[g], residuals.tp_ids,
@@ -768,49 +1121,69 @@ class DistributedEmbedding(nn.Module):
                      for g in gs]
             sort_b = (residuals.tp_sort[gs[0]]
                       if len(gs) == 1 and residuals.tp_sort else None)
-            # the keyword only with an artifact: an update callable of three
-            # arguments keeps working wherever nothing was folded
-            kw = {} if sort_b is None else {"presorted": sort_b}
-            _, new_tp[b] = opt.update(self.tp[b].data, tuple(new_tp[b]),
-                                      concat_grads(grads), **kw)
-        return {**opt_states, "tp": new_tp}
+            new_tp[b] = update(self.tp[b].data, new_tp[b], grads, sort_b)
+        table_inputs: dict = {}
+        for j in range(len(residuals.row_ids)):
+            table_inputs.setdefault(self.strategy.map_groups[2][j],
+                                    []).append(j)
+        new_row = list(opt_states.get("row", []))
+        for t, js in table_inputs.items():
+            grads = [self._row_contrib(j, residuals, tap_grads["row"])
+                     for j in js]
+            sort_t = (residuals.row_sort[js[0]]
+                      if len(js) == 1 and residuals.row_sort else None)
+            new_row[t] = update(self.row[t].data, new_row[t], grads, sort_t)
+        return {**opt_states, "tp": new_tp, "row": new_row}
 
     # --------------------------------------------------------- weights I/O
     # rows of a bucket gathered per collective: at most this many elements
     # over all ranks (the JAX package's DET_GATHER_CHUNK_ELEMS default)
     GATHER_CHUNK_ELEMS = 128 * 1024 * 1024
 
+    def _gather_rows(self, table: torch.Tensor, keep: bool):
+        """Yield ``(r0, r1, host [world, r1 - r0, w])`` over a rank-local
+        table's row chunks, each gathered from every rank in one
+        collective of at most `GATHER_CHUNK_ELEMS` elements
+        (`parallel.mesh.gather_stack`); ``host`` is None where not `keep`
+        (the rank takes part in the gathers only)."""
+        table = table.detach()
+        rows, width = table.shape
+        chunk = max(1, self.GATHER_CHUNK_ELEMS
+                    // max(self.world_size * width, 1))
+        for r0 in range(0, rows, chunk):
+            r1 = min(rows, r0 + chunk)
+            stack = pg.gather_stack(table[r0:r1])
+            yield r0, r1, (stack.cpu().numpy() if keep else None)
+
     def get_weights(self, all_ranks: bool = False
                     ) -> Optional[List[np.ndarray]]:
-        """Global per-table weights in original table order, as numpy.
+        """Global per-table weights in original table order, as numpy:
+        the dp tables as they are, each tp table from its placements'
+        column slices in column order, each row-sliced table from the
+        ranks' shards in rank order (JAX `get_weights` :4412-4486).
 
         Collective at world size > 1: every rank calls it. Each bucket's
-        ``[world, rows_max, w]`` stack is gathered in row chunks of at most
-        `GATHER_CHUNK_ELEMS` elements (`parallel.mesh.gather_stack`), one
-        bucket at a time, and each chunk's rows are copied out to the
-        tables on the host. With `all_ranks` False (the reference's
-        default) only rank 0 assembles and returns the weights; the other
-        ranks take part in the gathers and return None."""
+        and each row table's ``[world, rows_max, w]`` stack is gathered in
+        row chunks (`_gather_rows`), one table at a time, and each chunk's
+        rows are copied out to the tables on the host. With `all_ranks`
+        False (the reference's default) only rank 0 assembles and returns
+        the weights; the other ranks take part in the gathers and return
+        None."""
         strat = self.strategy
         keep = all_ranks or self.rank == 0
         out: List[Optional[np.ndarray]] = [None] * len(strat.global_configs)
         if keep:
-            for t_local, gtid in enumerate(strat.table_groups[1]):
+            for gtid in strat.table_groups[1] + strat.table_groups[2]:
                 cfg = strat.global_configs[gtid]
                 out[gtid] = np.empty((cfg["input_dim"], cfg["output_dim"]),
                                      np.float32)
-        world = self.world_size
+            for j, gtid in enumerate(strat.table_groups[0]):
+                out[gtid] = self.dp[j].detach().cpu().numpy().copy()
         for b, table in enumerate(self.tp):
-            table = table.detach()
-            rows, width = table.shape
-            chunk = max(1, self.GATHER_CHUNK_ELEMS // max(world * width, 1))
             places = [p for p in self.plan.tp_placements if p.bucket == b]
-            for r0 in range(0, rows, chunk):
-                r1 = min(rows, r0 + chunk)
-                stack = pg.gather_stack(table[r0:r1])
-                if not keep:
+            for r0, r1, host in self._gather_rows(table, keep):
+                if host is None:
                     continue
-                host = stack.cpu().numpy()
                 for pl_ in places:
                     lo = max(r0, pl_.row_offset)
                     hi = min(r1, pl_.row_offset + pl_.rows)
@@ -820,14 +1193,27 @@ class DistributedEmbedding(nn.Module):
                     out[gtid][lo - pl_.row_offset:hi - pl_.row_offset,
                               pl_.col_start:pl_.col_end] = \
                         host[pl_.rank, lo - r0:hi - r0]
+        for t, table in enumerate(self.row):
+            rt = self.plan.row_tables[t]
+            gtid = strat.table_groups[2][t]
+            starts = np.cumsum([0] + rt.rows_per_rank)
+            for r0, r1, host in self._gather_rows(table, keep):
+                if host is None:
+                    continue
+                for r, rows in enumerate(rt.rows_per_rank):
+                    hi = min(r1, rows)
+                    if r0 < hi:
+                        out[gtid][starts[r] + r0:starts[r] + hi] = \
+                            host[r, :hi - r0]
         return out if keep else None
 
     @torch.no_grad()
     def set_weights(self, weights: Sequence) -> None:
         """Write global per-table weights (numpy arrays, tensors or .npy
-        paths, which are memory-mapped) into this rank's bucket tables in
-        place: every rank passes the same list and writes its own
-        placements only."""
+        paths, which are memory-mapped) into this rank's tables in place:
+        every rank passes the same list and writes the dp tables, its own
+        tp placements and its own rows of each row-sliced table (the
+        shard's padding rows zero)."""
         strat = self.strategy
         if len(weights) != len(strat.global_configs):
             raise ValueError(f"Expected {len(strat.global_configs)} weights, "
@@ -839,21 +1225,35 @@ class DistributedEmbedding(nn.Module):
             if tuple(w.shape) != expect:
                 raise ValueError(
                     f"Weight shape {tuple(w.shape)} != expected {expect}")
+
+        def host(w, rows=slice(None), cols=slice(None)):
+            return torch.from_numpy(np.array(
+                w[rows, cols], dtype=np.float32, order="C"))
+        for j, gtid in enumerate(strat.table_groups[0]):
+            self.dp[j].copy_(host(weights[gtid]))
         for pl_ in self.plan.tp_placements:
             if pl_.rank != self.rank:
                 continue
             w = weights[strat.table_groups[1][pl_.table_id]]
-            src = torch.from_numpy(np.array(
-                w[:, pl_.col_start:pl_.col_end], dtype=np.float32, order="C"))
             self.tp[pl_.bucket][pl_.row_offset:pl_.row_offset
-                                + pl_.rows].copy_(src)
+                                + pl_.rows].copy_(
+                host(w, cols=slice(pl_.col_start, pl_.col_end)))
+        for t, gtid in enumerate(strat.table_groups[2]):
+            rt = self.plan.row_tables[t]
+            start = int(sum(rt.rows_per_rank[:self.rank]))
+            rows = rt.rows_per_rank[self.rank]
+            self.row[t][:rows].copy_(
+                host(weights[gtid], rows=slice(start, start + rows)))
+            self.row[t][rows:].zero_()
 
 
 def _local_tables(module: nn.Module) -> set:
-    """The ids of the rank-local bucket tables of every
-    `DistributedEmbedding` inside `module`."""
+    """The ids of the rank-local tables (bucket tables and row shards) of
+    every `DistributedEmbedding` inside `module`; its dp tables are
+    replicas, the same on every rank."""
     return {id(t) for m in module.modules()
-            if isinstance(m, DistributedEmbedding) for t in m.tp}
+            if isinstance(m, DistributedEmbedding)
+            for t in list(m.tp) + list(m.row)}
 
 
 @torch.no_grad()
@@ -861,10 +1261,10 @@ def broadcast_variables(variables, root_rank: int = 0):
     """Rank `root_rank`'s values of `variables` on every rank, in place
     (the reference's broadcast of the initial data-parallel weights,
     which skips the model-parallel ones). `variables`: a module, whose
-    parameters and buffers are broadcast except the rank-local bucket
-    tables of its `DistributedEmbedding` layers, or a sequence of
-    tensors. Collective: every rank calls it. Returns `variables`; at
-    world size 1, untouched."""
+    parameters and buffers are broadcast except the rank-local tables of
+    its `DistributedEmbedding` layers (bucket tables and row shards; the
+    dp tables are broadcast), or a sequence of tensors. Collective: every
+    rank calls it. Returns `variables`; at world size 1, untouched."""
     if pg.world_size() == 1:
         return variables
     if isinstance(variables, nn.Module):

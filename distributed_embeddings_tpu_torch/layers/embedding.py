@@ -97,6 +97,16 @@ class Embedding(nn.Module):
             out = out.reshape(out_shape)
         return out
 
+    @classmethod
+    def from_config(cls, config: dict) -> "Embedding":
+        """A layer of `config`'s table (`get_config`'s keys; others are
+        ignored), built on the ``meta`` device: a config whose table is
+        held elsewhere."""
+        keys = ("input_dim", "output_dim", "embeddings_initializer",
+                "combiner", "dtype", "name")
+        return cls(**{k: config[k] for k in keys if k in config},
+                   device="meta")
+
     def get_config(self) -> dict:
         return {
             "input_dim": self.input_dim,

@@ -257,10 +257,13 @@ class SyntheticModel(nn.Module):
     The tables are fused through `DistributedEmbedding` (hotness hints
     always passed; ``mesh``, ``column_slice_threshold``, ``strategy``,
     ``dp_input`` and `dist_kwargs` go to it, ``lookup_path`` among them:
-    the JAX package's ``DET_LOOKUP_PATH``). ``distributed=False`` (the JAX
-    package's per-table comparison model) raises NotImplementedError
-    (ROADMAP Queue A4), and so does a ``compute_dtype`` other than float32
-    (A16, mixed precision). ``device`` (None = cuda) and
+    the JAX package's ``DET_LOOKUP_PATH``). ``distributed=False`` is the
+    JAX package's per-table comparison model (the reference's 'native'
+    model): one `Embedding` a table, ``embedding_layers[t]``, holding its
+    own table, looked up per input, no exchange; it trains through the
+    dense step (`training.make_train_step`). A ``compute_dtype`` other
+    than float32 raises NotImplementedError (ROADMAP Queue A16, mixed
+    precision). ``device`` (None = cuda) and
     ``generator`` (default: seed 0 on `device`) place and draw every
     parameter, embedding tables included, on the device itself. In a
     process group of more than one rank the layer spans its ranks, each
@@ -274,11 +277,6 @@ class SyntheticModel(nn.Module):
                  device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None, **dist_kwargs):
         super().__init__()
-        if not distributed:
-            raise NotImplementedError(
-                "SyntheticModel(distributed=False), the per-table comparison "
-                "model, is not ported yet (ROADMAP Queue A4 (remaining "
-                "placement))")
         check_compute_dtype(compute_dtype, "SyntheticModel")
         dist_kwargs.update(mesh=mesh, strategy=strategy,
                            column_slice_threshold=column_slice_threshold,
@@ -289,14 +287,20 @@ class SyntheticModel(nn.Module):
         tables, table_map, self.hotness = expand_embedding_configs(model_config)
         self.table_map = table_map
         self.num_numerical_features = model_config.num_numerical_features
-        # table configs only: the fused buckets hold the weights
-        self.embedding_layers = [
-            Embedding(rows, width, combiner="sum", device="meta")
-            for rows, width in tables]
-        dist_kwargs.setdefault("input_max_hotness", list(self.hotness))
-        self.embedding = DistributedEmbedding(
-            self.embedding_layers, input_table_map=table_map, device=device,
-            generator=gen, **dist_kwargs)
+        self.distributed = distributed
+        if distributed:
+            # table configs only: the fused buckets hold the weights
+            self.embedding_layers = [
+                Embedding(rows, width, combiner="sum", device="meta")
+                for rows, width in tables]
+            dist_kwargs.setdefault("input_max_hotness", list(self.hotness))
+            self.embedding = DistributedEmbedding(
+                self.embedding_layers, input_table_map=table_map,
+                device=device, generator=gen, **dist_kwargs)
+        else:
+            self.embedding_layers = nn.ModuleList([
+                Embedding(rows, width, combiner="sum", device=device,
+                          generator=gen) for rows, width in tables])
         self.interact_stride = model_config.interact_stride
 
         emb_out_width = sum(tables[t][1] for t in table_map)
@@ -315,9 +319,17 @@ class SyntheticModel(nn.Module):
         """[B, n] numerical + categorical ids -> [B, 1] logits; with
         `return_residuals`, ``(logits, TapResiduals)`` (see
         `DistributedEmbedding.forward` for `taps`)."""
-        embs = self.embedding(list(cat_features), taps=taps,
-                              return_residuals=return_residuals)
-        embs, res = embs if return_residuals else (embs, None)
+        if self.distributed:
+            embs = self.embedding(list(cat_features), taps=taps,
+                                  return_residuals=return_residuals)
+            embs, res = embs if return_residuals else (embs, None)
+        else:
+            if taps is not None or return_residuals:
+                raise ValueError("the per-table model (distributed=False) "
+                                 "has no taps: train it with the dense step")
+            res = None
+            embs = [self.embedding_layers[t](ids)
+                    for t, ids in zip(self.table_map, cat_features)]
         x = torch.cat(embs, dim=1)
         if self.interact_stride is not None:
             x = _avg_pool_1d(x, self.interact_stride)

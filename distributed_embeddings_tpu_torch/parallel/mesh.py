@@ -13,12 +13,17 @@ from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from distributed_embeddings_tpu_torch.utils.device import (device_scalar,
                                                            resolve_device)
 
 __all__ = ["initialize_distributed", "world_size", "rank",
-           "average_across_ranks", "gather_stack"]
+           "average_across_ranks", "gather_stack", "ALL_REDUCE_RANGE"]
+
+# the profiler range around the dense all-reduce (a no-op unless a
+# profiler is on), beside `ops.wire`'s exchange ranges
+ALL_REDUCE_RANGE = "exchange:all_reduce"
 
 
 def initialize_distributed(backend: Optional[str] = None,
@@ -68,7 +73,8 @@ def average_across_ranks(tensors: Sequence[torch.Tensor]
     if world == 1 or not tensors:
         return list(tensors)
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
-    dist.all_reduce(flat)
+    with record_function(ALL_REDUCE_RANGE):
+        dist.all_reduce(flat)
     flat = flat / device_scalar(world, flat)
     out, start = [], 0
     for t in tensors:

@@ -5,9 +5,13 @@ Counterpart of ``distributed_embeddings_tpu/serving/engine.py``
 ``{"params": ..., "opt_state": ...}`` is stripped to its params), pads every
 request to the nearest warmed batch shape and slices the true rows back
 out. PyTorch runs eagerly, so `warmup` fixes the padded shapes and runs one
-forward per shape; there is nothing to compile. The hot-row cache, the
-versioned table store and the vocabulary manager of the JAX engine are not
-ported yet (ROADMAP Queue A13 / A12).
+forward per shape; there is nothing to compile. At world size > 1 serving
+is collective: every rank calls `predict` with the same request, which is
+padded to a multiple of the world; each rank forwards its slice and the
+outputs are all-gathered, so every rank returns the whole request's, as
+the JAX engine returns a global array. The hot-row cache, the versioned
+table store and the vocabulary manager of the JAX engine are not ported
+yet (ROADMAP Queue A13 / A12).
 """
 
 import math
@@ -19,11 +23,19 @@ import torch
 from distributed_embeddings_tpu_torch.layers.dist_model_parallel import (
     DistributedEmbedding)
 from distributed_embeddings_tpu_torch.obs.registry import MetricRegistry
-from distributed_embeddings_tpu_torch.parallel.staging import DeviceStager
+from distributed_embeddings_tpu_torch.parallel.mesh import gather_stack
+from distributed_embeddings_tpu_torch.parallel.staging import (DeviceStager,
+                                                               dp_slice)
 from distributed_embeddings_tpu_torch.utils.device import (DeviceLike,
                                                            resolve_device)
 
 __all__ = ["InferenceEngine"]
+
+
+def _gathered(t: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``[B_l, ...]`` block concatenated in rank order."""
+    stack = gather_stack(t)
+    return stack.reshape((-1,) + tuple(stack.shape[2:]))
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -56,6 +68,10 @@ class InferenceEngine:
     Requests are staged to the device through a
     `parallel.staging.DeviceStager`: one pinned copy a request on a side
     stream, which the serving stream waits on; the host does not block.
+    At world size > 1 (a model built on every rank of the process group,
+    with data-parallel input) `predict` and `warmup` are collective: every
+    rank passes the same request, stages its slice of the padded batch
+    (`parallel.staging.dp_slice`), and gets the whole request's outputs.
     """
 
     def __init__(self, model, params=None, *, device: DeviceLike = None,
@@ -82,9 +98,10 @@ class InferenceEngine:
         else:
             self._model = model
             self.embedding = model.embedding
-        if self.embedding.world_size > 1:
-            raise _not_ported("an InferenceEngine at world size > 1",
-                              "A3 (multi-GPU exchange)")
+        if self.embedding.world_size > 1 and not self.embedding.dp_input:
+            raise ValueError("an InferenceEngine at world size > 1 serves "
+                             "data-parallel input: build the model with "
+                             "dp_input=True")
         if self.embedding.device != self.device:
             raise ValueError(
                 f"the model lives on {self.embedding.device}, the engine "
@@ -154,11 +171,21 @@ class InferenceEngine:
         if self._model is not None:
             numerical = self._pad_rows(np.asarray(numerical, np.float32),
                                        target)
-        num, cats = self._to_device((numerical, cats))
+        batch = (numerical, cats)
+        if self.embedding.world_size > 1:
+            batch = dp_slice(batch)
+        num, cats = self._to_device(batch)
         with torch.inference_mode():
             if self._model is None:
-                return self.embedding(cats)
-            return self._model(num, cats)
+                out = self.embedding(cats)
+            else:
+                out = self._model(num, cats)
+            if self.embedding.world_size == 1:
+                return out
+            # every rank's slice, in rank order: the whole padded batch
+            if isinstance(out, torch.Tensor):
+                return _gathered(out)
+            return [_gathered(a) for a in out]
 
     # --------------------------------------------------------------- API
     def predict(self, batch):
@@ -166,7 +193,9 @@ class InferenceEngine:
         ints, or (ids, weights) tuples) in embedding-only mode, a
         ``(numerical, cats)`` tuple in model mode. Returns the output(s)
         sliced to the request's true batch size, on the engine's device
-        (the launch is asynchronous on a card)."""
+        (the launch is asynchronous on a card). Collective at world size
+        > 1: every rank passes the same request and gets every row's
+        outputs."""
         if self._model is None:
             numerical, cats = None, list(batch)
         else:

@@ -9,23 +9,25 @@ process group with its slice of the global batch:
 
 1. `DistributedEmbedding.make_taps` gives the tap container; the model's
    ``loss_fn(..., taps=, return_residuals=True)`` runs the forward, whose
-   mp-side exchange-group outputs become autograd leaves (the tables need
-   no grad), inside the layer's `residual_sort_scope` when ``fold_sort``
-   is on, so each exchange group's ids are sorted once for lookup and
-   update; the loss is the mean over the rank's slice;
+   mp-side exchange-group outputs and row-sliced partial outputs become
+   autograd leaves (the bucket tables and row shards need no grad),
+   inside the layer's `residual_sort_scope` when ``fold_sort`` is on, so
+   each exchange group's ids are sorted once for lookup and update; the
+   loss is the mean over the rank's slice;
 2. ``torch.autograd.grad`` over (dense parameters, tap leaves) gives the
-   MLP gradients and the tap gradients (the activation exchange's
-   backward carries the latter to the ranks that own the rows);
+   dense gradients (the MLPs' and the dp tables') and the tap gradients
+   (the activation exchange's and the reduce-scatter's backwards carry
+   the latter to the ranks that own the rows);
 3. at world size W > 1 the step takes the gradient of the global-batch
    mean, as the JAX package's SPMD step does: the tap gradients are
-   scaled by 1/W, and the MLP gradients and the loss are averaged over
+   scaled by 1/W, and the dense gradients and the loss are averaged over
    the ranks in one all-reduce (`parallel.mesh.average_across_ranks`);
 4. `ops.sparse_update.drain_sparse_apply` turns the tap gradients into
    row updates of the rank's tables and their optimizer state, in place,
    through the CUDA kernels on the card (deduplicated rows, or the raw
    sorted stream under ``strategy="tiled"``);
-5. the dense twin of optax's sgd / adagrad / adam updates the MLPs in
-   place, the same on every rank.
+5. the dense twin of optax's sgd / adagrad / adam updates the MLPs and
+   the dp tables in place, the same on every rank.
 
 The dense step (`make_train_step`, ``fit(sparse=False)``) differentiates
 the loss in every parameter, the tables included: the tables take
@@ -167,8 +169,9 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999,
 
 
 def _dense_params(model) -> Dict[str, torch.Tensor]:
-    """Every parameter that trains densely: all but the bucket tables
-    (which carry no grad)."""
+    """Every parameter that trains densely: all but the bucket tables and
+    the row shards (which carry no grad); the dp tables among them, as in
+    the JAX package's `_dense_part`."""
     return {n: p for n, p in model.named_parameters() if p.requires_grad}
 
 
@@ -200,14 +203,17 @@ def make_sparse_train_step(model, optimizer: str = "adagrad", lr=0.01,
     what the JAX package's donation buys.
 
     Returns (init_fn, step_fn):
-      init_fn(model) -> opt_state ``{"emb": {"tp": [...], "row": []},
-        "dense": ...}`` (+ ``"count"`` under a schedule);
+      init_fn(model) -> opt_state ``{"emb": {"tp": [...], "row": [...]},
+        "dense": ...}`` (+ ``"count"`` under a schedule; the dp tables'
+        state is in "dense");
       step_fn(model, opt_state, numerical, cats, labels)
         -> (model, opt_state, loss): tables, state and MLPs are updated in
         place; loss is a 0-d tensor on the model's device (no host sync),
         the mean over the global batch. At world size > 1 every rank
         calls it with its slice of the global batch
-        (`parallel.staging.stage_dp_batch`).
+        (`parallel.staging.stage_dp_batch`), or, with model-parallel input,
+        its own features at global batch size beside its slice of the
+        numerical features and labels.
     """
     del donate
     check_strategy(strategy)
@@ -242,17 +248,19 @@ def make_sparse_train_step(model, optimizer: str = "adagrad", lr=0.01,
             loss, res = params.loss_fn(numerical, cats, labels, taps=taps,
                                        return_residuals=True)
         dense = _dense_params(params)
-        grads = torch.autograd.grad(loss, list(dense.values()) + taps["tp"])
-        g_tp = list(grads[len(dense):])
+        n_tp = len(taps["tp"])
+        grads = torch.autograd.grad(
+            loss, list(dense.values()) + taps["tp"] + taps["row"])
+        g_taps = list(grads[len(dense):])
         if layer.world_size > 1:
             # the gradient of the global-batch mean: each rank's loss is
             # the mean over its slice
             scale = device_scalar(layer.world_size, loss)
-            g_tp = [g / scale for g in g_tp]
+            g_taps = [g / scale for g in g_taps]
             *grads, loss = average_across_ranks(
                 list(grads[:len(dense)]) + [loss.detach()])
         g_dense = dict(zip(dense, grads[:len(dense)]))
-        g_taps = {"tp": g_tp, "row": []}
+        g_taps = {"tp": g_taps[:n_tp], "row": g_taps[n_tp:]}
         new_state = {"emb": drain_sparse_apply(layer, opt_state["emb"],
                                                g_taps, res,
                                                sopt_for(opt_state)),
@@ -436,10 +444,15 @@ def _model_device(model) -> torch.device:
 def _default_stage(model) -> Callable:
     """`fit`'s and `evaluate`'s staging: the ``stage`` half of a
     `DeviceStager` on the model's device (the loop takes each batch with
-    `ready`); at world size > 1, `stage_dp_batch` through it (each rank
-    cuts its slice of the global batch)."""
+    `ready`); at world size > 1 with data-parallel input,
+    `stage_dp_batch` through it (each rank cuts its slice of the global
+    batch). Model-parallel input arrives as the rank's batch already (its
+    own features at global batch size, its slice of the dense features
+    and labels: `models.data.RawBinaryDataset` with
+    ``categorical_features=`` and ``offset=``)."""
     stage = DeviceStager(_model_device(model)).stage
-    if _world(model) > 1:
+    emb = getattr(model, "embedding", None)
+    if _world(model) > 1 and getattr(emb, "dp_input", True):
         return lambda batch: stage_dp_batch(batch, stage)
     return stage
 

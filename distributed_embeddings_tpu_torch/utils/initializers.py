@@ -4,7 +4,10 @@ Counterpart of ``distributed_embeddings_tpu/utils/initializers.py``. An
 initializer is a callable ``init(out, generator) -> out`` that fills the
 tensor `out` in place, drawing from `generator` on `out`'s device — so a
 4 GiB bucket is initialized where it lives, with no host staging and no
-second copy. The registry names match the JAX package's.
+second copy. The registry names match the JAX package's, and so do the
+keras-serialized ``{"class_name", "config"}`` dicts it takes (the form
+keras ``get_config()`` emits, which the reference's planner IR carries
+through slicing and concatenation).
 """
 
 import math
@@ -12,7 +15,7 @@ from typing import Callable, Sequence, Union
 
 import torch
 
-InitializerSpec = Union[str, Callable]
+InitializerSpec = Union[str, Callable, dict]
 
 
 def _uniform(scale: float):
@@ -52,20 +55,54 @@ _REGISTRY = {
 }
 
 
+def _from_keras_config(class_name: str, config: dict) -> Callable:
+    """The initializer of a keras-serialized dict's class and config (the
+    JAX package's `_from_keras_config`, with its defaults)."""
+    name = class_name.lower()
+    if name in ("randomuniform", "random_uniform", "uniform"):
+        lo, hi = config.get("minval", -0.05), config.get("maxval", 0.05)
+
+        def init(out, generator):
+            return out.uniform_(lo, hi, generator=generator)
+        return init
+    if name in ("randomnormal", "random_normal", "truncatednormal",
+                "truncated_normal", "normal"):
+        mean, stddev = config.get("mean", 0.0), config.get("stddev", 0.05)
+
+        def init(out, generator):
+            if "truncated" in name:
+                torch.nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0,
+                                            generator=generator)
+            else:
+                out.normal_(0.0, 1.0, generator=generator)
+            return out.mul_(stddev).add_(mean)
+        return init
+    if name in ("zeros", "ones", "glorot_uniform", "glorotuniform"):
+        return _REGISTRY["glorot_uniform" if "glorot" in name else name]
+    if name == "constant":
+        value = config.get("value", 0.0)
+
+        def init(out, generator):
+            del generator
+            return out.fill_(value)
+        return init
+    raise ValueError(f"Unknown keras initializer class '{class_name}'")
+
+
 def get_initializer(spec: InitializerSpec) -> Callable:
-    """Resolve an initializer spec: a callable or a registry name."""
+    """Resolve an initializer spec: a callable, a registry name, or a
+    keras-serialized ``{"class_name", "config"}`` dict."""
     if callable(spec):
         return spec
     if isinstance(spec, str):
         if spec not in _REGISTRY:
             raise ValueError(f"Unknown initializer '{spec}'")
         return _REGISTRY[spec]
-    if isinstance(spec, dict):
-        raise NotImplementedError(
-            "keras-serialized initializer dicts are not ported yet "
-            "(ROADMAP Queue A4, remaining placement)")
-    raise TypeError(f"Initializer spec must be str or callable, got "
-                    f"{type(spec)}")
+    if isinstance(spec, dict) and "class_name" in spec:
+        return _from_keras_config(spec["class_name"],
+                                  spec.get("config") or {})
+    raise TypeError(f"Initializer spec must be str, keras config dict or "
+                    f"callable, got {type(spec)}")
 
 
 class ConcatInitializer:

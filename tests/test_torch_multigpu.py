@@ -23,10 +23,25 @@ compares one case:
 * `set_weights` / `get_weights` across ranks, `params_from_jax`,
   `broadcast_variables`, the training shims (`DistributedGradientTape`
   against the JAX package's, then a `DistributedOptimizer` sgd update),
-  an indivisible batch, and what stays unported at W > 1 (column slicing,
-  the dp group: ROADMAP Queue A4);
+  an indivisible batch, and what stays unported at W > 1 (the ragged
+  exchange, the wires, hot rows, offload, the vocabulary slack, the
+  engine's cache: ROADMAP Queue A5, A6, A7, A8, A12, A13);
 * at W = 2, a small DLRM's `evaluate` and three dense adagrad steps
-  (``fit(sparse=False)``) over global click-stream batches.
+  (``fit(sparse=False)``) over global click-stream batches;
+* the placement groups (the JAX package's `test_dist_model_parallel`
+  configurations at W = 2 and 4): the forward of layers with
+  data-parallel tables (one of them of a layer class with its own
+  forward), column-sliced table-parallel tables and row-sliced tables,
+  multi-hot, weighted, mean and combiner None among them (rtol 1e-5 /
+  atol 1e-6), each rank's plan, the JAX tree after `set_weights` and
+  `get_weights` back; model-parallel input (``dp_input=False``) against
+  the JAX package's `apply_mp`, and its sparse step against the
+  data-parallel one; three sparse steps (sgd, adagrad, adam at W = 2,
+  adagrad at W = 4) and one dense adagrad step of the synthetic model
+  with dp and row groups; `InferenceEngine` on a request the world does
+  not divide, against the JAX engine; the JAX params and optimizer state
+  with dp and row leaves through `convert` and back; and each wire
+  collective's backward against its forward's transpose.
 """
 
 import os
@@ -41,6 +56,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+import optax  # noqa: E402
 import torch.multiprocessing as torch_mp  # noqa: E402
 
 from distributed_embeddings_tpu import training as jax_training  # noqa: E402
@@ -51,6 +67,8 @@ from distributed_embeddings_tpu.layers.embedding import (  # noqa: E402
 from distributed_embeddings_tpu.models import dlrm as jax_dlrm  # noqa: E402
 from distributed_embeddings_tpu.models import synthetic as jax_synth  # noqa: E402
 from distributed_embeddings_tpu.parallel.mesh import create_mesh  # noqa: E402
+from distributed_embeddings_tpu.serving.engine import (  # noqa: E402
+    InferenceEngine as JaxInferenceEngine)
 from distributed_embeddings_tpu_torch import training as pt_training  # noqa: E402
 from distributed_embeddings_tpu_torch.models import synthetic as pt_synth  # noqa: E402
 
@@ -82,14 +100,63 @@ FWD_INPUTS = {
 TRAIN_EMBEDDINGS = [(1, [1, 3], 200, 8, True), (2, [1], 100, 16, False),
                     (3, [1], 50, 8, False), (1, [1], 300, 4, False)]
 TRAIN_CONFIG = ("multigpu", TRAIN_EMBEDDINGS, [16], 5, None)
-# case -> (world, strategy, optimizer)
+# the train config's placement groups: its three 50 x 8 tables
+# data-parallel, the 200 x 8 (two inputs) and both 100 x 16 row-sliced, the
+# 300 x 4 table-parallel (cut into columns: fewer tables than ranks)
+PLACED_KW = dict(data_parallel_threshold=400, row_slice_threshold=1600)
+# case -> (world, strategy, optimizer[, placement arguments])
 TRAIN_CASES = {
     "w2-sort-sgd": (2, "sort", "sgd"),
     "w2-sort-adagrad": (2, "sort", "adagrad"),
     "w2-sort-adam": (2, "sort", "adam"),
     "w2-tiled-adagrad": (2, "tiled", "adagrad"),
     "w4-sort-adagrad": (4, "sort", "adagrad"),
+    "w2-placed-sgd": (2, "sort", "sgd", PLACED_KW),
+    "w2-placed-adagrad": (2, "sort", "adagrad", PLACED_KW),
+    "w2-placed-adam": (2, "sort", "adam", PLACED_KW),
+    "w4-placed-adagrad": (4, "sort", "adagrad", PLACED_KW),
 }
+
+# the JAX package's test_dist_model_parallel configurations: name ->
+# (tables (rows, width, combiner, scaled), input table map, placement
+# arguments); inputs as its `check_equivalence` makes them (1-D where the
+# table has no combiner, hotness 2 + i % 3 otherwise), plus weighted ones
+MB = dict(strategy="memory_balanced")
+PLACEMENTS = {
+    "all_modes": (  # test_all_parallelism_modes
+        [(10, 4, None, False), (96, 8, None, False), (50, 8, None, False),
+         (1000, 16, None, False), (2000, 16, None, False),
+         (30, 4, None, False), (800, 8, None, False), (64, 8, None, False)],
+        None, dict(MB, column_slice_threshold=400, row_slice_threshold=12800,
+                   data_parallel_threshold=200)),
+    "shared_all_modes": (  # test_shared_tables_all_modes
+        [(10, 4, None, False), (1000, 8, None, False),
+         (4000, 16, None, False)],
+        [0, 1, 2, 1, 0], dict(MB, data_parallel_threshold=100,
+                              row_slice_threshold=60000,
+                              column_slice_threshold=1000)),
+    "multihot_row_slice": (  # test_multihot_row_slice
+        [(2000, 8, "sum", False), (96, 8, "sum", False),
+         (50, 8, "sum", False), (80, 8, "sum", False)],
+        None, dict(MB, row_slice_threshold=8000)),
+    "roundtrip": (  # test_get_set_weights_roundtrip
+        [(96, 8, None, False), (50, 8, None, False),
+         (1000, 16, None, False), (2000, 16, None, False)],
+        None, dict(MB, column_slice_threshold=2000,
+                   row_slice_threshold=30000)),
+    "custom_dp": (  # test_custom_layer_class_dp_runs_real_forward
+        [(v, 8, None, v < 100) for v in (40, 48, 56, 64, 3000, 3200, 3400,
+                                         3600)],
+        None, dict(MB, data_parallel_threshold=600)),
+    "weighted_mean_none": (  # row tables: weighted mean, weighted sum, None
+        [(3000, 8, "mean", False), (2500, 4, "sum", False),
+         (2200, 8, None, False), (96, 8, "sum", False),
+         (50, 8, "mean", False), (80, 8, "sum", False)],
+        None, dict(MB, row_slice_threshold=9000,
+                   data_parallel_threshold=500)),
+}
+WEIGHTED = {("weighted_mean_none", 0), ("weighted_mean_none", 1),
+            ("weighted_mean_none", 4)}
 
 # the small DLRM of `test_torch_training`, built at W = 2
 DLRM_SIZES = [40, 7, 300, 25, 1000]
@@ -151,6 +218,118 @@ def _forward_cases(world, mesh):
              "raises": ("raises", {**spec, "column": 100,
                                    "indivisible": [np.zeros(BATCH + 1)]})}
     return cases, {"outputs": outs, "tree": tree, "weights": weights}
+
+
+class _JaxScaled(JaxEmbedding):
+    """The JAX test's `_ScaledEmbedding`: twice the rows."""
+
+    def __call__(self, params, inputs):
+        return 2.0 * jnp.take(params["embeddings"], jnp.asarray(inputs),
+                              axis=0)
+
+
+def _placement_case(world, mesh, name):
+    """The JAX layer of a `PLACEMENTS` configuration on the mesh: its
+    outputs on a global batch, its plan and its tree after `set_weights`."""
+    tables, table_map, kw = PLACEMENTS[name]
+    rng = np.random.RandomState(world * 100 + len(name))
+    table_map = table_map or list(range(len(tables)))
+    inputs = []
+    for i, t in enumerate(table_map):
+        rows, _, combiner, _ = tables[t]
+        k = 2 + i % 3
+        if combiner is None and (name, t) != ("weighted_mean_none", 2):
+            inputs.append(rng.randint(0, rows, size=(BATCH,)).astype(
+                np.int32))
+            continue
+        ids = rng.randint(0, rows, size=(BATCH, k)).astype(np.int32)
+        if (name, t) in WEIGHTED:
+            w = rng.rand(BATCH, k).astype(np.float32)
+            w[:, -1] *= rng.rand(BATCH) > 0.3      # some padded slots
+            inputs.append((ids, w))
+        else:
+            inputs.append(ids)
+    weights = [rng.randn(r, w).astype(np.float32) * 0.1
+               for r, w, _, _ in tables]
+    jl = JaxDistributedEmbedding(
+        [(_JaxScaled if scaled else JaxEmbedding)(r, w, combiner=c)
+         for r, w, c, scaled in tables],
+        mesh=mesh, input_table_map=table_map, **kw)
+    params = jl.set_weights(weights)
+    outs = [np.asarray(o) for o in jl.apply(params, _jax_inputs(inputs))]
+    spec = {"tables": tables, "table_map": table_map, "kw": kw,
+            "weights": weights, "inputs": inputs, "tree": _np(params)}
+    return spec, {"outputs": outs, "tree": _np(params), "weights": weights,
+                  "groups": jl.strategy.table_groups,
+                  "placements": len(jl.plan.tp_placements),
+                  "buckets": len(jl.plan.tp_buckets)}
+
+
+def _mp_case(world, mesh):
+    """test_mp_input_column_slice's layer (ONE_HOT_8, memory_balanced,
+    column_slice_threshold 400) with ``dp_input=False`` on the mesh: its
+    `apply_mp` outputs on per-rank feature lists; and a global batch and
+    weights for one sparse step of the train model."""
+    rng = np.random.RandomState(40 + world)
+    specs = [(96, 8), (50, 8), (100, 16), (120, 8), (40, 16), (70, 8),
+             (60, 8), (81, 8)]
+    tables = [(r, w, None, False) for r, w in specs]
+    inputs = [rng.randint(0, r, size=(BATCH,)).astype(np.int32)
+              for r, _ in specs]
+    weights = [rng.randn(r, w).astype(np.float32) * 0.1 for r, w in specs]
+    kw = dict(MB, column_slice_threshold=400)
+    jl = JaxDistributedEmbedding(
+        [JaxEmbedding(r, w) for r, w in specs], mesh=mesh, dp_input=False,
+        input_max_hotness=[1] * len(specs), **kw)
+    params = jl.set_weights(weights)
+    mp_in = [[jnp.asarray(inputs[jl.strategy.input_groups[1][pos]])
+              for pos in ids] for ids in jl.strategy.input_ids_list]
+    outs = [np.asarray(o) for o in jl.apply_mp(params, mp_in)]
+    jm = jax_synth.SyntheticModel(_jax_config(), mesh=mesh)
+    model_params = jm.init(jax.random.PRNGKey(50 + world))
+    num, cats, labels = pt_synth.InputGenerator(
+        _pt_config(), BATCH, alpha=1.05, num_batches=1, seed=50 + world)[0]
+    # hotness-1 ids 1-D, as model-parallel input takes them
+    cats = [c.numpy()[:, 0] if c.shape[1] == 1 else c.numpy() for c in cats]
+    spec = {"tables": tables, "table_map": list(range(len(specs))),
+            "hotness": [1] * len(specs), "kw": kw, "weights": weights,
+            "inputs": inputs, "config": TRAIN_CONFIG,
+            "params": _np(model_params),
+            "batch": (num.numpy(), cats, labels.numpy()), "lr": LR}
+    return spec, {"outputs": outs}
+
+
+def _placed_model_case(world, mesh):
+    """The train model with its placement groups on the mesh: one dense
+    adagrad step (`make_train_step`) over a global batch; the JAX engine's
+    logits on a request of BATCH + 1 rows; one sparse adam step's state,
+    for the `convert` round trip."""
+    jm = jax_synth.SyntheticModel(_jax_config(), mesh=mesh, **PLACED_KW)
+    params = jm.init(jax.random.PRNGKey(60 + world))
+    gen = pt_synth.InputGenerator(_pt_config(), BATCH, alpha=1.05,
+                                  num_batches=2, seed=60 + world)
+    num, cats, labels = gen[0]
+    num, cats, labels = num.numpy(), [c.numpy() for c in cats], labels.numpy()
+    batch = (num, cats, labels)
+    opt = optax.adagrad(LR)
+    step = jax_training.make_train_step(jm.loss_fn, opt)
+    new, _, loss = step(params, opt.init(params), jnp.asarray(num),
+                        [jnp.asarray(c) for c in cats], jnp.asarray(labels))
+    r_num, r_cats, _ = gen[1]
+    r_num = np.concatenate([r_num.numpy(), r_num.numpy()[:1]])
+    r_cats = [np.concatenate([c.numpy(), c.numpy()[:1]]) for c in r_cats]
+    logits = np.asarray(JaxInferenceEngine(jm, params).predict(
+        (jnp.asarray(r_num), [jnp.asarray(c) for c in r_cats])))
+    init, sstep = jax_training.make_sparse_train_step(jm, "adam", lr=LR,
+                                                      strategy="sort")
+    _, state, _ = sstep(params, init(params), jnp.asarray(num),
+                        [jnp.asarray(c) for c in cats], jnp.asarray(labels))
+    spec = {"config": TRAIN_CONFIG, "kw": PLACED_KW, "params": _np(params),
+            "batch": batch, "lr": LR, "request": (r_num, r_cats),
+            "state": _plain_state(state)}
+    return spec, {"dense": {"loss": float(loss), "params": _np(new)},
+                  "logits": logits, "params": _np(params),
+                  "state": _np(state)}
 
 
 def _torch_batch(batch):
@@ -228,8 +407,8 @@ def _plain_state(state) -> dict:
                                for part in state["dense"]]}
 
 
-def _train_case(world, mesh, strategy, optimizer):
-    jm = jax_synth.SyntheticModel(_jax_config(), mesh=mesh)
+def _train_case(world, mesh, strategy, optimizer, kw=None):
+    jm = jax_synth.SyntheticModel(_jax_config(), mesh=mesh, **(kw or {}))
     params = jm.init(jax.random.PRNGKey(world))
     gen = pt_synth.InputGenerator(_pt_config(), BATCH, alpha=1.05,
                                   num_batches=STEPS, seed=world)
@@ -237,7 +416,7 @@ def _train_case(world, mesh, strategy, optimizer):
                for n, cs, lab in gen]
     spec = {"config": TRAIN_CONFIG, "optimizer": optimizer,
             "strategy": strategy, "lr": LR, "params": _np(params),
-            "batches": batches}
+            "batches": batches, "kw": kw or {}}
     init, step = jax_training.make_sparse_train_step(jm, optimizer, lr=LR,
                                                      strategy=strategy)
     state = init(params)
@@ -291,11 +470,20 @@ def world_run(tmp_path_factory):
         if world not in runs:
             mesh = create_mesh(jax.devices()[:world])
             cases, refs = _forward_cases(world, mesh)
-            for name, (w, strategy, optimizer) in TRAIN_CASES.items():
+            for name, (w, *args) in TRAIN_CASES.items():
                 if w == world:
-                    spec, refs[name] = _train_case(world, mesh, strategy,
-                                                   optimizer)
+                    spec, refs[name] = _train_case(world, mesh, *args)
                     cases[name] = ("train", spec)
+            for name in PLACEMENTS:
+                spec, refs[f"placement:{name}"] = _placement_case(
+                    world, mesh, name)
+                cases[f"placement:{name}"] = ("placement", spec)
+            spec, refs["mp"] = _mp_case(world, mesh)
+            cases["mp"] = ("mp_forward", spec)
+            spec, refs["placed"] = _placed_model_case(world, mesh)
+            for kind in ("dense_step", "engine", "convert"):
+                cases[kind] = (kind, spec)
+            cases["wire"] = ("wire", {"seed": world})
             spec, refs["shims"] = _shims_case(world, mesh)
             cases["shims"] = ("shims", spec)
             if world == 2:
@@ -387,13 +575,23 @@ def test_training_shims_match_jax(world_run, world):
 
 @pytest.mark.parametrize("world", WORLDS)
 def test_what_stays_unported_raises(world_run, world):
+    """What the placement slice ported builds at W > 1 (column slicing,
+    fewer tables than ranks, the dp and row groups, model-parallel input,
+    the engine); what stays unported raises naming its ROADMAP item."""
     ranks, _ = world_run(world)
     for r in ranks:
         res = r["raises"]
         assert "not divisible" in res["indivisible"]
         for key in ("column_threshold", "fewer_tables_than_ranks",
-                    "data_parallel"):
-            assert "ROADMAP Queue A4" in res[key], (key, res[key])
+                    "data_parallel", "row_slice", "dp_input", "engine"):
+            assert res[key] is None, (key, res[key])
+        for key, item in (("ragged_exchange", "A5"),
+                          ("exchange_wire", "A6"), ("storage_dtype", "A6"),
+                          ("bf16_all_gather", "A6"), ("hot_rows", "A7"),
+                          ("gpu_embedding_size", "A8"),
+                          ("vocab_slack", "A12"), ("engine_cache", "A13")):
+            assert f"ROADMAP Queue {item} " in (res[key] or ""), (key,
+                                                                  res[key])
         assert "process group" in res["world_size"]
 
 
@@ -426,7 +624,7 @@ def _world1_scale(weights, mlp, batch) -> dict:
 
 @pytest.mark.parametrize("case", list(TRAIN_CASES))
 def test_train_steps_match_jax(world_run, case):
-    world, _, optimizer = TRAIN_CASES[case]
+    world, _, optimizer, *_ = TRAIN_CASES[case]
     ranks, refs = world_run(world)
     ref = refs[case]
     for r in ranks:
@@ -511,3 +709,152 @@ def test_dlrm_evaluate_and_dense_fit_match_jax(world_run):
             np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
     # the histograms are summed: every rank reads the same AUC
     assert ranks[0]["dlrm_fit"]["auc"] == ranks[1]["dlrm_fit"]["auc"]
+
+
+@pytest.mark.parametrize("name", list(PLACEMENTS))
+@pytest.mark.parametrize("world", WORLDS)
+def test_placement_forward_matches_jax(world_run, world, name):
+    """The ranks' slices, in order, are the JAX layer's outputs on the
+    global batch (rtol 1e-5 / atol 1e-6), whether the layer was written by
+    `set_weights` or loaded from the JAX tree."""
+    ranks, refs = world_run(world)
+    ref = refs[f"placement:{name}"]
+    for i, want in enumerate(ref["outputs"]):
+        got = np.concatenate([r[f"placement:{name}"]["outputs"][i]
+                              for r in ranks])
+        np.testing.assert_allclose(got, want, err_msg=f"output {i}",
+                                   **FWD_TOL)
+    assert all(r[f"placement:{name}"]["loaded_equal"] for r in ranks)
+
+
+@pytest.mark.parametrize("name", list(PLACEMENTS))
+@pytest.mark.parametrize("world", WORLDS)
+def test_placement_plan_and_weights_match_jax(world_run, world, name):
+    """Every rank plans the JAX layer's groups, placements and buckets;
+    `set_weights` puts every table where the JAX package does (the trees
+    gathered back are equal, dp, tp and row leaves), and `get_weights`
+    gives the tables back (on every rank with all_ranks, on rank 0 by
+    default)."""
+    ranks, refs = world_run(world)
+    ref = refs[f"placement:{name}"]
+    for rank, r in enumerate(ranks):
+        res = r[f"placement:{name}"]
+        assert res["groups"] == ref["groups"]
+        assert (res["placements"], res["buckets"]) == (ref["placements"],
+                                                       ref["buckets"])
+        for group in ("dp", "tp", "row"):
+            got, want = res["tree"][group], ref["tree"][group]
+            assert len(got) == len(want), group
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(a, b)
+        for got, want in zip(res["weights"], ref["weights"]):
+            np.testing.assert_array_equal(got, want)
+        assert (res["root"] is None) == (rank > 0)
+    # every group is exercised across the configurations
+    if name == "all_modes":
+        assert all(ref["groups"]) and ref["placements"] > len(
+            ref["groups"][1])
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_mp_input_matches_jax(world_run, world):
+    """``dp_input=False``: each rank feeds its own features at global
+    batch size; the ranks' slices are the JAX package's `apply_mp` outputs
+    (test_mp_input_column_slice's configuration). One sparse adagrad step
+    from model-parallel input gives the data-parallel step's loss, tables,
+    state and MLP, bit for bit (the same plan, the same lookups)."""
+    ranks, refs = world_run(world)
+    for i, want in enumerate(refs["mp"]["outputs"]):
+        got = np.concatenate([r["mp"]["outputs"][i] for r in ranks])
+        np.testing.assert_allclose(got, want, err_msg=f"output {i}",
+                                   **FWD_TOL)
+    for r in ranks:
+        dp_loss, dp_params, dp_state = r["mp"]["dp_step"]
+        mp_loss, mp_params, mp_state = r["mp"]["mp_step"]
+        assert mp_loss == dp_loss
+        for a, b in zip(jax.tree.leaves(mp_params),
+                        jax.tree.leaves(dp_params)):
+            np.testing.assert_array_equal(a, b)
+        for a, b in zip(jax.tree.leaves(mp_state),
+                        jax.tree.leaves(dp_state)):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_placed_dense_step_matches_jax(world_run, world):
+    """One dense adagrad step (`make_train_step`) of the synthetic model
+    with dp, column-sliced tp and row tables: the loss at rtol 1e-5, every
+    parameter (each rank's shards, gathered) at rtol 1e-4 / atol 1e-6."""
+    ranks, refs = world_run(world)
+    ref = refs["placed"]["dense"]
+    for r in ranks:
+        np.testing.assert_allclose(r["dense_step"]["loss"], ref["loss"],
+                                   **LOSS_TOL)
+        _assert_tree_close(r["dense_step"]["params"], ref["params"])
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_engine_matches_jax(world_run, world):
+    """`InferenceEngine` at W > 1 on a request of BATCH + 1 rows (padded to
+    a multiple of W): every rank returns the whole request's logits, the
+    JAX engine's within rtol 1e-5 / atol 1e-6."""
+    ranks, refs = world_run(world)
+    want = refs["placed"]["logits"]
+    for r in ranks:
+        got = r["engine"]["logits"]
+        assert got.shape == want.shape == (BATCH + 1, 1)
+        np.testing.assert_allclose(got, want, **FWD_TOL)
+        assert r["engine"]["padded"] == -(-(BATCH + 1) // world) * world \
+            - (BATCH + 1)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_convert_round_trip_with_dp_and_row(world_run, world):
+    """The JAX package's params and adam state, with dp and row leaves, go
+    into the port and come back out equal."""
+    ranks, refs = world_run(world)
+    ref = refs["placed"]
+    assert len(ref["params"]["embedding"]["dp"]) == 3
+    assert len(ref["params"]["embedding"]["row"]) == 3
+    for r in ranks:
+        res = r["convert"]
+        for a, b in zip(jax.tree.leaves(res["params"]),
+                        jax.tree.leaves(ref["params"])):
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_equal(res["state"]["emb"], ref["state"]["emb"])
+        for key, val in _jax_dense_state(ref["state"]["dense"]).items():
+            got = res["state"]["dense"][key]
+            if isinstance(val, int):
+                assert got == val, key
+                continue
+            for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(val)):
+                np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_wire_backward_is_forward_transpose(world_run, world):
+    """Each float wire collective's backward is its forward's transpose
+    (over the ranks, sum <op(x), c> == sum <x, op^T(c)>); the forwards give
+    the tiled all_gather and reduce-scatter of the ranks' blocks."""
+    ranks, _ = world_run(world)
+    xs = {k: [r["wire"][k]["x"] for r in ranks]
+          for k in ("all_gather", "psum_scatter")}
+    for rank, r in enumerate(ranks):
+        res = r["wire"]
+        for k in ("all_gather", "psum_scatter"):
+            dots = res[k]["dots"]
+            np.testing.assert_allclose(dots[0], dots[1], rtol=1e-6)
+        np.testing.assert_array_equal(res["all_gather"]["y"],
+                                      np.concatenate(xs["all_gather"]))
+        rows = xs["psum_scatter"][0].shape[0] // world
+        np.testing.assert_allclose(
+            res["psum_scatter"]["y"],
+            np.sum(xs["psum_scatter"], axis=0)[rank * rows:(rank + 1)
+                                                * rows], rtol=1e-6)
+        np.testing.assert_array_equal(
+            res["psum_scatter_t"]["t"],
+            np.concatenate([q["wire"]["psum_scatter_t"]["c"]
+                            for q in ranks]))
+        np.testing.assert_array_equal(
+            res["id_all_gather"],
+            np.concatenate([np.arange(3) + 10 * q for q in range(world)]))

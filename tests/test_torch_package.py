@@ -24,7 +24,7 @@ from distributed_embeddings_tpu_torch.models.dlrm import DLRM  # noqa: E402
 from distributed_embeddings_tpu_torch.models.synthetic import (  # noqa: E402
     SYNTHETIC_MODELS, SyntheticModel)
 from distributed_embeddings_tpu_torch.ops import cuda_lookup, cuda_sparse  # noqa: E402
-from distributed_embeddings_tpu_torch.ops import sparse_update  # noqa: E402
+from distributed_embeddings_tpu_torch.ops import sparse_update, wire  # noqa: E402
 from distributed_embeddings_tpu_torch.tools import cuda_feature_probe  # noqa: E402
 from distributed_embeddings_tpu_torch.training import (  # noqa: E402
     fit, make_sparse_train_step)
@@ -201,10 +201,10 @@ def test_sparse_wrappers_refuse_what_the_kernel_does_not_take(bad):
 
 @pytest.mark.parametrize("kwargs", [
     dict(compute_dtype=torch.bfloat16),
-    dict(row_slice_threshold=100, dist_strategy="basic")])
+    dict(gpu_embedding_size=100, dist_strategy="basic")])
 def test_train_step_outside_the_slice_raises(kwargs):
     """A model the train step would train, built with what the port has
-    not ported (mixed precision, row slicing), raises at build time."""
+    not ported (mixed precision, host offload), raises at build time."""
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
         make_sparse_train_step(DLRM([10, 20], embedding_dim=8, device="cpu",
                                     **kwargs))
@@ -271,8 +271,8 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
 
 @pytest.mark.parametrize("kwargs", [
     dict(mesh=object(), world_size=2), dict(mesh=object()),
-    dict(dp_input=False),
-    dict(row_slice_threshold=100), dict(gpu_embedding_size=100),
+    dict(exchange_wire="bf16-sr"),
+    dict(storage_dtype="fp8"), dict(gpu_embedding_size=100),
     dict(hot_rows=8), dict(exchange_wire="bf16"),
     dict(storage_dtype="int8"), dict(vocab_slack=4),
 ])
@@ -385,9 +385,8 @@ def test_port_takes_every_jax_parameter_at_its_default(name):
     (lambda: DLRM([10, 20], embedding_dim=8, device="cpu",
                   compute_dtype=torch.float16), "A16"),
     (lambda: DLRM([10, 20], embedding_dim=8, device="cpu",
-                  dp_input=False), "A4"),
-    (lambda: SyntheticModel(SYNTHETIC_MODELS["tiny"], device="cpu",
-                            distributed=False), "A4"),
+                  gpu_embedding_size=100), "A8"),
+    (lambda: wire.ragged_exchange(), "A5"),
     (lambda: SyntheticModel(SYNTHETIC_MODELS["tiny"], device="cpu",
                             compute_dtype="bfloat16"), "A16"),
     (lambda: InferenceEngine(_small_dlrm(), device="cpu",

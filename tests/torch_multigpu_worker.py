@@ -14,6 +14,7 @@ import os
 import pickle
 import sys
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -23,12 +24,24 @@ from distributed_embeddings_tpu_torch.layers.dist_model_parallel import (
 from distributed_embeddings_tpu_torch.layers.embedding import Embedding
 from distributed_embeddings_tpu_torch.models import dlrm as dlrm_model
 from distributed_embeddings_tpu_torch.models import synthetic
+from distributed_embeddings_tpu_torch.ops import wire
 from distributed_embeddings_tpu_torch.parallel import mesh
 from distributed_embeddings_tpu_torch.parallel.staging import (DeviceStager,
+                                                               dp_slice,
                                                                stage_dp_batch)
+from distributed_embeddings_tpu_torch.serving.engine import InferenceEngine
 
 # each rank's slices stay on the CPU (a thread a rank: one stager each)
 CPU_STAGE = DeviceStager("cpu")
+
+
+class ScaledEmbedding(Embedding):
+    """A layer class whose forward is not a plain gather: twice the rows
+    (the JAX test's ``_ScaledEmbedding``); placed data-parallel."""
+
+    def forward(self, inputs):
+        ids = torch.as_tensor(inputs, device=self.embeddings.device)
+        return 2.0 * self.embeddings[ids.long()]
 
 
 def _no_jax():
@@ -42,6 +55,25 @@ def _layer(spec, **kw) -> DistributedEmbedding:
          for r, w, c in spec["tables"]],
         strategy=spec["strategy"], input_table_map=spec["table_map"],
         input_max_hotness=spec["hotness"], device="cpu", **kw)
+
+
+def _placed(spec, **kw) -> DistributedEmbedding:
+    """A layer of `spec`'s tables, (rows, width, combiner, scaled), with
+    its placement arguments ``spec["kw"]``."""
+    return DistributedEmbedding(
+        [(ScaledEmbedding if scaled else Embedding)(
+            r, w, combiner=c, device="meta")
+         for r, w, c, scaled in spec["tables"]],
+        input_table_map=spec["table_map"],
+        input_max_hotness=spec.get("hotness"), device="cpu",
+        **spec["kw"], **kw)
+
+
+def _mp_inputs(layer, inputs):
+    """This rank's model-parallel inputs: its own features, whole."""
+    strat = layer.strategy
+    return [inputs[strat.input_groups[1][pos]]
+            for pos in strat.input_ids_list[layer.rank]]
 
 
 def _config(spec) -> synthetic.ModelConfig:
@@ -120,10 +152,13 @@ def shims(spec) -> dict:
 
 
 def raises(spec) -> dict:
-    """The errors the slice gives at world size > 1 (None: no error)."""
+    """The errors the slice gives at world size > 1 (None: no error):
+    what it ported builds (column slicing, fewer tables than ranks, the dp
+    and row groups, model-parallel input, the engine); what it did not
+    raises NotImplementedError naming its ROADMAP item."""
     out = {}
 
-    def message(fn, kind):
+    def message(fn, kind=NotImplementedError):
         try:
             fn()
         except kind as e:
@@ -132,25 +167,165 @@ def raises(spec) -> dict:
     batch = spec["indivisible"]
     out["indivisible"] = message(
         lambda: stage_dp_batch(batch, CPU_STAGE), ValueError)
-    out["column_threshold"] = message(
-        lambda: _layer(spec, column_slice_threshold=spec["column"]),
-        NotImplementedError)
+    for key, kw in (("column_threshold",
+                     dict(column_slice_threshold=spec["column"])),
+                    ("data_parallel", dict(data_parallel_threshold=100)),
+                    ("row_slice", dict(row_slice_threshold=100)),
+                    ("dp_input", dict(dp_input=False))):
+        out[key] = message(lambda: _layer(spec, **kw), Exception)
     out["fewer_tables_than_ranks"] = message(
         lambda: DistributedEmbedding([Embedding(16, 8, device="meta")],
-                                     device="cpu"), NotImplementedError)
-    out["data_parallel"] = message(
-        lambda: _layer(spec, data_parallel_threshold=100),
-        NotImplementedError)
+                                     device="cpu"), Exception)
+    out["engine"] = message(
+        lambda: InferenceEngine(_layer(spec), device="cpu"), Exception)
+    for key, kw in (("hot_rows", dict(hot_rows=8)),
+                    ("exchange_wire", dict(exchange_wire="bf16")),
+                    ("storage_dtype", dict(storage_dtype="int8")),
+                    ("gpu_embedding_size", dict(gpu_embedding_size=100)),
+                    ("vocab_slack", dict(vocab_slack=4))):
+        out[key] = message(lambda: _layer(spec, **kw))
+    out["ragged_exchange"] = message(wire.ragged_exchange)
+    out["bf16_all_gather"] = message(
+        lambda: wire.wire_all_gather(torch.zeros(2, 2), "bf16"))
+    out["engine_cache"] = message(
+        lambda: InferenceEngine(_layer(spec), device="cpu",
+                                cache_capacity=16))
     out["world_size"] = message(
         lambda: _layer(spec, world_size=mesh.world_size() + 1), ValueError)
+    return out
+
+
+def placement(spec) -> dict:
+    """A layer of every placement group (dp, column-sliced tp, row): its
+    plan, the forward of this rank's slice with the weights written by
+    `set_weights`, the same from the JAX package's tree
+    (`convert.params_from_jax`), the tree back (`params_to_numpy`) and the
+    weights back (`get_weights`, gathered a few rows at a time)."""
+    layer = _placed(spec)
+    layer.set_weights(spec["weights"])
+    batch = stage_dp_batch(spec["inputs"], CPU_STAGE)
+    with torch.no_grad():
+        outs = [o.numpy() for o in layer(batch)]
+    loaded = _placed(spec)
+    loaded.load_state_dict(convert.params_from_jax(spec["tree"], loaded))
+    with torch.no_grad():
+        again = [o.numpy() for o in loaded(batch)]
+    layer.GATHER_CHUNK_ELEMS = 64
+    return {"groups": layer.strategy.table_groups,
+            "placements": len(layer.plan.tp_placements),
+            "buckets": len(layer.plan.tp_buckets),
+            "outputs": outs,
+            "loaded_equal": all(np.array_equal(a, b)
+                                for a, b in zip(outs, again)),
+            "tree": convert.params_to_numpy(layer),
+            "weights": layer.get_weights(all_ranks=True),
+            "root": layer.get_weights()}
+
+
+def mp_forward(spec) -> dict:
+    """A layer built with ``dp_input=False``: this rank feeds its own
+    features at global batch size (`_mp_inputs`); the outputs of its
+    slice. Then one sparse adagrad step of the small synthetic model from
+    model-parallel input against the same step from data-parallel input
+    (same plan: no threshold), both from the JAX package's weights."""
+    layer = _placed(spec, dp_input=False)
+    layer.set_weights(spec["weights"])
+    with torch.no_grad():
+        outs = [o.numpy() for o in layer(_mp_inputs(layer,
+                                                     spec["inputs"]))]
+    trees = []
+    for dp_input in (True, False):
+        model = synthetic.SyntheticModel(_config(spec), device="cpu",
+                                         dp_input=dp_input)
+        model.load_state_dict(convert.params_from_jax(spec["params"],
+                                                      model))
+        init, step = training.make_sparse_train_step(
+            model, "adagrad", lr=spec["lr"], strategy="sort")
+        num, cats, labels = spec["batch"]
+        num, labels = dp_slice((num, labels))
+        cats = (dp_slice(cats) if dp_input
+                else _mp_inputs(model.embedding, cats))
+        _, state, loss = step(model, init(model), num, cats, labels)
+        trees.append((float(loss), convert.params_to_numpy(model),
+                      convert.opt_state_to_numpy(state, model)))
+    return {"outputs": outs, "dp_step": trees[0], "mp_step": trees[1]}
+
+
+def dense_step(spec) -> dict:
+    """One dense adagrad step (`training.make_train_step`) of the small
+    synthetic model with every placement group, from the JAX package's
+    weights, over this rank's slice of the global batch."""
+    model = synthetic.SyntheticModel(_config(spec), device="cpu",
+                                     **spec["kw"])
+    model.load_state_dict(convert.params_from_jax(spec["params"], model))
+    opt = training.adagrad(spec["lr"])
+    step = training.make_train_step(lambda m, *b: m.loss_fn(*b), opt)
+    state = opt.init(dict(model.named_parameters()))
+    num, cats, labels = stage_dp_batch(spec["batch"], CPU_STAGE)
+    _, state, loss = step(model, state, num, cats, labels)
+    return {"loss": float(loss), "params": convert.params_to_numpy(model)}
+
+
+def engine(spec) -> dict:
+    """`InferenceEngine` over the small synthetic model with every
+    placement group: every rank passes the same request, whose size the
+    world does not divide, and gets the whole request's logits."""
+    model = synthetic.SyntheticModel(_config(spec), device="cpu",
+                                     **spec["kw"])
+    model.load_state_dict(convert.params_from_jax(spec["params"], model))
+    eng = InferenceEngine(model, device="cpu")
+    num, cats = spec["request"]
+    return {"logits": eng.predict((num, cats)).numpy(),
+            "padded": eng.rows_padded}
+
+
+def convert_round_trip(spec) -> dict:
+    """The JAX package's params and sparse optimizer state (dp, tp and row
+    leaves) into the port and back out."""
+    model = synthetic.SyntheticModel(_config(spec), device="cpu",
+                                     **spec["kw"])
+    model.load_state_dict(convert.params_from_jax(spec["params"], model))
+    state = _opt_state(spec["state"], model)
+    return {"params": convert.params_to_numpy(model),
+            "state": convert.opt_state_to_numpy(state, model)}
+
+
+def wire_ops(spec) -> dict:
+    """Each float wire collective's backward against its forward's
+    transpose: with x and a cotangent c drawn per rank, the sums over the
+    ranks of <op(x), c> and <x, op^T(c)> (op^T(c) the gradient autograd
+    gives x). Also the forwards' values, and the id all_gather."""
+    rank, world = mesh.rank(), mesh.world_size()
+    gen = torch.Generator().manual_seed(spec["seed"] + rank)
+    out = {}
+    for name, op, rows in (("all_gather", wire.wire_all_gather, 3),
+                           ("psum_scatter", wire.wire_psum_scatter,
+                            3 * world)):
+        x = torch.randn(rows, 4, generator=gen, dtype=torch.float64
+                        ).float().requires_grad_()
+        y = op(x)
+        c = torch.randn(y.shape, generator=gen)
+        (g,) = torch.autograd.grad(y, x, grad_outputs=c)
+        dots = torch.stack([(y.detach().double() * c.double()).sum(),
+                            (x.detach().double() * g.double()).sum()])
+        dist.all_reduce(dots)
+        out[name] = {"x": x.detach().numpy(), "y": y.detach().numpy(),
+                     "dots": dots.numpy()}
+    c = torch.randn(2, 4, generator=gen)
+    out["psum_scatter_t"] = {
+        "c": c.numpy(), "t": wire.wire_psum_scatter_t(c).numpy()}
+    ids = torch.arange(3, dtype=torch.int32) + 10 * rank
+    out["id_all_gather"] = wire.wire_id_all_gather(ids).numpy()
     return out
 
 
 def train(spec) -> dict:
     """Sparse train steps over the global batches. Free-running from the
     JAX package's initial weights, or, with ``spec["before"]``, each step
-    from the JAX step's params and state before it."""
-    model = synthetic.SyntheticModel(_config(spec), device="cpu")
+    from the JAX step's params and state before it. ``spec["kw"]``: the
+    placement arguments (the dp and row groups)."""
+    model = synthetic.SyntheticModel(_config(spec), device="cpu",
+                                     **spec.get("kw", {}))
     init, step = training.make_sparse_train_step(
         model, spec["optimizer"], lr=spec["lr"], strategy=spec["strategy"])
     model.load_state_dict(convert.params_from_jax(spec["params"], model))
@@ -203,8 +378,11 @@ def dlrm_fit(spec) -> dict:
             "params": convert.params_to_numpy(model)}
 
 
-KINDS = {"dlrm": dlrm, "dlrm_fit": dlrm_fit, "forward": forward, "weights": weights, "broadcast": broadcast,
-         "shims": shims, "raises": raises, "train": train}
+KINDS = {"dlrm": dlrm, "dlrm_fit": dlrm_fit, "forward": forward,
+         "weights": weights, "broadcast": broadcast, "shims": shims,
+         "raises": raises, "train": train, "placement": placement,
+         "mp_forward": mp_forward, "dense_step": dense_step,
+         "engine": engine, "convert": convert_round_trip, "wire": wire_ops}
 
 
 def main(rank: int, world: int, init_method: str, spec_path: str,
