@@ -218,11 +218,45 @@ Phases, each printing JSON lines before the last line:
      the ranks' trained rows, dp tables and MLP, and its engine, on each
      rank's block of each request (warmed at the block sizes), gives
      every rank's logits bit for bit; latency printed beside phase 4's.
+     The bytes and dtypes each collective moves in one step are printed
+     too (`wire_payloads`, ``placement_wire``).
+  11. (after 10) amp: the DLRM paths at ``compute_dtype=bfloat16``.
+     11a (`amp_kernel_cases`): `lookup_combine`'s 16-bit forms (the bf16
+     and f16 stores, ``_round`` their round-first forms) bit-equal to
+     their plain versions at any K (the plain version adds the K terms
+     in the kernel's order), timed beside the float32 form and their
+     bound (float32 rows read, 16-bit rows written): at Tiny's 4 groups
+     (run after 4b, while Tiny's buckets live), at DLRM x 0.4's call
+     (inside 11c, where the store form runs), at that call's ids with
+     weights in (0, 1) (the one input where the two forms differ, which
+     their plain versions must show) and at row shard 0's call on rank 0
+     of 11e (where the round-first form runs).
+     11b (`dlrm_against_cpu_phase` at bf16): Criteo sizes x 0.02, 3 sgd
+     steps held against the CPU trainer as phase 9's are, the bar widened
+     by one bfloat16 rounding of a term (AMP_TERM_EPS) at the tap
+     gradients' own conditioning (`dlrm_tap_cond`), launches 1 / 1 / 1
+     (the bf16 store, segment sum, `sgd_rows`); then the engine against a
+     CPU engine: embedding outputs bit-equal, logits AMP_SERVE_TOL. 11c
+     (`dlrm_amp_fit_phase`): x 0.4 through `fit` on phase 9's stream
+     (written again), pipelined, beside phase 9's float32 run: step
+     median, a profiled step, peak memory, the on-card AUC against
+     `auc_exact`; launches 20 / 12 / 12. 11d: its engine at 65,536 and
+     4,097 rows, then the same weights at float32. 11e
+     (`amp_placement_phase`): the placement plan on 2 ranks at x 0.02
+     (thresholds / 10: the same 13 / 8 (9, 2) / 5 plan), a bfloat16 gloo
+     probe of the three collectives on CUDA tensors first, each rank's
+     embedding outputs and logits bit-equal to world 1's, launches a rank
+     step 2 bf16 stores (tp groups), 5 round-first (row shards), 7
+     segment sums, 7 `sgd_rows`, every float payload of the wire's
+     all_to_all, all_gather and reduce-scatter bfloat16, bytes and host
+     ms by collective beside phase 10's float32 step.
   7. the kernels line (each kernel's launches by path, the world paths'
      summed over the ranks; `sgd_rows` with ``copy_ms``, an
      `index_select` + `index_copy_` of the same rows, as a second
-     yardstick), the card's line, and the last line
-     ``{"ok": true, "device": {...}}``.
+     yardstick; the bf16 store form of `lookup_combine` timed at DLRM x
+     0.4's call, its round-first form at row shard 0's, ``at_other`` each
+     at 11a's other calls), the card's line, and the last
+     line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device or when the port
 is not beside this script.
@@ -268,6 +302,15 @@ SPARSE_WIDTHS = (8, 16, 32, 64, 128, 256)
 TPU_SITES = {
     "lookup_combine": ["distributed_embeddings_tpu/ops/pallas_lookup.py:116",
                        "distributed_embeddings_tpu/ops/pallas_lookup.py:224"],
+    "lookup_combine_bf16": [
+        "distributed_embeddings_tpu/ops/pallas_lookup.py:116",
+        "distributed_embeddings_tpu/ops/pallas_lookup.py:224 (then the cast, "
+        "distributed_embeddings_tpu/layers/dist_model_parallel.py:1424)"],
+    "lookup_combine_bf16_round": [
+        "distributed_embeddings_tpu/ops/pallas_lookup.py:116",
+        "distributed_embeddings_tpu/ops/pallas_lookup.py:224 (in the form of "
+        "the XLA route, distributed_embeddings_tpu/layers/"
+        "dist_model_parallel.py:2138-2151)"],
     "segment_sum_sorted": ["distributed_embeddings_tpu/ops/sparse_update.py:683 (XLA segment_sum; no TPU kernel)"],
     "sgd_rows": ["distributed_embeddings_tpu/ops/pallas_tiled.py:340",
                  "distributed_embeddings_tpu/ops/pallas_scatter.py:135"],
@@ -286,8 +329,11 @@ TPU_SITES = {
     "probe_loop_dma": ["tools/tpu_mosaic_probe.py:148"],
     "probe_blockspec_gather": ["tools/tpu_mosaic_probe.py:222"],
 }
+# lookup_combine's mixed-precision forms
+AMP_FORMS = ("lookup_combine_bf16", "lookup_combine_bf16_round",
+             "lookup_combine_f16", "lookup_combine_f16_round")
 # the kernels of every path, by the module that counts their launches
-ALL_KERNELS = ("lookup_combine", "segment_sum_sorted", "sgd_rows",
+ALL_KERNELS = ("lookup_combine", *AMP_FORMS, "segment_sum_sorted", "sgd_rows",
                "adagrad_rows", "adam_rows", "gather_sorted", "sgd_stream",
                "adagrad_stream", "adam_stream", "probe_vmem", "probe_anyspace",
                "probe_dma", "probe_dyn_dma", "probe_prefetch",
@@ -545,6 +591,13 @@ def tiny_bucket_kernels(torch, cuda_lookup, captured, rate,
     return worst, totals
 
 
+def lookup_args(calls):
+    """(table, ids, weights) of captured `lookup_combine` calls (the
+    layer passes its output dtype, and a row shard the round-first flag,
+    after them)."""
+    return [tuple(args[:3]) + (None,) * (3 - len(args[:3])) for args in calls]
+
+
 class Capture:
     """Within the block, records the positional (``calls``) and keyword
     (``kwargs``) arguments of every call of ``module.name`` (which still
@@ -676,17 +729,16 @@ def sparse_kernel_cases(torch, cuda_sparse, sparse_update):
 
 
 def set_counts(cuda_lookup, *counted):
-    """Every launch count to 0: `cuda_lookup`'s integer and the dicts of
-    the `counted` modules."""
-    cuda_lookup.launches = 0
-    for module in counted:
+    """Every launch count of `cuda_lookup` and the `counted` modules to
+    0."""
+    for module in (cuda_lookup, *counted):
         for key in module.launches:
             module.launches[key] = 0
 
 
 def read_counts(cuda_lookup, *counted) -> dict:
-    out = {"lookup_combine": cuda_lookup.launches}
-    for module in counted:
+    out = {}
+    for module in (cuda_lookup, *counted):
         out.update(module.launches)
     return out
 
@@ -914,9 +966,68 @@ def contribution_cond(torch, model, calls, touched):
     return out
 
 
+def dlrm_tap_cond(torch, model, batch, touched):
+    """Per bucket, at the touched rows ([rows, width], CPU), the
+    conditioning of a 16-bit DLRM's tap gradients: t/|g| of each row's
+    sum over the batch of G_j = sum_k g_jk e_k, the gradient the pairwise
+    dots' gradient g (symmetric, float32) gives feature j, against t, the
+    same sum with every g_jk and e_k by magnitude. g is the gradient of
+    the rounded interaction output, rounded to the compute dtype by the
+    cast's transpose: one rounding on each trainer may put a g_jk a unit
+    of bfloat16 apart (2^-7 of it), which moves G_j by up to 2^-7 t, and
+    a sum that cancels carries that as a large share of its value. Run
+    on `model` (the CPU model, under the card's ReLU masks) before its
+    step."""
+    from distributed_embeddings_tpu_torch.models.dlrm import _tril_index
+    num, cats, labels = batch
+    layer = model.embedding
+    dtype = model.compute_dtype or torch.float32
+    bottom = model.bottom_mlp(torch.as_tensor(num, dtype=torch.float32)
+                              .to(dtype)).detach()
+    with torch.no_grad():
+        emb = layer([torch.as_tensor(c) for c in cats])
+    feats = torch.stack([bottom] + [e.float() for e in emb], dim=1)
+    gram = torch.bmm(feats, feats.transpose(1, 2)).requires_grad_()
+    n = feats.shape[1]
+    pairwise = gram.reshape(gram.shape[0], n * n)[:, _tril_index(
+        n, gram.device)]
+    logits = model.top_mlp(torch.cat([pairwise, bottom], dim=1).to(dtype))
+    logits = logits[:, 0].float()
+    lab = torch.as_tensor(labels, dtype=torch.float32).reshape(-1)
+    loss = torch.mean(torch.clamp_min(logits, 0) - logits * lab
+                      + torch.log1p(torch.exp(-torch.abs(logits))))
+    (g,) = torch.autograd.grad(loss, gram)
+    g = g + g.transpose(1, 2)
+    t_all = g.abs() @ feats.abs()                   # [B, n, d]
+    g_all = g @ feats
+    out = []
+    for b, idx in enumerate(touched):
+        t_rows = torch.zeros((idx.numel(), feats.shape[2]),
+                             dtype=torch.float64)
+        g_rows = torch.zeros_like(t_rows)
+        for p in layer.plan.tp_placements:
+            if p.bucket != b:
+                continue
+            gtid = layer.strategy.table_groups[1][p.table_id]
+            for i, t in enumerate(layer.strategy.input_table_map):
+                if t != gtid:
+                    continue
+                rows = (torch.as_tensor(cats[i]).long().reshape(-1)
+                        .clamp(0, p.rows - 1) + p.row_offset)
+                pos = torch.searchsorted(idx, rows).clamp_max(
+                    max(idx.numel() - 1, 0))
+                check(bool((idx[pos] == rows).all()),
+                      "a looked-up row is not among the step's touched rows")
+                t_rows.index_add_(0, pos, t_all[:, i + 1].double())
+                g_rows.index_add_(0, pos, g_all[:, i + 1].double())
+        out.append(torch.where(t_rows > 0, t_rows / g_rows.abs(),
+                               torch.zeros_like(t_rows)))
+    return out
+
+
 def train_against_cpu(torch, capture, kind, mode, step, model, state,
                       cpu_step, cpu_model, batches, scaled=None,
-                      contrib=False):
+                      contrib=False, term_eps=0.0, tap_cond=None):
     """Drive the card's trainer over `batches`, each step held against a
     CPU trainer started from the card's state before it (the model runs
     chaotically at lr 0.01: over several steps the two trainers' rounding
@@ -930,7 +1041,15 @@ def train_against_cpu(torch, capture, kind, mode, step, model, state,
     buckets the dense strategy updated, whose row sums the card's atomics
     add in their own order, the others keeping the plain bar), or, with
     `contrib`, the row sums' conditioning alone (`contribution_cond`).
-    Returns the card's state and a dict of what was held."""
+    `term_eps`: under a 16-bit compute dtype, how far apart the two
+    trainers may round one term (a tap gradient element, an MLP input),
+    relative to it (`AMP_TERM_EPS`): one rounding can take the other side
+    of a tie-point, so each sum's bar widens by it (`hold`'s eps), and the
+    ReLU flips' by twice it. `tap_cond` (with `contrib`): a function
+    (torch, cpu model, batch, touched) -> per bucket the tap gradients'
+    own conditioning (`dlrm_tap_cond`), of which twice (the terms' and
+    the tap's own rounding) joins the row sums'. Returns the card's state
+    and a dict of what was held."""
     from distributed_embeddings_tpu_torch.ops import sparse_update
     from distributed_embeddings_tpu_torch.training import gradient_scale
     out = dict(losses=[], cpu_losses=[], max_abs_err=0.0, changes=[],
@@ -941,9 +1060,14 @@ def train_against_cpu(torch, capture, kind, mode, step, model, state,
         (state, loss, touched, counts), masks = relu_masks(
             model, lambda: run_trainer(step, model, state, [batch], capture))
         touched = touched_rows(torch, model, touched)
-        eps = sum_eps(torch, model, counts, touched)
+        eps = [e + term_eps for e in sum_eps(torch, model, counts, touched)]
         before = trained_arrays(torch, cpu_model, cpu_state, touched)
-        with forced_relu(torch, cpu_model, masks) as flips:
+        taps = None
+        if tap_cond is not None:
+            with forced_relu(torch, cpu_model, masks, SUM_EPS + 2 * term_eps):
+                taps = tap_cond(torch, cpu_model, batch, touched)
+        with forced_relu(torch, cpu_model, masks,
+                         SUM_EPS + 2 * term_eps) as flips:
             scale = (gradient_scale(cpu_model, *batch)
                      if (kind == "adam" if scaled is None else scaled)
                      else None)
@@ -954,6 +1078,9 @@ def train_against_cpu(torch, capture, kind, mode, step, model, state,
         table_cond = (contribution_cond(torch, cpu_model,
                                         zip(sums.calls, sums.kwargs),
                                         touched) if contrib else None)
+        if taps is not None:
+            table_cond = [torch.maximum(c, 2 * t)
+                          for c, t in zip(table_cond, taps)]
         del sums, masks
         if scale is not None and scaled == "dense":
             scale = {k: v for k, v in scale.items()
@@ -1001,7 +1128,7 @@ def relu_groups(model):
 
 
 @contextlib.contextmanager
-def forced_relu(torch, cpu_model, masks):
+def forced_relu(torch, cpu_model, masks, eps=SUM_EPS):
     """Within the block, every forward of the CPU model's MLPs takes the
     card's ReLU masks (`masks`: `relu_masks` of the card's step, one per
     layer a ReLU follows, `relu_groups`' order). A unit whose
@@ -1010,10 +1137,11 @@ def forced_relu(torch, cpu_model, masks):
     row; where the CPU's z takes the other side, it becomes |z| or -|z|,
     keeping z's gradient (z plus a detached correction, exactly z where
     nothing flips). A flip is a rounding difference only where |z| is
-    within SUM_EPS of the sum t of its terms' magnitudes (the forward by
-    absolute values from its MLP's input, under the card's masks): a flip
-    past that fails the phase. Yields a list that gets each forward's
-    count of flipped units."""
+    within `eps` (SUM_EPS; more where the MLP's input is rounded to a
+    16-bit compute dtype) of the sum t of its terms' magnitudes (the
+    forward by absolute values from its MLP's input, under the card's
+    masks): a flip past that fails the phase. Yields a list that gets each
+    forward's count of flipped units."""
     groups = relu_groups(cpu_model)
     want = sum(n for _, n in groups)
     check(len(masks) == want,
@@ -1024,7 +1152,7 @@ def forced_relu(torch, cpu_model, masks):
     def hook(g, layers, base, i):
         def fn(mod, inp, z):
             if i == 0:
-                first_input[g] = inp[0].detach()
+                first_input[g] = inp[0].detach().float()
                 if g == 0:
                     flips.append(0)
             flip = (z > 0) != masks[base + i]
@@ -1038,11 +1166,11 @@ def forced_relu(torch, cpu_model, masks):
                 if j < i:
                     t = t * masks[base + j][rows]
             zr = z.detach()[rows]
-            past = flip[rows] & (zr.abs() > SUM_EPS * t)
+            past = flip[rows] & (zr.abs() > eps * t)
             check(not bool(past.any()),
                   f"MLP {g} layer {i}: {int(past.sum())} ReLU units take the "
                   "other side on the card and on the CPU with |z| past "
-                  f"{SUM_EPS} of its terms' magnitudes")
+                  f"{eps} of its terms' magnitudes")
             target = torch.where(masks[base + i][rows],
                                  zr.abs().clamp_min(torch.finfo(z.dtype).tiny),
                                  -zr.abs())
@@ -2369,17 +2497,18 @@ PLACEMENT_REQUESTS = (65536, 4097)
 PLACEMENT_LATENCY_REPS = 5
 
 
-def placement_model(torch, device, seed):
+def placement_model(torch, device, seed, scale=PLACEMENT_SCALE,
+                    kw=PLACEMENT_KW, compute_dtype=None):
     """The phase's DLRM on `device`: the example's widths, Criteo sizes x
-    PLACEMENT_SCALE, its three thresholds, one-hot gathers through
-    lookup_combine; tables then drawn by `seed_weights` alike at every
-    world size."""
+    `scale`, the three thresholds `kw`, one-hot gathers through
+    lookup_combine, at `compute_dtype`; tables then drawn by
+    `seed_weights` alike at every world size."""
     from distributed_embeddings_tpu_torch.models.dlrm import (
         DLRM, scaled_table_sizes)
-    model = DLRM(scaled_table_sizes(PLACEMENT_SCALE), device=device,
-                 lookup_path="pallas",
+    model = DLRM(scaled_table_sizes(scale), device=device,
+                 lookup_path="pallas", compute_dtype=compute_dtype,
                  generator=torch.Generator(device=device).manual_seed(seed),
-                 **PLACEMENT_KW)
+                 **kw)
     seed_weights(torch, model, PLACEMENT_SEED)
     return model
 
@@ -2431,6 +2560,94 @@ def placed_rows(torch, layer, touched):
     return out
 
 
+def placement_profile(torch, step_once, rank, groups, row_tables):
+    """One step of a placement rank under torch.profiler: the exchange's
+    ranges by collective (`ops.wire`: ``exchange:all_to_all`` 3 a tp
+    group, ``exchange:all_gather`` 2 and ``exchange:reduce_scatter`` 1 a
+    row table; the dense ``exchange:all_reduce`` 1, or the rank fails),
+    gloo's or NCCL's own events, device time by kernel and category, the
+    collectives' pinned copies, and the device intervals on the Unix
+    clock (`card_profile` merges the ranks'). Returns {"window_us",
+    "device_intervals_us", "profile"}."""
+    from torch.autograd import DeviceType
+    from distributed_embeddings_tpu_torch.ops import wire
+    from distributed_embeddings_tpu_torch.parallel.mesh import (
+        ALL_REDUCE_RANGE)
+    busy_us, wall_us, device, prof, window = profile_call(torch, step_once)
+    by_kernel = _by_name(device)
+    host = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    ranges = {name: [e for e in host if e.name == name]
+              for name in (wire.EXCHANGE_RANGE, wire.GATHER_RANGE,
+                           wire.SCATTER_RANGE, ALL_REDUCE_RANGE)}
+    # per tp group the ids, the activations and their gradients; per
+    # row table the ids, and the gradients of the reduce-scatter; one
+    # all-reduce of the dense gradients and the loss
+    want = {wire.EXCHANGE_RANGE: 3 * groups,
+            wire.GATHER_RANGE: 2 * row_tables,
+            wire.SCATTER_RANGE: row_tables,
+            ALL_REDUCE_RANGE: 1}
+    got = {k: len(v) for k, v in ranges.items()}
+    check(got == want, f"rank {rank}: exchange collectives {got} in a "
+                       f"step, want {want}")
+    collectives: dict = {}
+    for e in host:
+        if e.name.startswith(("gloo:", "nccl:")):
+            ms, n = collectives.get(e.name, (0.0, 0))
+            collectives[e.name] = (ms + e.cpu_time_total / 1e3, n + 1)
+    cats_ms, _ = by_category(by_kernel)
+    origin = prof.profiler.kineto_results.trace_start_ns() / 1e3
+    return {"window_us": window,
+            "device_intervals_us": [
+                (origin + e.time_range.start, origin + e.time_range.end)
+                for e in device],
+            "profile": dict(
+                wall_ms=wall_us / 1e3, rank_device_busy_ms=busy_us / 1e3,
+                rank_device_busy_share=busy_us / wall_us,
+                device_ms_by_category=cats_ms,
+                collective_copies_ms=sum(
+                    us for n, us in by_kernel.items()
+                    if n.startswith("Memcpy") and "Pinned" in n) / 1e3,
+                device_ms_by_kernel=[[n[:80], us / 1e3] for n, us in sorted(
+                    by_kernel.items(), key=lambda kv: -kv[1])[:12]],
+                exchange_calls=got,
+                exchange_host_ms={k: sum(e.cpu_time_total for e in v) / 1e3
+                                  for k, v in ranges.items()},
+                collective_host_ms={k: {"ms": ms, "calls": n}
+                                    for k, (ms, n) in collectives.items()})}
+
+
+@contextlib.contextmanager
+def wire_payloads(torch):
+    """Within the block, what the wire's collectives and the dense
+    all-reduce hand `torch.distributed` (`ops.wire` and
+    `parallel.mesh` call them through it): per collective its calls, the
+    bytes of its inputs and their dtypes."""
+    import torch.distributed as dist
+    names = ("all_to_all_single", "all_gather_into_tensor",
+             "reduce_scatter_tensor", "all_reduce")
+    real = {n: getattr(dist, n) for n in names}
+    seen = {n: {"calls": 0, "bytes": 0, "dtypes": []} for n in names}
+
+    def recording(name):
+        def call(*args, **kwargs):
+            x = args[0] if name == "all_reduce" else args[1]
+            s = seen[name]
+            s["calls"] += 1
+            s["bytes"] += x.numel() * x.element_size()
+            dtype = str(x.dtype).replace("torch.", "")
+            if dtype not in s["dtypes"]:
+                s["dtypes"].append(dtype)
+            return real[name](*args, **kwargs)
+        return call
+    for n in names:
+        setattr(dist, n, recording(n))
+    try:
+        yield seen
+    finally:
+        for n in names:
+            setattr(dist, n, real[n])
+
+
 def placement_rank(rank, world, backend, init_method, out_dir):
     """One rank of phase 10 (torch.multiprocessing, spawn): the placement
     DLRM built and drawn by `seed_weights`, its plan; the forward of its
@@ -2453,9 +2670,9 @@ def placement_rank(rank, world, backend, init_method, out_dir):
     from distributed_embeddings_tpu_torch.layers.embedding import Embedding
     from distributed_embeddings_tpu_torch.models.dlrm import make_lr_schedule
     from distributed_embeddings_tpu_torch.ops import (cuda_lookup, cuda_sparse,
-                                                      cuda_tiled, wire)
+                                                      cuda_tiled)
     from distributed_embeddings_tpu_torch.parallel.mesh import (
-        ALL_REDUCE_RANGE, initialize_distributed)
+        initialize_distributed)
     from distributed_embeddings_tpu_torch.parallel.staging import (
         DeviceStager, stage_dp_batch)
     from distributed_embeddings_tpu_torch.serving.engine import (
@@ -2575,16 +2792,19 @@ def placement_rank(rank, world, backend, init_method, out_dir):
         out["served"] = served
         del engine
 
-        # the kernels at a row shard's shapes: one more step's calls
+        # the kernels at a row shard's shapes: one more step's calls, and
+        # the bytes its collectives move
         shard = layer.row[0].data_ptr()
         with Capture(cuda_lookup, "lookup_combine") as look, \
                 Capture(cuda_sparse, "segment_sum_sorted") as seg, \
-                Capture(cuda_sparse, "sgd_rows") as rows_c:
+                Capture(cuda_sparse, "sgd_rows") as rows_c, \
+                wire_payloads(torch) as payloads:
             _, state, _ = step(model, state, *batches[0])
         torch.cuda.synchronize()
+        out["wire"] = payloads
         if rank == 0:
             rate = hbm_rate(torch.cuda.get_device_name(dev))
-            look_calls = [a + (None,) * (3 - len(a)) for a in look.calls
+            look_calls = [a for a in lookup_args(look.calls)
                           if a[0].data_ptr() == shard]
             row_calls = [a for a in rows_c.calls if a[0].data_ptr() == shard]
             # segment sums run bucket by bucket, then row table by table
@@ -2620,49 +2840,8 @@ def placement_rank(rank, world, backend, init_method, out_dir):
 
         def step_once():
             holder["state"] = step(model, holder["state"], *batches[0])[1]
-        busy_us, wall_us, device, prof, window = profile_call(torch,
-                                                              step_once)
-        from torch.autograd import DeviceType
-        by_kernel = _by_name(device)
-        host = [e for e in prof.events() if e.device_type == DeviceType.CPU]
-        ranges = {name: [e for e in host if e.name == name]
-                  for name in (wire.EXCHANGE_RANGE, wire.GATHER_RANGE,
-                               wire.SCATTER_RANGE, ALL_REDUCE_RANGE)}
-        # per tp group the ids, the activations and their gradients; per
-        # row table the ids, and the gradients of the reduce-scatter; one
-        # all-reduce of the dense gradients and the loss
-        want = {wire.EXCHANGE_RANGE: 3 * out["groups"],
-                wire.GATHER_RANGE: 2 * out["row_tables"],
-                wire.SCATTER_RANGE: out["row_tables"],
-                ALL_REDUCE_RANGE: 1}
-        got = {k: len(v) for k, v in ranges.items()}
-        check(got == want, f"rank {rank}: exchange collectives {got} in a "
-                           f"step, want {want}")
-        collectives: dict = {}
-        for e in host:
-            if e.name.startswith(("gloo:", "nccl:")):
-                ms, n = collectives.get(e.name, (0.0, 0))
-                collectives[e.name] = (ms + e.cpu_time_total / 1e3, n + 1)
-        cats_ms, _ = by_category(by_kernel)
-        origin = prof.profiler.kineto_results.trace_start_ns() / 1e3
-        out["window_us"] = window
-        out["device_intervals_us"] = [
-            (origin + e.time_range.start, origin + e.time_range.end)
-            for e in device]
-        out["profile"] = dict(
-            wall_ms=wall_us / 1e3, rank_device_busy_ms=busy_us / 1e3,
-            rank_device_busy_share=busy_us / wall_us,
-            device_ms_by_category=cats_ms,
-            collective_copies_ms=sum(
-                us for n, us in by_kernel.items()
-                if n.startswith("Memcpy") and "Pinned" in n) / 1e3,
-            device_ms_by_kernel=[[n[:80], us / 1e3] for n, us in sorted(
-                by_kernel.items(), key=lambda kv: -kv[1])[:12]],
-            exchange_calls=got,
-            exchange_host_ms={k: sum(e.cpu_time_total for e in v) / 1e3
-                              for k, v in ranges.items()},
-            collective_host_ms={k: {"ms": ms, "calls": n} for k, (ms, n)
-                                in collectives.items()})
+        out.update(placement_profile(torch, step_once, rank, out["groups"],
+                                     out["row_tables"]))
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
         check("jax" not in sys.modules, f"rank {rank} imported jax")
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
@@ -2695,8 +2874,9 @@ def placement_phase(torch, cuda_lookup, cuda_sparse, counted,
     predicts; then world 1 takes the ranks' trained rows, dp tables and
     MLP, and its engine, on each rank's block of each request, gives
     every rank's logits bit for bit. Returns the launch counts of the
-    ranks' held steps, summed, and rank 0's kernel timings."""
-    import torch.multiprocessing as torch_mp
+    ranks' held steps, summed, rank 0's kernel timings, and each rank's
+    step median, exchange host ms and one step's bytes by collective
+    (`wire_payloads`; phase 11e sets its bfloat16 step beside them)."""
     from distributed_embeddings_tpu_torch.models.dlrm import make_lr_schedule
     from distributed_embeddings_tpu_torch.ops import sparse_update
     from distributed_embeddings_tpu_torch.serving.engine import (
@@ -2714,22 +2894,7 @@ def placement_phase(torch, cuda_lookup, cuda_sparse, counted,
     tmp = tempfile.mkdtemp(prefix="chip_smoke_placement")
     try:
         t0 = time.perf_counter()
-        ctx = torch_mp.start_processes(
-            placement_rank, args=(world, backend, f"file://{tmp}/pg", tmp),
-            nprocs=world, join=False, start_method="spawn")
-        deadline = time.monotonic() + WORLD_JOIN_S
-        try:
-            while not ctx.join(timeout=5):
-                check(time.monotonic() < deadline,
-                      f"{label}: the ranks did not finish in {WORLD_JOIN_S} "
-                      "s")
-        finally:
-            for p in ctx.processes:
-                if p.is_alive():
-                    p.kill()
-                    p.join(30)
-        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
-                            weights_only=False) for r in range(world)]
+        ranks = spawn_ranks(torch, placement_rank, world, backend, tmp, label)
         ranks_s = time.perf_counter() - t0
         for r in ranks:
             check(r["plan"] == PLACEMENT_PLAN,
@@ -2945,7 +3110,15 @@ def placement_phase(torch, cuda_lookup, cuda_sparse, counted,
         if backend == "gloo":
             emit(phase="world_card_profile", path=label, backend=backend,
                  **card_profile(ranks))
-        return summed, ranks[0]["kernels"]
+        for r in ranks:
+            emit(phase="placement_wire", path=label, rank=r["rank"],
+                 step=r["wire"])
+        exchange = dict(
+            step_ms=[statistics.median(r["step_ms"]) for r in ranks],
+            wire=[r["wire"] for r in ranks],
+            exchange_host_ms=[r["profile"]["exchange_host_ms"]
+                              for r in ranks])
+        return summed, ranks[0]["kernels"], exchange
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3091,7 +3264,7 @@ def dlrm_step_kernels(torch, cuda_lookup, cuda_sparse, model, batch, rate):
     check(len(look.calls) == len(seg.calls) == len(rows.calls) == 1,
           f"DLRM step: {len(look.calls)} lookups, {len(seg.calls)} segment "
           f"sums, {len(rows.calls)} sgd_rows calls captured, want 1 each")
-    captured = [args + (None,) * (3 - len(args)) for args in look.calls]
+    captured = lookup_args(look.calls)
     look_err, look_tot = tiny_bucket_kernels(torch, cuda_lookup, captured,
                                              rate, phase="dlrm_kernel")
     out = {"lookup_combine": (look_tot, look_err),
@@ -3102,6 +3275,88 @@ def dlrm_step_kernels(torch, cuda_lookup, cuda_sparse, model, batch, rate):
     emit(phase="dlrm_kernels", hbm_bytes_per_s=rate,
          **{k: dict(tot, max_abs_err=err) for k, (tot, err) in out.items()})
     return out
+
+
+def dlrm_dataset(tmp, sizes):
+    """Write DLRM's seeded ClickGenerator stream (DLRM_FIT_STEPS train
+    batches, DLRM_EVAL_STEPS test batches) in the split-binary layout
+    under `tmp`; returns ``valid -> RawBinaryDataset`` of it."""
+    from distributed_embeddings_tpu_torch.models.data import (
+        RawBinaryDataset)
+    from distributed_embeddings_tpu_torch.models.synthetic import (
+        ClickGenerator)
+    t0 = time.perf_counter()
+    gen = ClickGenerator(sizes, 13, BATCH, seed=DLRM_SEED)
+    write_split_binary(tmp, "train",
+                       [gen.batch(s) for s in range(DLRM_FIT_STEPS)], sizes)
+    write_split_binary(tmp, "test", [gen.batch(1_000_000 + j)
+                                     for j in range(DLRM_EVAL_STEPS)], sizes)
+    del gen
+    emit(phase="dlrm_data", seconds=time.perf_counter() - t0,
+         tables=len(sizes), rows=sum(sizes), batch=BATCH,
+         train_batches=DLRM_FIT_STEPS, test_batches=DLRM_EVAL_STEPS,
+         bytes=sum(os.path.getsize(os.path.join(tmp, d, f))
+                   for d in ("train", "test")
+                   for f in os.listdir(os.path.join(tmp, d))))
+
+    def dataset(valid):
+        return RawBinaryDataset(
+            tmp, batch_size=BATCH, numerical_features=13,
+            categorical_features=range(len(sizes)),
+            categorical_feature_sizes=sizes, valid=valid)
+    return dataset
+
+
+def dlrm_card_auc(torch, model, test):
+    """The on-card AUC of `model`'s logits over the DLRM_EVAL_STEPS test
+    batches against the exact AUC and a CPU StreamingAUC of the same
+    logits (and the card's histograms against its own probabilities
+    binned on the host). Returns the card's AUC."""
+    from distributed_embeddings_tpu_torch.parallel.staging import (
+        DeviceStager)
+    from distributed_embeddings_tpu_torch.utils.metrics import (
+        StreamingAUC, auc_exact)
+    stage = DeviceStager("cuda")
+    metric = StreamingAUC()
+    state = metric.init("cuda")
+    logits, labels = [], []
+    with torch.no_grad():
+        for j in range(DLRM_EVAL_STEPS):
+            num, cats, lab = stage(test[j])
+            out = model(num, cats).reshape(-1)
+            metric.update(state, lab, out)
+            logits.append(out.cpu())
+            labels.append(lab.reshape(-1).cpu())
+    card_auc = metric.result(state)
+    logits, labels = torch.cat(logits), torch.cat(labels)
+    exact = auc_exact(labels.numpy(), logits.numpy())
+    cpu_metric = StreamingAUC()
+    cpu_state = cpu_metric.update(cpu_metric.init("cpu"), labels, logits)
+    cpu_auc = cpu_metric.result(cpu_state)
+    # the histograms of the card's own sigmoid, binned on the host: the
+    # counts must be the card's exactly
+    probs = torch.sigmoid(logits.cuda()).cpu()
+    host = StreamingAUC(from_logits=False)
+    host_state = host.update(host.init("cpu"), labels, probs)
+    exact_counts = (torch.equal(host_state.tp, state.tp.cpu())
+                    and torch.equal(host_state.fp, state.fp.cpu()))
+    emit(phase="dlrm_auc", samples=int(labels.numel()),
+         logits_dtype=str(logits.dtype), bins=metric.bins,
+         card_auc=card_auc, exact_auc=exact, cpu_streaming_auc=cpu_auc,
+         card_minus_exact=card_auc - exact,
+         card_equals_cpu=card_auc == cpu_auc,
+         bins_differing_from_cpu=int(
+             ((state.tp.cpu() != cpu_state.tp)
+              | (state.fp.cpu() != cpu_state.fp)).sum()),
+         histograms_exact=exact_counts)
+    check(logits.dtype == torch.float32, f"logits in {logits.dtype}")
+    check(abs(card_auc - exact) <= AUC_EXACT_TOL,
+          f"on-card AUC {card_auc} against the exact {exact}")
+    check(exact_counts, "the card's AUC histograms differ from "
+                        "its own probabilities binned on the host")
+    check(abs(card_auc - cpu_auc) <= 1e-4,
+          f"on-card AUC {card_auc}, CPU StreamingAUC {cpu_auc}")
+    return card_auc
 
 
 def dlrm_fit_phase(torch, cuda_lookup, cuda_sparse, counted, rate):
@@ -3117,43 +3372,16 @@ def dlrm_fit_phase(torch, cuda_lookup, cuda_sparse, counted, rate):
     `auc_exact` and a CPU `StreamingAUC` of the same logits. Then the
     step's kernels held and timed at its shapes (`dlrm_step_kernels`, on
     the serial run's model). Returns the launch counts of the pipelined
-    run and of the serial one, and `dlrm_step_kernels`' totals."""
-    import numpy as np
-    from distributed_embeddings_tpu_torch.models.data import (
-        RawBinaryDataset)
+    run and of the serial one, `dlrm_step_kernels`' totals, and the
+    pipelined run's step median, AUCs, losses, peak memory and profiled
+    step (phase 11c sets its bfloat16 run beside them)."""
     from distributed_embeddings_tpu_torch.models.dlrm import (
         DLRM, make_lr_schedule, scaled_table_sizes)
-    from distributed_embeddings_tpu_torch.models.synthetic import (
-        ClickGenerator)
-    from distributed_embeddings_tpu_torch.parallel.staging import (
-        DeviceStager)
     from distributed_embeddings_tpu_torch.training import fit
-    from distributed_embeddings_tpu_torch.utils.metrics import (
-        StreamingAUC, auc_exact)
     sizes = scaled_table_sizes(DLRM_TABLE_SCALE)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dlrm")
     try:
-        t0 = time.perf_counter()
-        gen = ClickGenerator(sizes, 13, BATCH, seed=DLRM_SEED)
-        write_split_binary(tmp, "train",
-                           [gen.batch(s) for s in range(DLRM_FIT_STEPS)],
-                           sizes)
-        write_split_binary(tmp, "test", [gen.batch(1_000_000 + j)
-                                         for j in range(DLRM_EVAL_STEPS)],
-                           sizes)
-        del gen
-        emit(phase="dlrm_data", seconds=time.perf_counter() - t0,
-             tables=len(sizes), rows=sum(sizes), batch=BATCH,
-             train_batches=DLRM_FIT_STEPS, test_batches=DLRM_EVAL_STEPS,
-             bytes=sum(os.path.getsize(os.path.join(tmp, d, f))
-                       for d in ("train", "test")
-                       for f in os.listdir(os.path.join(tmp, d))))
-
-        def dataset(valid):
-            return RawBinaryDataset(
-                tmp, batch_size=BATCH, numerical_features=13,
-                categorical_features=range(len(sizes)),
-                categorical_feature_sizes=sizes, valid=valid)
+        dataset = dlrm_dataset(tmp, sizes)
         evals = DLRM_FIT_STEPS // DLRM_EVAL_EVERY
         want = {"lookup_combine": DLRM_FIT_STEPS + evals * DLRM_EVAL_STEPS,
                 "segment_sum_sorted": DLRM_FIT_STEPS,
@@ -3192,6 +3420,7 @@ def dlrm_fit_phase(torch, cuda_lookup, cuda_sparse, counted, rate):
                 s for s in range(DLRM_FIT_STEPS) if s % DLRM_EVAL_EVERY == 0}
             step_ms = window.step_ms(skip)
             med = statistics.median(step_ms)
+            profiled = window.profile()
             emit(phase="main_path", path=label, steps=DLRM_FIT_STEPS,
                  build_s=build_s, fit_s=fit_s, launches=counts[label],
                  launches_per_step={k: counts[label][k] / DLRM_FIT_STEPS
@@ -3204,60 +3433,24 @@ def dlrm_fit_phase(torch, cuda_lookup, cuda_sparse, counted, rate):
                  ingest_stage_mean_ms={
                      k: v["mean_ms"]
                      for k, v in hist["ingest_stages"].items()},
-                 profiled_step=window.profile())
+                 profiled_step=profiled)
             runs[pipelined] = (hist["loss"], hist["eval_auc"],
                                [table_digest(torch, t)
                                 for t in model.embedding.tp],
                                {n: p.detach().clone() for n, p in
                                 model.named_parameters() if p.requires_grad})
             if pipelined:
-                # the on-card AUC of the trained model's logits against the
-                # exact AUC and a CPU StreamingAUC of the same logits
-                stage = DeviceStager("cuda")
-                metric = StreamingAUC()
-                state = metric.init("cuda")
-                logits, labels = [], []
-                with torch.no_grad():
-                    for j in range(DLRM_EVAL_STEPS):
-                        num, cats, lab = stage(test[j])
-                        out = model(num, cats).reshape(-1)
-                        metric.update(state, lab, out)
-                        logits.append(out.cpu())
-                        labels.append(lab.reshape(-1).cpu())
-                card_auc = metric.result(state)
-                logits, labels = torch.cat(logits), torch.cat(labels)
-                exact = auc_exact(labels.numpy(), logits.numpy())
-                cpu_metric = StreamingAUC()
-                cpu_state = cpu_metric.update(cpu_metric.init("cpu"), labels,
-                                              logits)
-                cpu_auc = cpu_metric.result(cpu_state)
-                # the histograms of the card's own sigmoid, binned on the
-                # host: the counts must be the card's exactly
-                probs = torch.sigmoid(logits.cuda()).cpu()
-                host = StreamingAUC(from_logits=False)
-                host_state = host.update(host.init("cpu"), labels, probs)
-                exact_counts = (torch.equal(host_state.tp, state.tp.cpu())
-                                and torch.equal(host_state.fp,
-                                                state.fp.cpu()))
-                emit(phase="dlrm_auc", samples=int(labels.numel()),
-                     bins=metric.bins, card_auc=card_auc, exact_auc=exact,
-                     cpu_streaming_auc=cpu_auc,
-                     card_minus_exact=card_auc - exact,
-                     card_equals_cpu=card_auc == cpu_auc,
-                     bins_differing_from_cpu=int(
-                         ((state.tp.cpu() != cpu_state.tp)
-                          | (state.fp.cpu() != cpu_state.fp)).sum()),
-                     histograms_exact=exact_counts)
-                check(abs(card_auc - exact) <= AUC_EXACT_TOL,
-                      f"on-card AUC {card_auc} against the exact "
-                      f"{exact}")
-                check(exact_counts, "the card's AUC histograms differ from "
-                                    "its own probabilities binned on the host")
-                check(abs(card_auc - cpu_auc) <= 1e-4,
-                      f"on-card AUC {card_auc}, CPU StreamingAUC {cpu_auc}")
+                # the on-card AUC of the trained model's logits
+                card_auc = dlrm_card_auc(torch, model, test)
                 check(card_auc == hist["eval_auc"][-1],
                       f"fit's last eval AUC {hist['eval_auc'][-1]} against "
                       f"the phase's {card_auc}")
+                summary = dict(median_step_ms=med, card_auc=card_auc,
+                               eval_auc=hist["eval_auc"],
+                               losses=hist["loss"],
+                               max_memory_allocated=torch.cuda
+                               .max_memory_allocated(),
+                               profiled_step=profiled)
             else:
                 step_kernels = dlrm_step_kernels(torch, cuda_lookup,
                                                  cuda_sparse, model,
@@ -3271,28 +3464,44 @@ def dlrm_fit_phase(torch, cuda_lookup, cuda_sparse, counted, rate):
              losses_equal=l1 == l2, eval_auc_equal=a1 == a2,
              table_digests_equal=d1 == d2)
         check(same, "the pipelined and the serial fit differ")
-        return counts, step_kernels
+        return counts, step_kernels, summary
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def dlrm_against_cpu_phase(torch, cuda_lookup, cuda_sparse, counted):
+def dlrm_against_cpu_phase(torch, cuda_lookup, cuda_sparse, counted,
+                           compute_dtype=None):
     """The same DLRM at DLRM_CPU_SCALE, 3 sgd steps at batch 65,536, each
     held against a CPU trainer from the card's state (phase 5's way:
     losses, touched table rows by change, the MLPs by value; the row
-    sums' conditioning from the CPU step's contributions). Returns the
-    launch counts."""
+    sums' conditioning from the CPU step's contributions). With a
+    `compute_dtype` (phase 11b), both trainers at it: the bars widen by
+    one rounding of a term (`AMP_TERM_EPS`) at the tap gradients' own
+    conditioning (`dlrm_tap_cond`), and after the steps an
+    `InferenceEngine` on the card's model serves a request of
+    AMP_REQUESTS[-1] rows against a CPU engine with the card's weights:
+    the embedding outputs bit-equal, the logits within AMP_SERVE_TOL.
+    Returns the launch counts."""
     from distributed_embeddings_tpu_torch.models.dlrm import (
         DLRM, scaled_table_sizes)
     from distributed_embeddings_tpu_torch.models.synthetic import (
         ClickGenerator)
+    from distributed_embeddings_tpu_torch.ops.cuda_lookup import form_name
+    from distributed_embeddings_tpu_torch.serving.engine import (
+        InferenceEngine)
     from distributed_embeddings_tpu_torch.training import (
         make_sparse_train_step)
+    from distributed_embeddings_tpu_torch.utils.device import (
+        resolve_compute_dtype)
+    dtype = resolve_compute_dtype(compute_dtype)
+    label = "dlrm_against_cpu" if dtype is None else "dlrm_amp_against_cpu"
     sizes = scaled_table_sizes(DLRM_CPU_SCALE)
     t0 = time.perf_counter()
     model = DLRM(sizes, device="cuda", lookup_path="pallas",
+                 compute_dtype=dtype,
                  generator=torch.Generator(device="cuda").manual_seed(3))
-    cpu_model = DLRM(sizes, device="cpu", lookup_path="pallas")
+    cpu_model = DLRM(sizes, device="cpu", lookup_path="pallas",
+                     compute_dtype=dtype)
     gen = ClickGenerator(sizes, 13, BATCH, seed=DLRM_SEED + 1)
     batches = [gen.batch(s) for s in range(TRAIN_STEPS)]
     init, step = make_sparse_train_step(model, "sgd", lr=TRAIN_LR)
@@ -3301,14 +3510,20 @@ def dlrm_against_cpu_phase(torch, cuda_lookup, cuda_sparse, counted):
     _, held = train_against_cpu(torch, rows_capture(cuda_sparse, "sgd"),
                                 "sgd", "change", step, model, init(model),
                                 cpu_step, cpu_model, batches, scaled=False,
-                                contrib=True)
+                                contrib=True,
+                                term_eps=0.0 if dtype is None
+                                else AMP_TERM_EPS,
+                                tap_cond=None if dtype is None
+                                else dlrm_tap_cond)
     torch.cuda.synchronize()
     counts = read_counts(cuda_lookup, *counted)
-    want = {"lookup_combine": 1, "segment_sum_sorted": 1, "sgd_rows": 1}
+    lookup = form_name(dtype or torch.float32)
+    want = {lookup: 1, "segment_sum_sorted": 1, "sgd_rows": 1}
     check(counts == per_step(want, TRAIN_STEPS),
-          f"dlrm_against_cpu launches {counts}, want {want} per step")
-    emit(phase="main_path", path="dlrm_against_cpu", steps=TRAIN_STEPS,
+          f"{label} launches {counts}, want {want} per step")
+    emit(phase="main_path", path=label, steps=TRAIN_STEPS,
          seconds=time.perf_counter() - t0, rows=sum(sizes),
+         compute_dtype=str(dtype or torch.float32),
          table_bytes=sum(t.numel() * 4 for t in model.embedding.tp),
          launches=counts, losses=held["losses"],
          cpu_losses=held["cpu_losses"], max_abs_err=held["max_abs_err"],
@@ -3317,7 +3532,37 @@ def dlrm_against_cpu_phase(torch, cuda_lookup, cuda_sparse, counted):
          table_change_max=held["changes"].max().item(),
          table_changes_past_rounding=held["moved"],
          relu_flips=held["relu_flips"], ok=True)
-    del model, cpu_model, held
+    del held
+    if dtype is not None:
+        # the engine at the compute dtype against a CPU engine
+        cpu_model.load_state_dict(model.state_dict())
+        engine = InferenceEngine(model, device="cuda")
+        cpu_engine = InferenceEngine(cpu_model, device="cpu")
+        rows = AMP_REQUESTS[-1]
+        num, cats, _ = ClickGenerator(sizes, 13, rows,
+                                      seed=DLRM_SEED + 2).batch(0)
+        got, want_l = engine.predict((num, cats)).cpu(), cpu_engine.predict(
+            (num, cats))
+        with torch.no_grad():
+            emb = [e.cpu() for e in model.embedding(
+                [torch.as_tensor(c, device="cuda") for c in cats])]
+            cpu_emb = cpu_model.embedding(
+                [torch.as_tensor(c) for c in cats])
+        emb_equal = all(a.dtype == dtype and torch.equal(a, b)
+                        for a, b in zip(emb, cpu_emb))
+        err = (got - want_l).abs().max().item()
+        ok = (got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+              and torch.allclose(got, want_l, **AMP_SERVE_TOL))
+        emit(phase="amp_serving_check", path=label, rows=rows,
+             embedding_outputs_bit_equal=emb_equal,
+             logits_dtype=str(got.dtype), max_abs_err=err,
+             tolerance=AMP_SERVE_TOL, ok=ok and emb_equal)
+        check(emb_equal, f"{label}: the engine's embedding outputs differ "
+                         "from the CPU's")
+        check(ok, f"{label}: a {rows}-row request's logits differ from the "
+                  f"CPU engine's by {err}")
+        del engine, cpu_engine
+    del model, cpu_model
     torch.cuda.empty_cache()
     return counts
 
@@ -3497,6 +3742,534 @@ def convergence_phase(torch, cuda_lookup, counted):
     return counts
 
 
+# ---- the tenth slice: mixed precision (compute_dtype bfloat16) on the
+# DLRM paths, the engine and the placement groups
+AMP_DTYPE = "bfloat16"
+# how far apart one rounding to bfloat16 may put a term of two trainers
+# whose float32 values differ in their low digits, relative to the term:
+# half the spacing of bfloat16 at 1 (one side rounds up, the other down
+# at a tie point; `train_against_cpu`'s term_eps)
+AMP_TERM_EPS = 2.0 ** -8
+# a bfloat16 model's logits on the card against the CPU engine's: an
+# interaction element whose float32 value sits at a rounding tie point
+# rounds to neighbouring bfloat16 values on the two (3.5e-5 measured at
+# 4,097 rows on an H100; the JAX package's own bfloat16-against-float32
+# bar is 4e-2)
+AMP_SERVE_TOL = dict(rtol=1e-3, atol=2e-4)
+AMP_REQUESTS = (65536, 4097)
+AMP_WORLD_SCALE = 0.02        # Criteo sizes x 0.02 at W = 2: 1.92 GB
+# the thresholds cut with the tables: the same 13 / 8 (9, 2) / 5 plan
+AMP_WORLD_KW = {k: v // 10 for k, v in PLACEMENT_KW.items()}
+AMP_WORLD_TIMED_STEPS = 5
+
+
+def amp_kernel_cases(torch, cuda_lookup, captured, rate, at):
+    """Phase 11a: `lookup_combine`'s mixed-precision forms, the bf16 and
+    f16 stores and their round-first forms, on a path's calls `captured`
+    ((table, ids, weights) each): every form bit-equal to its plain
+    version on the same inputs (which adds the K terms in the kernel's
+    order); at hotness 1 with weights other than 0 and 1, the one input
+    where the two forms give other bits, the plain store and round-first
+    results must differ too. Each form timed (CUDA graph replays) beside
+    the float32 form, its plain version and its bound: each distinct
+    float32 row read once, the ids and weights once, the compute dtype's
+    rows written once, at the card's memory rate. One `amp_kernel` line a
+    (call, form). Returns {form: totals over the calls}."""
+    forms = [(getattr(torch, d), r) for d in ("bfloat16", "float16")
+             for r in (False, True)]
+    totals = {cuda_lookup.form_name(d, r): dict(
+        ms=0.0, f32_ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
+        ops_ms=0.0, library_ms=None, max_abs_err=0.0)
+        for d, r in forms}
+    for g, (table, ids, weights) in enumerate(captured):
+        n, k = ids.shape
+        width = table.shape[1]
+        f32_ms = device_ms(
+            lambda: cuda_lookup.lookup_combine(table, ids, weights), reps=20)
+        unique_rows = int(torch.unique(ids.clamp(0, table.shape[0] - 1))
+                          .numel())
+        forms_differ = (k == 1 and weights is not None and bool(
+            ((weights != 0) & (weights != 1)).any()))
+        store_want = None
+        for out_dtype, rnd in forms:
+            name = cuda_lookup.form_name(out_dtype, rnd)
+            got = cuda_lookup.lookup_combine(table, ids, weights, out_dtype,
+                                             rnd)
+            want = cuda_lookup.lookup_combine_plain(table, ids, weights,
+                                                    out_dtype, rnd)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            ok = got.dtype == out_dtype and torch.equal(got, want)
+            check(ok, f"{name} disagrees with its plain version at {at} "
+                      f"call {g}: max abs err {err}")
+            if forms_differ and not rnd:
+                store_want = want
+            elif forms_differ:
+                check(not torch.equal(store_want, want),
+                      f"{name}: the store and round-first forms' plain "
+                      f"versions agree at {at} call {g}")
+            out_bytes = got.element_size()
+            del got, want
+            ms = device_ms(lambda: cuda_lookup.lookup_combine(
+                table, ids, weights, out_dtype, rnd), reps=20)
+            plain_ms = device_ms(lambda: cuda_lookup.lookup_combine_plain(
+                table, ids, weights, out_dtype, rnd), reps=5)
+            n_bytes = (unique_rows * width * 4
+                       + ids.numel() * ids.element_size()
+                       + (0 if weights is None else weights.numel() * 4)
+                       + n * width * out_bytes)
+            bytes_ms = n_bytes / rate * 1e3
+            ops_ms = 2 * n * k * width / F32_FLOP_PER_S * 1e3
+            emit(phase="amp_kernel", at=at, call=g, form=name,
+                 table=list(table.shape), ids=list(ids.shape),
+                 weighted=weights is not None, unique_rows=unique_rows,
+                 forms_differ=forms_differ, bytes=n_bytes,
+                 max_abs_err=err, ms=ms,
+                 f32_ms=f32_ms, plain_ms=plain_ms,
+                 bound_ms=max(bytes_ms, ops_ms), library_ms=None, ok=ok)
+            tot = totals[name]
+            for key, val in (("ms", ms), ("f32_ms", f32_ms),
+                             ("plain_ms", plain_ms),
+                             ("bound_ms", max(bytes_ms, ops_ms)),
+                             ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
+                tot[key] += val
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+    return totals
+
+
+def serve_latency_ms(torch, engine, request, reps=5):
+    """Median ms of `reps` synchronized `predict` calls after 2 warm
+    ones."""
+    times = []
+    for _ in range(2 + reps):
+        t0 = time.perf_counter()
+        engine.predict(request)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times[2:]) * 1e3
+
+
+def dlrm_amp_fit_phase(torch, cuda_lookup, cuda_sparse, counted, rate,
+                       f32_fit):
+    """Phases 11c, 11a and 11d at DLRM x DLRM_TABLE_SCALE (phase 9's model
+    freed first: two of them do not fit the card). 11c: the model at
+    AMP_DTYPE trained by `fit` on phase 9's dataset (the same seeded
+    stream, written again), pipelined, as phase 9 trains it: launches
+    (the bf16 store form of `lookup_combine` 1 a step and 1 an eval
+    forward), step median, one profiled step, peak memory, the on-card
+    AUC against `auc_exact` (`dlrm_card_auc`), each beside `f32_fit`, the
+    same run's float32 `dlrm_fit`. 11a: one more step's `lookup_combine`
+    call, at DLRM's shapes, through every mixed-precision form
+    (`amp_kernel_cases`). 11d: `InferenceEngine` on the trained model,
+    AMP_REQUESTS timed, beside the same weights served at float32.
+    Returns ({path: launch counts}, `amp_kernel_cases`' totals)."""
+    from distributed_embeddings_tpu_torch.models.dlrm import (
+        DLRM, make_lr_schedule, scaled_table_sizes)
+    from distributed_embeddings_tpu_torch.models.synthetic import (
+        ClickGenerator)
+    from distributed_embeddings_tpu_torch.parallel.staging import (
+        DeviceStager)
+    from distributed_embeddings_tpu_torch.serving.engine import (
+        InferenceEngine)
+    from distributed_embeddings_tpu_torch.training import (
+        fit, make_sparse_train_step)
+    sizes = scaled_table_sizes(DLRM_TABLE_SCALE)
+    label = "dlrm_amp_fit"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dlrm_amp")
+    try:
+        dataset = dlrm_dataset(tmp, sizes)
+        evals = DLRM_FIT_STEPS // DLRM_EVAL_EVERY
+        want = {"lookup_combine_bf16": (DLRM_FIT_STEPS
+                                        + evals * DLRM_EVAL_STEPS),
+                "segment_sum_sorted": DLRM_FIT_STEPS,
+                "sgd_rows": DLRM_FIT_STEPS}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = DLRM(sizes, device="cuda", lookup_path="pallas",
+                     compute_dtype=AMP_DTYPE,
+                     generator=torch.Generator(device="cuda")
+                     .manual_seed(DLRM_SEED))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        train, test = dataset(False), dataset(True)
+        window = StepWindow(torch, DLRM_PROFILED_STEP)
+        set_counts(cuda_lookup, *counted)
+        t0 = time.perf_counter()
+        _, _, hist = fit(
+            model, train.raw_batches(DLRM_FIT_STEPS), DLRM_FIT_STEPS, "sgd",
+            lr=make_lr_schedule(*DLRM_LR), preprocess=train.preprocess,
+            pipelined=True, eval_data=lambda j: test[j % len(test)],
+            eval_every=DLRM_EVAL_EVERY, eval_steps=DLRM_EVAL_STEPS,
+            log_every=0, callbacks=[window])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = read_counts(cuda_lookup, *counted)
+        check(counts == per_step(want, 1),
+              f"{label} launches {counts}, want {want}")
+        check(all(map(math.isfinite, hist["loss"])),
+              f"{label}: non-finite losses {hist['loss']}")
+        skip = {DLRM_PROFILED_STEP + 1} | {
+            s for s in range(DLRM_FIT_STEPS) if s % DLRM_EVAL_EVERY == 0}
+        step_ms = window.step_ms(skip)
+        med = statistics.median(step_ms)
+        peak = torch.cuda.max_memory_allocated()
+        emit(phase="main_path", path=label, compute_dtype=AMP_DTYPE,
+             steps=DLRM_FIT_STEPS, build_s=build_s, fit_s=fit_s,
+             launches=counts, losses=hist["loss"],
+             eval_auc=hist["eval_auc"], median_step_ms=med,
+             samples_per_s=BATCH / (med / 1e3), step_ms=step_ms,
+             max_memory_allocated=peak,
+             ingest_stage_mean_ms={k: v["mean_ms"] for k, v in
+                                   hist["ingest_stages"].items()},
+             profiled_step=window.profile(),
+             f32_dlrm_fit=dict(median_step_ms=f32_fit["median_step_ms"],
+                               max_memory_allocated=f32_fit[
+                                   "max_memory_allocated"],
+                               eval_auc=f32_fit["eval_auc"],
+                               losses=f32_fit["losses"],
+                               profiled_step=f32_fit["profiled_step"]))
+        card_auc = dlrm_card_auc(torch, model, test)
+        check(card_auc == hist["eval_auc"][-1],
+              f"{label}: fit's last eval AUC {hist['eval_auc'][-1]} against "
+              f"the phase's {card_auc}")
+        emit(phase="amp_auc", path=label, card_auc=card_auc,
+             f32_card_auc=f32_fit["card_auc"],
+             bf16_minus_f32=card_auc - f32_fit["card_auc"])
+
+        # 11a: the kernel forms at DLRM's shapes, one more step's call
+        init, step = make_sparse_train_step(model, "sgd",
+                                            lr=make_lr_schedule(*DLRM_LR))
+        num, cats, labels = DeviceStager("cuda")(train[0])
+        with Capture(cuda_lookup, "lookup_combine") as look:
+            step(model, init(model), num, list(cats), labels)
+        torch.cuda.synchronize()
+        check(len(look.calls) == 1 and look.calls[0][3] == torch.bfloat16,
+              f"{label}: {len(look.calls)} lookups captured, want 1 bf16")
+        calls = lookup_args(look.calls)
+        forms = amp_kernel_cases(torch, cuda_lookup, calls, rate, "dlrm_fit")
+        # the same table and ids at hotness 1 with weights in (0, 1): the
+        # one input where the store and round-first forms differ
+        table, ids, _ = calls[0]
+        ids = ids[:, :1].contiguous()
+        weights = torch.rand(ids.shape, device=ids.device,
+                             generator=torch.Generator(device=ids.device)
+                             .manual_seed(DLRM_SEED))
+        weighted = amp_kernel_cases(torch, cuda_lookup,
+                                    [(table, ids, weights)], rate,
+                                    "dlrm_fit_weighted")
+        for kname, tot in forms.items():
+            tot["max_abs_err"] = max(tot["max_abs_err"],
+                                     weighted[kname]["max_abs_err"])
+        del look, calls, table, ids, weights
+
+        # 11d: the engine at bfloat16 and, on the same weights, at float32,
+        # twice each in turn (the order's effect shows in the repeats)
+        served = {}
+        for dtype in (AMP_DTYPE, None) * 2:
+            model.compute_dtype = model.embedding.compute_dtype = (
+                None if dtype is None else torch.bfloat16)
+            engine = InferenceEngine(model, device="cuda")
+            engine.warmup(list(AMP_REQUESTS))
+            for rows in AMP_REQUESTS:
+                req = ClickGenerator(sizes, 13, rows,
+                                     seed=DLRM_SEED + 3).batch(0)[:2]
+                logits = engine.predict(req)
+                check(logits.dtype == torch.float32
+                      and tuple(logits.shape) == (rows, 1)
+                      and bool(torch.isfinite(logits).all()),
+                      f"{label}: a {rows}-row request gave "
+                      f"{logits.dtype} {tuple(logits.shape)}")
+                served.setdefault(rows, {}).setdefault(
+                    "float32" if dtype is None else dtype, []).append(
+                    serve_latency_ms(torch, engine, req))
+            del engine
+        for rows, ms in served.items():
+            emit(phase="amp_serving", path=label, rows=rows,
+                 median_ms=ms, rows_per_s={k: [rows / (v / 1e3) for v in vs]
+                                           for k, vs in ms.items()})
+        del model, train, test
+        torch.cuda.empty_cache()
+        return {label: counts}, forms
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def gloo_16bit_probe(torch, dev, rank, world):
+    """The collectives the wire runs, on bfloat16 CUDA tensors over the
+    process group (gloo when the ranks share a card): all_to_all_single,
+    all_gather_into_tensor, reduce_scatter_tensor, each against the
+    values it must give. Returns {collective: ok}."""
+    import torch.distributed as dist
+    out = {}
+    x = (torch.arange(world * 4, dtype=torch.float32, device=dev)
+         + 100 * rank).to(torch.bfloat16)
+    got = torch.empty_like(x)
+    dist.all_to_all_single(got, x)
+    want = torch.cat([(torch.arange(4, dtype=torch.float32, device=dev)
+                       + 4 * rank + 100 * r) for r in range(world)])
+    out["all_to_all_single"] = torch.equal(got.float(), want)
+    y = torch.full((2,), rank + 0.5, dtype=torch.bfloat16, device=dev)
+    gathered = torch.empty((2 * world,), dtype=torch.bfloat16, device=dev)
+    dist.all_gather_into_tensor(gathered, y)
+    out["all_gather_into_tensor"] = torch.equal(
+        gathered.float(), torch.arange(world, device=dev).float()
+        .repeat_interleave(2) + 0.5)
+    z = torch.full((2 * world,), 1.5, dtype=torch.bfloat16, device=dev)
+    part = torch.empty((2,), dtype=torch.bfloat16, device=dev)
+    dist.reduce_scatter_tensor(part, z)
+    out["reduce_scatter_tensor"] = torch.equal(
+        part.float(), torch.full((2,), 1.5 * world, device=dev))
+    torch.cuda.synchronize()
+    return out
+
+
+def amp_placement_rank(rank, world, backend, init_method, out_dir):
+    """One rank of phase 11e (spawned as phase 10's are): the collectives
+    probed on bfloat16 CUDA tensors (`gloo_16bit_probe`); the placement
+    DLRM at AMP_WORLD_SCALE with AMP_WORLD_KW at AMP_DTYPE, drawn by
+    `seed_weights`, its plan; the forward of its slice of batch 0
+    (embedding outputs and logits saved); 3 sgd steps at the example's
+    schedule (launches counted, each collective's calls, bytes and
+    dtypes recorded by `wire_payloads`); one more step whose
+    `lookup_combine` call on the first row shard (the round-first form)
+    rank 0 runs through `amp_kernel_cases`; AMP_WORLD_TIMED_STEPS timed
+    steps after 2 warm ones; one profiled step (`placement_profile`);
+    the peak memory. Results go to ``out_dir``."""
+    import torch
+    check("jax" not in sys.modules, f"rank {rank} imported jax")
+    import torch.distributed as dist
+    from distributed_embeddings_tpu_torch.models.dlrm import make_lr_schedule
+    from distributed_embeddings_tpu_torch.ops import (cuda_lookup, cuda_sparse,
+                                                      cuda_tiled)
+    from distributed_embeddings_tpu_torch.parallel.mesh import (
+        initialize_distributed)
+    from distributed_embeddings_tpu_torch.parallel.staging import (
+        DeviceStager, stage_dp_batch)
+    from distributed_embeddings_tpu_torch.tools import cuda_feature_probe
+    from distributed_embeddings_tpu_torch.training import (
+        make_sparse_train_step)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // (world + 1)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    initialize_distributed(backend, init_method, world, rank)
+    try:
+        out = {"rank": rank, "device": str(dev)}
+        out["probe"] = gloo_16bit_probe(torch, dev, rank, world)
+        check(all(out["probe"].values()),
+              f"rank {rank}: bfloat16 collectives {out['probe']}")
+        model = placement_model(torch, dev, rank, AMP_WORLD_SCALE,
+                                AMP_WORLD_KW, AMP_DTYPE)
+        layer = model.embedding
+        groups = layer.strategy.table_groups
+        out["plan"] = dict(dp=len(groups[0]), tp=len(groups[1]),
+                           placements=len(layer.plan.tp_placements),
+                           buckets=len(layer.plan.tp_buckets),
+                           row=len(groups[2]))
+        stager = DeviceStager(dev)
+        batches = [stage_dp_batch(b, stager)
+                   for b in placement_batches(model, TRAIN_STEPS)]
+        num0, cats0, _ = batches[0]
+        with torch.no_grad():
+            emb = layer(cats0)
+            logits = model(num0, cats0)
+        out["emb_dtypes"] = sorted({str(e.dtype) for e in emb})
+        torch.save({"emb": torch.cat(emb, dim=1).cpu(),
+                    "logits": logits.cpu()},
+                   os.path.join(out_dir, f"forward{rank}.pt"))
+        del emb, logits
+
+        # the main path: 3 sgd steps, every collective recorded
+        init, step = make_sparse_train_step(model, "sgd",
+                                            lr=make_lr_schedule(*DLRM_LR))
+        state = init(model)
+        counted = (cuda_sparse, cuda_tiled, cuda_feature_probe)
+        set_counts(cuda_lookup, *counted)
+        losses = []
+        with wire_payloads(torch) as payloads:
+            for batch in batches:
+                _, state, loss = step(model, state, *batch)
+                losses.append(float(loss))
+        torch.cuda.synchronize()
+        out["launches"] = read_counts(cuda_lookup, *counted)
+        out["losses"] = losses
+        out["wire"] = {k: dict(v, calls=v["calls"] / TRAIN_STEPS,
+                               bytes=v["bytes"] / TRAIN_STEPS)
+                       for k, v in payloads.items()}
+        key = tuple((1, False) for _ in layer.strategy.input_groups[1])
+        tp_groups, _ = layer._exchange_groups_for_key(key)
+        out["groups"] = len(tp_groups)
+        out["tp_buckets_updated"] = len({g.bucket for g in tp_groups})
+        out["row_tables"] = len(layer.row)
+
+        # 11a at a row shard's shapes: one more step's call on shard 0
+        shard = layer.row[0].data_ptr()
+        with Capture(cuda_lookup, "lookup_combine") as look:
+            _, state, _ = step(model, state, *batches[0])
+        torch.cuda.synchronize()
+        if rank == 0:
+            calls = [a for a in look.calls if a[0].data_ptr() == shard]
+            check(len(calls) == 1 and tuple(calls[0][3:]) == (
+                torch.bfloat16, True),
+                  f"rank 0: {len(calls)} lookups on row shard 0, want 1 "
+                  "of the bf16 round-first form")
+            out["amp_kernels"] = amp_kernel_cases(
+                torch, cuda_lookup, lookup_args(calls),
+                hbm_rate(torch.cuda.get_device_name(dev)), "row_shard")
+            del calls
+        del look
+        dist.barrier()
+
+        times = []
+        for i in range(2 + AMP_WORLD_TIMED_STEPS):
+            t1 = time.perf_counter()
+            _, state, _ = step(model, state, *batches[i % TRAIN_STEPS])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        out["step_ms"] = [t * 1e3 for t in times[2:]]
+        holder = {"state": state}
+        del state
+
+        def step_once():
+            holder["state"] = step(model, holder["state"], *batches[0])[1]
+        out.update(placement_profile(torch, step_once, rank, out["groups"],
+                                     out["row_tables"]))
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+        check("jax" not in sys.modules, f"rank {rank} imported jax")
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(torch, fn, world, backend, tmp, label):
+    """`fn(rank, world, backend, init_method, tmp)` on `world` spawned
+    ranks, joined within WORLD_JOIN_S (a rank left alive is killed);
+    returns each rank's ``tmp/rank<r>.pt``."""
+    import torch.multiprocessing as torch_mp
+    ctx = torch_mp.start_processes(
+        fn, args=(world, backend, f"file://{tmp}/pg", tmp), nprocs=world,
+        join=False, start_method="spawn")
+    deadline = time.monotonic() + WORLD_JOIN_S
+    try:
+        while not ctx.join(timeout=5):
+            check(time.monotonic() < deadline,
+                  f"{label}: the ranks did not finish in {WORLD_JOIN_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def amp_placement_phase(torch, f32_exchange):
+    """Phase 11e: `amp_placement_rank` on PLACEMENT_WORLD ranks, then the
+    world-1 model at AMP_DTYPE in this process (every table
+    table-parallel) with the same per-table weights: the plan
+    (PLACEMENT_PLAN) on each rank; each rank's embedding outputs (bfloat16)
+    and logits bit-equal to world 1's on the same rows (one-hot ids: a
+    row-sliced output is one shard's rounded row plus zeros); the launches
+    a rank step (the bf16 store form a tp group, the round-first form a
+    row shard, a segment sum and an sgd_rows a tp bucket and a row
+    shard); every float payload of the wire's all_to_all, all_gather and
+    reduce-scatter bfloat16; bytes and host ms by collective printed
+    beside phase 10's float32 ones (`f32_exchange`: the same plan and
+    batch, so the same shapes). Returns the ranks' launch counts,
+    summed, and rank 0's `amp_kernel_cases` totals at row shard 0."""
+    world = PLACEMENT_WORLD
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= world else "gloo"
+    label = f"world{world}_placement_amp"
+    emit(phase="placement_setup", path=label, world=world, backend=backend,
+         device_count=cards, table_scale=AMP_WORLD_SCALE,
+         compute_dtype=AMP_DTYPE, **AMP_WORLD_KW)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_amp_placement")
+    try:
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(torch, amp_placement_rank, world, backend, tmp,
+                            label)
+        ranks_s = time.perf_counter() - t0
+        summed = dict.fromkeys(ALL_KERNELS, 0)
+        wire_floats = ("all_to_all_single", "all_gather_into_tensor",
+                       "reduce_scatter_tensor")
+        for r in ranks:
+            check(r["plan"] == PLACEMENT_PLAN,
+                  f"{label}: rank {r['rank']} plans {r['plan']}, want "
+                  f"{PLACEMENT_PLAN}")
+            check(r["emb_dtypes"] == ["torch.bfloat16"],
+                  f"{label}: rank {r['rank']} outputs {r['emb_dtypes']}")
+            want_r = {"lookup_combine_bf16": r["groups"],
+                      "lookup_combine_bf16_round": r["row_tables"],
+                      "segment_sum_sorted": (r["tp_buckets_updated"]
+                                             + r["row_tables"]),
+                      "sgd_rows": r["tp_buckets_updated"] + r["row_tables"]}
+            check(r["launches"] == per_step(want_r, TRAIN_STEPS),
+                  f"{label}: rank {r['rank']} launches {r['launches']}, "
+                  f"want {want_r} per step")
+            for k, v in r["launches"].items():
+                summed[k] += v
+            floats = {n: [d for d in r["wire"][n]["dtypes"]
+                          if d.startswith(("float", "bfloat"))]
+                      for n in wire_floats}
+            check(all(d == ["bfloat16"] for d in floats.values()),
+                  f"{label}: rank {r['rank']}'s wire moved {floats}")
+
+        # the world-1 model at the compute dtype: the same weights
+        model = placement_model(torch, "cuda", 0, AMP_WORLD_SCALE,
+                                AMP_WORLD_KW, AMP_DTYPE)
+        layer = model.embedding
+        batches = placement_batches(model, 1)
+        b_l = BATCH // world
+        identical, fwd_err = True, 0.0
+        num, cats, _ = batches[0]
+        for r in range(world):
+            got = torch.load(os.path.join(tmp, f"forward{r}.pt"))
+            blk = slice(r * b_l, (r + 1) * b_l)
+            with torch.no_grad():
+                emb = torch.cat(layer([c[blk] for c in cats]), dim=1).cpu()
+                logits = model(num[blk], [c[blk] for c in cats]).cpu()
+            for what, a, b in (("embedding outputs", got["emb"], emb),
+                               ("logits", got["logits"], logits)):
+                check(a.shape == b.shape and a.dtype == b.dtype,
+                      f"{label}: rank {r} {what} {a.dtype} "
+                      f"{tuple(a.shape)}, want {b.dtype} {tuple(b.shape)}")
+                fwd_err = max(fwd_err,
+                              (a.float() - b.float()).abs().max().item())
+                identical = identical and torch.equal(a, b)
+        emit(phase="placement_forward", path=label, bit_identical=identical,
+             max_abs_err=fwd_err)
+        check(identical, f"{label}: the ranks' forwards differ from world "
+                         f"1's by {fwd_err}")
+        del model, layer
+        torch.cuda.empty_cache()
+        emit(phase="main_path", path=label, backend=backend, world=world,
+             compute_dtype=AMP_DTYPE, steps=TRAIN_STEPS,
+             ranks_seconds=ranks_s,
+             launches_by_rank=[r["launches"] for r in ranks],
+             losses_by_rank=[r["losses"] for r in ranks],
+             probe=ranks[0]["probe"], ok=True)
+        for r in ranks:
+            emit(phase="amp_wire", path=label, rank=r["rank"],
+                 step=r["wire"], f32_step=f32_exchange["wire"][r["rank"]],
+                 exchange_host_ms=r["profile"]["exchange_host_ms"],
+                 f32_exchange_host_ms=f32_exchange["exchange_host_ms"][
+                     r["rank"]],
+                 median_step_ms=statistics.median(r["step_ms"]),
+                 f32_median_step_ms=f32_exchange["step_ms"][r["rank"]],
+                 max_memory_allocated=r["max_memory_allocated"])
+            emit(phase="world_profile", path=label, rank=r["rank"],
+                 backend=backend, **r["profile"])
+        if backend == "gloo":
+            emit(phase="world_card_profile", path=label, backend=backend,
+                 **card_profile(ranks))
+        return summed, ranks[0]["amp_kernels"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3646,11 +4419,14 @@ def main() -> int:
     # the kernel at the four group shapes of one 65536-row forward
     with Capture(cuda_lookup, "lookup_combine") as cap:
         engine.predict(requests[-1])
-    captured = [args + (None,) * (3 - len(args)) for args in cap.calls]
+    captured = lookup_args(cap.calls)
     check(len(captured) == 4, f"{len(captured)} groups captured, want 4")
     tiny_worst, totals = tiny_bucket_kernels(torch, cuda_lookup, captured,
                                              rate)
     emit(phase="tiny_kernel_total", hbm_bytes_per_s=rate, **totals)
+    # 11a at Tiny's four multi-hot groups, while its buckets live: the
+    # mixed-precision forms of the kernel on the same calls
+    amp_tiny = amp_kernel_cases(torch, cuda_lookup, captured, rate, "tiny")
 
     lookup_row = dict(launches={"serve": launches}, ms=totals["ms"],
                       plain_ms=totals["plain_ms"],
@@ -4012,8 +4788,8 @@ def main() -> int:
     # with eval, pipelined and serial; then the convergence demo
     dlrm_counts = {"dlrm_against_cpu": dlrm_against_cpu_phase(
         torch, cuda_lookup, cuda_sparse, counted)}
-    fit_counts, dlrm_kernels = dlrm_fit_phase(torch, cuda_lookup,
-                                              cuda_sparse, counted, rate)
+    fit_counts, dlrm_kernels, f32_fit = dlrm_fit_phase(
+        torch, cuda_lookup, cuda_sparse, counted, rate)
     dlrm_counts.update(fit_counts)
     dlrm_counts["convergence"] = convergence_phase(torch, cuda_lookup,
                                                    counted)
@@ -4028,9 +4804,22 @@ def main() -> int:
     # ---- 10. the placement groups at world size > 1: DLRM with dp,
     # column-sliced tp and row-sliced tables on 2 ranks; counts to 0 in
     # each rank, drive, read
-    placement_counts, placement_kernels = placement_phase(
+    placement_counts, placement_kernels, f32_exchange = placement_phase(
         torch, cuda_lookup, cuda_sparse, counted, serve_latency)
     world_counts[f"world{PLACEMENT_WORLD}_placement"] = placement_counts
+
+    # ---- 11. mixed precision (compute_dtype bfloat16): DLRM against the
+    # CPU trainer and its engine against a CPU engine (11b), DLRM x 0.4
+    # through `fit` (11c) with the kernel's forms at its shapes (11a) and
+    # its engine timed (11d), the placement groups at W = 2 (11e); counts
+    # to 0, drive, read in each
+    amp_counts = {"dlrm_amp_against_cpu": dlrm_against_cpu_phase(
+        torch, cuda_lookup, cuda_sparse, counted, compute_dtype=AMP_DTYPE)}
+    fit_amp_counts, amp_dlrm = dlrm_amp_fit_phase(
+        torch, cuda_lookup, cuda_sparse, counted, rate, f32_fit)
+    amp_counts.update(fit_amp_counts)
+    amp_counts[f"world{PLACEMENT_WORLD}_placement_amp"], amp_row = (
+        amp_placement_phase(torch, f32_exchange))
 
     # ---- 7. result lines; the kernels of DLRM's step carry their times
     # at its shapes too (`at_dlrm_fit`), and at a row shard's of the
@@ -4066,7 +4855,7 @@ def main() -> int:
              "train_adam_cut": cut_counts["adam"],
              "train_fused": fused_counts,
              **{f"train_tiled_{k}": c for k, c in tiled_counts.items()},
-             **dense_counts, **dlrm_counts, **world_counts}
+             **dense_counts, **dlrm_counts, **world_counts, **amp_counts}
 
     def by_path(kname):
         return {p: c[kname] for p, c in paths.items() if c[kname]}
@@ -4094,6 +4883,23 @@ def main() -> int:
                              by_path(f"{kind}_stream"), tot,
                              max(tot["max_abs_err"],
                                  sorted_worst[f"{kind}_stream"])))
+    # the bf16 forms of lookup_combine, each timed at the call of the path
+    # that runs it (11a): the store form at DLRM x 0.4's, the round-first
+    # form at row shard 0's of 11e; ``at_other`` the form at 11a's other
+    # calls, whose errors the row's max_abs_err covers
+    amp_timed = {"dlrm_fit": amp_dlrm, "tiny": amp_tiny,
+                 "row_shard": amp_row}
+    for kname, where in (("lookup_combine_bf16", "dlrm_fit"),
+                         ("lookup_combine_bf16_round", "row_shard")):
+        tot = amp_timed[where][kname]
+        row = entry(kname, "lookup_combine.cu", by_path(kname), tot,
+                    max(t[kname]["max_abs_err"] for t in amp_timed.values()))
+        row.update(f32_ms=tot["f32_ms"], timed_at=where, at_other={
+            at: {k: t[kname][k] for k in (
+                "ms", "f32_ms", "plain_ms", "bound_ms", "library_ms",
+                "max_abs_err")}
+            for at, t in amp_timed.items() if at != where})
+        kernels.append(row)
     ladder_err = {rung["library"]: rung["max_abs_err"] for rung in matrix}
     for kname, tot in ladder_rows.items():
         kernels.append(entry(kname, f"{kname}.cu", by_path(kname), tot,

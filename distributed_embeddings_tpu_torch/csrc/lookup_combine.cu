@@ -10,9 +10,9 @@
 // kernel serves every vocab size and width.
 //
 // Bound: memory. Each output row reads K table rows of 4*W bytes at random
-// row addresses, plus its K ids and weights, and writes 4*W bytes: about
-// N*K*(4W + 8) + 4*N*W bytes against 2*N*K*W flops, far below the card's
-// operations-per-byte line.
+// row addresses, plus its K ids and weights, and writes W outputs (4*W bytes
+// of float32, 2*W of bf16 or f16): about N*K*(4W + 8) + 4*N*W bytes against
+// 2*N*K*W flops, far below the card's operations-per-byte line.
 //
 // Design (the original library's CUDA combiner shape): a group of
 // `lanes = min(32, ceil(W / 4))` threads (a power of two, so a group never
@@ -25,7 +25,23 @@
 // so the result is the plain multiply-then-sum; only the order of the K-term
 // sum may differ from a library reduction. Index arithmetic is 64-bit: a row
 // offset times W overflows int32 on the larger buckets of the model zoo.
+//
+// Mixed precision: the table stays float32 and the sum is float32; the
+// store is templated on the output type (float, __nv_bfloat16, __half),
+// rounded once to nearest even as XLA's convert rounds. Two forms:
+//   store form (`round_in` 0): the float32 combine, then the rounded store:
+//     the TPU kernel followed by `.astype(compute_dtype)`;
+//   round-first form (`round_in` 1): each row element and each weight is
+//     rounded to the output type before the float32 multiply-add. The
+//     product of two bf16 (or f16) values is exact in float32, so this is
+//     an einsum of rounded operands with float32 accumulation and one
+//     rounding at the end: XLA's lookup route (gather, cast, combine),
+//     up to the order of the K-term sum.
+// The vec4 store writes 4 outputs at once: 16 bytes of float, 8 of bf16 or
+// f16, so the output must be aligned to 4 * sizeof(output).
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -33,18 +49,69 @@ namespace {
 
 constexpr int kThreads = 256;
 
+// The output type: `cast` is the rounded store, `round` a float32 value
+// rounded to the type and back (the round-first form's operands).
+template <typename OutT>
+struct Out;
+
+template <>
+struct Out<float> {
+  static __device__ __forceinline__ float cast(float v) { return v; }
+  static __device__ __forceinline__ float round(float v) { return v; }
+  static __device__ __forceinline__ void store4(float* p, float4 a) {
+    *reinterpret_cast<float4*>(p) = a;
+  }
+};
+
+struct alignas(8) Bf16x4 {
+  __nv_bfloat162 lo, hi;
+};
+
+template <>
+struct Out<__nv_bfloat16> {
+  static __device__ __forceinline__ __nv_bfloat16 cast(float v) {
+    return __float2bfloat16_rn(v);
+  }
+  static __device__ __forceinline__ float round(float v) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  }
+  static __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 a) {
+    *reinterpret_cast<Bf16x4*>(p) =
+        Bf16x4{__floats2bfloat162_rn(a.x, a.y), __floats2bfloat162_rn(a.z, a.w)};
+  }
+};
+
+struct alignas(8) Halfx4 {
+  __half2 lo, hi;
+};
+
+template <>
+struct Out<__half> {
+  static __device__ __forceinline__ __half cast(float v) {
+    return __float2half_rn(v);
+  }
+  static __device__ __forceinline__ float round(float v) {
+    return __half2float(__float2half_rn(v));
+  }
+  static __device__ __forceinline__ void store4(__half* p, float4 a) {
+    *reinterpret_cast<Halfx4*>(p) =
+        Halfx4{__floats2half2_rn(a.x, a.y), __floats2half2_rn(a.z, a.w)};
+  }
+};
+
 template <typename IdT>
 __device__ __forceinline__ int64_t clamp_id(IdT raw, int64_t vocab) {
   int64_t id = static_cast<int64_t>(raw);
   return id < 0 ? 0 : (id >= vocab ? vocab - 1 : id);
 }
 
-template <typename IdT, bool kVec4>
+template <typename IdT, typename OutT, bool kVec4, bool kRoundIn>
 __global__ void __launch_bounds__(kThreads)
 lookup_combine_kernel(const float* __restrict__ table, int64_t vocab,
                       int64_t width, const IdT* __restrict__ ids,
                       const float* __restrict__ weights, int64_t n_rows,
-                      int64_t hot, float* __restrict__ out, int lane_shift) {
+                      int64_t hot, OutT* __restrict__ out, int lane_shift) {
+  using O = Out<OutT>;
   const int lanes = 1 << lane_shift;
   const int64_t n = static_cast<int64_t>(blockIdx.x) * (kThreads >> lane_shift)
                     + (threadIdx.x >> lane_shift);
@@ -52,7 +119,7 @@ lookup_combine_kernel(const float* __restrict__ table, int64_t vocab,
   const int lane = threadIdx.x & (lanes - 1);
   const IdT* row_ids = ids + n * hot;
   const float* row_w = weights == nullptr ? nullptr : weights + n * hot;
-  float* out_row = out + n * width;
+  OutT* out_row = out + n * width;
   constexpr int kVec = kVec4 ? 4 : 1;
   for (int64_t c = static_cast<int64_t>(lane) * kVec; c < width;
        c += static_cast<int64_t>(lanes) * kVec) {
@@ -60,30 +127,42 @@ lookup_combine_kernel(const float* __restrict__ table, int64_t vocab,
       float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
       for (int64_t k = 0; k < hot; ++k) {
         const int64_t id = clamp_id(row_ids[k], vocab);
-        const float w = row_w == nullptr ? 1.f : row_w[k];
-        const float4 v =
+        float w = row_w == nullptr ? 1.f : row_w[k];
+        float4 v =
             __ldg(reinterpret_cast<const float4*>(table + id * width + c));
+        if (kRoundIn) {
+          w = O::round(w);
+          v.x = O::round(v.x);
+          v.y = O::round(v.y);
+          v.z = O::round(v.z);
+          v.w = O::round(v.w);
+        }
         acc.x = __fadd_rn(acc.x, __fmul_rn(w, v.x));
         acc.y = __fadd_rn(acc.y, __fmul_rn(w, v.y));
         acc.z = __fadd_rn(acc.z, __fmul_rn(w, v.z));
         acc.w = __fadd_rn(acc.w, __fmul_rn(w, v.w));
       }
-      *reinterpret_cast<float4*>(out_row + c) = acc;
+      O::store4(out_row + c, acc);
     } else {
       float acc = 0.f;
       for (int64_t k = 0; k < hot; ++k) {
         const int64_t id = clamp_id(row_ids[k], vocab);
-        const float w = row_w == nullptr ? 1.f : row_w[k];
-        acc = __fadd_rn(acc, __fmul_rn(w, __ldg(table + id * width + c)));
+        float w = row_w == nullptr ? 1.f : row_w[k];
+        float v = __ldg(table + id * width + c);
+        if (kRoundIn) {
+          w = O::round(w);
+          v = O::round(v);
+        }
+        acc = __fadd_rn(acc, __fmul_rn(w, v));
       }
-      out_row[c] = acc;
+      out_row[c] = O::cast(acc);
     }
   }
 }
 
-template <typename IdT>
+template <typename IdT, typename OutT, bool kRoundIn>
 int launch(const float* table, int64_t vocab, int64_t width, const IdT* ids,
-           const float* weights, int64_t n_rows, int64_t hot, float* out,
+           const float* weights, int64_t n_rows, int64_t hot, OutT* out,
            int vec4, void* stream) {
   const int64_t per_thread = vec4 ? 4 : 1;
   int64_t need = (width + per_thread - 1) / per_thread;
@@ -95,36 +174,43 @@ int launch(const float* table, int64_t vocab, int64_t width, const IdT* ids,
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vec4) {
-    lookup_combine_kernel<IdT, true><<<static_cast<unsigned>(blocks), kThreads,
-                                       0, s>>>(
-        table, vocab, width, ids, weights, n_rows, hot, out, lane_shift);
+    lookup_combine_kernel<IdT, OutT, true, kRoundIn>
+        <<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+            table, vocab, width, ids, weights, n_rows, hot, out, lane_shift);
   } else {
-    lookup_combine_kernel<IdT, false><<<static_cast<unsigned>(blocks),
-                                        kThreads, 0, s>>>(
-        table, vocab, width, ids, weights, n_rows, hot, out, lane_shift);
+    lookup_combine_kernel<IdT, OutT, false, kRoundIn>
+        <<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+            table, vocab, width, ids, weights, n_rows, hot, out, lane_shift);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C entry points, bound with ctypes. `weights` may be null (all ones);
-// `vec4` selects float4 loads and needs width % 4 == 0 and 16-byte aligned
-// table and out pointers. Each returns cudaGetLastError() after the launch.
-extern "C" int lookup_combine_f32_i32(const float* table, int64_t vocab,
-                                      int64_t width, const int32_t* ids,
-                                      const float* weights, int64_t n_rows,
-                                      int64_t hot, float* out, int vec4,
-                                      void* stream) {
-  return launch<int32_t>(table, vocab, width, ids, weights, n_rows, hot, out,
-                         vec4, stream);
-}
+// Plain C entry points, bound with ctypes: lookup_combine_<out>[_round]_<ids>
+// for out f32 / bf16 / f16 (the store form; `_round`: the round-first form)
+// and ids int32 / int64. `weights` may be null (all ones); `vec4` selects
+// float4 loads and 4-wide stores and needs width % 4 == 0, a 16-byte aligned
+// table and an output aligned to 4 outputs. Each returns cudaGetLastError()
+// after the launch.
+#define LOOKUP_COMBINE_ENTRY(NAME, IdT, OutT, ROUND_IN)                      \
+  extern "C" int NAME(const float* table, int64_t vocab, int64_t width,      \
+                      const IdT* ids, const float* weights, int64_t n_rows,  \
+                      int64_t hot, void* out, int vec4, void* stream) {      \
+    return launch<IdT, OutT, ROUND_IN>(table, vocab, width, ids, weights,    \
+                                       n_rows, hot, static_cast<OutT*>(out), \
+                                       vec4, stream);                        \
+  }
 
-extern "C" int lookup_combine_f32_i64(const float* table, int64_t vocab,
-                                      int64_t width, const int64_t* ids,
-                                      const float* weights, int64_t n_rows,
-                                      int64_t hot, float* out, int vec4,
-                                      void* stream) {
-  return launch<int64_t>(table, vocab, width, ids, weights, n_rows, hot, out,
-                         vec4, stream);
-}
+LOOKUP_COMBINE_ENTRY(lookup_combine_f32_i32, int32_t, float, false)
+LOOKUP_COMBINE_ENTRY(lookup_combine_f32_i64, int64_t, float, false)
+LOOKUP_COMBINE_ENTRY(lookup_combine_bf16_i32, int32_t, __nv_bfloat16, false)
+LOOKUP_COMBINE_ENTRY(lookup_combine_bf16_i64, int64_t, __nv_bfloat16, false)
+LOOKUP_COMBINE_ENTRY(lookup_combine_bf16_round_i32, int32_t, __nv_bfloat16,
+                     true)
+LOOKUP_COMBINE_ENTRY(lookup_combine_bf16_round_i64, int64_t, __nv_bfloat16,
+                     true)
+LOOKUP_COMBINE_ENTRY(lookup_combine_f16_i32, int32_t, __half, false)
+LOOKUP_COMBINE_ENTRY(lookup_combine_f16_i64, int64_t, __half, false)
+LOOKUP_COMBINE_ENTRY(lookup_combine_f16_round_i32, int32_t, __half, true)
+LOOKUP_COMBINE_ENTRY(lookup_combine_f16_round_i64, int64_t, __half, true)

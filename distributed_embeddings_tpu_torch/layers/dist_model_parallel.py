@@ -41,6 +41,17 @@ rank passes its own slice of the global batch
 storage come in later slices (ROADMAP Queue A) and raise
 NotImplementedError here.
 
+Mixed precision (``compute_dtype`` bfloat16 or float16; the JAX package's
+policy): the tables, their optimizer state and the sums of the lookups stay
+float32, and every output, every activation on the wire and every tap is
+in the compute dtype, rounded where the JAX package rounds. The tp groups
+take its kernel route: `lookup_combine` stores the compute dtype (the TPU
+kernel, then one cast); the dp group and the row shards take its XLA
+route: the gathered rows (and, in a row shard's kernel, the weights) are
+rounded first, then combined in float32 and rounded once. The mean scale
+of an unweighted group is rounded to the compute dtype before it
+multiplies, as ``out * jnp.asarray(scale, out.dtype)`` does.
+
 Training: a tapped forward (`make_taps`, ``forward(taps=...,
 return_residuals=True)``) makes each tp group's mp-side output and each
 row input's partial output a leaf of the autograd graph, whose ``.grad``
@@ -75,7 +86,7 @@ from distributed_embeddings_tpu_torch.parallel.plan import (ShardedPlan,
 from distributed_embeddings_tpu_torch.parallel.planner import (
     DistEmbeddingStrategy)
 from distributed_embeddings_tpu_torch.utils.device import (
-    DeviceLike, check_compute_dtype, default_generator, resolve_device)
+    DeviceLike, default_generator, resolve_compute_dtype, resolve_device)
 from distributed_embeddings_tpu_torch.utils.initializers import (
     get_initializer)
 
@@ -91,18 +102,34 @@ def _combine(emb: torch.Tensor, weights: Optional[torch.Tensor],
              combiner: Optional[str]) -> torch.Tensor:
     """Reduce the hotness axis (second-to-last) of `emb` [..., K, w];
     weights [..., K] carry 0 for padded slots, mean divides by the
-    (weighted) count."""
+    (weighted) count. As XLA computes it for the JAX package: rows of a
+    16-bit float type are summed (or weighted by the weights rounded to
+    their type) in float32 and rounded once, and the weighted mean's
+    divisor is rounded to their type."""
     if combiner is None:
         return emb.reshape(emb.shape[:-2] + (emb.shape[-2] * emb.shape[-1],))
+    acc = emb.float()
     if weights is None:
         if combiner == "sum":
-            return emb.sum(dim=-2)
-        return emb.mean(dim=-2)
-    out = torch.einsum("...k,...kw->...w", weights.to(emb.dtype), emb)
+            return acc.sum(dim=-2).to(emb.dtype)
+        return acc.mean(dim=-2).to(emb.dtype)
+    out = torch.einsum("...k,...kw->...w", weights.to(emb.dtype).float(),
+                       acc).to(emb.dtype)
     if combiner == "mean":
         denom = weights.sum(dim=-1).clamp_min(1.0).to(out.dtype)
         out = out / denom[..., None]
     return out
+
+
+def _scaled(out: torch.Tensor, scale: float) -> torch.Tensor:
+    """``out * scale`` with the scale rounded to a 16-bit `out`'s dtype
+    first (the JAX package's ``out * jnp.asarray(scale, out.dtype)``): a
+    Python float would multiply in float32 and round once."""
+    if scale == 1.0:
+        return out
+    if out.dtype == torch.float32:
+        return out * scale
+    return out * torch.full((), scale, dtype=out.dtype, device=out.device)
 
 
 def _effective_weights(weights: Optional[torch.Tensor], k: int,
@@ -219,13 +246,15 @@ class DistributedEmbedding(nn.Module):
     ``rows_per_rank[rank]`` zero (``params['row'][t][rank]``).
 
     With ``dp_input=False`` the forward takes model-parallel input (the
-    JAX package's `apply_mp`; see `forward`).
+    JAX package's `apply_mp`; see `forward`). ``compute_dtype`` (None or
+    float32, bfloat16, float16, under any name `resolve_compute_dtype`
+    takes) is the dtype of the outputs, the exchanged activations and the
+    taps; the tables stay float32 (see the module docstring).
 
     Arguments of the JAX package that the port takes at their defaults
     only: ``use_custom_kernel`` (True; False, the JAX package's XLA
     lookup, has no counterpart: the port's lookups never fall back, ROADMAP
-    North star), ``compute_dtype`` (None or float32; anything else is
-    ROADMAP Queue A16, mixed precision), ``mesh`` (None; the ranks are the
+    North star), ``mesh`` (None; the ranks are the
     process group's, A3), ``gpu_embedding_size`` (None, A8), ``hot_rows``
     (A7), ``exchange_wire`` / ``storage_dtype`` (f32, A6) and
     ``vocab_slack`` (A12): any other value raises NotImplementedError
@@ -263,7 +292,7 @@ class DistributedEmbedding(nn.Module):
                 "use_custom_kernel=False has no counterpart in the port: its "
                 "lookups run their hand-written kernels on the card and never "
                 "fall back (ROADMAP, North star: no silent fallback)")
-        check_compute_dtype(compute_dtype, "DistributedEmbedding")
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
         if mesh is not None:
             raise NotImplementedError(
                 "a mesh is not ported (ROADMAP Queue A3, multi-GPU "
@@ -444,6 +473,17 @@ class DistributedEmbedding(nn.Module):
         rows = self.plan.tp_buckets[b].rows_max
         return torch.int32 if rows < 2**31 else torch.int64
 
+    @property
+    def output_dtype(self) -> torch.dtype:
+        """The dtype of the outputs: the compute dtype, else float32."""
+        return self.compute_dtype or torch.float32
+
+    def _cast(self, x: torch.Tensor) -> torch.Tensor:
+        """A lookup result in the compute dtype (no-op without one)."""
+        if self.compute_dtype is not None and x.dtype != self.compute_dtype:
+            return x.to(self.compute_dtype)
+        return x
+
     def _exchange_groups(self, tp_prep: Sequence[_PreparedInput]):
         """The (bucket, hotness) exchange groups and the per-input assembly
         map for a set of prepared inputs (cached per hotness/weights
@@ -586,20 +626,21 @@ class DistributedEmbedding(nn.Module):
                   else (presorted.sid, presorted.perm))
             out = lookup(table, ids.reshape(b_sz * f, k),
                          w.reshape(b_sz * f, k), combiner, presorted=ps)
-            return out.reshape(b_sz, f, out.shape[-1])
+            # float32 lookups, cast after (JAX :1389, :1412)
+            return self._cast(out.reshape(b_sz, f, out.shape[-1]))
         if combiner is None:
             rows = table[ids.clamp(0, table.shape[0] - 1)]   # [B, f, k, w]
-            return _combine(rows, None, None)
+            return _combine(self._cast(rows), None, None)
         w = None if weights is None else weights.reshape(b_sz * f, k)
         if table.requires_grad and torch.is_grad_enabled():
             # the dense step (`training.make_train_step`): the kernel with
             # the JAX package's `_fused_bwd` as its backward
             out = cuda_lookup.fused_embedding_lookup(
-                table, ids.reshape(b_sz * f, k), w)
+                table, ids.reshape(b_sz * f, k), w, "sum", self.output_dtype)
             return out.reshape(b_sz, f, out.shape[-1])
         out = cuda_lookup.lookup_combine(
             table, ids.reshape(b_sz * f, k).contiguous(),
-            None if w is None else w.contiguous())
+            None if w is None else w.contiguous(), self.output_dtype)
         return out.reshape(b_sz, f, out.shape[-1])
 
     def _tp_group_out(self, grp: _ExchangeGroup, ids_x: torch.Tensor,
@@ -607,15 +648,14 @@ class DistributedEmbedding(nn.Module):
                       presorted: Optional[GroupSort] = None) -> torch.Tensor:
         """One exchange group's bucket output [B, f, w_out], via the
         explicit weighted-sum form: effective weights into the kernel, the
-        unweighted-mean scale applied after the sum."""
+        unweighted-mean scale applied after the sum (in the output's
+        dtype, `_scaled`)."""
         bucket = self.plan.tp_buckets[grp.bucket]
         eff_w, scale = _effective_weights(w_x, grp.k, bucket.combiner)
         out = self._group_lookup(self.tp[grp.bucket], ids_x, eff_w,
                                  None if bucket.combiner is None else "sum",
                                  presorted=presorted)
-        if scale != 1.0:
-            out = out * scale
-        return out
+        return _scaled(out, scale)
 
     def _padded_id_exchange(self, grp: _ExchangeGroup, ids: torch.Tensor,
                             w: Optional[torch.Tensor]):
@@ -692,7 +732,8 @@ class DistributedEmbedding(nn.Module):
     def _dp_forward(self, dp_prep) -> List[torch.Tensor]:
         """The data-parallel inputs: a local gather and combine on the
         replicated table over the rank's slice (ids clamped into the table,
-        as the tp lookups do), or the table's own layer's forward (JAX
+        as the tp lookups do; the rows cast to the compute dtype before the
+        combine), or the table's own layer's forward, cast (JAX
         `_forward_local` :1488-1520)."""
         strat = self.strategy
         outs = []
@@ -706,7 +747,7 @@ class DistributedEmbedding(nn.Module):
                         f"dp table {t_dp}: (ids, weights) inputs are not "
                         "supported for custom embedding layer classes: the "
                         "layer's own forward defines its semantics")
-                out = layer(p.ids)
+                out = self._cast(layer(p.ids))
                 want_rank = 2 if cfg.get("combiner") else 3
                 if out.dim() != want_rank:
                     raise ValueError(
@@ -719,7 +760,8 @@ class DistributedEmbedding(nn.Module):
                 ids = p.ids.reshape(-1).clamp(0, table.shape[0] - 1)
                 emb = table.index_select(0, ids).reshape(
                     tuple(p.ids.shape) + (table.shape[1],))
-                out = _combine(emb, p.weights, cfg.get("combiner"))
+                out = _combine(self._cast(emb), p.weights,
+                               cfg.get("combiner"))
             outs.append(self._restore_shape(out, p, cfg.get("combiner"),
                                             cfg["output_dim"]))
         return outs
@@ -734,15 +776,22 @@ class DistributedEmbedding(nn.Module):
         gather-combine (`cuda_lookup.lookup_combine`; the dense step's
         differentiable `fused_embedding_lookup` when the table requires
         grad) -> [B, w]; else a plain gather scaled by the weights -> [B,
-        k, w], as the tp groups take combiner None."""
+        k, w], as the tp groups take combiner None. Under a compute dtype
+        the row group takes the JAX package's XLA route (rows, and the
+        weights, rounded before the combine): the kernel's round-first
+        form."""
         k = local.shape[1]
         if combiner is None and not (
                 k == 1 and self.lookup_path in ("pallas", "tiled", "fused")):
-            return table[local] * weights[..., None]
+            rows = self._cast(table[local])
+            return rows * weights[..., None].to(rows.dtype)
+        round_first = self.compute_dtype is not None
         if table.requires_grad and torch.is_grad_enabled():
-            return cuda_lookup.fused_embedding_lookup(table, local, weights)
+            return cuda_lookup.fused_embedding_lookup(
+                table, local, weights, "sum", self.output_dtype, round_first)
         return cuda_lookup.lookup_combine(table, local.contiguous(),
-                                          weights.contiguous())
+                                          weights.contiguous(),
+                                          self.output_dtype, round_first)
 
     def _row_forward(self, row_prep, taps=None, res_ids=None, res_w=None,
                      res_sort=None) -> List[torch.Tensor]:
@@ -776,8 +825,7 @@ class DistributedEmbedding(nn.Module):
             out = self._row_lookup(table, local,
                                    vmask if rt.combiner is None else w_full,
                                    rt.combiner)
-            if scale != 1.0:
-                out = out * scale
+            out = _scaled(out, scale)
             if taps is not None:
                 out = out.detach().requires_grad_()
                 taps["row"].append(out)

@@ -3,6 +3,13 @@
 Counterpart of ``distributed_embeddings_tpu/models/dlrm.py``: the forward,
 the BCE loss and the learning-rate schedule. MLP kernels keep the JAX
 package's [in, out] layout, so weights map across as they are.
+
+Under a ``compute_dtype`` (bfloat16 or float16) the model rounds where the
+JAX package's does: the numerical input, the embedding outputs and the
+interaction's output are rounded to it; the parameters stay float32, and
+jnp's type promotion makes every product of a rounded activation with a
+float32 weight a float32 product, so the MLPs and the interaction's Gram
+matrix compute in float32 here too (`Dense` and `dot_interact` promote).
 """
 
 import math
@@ -16,7 +23,7 @@ from distributed_embeddings_tpu_torch.layers.dist_model_parallel import (
     DistributedEmbedding, broadcast_variables)
 from distributed_embeddings_tpu_torch.layers.embedding import Embedding
 from distributed_embeddings_tpu_torch.utils.device import (
-    DeviceLike, check_compute_dtype, default_generator, resolve_device)
+    DeviceLike, default_generator, resolve_compute_dtype, resolve_device)
 
 
 # Criteo-1TB MLPerf vocab sizes (the JAX package's examples/dlrm/main.py,
@@ -49,11 +56,13 @@ _TRIL: dict = {}
 def _tril_index(n: int, device: torch.device) -> torch.Tensor:
     """The flat indices of the strictly-lower triangle of an [n, n]
     matrix, on `device`, made once per (n, device): a forward copies
-    nothing from the host."""
+    nothing from the host. Made outside inference mode, so a training
+    forward can save it for its backward when a served forward made it."""
     key = (n, device)
     if key not in _TRIL:
         rows, cols = np.tril_indices(n, k=-1)
-        _TRIL[key] = torch.as_tensor(rows * n + cols, device=device)
+        with torch.inference_mode(False):
+            _TRIL[key] = torch.as_tensor(rows * n + cols, device=device)
     return _TRIL[key]
 
 
@@ -61,8 +70,14 @@ def dot_interact(emb_outs: Sequence[torch.Tensor],
                  bottom_mlp_out: torch.Tensor) -> torch.Tensor:
     """Pairwise-dot feature interaction: the strictly-lower-triangular
     entries of the Gram matrix of [bottom_mlp_out] + emb_outs, then the
-    bottom MLP output re-concatenated."""
-    feats = torch.stack([bottom_mlp_out] + list(emb_outs), dim=1)  # [B, n, d]
+    bottom MLP output re-concatenated. The features are stacked in the
+    type they promote to, as jnp.stack does (float32 over float32 bottom
+    output and bfloat16 embeddings)."""
+    parts = [bottom_mlp_out] + list(emb_outs)
+    dtype = parts[0].dtype
+    for p in parts[1:]:
+        dtype = torch.promote_types(dtype, p.dtype)
+    feats = torch.stack([p.to(dtype) for p in parts], dim=1)  # [B, n, d]
     gram = torch.bmm(feats, feats.transpose(1, 2))
     n = feats.shape[1]
     pairwise = gram.reshape(gram.shape[0], n * n)[:, _tril_index(
@@ -84,7 +99,9 @@ class Dense(nn.Module):
             0.0, math.sqrt(1.0 / out_dim), generator=generator))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x, self.w) + self.b
+        # a 16-bit activation is promoted to the float32 weight, as jnp's
+        # ``x @ w`` promotes it; the weight is never rounded
+        return torch.matmul(x.to(self.w.dtype), self.w) + self.b
 
 
 class MLP(nn.ModuleList):
@@ -117,9 +134,10 @@ class DLRM(nn.Module):
     too); ``mesh``, ``column_slice_threshold``, ``row_slice_threshold``,
     ``data_parallel_threshold`` and ``dp_input`` go to
     `DistributedEmbedding`, which raises NotImplementedError, naming the
-    ROADMAP item, on the values it has not ported; ``compute_dtype`` takes
-    float32 (or None) only (anything else: ROADMAP Queue A16, mixed
-    precision). Other `dist_kwargs` go to `DistributedEmbedding` too
+    ROADMAP item, on the values it has not ported; ``compute_dtype``
+    (None, float32, bfloat16 or float16) is the activations' dtype (see
+    the module docstring), handed to the layer as None for float32. Other
+    `dist_kwargs` go to `DistributedEmbedding` too
     (``lookup_path`` picks its lookup, as ``DET_LOOKUP_PATH`` does in the
     JAX package). ``device`` (None = cuda) and ``generator`` (default:
     seed 0 on `device`) place and draw every parameter; in a process group
@@ -146,13 +164,13 @@ class DLRM(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  **dist_kwargs):
         super().__init__()
-        check_compute_dtype(compute_dtype, "DLRM")
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
         dist_kwargs.setdefault("strategy", dist_strategy)
         dist_kwargs.update(
             mesh=mesh, column_slice_threshold=column_slice_threshold,
             row_slice_threshold=row_slice_threshold,
             data_parallel_threshold=data_parallel_threshold,
-            dp_input=dp_input)
+            dp_input=dp_input, compute_dtype=self.compute_dtype)
         device = resolve_device(device)
         gen = default_generator(device, generator)
         self.table_sizes = list(table_sizes)
@@ -180,12 +198,15 @@ class DLRM(nn.Module):
         """With `return_residuals`, ``(logits, TapResiduals)`` (see
         `DistributedEmbedding.forward` for `taps`)."""
         dev = self.embedding.device
-        x = torch.as_tensor(numerical, dtype=torch.float32, device=dev)
+        dtype = self.compute_dtype or torch.float32
+        x = torch.as_tensor(numerical, dtype=torch.float32,
+                            device=dev).to(dtype)
         bottom = self.bottom_mlp(x)
         emb_outs = self.embedding(list(categorical), taps=taps,
                                   return_residuals=return_residuals)
         emb_outs, res = (emb_outs if return_residuals else (emb_outs, None))
-        out = self.top_mlp(dot_interact(emb_outs, bottom))
+        emb_outs = [e.to(dtype) for e in emb_outs]
+        out = self.top_mlp(dot_interact(emb_outs, bottom).to(dtype))
         return (out, res) if return_residuals else out
 
     def loss_fn(self, numerical, categorical, labels, taps=None,

@@ -19,7 +19,7 @@ from distributed_embeddings_tpu_torch.layers.dist_model_parallel import (
 from distributed_embeddings_tpu_torch.layers.embedding import Embedding
 from distributed_embeddings_tpu_torch.models.dlrm import MLP, bce_loss
 from distributed_embeddings_tpu_torch.utils.device import (
-    DeviceLike, check_compute_dtype, default_generator, resolve_device)
+    DeviceLike, default_generator, resolve_compute_dtype, resolve_device)
 
 
 class EmbeddingConfig(NamedTuple):
@@ -240,7 +240,9 @@ class ClickGenerator:
 
 def _avg_pool_1d(x: torch.Tensor, stride: int) -> torch.Tensor:
     """Strided 'same' average pooling along the feature axis; padding
-    positions are excluded from each window's average."""
+    positions are excluded from each window's average. In `x`'s dtype, as
+    the JAX package computes it: each window summed in float32 (jnp.sum's
+    upcast) and rounded once, then divided by its count."""
     b, c = x.shape
     pad = (-c) % stride
     xp = torch.nn.functional.pad(x, (0, pad))
@@ -248,7 +250,8 @@ def _avg_pool_1d(x: torch.Tensor, stride: int) -> torch.Tensor:
     counts = torch.nn.functional.pad(
         torch.ones((c,), dtype=x.dtype, device=x.device),
         (0, pad)).reshape(-1, stride)
-    return win.sum(dim=-1) / counts.sum(dim=-1)[None, :]
+    return (win.sum(dim=-1, dtype=torch.float32).to(x.dtype)
+            / counts.sum(dim=-1)[None, :])
 
 
 class SyntheticModel(nn.Module):
@@ -261,9 +264,10 @@ class SyntheticModel(nn.Module):
     JAX package's per-table comparison model (the reference's 'native'
     model): one `Embedding` a table, ``embedding_layers[t]``, holding its
     own table, looked up per input, no exchange; it trains through the
-    dense step (`training.make_train_step`). A ``compute_dtype`` other
-    than float32 raises NotImplementedError (ROADMAP Queue A16, mixed
-    precision). ``device`` (None = cuda) and
+    dense step (`training.make_train_step`). ``compute_dtype`` (None,
+    float32, bfloat16 or float16): the embedding outputs, the pooling and
+    the numerical input in that dtype, the MLP promoted to its float32
+    weights, as in the JAX package. ``device`` (None = cuda) and
     ``generator`` (default: seed 0 on `device`) place and draw every
     parameter, embedding tables included, on the device itself. In a
     process group of more than one rank the layer spans its ranks, each
@@ -277,10 +281,11 @@ class SyntheticModel(nn.Module):
                  device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None, **dist_kwargs):
         super().__init__()
-        check_compute_dtype(compute_dtype, "SyntheticModel")
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
         dist_kwargs.update(mesh=mesh, strategy=strategy,
                            column_slice_threshold=column_slice_threshold,
-                           dp_input=dp_input)
+                           dp_input=dp_input,
+                           compute_dtype=self.compute_dtype)
         device = resolve_device(device)
         gen = default_generator(device, generator)
         self.config = model_config
@@ -330,11 +335,12 @@ class SyntheticModel(nn.Module):
             res = None
             embs = [self.embedding_layers[t](ids)
                     for t, ids in zip(self.table_map, cat_features)]
-        x = torch.cat(embs, dim=1)
+        dtype = self.compute_dtype or torch.float32
+        x = torch.cat([e.to(dtype) for e in embs], dim=1)
         if self.interact_stride is not None:
             x = _avg_pool_1d(x, self.interact_stride)
         numerical = torch.as_tensor(numerical, dtype=torch.float32,
-                                    device=self.device)
+                                    device=self.device).to(dtype)
         out = self.mlp(torch.cat([x, numerical], dim=1))
         return (out, res) if return_residuals else out
 

@@ -21,6 +21,10 @@ module:
 
 Each takes ``[world, ...]`` with block r going to rank r and returns the
 blocks received, block s from rank s, over the default process group.
+Every collective moves its operand in the operand's own dtype, as the JAX
+package's ``f32`` wire runs the plain collective: under a 16-bit
+``compute_dtype`` the activations and their gradients move in it (half
+the bytes), the ids and the input weights as they come.
 
 The row-sliced tables' collectives, tiled over dim 0 (``[B_l, ...]`` on
 each rank <-> ``[world * B_l, ...]``, rank r's block at rows ``[r * B_l,
@@ -96,7 +100,7 @@ def _reduce_scatter(x: torch.Tensor) -> torch.Tensor:
 
 
 class _AllToAll(torch.autograd.Function):
-    """The f32 all_to_all with its transpose as backward."""
+    """The float all_to_all with its transpose as backward."""
 
     @staticmethod
     def forward(ctx, x):
@@ -132,8 +136,8 @@ def wire_id_all_to_all(ids: torch.Tensor, id_wire: str = "int32"
 
 
 class _AllGather(torch.autograd.Function):
-    """The tiled f32 all_gather with its transpose, a tiled reduce-scatter
-    of the gradient, as backward."""
+    """The tiled float all_gather with its transpose, a tiled
+    reduce-scatter of the gradient, as backward."""
 
     @staticmethod
     def forward(ctx, x):
@@ -145,7 +149,7 @@ class _AllGather(torch.autograd.Function):
 
 
 class _PsumScatter(torch.autograd.Function):
-    """The tiled f32 reduce-scatter with its transpose as backward."""
+    """The tiled float reduce-scatter with its transpose as backward."""
 
     @staticmethod
     def forward(ctx, x):

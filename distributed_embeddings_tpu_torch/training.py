@@ -44,6 +44,12 @@ copy when it takes the batch, `parallel.staging.ready`), and runs
 `evaluate` every `eval_every` steps: the streaming AUC (`utils.metrics.StreamingAUC`) of the model's
 logits, its histograms summed over the ranks.
 
+A model built with a 16-bit ``compute_dtype`` trains through the same
+steps: its tap gradients come back in that dtype and are upcast to
+float32 where the update reads them (`DistributedEmbedding.sparse_update`),
+the tables' dense gradients are float32 (the lookups' backwards upcast),
+and the loss and the logits for the AUC are float32.
+
 The dense twins are written to optax's expressions (``scale_by_rss``,
 ``scale_by_adam``, ``scale_by_learning_rate``), not taken from
 ``torch.optim``: its Adagrad adds eps outside the square root and starts

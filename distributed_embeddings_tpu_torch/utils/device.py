@@ -28,30 +28,38 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
-# the ROADMAP item that refuses a compute dtype other than float32
-MIXED_PRECISION_ITEM = "A16 (mixed precision)"
+# the compute dtypes by name: float32 is no mixed precision (None)
+_COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16,
+                   "float16": torch.float16}
 
 
-def is_float32(dtype) -> bool:
-    """True for None and for float32 however it is named: ``torch.float32``,
-    ``"float32"``, ``np.float32`` or any type numpy reads as float32 (the
-    JAX package's default, ``jnp.float32``, among them)."""
-    if dtype is None or dtype is torch.float32:
-        return True
+def _dtype_name(dtype) -> Optional[str]:
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).rsplit(".", 1)[-1]
+    if isinstance(dtype, str):
+        return dtype
     try:
-        return np.dtype(dtype) == np.float32
+        # numpy types and dtypes; ml_dtypes' bfloat16 (``jnp.bfloat16``)
+        # is one once its caller has imported it
+        return np.dtype(dtype).name
     except TypeError:
-        return False
+        return getattr(dtype, "__name__", None)
 
 
-def check_compute_dtype(dtype, what: str) -> None:
-    """Raise NotImplementedError naming the ROADMAP item unless `dtype` is
-    float32 (or None): the port computes in float32 only."""
-    if not is_float32(dtype):
-        raise NotImplementedError(
-            f"{what}(compute_dtype={dtype!r}): mixed precision is not ported "
-            f"yet (ROADMAP Queue {MIXED_PRECISION_ITEM}); the port computes "
-            "in float32")
+def resolve_compute_dtype(dtype, what: str = "compute_dtype"
+                          ) -> Optional[torch.dtype]:
+    """The mixed-precision compute dtype of the JAX package's
+    ``compute_dtype`` argument: None for None or float32, ``torch.bfloat16``
+    or ``torch.float16`` for those. Takes the dtype under any name its
+    callers use: a torch dtype, a string (``"bfloat16"``), a numpy type or
+    dtype, ``jnp.bfloat16``. Raises ValueError for any other dtype."""
+    if dtype is None:
+        return None
+    name = _dtype_name(dtype)
+    if name not in _COMPUTE_DTYPES:
+        raise ValueError(f"{what}={dtype!r}: the compute dtype is float32, "
+                         "bfloat16 or float16")
+    return _COMPUTE_DTYPES[name]
 
 
 def default_generator(device: torch.device,

@@ -17,6 +17,8 @@ import numpy as np
 import torch
 
 from distributed_embeddings_tpu_torch.parallel import mesh
+from distributed_embeddings_tpu_torch.utils.device import (DeviceLike,
+                                                           resolve_device)
 
 __all__ = ["AUCState", "StreamingAUC", "auc_exact"]
 
@@ -41,8 +43,11 @@ class StreamingAUC:
         self.bins = bins
         self.from_logits = from_logits
 
-    def init(self, device="cpu") -> AUCState:
-        z = torch.zeros((self.bins,), dtype=torch.float32, device=device)
+    def init(self, device: DeviceLike = None) -> AUCState:
+        """Zero histograms on `device` (None = cuda, as every entry point
+        of the port; `resolve_device`)."""
+        z = torch.zeros((self.bins,), dtype=torch.float32,
+                        device=resolve_device(device))
         return AUCState(tp=z, fp=z.clone())
 
     @torch.no_grad()

@@ -38,21 +38,53 @@ def test_kernel_matches_plain(gen, width, hot, id_dtype, weighted):
                         generator=gen).to(getattr(torch, id_dtype))
     w = (torch.rand((rows, hot), device="cuda", generator=gen)
          if weighted else None)
-    launches = cuda_lookup.launches
+    launches = cuda_lookup.launches["lookup_combine"]
     got = cuda_lookup.lookup_combine(table, ids, w)
     want = cuda_lookup.lookup_combine_plain(table, ids, w)
     torch.cuda.synchronize()
-    assert cuda_lookup.launches == launches + 1
-    if hot == 1 and not weighted:
-        assert torch.equal(got, want)
-    else:
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert cuda_lookup.launches["lookup_combine"] == launches + 1
+    # the plain version adds the K terms in the kernel's order
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("width", [8, 6, 128, 256])
+@pytest.mark.parametrize("hot", [1, 10])
+@pytest.mark.parametrize("out", ["bfloat16", "float16"])
+@pytest.mark.parametrize("round_inputs", [False, True])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_mixed_precision_forms_match_plain(gen, width, hot, out,
+                                           round_inputs, weighted):
+    """The 16-bit stores (and the round-first forms): bit-equal to the
+    plain version at any K (it adds the K terms in the kernel's order);
+    each launch counted under its form."""
+    vocab, rows = 3000, 1000
+    out_dtype = getattr(torch, out)
+    table = torch.empty((vocab, width), device="cuda").uniform_(
+        -0.05, 0.05, generator=gen)
+    ids = torch.randint(-2, vocab + 2, (rows, hot), device="cuda",
+                        generator=gen).to(torch.int32)
+    w = (torch.rand((rows, hot), device="cuda", generator=gen)
+         if weighted else None)
+    name = cuda_lookup.form_name(out_dtype, round_inputs)
+    before = dict(cuda_lookup.launches)
+    got = cuda_lookup.lookup_combine(table, ids, w, out_dtype, round_inputs)
+    want = cuda_lookup.lookup_combine_plain(table, ids, w, out_dtype,
+                                            round_inputs)
+    torch.cuda.synchronize()
+    assert cuda_lookup.launches == dict(before, **{name: before[name] + 1})
+    assert got.dtype == out_dtype
+    assert torch.equal(got, want)
+    if weighted and hot == 1:
+        # the one input where the store and round-first forms differ
+        other = cuda_lookup.lookup_combine_plain(table, ids, w, out_dtype,
+                                                 not round_inputs)
+        assert not torch.equal(want, other)
 
 
 def test_empty_batch_launches_nothing(gen):
     table = torch.zeros((10, 8), device="cuda")
     ids = torch.zeros((0, 3), dtype=torch.int32, device="cuda")
-    launches = cuda_lookup.launches
+    launches = dict(cuda_lookup.launches)
     assert cuda_lookup.lookup_combine(table, ids).shape == (0, 8)
     assert cuda_lookup.launches == launches
 

@@ -210,7 +210,7 @@ def test_sorted_paths_launch_no_kernel_on_the_cpu():
                                  lookup_path="tiled")
     init, step = pt_training.make_sparse_train_step(pm, "adagrad",
                                                     strategy="tiled")
-    before = dict(cuda_tiled.launches), cuda_lookup.launches
+    before = dict(cuda_tiled.launches), dict(cuda_lookup.launches)
     num, cats, labels = pt_synth.InputGenerator(_cut("criteo"), 16,
                                                 num_batches=1)[0]
     step(pm, init(pm), num, cats, labels)

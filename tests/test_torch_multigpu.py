@@ -41,7 +41,17 @@ compares one case:
   with dp and row groups; `InferenceEngine` on a request the world does
   not divide, against the JAX engine; the JAX params and optimizer state
   with dp and row leaves through `convert` and back; and each wire
-  collective's backward against its forward's transpose.
+  collective's backward against its forward's transpose;
+* mixed precision (``compute_dtype`` bfloat16): a layer of every placement
+  group (multi-hot weighted mean and sum and combiner-None row tables, a
+  multi-hot mean dp table, a passthrough and a one-hot tp table, the
+  routes on which the JAX package's CPU reference and the port round
+  alike), its outputs bfloat16, bit-equal at hotness 1 and through the
+  passthroughs, within `AMP_ULP` elsewhere; three sparse adagrad steps
+  of the train model with its placement groups at bfloat16 (losses rtol
+  1e-5, tables, state and MLPs rtol 1e-4 / atol 1e-6), every float
+  payload of the wire's all_to_all, all_gather and reduce-scatter
+  bfloat16.
 """
 
 import os
@@ -115,6 +125,10 @@ TRAIN_CASES = {
     "w2-placed-adagrad": (2, "sort", "adagrad", PLACED_KW),
     "w2-placed-adam": (2, "sort", "adam", PLACED_KW),
     "w4-placed-adagrad": (4, "sort", "adagrad", PLACED_KW),
+    "w2-placed-adagrad-bf16": (2, "sort", "adagrad",
+                               dict(PLACED_KW, compute_dtype="bfloat16")),
+    "w4-placed-adagrad-bf16": (4, "sort", "adagrad",
+                               dict(PLACED_KW, compute_dtype="bfloat16")),
 }
 
 # the JAX package's test_dist_model_parallel configurations: name ->
@@ -157,6 +171,24 @@ PLACEMENTS = {
 }
 WEIGHTED = {("weighted_mean_none", 0), ("weighted_mean_none", 1),
             ("weighted_mean_none", 4)}
+# the placement groups at bfloat16: (rows, width, combiner, hotness,
+# weighted) per table, one input each. Row-sliced: a weighted mean, a
+# weighted sum and a combiner-None table, multi-hot; data-parallel: a
+# multi-hot mean; table-parallel: a passthrough and a one-hot sum. The
+# JAX package's CPU reference rounds these as the port does (rows first
+# on the dp and row groups; one row on the tp groups)
+AMP_TABLES = [(3000, 8, "mean", 3, True), (2500, 8, "sum", 4, True),
+              (2200, 8, None, 2, False), (50, 8, "mean", 3, False),
+              (96, 8, None, 3, False), (800, 8, "sum", 1, False)]
+AMP_KW = dict(MB, row_slice_threshold=9000, data_parallel_threshold=500,
+              compute_dtype="bfloat16")
+# the multi-hot outputs' bar: one ulp for the order of a K-term float32
+# sum; a row table's output is also the reduce-scatter's bfloat16 sum of
+# the W ranks' rounded partials, which gloo adds rounding at each add and
+# XLA on the CPU in its own order: at W > 2 they differ by up to W - 1
+# roundings, each within 2^-8 of the sum of the terms' magnitudes
+AMP_ULP = 1
+AMP_ADD_EPS = 2.0 ** -8
 
 # the small DLRM of `test_torch_training`, built at W = 2
 DLRM_SIZES = [40, 7, 300, 25, 1000]
@@ -263,6 +295,46 @@ def _placement_case(world, mesh, name):
                   "groups": jl.strategy.table_groups,
                   "placements": len(jl.plan.tp_placements),
                   "buckets": len(jl.plan.tp_buckets)}
+
+
+def _amp_placement_case(world, mesh):
+    """`AMP_TABLES` at bfloat16 on the mesh: the JAX layer's outputs on a
+    global batch."""
+    rng = np.random.RandomState(70 + world)
+    inputs = []
+    for rows, _, _, k, weighted in AMP_TABLES:
+        shape = (BATCH,) if k == 1 else (BATCH, k)
+        ids = rng.randint(0, rows, size=shape).astype(np.int32)
+        if weighted:
+            w = rng.rand(BATCH, k).astype(np.float32)
+            w[:, -1] *= rng.rand(BATCH) > 0.3      # some padded slots
+            inputs.append((ids, w))
+        else:
+            inputs.append(ids)
+    weights = [rng.randn(r, w).astype(np.float32) * 0.1
+               for r, w, _, _, _ in AMP_TABLES]
+    tables = [(r, w, c, False) for r, w, c, _, _ in AMP_TABLES]
+    jl = JaxDistributedEmbedding(
+        [JaxEmbedding(r, w, combiner=c) for r, w, c, _ in tables],
+        mesh=mesh, **dict(AMP_KW, compute_dtype=jnp.bfloat16))
+    params = jl.set_weights(weights)
+    outs = jl.apply(params, _jax_inputs(inputs))
+    spec = {"tables": tables, "table_map": list(range(len(tables))),
+            "kw": AMP_KW, "weights": weights, "inputs": inputs,
+            "tree": _np(params)}
+    # each output's sum of its terms' magnitudes, sum_k |w_k| |row_k|
+    terms = []
+    for (ids, w), table, (_, _, combiner, k, _) in zip(
+            [x if isinstance(x, tuple) else (x, None) for x in inputs],
+            weights, AMP_TABLES):
+        rows = np.abs(table[ids.reshape(BATCH, -1)])
+        if w is None:
+            w = np.ones(rows.shape[:2], np.float32)
+        if combiner == "mean":
+            w = w / np.maximum(w.sum(1, keepdims=True), 1.0)
+        terms.append(np.einsum("bk,bkw->bw", np.abs(w), rows))
+    return spec, {"outputs": [np.asarray(o) for o in outs],
+                  "groups": jl.strategy.table_groups, "terms": terms}
 
 
 def _mp_case(world, mesh):
@@ -478,6 +550,8 @@ def world_run(tmp_path_factory):
                 spec, refs[f"placement:{name}"] = _placement_case(
                     world, mesh, name)
                 cases[f"placement:{name}"] = ("placement", spec)
+            spec, refs["amp_placement"] = _amp_placement_case(world, mesh)
+            cases["amp_placement"] = ("placement", spec)
             spec, refs["mp"] = _mp_case(world, mesh)
             cases["mp"] = ("mp_forward", spec)
             spec, refs["placed"] = _placed_model_case(world, mesh)
@@ -754,6 +828,71 @@ def test_placement_plan_and_weights_match_jax(world_run, world, name):
     if name == "all_modes":
         assert all(ref["groups"]) and ref["placements"] > len(
             ref["groups"][1])
+
+
+def _bf16(a: np.ndarray) -> torch.Tensor:
+    """bfloat16 values held as float32 (a rank's) or as ml_dtypes'
+    bfloat16 (the JAX package's), as a bfloat16 tensor."""
+    t = torch.from_numpy(np.asarray(a, np.float32))
+    assert torch.equal(t.to(torch.bfloat16).float(), t)
+    return t.to(torch.bfloat16)
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_bf16_placement_forward_matches_jax(world_run, world):
+    """Every placement group at bfloat16: the JAX layer's plan; the ranks'
+    slices bfloat16 and, in order, the JAX layer's outputs: bit-equal at
+    hotness 1 and through the passthroughs; the multi-hot combiners within
+    `AMP_ULP`, the row tables' at W > 2 also within (W - 1)
+    `AMP_ADD_EPS` of the sum of their terms' magnitudes (the
+    reduce-scatter's roundings)."""
+    ranks, refs = world_run(world)
+    ref = refs["amp_placement"]
+    assert all(ref["groups"])
+    for i, want in enumerate(ref["outputs"]):
+        _, _, combiner, k, _ = AMP_TABLES[i]
+        got = _bf16(np.concatenate([r["amp_placement"]["outputs"][i]
+                                    for r in ranks]))
+        want = _bf16(np.asarray(want, np.float32))
+        assert got.shape == want.shape, i
+        if k == 1 or combiner is None:
+            assert torch.equal(got, want), i
+        elif i in ref["groups"][2] and world > 2:
+            bar = (AMP_ADD_EPS * (world - 1)
+                   * torch.from_numpy(ref["terms"][i])
+                   + (want.float().abs() * 2.0 ** -7))
+            assert bool(((got.float() - want.float()).abs() <= bar).all()), i
+        else:
+            assert _ulps(got, want) <= AMP_ULP, i
+    for r in ranks:
+        res = r["amp_placement"]
+        assert res["groups"] == ref["groups"]
+        assert res["dtypes"] == ["torch.bfloat16"] * len(AMP_TABLES)
+        assert res["loaded_equal"]
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_bf16_wire_moves_bf16(world_run, world):
+    """In the bfloat16 train steps every float payload of the wire's
+    collectives (forward and backward, activations and their gradients)
+    is bfloat16; the ids move as ints, and the row tables' input weights,
+    where an input has them, as they come (float32)."""
+    ranks, _ = world_run(world)
+    for r in ranks:
+        payloads = dict(r[f"w{world}-placed-adagrad-bf16"]["payloads"])
+        assert payloads.pop("weight_broadcast", {"torch.float32"}) == {
+            "torch.float32"}
+        assert payloads == {
+            "all_to_all_single": {"torch.bfloat16"},
+            "all_gather_into_tensor": {"torch.bfloat16"},
+            "reduce_scatter_tensor": {"torch.bfloat16"}}
 
 
 @pytest.mark.parametrize("world", WORLDS)

@@ -26,6 +26,7 @@ from distributed_embeddings_tpu_torch.models.synthetic import (  # noqa: E402
 from distributed_embeddings_tpu_torch.ops import cuda_lookup, cuda_sparse  # noqa: E402
 from distributed_embeddings_tpu_torch.ops import sparse_update, wire  # noqa: E402
 from distributed_embeddings_tpu_torch.tools import cuda_feature_probe  # noqa: E402
+from distributed_embeddings_tpu_torch.utils.metrics import StreamingAUC  # noqa: E402
 from distributed_embeddings_tpu_torch.training import (  # noqa: E402
     fit, make_sparse_train_step)
 
@@ -81,7 +82,8 @@ def _tiny_tables():
 
 
 @pytest.mark.parametrize("entry", ["embedding", "distributed", "synthetic",
-                                   "dlrm", "engine", "train_step"])
+                                   "dlrm", "engine", "train_step",
+                                   "auc_init"])
 def test_entry_points_default_to_the_card(entry):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
@@ -94,6 +96,7 @@ def test_entry_points_default_to_the_card(entry):
             DistributedEmbedding(_tiny_tables(), device="cpu")),
         "train_step": lambda: make_sparse_train_step(
             DLRM([10, 20], embedding_dim=8)),
+        "auc_init": lambda: StreamingAUC().init(),
     }[entry]
     with pytest.raises(RuntimeError, match='device="cpu"'):
         build()
@@ -200,11 +203,11 @@ def test_sparse_wrappers_refuse_what_the_kernel_does_not_take(bad):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(compute_dtype=torch.bfloat16),
-    dict(gpu_embedding_size=100, dist_strategy="basic")])
+    pytest.param(dict(gpu_embedding_size=100, dist_strategy="basic"),
+                 id="kwargs1")])
 def test_train_step_outside_the_slice_raises(kwargs):
     """A model the train step would train, built with what the port has
-    not ported (mixed precision, host offload), raises at build time."""
+    not ported (host offload), raises at build time."""
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
         make_sparse_train_step(DLRM([10, 20], embedding_dim=8, device="cpu",
                                     **kwargs))
@@ -379,21 +382,74 @@ def test_port_takes_every_jax_parameter_at_its_default(name):
 
 @pytest.mark.parametrize("build,item", [
     (lambda: DistributedEmbedding(_tiny_tables(), device="cpu",
-                                  compute_dtype="bfloat16"), "A16"),
-    (lambda: DistributedEmbedding(_tiny_tables(), device="cpu",
                                   use_custom_kernel=False), "North star"),
-    (lambda: DLRM([10, 20], embedding_dim=8, device="cpu",
-                  compute_dtype=torch.float16), "A16"),
     (lambda: DLRM([10, 20], embedding_dim=8, device="cpu",
                   gpu_embedding_size=100), "A8"),
     (lambda: wire.ragged_exchange(), "A5"),
-    (lambda: SyntheticModel(SYNTHETIC_MODELS["tiny"], device="cpu",
-                            compute_dtype="bfloat16"), "A16"),
     (lambda: InferenceEngine(_small_dlrm(), device="cpu",
                              promote_threshold=5), "A13"),
 ])
 def test_refused_values_name_their_roadmap_item(build, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+        build()
+
+
+def _tiny_synthetic(**kw):
+    return SyntheticModel(
+        SYNTHETIC_MODELS["criteo"]._replace(embedding_configs=[
+            SYNTHETIC_MODELS["criteo"].embedding_configs[0]._replace(
+                num_tables=2, num_rows=10, width=4)],
+            mlp_sizes=[4]), device="cpu", **kw)
+
+
+def _mixed_outputs(name, dtype):
+    """The outputs of each entry point built with `compute_dtype`: the
+    layer's lookups, or the model's (and engine's) embedding outputs and
+    logits, or a train step's losses and updated tables."""
+    ids = [np.array([1, 3, 9]), np.array([0, 19, 4])]
+    if name == "DistributedEmbedding":
+        return DistributedEmbedding(_tiny_tables(), device="cpu",
+                                    compute_dtype=dtype)(ids), []
+    if name == "InferenceEngine":
+        layer = DistributedEmbedding(_tiny_tables(), device="cpu",
+                                     compute_dtype=dtype)
+        return InferenceEngine(layer, device="cpu").predict(ids), []
+    model = (_tiny_synthetic(compute_dtype=dtype) if name == "SyntheticModel"
+             else DLRM([10, 20], embedding_dim=8, bottom_mlp_dims=(8,),
+                       top_mlp_dims=(8, 1), num_numerical_features=3,
+                       device="cpu", compute_dtype=dtype))
+    num = np.ones((3, model.num_numerical_features), np.float32)
+    if name == "make_sparse_train_step":
+        init, step = make_sparse_train_step(model, "adagrad")
+        _, _, loss = step(model, init(model), num, ids, np.ones(3))
+        return model.embedding(ids), [loss]
+    return model.embedding(ids), [model(num, ids)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, "float16"])
+@pytest.mark.parametrize("name", ["DistributedEmbedding", "DLRM",
+                                  "SyntheticModel", "InferenceEngine",
+                                  "make_sparse_train_step"])
+def test_entry_points_take_a_compute_dtype(name, dtype):
+    """Each constructor takes bfloat16 and float16 (mixed precision, ROADMAP
+    Queue A16): the embedding outputs come in that dtype, the logits and
+    losses in float32, finite."""
+    want = torch.bfloat16 if dtype is torch.bfloat16 else torch.float16
+    embedded, f32 = _mixed_outputs(name, dtype)
+    assert embedded and all(e.dtype == want for e in embedded)
+    assert all(t.dtype == torch.float32 and bool(torch.isfinite(t).all())
+               for t in f32)
+
+
+@pytest.mark.parametrize("build", [
+    lambda: DistributedEmbedding(_tiny_tables(), device="cpu",
+                                 compute_dtype=torch.int32),
+    lambda: DLRM([10, 20], embedding_dim=8, device="cpu",
+                 compute_dtype=np.int64),
+    lambda: _tiny_synthetic(compute_dtype="int8"),
+])
+def test_an_integer_compute_dtype_raises(build):
+    with pytest.raises(ValueError, match="compute_dtype"):
         build()
 
 

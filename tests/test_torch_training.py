@@ -265,7 +265,7 @@ def test_cpu_step_launches_no_kernel():
     """On CPU tensors every kernel wrapper takes its plain version."""
     _, _, pm, batches = _tiny()
     init, step = pt_training.make_sparse_train_step(pm, "adagrad")
-    before = dict(cuda_sparse.launches), cuda_lookup.launches
+    before = dict(cuda_sparse.launches), dict(cuda_lookup.launches)
     num, cats, labels = batches[0]
     step(pm, init(pm), num, cats, labels)
     assert (dict(cuda_sparse.launches), cuda_lookup.launches) == before

@@ -10,6 +10,7 @@ slice of the batch, and writes its results for the test to compare.
 """
 
 import collections
+import contextlib
 import os
 import pickle
 import sys
@@ -42,6 +43,54 @@ class ScaledEmbedding(Embedding):
     def forward(self, inputs):
         ids = torch.as_tensor(inputs, device=self.embeddings.device)
         return 2.0 * self.embeddings[ids.long()]
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A tensor on the host as numpy; a 16-bit float one as float32 (the
+    widening is exact; numpy has no bfloat16)."""
+    t = t.detach()
+    if t.dtype in (torch.bfloat16, torch.float16):
+        t = t.float()
+    return t.numpy()
+
+
+@contextlib.contextmanager
+def _payload_dtypes():
+    """Within the block, the dtypes of the floating inputs of every wire
+    collective (`ops.wire` calls them through ``torch.distributed``), by
+    collective name; the row tables' weight broadcasts
+    (`wire.wire_all_gather` of the input weights) apart, under
+    ``"weight_broadcast"``."""
+    names = ("all_to_all_single", "all_gather_into_tensor",
+             "reduce_scatter_tensor")
+    real = {n: getattr(dist, n) for n in names}
+    real_weights = wire.wire_all_gather
+    seen: dict = {}
+    in_weights = []
+
+    def recording(name):
+        def call(out, inp, *args, **kwargs):
+            if inp.is_floating_point():
+                key = "weight_broadcast" if in_weights else name
+                seen.setdefault(key, set()).add(str(inp.dtype))
+            return real[name](out, inp, *args, **kwargs)
+        return call
+
+    def weight_broadcast(*args, **kwargs):
+        in_weights.append(True)
+        try:
+            return real_weights(*args, **kwargs)
+        finally:
+            in_weights.pop()
+    for n in names:
+        setattr(dist, n, recording(n))
+    wire.wire_all_gather = weight_broadcast
+    try:
+        yield seen
+    finally:
+        for n in names:
+            setattr(dist, n, real[n])
+        wire.wire_all_gather = real_weights
 
 
 def _no_jax():
@@ -205,16 +254,17 @@ def placement(spec) -> dict:
     layer.set_weights(spec["weights"])
     batch = stage_dp_batch(spec["inputs"], CPU_STAGE)
     with torch.no_grad():
-        outs = [o.numpy() for o in layer(batch)]
+        out_t = layer(batch)
+    outs = [_host(o) for o in out_t]
     loaded = _placed(spec)
     loaded.load_state_dict(convert.params_from_jax(spec["tree"], loaded))
     with torch.no_grad():
-        again = [o.numpy() for o in loaded(batch)]
+        again = [_host(o) for o in loaded(batch)]
     layer.GATHER_CHUNK_ELEMS = 64
     return {"groups": layer.strategy.table_groups,
             "placements": len(layer.plan.tp_placements),
             "buckets": len(layer.plan.tp_buckets),
-            "outputs": outs,
+            "outputs": outs, "dtypes": [str(o.dtype) for o in out_t],
             "loaded_equal": all(np.array_equal(a, b)
                                 for a, b in zip(outs, again)),
             "tree": convert.params_to_numpy(layer),
@@ -331,17 +381,21 @@ def train(spec) -> dict:
     model.load_state_dict(convert.params_from_jax(spec["params"], model))
     state = init(model)
     steps = []
+    payloads: dict = {}
     for i, batch in enumerate(spec["batches"]):
         if spec.get("before"):
             params, plain = spec["before"][i]
             model.load_state_dict(convert.params_from_jax(params, model))
             state = _opt_state(plain, model)
         num, cats, labels = stage_dp_batch(batch, CPU_STAGE)
-        _, state, loss = step(model, state, num, cats, labels)
+        with _payload_dtypes() as seen:
+            _, state, loss = step(model, state, num, cats, labels)
+        for name, dtypes in seen.items():
+            payloads.setdefault(name, set()).update(dtypes)
         steps.append({"loss": float(loss),
                       "params": convert.params_to_numpy(model),
                       "state": convert.opt_state_to_numpy(state, model)})
-    return {"steps": steps}
+    return {"steps": steps, "payloads": payloads}
 
 
 def dlrm(spec) -> dict:
