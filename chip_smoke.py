@@ -28,13 +28,20 @@ Phases, each printing JSON lines before the last line:
      one library call and its bound.
   2. build: nvcc compiles every kernel of the paths from ``csrc/`` (one
      nvcc per source, all at once): lookup_combine.cu, sparse_apply.cu,
-     sorted_stream.cu (the last two share row_rules.cuh).
+     sorted_stream.cu (the last two share row_rules.cuh). The one-hot
+     kernel's instantiations' registers and spill bytes from the
+     compiler's log (``one_hot_ptxas``; the kernels line names any that
+     spill, ``one_hot_spills``).
   3. kernel: `lookup_combine` against its plain PyTorch version at the
      zoo's widths (8..256), hotness 1/10/30, sum/mean, weighted (with
      zero-weight slots) and unweighted, int32 and int64 ids, some of them
      out of range or negative. Bit-equal at hotness 1 unweighted, rtol 1e-5
      / atol 1e-6 otherwise (the K-term sum order differs). Tables are drawn
-     like the model's (uniform +-0.05).
+     like the model's (uniform +-0.05). Then the one-hot kernel's edges
+     (`one_hot_cases`): every form, int32 and int64 ids, unweighted and
+     weights in [-2, 2), widths 6, 8, 16, 128 and 256, N = 1, R - 1, 777
+     and more than one pass of its grid, each bit for bit (-0 stored as
+     +0, as the plain version's sum stores it).
      sparse_kernel: `segment_sum_sorted` (through `dedup_sum`) and the
      three row kernels against their plain versions at widths 8..256, on
      streams with duplicates (a hot row about 4,000 rows long and a warm
@@ -230,7 +237,11 @@ Phases, each printing JSON lines before the last line:
      (inside 11c, where the store form runs), at that call's ids with
      weights in (0, 1) (the one input where the two forms differ, which
      their plain versions must show) and at row shard 0's call on rank 0
-     of 11e (where the round-first form runs).
+     of 11e (where the round-first form runs). At DLRM's call also the
+     one-hot kernel built at each kOneHotRows of ONE_HOT_SWEEP (copies of
+     the source compiled in the background from the start of 11c), each
+     bit-equal to the plain version, its float32 and bf16 store forms
+     timed in turns (``one_hot_rows``).
      11b (`dlrm_against_cpu_phase` at bf16): Criteo sizes x 0.02, 3 sgd
      steps held against the CPU trainer as phase 9's are, the bar widened
      by one bfloat16 rounding of a term (AMP_TERM_EPS) at the tap
@@ -263,9 +274,11 @@ is not beside this script.
 """
 
 import contextlib
+import ctypes
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -299,6 +312,14 @@ UNTOUCHED_SAMPLE = 4096
 FUSED_HELD_STEPS = 3
 TILED_HELD_STEPS = 3
 SPARSE_WIDTHS = (8, 16, 32, 64, 128, 256)
+LOOKUP_SOURCE = os.path.join(REPO, "distributed_embeddings_tpu_torch", "csrc",
+                             "lookup_combine.cu")
+ONE_HOT_ROWS_LINE = re.compile(r"constexpr int kOneHotRows = (\d+);")
+# the one-hot kernel's edge cases (phase 3) run at these widths: 6 takes
+# the scalar path, 256 the column-chunk loop
+ONE_HOT_WIDTHS = (6, 8, 16, 128, 256)
+# kOneHotRows values the one-hot kernel is timed at, at DLRM's call (11a)
+ONE_HOT_SWEEP = (2, 4, 8)
 TPU_SITES = {
     "lookup_combine": ["distributed_embeddings_tpu/ops/pallas_lookup.py:116",
                        "distributed_embeddings_tpu/ops/pallas_lookup.py:224"],
@@ -459,6 +480,155 @@ def kernel_cases(torch, cuda_lookup):
             emit(phase="kernel", width=width, hot=hot, ok=True,
                  max_abs_err=errs)
     return worst
+
+
+def one_hot_rows() -> int:
+    """kOneHotRows of csrc/lookup_combine.cu: the rows a thread group of
+    the one-hot kernel takes a batch."""
+    with open(LOOKUP_SOURCE) as f:
+        return int(ONE_HOT_ROWS_LINE.search(f.read()).group(1))
+
+
+def same_bits(torch, got, want) -> bool:
+    """Equal dtypes and equal bits (so +0 and -0 differ)."""
+    view = {4: torch.int32, 2: torch.int16}[got.element_size()]
+    return got.dtype == want.dtype and torch.equal(got.view(view),
+                                                   want.view(view))
+
+
+def one_hot_cases(torch, cuda_lookup):
+    """Phase 3, K = 1: the one-hot kernel bit for bit against the plain
+    version in every form (float32, the bf16 and f16 stores and their
+    round-first forms), with int32 and int64 ids (some below 0, some past
+    V), unweighted and with weights in [-2, 2) (a zero table row times a
+    negative weight gives -0, which both store as +0), at ONE_HOT_WIDTHS
+    and at N = 1, R - 1 (R = kOneHotRows), 777 (a part batch) and 8 rows
+    for each thread the card can hold (2,048 an SM): more than one pass
+    of the kernel's grid at any width of 5 or more (a group of 2 or more
+    threads) with R up to 8. One `one_hot_kernel` line a width. Returns
+    the max absolute error."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    vocab = 5000
+    rows = one_hot_rows()
+    past_grid = 8 * 2048 * torch.cuda.get_device_properties(
+        0).multi_processor_count
+    sizes = (1, rows - 1, 777, past_grid)
+    forms = [(torch.float32, False)] + [
+        (getattr(torch, d), rnd) for d in ("bfloat16", "float16")
+        for rnd in (False, True)]
+    worst = 0.0
+    for width in ONE_HOT_WIDTHS:
+        table = torch.empty((vocab, width), device="cuda").uniform_(
+            -0.05, 0.05, generator=gen)
+        table[0] = 0.0
+        cases = 0
+        for n in sizes:
+            base = torch.randint(-3, vocab + 3, (n, 1), device="cuda",
+                                 generator=gen)
+            w = torch.empty((n, 1), device="cuda").uniform_(
+                -2.0, 2.0, generator=gen)
+            for id_dtype in (torch.int32, torch.int64):
+                ids = base.to(id_dtype)
+                for weights in (None, w):
+                    for out_dtype, rnd in forms:
+                        got = cuda_lookup.lookup_combine(table, ids, weights,
+                                                         out_dtype, rnd)
+                        want = cuda_lookup.lookup_combine_plain(
+                            table, ids, weights, out_dtype, rnd)
+                        torch.cuda.synchronize()
+                        err = (got.float() - want.float()).abs().max().item()
+                        check(same_bits(torch, got, want),
+                              f"one-hot {cuda_lookup.form_name(out_dtype, rnd)}"
+                              f" width {width} N {n} {id_dtype} weighted "
+                              f"{weights is not None}: not bit-equal to the "
+                              f"plain version, max abs err {err}")
+                        worst = max(worst, err)
+                        cases += 1
+                        del got, want
+        emit(phase="one_hot_kernel", width=width, n=list(sizes),
+             cases=cases, max_abs_err=worst, ok=True)
+    return worst
+
+
+def start_one_hot_builds(kernel_build, tmp):
+    """nvcc, started in the background with the library's flags, on copies
+    of csrc/lookup_combine.cu in `tmp` whose kOneHotRows is each value of
+    ONE_HOT_SWEEP but the source's own. Returns {R: (process, library)}."""
+    with open(LOOKUP_SOURCE) as f:
+        source = f.read()
+    builds = {}
+    for r in ONE_HOT_SWEEP:
+        if r == one_hot_rows():
+            continue
+        src = os.path.join(tmp, f"lookup_combine_r{r}.cu")
+        with open(src, "w") as f:
+            f.write(ONE_HOT_ROWS_LINE.sub(
+                f"constexpr int kOneHotRows = {r};", source))
+        lib = src[:-len(".cu")] + ".so"
+        builds[r] = (subprocess.Popen(
+            [kernel_build._nvcc(), *kernel_build.NVCC_FLAGS, "-o", lib, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT), lib)
+    return builds
+
+
+@contextlib.contextmanager
+def lookup_library(kernel_build, lib):
+    """`cuda_lookup`'s entry points taken from the loaded library `lib`
+    inside the block."""
+    saved = kernel_build.load("lookup_combine")
+    kernel_build._LIBS["lookup_combine"] = lib
+    try:
+        yield
+    finally:
+        kernel_build._LIBS["lookup_combine"] = saved
+
+
+def one_hot_rows_sweep(torch, cuda_lookup, kernel_build, builds, call, at):
+    """11a: the one-hot kernel at each kOneHotRows of ONE_HOT_SWEEP (the
+    source's own through the package's library, the others from
+    `start_one_hot_builds`) on one call (table, ids, weights): each
+    bit-equal to the plain version in the float32 and bf16 store forms,
+    then both timed (CUDA graph replays) in turns, R ascending, then
+    descending. Prints a `one_hot_rows` line: ms by R and form, each
+    library's one-hot registers and spill bytes."""
+    table, ids, weights = call
+    own = one_hot_rows()
+    libs = {own: kernel_build.load("lookup_combine")}
+    usage = {own: kernel_build.ptxas_usage("lookup_combine")}
+    for r, (proc, path) in builds.items():
+        log = proc.communicate(timeout=600)[0].decode(errors="replace")
+        check(proc.returncode == 0,
+              f"nvcc at kOneHotRows = {r} failed:\n{log}")
+        libs[r] = ctypes.CDLL(path)
+        usage[r] = kernel_build.parse_ptxas(log)
+    forms = (torch.float32, torch.bfloat16)
+    want = {d: cuda_lookup.lookup_combine_plain(table, ids, weights, d)
+            for d in forms}
+    ms = {r: {cuda_lookup.form_name(d): [] for d in forms} for r in libs}
+    order = sorted(libs)
+    for turn in (order, order[::-1]):
+        for r in turn:
+            with lookup_library(kernel_build, libs[r]):
+                for d in forms:
+                    if turn is order:
+                        got = cuda_lookup.lookup_combine(table, ids, weights,
+                                                         d)
+                        torch.cuda.synchronize()
+                        check(same_bits(torch, got, want[d]),
+                              f"one-hot kernel at kOneHotRows = {r}, "
+                              f"{cuda_lookup.form_name(d)}: not bit-equal "
+                              f"to the plain version at {at}")
+                        del got
+                    ms[r][cuda_lookup.form_name(d)].append(device_ms(
+                        lambda: cuda_lookup.lookup_combine(table, ids,
+                                                           weights, d),
+                        reps=20))
+    del want
+    emit(phase="one_hot_rows", at=at, source_rows=own,
+         table=list(table.shape), ids=list(ids.shape), ms=ms,
+         one_hot_ptxas={r: {k: v for k, v in u.items()
+                            if "one_hot_kernel" in k}
+                        for r, u in usage.items()}, ok=True)
 
 
 def busy_union(intervals):
@@ -3873,10 +4043,13 @@ def dlrm_amp_fit_phase(torch, cuda_lookup, cuda_sparse, counted, rate,
         InferenceEngine)
     from distributed_embeddings_tpu_torch.training import (
         fit, make_sparse_train_step)
+    from distributed_embeddings_tpu_torch.ops import kernel_build
     sizes = scaled_table_sizes(DLRM_TABLE_SCALE)
     label = "dlrm_amp_fit"
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dlrm_amp")
+    builds = {}
     try:
+        builds = start_one_hot_builds(kernel_build, tmp)
         dataset = dlrm_dataset(tmp, sizes)
         evals = DLRM_FIT_STEPS // DLRM_EVAL_EVERY
         want = {"lookup_combine_bf16": (DLRM_FIT_STEPS
@@ -3948,6 +4121,8 @@ def dlrm_amp_fit_phase(torch, cuda_lookup, cuda_sparse, counted, rate,
               f"{label}: {len(look.calls)} lookups captured, want 1 bf16")
         calls = lookup_args(look.calls)
         forms = amp_kernel_cases(torch, cuda_lookup, calls, rate, "dlrm_fit")
+        one_hot_rows_sweep(torch, cuda_lookup, kernel_build, builds,
+                           calls[0], "dlrm_fit")
         # the same table and ids at hotness 1 with weights in (0, 1): the
         # one input where the store and round-first forms differ
         table, ids, _ = calls[0]
@@ -3992,6 +4167,10 @@ def dlrm_amp_fit_phase(torch, cuda_lookup, cuda_sparse, counted, rate,
         torch.cuda.empty_cache()
         return {label: counts}, forms
     finally:
+        for proc, _ in builds.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -4329,9 +4508,17 @@ def main() -> int:
     libs = kernel_build.build(KERNELS)
     emit(phase="build", seconds=time.perf_counter() - t0,
          libraries=[os.path.relpath(p, REPO) for p in libs.values()])
+    # the one-hot kernel's instantiations: registers and spills
+    one_hot_usage = {k: u for k, u in kernel_build.ptxas_usage(
+        "lookup_combine").items() if "one_hot_kernel" in k}
+    check(one_hot_usage, "no one_hot_kernel in lookup_combine's build log")
+    one_hot_spills = sorted(k for k, u in one_hot_usage.items()
+                            if u["spill_bytes"])
+    emit(phase="one_hot_ptxas", kernels=one_hot_usage, spills=one_hot_spills)
 
     # ---- 3. kernels against their plain versions
-    worst = kernel_cases(torch, cuda_lookup)
+    worst = max(kernel_cases(torch, cuda_lookup),
+                one_hot_cases(torch, cuda_lookup))
     sparse_worst = sparse_kernel_cases(torch, cuda_sparse, sparse_update)
     sorted_worst = sorted_kernel_cases(torch, cuda_tiled, embedding_ops,
                                        sparse_update)
@@ -4906,6 +5093,11 @@ def main() -> int:
                              ladder_err[kname]))
     emit(phase="sorted_lookups_backward",
          max_abs_err=sorted_worst["lookups"], ok=True)
+    # every form of lookup_combine shares one library: its one-hot
+    # instantiations that spill
+    for row in kernels:
+        if row["name"].startswith("lookup_combine"):
+            row["one_hot_spills"] = one_hot_spills
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,8 @@ are the processes of a ``torch.distributed`` process group
 (`initialize_distributed`).
 """
 
+from distributed_embeddings_tpu_torch.version import __version__
+from distributed_embeddings_tpu_torch.layers import dist_model_parallel
 from distributed_embeddings_tpu_torch.layers.dist_model_parallel import (
     DistEmbeddingStrategy,
     DistributedEmbedding,
@@ -35,10 +37,12 @@ from distributed_embeddings_tpu_torch.utils.device import (
 settle_cpu_vector_math()
 
 __all__ = [
+    "__version__",
     "embedding_lookup",
     "RaggedIds",
     "SparseIds",
     "Embedding",
+    "dist_model_parallel",
     "DistEmbeddingStrategy",
     "DistributedEmbedding",
     "InferenceEngine",

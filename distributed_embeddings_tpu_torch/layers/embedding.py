@@ -107,6 +107,14 @@ class Embedding(nn.Module):
         return cls(**{k: config[k] for k in keys if k in config},
                    device="meta")
 
+    def compute_output_shape(self, input_shape):
+        """The output shape for ids of `input_shape`: one row per id
+        without a combiner, else one per id row (the last axis
+        combined)."""
+        if self.combiner is None:
+            return tuple(input_shape) + (self.output_dim,)
+        return tuple(input_shape[:-1]) + (self.output_dim,)
+
     def get_config(self) -> dict:
         return {
             "input_dim": self.input_dim,

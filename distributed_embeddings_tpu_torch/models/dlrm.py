@@ -215,6 +215,16 @@ class DLRM(nn.Module):
         return bce_loss(self, numerical, categorical, labels, taps,
                         return_residuals)
 
+    def make_train_step(self, optimizer):
+        """The dense train step of this model's loss over `optimizer` (a
+        `DenseOptimizer` or a `DistributedOptimizer`; see
+        `training.make_train_step`): ``step(model, opt_state, numerical,
+        categorical, labels) -> (model, opt_state, loss)``, every
+        parameter updated in place."""
+        from distributed_embeddings_tpu_torch.training import (
+            make_train_step)
+        return make_train_step(bce_loss, optimizer)
+
 
 def bce_loss(model, numerical, cats, labels, taps=None,
              return_residuals: bool = False):

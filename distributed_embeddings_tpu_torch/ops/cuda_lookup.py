@@ -3,13 +3,18 @@
 Counterpart of ``distributed_embeddings_tpu/ops/pallas_lookup.py``. There,
 two Pallas kernels compute one function and the choice between them follows
 the TPU's tiling (`_onehot_kernel` for V <= 8192, `_dma_gather_kernel` for
-lane-aligned large vocabularies). Here one CUDA kernel,
-``csrc/lookup_combine.cu``, computes it for every vocab size and width:
+lane-aligned large vocabularies). Here ``csrc/lookup_combine.cu`` computes
+it for every vocab size and width:
 
     out[n] = sum_k w[n, k] * table[clamp(ids[n, k], 0, V - 1)]
 
 It is memory-bound (about ``N*K*(4W + 8) + 4*N*W`` bytes for ``2*N*K*W``
-flops); see the source for its design.
+flops). Two kernels share the entry points and split by hotness: one-hot
+ids (K == 1) take the one-hot walk, a grid that the card holds at once in
+which each thread group keeps several rows' table loads in flight; any
+other K takes the multi-hot kernel, one output row a thread group, the K
+terms in ascending order. Both give the same bits as
+`lookup_combine_plain`; see the source for their design.
 
 Mixed precision (the JAX package's ``compute_dtype``): the table and the
 sum stay float32, and ``out_dtype`` (bfloat16 or float16) is the type the

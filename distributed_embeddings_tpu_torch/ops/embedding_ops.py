@@ -125,6 +125,22 @@ def segment_bounds(seg_start: torch.Tensor):
     return starts[:n + 1], seg
 
 
+def read_var_no_copy(params: torch.Tensor) -> torch.Tensor:
+    """The reference's ReadVariableNoCopy op, which read a TF resource
+    variable without a copy of the whole table: a tensor is read in place
+    here, so this is the identity."""
+    return params
+
+
+def row_to_split(row_ids: torch.Tensor, nrows: int) -> torch.Tensor:
+    """Sorted COO row indices -> CSR row splits [nrows + 1] (the
+    reference's RowToSplit kernel): ``splits[r]`` is the first position
+    whose row is at least r, in `row_ids`' dtype."""
+    rows = torch.arange(nrows + 1, dtype=row_ids.dtype,
+                        device=row_ids.device)
+    return torch.searchsorted(row_ids, rows, side="left").to(row_ids.dtype)
+
+
 class SparseIds(NamedTuple):
     """COO-format sparse id batch: ``indices`` [nnz, 2] (row, col) with rows
     ascending; ``dense_shape`` is (batch, max_hotness)."""

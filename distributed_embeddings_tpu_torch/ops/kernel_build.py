@@ -103,29 +103,33 @@ def ptxas_usage(name: str) -> Dict[str, Dict[str, int]]:
     """Per kernel of ``csrc/<name>.cu`` (its mangled name), from the
     compiler log: ``registers`` a thread, static ``shared_bytes`` and
     ``spill_bytes`` (spill stores + loads)."""
+    with open(log_path(name)) as f:
+        return parse_ptxas(f.read())
+
+
+def parse_ptxas(log: str) -> Dict[str, Dict[str, int]]:
+    """`ptxas_usage` of the text of an ``nvcc -Xptxas -v`` log."""
     usage: Dict[str, Dict[str, int]] = {}
     kernel = None
-    with open(log_path(name)) as f:
-        for line in f:
-            entry = re.search(r"Compiling entry function '([^']+)'", line)
-            if entry:
-                kernel = entry.group(1)
-                usage[kernel] = dict(registers=0, shared_bytes=0,
-                                     spill_bytes=0)
-                continue
-            if kernel is None:
-                continue
-            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                               r"loads", line)
-            if spills:
-                usage[kernel]["spill_bytes"] = (int(spills.group(1))
-                                                + int(spills.group(2)))
-            regs = re.search(r"Used (\d+) registers", line)
-            if regs:
-                usage[kernel]["registers"] = int(regs.group(1))
-                smem = re.search(r"(\d+) bytes smem", line)
-                if smem:
-                    usage[kernel]["shared_bytes"] = int(smem.group(1))
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            kernel = entry.group(1)
+            usage[kernel] = dict(registers=0, shared_bytes=0, spill_bytes=0)
+            continue
+        if kernel is None:
+            continue
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", line)
+        if spills:
+            usage[kernel]["spill_bytes"] = (int(spills.group(1))
+                                            + int(spills.group(2)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            usage[kernel]["registers"] = int(regs.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            if smem:
+                usage[kernel]["shared_bytes"] = int(smem.group(1))
     return usage
 
 

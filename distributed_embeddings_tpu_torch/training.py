@@ -687,6 +687,11 @@ class DistributedOptimizer:
             grads = self._postprocess(grads)
         return self._opt.update(params, grads, opt_state)
 
+    def apply(self, params: Dict[str, torch.Tensor],
+              updates: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """``params + updates`` in place (`apply_updates`)."""
+        return apply_updates(params, updates)
+
 
 class BroadcastGlobalVariablesCallback:
     """The reference's Keras callback as a `fit` callback: at

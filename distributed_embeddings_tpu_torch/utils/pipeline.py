@@ -252,6 +252,18 @@ class IngestPipeline:
         p95_ms, p99_ms, max_ms}}; ``read`` is the implicit source stage."""
         return {n: h.summary() for n, h in self._hists.items()}
 
+    def stage_histograms(self) -> dict:
+        """The live per-stage histograms, for callers that merge them
+        across runs."""
+        return dict(self._hists)
+
+    def bottleneck(self) -> Optional[str]:
+        """The stage with the largest mean wall time (None before any item
+        completed): the stage whose rate bounds pipelined throughput."""
+        means = {n: h.summary()["mean_ms"] for n, h in self._hists.items()
+                 if h.count}
+        return max(means, key=means.get) if means else None
+
 
 class SerialPipeline:
     """The same stages run inline in the consumer thread, with the same
@@ -284,6 +296,9 @@ class SerialPipeline:
 
     def stage_summaries(self) -> dict:
         return {n: h.summary() for n, h in self._hists.items()}
+
+    def stage_histograms(self) -> dict:
+        return dict(self._hists)
 
 
 def staged_batches(data: Iterable, stage: Callable,

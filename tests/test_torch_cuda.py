@@ -7,6 +7,8 @@ with the card (no jax there, so without the repository's conftest):
         tests/test_torch_cuda.py
 """
 
+import os
+
 import numpy as np
 import pytest
 
@@ -87,6 +89,65 @@ def test_empty_batch_launches_nothing(gen):
     launches = dict(cuda_lookup.launches)
     assert cuda_lookup.lookup_combine(table, ids).shape == (0, 8)
     assert cuda_lookup.launches == launches
+
+
+def _one_hot_rows():
+    """kOneHotRows of csrc/lookup_combine.cu: the rows a thread group of
+    the one-hot kernel takes a batch."""
+    import re
+    path = os.path.join(os.path.dirname(cuda_lookup.__file__), os.pardir,
+                        "csrc", "lookup_combine.cu")
+    with open(path) as f:
+        return int(re.search(r"constexpr int kOneHotRows = (\d+);",
+                             f.read()).group(1))
+
+
+def _bits(t):
+    return t.view({4: torch.int32, 2: torch.int16}[t.element_size()])
+
+
+ONE_HOT_FORMS = [("float32", False), ("bfloat16", False), ("bfloat16", True),
+                 ("float16", False), ("float16", True)]
+
+
+@pytest.mark.parametrize("size", ["one", "rows_less_one", "part_batch",
+                                  "past_grid"])
+@pytest.mark.parametrize("width", [6, 8, 16, 128, 256])
+@pytest.mark.parametrize("form", ONE_HOT_FORMS,
+                         ids=[f"{d}{'_round' if r else ''}"
+                              for d, r in ONE_HOT_FORMS])
+@pytest.mark.parametrize("id_dtype", ["int32", "int64"])
+def test_one_hot_edges_match_plain_bit_for_bit(gen, size, width, form,
+                                               id_dtype):
+    """The one-hot kernel (K = 1) at N = 1, R - 1 (R = kOneHotRows), a
+    part batch and more rows than one pass of its grid covers (8 a
+    resident thread: a group has 2 or more threads at these widths and R
+    is at most 8), unweighted and with weights in [-2, 2), ids below 0
+    and past V: the plain version's bits (a zero row times a negative
+    weight stores +0 in both), one launch a call under its form."""
+    n = {"one": 1, "rows_less_one": _one_hot_rows() - 1, "part_batch": 777,
+         "past_grid": 8 * 2048 * torch.cuda.get_device_properties(
+             0).multi_processor_count}[size]
+    out_dtype, round_inputs = getattr(torch, form[0]), form[1]
+    vocab = 3000
+    table = torch.empty((vocab, width), device="cuda").uniform_(
+        -0.05, 0.05, generator=gen)
+    table[0] = 0.0
+    ids = torch.randint(-3, vocab + 3, (n, 1), device="cuda",
+                        generator=gen).to(getattr(torch, id_dtype))
+    w = torch.empty((n, 1), device="cuda").uniform_(-2.0, 2.0, generator=gen)
+    name = cuda_lookup.form_name(out_dtype, round_inputs)
+    for weights in (None, w):
+        before = dict(cuda_lookup.launches)
+        got = cuda_lookup.lookup_combine(table, ids, weights, out_dtype,
+                                         round_inputs)
+        want = cuda_lookup.lookup_combine_plain(table, ids, weights,
+                                                out_dtype, round_inputs)
+        torch.cuda.synchronize()
+        assert cuda_lookup.launches == dict(before,
+                                            **{name: before[name] + 1})
+        assert got.dtype == want.dtype == out_dtype
+        assert torch.equal(_bits(got), _bits(want))
 
 
 def _stream(gen, vocab, n, width):

@@ -469,3 +469,142 @@ def test_dlrm_takes_the_strategy_under_both_names(monkeypatch):
     DLRM([10, 20], embedding_dim=8, device="cpu", strategy="comm_balanced")
     DLRM([10, 20], embedding_dim=8, device="cpu")
     assert seen == ["basic", "comm_balanced", "memory_balanced"]
+
+
+# ------------------------------------------- the reference's public names
+def test_top_level_names_match_the_reference():
+    """The original library's top-level names (as the JAX package's
+    `test_top_level_api_matches_reference` lists them; IntegerLookup comes
+    with its module) exist in the port, the version is the reference's,
+    and `dist_model_parallel` is the layer's module."""
+    import distributed_embeddings_tpu as jax_pkg
+    import distributed_embeddings_tpu_torch as port
+    from distributed_embeddings_tpu_torch.layers import dist_model_parallel
+    for name in ["embedding_lookup", "Embedding", "dist_model_parallel",
+                 "DistEmbeddingStrategy", "DistributedEmbedding",
+                 "broadcast_variables", "DistributedGradientTape",
+                 "DistributedOptimizer", "BroadcastGlobalVariablesCallback",
+                 "__version__"]:
+        assert hasattr(port, name) and name in port.__all__, name
+    assert port.__version__ == jax_pkg.__version__ == "0.1.0"
+    assert port.dist_model_parallel is dist_model_parallel
+    assert (port.dist_model_parallel.DistributedEmbedding
+            is DistributedEmbedding)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_row_to_split_matches_the_reference(seed):
+    """Sorted COO rows (some rows empty, some repeated) -> CSR splits, the
+    same as the JAX function's, in the ids' dtype."""
+    from distributed_embeddings_tpu.ops import embedding_ops as jax_ops
+    from distributed_embeddings_tpu_torch.ops import embedding_ops
+    rng = np.random.default_rng(seed)
+    nrows = int(rng.integers(1, 40))
+    rows = np.sort(rng.integers(0, nrows, int(rng.integers(0, 120))))
+    for dtype in (np.int32, np.int64):
+        want = np.asarray(jax_ops.row_to_split(rows.astype(dtype), nrows))
+        got = embedding_ops.row_to_split(torch.from_numpy(rows.astype(dtype)),
+                                         nrows)
+        assert got.dtype == getattr(torch, np.dtype(dtype).name)
+        np.testing.assert_array_equal(got.numpy(), want)
+    table = torch.from_numpy(rng.standard_normal((5, 3), dtype=np.float32))
+    assert embedding_ops.read_var_no_copy(table) is table
+
+
+@pytest.mark.parametrize("combiner", [None, "sum", "mean"])
+@pytest.mark.parametrize("shape", [(4,), (4, 3), (2, 5, 7)])
+def test_compute_output_shape_matches_the_reference(combiner, shape):
+    from distributed_embeddings_tpu.layers.embedding import (
+        Embedding as JaxEmbedding)
+    want = JaxEmbedding(10, 6, combiner=combiner).compute_output_shape(shape)
+    got = Embedding(10, 6, combiner=combiner,
+                    device="meta").compute_output_shape(shape)
+    assert got == tuple(want)
+
+
+def test_distributed_optimizer_apply_matches_the_reference():
+    """``apply(params, updates)`` adds the updates (in place in the port),
+    as the JAX optimizer's does."""
+    from distributed_embeddings_tpu import training as jax_training
+    from distributed_embeddings_tpu_torch import training as pt_training
+    rng = np.random.default_rng(4)
+    params = {n: rng.standard_normal(s, dtype=np.float32)
+              for n, s in (("a", (3, 4)), ("b", (5,)))}
+    updates = {n: rng.standard_normal(p.shape, dtype=np.float32)
+               for n, p in params.items()}
+    want = jax_training.DistributedOptimizer(None).apply(params, updates)
+    pt_params = {n: torch.from_numpy(p.copy()) for n, p in params.items()}
+    got = pt_training.DistributedOptimizer(pt_training.sgd(0.1)).apply(
+        pt_params, {n: torch.from_numpy(u) for n, u in updates.items()})
+    assert got is pt_params
+    for n in params:
+        np.testing.assert_array_equal(got[n].numpy(), np.asarray(want[n]))
+
+
+def test_dlrm_make_train_step_matches_the_reference():
+    """Two dense sgd steps of `DLRM.make_train_step` from the same weights
+    and batches: the JAX model's loss and parameters (rtol 1e-5)."""
+    import jax
+    import optax
+    from distributed_embeddings_tpu.models import dlrm as jax_dlrm
+    from distributed_embeddings_tpu_torch import convert
+    from distributed_embeddings_tpu_torch import training as pt_training
+    from distributed_embeddings_tpu_torch.models.synthetic import (
+        ClickGenerator)
+    sizes = [40, 7, 300, 25]
+    kw = dict(embedding_dim=8, bottom_mlp_dims=(16, 8), top_mlp_dims=(16, 1),
+              num_numerical_features=5)
+    jm = jax_dlrm.DLRM(sizes, **kw)
+    params = jm.init(jax.random.PRNGKey(5))
+    pm = DLRM(sizes, device="cpu", **kw)
+    pm.load_state_dict(convert.params_from_jax(
+        jax.tree.map(np.asarray, params), pm))
+    jstep = jm.make_train_step(optax.sgd(0.05))
+    jstate = optax.sgd(0.05).init(params)
+    popt = pt_training.sgd(0.05)
+    pstep = pm.make_train_step(popt)
+    pstate = popt.init(dict(pm.named_parameters()))
+    gen = ClickGenerator(sizes, 5, 32, seed=3)
+    for s in range(2):
+        num, cats, labels = gen.batch(s)
+        params, jstate, jloss = jstep(params, jstate, num, list(cats), labels)
+        pm, pstate, ploss = pstep(pm, pstate, num, list(cats), labels)
+        np.testing.assert_allclose(float(ploss), float(jloss), rtol=1e-5)
+    want = convert.params_from_jax(jax.tree.map(np.asarray, params), pm)
+    got = pm.state_dict()
+    assert set(got) == set(want)
+    for name in want:
+        np.testing.assert_allclose(got[name].numpy(), want[name].numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=name)
+
+
+@pytest.mark.parametrize("pipelined", [True, False])
+def test_pipeline_accounting_matches_the_reference(pipelined):
+    """`stage_histograms` (both pipelines) and `IngestPipeline.bottleneck`
+    name the same stages and counts as the JAX package's, and the
+    bottleneck is the stage that sleeps."""
+    import time
+    from distributed_embeddings_tpu.utils import pipeline as jax_pipeline
+    from distributed_embeddings_tpu_torch.utils import pipeline as pt_pipeline
+    rng = np.random.default_rng(6)
+    items = [rng.standard_normal(3) for _ in range(4)]
+
+    def slow(x):
+        time.sleep(0.02)
+        return x * 2
+
+    stages = [("scale", lambda x: x + 1), ("slow", slow)]
+    name = "IngestPipeline" if pipelined else "SerialPipeline"
+    results = []
+    for module in (jax_pipeline, pt_pipeline):
+        pipe = getattr(module, name)(iter(items), stages)
+        out = list(pipe)
+        hists = pipe.stage_histograms()
+        results.append((out, {n: h.count for n, h in hists.items()},
+                        pipe.bottleneck() if pipelined else None))
+    (jout, jcounts, jslow), (pout, pcounts, pslow) = results
+    for a, b in zip(pout, jout):
+        np.testing.assert_array_equal(a, b)
+    assert pcounts == jcounts == {"read": 4, "scale": 4, "slow": 4}
+    assert pslow == jslow == ("slow" if pipelined else None)
+
