@@ -31,7 +31,10 @@ Phases, each printing JSON lines before the last line:
      sorted_stream.cu (the last two share row_rules.cuh). The one-hot
      kernel's instantiations' registers and spill bytes from the
      compiler's log (``one_hot_ptxas``; the kernels line names any that
-     spill, ``one_hot_spills``).
+     spill, ``one_hot_spills``), and `sgd_rows_kernel`'s, with those of
+     its variants of SGD_ROWS_VARIANTS (copies of sparse_apply.cu built
+     in the background from the start of 2a; ``sgd_rows_ptxas``,
+     ``sgd_rows_spills``).
   3. kernel: `lookup_combine` against its plain PyTorch version at the
      zoo's widths (8..256), hotness 1/10/30, sum/mean, weighted (with
      zero-weight slots) and unweighted, int32 and int64 ids, some of them
@@ -51,7 +54,12 @@ Phases, each printing JSON lines before the last line:
      atol 1e-6 + rtol 1e-5 of the segment's sum of magnitudes of the card's
      `index_add_` (atomics, another order each run); the row
      kernels bit-equal to their plain versions on the card (else the
-     largest ulp difference is printed and rtol 1e-6 holds).
+     largest ulp difference is printed and rtol 1e-6 holds). Then
+     `sgd_rows`' walk bit for bit, one launch a call
+     (`sgd_rows_edge_cases`): N = 1, 31, 32, 33 and past one pass of its
+     grid; dedup's layout (a filler suffix), fillers between unsorted
+     rows, negative fillers, fillers only, no fillers; int32 and int64;
+     lr 0.01 and -1; widths 6, 8, 16, 128, 132 and 256.
      sorted_kernel (3c): `gather_sorted`, weighted and not, int32 and
      int64 keys, at widths 6 and 8..256 with keys < 0 and >= V, in its
      sorted form and in its perm form (each row stored at its place in
@@ -118,7 +126,8 @@ Phases, each printing JSON lines before the last line:
      step's gradient is a sum that cancels. `sgd_rows` launches once per
      bucket per step (sgd's "auto" is the deduplicated-row route),
      `adam_rows` once (bucket 0 dense), each timed at the shapes those
-     steps give them.
+     steps give them; `sgd_rows` also beside its variants
+     (``sgd_rows_variants``, as in phase 9).
      6c. dense_path: the same cut Tiny with ``strategy="dense"`` against
      ``"sort"``, adagrad and adam, each of 3 steps from the same state,
      by value (launches 4 lookup_combine a step, no segment sum or row
@@ -190,6 +199,10 @@ Phases, each printing JSON lines before the last line:
      times and samples/s, peak memory, ingest stage means, one profiled
      step each (`StepWindow`: idle share, HtoD copies pageable / pinned),
      the on-card AUC against `auc_exact` (1e-3) and a CPU StreamingAUC.
+     Then one more step's kernel calls held and timed (`dlrm_kernels`),
+     and `sgd_rows` at its call as the source builds it and as each
+     variant of SGD_ROWS_VARIANTS (2 rows a group; one pass's `rep`
+     loads in flight a warp; the contiguous slot order), each bit-equal, timed in turns (``sgd_rows_variants``).
      convergence: `tools.convergence_demo.run` at
      docs/convergence_r05.json's settings, its curve beside r05's; the
      last AUC must pass 0.70.
@@ -209,7 +222,8 @@ Phases, each printing JSON lines before the last line:
      whose `lookup_combine`, `segment_sum_sorted` and `sgd_rows` calls on
      row shard 0 rank 0 holds against their plain versions and times
      (`placement_kernel`, ``path="placement"`` lines, ``at_placement``
-     in the kernels line); 10 timed steps; one profiled step (the
+     in the kernels line; ``sgd_rows_variants`` as in phase 9); 10 timed
+     steps; one profiled step (the
      exchange's host ms by collective: ``exchange:all_to_all`` 3 a tp
      group, ``exchange:all_gather`` 2 and ``exchange:reduce_scatter`` 1 a
      row table, ``exchange:all_reduce`` 1, or the phase fails; gloo's own
@@ -320,6 +334,24 @@ ONE_HOT_ROWS_LINE = re.compile(r"constexpr int kOneHotRows = (\d+);")
 ONE_HOT_WIDTHS = (6, 8, 16, 128, 256)
 # kOneHotRows values the one-hot kernel is timed at, at DLRM's call (11a)
 ONE_HOT_SWEEP = (2, 4, 8)
+SPARSE_SOURCE = os.path.join(REPO, "distributed_embeddings_tpu_torch", "csrc",
+                             "sparse_apply.cu")
+# sgd_rows' edge cases (phase 3b): 6 takes the scalar path, 132 and 256
+# the column-chunk loop
+SGD_EDGE_WIDTHS = (6, 8, 16, 128, 132, 256)
+SGD_EDGE_LAYOUTS = ("dedup", "interleaved", "negative", "all_fillers",
+                    "no_fillers")
+# sgd_rows' walk built with 2 rows a group, with one pass's `rep` loads
+# in flight a warp, and with the contiguous slot order (a warp's 32
+# neighbouring slots a pass), each timed beside the source's at cut
+# Tiny's calls (phase 6), DLRM x 0.4's (phase 9) and row shard 0's (10)
+SGD_ROWS_VARIANTS = {
+    "rows2": ("constexpr int kSgdRows = 4;", "constexpr int kSgdRows = 2;"),
+    "ahead1": ("constexpr int kRepAhead = 4;",
+               "constexpr int kRepAhead = 1;"),
+    "contiguous": ("(lane / run * warps + warp) * run + lane % run;",
+                   "warp * 32 + lane;")}
+SGD_ROWS_SWEEP_DIR = os.path.join(REPO, "build", "sgd_rows_sweep")
 TPU_SITES = {
     "lookup_combine": ["distributed_embeddings_tpu/ops/pallas_lookup.py:116",
                        "distributed_embeddings_tpu/ops/pallas_lookup.py:224"],
@@ -550,37 +582,63 @@ def one_hot_cases(torch, cuda_lookup):
     return worst
 
 
-def start_one_hot_builds(kernel_build, tmp):
-    """nvcc, started in the background with the library's flags, on copies
-    of csrc/lookup_combine.cu in `tmp` whose kOneHotRows is each value of
-    ONE_HOT_SWEEP but the source's own. Returns {R: (process, library)}."""
-    with open(LOOKUP_SOURCE) as f:
-        source = f.read()
+def start_variant_builds(kernel_build, source, variants, out_dir):
+    """nvcc, started in the background with the library's flags (and the
+    source's directory for its headers), on copies of `source` in
+    `out_dir`, one a variant: {tag: (old, new)}, the copy's one text
+    substitution, whose text must be in the source. Returns {tag:
+    (process, library)}."""
+    with open(source) as f:
+        text = f.read()
+    os.makedirs(out_dir, exist_ok=True)
+    stem = os.path.basename(source)[:-len(".cu")]
     builds = {}
-    for r in ONE_HOT_SWEEP:
-        if r == one_hot_rows():
-            continue
-        src = os.path.join(tmp, f"lookup_combine_r{r}.cu")
+    for tag, (old, new) in variants.items():
+        check(old in text, f"{stem} variant {tag}: no '{old}' in the source")
+        src = os.path.join(out_dir, f"{stem}_{tag}.cu")
         with open(src, "w") as f:
-            f.write(ONE_HOT_ROWS_LINE.sub(
-                f"constexpr int kOneHotRows = {r};", source))
+            f.write(text.replace(old, new))
         lib = src[:-len(".cu")] + ".so"
-        builds[r] = (subprocess.Popen(
-            [kernel_build._nvcc(), *kernel_build.NVCC_FLAGS, "-o", lib, src],
+        builds[tag] = (subprocess.Popen(
+            [kernel_build._nvcc(), *kernel_build.NVCC_FLAGS,
+             "-I", os.path.dirname(source), "-o", lib, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT), lib)
     return builds
 
 
+def finish_variant_builds(builds):
+    """{tag: (library loaded, its `ptxas_usage`)} once every build of
+    `start_variant_builds` has ended; fails on a failed build."""
+    from distributed_embeddings_tpu_torch.ops import kernel_build
+    out = {}
+    for tag, (proc, path) in builds.items():
+        log = proc.communicate(timeout=600)[0].decode(errors="replace")
+        check(proc.returncode == 0, f"nvcc of variant {tag} failed:\n{log}")
+        out[tag] = (ctypes.CDLL(path), kernel_build.parse_ptxas(log))
+    return out
+
+
+def start_one_hot_builds(kernel_build, tmp):
+    """`start_variant_builds` of csrc/lookup_combine.cu at each kOneHotRows
+    of ONE_HOT_SWEEP but the source's own. Returns {R: (process,
+    library)}."""
+    own = one_hot_rows()
+    line = f"constexpr int kOneHotRows = {own};"
+    return start_variant_builds(kernel_build, LOOKUP_SOURCE, {
+        r: (line, f"constexpr int kOneHotRows = {r};")
+        for r in ONE_HOT_SWEEP if r != own}, tmp)
+
+
 @contextlib.contextmanager
-def lookup_library(kernel_build, lib):
-    """`cuda_lookup`'s entry points taken from the loaded library `lib`
-    inside the block."""
-    saved = kernel_build.load("lookup_combine")
-    kernel_build._LIBS["lookup_combine"] = lib
+def swapped_library(kernel_build, name, lib):
+    """The entry points of ``csrc/<name>.cu`` taken from the loaded
+    library `lib` inside the block."""
+    saved = kernel_build.load(name)
+    kernel_build._LIBS[name] = lib
     try:
         yield
     finally:
-        kernel_build._LIBS["lookup_combine"] = saved
+        kernel_build._LIBS[name] = saved
 
 
 def one_hot_rows_sweep(torch, cuda_lookup, kernel_build, builds, call, at):
@@ -593,14 +651,11 @@ def one_hot_rows_sweep(torch, cuda_lookup, kernel_build, builds, call, at):
     library's one-hot registers and spill bytes."""
     table, ids, weights = call
     own = one_hot_rows()
-    libs = {own: kernel_build.load("lookup_combine")}
-    usage = {own: kernel_build.ptxas_usage("lookup_combine")}
-    for r, (proc, path) in builds.items():
-        log = proc.communicate(timeout=600)[0].decode(errors="replace")
-        check(proc.returncode == 0,
-              f"nvcc at kOneHotRows = {r} failed:\n{log}")
-        libs[r] = ctypes.CDLL(path)
-        usage[r] = kernel_build.parse_ptxas(log)
+    built = finish_variant_builds(builds)
+    libs = {own: kernel_build.load("lookup_combine"),
+            **{r: lib for r, (lib, _) in built.items()}}
+    usage = {own: kernel_build.ptxas_usage("lookup_combine"),
+             **{r: u for r, (_, u) in built.items()}}
     forms = (torch.float32, torch.bfloat16)
     want = {d: cuda_lookup.lookup_combine_plain(table, ids, weights, d)
             for d in forms}
@@ -608,7 +663,7 @@ def one_hot_rows_sweep(torch, cuda_lookup, kernel_build, builds, call, at):
     order = sorted(libs)
     for turn in (order, order[::-1]):
         for r in turn:
-            with lookup_library(kernel_build, libs[r]):
+            with swapped_library(kernel_build, "lookup_combine", libs[r]):
                 for d in forms:
                     if turn is order:
                         got = cuda_lookup.lookup_combine(table, ids, weights,
@@ -629,6 +684,57 @@ def one_hot_rows_sweep(torch, cuda_lookup, kernel_build, builds, call, at):
          one_hot_ptxas={r: {k: v for k, v in u.items()
                             if "one_hot_kernel" in k}
                         for r, u in usage.items()}, ok=True)
+
+
+def sgd_rows_usage(usage):
+    """The `sgd_rows_kernel` entries of a library's `ptxas_usage`."""
+    return {k: u for k, u in usage.items() if "sgd_rows_kernel" in k}
+
+
+def start_sgd_rows_builds(kernel_build):
+    """`start_variant_builds` of csrc/sparse_apply.cu at each variant of
+    SGD_ROWS_VARIANTS, into SGD_ROWS_SWEEP_DIR (where phase 10's rank 0
+    finds them)."""
+    return start_variant_builds(kernel_build, SPARSE_SOURCE,
+                                SGD_ROWS_VARIANTS, SGD_ROWS_SWEEP_DIR)
+
+
+def sgd_rows_variant_libs():
+    """{tag: library} of `start_sgd_rows_builds`' finished builds."""
+    paths = {tag: os.path.join(SGD_ROWS_SWEEP_DIR, f"sparse_apply_{tag}.so")
+             for tag in SGD_ROWS_VARIANTS}
+    missing = sorted(p for p in paths.values() if not os.path.exists(p))
+    check(not missing, f"sgd_rows variants not built (start_sgd_rows_builds "
+          f"and finish_variant_builds first): {missing}")
+    return {tag: ctypes.CDLL(p) for tag, p in paths.items()}
+
+
+def sgd_rows_sweep(torch, cuda_sparse, call, at):
+    """`sgd_rows` as the source builds it and as each variant of
+    SGD_ROWS_VARIANTS (`sgd_rows_variant_libs`) on one call (table, rep,
+    sums, lr): each bit-equal to the plain version on compact copies of
+    the touched rows, then timed (CUDA graph replays; the replays update
+    the table) in turns, the source first, then in reverse. Prints an
+    `sgd_rows_variants` line: ms by variant."""
+    from distributed_embeddings_tpu_torch.ops import kernel_build
+    table, rep, sums, lr = call
+    libs = {"source": kernel_build.load("sparse_apply"),
+            **sgd_rows_variant_libs()}
+    ms = {tag: [] for tag in libs}
+    order = list(libs)
+    for turn in (order, order[::-1]):
+        for tag in turn:
+            with swapped_library(kernel_build, "sparse_apply", libs[tag]):
+                if turn is order:
+                    hold_rows_compact(torch, cuda_sparse, "sgd", (table,),
+                                      rep, sums, (lr,))
+                ms[tag].append(device_ms(
+                    lambda: cuda_sparse.sgd_rows(table, rep, sums, lr),
+                    reps=10))
+    emit(phase="sgd_rows_variants", at=at, table=list(table.shape),
+         slots=int(rep.numel()), variants={
+             tag: new for tag, (_, new) in SGD_ROWS_VARIANTS.items()},
+         ms=ms, ok=True)
 
 
 def busy_union(intervals):
@@ -895,6 +1001,75 @@ def sparse_kernel_cases(torch, cuda_sparse, sparse_update):
         for key in worst:
             worst[key] = max(worst[key], errs[key])
         emit(phase="sparse_kernel", width=width, ok=True, max_abs_err=errs)
+    return worst
+
+
+def sgd_edge_rep(torch, gen, layout, n, vocab, id_dtype):
+    """rep of n slots over a table of `vocab` (> n) rows, in one of
+    SGD_EDGE_LAYOUTS: dedup's (a third of the slots, at least one, hold
+    sorted unique rows, then fillers V + s), fillers >= V at random slots
+    between unsorted unique rows (interleaved), the same with most fillers
+    negative (negative), fillers only (half of them negative), or n unique
+    rows in random order (no fillers)."""
+    rows = torch.randperm(vocab, device="cuda", generator=gen)[:n]
+    slot = torch.arange(n, device="cuda")
+    fillers = vocab + slot
+    if layout == "negative":
+        fillers = torch.where(slot % 3 == 0, fillers, -1 - slot)
+    if layout == "dedup":
+        u = max(1, n // 3)
+        rep = torch.cat([rows[:u].sort().values, fillers[:n - u]])
+    elif layout in ("interleaved", "negative"):
+        keep = torch.rand((n,), device="cuda", generator=gen) < 0.5
+        rep = torch.where(keep, rows, fillers)
+    elif layout == "all_fillers":
+        rep = torch.where(slot % 2 == 0, fillers, -1 - slot)
+    else:
+        rep = rows
+    return rep.to(id_dtype)
+
+
+def sgd_rows_edge_cases(torch, cuda_sparse):
+    """Phase 3b, `sgd_rows`' walk: bit for bit against `sgd_rows_plain`,
+    one launch a call, at every layout of SGD_EDGE_LAYOUTS, int32 and
+    int64 rep, lr TRAIN_LR and -1 (pallas_scatter's add), widths
+    SGD_EDGE_WIDTHS, and N = 1, 31, 32, 33 and more slots than one pass
+    of its grid covers (32 a resident warp, at most 64 warps an SM). One
+    `sgd_rows_edges` line a width. Returns the max absolute error."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    sizes = (1, 31, 32, 33, 2048 * torch.cuda.get_device_properties(
+        0).multi_processor_count + 33)
+    worst = 0.0
+    for width in SGD_EDGE_WIDTHS:
+        cases = 0
+        for n in sizes:
+            vocab = n + 64
+            base = torch.empty((vocab, width), device="cuda").uniform_(
+                -0.05, 0.05, generator=gen)
+            sums = torch.randn((n, width), device="cuda", generator=gen)
+            for layout in SGD_EDGE_LAYOUTS:
+                for id_dtype in (torch.int32, torch.int64):
+                    rep = sgd_edge_rep(torch, gen, layout, n, vocab, id_dtype)
+                    for lr in (TRAIN_LR, -1.0):
+                        got, want = base.clone(), base.clone()
+                        before = cuda_sparse.launches["sgd_rows"]
+                        cuda_sparse.sgd_rows(got, rep, sums, lr)
+                        cuda_sparse.sgd_rows_plain(want, rep, sums, lr)
+                        torch.cuda.synchronize()
+                        err = (got - want).abs().max().item()
+                        check(same_bits(torch, got, want)
+                              and cuda_sparse.launches["sgd_rows"]
+                              == before + 1,
+                              f"sgd_rows {layout} width {width} N {n} "
+                              f"{id_dtype} lr {lr}: not bit-equal to the "
+                              f"plain version (max abs err {err}) or not "
+                              f"one launch")
+                        worst = max(worst, err)
+                        cases += 1
+            del base, sums, got, want
+        emit(phase="sgd_rows_edges", width=width, n=list(sizes),
+             layouts=list(SGD_EDGE_LAYOUTS), cases=cases, max_abs_err=worst,
+             ok=True)
     return worst
 
 
@@ -1455,6 +1630,27 @@ def sparse_bound(kind, rep, width, n_valid, rate):
     return n_bytes / rate * 1e3, flops / F32_FLOP_PER_S * 1e3
 
 
+def hold_rows_compact(torch, cuda_sparse, kind, arrays, rep, sums, rest):
+    """The row kernel of `kind` against its plain version on compact
+    copies of the rows `rep` touches (rep renumbered 0..U-1 in slot order,
+    its invalid slots U), so the call's own arrays stay as they are.
+    Returns the max absolute error."""
+    vocab = arrays[0].shape[0]
+    valid = (rep >= 0) & (rep < vocab)
+    rows = rep[valid].long()
+    u = int(rows.numel())
+    compact_rep = torch.full_like(rep, u)
+    compact_rep[valid] = torch.arange(u, device=rep.device, dtype=rep.dtype)
+    got = [a.index_select(0, rows) for a in arrays]
+    want = [g.clone() for g in got]
+    getattr(cuda_sparse, f"{kind}_rows")(*got, compact_rep, sums, *rest)
+    getattr(cuda_sparse, f"{kind}_rows_plain")(*want, compact_rep, sums,
+                                               *rest)
+    torch.cuda.synchronize()
+    return max(hold_equal(torch, f"{kind}_rows", g, w)
+               for g, w in zip(got, want))
+
+
 def time_row_calls(torch, cuda_sparse, kind, calls, rate, path=None):
     """The row kernel at the shapes of one step (one call per bucket):
     a check against its plain version on compact copies of the touched
@@ -1475,17 +1671,8 @@ def time_row_calls(torch, cuda_sparse, kind, calls, rate, path=None):
         valid = (rep >= 0) & (rep < vocab)
         rows = rep[valid].long()
         u = int(rows.numel())
-        # compact copies: the touched rows only, rep renumbered 0..U-1
-        compact_rep = torch.full_like(rep, u)
-        compact_rep[valid] = torch.arange(u, device="cuda",
-                                          dtype=rep.dtype)
-        got = [a.index_select(0, rows) for a in arrays]
-        want = [g.clone() for g in got]
-        kernel(*got, compact_rep, sums, *rest)
-        plain(*want, compact_rep, sums, *rest)
-        torch.cuda.synchronize()
-        err = max(hold_equal(torch, f"{kind}_rows", g, w)
-                  for g, w in zip(got, want))
+        err = hold_rows_compact(torch, cuda_sparse, kind, arrays, rep, sums,
+                                rest)
         worst = max(worst, err)
         ms = device_ms(lambda: kernel(*arrays, rep, sums, *rest), reps=10)
         plain_ms = eager_ms(lambda: plain(*arrays, rep, sums, *rest),
@@ -2993,6 +3180,7 @@ def placement_rank(rank, world, backend, init_method, out_dir):
                 "sgd_rows": time_row_calls(torch, cuda_sparse, "sgd",
                                            row_calls, rate,
                                            path="placement")}
+            sgd_rows_sweep(torch, cuda_sparse, row_calls[0], "placement")
         del look, seg, rows_c
         dist.barrier()
 
@@ -3442,6 +3630,7 @@ def dlrm_step_kernels(torch, cuda_lookup, cuda_sparse, model, batch, rate):
                torch, cuda_sparse, seg.calls, rate, path="dlrm_fit"),
            "sgd_rows": time_row_calls(torch, cuda_sparse, "sgd", rows.calls,
                                       rate, path="dlrm_fit")}
+    sgd_rows_sweep(torch, cuda_sparse, rows.calls[0], "dlrm_fit")
     emit(phase="dlrm_kernels", hbm_bytes_per_s=rate,
          **{k: dict(tot, max_abs_err=err) for k, (tot, err) in out.items()})
     return out
@@ -4483,8 +4672,10 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
     rate = hbm_rate(name)
 
-    # ---- 2a. the feature ladder: every rung printed, then held
+    # ---- 2a. the feature ladder: every rung printed, then held; sgd_rows'
+    # variants (timed in phases 9 and 10) build in the background meanwhile
     emit(phase="nvcc", release=kernel_build.nvcc_version())
+    sgd_builds = start_sgd_rows_builds(kernel_build)
     t0 = time.perf_counter()
     set_counts(cuda_lookup, *counted)
     matrix = cuda_feature_probe.run_ladder("cuda")
@@ -4515,11 +4706,20 @@ def main() -> int:
     one_hot_spills = sorted(k for k, u in one_hot_usage.items()
                             if u["spill_bytes"])
     emit(phase="one_hot_ptxas", kernels=one_hot_usage, spills=one_hot_spills)
+    # sgd_rows' instantiations, and those of its variants
+    sgd_usage = sgd_rows_usage(kernel_build.ptxas_usage("sparse_apply"))
+    check(sgd_usage, "no sgd_rows_kernel in sparse_apply's build log")
+    sgd_spills = sorted(k for k, u in sgd_usage.items() if u["spill_bytes"])
+    emit(phase="sgd_rows_ptxas", kernels=sgd_usage, spills=sgd_spills,
+         variants={tag: sgd_rows_usage(u) for tag, (_, u)
+                   in finish_variant_builds(sgd_builds).items()})
 
     # ---- 3. kernels against their plain versions
     worst = max(kernel_cases(torch, cuda_lookup),
                 one_hot_cases(torch, cuda_lookup))
     sparse_worst = sparse_kernel_cases(torch, cuda_sparse, sparse_update)
+    sparse_worst["sgd_rows"] = max(sparse_worst["sgd_rows"],
+                                   sgd_rows_edge_cases(torch, cuda_sparse))
     sorted_worst = sorted_kernel_cases(torch, cuda_tiled, embedding_ops,
                                        sparse_update)
 
@@ -4853,6 +5053,9 @@ def main() -> int:
         torch.cuda.synchronize()
         rows[f"{kind}_rows"] = time_row_calls(torch, cuda_sparse, kind,
                                               cap.calls, rate)
+        if kind == "sgd":
+            for b, call in enumerate(cap.calls):
+                sgd_rows_sweep(torch, cuda_sparse, call, f"cut_tiny_{b}")
         del cpu_cut, state, held, cap
     del cut_model
     torch.cuda.empty_cache()
@@ -5094,10 +5297,12 @@ def main() -> int:
     emit(phase="sorted_lookups_backward",
          max_abs_err=sorted_worst["lookups"], ok=True)
     # every form of lookup_combine shares one library: its one-hot
-    # instantiations that spill
+    # instantiations that spill; and sgd_rows' that spill
     for row in kernels:
         if row["name"].startswith("lookup_combine"):
             row["one_hot_spills"] = one_hot_spills
+        if row["name"] == "sgd_rows":
+            row["sgd_rows_spills"] = sgd_spills
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -74,6 +74,11 @@ struct AdamHp {
   float neg_lr, b1, omb1, b2, omb2, c1, c2, eps;
 };
 
+// The sgd rule on one table element `t` and its total `s`.
+__device__ __forceinline__ float sgd_value(float t, float s, float neg_lr) {
+  return __fadd_rn(t, __fmul_rn(neg_lr, s));
+}
+
 // The rules on columns [c, c + kVec) of one row, given the row's total `s`
 // of those columns; each reads and writes its row in place.
 template <int kVec>
@@ -82,8 +87,7 @@ __device__ __forceinline__ void sgd_row(float* table, const float (&s)[kVec],
   float t[kVec];
   Vec<kVec>::load(table, t);
 #pragma unroll
-  for (int e = 0; e < kVec; ++e)
-    t[e] = __fadd_rn(t[e], __fmul_rn(neg_lr, s[e]));
+  for (int e = 0; e < kVec; ++e) t[e] = sgd_value(t[e], s[e], neg_lr);
   Vec<kVec>::store(table, t);
 }
 

@@ -12,11 +12,16 @@ update path (``distributed_embeddings_tpu/ops/sparse_update.py``):
   ones through shared memory in a second; one call is three CUDA launches
   (a memset of the worklist count, the two passes) and counts 1.
 * `sgd_rows`, `adagrad_rows`, `adam_rows`: one read-modify-write per unique
-  row of ``rep``, in place; rows with ``rep < 0`` or ``rep >= V`` are skipped.
-  They replace ``pallas_tiled._sgd_kernel`` / ``_adagrad_kernel`` /
+  row of ``rep``, in place; rows with ``rep < 0`` or ``rep >= V`` are
+  skipped wherever they lie in ``rep``, and their ``sums`` rows are not
+  read. They replace ``pallas_tiled._sgd_kernel`` / ``_adagrad_kernel`` /
   ``_adam_kernel`` (the ``tiled_*_rows`` entry points) and
   ``pallas_scatter._scatter_kernel`` (`sgd_rows` at lr -1) /
-  ``_adagrad_kernel``.
+  ``_adagrad_kernel``. `adagrad_rows` and `adam_rows` give each slot its
+  own thread group. `sgd_rows` runs a grid of the blocks the card holds at
+  once, whose warps walk ``rep`` 32 slots a load, skip the invalid ones by
+  a ballot (dedup's filler slots cost a load and a ballot for 32) and keep
+  several valid rows' loads in flight a thread.
 
 Each wrapper checks device, dtype, shape and contiguity, takes its plain
 PyTorch version (``*_plain``, beside it) only for CPU tensors, and on CUDA

@@ -206,6 +206,57 @@ def test_row_kernels_match_plain_bit_for_bit(gen, width, kind, rep_dtype):
         assert torch.equal(got, want)
 
 
+def _edge_rep(gen, layout, n, vocab, id_dtype):
+    """rep of n slots over `vocab` (> n) rows: dedup's layout (a third of
+    the slots, at least one, sorted unique rows, then fillers V + s),
+    fillers >= V between unsorted unique rows (interleaved), the same with
+    most fillers negative, fillers only, or unique rows only."""
+    rows = torch.randperm(vocab, device="cuda", generator=gen)[:n]
+    slot = torch.arange(n, device="cuda")
+    fillers = vocab + slot
+    if layout == "negative":
+        fillers = torch.where(slot % 3 == 0, fillers, -1 - slot)
+    if layout == "dedup":
+        u = max(1, n // 3)
+        rep = torch.cat([rows[:u].sort().values, fillers[:n - u]])
+    elif layout in ("interleaved", "negative"):
+        keep = torch.rand((n,), device="cuda", generator=gen) < 0.5
+        rep = torch.where(keep, rows, fillers)
+    elif layout == "all_fillers":
+        rep = torch.where(slot % 2 == 0, fillers, -1 - slot)
+    else:
+        rep = rows
+    return rep.to(getattr(torch, id_dtype))
+
+
+@pytest.mark.parametrize("size", ["1", "31", "32", "33", "past_grid"])
+@pytest.mark.parametrize("layout", ["dedup", "interleaved", "negative",
+                                    "all_fillers", "no_fillers"])
+@pytest.mark.parametrize("width", [6, 8, 16, 128, 132, 256])
+@pytest.mark.parametrize("rep_dtype", ["int32", "int64"])
+def test_sgd_rows_walk_edges_match_plain(gen, size, layout, width,
+                                         rep_dtype):
+    """`sgd_rows`' walk at N = 1, 31, 32, 33 and more slots than one pass
+    of its grid covers (32 a resident warp, at most 64 warps an SM), with
+    invalid slots in every layout, at lr 0.05 and -1 (pallas_scatter's
+    add): the plain version's bits, one launch a call."""
+    n = (2048 * torch.cuda.get_device_properties(0).multi_processor_count
+         + 33 if size == "past_grid" else int(size))
+    vocab = n + 64
+    table = torch.empty((vocab, width), device="cuda").uniform_(
+        -0.05, 0.05, generator=gen)
+    sums = torch.randn((n, width), device="cuda", generator=gen)
+    rep = _edge_rep(gen, layout, n, vocab, rep_dtype)
+    for lr in (0.05, -1.0):
+        got, want = table.clone(), table.clone()
+        launches = cuda_sparse.launches["sgd_rows"]
+        cuda_sparse.sgd_rows(got, rep, sums, lr)
+        cuda_sparse.sgd_rows_plain(want, rep, sums, lr)
+        torch.cuda.synchronize()
+        assert cuda_sparse.launches["sgd_rows"] == launches + 1
+        assert torch.equal(_bits(got), _bits(want))
+
+
 @pytest.mark.parametrize("optimizer", ["sgd", "adagrad", "adam"])
 def test_train_step_matches_cpu_trainer(gen, optimizer):
     """Cut-down Tiny: three steps on the card against a CPU trainer built

@@ -164,6 +164,30 @@ def test_sgd_rows_match_tiled_and_scatter(width):
 
 
 @pytest.mark.parametrize("width", [8, 16, 6])
+def test_sgd_rows_skip_invalid_ids_anywhere_like_scatter(width):
+    """`sgd_rows` at lr = -1 against `scatter_add_sorted_unique` on unique
+    ids in random order with ids >= V and negative ids between them: the
+    contract is unique ids, sorted only preferred, invalid ones dropped
+    wherever they lie (not dedup's layout, a valid prefix)."""
+    vocab, n = 96, 80
+    rng = np.random.RandomState(20 + width)
+    table0 = rng.randn(vocab, width).astype(np.float32)
+    ids = rng.permutation(vocab)[:n].astype(np.int32)
+    ids[rng.rand(n) < 0.2] = vocab + rng.randint(0, 5)
+    ids[rng.rand(n) < 0.2] = -1 - rng.randint(0, 5)
+    assert (ids >= vocab).any() and (ids < 0).any()
+    assert not (ids[:-1] <= ids[1:]).all()
+    delta = rng.randn(n, width).astype(np.float32)
+    want = jax_scatter.scatter_add_sorted_unique(
+        jnp.asarray(table0), jnp.asarray(ids), jnp.asarray(delta),
+        interpret=True)
+    got = cuda_sparse.sgd_rows(torch.from_numpy(table0.copy()),
+                               torch.from_numpy(ids),
+                               torch.from_numpy(delta), -1.0)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("width", [8, 16, 6])
 def test_adagrad_rows_match_tiled_and_scatter(width):
     vocab, lr, eps = 96, 0.05, 1e-7
     rng = np.random.RandomState(10 + width)
