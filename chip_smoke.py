@@ -275,6 +275,43 @@ Phases, each printing JSON lines before the last line:
      segment sums, 7 `sgd_rows`, every float payload of the wire's
      all_to_all, all_gather and reduce-scatter bfloat16, bytes and host
      ms by collective beside phase 10's float32 step.
+  12. (after 11) quantized storage and checkpoints. 12a
+     (`quantized_against_cpu_phase`): DLRM with Criteo sizes x 0.02 stored
+     int8 (3 sgd steps), then fp8 (2), int8 at bfloat16 (1 step), and
+     Tiny cut to 100,000 rows a table stored int8 with adagrad (3 steps),
+     each step held against the CPU (`quantized_held_run`): the CPU model
+     takes the card's state; each decode-gather (the gathered, decoded
+     rows before the combine, `RowsTap`) bit-equal on the same payload;
+     the combined embedding outputs bit-equal where every input is one-hot
+     (at KERNEL_TOL where one is multi-hot: the hotness sum's order);
+     every `quantized_row_update` of
+     the card's step captured on its touched rows (`QuantCapture`) and
+     held bit for bit, payload, scales and state, against the CPU plain
+     function with the card's own tap gradients (`hold_quantized`); the
+     losses at LOSS_TOL (QUANT_BF16_LOSS_TOL at bfloat16). Launches: one
+     `segment_sum_sorted` a quantized bucket a step and nothing else (the
+     lookup and update of a quantized bucket are torch operations, the
+     JAX package's XLA forms). 12b (`quantized_full_phase`): DLRM at the
+     MLPerf Criteo-1TB sizes (187.8M rows x 128, 24.0 GB of int8 payload,
+     0.75 GB of scales; the float32 tables would be 96.1 GB) on one card,
+     its embedding rebuilt with ``storage_dtype="int8"``
+     (`quantized_dlrm`, the JAX example's way), through `fit` (22 sgd
+     steps at the example's schedule, pipelined, from a split-binary
+     dataset): step times, samples/s, peak memory beside the byte
+     reckoning and rows per GB beside f32 x 0.4's, a profiled step (idle
+     share, categories, the ``quantized:lookup`` and ``quantized:update``
+     ranges' device ms, each range one call with device time; the
+     profiler warmed by the step before, `StepWindow`), the on-card AUC against `auc_exact`, a
+     65,536-row request through `InferenceEngine`, one more step held on
+     its touched rows, those rows published as an int8 row delta
+     (`utils.checkpoint.save_row_delta` + `publish_atomic`, bytes against
+     `ops.wire.delta_row_bytes`, reloaded verified bit for bit, a flipped
+     byte refused); the temp directory's disk usage first. 12c
+     (`checkpoint_phase`): resume (`resume_run`: 2 steps, save, 2 more; a
+     fresh model restored and trained the same 2, bit-equal) of DLRM x
+     0.02 float32 sgd and int8 sgd, and cut Tiny int8 adagrad; the float32
+     model's global weights through memory-mapped ``.npy`` files into a
+     fresh model, bit for bit. About 130 s in all.
   7. the kernels line (each kernel's launches by path, the world paths'
      summed over the ranks; `sgd_rows` with ``copy_ms``, an
      `index_select` + `index_copy_` of the same rows, as a second
@@ -1755,7 +1792,7 @@ def time_segment_calls(torch, cuda_sparse, calls, rate, path=None):
 
 
 # device-time categories of a training step, by kernel name
-CATEGORIES = (("lookup", ("lookup_combine",)),
+CATEGORIES = (("lookup", ("lookup_combine", "one_hot_kernel")),
               ("gather_sorted", ("gather_sorted",)),
               ("segment_sum", ("segment_sum_sorted",)),
               ("row_update", ("_rows_kernel",)),
@@ -1772,7 +1809,8 @@ SELECT_RANGE = "index_select@"
 # (phase 8; the top level imports no part of the package)
 EXCHANGE_RANGE = "exchange:all_to_all"
 # host ranges whose device-side spans are annotations, not device work
-ANNOTATED_RANGES = (SELECT_RANGE, "exchange:", "gloo:", "nccl:")
+ANNOTATED_RANGES = (SELECT_RANGE, "exchange:", "gloo:", "nccl:",
+                    "quantized:")
 
 
 def by_category(by_kernel):
@@ -3550,37 +3588,55 @@ def htod_copies(device):
 class StepWindow:
     """A `fit` callback: each step's end (after a synchronize) on the host
     clock, and one step under torch.profiler, from the end of step
-    `profiled` to the end of the next: the card's busy time and idle share
-    over that window and its host-to-device copies."""
+    `profiled` to the end of the next. The profiler starts one step
+    earlier, at the end of step ``profiled - 1``, and that step warms it
+    (a trace's first kernels after its start can go missing); two host
+    ranges (`WINDOW_MARKS`) mark the window, and only what lies between
+    them is read: the card's busy time and idle share over the window,
+    its host-to-device copies (`profile`), the device ms of named host
+    ranges (`range_ms`). The steps that ran under the profiler
+    (`traced`) are left out of `step_ms`."""
+    WINDOW_MARKS = ("smoke:window_start", "smoke:window_end")
 
     def __init__(self, torch, profiled):
         self.torch, self.profiled = torch, profiled
-        self.ends, self.prof, self.window = [], None, None
+        self.ends, self.prof = [], None
+        self.traced = {profiled, profiled + 1}
 
     def on_step(self, step, model, loss):
-        torch = self.torch
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        if step == self.profiled:
-            from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import (ProfilerActivity, profile,
+                                    record_function)
+        self.torch.cuda.synchronize()
+        if step == self.profiled - 1:
             self.prof = profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA])
             self.prof.start()
-            self.window = [time.time_ns() / 1e3]
-            now = time.perf_counter()
+        elif step == self.profiled:
+            with record_function(self.WINDOW_MARKS[0]):
+                pass
         elif step == self.profiled + 1:
-            self.window.append(time.time_ns() / 1e3)
+            with record_function(self.WINDOW_MARKS[1]):
+                pass
             self.prof.stop()
-            now = time.perf_counter()
-        self.ends.append(now)
+        self.ends.append(time.perf_counter())
+
+    def _window(self):
+        from torch.autograd import DeviceType
+        marks = {e.name: e.time_range for e in self.prof.events()
+                 if e.device_type == DeviceType.CPU
+                 and e.name in self.WINDOW_MARKS}
+        return (marks[self.WINDOW_MARKS[0]].start,
+                marks[self.WINDOW_MARKS[1]].start)
 
     def profile(self):
         from torch.autograd import DeviceType
+        w0, w1 = self._window()
         device = [e for e in self.prof.events()
                   if e.device_type == DeviceType.CUDA
                   and not getattr(e, "is_user_annotation", False)
-                  and not e.name.startswith(ANNOTATED_RANGES)]
-        wall = self.window[1] - self.window[0]
+                  and not e.name.startswith(ANNOTATED_RANGES)
+                  and w0 <= e.time_range.start and e.time_range.end <= w1]
+        wall = w1 - w0
         busy = busy_union((e.time_range.start, e.time_range.end)
                           for e in device)
         by_kernel = _by_name(device)
@@ -3591,8 +3647,23 @@ class StepWindow:
                     device_ms_by_kernel=[[n[:80], us / 1e3] for n, us in sorted(
                         by_kernel.items(), key=lambda kv: -kv[1])[:10]])
 
-    def step_ms(self, skip):
-        """Each step's time (end to end), but the first two and `skip`."""
+    def range_ms(self, name) -> dict:
+        """Device ms and calls of the window's host ranges called `name`
+        (the device time of the kernels launched inside them)."""
+        from torch.autograd import DeviceType
+        w0, w1 = self._window()
+        ms, calls = 0.0, 0
+        for e in self.prof.events():
+            if e.device_type == DeviceType.CPU and e.name == name \
+                    and w0 <= e.time_range.start <= w1:
+                ms += e.device_time_total / 1e3
+                calls += 1
+        return {"device_ms": ms, "calls": calls}
+
+    def step_ms(self, skip=()):
+        """Each step's time (end to end), but the first two, the traced
+        ones and `skip`."""
+        skip = set(skip) | self.traced
         return [(b - a) * 1e3 for i, (a, b) in enumerate(
             zip(self.ends, self.ends[1:]), start=1)
             if i >= 2 and i not in skip]
@@ -3636,8 +3707,8 @@ def dlrm_step_kernels(torch, cuda_lookup, cuda_sparse, model, batch, rate):
     return out
 
 
-def dlrm_dataset(tmp, sizes):
-    """Write DLRM's seeded ClickGenerator stream (DLRM_FIT_STEPS train
+def dlrm_dataset(tmp, sizes, train_batches=DLRM_FIT_STEPS):
+    """Write DLRM's seeded ClickGenerator stream (`train_batches` train
     batches, DLRM_EVAL_STEPS test batches) in the split-binary layout
     under `tmp`; returns ``valid -> RawBinaryDataset`` of it."""
     from distributed_embeddings_tpu_torch.models.data import (
@@ -3647,13 +3718,13 @@ def dlrm_dataset(tmp, sizes):
     t0 = time.perf_counter()
     gen = ClickGenerator(sizes, 13, BATCH, seed=DLRM_SEED)
     write_split_binary(tmp, "train",
-                       [gen.batch(s) for s in range(DLRM_FIT_STEPS)], sizes)
+                       [gen.batch(s) for s in range(train_batches)], sizes)
     write_split_binary(tmp, "test", [gen.batch(1_000_000 + j)
                                      for j in range(DLRM_EVAL_STEPS)], sizes)
     del gen
     emit(phase="dlrm_data", seconds=time.perf_counter() - t0,
          tables=len(sizes), rows=sum(sizes), batch=BATCH,
-         train_batches=DLRM_FIT_STEPS, test_batches=DLRM_EVAL_STEPS,
+         train_batches=train_batches, test_batches=DLRM_EVAL_STEPS,
          bytes=sum(os.path.getsize(os.path.join(tmp, d, f))
                    for d in ("train", "test")
                    for f in os.listdir(os.path.join(tmp, d))))
@@ -3775,8 +3846,8 @@ def dlrm_fit_phase(torch, cuda_lookup, cuda_sparse, counted, rate):
                   f"{DLRM_EVAL_STEPS} forwards)")
             check(all(map(math.isfinite, hist["loss"])),
                   f"{label}: non-finite losses {hist['loss']}")
-            skip = {DLRM_PROFILED_STEP + 1} | {
-                s for s in range(DLRM_FIT_STEPS) if s % DLRM_EVAL_EVERY == 0}
+            skip = {s for s in range(DLRM_FIT_STEPS)
+                    if s % DLRM_EVAL_EVERY == 0}
             step_ms = window.step_ms(skip)
             med = statistics.median(step_ms)
             profiled = window.profile()
@@ -4271,8 +4342,8 @@ def dlrm_amp_fit_phase(torch, cuda_lookup, cuda_sparse, counted, rate,
               f"{label} launches {counts}, want {want}")
         check(all(map(math.isfinite, hist["loss"])),
               f"{label}: non-finite losses {hist['loss']}")
-        skip = {DLRM_PROFILED_STEP + 1} | {
-            s for s in range(DLRM_FIT_STEPS) if s % DLRM_EVAL_EVERY == 0}
+        skip = {s for s in range(DLRM_FIT_STEPS)
+                if s % DLRM_EVAL_EVERY == 0}
         step_ms = window.step_ms(skip)
         med = statistics.median(step_ms)
         peak = torch.cuda.max_memory_allocated()
@@ -4634,6 +4705,630 @@ def amp_placement_phase(torch, f32_exchange):
             emit(phase="world_card_profile", path=label, backend=backend,
                  **card_profile(ranks))
         return summed, ranks[0]["amp_kernels"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ------------------------------------------------ 12. quantized storage
+QUANT_CPU_SCALE = DLRM_CPU_SCALE    # 12a, 12c: Criteo sizes x 0.02
+QUANT_HELD_STEPS = 3         # int8 and cut Tiny's adagrad
+QUANT_FP8_STEPS = 2
+QUANT_BF16_STEPS = 1
+# 12b: DLRM at the MLPerf Criteo-1TB sizes (187.8M rows x 128), int8
+QUANT_FULL_SCALE = 1.0
+QUANT_FULL_STEPS = 22         # 2 warm + 20 timed
+QUANT_PROFILED_STEP = 4
+# the loss bar at bfloat16: the card's and the CPU's gemms round their
+# float32 products apart, which a bfloat16 rounding of an activation can
+# carry into its last place (2^-8)
+QUANT_BF16_LOSS_TOL = dict(rtol=1e-3, atol=0.0)
+RESUME_STEPS = 2
+# the port's `ops.sparse_update.QUANTIZED_UPDATE_RANGE` and
+# `layers.dist_model_parallel.QUANTIZED_LOOKUP_RANGE` (the top level
+# imports no part of the package)
+QUANT_UPDATE_RANGE = "quantized:update"
+QUANT_LOOKUP_RANGE = "quantized:lookup"
+
+
+def quantized_dlrm(torch, sizes, device, storage, seed, compute_dtype=None):
+    """DLRM at the example's widths with its tables stored at `storage`
+    (None: float32): built over 4-row stand-in tables, its embedding then
+    rebuilt with ``storage_dtype``, as the JAX example rebuilds it
+    (examples/dlrm/serve.py:103-113), so no float32 table of `sizes`
+    exists. The tables' rows come from `seed`."""
+    from distributed_embeddings_tpu_torch.layers.dist_model_parallel import (
+        DistributedEmbedding)
+    from distributed_embeddings_tpu_torch.layers.embedding import Embedding
+    from distributed_embeddings_tpu_torch.models.dlrm import (
+        DLRM, dlrm_initializer)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = DLRM([4] * len(sizes), device=device, lookup_path="pallas",
+                 compute_dtype=compute_dtype, generator=gen)
+    model.embedding = DistributedEmbedding(
+        [Embedding(v, 128, embeddings_initializer=dlrm_initializer(),
+                   device="meta") for v in sizes],
+        strategy="memory_balanced", device=device, lookup_path="pallas",
+        compute_dtype=model.compute_dtype, storage_dtype=storage,
+        generator=gen)
+    model.table_sizes = list(sizes)
+    return model
+
+
+class QuantCapture:
+    """Within the block, every `quantized_row_update` call (the name of
+    `module`, the port's `ops.sparse_update`, which the sparse optimizers'
+    quantized rules call) runs as usual and is recorded on the host
+    in compact form: the touched rows `uniq` (the valid ids, sorted), their
+    payload bytes, scales and state rows before and after the call, the
+    stream's ids renumbered into them (order kept: valid id -> its index
+    in `uniq`, every other -> len(uniq), past the compact table) and its
+    contributions. The CPU plain function on the compact rows then gives
+    the card's rows bit for bit (`hold_quantized`): dedup's order, slots
+    and so the rounding's draws are the same."""
+
+    def __init__(self, torch, module):
+        self.torch, self.module, self.calls = torch, module, []
+
+    def __enter__(self):
+        torch = self.torch
+        self.real = real = self.module.quantized_row_update
+
+        def rows_of(payload, scale, state, uniq):
+            return dict(
+                payload=payload.view(torch.uint8).index_select(0, uniq).cpu(),
+                scale=scale.index_select(0, uniq).cpu(),
+                state=[t.index_select(0, uniq).cpu() for t in state])
+
+        def record(kind, payload, scale, state, grad, store_dtype, lr,
+                   **kw):
+            ids = grad.ids.long()
+            valid = (ids >= 0) & (ids < payload.shape[0])
+            uniq = torch.unique(ids[valid])
+            local = torch.where(valid, torch.searchsorted(uniq, ids),
+                                torch.full_like(ids, uniq.numel()))
+            before = rows_of(payload, scale, state, uniq)
+            out = real(kind, payload, scale, state, grad, store_dtype, lr,
+                       **kw)
+            self.calls.append(dict(
+                kind=kind, dtype=payload.dtype, store_dtype=store_dtype,
+                lr=lr, eps=kw.get("eps"), uniq=uniq.cpu(),
+                ids=local.cpu(), contribs=grad.contribs.cpu(),
+                n=int(ids.numel()), before=before,
+                after=rows_of(payload, scale, state, uniq)))
+            return out
+        self.module.quantized_row_update = record
+        return self
+
+    def __exit__(self, *exc):
+        self.module.quantized_row_update = self.real
+
+
+def hold_quantized(torch, sparse_update, calls, label):
+    """Each captured card update against the CPU plain function on its
+    compact rows: payload bytes, scales and state bit-equal. Returns
+    (rows, elements) held."""
+    rows = elements = 0
+    for i, c in enumerate(calls):
+        b = c["before"]
+        payload = b["payload"].clone().view(c["dtype"])
+        scale, state = b["scale"].clone(), tuple(t.clone()
+                                                 for t in b["state"])
+        kw = {} if c["eps"] is None else {"eps": c["eps"]}
+        sparse_update.quantized_row_update(
+            c["kind"], payload, scale, state, sparse_update.SparseRowGrad(
+                c["ids"], c["contribs"]), c["store_dtype"], c["lr"], **kw)
+        a = c["after"]
+        same = (torch.equal(payload.view(torch.uint8), a["payload"])
+                and torch.equal(scale.view(torch.int32),
+                                a["scale"].view(torch.int32))
+                and all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                        for x, y in zip(state, a["state"])))
+        moved = int((b["payload"] != a["payload"]).sum())
+        if not same:
+            emit(phase="not_bit_equal", kernel="quantized_row_update",
+                 path=label, call=i,
+                 payload_bytes_differing=int(
+                     (payload.view(torch.uint8) != a["payload"]).sum()),
+                 scales_differing=int((scale != a["scale"]).sum()))
+        check(same, f"{label}: the card's quantized update {i} differs from "
+                    "the CPU plain function on the same rows")
+        rows += int(c["uniq"].numel())
+        elements += int(c["uniq"].numel()) * int(b["payload"].shape[1])
+        emit(phase="quantized_update_held", path=label, call=i,
+             kind=c["kind"], store_dtype=c["store_dtype"], ids=c["n"],
+             touched_rows=int(c["uniq"].numel()),
+             payload_bytes_moved=moved, bit_equal=True)
+    return rows, elements
+
+
+class RowsTap:
+    """Within the block, each decode-gather of `layer` (its
+    `_quantized_rows`: a quantized bucket's rows gathered and decoded,
+    before the cast and the combine) runs as usual, and its float32 rows
+    are kept on the host in call order (`rows`)."""
+
+    def __init__(self, layer):
+        self.layer, self.rows = layer, []
+
+    def __enter__(self):
+        real = self.layer._quantized_rows
+
+        def tap(b, ids):
+            out = real(b, ids)
+            self.rows.append(out.cpu())
+            return out
+        self.layer._quantized_rows = tap
+        return self
+
+    def __exit__(self, *exc):
+        del self.layer._quantized_rows
+
+
+def quantized_held_run(torch, sparse_update, label, model, cpu_model, kind,
+                       batches, loss_tol=LOSS_TOL, lr=TRAIN_LR):
+    """`kind` steps of the card's quantized model over `batches`, each
+    held against the CPU: the CPU model takes the card's state; each of
+    the card's decode-gathers (`RowsTap`: the gathered, decoded rows
+    before the combine) bit-equal to the CPU's on the same payload; the
+    combined embedding outputs bit-equal on a batch where every input is
+    one-hot (a multi-hot input's hotness sum adds in another order on the
+    card: KERNEL_TOL, as phase 3 holds the kernel's); the card's step, its
+    updates captured and each held bit for bit against the CPU plain
+    function (`hold_quantized`); its loss against the CPU model's forward
+    loss within `loss_tol`."""
+    import numpy as np
+    from distributed_embeddings_tpu_torch.parallel.staging import (
+        DeviceStager)
+    from distributed_embeddings_tpu_torch.training import (
+        make_sparse_train_step)
+    init, step = make_sparse_train_step(model, kind, lr=lr)
+    state = init(model)
+    stage = DeviceStager("cuda")
+    out = dict(losses=[], cpu_losses=[], rows=0, elements=0,
+               decoded_elements=0, outputs_bit_equal=True,
+               outputs_max_abs_err=0.0)
+    for s, batch in enumerate(batches):
+        cpu_model.load_state_dict({k: v.cpu() for k, v in
+                                   model.state_dict().items()})
+        num, cats, labels = stage(batch)
+        with torch.no_grad():
+            with RowsTap(model.embedding) as card_rows:
+                got = model.embedding(list(cats))
+            with RowsTap(cpu_model.embedding) as cpu_rows:
+                want = cpu_model.embedding([torch.as_tensor(c) for c in
+                                            batch[1]])
+            decoded = (len(card_rows.rows) == len(cpu_rows.rows) > 0
+                       and all(torch.equal(a.view(torch.int32),
+                                           b.view(torch.int32))
+                               for a, b in zip(card_rows.rows,
+                                               cpu_rows.rows)))
+            n_decoded = sum(a.numel() for a in card_rows.rows)
+            del card_rows, cpu_rows
+            got = [a.cpu() for a in got]
+            same = all(a.dtype == b.dtype and torch.equal(a, b)
+                       for a, b in zip(got, want))
+            one_hot = all(np.ndim(c) == 1 or np.shape(c)[1] == 1
+                          for c in batch[1])
+            err = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(got, want))
+            close = all(torch.allclose(a.float(), b.float(), **KERNEL_TOL)
+                        for a, b in zip(got, want))
+            cpu_loss = float(cpu_model.loss_fn(
+                torch.as_tensor(batch[0]), [torch.as_tensor(c)
+                                            for c in batch[1]],
+                torch.as_tensor(batch[2])))
+        del got, want
+        out["decoded_elements"] += n_decoded
+        out["outputs_bit_equal"] &= same
+        out["outputs_max_abs_err"] = max(out["outputs_max_abs_err"], err)
+        check(decoded, f"{label} step {s}: the card's decode-gather differs "
+                       "from the CPU's on the same payload")
+        check(same or (close and not one_hot),
+              f"{label} step {s}: the card's combined embedding outputs "
+              f"differ from the CPU's by {err}")
+        with QuantCapture(torch, sparse_update) as cap:
+            _, state, loss = step(model, state, num, list(cats), labels)
+            loss = float(loss)
+        rows, elements = hold_quantized(torch, sparse_update, cap.calls,
+                                        f"{label} step {s}")
+        out["rows"] += rows
+        out["elements"] += elements
+        out["losses"].append(loss)
+        out["cpu_losses"].append(cpu_loss)
+        emit(phase="held_step", path=label, kind=kind, loss=loss,
+             cpu_loss=cpu_loss, updates=len(cap.calls), touched_rows=rows)
+        del cap
+    check(torch.allclose(torch.tensor(out["losses"]),
+                         torch.tensor(out["cpu_losses"]), **loss_tol),
+          f"{label}: losses {out['losses']} against the CPU's "
+          f"{out['cpu_losses']}")
+    return out
+
+
+def quantized_against_cpu_phase(torch, cuda_lookup, counted):
+    """12a: DLRM at the example's widths with Criteo sizes x 0.02 stored
+    int8 (3 sgd steps at batch 65,536) and fp8 (2), held against the CPU
+    (`quantized_held_run`), then int8 at bfloat16 (1 step) and adagrad
+    on Tiny cut to 100,000 rows a table, int8 (3 steps). Launches: one
+    `segment_sum_sorted` per quantized bucket a step (dedup's) and no other
+    kernel: a quantized bucket's lookup and update are the JAX package's
+    XLA forms, here torch operations on the card. Returns the launch
+    counts by path."""
+    from distributed_embeddings_tpu_torch.models.dlrm import (
+        scaled_table_sizes)
+    from distributed_embeddings_tpu_torch.models.synthetic import (
+        SYNTHETIC_MODELS, ClickGenerator, InputGenerator, SyntheticModel)
+    from distributed_embeddings_tpu_torch.ops import sparse_update
+    sizes = scaled_table_sizes(QUANT_CPU_SCALE)
+    gen = ClickGenerator(sizes, 13, BATCH, seed=DLRM_SEED + 3)
+    batches = [gen.batch(s) for s in range(QUANT_HELD_STEPS)]
+    counts = {}
+    runs = [("int8", None, QUANT_HELD_STEPS, LOSS_TOL),
+            ("fp8", None, QUANT_FP8_STEPS, LOSS_TOL),
+            ("int8", AMP_DTYPE, QUANT_BF16_STEPS, QUANT_BF16_LOSS_TOL)]
+    for storage, compute, steps, tol in runs:
+        t0 = time.perf_counter()
+        label = f"quant_dlrm_{storage}" + ("" if compute is None
+                                           else f"_{compute}")
+        model = quantized_dlrm(torch, sizes, "cuda", storage, 3, compute)
+        cpu_model = quantized_dlrm(torch, sizes, "cpu", storage, 3, compute)
+        set_counts(cuda_lookup, *counted)
+        held = quantized_held_run(torch, sparse_update, label, model,
+                                  cpu_model, "sgd", batches[:steps], tol)
+        torch.cuda.synchronize()
+        counts[label] = read_counts(cuda_lookup, *counted)
+        want = {"segment_sum_sorted": 1}
+        check(counts[label] == per_step(want, steps),
+              f"{label} launches {counts[label]}, want {want} per step")
+        emit(phase="main_path", path=label, steps=steps,
+             seconds=time.perf_counter() - t0, rows=sum(sizes),
+             storage_dtype=storage, compute_dtype=compute or "float32",
+             payload_bytes=sum(t.numel() * t.element_size()
+                               for t in model.embedding.tp),
+             scale_bytes=sum(t.numel() * 4
+                             for t in model.embedding.tp_scale),
+             launches=counts[label], losses=held["losses"],
+             cpu_losses=held["cpu_losses"], rows_held=held["rows"],
+             elements_held=held["elements"],
+             decode_gather_bit_equal=True,
+             decoded_elements_held=held["decoded_elements"],
+             outputs_bit_equal=held["outputs_bit_equal"],
+             updates_bit_equal=True, ok=True)
+        del model, cpu_model, held
+        torch.cuda.empty_cache()
+    # adagrad on cut Tiny, int8
+    t0 = time.perf_counter()
+    tiny = SYNTHETIC_MODELS["tiny"]
+    cut = tiny._replace(embedding_configs=[
+        e._replace(num_rows=min(e.num_rows, CUT_ROWS))
+        for e in tiny.embedding_configs])
+    tiny_batches = list(InputGenerator(cut, BATCH, alpha=1.05,
+                                       num_batches=QUANT_HELD_STEPS, seed=0))
+    tiny_batches = [(n.numpy(), [c.numpy() for c in cs], lab.numpy())
+                    for n, cs, lab in tiny_batches]
+    model = SyntheticModel(cut, device="cuda", storage_dtype="int8",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(0))
+    cpu_model = SyntheticModel(cut, device="cpu", storage_dtype="int8")
+    label = "quant_tiny_adagrad_int8"
+    set_counts(cuda_lookup, *counted)
+    held = quantized_held_run(torch, sparse_update, label, model,
+                              cpu_model, "adagrad", tiny_batches)
+    torch.cuda.synchronize()
+    counts[label] = read_counts(cuda_lookup, *counted)
+    want = {"segment_sum_sorted": len(model.embedding.tp)}
+    check(counts[label] == per_step(want, QUANT_HELD_STEPS),
+          f"{label} launches {counts[label]}, want {want} per step")
+    emit(phase="main_path", path=label, steps=QUANT_HELD_STEPS,
+         seconds=time.perf_counter() - t0, storage_dtype="int8",
+         buckets=[list(t.shape) for t in model.embedding.tp],
+         launches=counts[label], losses=held["losses"],
+         cpu_losses=held["cpu_losses"], rows_held=held["rows"],
+         elements_held=held["elements"],
+         decode_gather_bit_equal=True,
+         decoded_elements_held=held["decoded_elements"],
+         outputs_bit_equal=held["outputs_bit_equal"],
+         outputs_max_abs_err=held["outputs_max_abs_err"],
+         updates_bit_equal=True, ok=True)
+    del model, cpu_model, held
+    torch.cuda.empty_cache()
+    return counts
+
+
+def quantized_full_phase(torch, cuda_lookup, counted):
+    """12b: DLRM at the example's widths at the MLPerf Criteo-1TB sizes
+    (187.8M rows x 128) stored int8 on one card, through `fit` (sgd at the
+    example's schedule, batch 65,536, a seeded ClickGenerator stream read
+    from a split-binary dataset, pipelined), 22 steps: step times (the
+    first 2 and the 2 under the profiler left out), samples/s, one
+    profiled step (idle share, device ms by category and of the quantized
+    lookup's and update's ranges, one call each), peak memory beside the byte reckoning; the on-card
+    AUC against `auc_exact`; a 65,536-row request through
+    `InferenceEngine`; one more step's update (from fit's state) held bit
+    for bit against the CPU plain function on its touched rows; then those
+    rows published
+    as an int8 row delta (`utils.checkpoint.save_row_delta`), its bytes
+    against `ops.wire.delta_row_bytes`, reloaded verified bit for bit, and
+    one flipped byte refused. Returns (launch counts by path, a summary)."""
+    from distributed_embeddings_tpu_torch.models.dlrm import (
+        make_lr_schedule, scaled_table_sizes)
+    from distributed_embeddings_tpu_torch.ops import sparse_update, wire
+    from distributed_embeddings_tpu_torch.parallel.staging import (
+        DeviceStager)
+    from distributed_embeddings_tpu_torch.serving.engine import (
+        InferenceEngine)
+    from distributed_embeddings_tpu_torch.training import (
+        fit, make_sparse_train_step)
+    from distributed_embeddings_tpu_torch.utils import checkpoint
+    sizes = scaled_table_sizes(QUANT_FULL_SCALE)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_quant")
+    emit(phase="disk", path=tempfile.gettempdir(),
+         **shutil.disk_usage(tmp)._asdict())
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = quantized_dlrm(torch, sizes, "cuda", "int8", DLRM_SEED)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        layer = model.embedding
+        payload = sum(t.numel() * t.element_size() for t in layer.tp)
+        scales = sum(t.numel() * 4 for t in layer.tp_scale)
+        emit(phase="model", config="dlrm_criteo_int8", rows=sum(sizes),
+             build_s=build_s, payload_bytes=payload, scale_bytes=scales,
+             memory_allocated=torch.cuda.memory_allocated())
+        dataset = dlrm_dataset(tmp, sizes, QUANT_FULL_STEPS)
+        train, test = dataset(False), dataset(True)
+        window = StepWindow(torch, QUANT_PROFILED_STEP)
+        set_counts(cuda_lookup, *counted)
+        t0 = time.perf_counter()
+        _, opt_state, hist = fit(model, train.raw_batches(QUANT_FULL_STEPS),
+                                 QUANT_FULL_STEPS, "sgd",
+                                 lr=make_lr_schedule(*DLRM_LR),
+                                 preprocess=train.preprocess,
+                                 pipelined=True, log_every=0,
+                                 callbacks=[window])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = {"quant_dlrm_full": read_counts(cuda_lookup, *counted)}
+        want = {"segment_sum_sorted": QUANT_FULL_STEPS}
+        check(counts["quant_dlrm_full"] == per_step(want, 1),
+              f"quant_dlrm_full launches {counts['quant_dlrm_full']}, "
+              f"want {want}")
+        check(all(map(math.isfinite, hist["loss"])),
+              f"quant_dlrm_full: non-finite losses {hist['loss']}")
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = window.step_ms()
+        med = statistics.median(step_ms)
+        profiled = window.profile()
+        profiled.update({name: window.range_ms(name)
+                         for name in (QUANT_LOOKUP_RANGE,
+                                      QUANT_UPDATE_RANGE)})
+        for name in (QUANT_LOOKUP_RANGE, QUANT_UPDATE_RANGE):
+            check(profiled[name]["calls"] == 1
+                  and profiled[name]["device_ms"] > 0,
+                  f"quant_dlrm_full: the profiled step's {name} range: "
+                  f"{profiled[name]}, want 1 call with device ms > 0")
+        card_auc = dlrm_card_auc(torch, model, test)
+        # serving
+        engine = InferenceEngine(model, device="cuda")
+        num, cats, _ = test[0]
+        serve_ms = serve_latency_ms(torch, engine, (num, cats))
+        logits = engine.predict((num, cats))
+        check(tuple(logits.shape) == (BATCH, 1)
+              and bool(torch.isfinite(logits).all()),
+              "quant_dlrm_full: the engine's logits")
+        del engine, logits
+        # one more step, from fit's state (the schedule's lr past 0), its
+        # update held on the touched rows
+        _, step = make_sparse_train_step(
+            model, "sgd", lr=make_lr_schedule(*DLRM_LR))
+        with QuantCapture(torch, sparse_update) as cap:
+            num, cats, labels = DeviceStager("cuda")(train[0])
+            step(model, opt_state, num, list(cats), labels)
+            torch.cuda.synchronize()
+        rows_held, elements_held = hold_quantized(
+            torch, sparse_update, cap.calls, "quant_dlrm_full")
+        call = cap.calls[0]
+        del cap
+        # the touched rows published as an int8 row delta
+        keys = call["uniq"].numpy().astype("int64")
+        arrays = {"tp0_keys": keys,
+                  "tp0_rows": call["after"]["payload"].view(
+                      torch.int8).numpy(),
+                  "tp0_scale": call["after"]["scale"].numpy()}
+        meta = {"version": 1, "base_version": 0, "kind": "delta",
+                "published_at": time.time(),
+                "sig": [[v, 128] for v in sizes], "dtype": "int8"}
+        t0 = time.perf_counter()
+        written = checkpoint.save_row_delta(
+            os.path.join(tmp, "delta_1.tmp"), meta, arrays)
+        path = checkpoint.publish_atomic(written,
+                                         os.path.join(tmp, "delta_1.npz"))
+        publish_s = time.perf_counter() - t0
+        row_bytes = sum(a.nbytes for a in arrays.values())
+        want_bytes = len(keys) * wire.delta_row_bytes(128, "int8")
+        check(row_bytes == want_bytes,
+              f"the delta's rows take {row_bytes} bytes, the byte model "
+              f"{want_bytes}")
+        got_meta, got = checkpoint.load_row_delta(path)
+        same = (got_meta["dtype"] == "int8" and all(
+            got[k].dtype == a.dtype and got[k].tobytes() == a.tobytes()
+            for k, a in arrays.items()))
+        check(same, "the reloaded row delta differs from the published one")
+        data = bytearray(open(path, "rb").read())
+        at = bytes(data).index(arrays["tp0_rows"][:64].tobytes()) + 7
+        data[at] ^= 0x10
+        bad = os.path.join(tmp, "delta_bad.npz")
+        with open(bad, "wb") as f:
+            f.write(bytes(data))
+        try:
+            checkpoint.load_row_delta(bad)
+            refused = False
+        except checkpoint.StreamIntegrityError:
+            refused = True
+        check(refused, "a flipped byte of a row delta was not refused")
+        f32_rows_per_gb = (sum(scaled_table_sizes(DLRM_TABLE_SCALE))
+                           / (sum(scaled_table_sizes(DLRM_TABLE_SCALE))
+                              * 128 * 4 / 1e9))
+        summary = dict(
+            median_step_ms=med, samples_per_s=BATCH / (med / 1e3),
+            max_memory_allocated=peak, payload_bytes=payload,
+            scale_bytes=scales, card_auc=card_auc, serve_ms=serve_ms)
+        emit(phase="main_path", path="quant_dlrm_full",
+             steps=QUANT_FULL_STEPS, rows=sum(sizes), storage_dtype="int8",
+             build_s=build_s, fit_s=fit_s, launches=counts[
+                 "quant_dlrm_full"], losses=hist["loss"],
+             median_step_ms=med, samples_per_s=BATCH / (med / 1e3),
+             step_ms=step_ms, max_memory_allocated=peak,
+             table_bytes_reckoned=payload + scales,
+             other_memory_at_peak=peak - payload - scales,
+             rows_per_gb=sum(sizes) / ((payload + scales) / 1e9),
+             f32_x0_4_rows_per_gb=f32_rows_per_gb,
+             ingest_stage_mean_ms={k: v["mean_ms"] for k, v in
+                                   hist["ingest_stages"].items()},
+             profiled_step=profiled, card_auc=card_auc,
+             serve_rows=BATCH, serve_ms=serve_ms,
+             held_update_rows=rows_held, held_update_elements=elements_held,
+             delta_rows=len(keys), delta_row_bytes=row_bytes,
+             delta_file_bytes=os.path.getsize(path), delta_publish_s=
+             publish_s, delta_reloaded_bit_equal=same,
+             delta_flipped_byte_refused=refused, ok=True)
+        del model, train, test, call, arrays, got, opt_state
+        torch.cuda.empty_cache()
+        return counts, summary
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def resume_run(torch, label, build, kind, batches, tmp):
+    """Resume on the card: a model from `build(seed)` trained
+    RESUME_STEPS steps, checkpointed (`utils.checkpoint.save_checkpoint`),
+    trained RESUME_STEPS more; a fresh `build` restored from the save and
+    trained the same steps: every table, scale and state tensor bit-equal
+    to the uninterrupted run's. Returns what it printed."""
+    from distributed_embeddings_tpu_torch.parallel.staging import (
+        DeviceStager)
+    from distributed_embeddings_tpu_torch.training import (
+        make_sparse_train_step)
+    from distributed_embeddings_tpu_torch.utils import checkpoint
+    stage = DeviceStager("cuda")
+
+    def train(model, step, state, part):
+        for batch in part:
+            num, cats, labels = stage(batch)
+            _, state, _ = step(model, state, num, list(cats), labels)
+        return state
+    t0 = time.perf_counter()
+    model = build(0)
+    init, step = make_sparse_train_step(model, kind, lr=TRAIN_LR)
+    state = train(model, step, init(model), batches[:RESUME_STEPS])
+    root = os.path.join(tmp, label)
+    t1 = time.perf_counter()
+    checkpoint.save_checkpoint(root, {"params": model.state_dict(),
+                                      "opt_state": state},
+                               step=RESUME_STEPS)
+    save_s = time.perf_counter() - t1
+    state = train(model, step, state, batches[RESUME_STEPS:])
+    fresh = build(1)
+    init2, step2 = make_sparse_train_step(fresh, kind, lr=TRAIN_LR)
+    t1 = time.perf_counter()
+    restored = checkpoint.restore_checkpoint(
+        root, {"params": fresh.state_dict(), "opt_state": init2(fresh)},
+        step=RESUME_STEPS)
+    restore_s = time.perf_counter() - t1
+    state2 = train(fresh, step2, restored["opt_state"],
+                   batches[RESUME_STEPS:])
+    torch.cuda.synchronize()
+    a = tree_tensors(torch, fresh.state_dict()) + tree_tensors(torch,
+                                                               state2)
+    b = tree_tensors(torch, model.state_dict()) + tree_tensors(torch, state)
+    same = len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+    keys = checkpoint.checkpoint_keys(root, step=RESUME_STEPS)
+    files = sorted(os.listdir(os.path.join(root, f"step_{RESUME_STEPS}")))
+    out = dict(phase="resume", path=label, kind=kind,
+               seconds=time.perf_counter() - t0, save_s=save_s,
+               restore_s=restore_s, tensors=len(a),
+               checkpoint_bytes=sum(os.path.getsize(os.path.join(
+                   root, f"step_{RESUME_STEPS}", f)) for f in files),
+               files=files, keys=keys, bit_equal=same)
+    emit(**out)
+    check(same, f"{label}: the resumed run differs from the uninterrupted "
+                "one")
+    check(keys == ["opt_state", "params"], f"{label}: checkpoint keys {keys}")
+    shutil.rmtree(root, ignore_errors=True)
+    return model
+
+
+def checkpoint_phase(torch, cuda_lookup, counted):
+    """12c: resume on the card (`resume_run`) of DLRM at Criteo sizes x
+    0.02, float32 sgd and int8 sgd, and of Tiny cut to 100,000 rows a
+    table, int8 adagrad; then the float32 model's global weights through
+    `save_global_weights` (a directory of .npy files), `load_global_weights`
+    (memory-mapped) and `set_weights` of a fresh model: every table bit
+    for bit (`table_digest`). Returns the launch counts by path."""
+    from distributed_embeddings_tpu_torch.models.dlrm import (
+        scaled_table_sizes)
+    from distributed_embeddings_tpu_torch.models.synthetic import (
+        SYNTHETIC_MODELS, ClickGenerator, InputGenerator, SyntheticModel)
+    from distributed_embeddings_tpu_torch.utils import checkpoint
+    sizes = scaled_table_sizes(QUANT_CPU_SCALE)
+    gen = ClickGenerator(sizes, 13, BATCH, seed=DLRM_SEED + 4)
+    batches = [gen.batch(s) for s in range(2 * RESUME_STEPS)]
+    tiny = SYNTHETIC_MODELS["tiny"]
+    cut = tiny._replace(embedding_configs=[
+        e._replace(num_rows=min(e.num_rows, CUT_ROWS))
+        for e in tiny.embedding_configs])
+    tiny_batches = [(n.numpy(), [c.numpy() for c in cs], lab.numpy())
+                    for n, cs, lab in InputGenerator(
+                        cut, BATCH, alpha=1.05,
+                        num_batches=2 * RESUME_STEPS, seed=1)]
+    runs = (
+        ("resume_dlrm_f32", lambda seed: quantized_dlrm(
+            torch, sizes, "cuda", None, 20 + seed), "sgd", batches,
+         {"lookup_combine": 1, "segment_sum_sorted": 1, "sgd_rows": 1}),
+        ("resume_dlrm_int8", lambda seed: quantized_dlrm(
+            torch, sizes, "cuda", "int8", 20 + seed), "sgd", batches,
+         {"segment_sum_sorted": 1}),
+        ("resume_tiny_adagrad_int8", lambda seed: SyntheticModel(
+            cut, device="cuda", storage_dtype="int8",
+            generator=torch.Generator(device="cuda").manual_seed(seed)),
+         "adagrad", tiny_batches, {"segment_sum_sorted": 2}))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt")
+    counts = {}
+    try:
+        for label, build, kind, data, want in runs:
+            set_counts(cuda_lookup, *counted)
+            model = resume_run(torch, label, build, kind, data, tmp)
+            torch.cuda.synchronize()
+            counts[label] = read_counts(cuda_lookup, *counted)
+            # the uninterrupted run, then the resumed one's steps
+            steps = 3 * RESUME_STEPS
+            check(counts[label] == per_step(want, steps),
+                  f"{label} launches {counts[label]}, want {want} per step")
+            if label != "resume_dlrm_f32":
+                del model
+                torch.cuda.empty_cache()
+                continue
+            # the portable global weights of the float32 model
+            t0 = time.perf_counter()
+            weights = model.embedding.get_weights()
+            out = checkpoint.save_global_weights(
+                os.path.join(tmp, "global"), weights, npz=False)
+            loaded = checkpoint.load_global_weights(out, mmap=True)
+            mapped = all(type(a).__name__ == "memmap" for a in loaded)
+            fresh = quantized_dlrm(torch, sizes, "cuda", None, 30)
+            fresh.embedding.set_weights(loaded)
+            same = ([table_digest(torch, t) for t in fresh.embedding.tp]
+                    == [table_digest(torch, t) for t in model.embedding.tp])
+            emit(phase="global_weights", path=label, tables=len(weights),
+                 bytes=sum(w.nbytes for w in weights), memory_mapped=mapped,
+                 seconds=time.perf_counter() - t0, bit_equal=same)
+            check(same and mapped, "the global weights did not round-trip "
+                                   "bit for bit through memory-mapped files")
+            del model, fresh, weights, loaded
+            shutil.rmtree(out, ignore_errors=True)
+            torch.cuda.empty_cache()
+        return counts
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -5211,6 +5906,16 @@ def main() -> int:
     amp_counts[f"world{PLACEMENT_WORLD}_placement_amp"], amp_row = (
         amp_placement_phase(torch, f32_exchange))
 
+    # ---- 12. quantized storage and checkpoints: DLRM x 0.02 at int8 and
+    # fp8 (and int8 at bfloat16) and cut Tiny's adagrad at int8 against the
+    # CPU (12a); DLRM at the full Criteo-1TB sizes stored int8 through
+    # `fit`, its AUC, engine, a held step and a row delta (12b); resume and
+    # the global weights (12c); counts to 0, drive, read in each
+    quant_counts = quantized_against_cpu_phase(torch, cuda_lookup, counted)
+    full_counts, _ = quantized_full_phase(torch, cuda_lookup, counted)
+    quant_counts.update(full_counts)
+    quant_counts.update(checkpoint_phase(torch, cuda_lookup, counted))
+
     # ---- 7. result lines; the kernels of DLRM's step carry their times
     # at its shapes too (`at_dlrm_fit`), and at a row shard's of the
     # placement phase (`at_placement`); their worst error covers them
@@ -5245,7 +5950,8 @@ def main() -> int:
              "train_adam_cut": cut_counts["adam"],
              "train_fused": fused_counts,
              **{f"train_tiled_{k}": c for k, c in tiled_counts.items()},
-             **dense_counts, **dlrm_counts, **world_counts, **amp_counts}
+             **dense_counts, **dlrm_counts, **world_counts, **amp_counts,
+             **quant_counts}
 
     def by_path(kname):
         return {p: c[kname] for p, c in paths.items() if c[kname]}

@@ -10,12 +10,19 @@ to one tensor, on every rank of a world of the same size:
     the placement and the row offsets);
   * ``embedding['row'][t]`` ``[world, rows_max, w]`` -> ``embedding.row.{t}``
     (rank r takes its shard ``[r]``);
+  * a quantized layer's ``embedding['tp_scale'][b]`` ``[world, rows_max,
+    1]`` -> ``embedding.tp_scale.{b}``, and its 1-byte ``tp`` payloads
+    whole: int8 as int8, fp8 by its bytes (the JAX package's
+    ``ml_dtypes.float8_e4m3fn`` array, or the raw 1-byte void a ``.npz``
+    gives back) viewed as ``torch.float8_e4m3fn``; towards the JAX layout
+    an fp8 payload is its bytes, ``uint8``, which the JAX package views
+    back as float8;
   * ``mlp[i]['w']`` / ``['b']`` -> ``mlp.{i}.w`` / ``.b`` (likewise
     ``bottom_mlp`` / ``top_mlp`` for DLRM), in the same [in, out] layout;
   * the per-table model's (``SyntheticModel(distributed=False)``)
     ``embedding[t]['embeddings']`` -> ``embedding_layers.{t}.embeddings``.
 
-A tree that carries hot shards or quantization scales is refused.
+A tree that carries hot shards is refused.
 
 The sparse train step's optimizer state maps the same way
 (`opt_state_from_jax`, `opt_state_to_numpy`): ``emb['tp'][b]`` and
@@ -36,6 +43,7 @@ import torch
 from distributed_embeddings_tpu_torch.layers.dist_model_parallel import (
     DistributedEmbedding)
 from distributed_embeddings_tpu_torch.models.dlrm import MLP
+from distributed_embeddings_tpu_torch.ops import wire
 from distributed_embeddings_tpu_torch.parallel.mesh import gather_stack
 
 __all__ = ["params_from_jax", "params_to_numpy", "opt_state_from_jax",
@@ -44,6 +52,20 @@ __all__ = ["params_from_jax", "params_to_numpy", "opt_state_from_jax",
 
 def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
+
+
+def _payload(a, store_dtype: str) -> torch.Tensor:
+    """A bucket's payload from the JAX package's array: float32 as such,
+    a 1-byte payload by its bytes, viewed as the storage dtype (numpy
+    holds fp8 only as bytes; ``ml_dtypes`` is not imported)."""
+    if store_dtype == "f32":
+        return _tensor(a)
+    raw = np.ascontiguousarray(a)
+    if raw.dtype.itemsize != 1:
+        raise ValueError(f"a {store_dtype} payload has 1-byte elements, got "
+                         f"{raw.dtype}")
+    return torch.from_numpy(raw.view(np.uint8).copy()).view(
+        wire.payload_dtype(store_dtype))
 
 
 def _array(t: torch.Tensor) -> np.ndarray:
@@ -58,13 +80,37 @@ def _stacked(t: torch.Tensor) -> np.ndarray:
     return _array(gather_stack(t.detach()))
 
 
+def _stacked_payload(t: torch.Tensor) -> np.ndarray:
+    """A bucket's ``[world, rows_max, w]`` payload stack: float32, int8, or
+    an fp8 payload's bytes as uint8."""
+    if t.dtype == torch.float32:
+        return _stacked(t)
+    stack = _stacked(t.view(torch.uint8))
+    return stack.view(np.int8) if t.dtype == torch.int8 else stack
+
+
 def _embedding_state(tree: dict, emb: DistributedEmbedding,
                      prefix: str) -> Dict[str, torch.Tensor]:
-    extra = set(tree) - {"dp", "tp", "row"}
+    extra = set(tree) - {"dp", "tp", "row", "tp_scale"}
     if extra:
         raise ValueError(f"embedding params carry {sorted(extra)}, which the "
                          "port does not hold yet")
+    quantized = emb.quantized_buckets
+    if bool(quantized) != (tree.get("tp_scale") is not None):
+        raise ValueError(
+            "the tree's tp_scale does not match the layer's storage: "
+            f"quantized buckets {quantized}, tp_scale "
+            f"{'present' if tree.get('tp_scale') is not None else 'absent'}")
     state = {}
+    for b, scale in enumerate(tree.get("tp_scale") or []):
+        if b not in quantized:
+            state[f"{prefix}tp_scale.{b}"] = torch.empty((0, 1))
+            continue
+        scale = np.asarray(scale)
+        if scale.shape != (emb.world_size,) + tuple(emb.tp[b].shape[:1]) \
+                + (1,):
+            raise ValueError(f"tp_scale {b}: shape {scale.shape}")
+        state[f"{prefix}tp_scale.{b}"] = _tensor(scale[emb.rank])
     for group, stacked in (("dp", False), ("tp", True), ("row", True)):
         arrays, tables = tree.get(group, []), getattr(emb, group)
         if len(arrays) != len(tables):
@@ -77,6 +123,10 @@ def _embedding_state(tree: dict, emb: DistributedEmbedding,
             if tuple(arr.shape) != want:
                 raise ValueError(f"{group} table {i}: shape {arr.shape}, the "
                                  f"port expects {want}")
+            if group == "tp":
+                state[f"{prefix}tp.{i}"] = _payload(
+                    arr[emb.rank], emb.plan.tp_buckets[i].storage_dtype)
+                continue
             state[f"{prefix}{group}.{i}"] = _tensor(
                 arr[emb.rank] if stacked else arr)
     return state
@@ -113,9 +163,14 @@ def params_to_numpy(model) -> dict:
     """The JAX package's parameter tree (numpy leaves) of `model`;
     collective at world size > 1."""
     def emb_tree(emb: DistributedEmbedding) -> dict:
-        return {"dp": [_array(t) for t in emb.dp],
-                "tp": [_stacked(t) for t in emb.tp],
+        tree = {"dp": [_array(t) for t in emb.dp],
+                "tp": [_stacked_payload(t) for t in emb.tp],
                 "row": [_stacked(t) for t in emb.row]}
+        if emb.quantized_buckets:
+            tree["tp_scale"] = [
+                _stacked(s) if b in emb.quantized_buckets else None
+                for b, s in enumerate(emb.tp_scale)]
+        return tree
 
     if isinstance(model, DistributedEmbedding):
         return emb_tree(model)

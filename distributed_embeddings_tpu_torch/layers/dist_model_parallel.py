@@ -37,9 +37,21 @@ at global batch size and the dp->mp exchange is skipped. The ranks are
 those of the default ``torch.distributed`` process group
 (`parallel.mesh.initialize_distributed`); with data-parallel input each
 rank passes its own slice of the global batch
-(`parallel.staging.stage_dp_batch`). Offload, hot rows and quantized
-storage come in later slices (ROADMAP Queue A) and raise
-NotImplementedError here.
+(`parallel.staging.stage_dp_batch`). Offload and hot rows come in later
+slices (ROADMAP Queue A) and raise NotImplementedError here.
+
+Quantized storage (``storage_dtype`` "int8" or "fp8", the JAX package's
+HBM-resident quantized buckets): each tp bucket holds a 1-byte payload,
+``tp[b]`` (``torch.int8`` or ``torch.float8_e4m3fn``), and a float32
+per-row scale, ``tp_scale[b]`` ``[rows_max, 1]`` (`ops.wire`'s codec);
+row-sliced and dp tables stay float32. A quantized bucket's lookup is the
+JAX package's explicit form for it, whatever ``lookup_path`` says: the
+payload rows and their scales gathered, decoded to float32, cast to the
+compute dtype, combined (`_combine`). Its sparse update is
+`ops.sparse_update.quantized_row_update` (sgd and adagrad; adam refuses):
+decode the touched rows, the float32 rule, a stochastically rounded
+re-encode. `init` and `set_weights` encode row chunks, rounding to nearest;
+`get_weights` decodes to float32.
 
 Mixed precision (``compute_dtype`` bfloat16 or float16; the JAX package's
 policy): the tables, their optimizer state and the sums of the lookups stay
@@ -72,6 +84,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.profiler import record_function
 
 from distributed_embeddings_tpu_torch.layers.embedding import Embedding
 from distributed_embeddings_tpu_torch.ops import (cuda_lookup, cuda_tiled,
@@ -79,7 +92,8 @@ from distributed_embeddings_tpu_torch.ops import (cuda_lookup, cuda_tiled,
 from distributed_embeddings_tpu_torch.ops.embedding_ops import (
     GroupSort, RaggedIds, SparseIds, canonical_id_sort)
 from distributed_embeddings_tpu_torch.ops.sparse_update import (
-    SparseOptimizer, SparseRowGrad, concat_grads, update_consumes_sort)
+    QUANTIZED_ROW_KINDS, SparseOptimizer, SparseRowGrad, concat_grads,
+    update_consumes_sort)
 from distributed_embeddings_tpu_torch.parallel import mesh as pg
 from distributed_embeddings_tpu_torch.parallel.plan import (ShardedPlan,
                                                             lower_strategy)
@@ -88,10 +102,14 @@ from distributed_embeddings_tpu_torch.parallel.planner import (
 from distributed_embeddings_tpu_torch.utils.device import (
     DeviceLike, default_generator, resolve_compute_dtype, resolve_device)
 from distributed_embeddings_tpu_torch.utils.initializers import (
-    get_initializer)
+    ConcatInitializer, get_initializer)
 
 __all__ = ["DistEmbeddingStrategy", "DistributedEmbedding", "TapResiduals",
-           "LOOKUP_PATHS", "broadcast_variables"]
+           "LOOKUP_PATHS", "QUANTIZED_LOOKUP_RANGE", "broadcast_variables"]
+
+# the profiler range of every quantized bucket's lookup (a no-op unless a
+# profiler is on), so a trace reads its device time
+QUANTIZED_LOOKUP_RANGE = "quantized:lookup"
 
 # the JAX package's DET_LOOKUP_PATH values: "auto", "xla" and "pallas" take
 # the gather-combine kernel, "tiled" and "fused" the sorted-stream lookups
@@ -243,7 +261,10 @@ class DistributedEmbedding(nn.Module):
     ``tp[b]``, this rank's shard of bucket b, ``[rows_max, width]`` (the
     JAX package's ``params['tp'][b][rank]``); ``row[t]``, this rank's
     rows of row-sliced table t, ``[rows_max, width]``, the rows past
-    ``rows_per_rank[rank]`` zero (``params['row'][t][rank]``).
+    ``rows_per_rank[rank]`` zero (``params['row'][t][rank]``). With a
+    quantized ``storage_dtype`` ("int8" or "fp8"), ``tp[b]`` is bucket b's
+    1-byte payload and ``tp_scale[b]`` its per-row float32 scale, ``[rows_max,
+    1]`` (``params['tp_scale'][b][rank]``; see the module docstring).
 
     With ``dp_input=False`` the forward takes model-parallel input (the
     JAX package's `apply_mp`; see `forward`). ``compute_dtype`` (None or
@@ -256,9 +277,8 @@ class DistributedEmbedding(nn.Module):
     lookup, has no counterpart: the port's lookups never fall back, ROADMAP
     North star), ``mesh`` (None; the ranks are the
     process group's, A3), ``gpu_embedding_size`` (None, A8), ``hot_rows``
-    (A7), ``exchange_wire`` / ``storage_dtype`` (f32, A6) and
-    ``vocab_slack`` (A12): any other value raises NotImplementedError
-    naming its item.
+    (A7), ``exchange_wire`` (f32, A6) and ``vocab_slack`` (A12): any other
+    value raises NotImplementedError naming its item.
     """
 
     def __init__(self,
@@ -310,9 +330,7 @@ class DistributedEmbedding(nn.Module):
              "(gpu_embedding_size)", "A8 (offload)"),
             (bool(hot_rows), "hot_rows", "A7 (hot-row replication)"),
             (exchange_wire not in (None, "f32"), "a non-f32 exchange_wire",
-             "A6 (wire formats and quantized storage)"),
-            (storage_dtype not in (None, "f32"), "a non-f32 storage_dtype",
-             "A6 (wire formats and quantized storage)"),
+             "A6 (wire formats)"),
             (bool(vocab_slack), "vocab_slack", "A12 (store and vocab)"),
         ]
         for hit, what, item in unported:
@@ -335,7 +353,8 @@ class DistributedEmbedding(nn.Module):
             column_slice_threshold=column_slice_threshold,
             row_slice_threshold=row_thr,
             data_parallel_threshold=dp_thr,
-            input_hotness=input_max_hotness)
+            input_hotness=input_max_hotness,
+            storage_dtype=storage_dtype)
         if self.strategy.table_groups[1] and not all(
                 self.strategy.local_configs):
             raise ValueError(
@@ -369,9 +388,20 @@ class DistributedEmbedding(nn.Module):
             for cfg in self.strategy.dp_configs])
         self.tp = nn.ParameterList([
             nn.Parameter(torch.empty((max(b.rows_max, 1), b.width),
-                                     dtype=torch.float32, device=self.device),
+                                     dtype=wire.payload_dtype(
+                                         b.storage_dtype),
+                                     device=self.device),
                          requires_grad=False)
             for b in self.plan.tp_buckets])
+        # the per-row scales of the quantized buckets (an empty [0, 1]
+        # placeholder at a float32 bucket's index)
+        if self.quantized_buckets:
+            self.tp_scale = nn.ParameterList([
+                nn.Parameter(torch.empty(
+                    (max(b.rows_max, 1) if b.storage_dtype != "f32" else 0,
+                     1), dtype=torch.float32, device=self.device),
+                    requires_grad=False)
+                for b in self.plan.tp_buckets])
         self.row = nn.ParameterList([
             nn.Parameter(torch.empty((max(rt.rows_max, 1), rt.width),
                                      dtype=torch.float32, device=self.device),
@@ -391,6 +421,72 @@ class DistributedEmbedding(nn.Module):
                 self._dp_custom_layers[j] = layer
         self.init(generator)
 
+    # --------------------------------------------------------------- storage
+    @property
+    def quantized_buckets(self) -> List[int]:
+        """The buckets whose rows are stored quantized."""
+        return [b for b, bk in enumerate(self.plan.tp_buckets)
+                if bk.storage_dtype != "f32"]
+
+    def _bucket_store_dtype(self, b: int) -> str:
+        """Bucket b's storage dtype ('f32', 'int8' or 'fp8')."""
+        return self.plan.tp_buckets[b].storage_dtype
+
+    def _bucket_scale(self, b: int) -> Optional[torch.Tensor]:
+        """Bucket b's per-row scale, None at float32 storage. A quantized
+        bucket without its scale fails loudly (the JAX package's
+        `_bucket_scale`): reading its payload as float32 would serve the
+        codes as embedding values."""
+        if self._bucket_store_dtype(b) == "f32":
+            return None
+        scales = getattr(self, "tp_scale", None)
+        scale = None if scales is None else scales[b]
+        if scale is None or scale.shape[0] != self.tp[b].shape[0]:
+            raise ValueError(
+                f"bucket {b} stores {self._bucket_store_dtype(b)} rows but "
+                "the layer holds no tp_scale for it: the state drifted from "
+                "the plan (rebuild it through init or set_weights)")
+        return scale
+
+    # rows encoded at once by a quantized bucket's `init` and `set_weights`:
+    # at most this many elements (a float32 block of 256 MiB), so no
+    # bucket-sized float32 copy exists
+    ENCODE_CHUNK_ELEMS = 64 * 1024 * 1024
+
+    def _encode_into(self, b: int, row0: int, block: torch.Tensor) -> None:
+        """Encode the float32 rows `block` (round to nearest) into quantized
+        bucket b from row `row0` on."""
+        payload, scale = wire.encode_rows(block.to(self.device),
+                                          self._bucket_store_dtype(b))
+        self.tp[b][row0:row0 + block.shape[0]].copy_(payload)
+        self.tp_scale[b][row0:row0 + block.shape[0]].copy_(scale)
+
+    def _init_quantized(self, b: int, gen: torch.Generator) -> None:
+        """Fill quantized bucket b: each table's rows drawn by its
+        initializer in chunks of at most `ENCODE_CHUNK_ELEMS` elements and
+        encoded (the encode is row-local, so the chunks change no bit of
+        it); the rows past this rank's tables payload 0, scale 1, the
+        encoding of zero rows. Shape-dependent initializers see the whole
+        table's shape (``table_shape``, `utils.initializers`)."""
+        bucket = self.plan.tp_buckets[b]
+        self.tp[b].view(torch.uint8).zero_()
+        self.tp_scale[b].fill_(1.0)
+        chunk = max(1, self.ENCODE_CHUNK_ELEMS // bucket.width)
+        for (_, offset, rows, spec,
+             _) in bucket.init_segments[self.rank]:
+            parts = ([(offset + sum(spec.sizes[:i]), n, spec._initializer)
+                      for i, n in enumerate(spec.sizes)]
+                     if isinstance(spec, ConcatInitializer)
+                     else [(offset, rows, get_initializer(spec))])
+            for start, n, init in parts:
+                for r0 in range(0, n, chunk):
+                    block = torch.empty((min(n, r0 + chunk) - r0,
+                                         bucket.width), dtype=torch.float32,
+                                        device=self.device)
+                    block.table_shape = (n, bucket.width)
+                    init(block, gen)
+                    self._encode_into(b, start + r0, block)
+
     # ------------------------------------------------------------------ init
     @torch.no_grad()
     def init(self, generator: Optional[torch.Generator] = None) -> None:
@@ -409,6 +505,9 @@ class DistributedEmbedding(nn.Module):
             get_initializer(cfg.get("embeddings_initializer", "uniform"))(
                 table.data, gen)
         for b, bucket in enumerate(self.plan.tp_buckets):
+            if bucket.storage_dtype != "f32":
+                self._init_quantized(b, gen)
+                continue
             tbl = self.tp[b]
             for (_, row_offset, rows, init_spec,
                  _) in bucket.init_segments[self.rank]:
@@ -652,10 +751,37 @@ class DistributedEmbedding(nn.Module):
         dtype, `_scaled`)."""
         bucket = self.plan.tp_buckets[grp.bucket]
         eff_w, scale = _effective_weights(w_x, grp.k, bucket.combiner)
-        out = self._group_lookup(self.tp[grp.bucket], ids_x, eff_w,
-                                 None if bucket.combiner is None else "sum",
-                                 presorted=presorted)
+        combiner = None if bucket.combiner is None else "sum"
+        if bucket.storage_dtype != "f32":
+            out = self._quantized_lookup(grp.bucket, ids_x, eff_w, combiner)
+        else:
+            out = self._group_lookup(self.tp[grp.bucket], ids_x, eff_w,
+                                     combiner, presorted=presorted)
         return _scaled(out, scale)
+
+    def _quantized_lookup(self, b: int, ids: torch.Tensor,
+                          weights: Optional[torch.Tensor],
+                          combiner: Optional[str]) -> torch.Tensor:
+        """A quantized bucket's lookup, ids [B, f, k] -> [B, f, wf] (JAX
+        `_tp_group_out` :1940-1962): the decode-gather (`_quantized_rows`),
+        cast to the compute dtype, then `_combine`d. Runs inside the
+        profiler range `QUANTIZED_LOOKUP_RANGE`."""
+        with record_function(QUANTIZED_LOOKUP_RANGE):
+            return _combine(self._cast(self._quantized_rows(b, ids)),
+                            weights, combiner)
+
+    def _quantized_rows(self, b: int, ids: torch.Tensor) -> torch.Tensor:
+        """Bucket b's decode-gather, ids [...] -> float32 rows [..., wf]:
+        the payload rows and their scales gathered (ids clamped into the
+        table, int64 indexing) and decoded."""
+        payload = self.tp[b]
+        flat = ids.reshape(-1).clamp(0, payload.shape[0] - 1).long()
+        rows = wire.decode_rows(
+            payload.view(torch.uint8).index_select(0, flat).view(
+                payload.dtype),
+            self._bucket_scale(b).index_select(0, flat),
+            self._bucket_store_dtype(b))
+        return rows.reshape(tuple(ids.shape) + (payload.shape[1],))
 
     def _padded_id_exchange(self, grp: _ExchangeGroup, ids: torch.Tensor,
                             w: Optional[torch.Tensor]):
@@ -1146,11 +1272,25 @@ class DistributedEmbedding(nn.Module):
         ``opt.update``, which dedups them and updates each touched row of
         the table and its state once; a bucket of one group (a row table of
         one input) passes its sort from the residuals as ``presorted=``
-        when the forward made one. The dp tables are not touched here: they
-        train with the dense parameters. `tap_grads` is ``{"tp": [grad of
-        each taps["tp"] leaf], "row": [grad of each taps["row"] leaf]}``.
+        when the forward made one. A quantized bucket takes
+        `ops.sparse_update.quantized_row_update` under every strategy
+        (``opt.quantized``, the same lr and hyperparameters), its payload
+        and scales updated in place; adam refuses a layer with quantized
+        buckets, as in the JAX package. The dp tables are not touched
+        here: they train with the dense parameters. `tap_grads` is
+        ``{"tp": [grad of each taps["tp"] leaf], "row": [grad of each
+        taps["row"] leaf]}``.
         Returns the new state pytree (adam's step count is a new tuple
         entry; tensors are updated in place)."""
+        quantized = self.quantized_buckets
+        if quantized and opt.kind not in QUANTIZED_ROW_KINDS:
+            raise NotImplementedError(
+                f"sparse optimizer {opt.kind!r} has no master-weight-free "
+                f"quantized row-update rule (quantized buckets {quantized}; "
+                f"available: {sorted(QUANTIZED_ROW_KINDS)}). adam's "
+                "moment-normalized steps fall below the per-row "
+                "quantization grid and are lost even under stochastic "
+                "rounding; keep such buckets at storage_dtype='f32'")
         groups, _ = self._exchange_groups_for_key(residuals.key)
         bucket_groups: dict = {}
         for g, grp in enumerate(groups):
@@ -1169,6 +1309,17 @@ class DistributedEmbedding(nn.Module):
                      for g in gs]
             sort_b = (residuals.tp_sort[gs[0]]
                       if len(gs) == 1 and residuals.tp_sort else None)
+            if b in quantized:
+                if opt.quantized is None:
+                    raise ValueError(
+                        f"sparse optimizer {opt.kind!r} carries no quantized "
+                        f"rule for bucket {b} (build it with "
+                        "make_sparse_optimizer)")
+                new_tp[b] = opt.quantized(
+                    self.tp[b].data, self._bucket_scale(b).data,
+                    tuple(new_tp[b]), concat_grads(grads),
+                    self._bucket_store_dtype(b), presorted=sort_b)
+                continue
             new_tp[b] = update(self.tp[b].data, new_tp[b], grads, sort_b)
         table_inputs: dict = {}
         for j in range(len(residuals.row_ids)):
@@ -1188,19 +1339,29 @@ class DistributedEmbedding(nn.Module):
     # over all ranks (the JAX package's DET_GATHER_CHUNK_ELEMS default)
     GATHER_CHUNK_ELEMS = 128 * 1024 * 1024
 
-    def _gather_rows(self, table: torch.Tensor, keep: bool):
+    def _gather_rows(self, table: torch.Tensor, keep: bool,
+                     scale: Optional[torch.Tensor] = None,
+                     store_dtype: str = "f32"):
         """Yield ``(r0, r1, host [world, r1 - r0, w])`` over a rank-local
         table's row chunks, each gathered from every rank in one
         collective of at most `GATHER_CHUNK_ELEMS` elements
         (`parallel.mesh.gather_stack`); ``host`` is None where not `keep`
-        (the rank takes part in the gathers only)."""
+        (the rank takes part in the gathers only). A quantized bucket's
+        chunks (its payload as bytes, then its `scale`) are decoded to
+        float32 after the gather."""
         table = table.detach()
         rows, width = table.shape
         chunk = max(1, self.GATHER_CHUNK_ELEMS
                     // max(self.world_size * width, 1))
         for r0 in range(0, rows, chunk):
             r1 = min(rows, r0 + chunk)
-            stack = pg.gather_stack(table[r0:r1])
+            if store_dtype == "f32":
+                stack = pg.gather_stack(table[r0:r1])
+            else:
+                stack = wire.decode_rows(
+                    pg.gather_stack(table[r0:r1].view(torch.int8)).view(
+                        table.dtype),
+                    pg.gather_stack(scale.detach()[r0:r1]), store_dtype)
             yield r0, r1, (stack.cpu().numpy() if keep else None)
 
     def get_weights(self, all_ranks: bool = False
@@ -1208,7 +1369,9 @@ class DistributedEmbedding(nn.Module):
         """Global per-table weights in original table order, as numpy:
         the dp tables as they are, each tp table from its placements'
         column slices in column order, each row-sliced table from the
-        ranks' shards in rank order (JAX `get_weights` :4412-4486).
+        ranks' shards in rank order (JAX `get_weights` :4412-4486). Always
+        float32: a quantized bucket's rows are decoded, as the JAX
+        package's portable dump is.
 
         Collective at world size > 1: every rank calls it. Each bucket's
         and each row table's ``[world, rows_max, w]`` stack is gathered in
@@ -1229,7 +1392,9 @@ class DistributedEmbedding(nn.Module):
                 out[gtid] = self.dp[j].detach().cpu().numpy().copy()
         for b, table in enumerate(self.tp):
             places = [p for p in self.plan.tp_placements if p.bucket == b]
-            for r0, r1, host in self._gather_rows(table, keep):
+            for r0, r1, host in self._gather_rows(
+                    table, keep, self._bucket_scale(b),
+                    self._bucket_store_dtype(b)):
                 if host is None:
                     continue
                 for pl_ in places:
@@ -1261,7 +1426,9 @@ class DistributedEmbedding(nn.Module):
         paths, which are memory-mapped) into this rank's tables in place:
         every rank passes the same list and writes the dp tables, its own
         tp placements and its own rows of each row-sliced table (the
-        shard's padding rows zero)."""
+        shard's padding rows zero). A quantized bucket's rows are encoded,
+        rounding to nearest (the JAX package's `encode_rows_np`), in
+        chunks of at most `ENCODE_CHUNK_ELEMS` elements."""
         strat = self.strategy
         if len(weights) != len(strat.global_configs):
             raise ValueError(f"Expected {len(strat.global_configs)} weights, "
@@ -1283,9 +1450,16 @@ class DistributedEmbedding(nn.Module):
             if pl_.rank != self.rank:
                 continue
             w = weights[strat.table_groups[1][pl_.table_id]]
-            self.tp[pl_.bucket][pl_.row_offset:pl_.row_offset
-                                + pl_.rows].copy_(
-                host(w, cols=slice(pl_.col_start, pl_.col_end)))
+            cols = slice(pl_.col_start, pl_.col_end)
+            if self._bucket_store_dtype(pl_.bucket) == "f32":
+                self.tp[pl_.bucket][pl_.row_offset:pl_.row_offset
+                                    + pl_.rows].copy_(host(w, cols=cols))
+                continue
+            chunk = max(1, self.ENCODE_CHUNK_ELEMS // (cols.stop - cols.start))
+            for r0 in range(0, pl_.rows, chunk):
+                r1 = min(pl_.rows, r0 + chunk)
+                self._encode_into(pl_.bucket, pl_.row_offset + r0,
+                                  host(w, slice(r0, r1), cols))
         for t, gtid in enumerate(strat.table_groups[2]):
             rt = self.plan.row_tables[t]
             start = int(sum(rt.rows_per_rank[:self.rank]))
@@ -1296,12 +1470,13 @@ class DistributedEmbedding(nn.Module):
 
 
 def _local_tables(module: nn.Module) -> set:
-    """The ids of the rank-local tables (bucket tables and row shards) of
-    every `DistributedEmbedding` inside `module`; its dp tables are
-    replicas, the same on every rank."""
+    """The ids of the rank-local tables (bucket tables, their scales and
+    row shards) of every `DistributedEmbedding` inside `module`; its dp
+    tables are replicas, the same on every rank."""
     return {id(t) for m in module.modules()
             if isinstance(m, DistributedEmbedding)
-            for t in list(m.tp) + list(m.row)}
+            for t in list(m.tp) + list(m.row)
+            + list(getattr(m, "tp_scale", ()))}
 
 
 @torch.no_grad()

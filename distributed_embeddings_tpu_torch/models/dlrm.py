@@ -24,6 +24,7 @@ from distributed_embeddings_tpu_torch.layers.dist_model_parallel import (
 from distributed_embeddings_tpu_torch.layers.embedding import Embedding
 from distributed_embeddings_tpu_torch.utils.device import (
     DeviceLike, default_generator, resolve_compute_dtype, resolve_device)
+from distributed_embeddings_tpu_torch.utils.initializers import table_shape
 
 
 # Criteo-1TB MLPerf vocab sizes (the JAX package's examples/dlrm/main.py,
@@ -45,7 +46,7 @@ def scaled_table_sizes(scale: float, sizes=CRITEO_TABLE_SIZES) -> List[int]:
 def dlrm_initializer():
     """Uniform(+-1/sqrt(rows)) embedding init (reference utils.py:27-41)."""
     def init(out: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-        maxval = 1.0 / math.sqrt(out.shape[0])
+        maxval = 1.0 / math.sqrt(table_shape(out)[0])
         return out.uniform_(-maxval, maxval, generator=generator)
     return init
 

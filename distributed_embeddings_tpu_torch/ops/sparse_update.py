@@ -34,13 +34,19 @@ Strategies:
 Each optimizer takes ``presorted=``, the `embedding_ops.GroupSort` of its id
 stream that a tapped forward produced (sort folding): the route then runs
 no sort of its own, with bit-identical results.
+
+A quantized table (int8 or fp8 payload and per-row float32 scales, the
+layer's ``storage_dtype``) takes `quantized_row_update` under every
+strategy: `dedup_sum`, then the touched rows decoded, the float32 sgd or
+adagrad rule, and a stochastically rounded re-encode (`ops.wire`).
 """
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
+from torch.profiler import record_function
 
-from distributed_embeddings_tpu_torch.ops import cuda_sparse, cuda_tiled
+from distributed_embeddings_tpu_torch.ops import cuda_sparse, cuda_tiled, wire
 from distributed_embeddings_tpu_torch.ops.cuda_sparse import bias_corrections
 from distributed_embeddings_tpu_torch.ops.embedding_ops import (
     canonical_keys, segment_bounds, segment_keys, segment_starts)
@@ -50,7 +56,8 @@ __all__ = ["SparseRowGrad", "concat_grads", "dedup_sum", "sparse_sgd",
            "sparse_adagrad", "sparse_adam", "SparseOptimizer",
            "make_sparse_optimizer", "drain_sparse_apply",
            "apply_dense_rows", "update_consumes_sort", "bias_corrections",
-           "STRATEGIES", "DENSE_ELEMS_MAX"]
+           "quantized_row_update", "fma_f32", "STRATEGIES", "DENSE_ELEMS_MAX",
+           "QUANTIZED_ROW_KINDS", "QUANTIZED_UPDATE_RANGE"]
 
 # strategies of the port: the deduplicated-row route, the raw-stream one
 # and the dense aggregation
@@ -276,17 +283,119 @@ def sparse_adam(table: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
     return table, mu, nu, count
 
 
+# -------------------------- quantized (master-weight-free) row updates
+# the optimizers whose update of a quantized table needs no float32 copy of
+# it (the JAX package's list; adam refuses, see `quantized_row_update`)
+QUANTIZED_ROW_KINDS = ("sgd", "adagrad")
+# the profiler range of every quantized update (a no-op unless a profiler
+# is on), so a trace reads its device time
+QUANTIZED_UPDATE_RANGE = "quantized:update"
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` of float32 tensors rounded once to float32 (a fused
+    multiply-add), the same bits on the CPU and on the card. In float64,
+    ``a * b`` is exact and ``s = a * b + c`` carries the rounding error
+    ``e`` (Knuth's two-sum); ``s`` rounded to float32 is the answer unless
+    ``s`` lies exactly halfway between two float32 values, where the sign
+    of ``e`` picks the neighbour the exact sum is nearer."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bp = s - p
+    e = (p - (s - bp)) + (c - bp)
+    r = s.float()
+    d = s - r.double()
+    inf = torch.full((), float("inf"), dtype=torch.float32, device=r.device)
+    other = torch.nextafter(r, torch.where(d > 0, inf, -inf))
+    tie = (d != 0) & (s == (r.double() + other.double()) * 0.5)
+    return torch.where(tie & (e * d > 0), other, r)
+
+
+def quantized_row_update(kind: str, payload: torch.Tensor,
+                         scale: torch.Tensor, state, grad: SparseRowGrad,
+                         store_dtype: str, lr, eps: float = 1e-10,
+                         presorted=None):
+    """The JAX package's master-weight-free update of a quantized table, in
+    place: `dedup_sum` of the stream (its `segment_sum_sorted` kernel),
+    the touched rows' payload and scales gathered, the sgd rule (``old -
+    lr * sums``) or adagrad's (the accumulator's rows plus ``sums * sums``,
+    then ``old - lr * sums * (1 / sqrt(acc + eps))``), re-encoded with
+    stochastic rounding (`wire.encode_rows`, ``sr=True``, at the scale of
+    `wire.writeback_scale`) and written back.
+    adagrad's accumulator stays float32. As the JAX package's compiled step
+    rounds it, the decode ``payload * scale`` fuses with the rule's
+    subtraction into one rounding (`fma_f32`). adagrad takes the reciprocal
+    of a correctly rounded square root, which the card computes as the CPU
+    does (the JAX package's CPU ``rsqrt`` is an estimate, an ulp off for a
+    third of its inputs).
+
+    The rounding draws depend on each element's flat position in dedup's
+    ``[N, w]`` sums, so the encode sees that array's rows in place. Its
+    valid slots (ids in the table) are a prefix, real segments sorted
+    first, the dropped segment and the fillers after: the update reads
+    their count back once and encodes only that prefix, whose positions,
+    and so draws, are the whole array's. Indices are int64 throughout.
+
+    adam raises NotImplementedError, as in the JAX package: its
+    moment-normalized steps fall below the rows' quantization grid.
+    Runs inside the profiler range `QUANTIZED_UPDATE_RANGE`. Returns
+    (payload, scale, state)."""
+    if kind not in QUANTIZED_ROW_KINDS:
+        raise NotImplementedError(
+            f"sparse optimizer {kind!r} has no master-weight-free "
+            f"quantized-table update (available: {QUANTIZED_ROW_KINDS}); "
+            "adam's moment-normalized steps fall below the row "
+            "quantization grid: store this bucket at f32 or switch to "
+            "sgd/row-wise adagrad")
+    with record_function(QUANTIZED_UPDATE_RANGE):
+        return _quantized_row_update(kind, payload, scale, state, grad,
+                                     store_dtype, lr, eps, presorted)
+
+
+def _quantized_row_update(kind, payload, scale, state, grad, store_dtype,
+                          lr, eps, presorted):
+    rows = payload.shape[0]
+    ps = _usable_presorted(presorted, grad)
+    rep, sums = dedup_sum(grad.ids, grad.contribs, sentinel=rows,
+                          presorted=ps)
+    n = int((rep < rows).sum())
+    rep, sums = rep[:n].long(), sums[:n]
+    if kind == "sgd":
+        step = lr * sums
+    else:
+        (acc,) = state
+        acc_rows = acc.index_select(0, rep) + sums * sums
+        acc.index_copy_(0, rep, acc_rows)
+        step = lr * sums * (1.0 / torch.sqrt(acc_rows + eps))
+    # the payload moves as bytes (the CPU's index ops take no float8)
+    raw = payload.view(torch.uint8)
+    new_rows = fma_f32(raw.index_select(0, rep).view(payload.dtype).to(
+        torch.float32), scale.index_select(0, rep), -step)
+    p_rows, s_rows = wire.encode_rows(
+        new_rows, store_dtype, sr=True,
+        scale=wire.writeback_scale(new_rows, store_dtype))
+    raw.index_copy_(0, rep, p_rows.view(torch.uint8))
+    scale.index_copy_(0, rep, s_rows)
+    return payload, scale, tuple(state)
+
+
 # ------------------------------------------------- optimizer description
 class SparseOptimizer(NamedTuple):
     """A (init, update) pair over one table; ``update(table, state, grad,
     presorted=None)`` updates table and state in place and returns (table,
     state); `presorted` is the `GroupSort` of the grad's id stream, when a
     tapped forward produced one. `kind` selects the rule; lr and the
-    hyperparameters are closed over."""
+    hyperparameters are closed over, in `quantized` too: ``quantized(
+    payload, scale, state, grad, store_dtype, presorted=None)`` is the
+    same rule on a quantized table (`quantized_row_update`, in place;
+    returns the state), None for a kind that has none."""
     kind: str
     init: Callable       # table -> state tuple
     update: Callable     # (table, state, SparseRowGrad, presorted=None)
                          #   -> (table, state)
+    quantized: Optional[Callable] = None
 
 
 def make_sparse_optimizer(kind: str, lr, strategy: str = "auto",
@@ -295,11 +404,19 @@ def make_sparse_optimizer(kind: str, lr, strategy: str = "auto",
     (adagrad: initial_accumulator_value 0.1, eps 1e-10; adam: b1 0.9, b2
     0.999, eps 1e-8). State tensors are allocated on the table's device."""
     check_strategy(strategy)
+
+    def quantized_rule(**kw):
+        def quantized(payload, scale, state, g, store_dtype, presorted=None):
+            return quantized_row_update(kind, payload, scale, state, g,
+                                        store_dtype, lr, presorted=presorted,
+                                        **kw)[2]
+        return quantized
     if kind == "sgd":
         return SparseOptimizer(
             "sgd", lambda table: (),
             lambda table, state, g, presorted=None: (
-                sparse_sgd(table, g, lr, strategy, presorted), ()))
+                sparse_sgd(table, g, lr, strategy, presorted), ()),
+            quantized_rule())
     if kind == "adagrad":
         init_acc = hp.get("initial_accumulator_value", 0.1)
         eps = hp.get("eps", 1e-10)
@@ -312,7 +429,8 @@ def make_sparse_optimizer(kind: str, lr, strategy: str = "auto",
             t, acc = sparse_adagrad(table, state[0], g, lr, eps=eps,
                                     strategy=strategy, presorted=presorted)
             return t, (acc,)
-        return SparseOptimizer("adagrad", init, update)
+        return SparseOptimizer("adagrad", init, update,
+                               quantized_rule(eps=eps))
     if kind == "adam":
         b1, b2 = hp.get("b1", 0.9), hp.get("b2", 0.999)
         eps = hp.get("eps", 1e-8)

@@ -1,10 +1,10 @@
 """The dp<->mp exchange collectives over ``torch.distributed``.
 
 Counterpart of ``distributed_embeddings_tpu/ops/wire.py`` at its default
-``f32`` wire (the bf16 activation wire, the int16 id wire and the row
-codecs are ROADMAP Queue A6; the true-splits ragged exchange is A5). As
-there, every exchange collective of the embedding layer lives in this
-module:
+``f32`` wire (the bf16 activation wire and the int16 id wire are ROADMAP
+Queue A6; the true-splits ragged exchange is A5), and its row codec for
+quantized storage (below). As there, every exchange collective of the
+embedding layer lives in this module:
 
   * `wire_all_to_all`: the mp->dp activation block (and the weight block
     of the dp->mp exchange), ``all_to_all_single`` split and concatenated
@@ -45,16 +45,40 @@ its profiler events name), so one form serves both backends. Every
 collective runs inside a profiler range named for it (`EXCHANGE_RANGE`,
 `GATHER_RANGE`, `SCATTER_RANGE`; no-ops unless a profiler is on), so a
 trace reads the exchange's host time and calls by collective.
+
+The row codec (the JAX package's storage seam): `encode_rows` /
+`decode_rows` turn float32 rows ``[..., w]`` into a 1-byte payload (int8,
+or float8 e4m3 as ``torch.float8_e4m3fn``) and a per-row float32 scale
+``[..., 1]`` and back, on the tensor's device, for the layer's quantized
+buckets; `encode_rows_np` / `decode_rows_np` are their numpy twins for the
+stream files (an fp8 payload is held as its raw bytes, ``uint8``: numpy
+has no float8). int8 rounds to nearest even, or, with ``sr=True`` (the
+training write-back), stochastically by `keyless_uniform`, the JAX
+package's keyless hash of each element's bits and flat position; fp8
+takes the cast's own rounding. The write-back's scale is
+`writeback_scale`'s, the JAX package's compiled form. The byte model
+(`store_itemsize`, `delta_row_bytes`, ...) is the JAX package's,
+function for function.
 """
 
+from typing import Optional
+
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.profiler import record_function
 
+from distributed_embeddings_tpu_torch.utils.device import device_scalar
+
 __all__ = ["wire_all_to_all", "wire_all_to_all_t", "wire_id_all_to_all",
            "wire_all_gather", "wire_psum_scatter", "wire_psum_scatter_t",
            "wire_id_all_gather", "ragged_exchange", "EXCHANGE_RANGE",
-           "GATHER_RANGE", "SCATTER_RANGE"]
+           "GATHER_RANGE", "SCATTER_RANGE", "STORE_DTYPES", "INT8_AMAX",
+           "FP8_AMAX", "resolve_store_dtype", "fp8_supported",
+           "payload_dtype", "store_itemsize", "store_scale_bytes",
+           "delta_row_bytes", "snapshot_row_bytes", "store_decode_bound",
+           "keyless_uniform", "writeback_scale", "encode_rows",
+           "decode_rows", "encode_rows_np", "decode_rows_np"]
 
 EXCHANGE_RANGE = "exchange:all_to_all"
 GATHER_RANGE = "exchange:all_gather"
@@ -65,7 +89,7 @@ def _check_wire(wire: str, *ported: str) -> None:
     if wire not in ported:
         raise NotImplementedError(
             f"the {wire!r} exchange wire is not ported yet (ROADMAP Queue A6 "
-            "(wire formats and quantized storage))")
+            "(wire formats))")
 
 
 def _all_to_all(x: torch.Tensor) -> torch.Tensor:
@@ -200,3 +224,230 @@ def ragged_exchange(*args, **kwargs):
     raise NotImplementedError(
         "the ragged (true-splits) exchange is not ported yet (ROADMAP Queue "
         "A5 (multi-hot and ragged exchange))")
+
+
+# ------------------------------------------------------- storage codec
+STORE_DTYPES = ("f32", "int8", "fp8")
+INT8_AMAX = 127.0
+FP8_AMAX = 448.0          # float8_e4m3fn's largest finite value
+SR_SALT = 0x85EBCA6B
+_U32 = 0xFFFFFFFF
+
+
+def fp8_supported() -> bool:
+    """True when this torch has the float8 e4m3 dtype (2.1 and later)."""
+    return hasattr(torch, "float8_e4m3fn")
+
+
+def resolve_store_dtype(name: Optional[str]) -> str:
+    """Validate and normalize a storage dtype name (None -> 'f32')."""
+    if name is None or name == "":
+        return "f32"
+    if name not in STORE_DTYPES:
+        raise ValueError(
+            f"unknown storage dtype {name!r}; expected one of "
+            f"{STORE_DTYPES}")
+    if name == "fp8" and not fp8_supported():
+        raise ValueError(
+            "storage dtype 'fp8' requested but this torch has no "
+            "float8_e4m3fn; use 'int8' or 'f32'")
+    return name
+
+
+def payload_dtype(name: str) -> torch.dtype:
+    """The torch dtype a row payload is stored in."""
+    name = resolve_store_dtype(name)
+    if name == "f32":
+        return torch.float32
+    return torch.int8 if name == "int8" else torch.float8_e4m3fn
+
+
+def store_itemsize(name: str) -> int:
+    """Bytes per element a row payload occupies at rest."""
+    return 4 if resolve_store_dtype(name) == "f32" else 1
+
+
+def store_scale_bytes(name: str) -> int:
+    """Per-row scale bytes (one float32 per quantized row)."""
+    return 0 if resolve_store_dtype(name) == "f32" else 4
+
+
+def delta_row_bytes(width: int, dtype: str) -> int:
+    """Bytes one published delta row costs at `dtype`: the 8-byte int64
+    flat key, the payload and the per-row scale."""
+    return 8 + width * store_itemsize(dtype) + store_scale_bytes(dtype)
+
+
+def snapshot_row_bytes(width: int, dtype: str) -> int:
+    """Bytes one snapshot table row costs at `dtype` (no key)."""
+    return width * store_itemsize(dtype) + store_scale_bytes(dtype)
+
+
+def store_decode_bound(rows, dtype: str, sr: bool = False) -> np.ndarray:
+    """Per-row absolute error bound of one encode / decode round trip of
+    the float32 `rows` ``[..., w]`` at `dtype`: half a grid step of int8
+    (amax / 254; a whole step under SR), 2^-4 of the row amax at fp8 (twice
+    that under SR), 0 at f32."""
+    rows = np.asarray(rows, np.float32)
+    amax = np.max(np.abs(rows), axis=-1)
+    dtype = resolve_store_dtype(dtype)
+    if dtype == "f32":
+        return np.zeros_like(amax)
+    if dtype == "int8":
+        return amax / INT8_AMAX * (1.0 if sr else 0.5)
+    return amax * (2.0 ** -4) * (2.0 if sr else 1.0)
+
+
+def _row_scale(amax: torch.Tensor, grid_amax: float) -> torch.Tensor:
+    """Per-row scale from the row amax, a true division as the JAX
+    package's eager and numpy encodes compute it; zero rows take scale 1,
+    so they round-trip to zeros."""
+    one = torch.ones((), dtype=torch.float32, device=amax.device)
+    return torch.where(amax > 0, amax / device_scalar(grid_amax, amax), one)
+
+
+def writeback_scale(rows: torch.Tensor, store_dtype: str) -> torch.Tensor:
+    """The training write-back's per-row scale ``[..., 1]`` of the float32
+    `rows`: the row amax times the float32 reciprocal of the grid's amax,
+    as the JAX package's compiled train step computes ``amax / grid_amax``
+    (XLA folds the division by a constant into that multiply); zero rows
+    take scale 1. `encode_rows` takes it as ``scale=``; its own scale, like
+    `encode_rows_np`'s, is the true division (`_row_scale`)."""
+    store_dtype = resolve_store_dtype(store_dtype)
+    grid = INT8_AMAX if store_dtype == "int8" else FP8_AMAX
+    rows = rows.float()
+    amax = (rows.abs().amax(dim=-1, keepdim=True) if rows.numel()
+            else rows.new_zeros(tuple(rows.shape[:-1]) + (1,)))
+    one = torch.ones((), dtype=torch.float32, device=amax.device)
+    return torch.where(amax > 0, amax * float(
+        np.float32(1.0) / np.float32(grid)), one)
+
+
+def keyless_uniform(y: torch.Tensor, salt: int = SR_SALT) -> torch.Tensor:
+    """The JAX package's keyless stochastic-rounding draw: for each element
+    of the float32 `y`, with its bit pattern ``bits`` and its flat position
+    ``i`` in `y` (as uint32), ``h = bits ^ (i * 2654435761 + salt)``, two
+    xor-shift-multiply rounds and a last xor-shift, then ``u = (h & 0xFFFF)
+    / 65536`` in [0, 1). uint32 arithmetic is emulated in int64, masked to
+    32 bits after every multiply (each product stays below 2^63). The draw
+    depends on the position, so `y` must be the very array the JAX package
+    encodes (a prefix of it gives the prefix's draws)."""
+    y = y.contiguous()
+    h = torch.arange(y.numel(), dtype=torch.int64, device=y.device)
+    h = h.view(y.shape).bitwise_and_(_U32).mul_(2654435761).add_(salt)
+    h.bitwise_and_(_U32).bitwise_xor_(
+        y.view(torch.int32).to(torch.int64).bitwise_and_(_U32))
+    h.bitwise_xor_(h >> 15).mul_(0x2C1B3C6D).bitwise_and_(_U32)
+    h.bitwise_xor_(h >> 12).mul_(0x297A2D39).bitwise_and_(_U32)
+    h.bitwise_xor_(h >> 15)
+    return h.bitwise_and_(0xFFFF).to(torch.float32).div_(65536.0)
+
+
+def encode_rows(rows: torch.Tensor, store_dtype: str, sr: bool = False,
+                salt: int = SR_SALT, scale: Optional[torch.Tensor] = None):
+    """float32 rows ``[..., w]`` -> (payload ``[..., w]``, scale ``[...,
+    1]``), on the rows' device. 'f32' is the identity (scale None). 'int8':
+    symmetric per-row linear quantization, rounded to nearest even, or
+    with ``sr=True`` to ``floor(y + u)`` with `keyless_uniform`'s u (the
+    training write-back: the rounding of repeated updates centres on zero).
+    'fp8': the e4m3 cast of the rescaled rows (its own round-to-nearest;
+    SR is int8's only). The scale is the row amax over the grid's amax (a
+    true division, as `encode_rows_np` takes it), or the given `scale`
+    (the write-back passes `writeback_scale`'s)."""
+    store_dtype = resolve_store_dtype(store_dtype)
+    if store_dtype == "f32":
+        return rows, None
+    rows = rows.float()
+    grid = INT8_AMAX if store_dtype == "int8" else FP8_AMAX
+    if scale is None:
+        if rows.numel():
+            amax = rows.abs().amax(dim=-1, keepdim=True)
+        else:
+            amax = rows.new_zeros(tuple(rows.shape[:-1]) + (1,))
+        scale = _row_scale(amax, grid)
+    if store_dtype == "int8":
+        y = rows / scale
+        q = (y + keyless_uniform(y, salt)).floor_() if sr else y.round()
+        return q.clamp_(-INT8_AMAX, INT8_AMAX).to(torch.int8), scale
+    return (rows / scale).to(torch.float8_e4m3fn), scale
+
+
+def decode_rows(payload: torch.Tensor, scale: Optional[torch.Tensor],
+                store_dtype: str) -> torch.Tensor:
+    """(payload, scale) -> float32 rows: the gather-time decode. 'f32' is
+    the identity."""
+    if resolve_store_dtype(store_dtype) == "f32":
+        return payload
+    return payload.to(torch.float32) * scale
+
+
+def _fp8_bytes(payload) -> np.ndarray:
+    """An fp8 payload's raw bytes as uint8: from a tensor, from the raw
+    1-byte void a ``.npz`` gives back for the JAX package's float8, from
+    ``uint8`` or from an ``ml_dtypes`` float8 array (its bytes taken, the
+    package never imported)."""
+    if torch.is_tensor(payload):
+        return payload.detach().cpu().contiguous().view(torch.uint8).numpy()
+    payload = np.ascontiguousarray(payload)
+    if payload.dtype.itemsize != 1:
+        raise TypeError(f"an fp8 payload has 1-byte elements, got "
+                        f"{payload.dtype}")
+    return payload.view(np.uint8)
+
+
+_FP8_VALUES = None
+
+
+def encode_rows_np(rows, store_dtype: str, sr: bool = False,
+                   salt: int = SR_SALT):
+    """Numpy twin of `encode_rows` (which alone takes a ``scale=``), bit
+    for bit the JAX package's `encode_rows_np`: round to nearest by
+    default (stream bytes are deterministic), ``sr=True`` the same hash as
+    the device encoder. An fp8 payload comes back as its raw bytes
+    (``uint8``), which the JAX package's loader views back as float8."""
+    store_dtype = resolve_store_dtype(store_dtype)
+    rows = np.asarray(rows, np.float32)
+    if store_dtype == "f32":
+        return rows, None
+    amax = (np.max(np.abs(rows), axis=-1, keepdims=True) if rows.size
+            else np.zeros(rows.shape[:-1] + (1,), np.float32))
+    if store_dtype == "int8":
+        scale = np.where(amax > 0, amax / np.float32(INT8_AMAX),
+                         np.float32(1.0)).astype(np.float32)
+        with np.errstate(invalid="ignore"):
+            y = (rows / scale).astype(np.float32)
+            if sr and y.size:
+                bits = y.view(np.uint32)
+                idx = np.arange(y.size, dtype=np.uint32).reshape(y.shape)
+                with np.errstate(over="ignore"):
+                    h = bits ^ (idx * np.uint32(2654435761)
+                                + np.uint32(salt))
+                    h = (h ^ (h >> np.uint32(15))) * np.uint32(0x2C1B3C6D)
+                    h = (h ^ (h >> np.uint32(12))) * np.uint32(0x297A2D39)
+                    h = h ^ (h >> np.uint32(15))
+                u = (h & np.uint32(0xFFFF)).astype(np.float32) \
+                    / np.float32(65536.0)
+                q = np.floor(y + u)
+            else:
+                q = np.rint(y)
+        payload = np.clip(q, -INT8_AMAX, INT8_AMAX).astype(np.int8)
+        return payload, scale
+    scale = np.where(amax > 0, amax / np.float32(FP8_AMAX),
+                     np.float32(1.0)).astype(np.float32)
+    y = torch.from_numpy(np.ascontiguousarray(rows / scale))
+    return _fp8_bytes(y.to(torch.float8_e4m3fn)), scale
+
+
+def decode_rows_np(payload, scale, store_dtype: str) -> np.ndarray:
+    """Numpy twin of `decode_rows`; an fp8 payload as raw bytes (uint8,
+    the void a ``.npz`` gives back, or a float8 array)."""
+    global _FP8_VALUES
+    if resolve_store_dtype(store_dtype) == "f32":
+        return np.asarray(payload, np.float32)
+    scale = np.asarray(scale, np.float32)
+    if store_dtype == "fp8":
+        if _FP8_VALUES is None:
+            _FP8_VALUES = torch.arange(256, dtype=torch.int32).to(
+                torch.uint8).view(torch.float8_e4m3fn).float().numpy()
+        return _FP8_VALUES[_fp8_bytes(payload)] * scale
+    return np.asarray(payload).astype(np.float32) * scale

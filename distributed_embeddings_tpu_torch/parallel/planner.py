@@ -17,16 +17,16 @@ Groups:
 
 from typing import Any, Dict, List, Optional, Sequence
 
+from distributed_embeddings_tpu_torch.ops.wire import resolve_store_dtype
 from distributed_embeddings_tpu_torch.utils.initializers import (
     ConcatInitializer)
 
 Config = Dict[str, Any]
 
-# the float exchange-wire formats and at-rest storage dtypes the planner
-# accepts as requests (the JAX package's ops/wire.py registry); lowering
-# gates them per bucket
+# the float exchange-wire formats the planner accepts as requests (the JAX
+# package's ops/wire.py registry; the storage dtypes are `ops.wire`'s);
+# lowering gates them per bucket
 EXCHANGE_WIRE_FORMATS = ("f32", "bf16", "bf16-sr")
-STORE_DTYPES = ("f32", "int8", "fp8")
 
 
 def _table_size(config: Config) -> int:
@@ -87,12 +87,9 @@ class DistEmbeddingStrategy:
                 f"exchange_wire={exchange_wire!r}: expected one of "
                 f"{EXCHANGE_WIRE_FORMATS}")
         self.exchange_wire = exchange_wire
-        storage_dtype = storage_dtype or "f32"
-        if storage_dtype not in STORE_DTYPES:
-            raise ValueError(
-                f"unknown storage dtype {storage_dtype!r}; expected one of "
-                f"{STORE_DTYPES}")
-        self.storage_dtype = storage_dtype
+        # the port's default stays f32 (the JAX package's DET_STORE_DTYPE
+        # seam is ROADMAP Queue A15)
+        self.storage_dtype = resolve_store_dtype(storage_dtype)
 
         self.global_configs = []
         for emb in embeddings:

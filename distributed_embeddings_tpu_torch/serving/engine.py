@@ -9,7 +9,10 @@ forward per shape; there is nothing to compile. At world size > 1 serving
 is collective: every rank calls `predict` with the same request, which is
 padded to a multiple of the world; each rank forwards its slice and the
 outputs are all-gathered, so every rank returns the whole request's, as
-the JAX engine returns a global array. The hot-row cache, the versioned
+the JAX engine returns a global array. A model with quantized buckets
+(``storage_dtype``) is served through the same forward, whose lookup
+decodes the gathered rows; warmup and padding do not depend on the tables'
+storage. The hot-row cache, the versioned
 table store and the vocabulary manager of the JAX engine are not ported
 yet (ROADMAP Queue A13 / A12).
 """

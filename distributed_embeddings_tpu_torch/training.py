@@ -62,7 +62,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from distributed_embeddings_tpu_torch.layers.dist_model_parallel import (
-    _local_tables, broadcast_variables)
+    DistributedEmbedding, _local_tables, broadcast_variables)
 from distributed_embeddings_tpu_torch.ops.sparse_update import (
     SparseOptimizer, bias_corrections, check_strategy, dedup_sum,
     drain_sparse_apply, make_sparse_optimizer)
@@ -395,7 +395,9 @@ def make_train_step(loss_fn: Callable, optimizer,
     own rows, summed over the ranks' slices by the activation exchange's
     transpose) are scaled by 1/W, and the other gradients and the loss are
     averaged over the ranks in one all-reduce. The loss is a 0-d tensor
-    on the model's device."""
+    on the model's device. A layer with quantized buckets trains through
+    the sparse step only: its payloads take no gradient (nor do they in
+    the JAX package), so the dense step refuses it."""
     del donate
 
     def update(params, grads, state):
@@ -404,6 +406,12 @@ def make_train_step(loss_fn: Callable, optimizer,
         return optimizer.update(params, grads, state)
 
     def step(model, opt_state, *batch):
+        if any(isinstance(m, DistributedEmbedding) and m.quantized_buckets
+               for m in model.modules()):
+            raise ValueError(
+                "the dense step differentiates float tables; a layer with "
+                "quantized buckets (storage_dtype int8 / fp8) trains "
+                "through make_sparse_train_step")
         params = _all_params(model)
         frozen = [p for p in params.values() if not p.requires_grad]
         for p in frozen:

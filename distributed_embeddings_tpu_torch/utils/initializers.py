@@ -7,7 +7,9 @@ tensor `out` in place, drawing from `generator` on `out`'s device — so a
 second copy. The registry names match the JAX package's, and so do the
 keras-serialized ``{"class_name", "config"}`` dicts it takes (the form
 keras ``get_config()`` emits, which the reference's planner IR carries
-through slicing and concatenation).
+through slicing and concatenation). A quantized bucket fills its tables in
+row chunks; each chunk carries its table's shape as ``table_shape``, which
+the shape-dependent initializers read (`table_shape`).
 """
 
 import math
@@ -24,8 +26,15 @@ def _uniform(scale: float):
     return init
 
 
+def table_shape(out: torch.Tensor):
+    """The shape of the table `out` belongs to: its own, or, for a row
+    chunk of a larger table, the ``table_shape`` the chunk carries."""
+    return getattr(out, "table_shape", tuple(out.shape))
+
+
 def _glorot_uniform(out, generator):
-    limit = math.sqrt(6.0 / (out.shape[0] + out.shape[1]))
+    rows, width = table_shape(out)
+    limit = math.sqrt(6.0 / (rows + width))
     return out.uniform_(-limit, limit, generator=generator)
 
 

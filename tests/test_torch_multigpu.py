@@ -42,6 +42,14 @@ compares one case:
   not divide, against the JAX engine; the JAX params and optimizer state
   with dp and row leaves through `convert` and back; and each wire
   collective's backward against its forward's transpose;
+* quantized storage at W = 2 (``storage_dtype="int8"``, one sum and one
+  mean bucket at hotness 2): each rank loads its shard of the JAX
+  package's tree (payloads and scales), its forward bit-equal to the JAX
+  layer's on the mesh, three sgd steps of a model whose loss is linear in
+  the outputs, the ranks' payloads and scales bit-equal to the JAX step's
+  after every step; and resume on the two ranks (int8 adagrad: 2 steps,
+  `utils.checkpoint.save_checkpoint`, 2 more; a fresh layer restored and
+  trained the same 2 steps is bit-equal on every rank);
 * mixed precision (``compute_dtype`` bfloat16): a layer of every placement
   group (multi-hot weighted mean and sum and combiner-None row tables, a
   multi-hot mean dp table, a passthrough and a one-hot tp table, the
@@ -427,6 +435,58 @@ def _shims_case(world, mesh):
                   "grads": _np(grads)}
 
 
+# (rows, width, combiner): buckets (8, sum) and (8, mean), hotness 2
+QUANT_TABLES = [(40, 8, "sum"), (30, 8, "sum"), (50, 8, "mean"),
+                (24, 8, "mean")]
+
+
+class _JaxLinear:
+    """The JAX side of the quantized case's model: the mean over the batch
+    of the outputs times fixed coefficients (a power-of-two batch, so each
+    rank's tap gradient is the same numbers)."""
+
+    def __init__(self, layer, coefs):
+        self.embedding, self.coefs = layer, coefs
+
+    def loss_fn(self, params, numerical, cats, labels, taps=None,
+                return_residuals=False):
+        outs, res = self.embedding.apply(params["embedding"], cats,
+                                         taps=taps, return_residuals=True)
+        loss = sum(jnp.sum(o * c) for o, c in zip(outs, self.coefs)) / BATCH
+        return (loss, res) if return_residuals else loss
+
+
+def _quantized_case(world, mesh, tmp):
+    """The JAX layer at ``storage_dtype="int8"`` on the mesh: its tree
+    after `set_weights`, its forward on a global batch, and its tree after
+    each of three sgd steps of `_JaxLinear`."""
+    rng = np.random.RandomState(40 + world)
+    jl = JaxDistributedEmbedding(
+        [JaxEmbedding(r, w, combiner=c) for r, w, c in QUANT_TABLES],
+        mesh=mesh, storage_dtype="int8")
+    weights = [(rng.randn(r, w) * rng.choice([0.01, 1.0], size=(r, 1)))
+               .astype(np.float32) for r, w, _ in QUANT_TABLES]
+    params = {"embedding": jl.set_weights(weights)}
+    batches = [[rng.randint(0, min(r, 12), size=(BATCH, 2)).astype(np.int32)
+                for r, _, _ in QUANT_TABLES] for _ in range(STEPS + 1)]
+    coefs = [rng.randn(BATCH, w).astype(np.float32)
+             for _, w, _ in QUANT_TABLES]
+    outs = [np.asarray(o) for o in jl.apply(
+        params["embedding"], _jax_inputs(batches[0]))]
+    tree = _np(params["embedding"])
+    init, step = jax_training.make_sparse_train_step(
+        _JaxLinear(jl, coefs), "sgd", lr=LR)
+    state, trees = init(params), []
+    dummy = jnp.zeros((BATCH, 1), jnp.float32)
+    for cats in batches[:STEPS]:
+        params, state, _ = step(params, state, dummy, _jax_inputs(cats),
+                                dummy)
+        trees.append(_np(params["embedding"]))
+    spec = {"tables": QUANT_TABLES, "tree": tree, "batches": batches,
+            "coefs": coefs, "lr": LR, "dir": str(tmp)}
+    return spec, {"outputs": outs, "tree": tree, "trees": trees}
+
+
 def _dlrm_case(world, mesh):
     """The JAX package's DLRM on the mesh: its logits on a global batch,
     then one ``sort`` adagrad step from its initial weights."""
@@ -561,6 +621,9 @@ def world_run(tmp_path_factory):
             spec, refs["shims"] = _shims_case(world, mesh)
             cases["shims"] = ("shims", spec)
             if world == 2:
+                spec, refs["quantized"] = _quantized_case(
+                    world, mesh, tmp_path_factory.mktemp("checkpoints"))
+                cases["quantized"] = ("quantized", spec)
                 spec, refs["dlrm"] = _dlrm_case(world, mesh)
                 cases["dlrm"] = ("dlrm", spec)
                 spec, refs["dlrm_fit"] = _dlrm_fit_case(world, mesh)
@@ -657,10 +720,11 @@ def test_what_stays_unported_raises(world_run, world):
         res = r["raises"]
         assert "not divisible" in res["indivisible"]
         for key in ("column_threshold", "fewer_tables_than_ranks",
-                    "data_parallel", "row_slice", "dp_input", "engine"):
+                    "data_parallel", "row_slice", "dp_input", "engine",
+                    "storage_dtype"):
             assert res[key] is None, (key, res[key])
         for key, item in (("ragged_exchange", "A5"),
-                          ("exchange_wire", "A6"), ("storage_dtype", "A6"),
+                          ("exchange_wire", "A6"),
                           ("bf16_all_gather", "A6"), ("hot_rows", "A7"),
                           ("gpu_embedding_size", "A8"),
                           ("vocab_slack", "A12"), ("engine_cache", "A13")):
@@ -997,3 +1061,43 @@ def test_wire_backward_is_forward_transpose(world_run, world):
         np.testing.assert_array_equal(
             res["id_all_gather"],
             np.concatenate([np.arange(3) + 10 * q for q in range(world)]))
+
+
+def _same_bytes(got, want) -> bool:
+    got, want = np.ascontiguousarray(got), np.ascontiguousarray(want)
+    return got.shape == want.shape and got.tobytes() == want.tobytes()
+
+
+def test_quantized_forward_and_sgd_steps_match_jax(world_run):
+    """int8 storage at W = 2: each rank's payload and scale shards are the
+    JAX tree's, its forward on its slice is the JAX layer's bit for bit,
+    and after each of three sgd steps the gathered payloads and scales are
+    the JAX step's bit for bit."""
+    ranks, refs = world_run(2)
+    ref = refs["quantized"]
+    for r in ranks:
+        res = r["quantized"]
+        for key in ("tp", "tp_scale"):
+            for got, want in zip(res["tree"][key], ref["tree"][key]):
+                assert got.dtype == want.dtype and _same_bytes(got, want)
+    for i, want in enumerate(ref["outputs"]):
+        got = np.concatenate([r["quantized"]["outputs"][i] for r in ranks])
+        assert _same_bytes(got, want), i
+    for s, want in enumerate(ref["trees"]):
+        for r in ranks:
+            got = r["quantized"]["steps"][s]
+            for key in ("tp", "tp_scale"):
+                for b, (g, w) in enumerate(zip(got[key], want[key])):
+                    assert _same_bytes(g, w), (s, key, b)
+
+
+def test_quantized_resume_is_bit_equal_on_every_rank(world_run):
+    """Resume at W = 2 (int8 adagrad): each rank saves its own file, a
+    fresh layer restores it, and 2 more steps end bit-equal to the
+    uninterrupted run's on every rank (payloads, scales, accumulators)."""
+    ranks, _ = world_run(2)
+    for r in ranks:
+        res = r["quantized"]["resume"]
+        assert res["files"] == ["meta.json", "rank_0.pt", "rank_1.pt"]
+        assert res["keys"] == ["opt_state", "params"]
+        assert res["equal"] and res["tensors"] > 0, res

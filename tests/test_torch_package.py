@@ -274,14 +274,26 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
 
 @pytest.mark.parametrize("kwargs", [
     dict(mesh=object(), world_size=2), dict(mesh=object()),
-    dict(exchange_wire="bf16-sr"),
-    dict(storage_dtype="fp8"), dict(gpu_embedding_size=100),
-    dict(hot_rows=8), dict(exchange_wire="bf16"),
-    dict(storage_dtype="int8"), dict(vocab_slack=4),
+    dict(exchange_wire="bf16-sr"), dict(gpu_embedding_size=100),
+    dict(hot_rows=8), dict(exchange_wire="bf16"), dict(vocab_slack=4),
 ])
 def test_features_outside_the_slice_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
         DistributedEmbedding(_tiny_tables(), device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("storage_dtype,payload", [
+    ("fp8", torch.float8_e4m3fn), ("int8", torch.int8)])
+def test_quantized_storage_builds(storage_dtype, payload):
+    """Quantized storage (ported with the checkpoint slice): every tp
+    bucket quantized, its payload 1-byte with a float32 scale a row."""
+    layer = DistributedEmbedding(_tiny_tables(), device="cpu",
+                                 storage_dtype=storage_dtype)
+    assert layer.quantized_buckets == list(range(len(layer.tp)))
+    for table, scale in zip(layer.tp, layer.tp_scale):
+        assert table.dtype == payload
+        assert scale.dtype == torch.float32
+        assert tuple(scale.shape) == (table.shape[0], 1)
 
 
 def test_world_size_without_a_process_group_raises():

@@ -31,6 +31,7 @@ from distributed_embeddings_tpu_torch.parallel.staging import (DeviceStager,
                                                                dp_slice,
                                                                stage_dp_batch)
 from distributed_embeddings_tpu_torch.serving.engine import InferenceEngine
+from distributed_embeddings_tpu_torch.utils import checkpoint
 
 # each rank's slices stay on the CPU (a thread a rank: one stager each)
 CPU_STAGE = DeviceStager("cpu")
@@ -398,6 +399,94 @@ def train(spec) -> dict:
     return {"steps": steps, "payloads": payloads}
 
 
+class _Linear(torch.nn.Module):
+    """The quantized case's model: the mean over this rank's slice of the
+    outputs times its slice of the coefficients."""
+
+    def __init__(self, layer, coefs):
+        super().__init__()
+        self.embedding = layer
+        self.coefs = list(dp_slice([torch.from_numpy(c) for c in coefs]))
+
+    def loss_fn(self, numerical, cats, labels, taps=None,
+                return_residuals=False):
+        out = self.embedding(list(cats), taps=taps,
+                             return_residuals=return_residuals)
+        outs, res = out if return_residuals else (out, None)
+        loss = sum((o * c).sum() for o, c in zip(outs, self.coefs)) \
+            / self.coefs[0].shape[0]
+        return (loss, res) if return_residuals else loss
+
+
+def _quantized_model(spec, seed=0) -> _Linear:
+    layer = DistributedEmbedding(
+        [Embedding(r, w, combiner=c, device="meta")
+         for r, w, c in spec["tables"]], device="cpu",
+        storage_dtype="int8", generator=torch.Generator().manual_seed(seed))
+    return _Linear(layer, spec["coefs"])
+
+
+def _steps(model, step, state, batches):
+    dummy = torch.zeros((model.coefs[0].shape[0], 1))
+    for cats in batches:
+        model, state, _ = step(model, state, dummy,
+                               stage_dp_batch(cats, CPU_STAGE), dummy)
+    return state
+
+
+def _flat(tree) -> list:
+    if torch.is_tensor(tree):
+        return [tree]
+    items = (tree.values() if isinstance(tree, dict)
+             else tree if isinstance(tree, (list, tuple)) else [])
+    return [t for x in items for t in _flat(x)]
+
+
+def quantized(spec) -> dict:
+    """int8 storage: the layer loaded from the JAX package's tree (payload
+    and scale shards), the forward of this rank's slice, the gathered tree
+    after each of three sgd steps of `_Linear`; then resume (int8 adagrad):
+    2 steps, a checkpoint of this rank, 2 more; a fresh layer restored from
+    it and trained the same 2 steps, compared tensor for tensor."""
+    model = _quantized_model(spec)
+    layer = model.embedding
+    layer.load_state_dict(convert.params_from_jax(spec["tree"], layer))
+    tree = convert.params_to_numpy(layer)
+    outs = layer(stage_dp_batch(spec["batches"][0], CPU_STAGE))
+    init, step = training.make_sparse_train_step(model, "sgd", lr=spec["lr"])
+    state, steps = init(model), []
+    for cats in spec["batches"][:3]:
+        state = _steps(model, step, state, [cats])
+        steps.append(convert.params_to_numpy(layer))
+
+    batches = spec["batches"]
+    first = _quantized_model(spec)
+    init, step = training.make_sparse_train_step(first, "adagrad",
+                                                 lr=spec["lr"])
+    state = _steps(first, step, init(first), batches[:2])
+    checkpoint.save_checkpoint(spec["dir"], {"params": first.state_dict(),
+                                             "opt_state": state}, step=2)
+    state = _steps(first, step, state, batches[2:4])
+    dist.barrier()
+    fresh = _quantized_model(spec, seed=1)
+    init2, step2 = training.make_sparse_train_step(fresh, "adagrad",
+                                                   lr=spec["lr"])
+    restored = checkpoint.restore_checkpoint(
+        spec["dir"], {"params": fresh.state_dict(),
+                      "opt_state": init2(fresh)}, step=2)
+    state2 = _steps(fresh, step2, restored["opt_state"], batches[2:4])
+    a = _flat(fresh.state_dict()) + _flat(state2)
+    b = _flat(first.state_dict()) + _flat(state)
+    return {"outputs": [o.detach().numpy() for o in outs], "tree": tree,
+            "steps": steps, "resume": {
+                "files": sorted(os.listdir(os.path.join(spec["dir"],
+                                                        "step_2"))),
+                "keys": checkpoint.checkpoint_keys(spec["dir"], step=2),
+                "tensors": len(a),
+                "equal": len(a) == len(b) and all(
+                    torch.equal(x, y) for x, y in zip(a, b))}}
+
+
 def dlrm(spec) -> dict:
     """A DLRM built on every rank (its constructor broadcasts rank 0's
     MLPs) and loaded from the JAX package's tree: the logits of this
@@ -436,7 +525,8 @@ KINDS = {"dlrm": dlrm, "dlrm_fit": dlrm_fit, "forward": forward,
          "weights": weights, "broadcast": broadcast, "shims": shims,
          "raises": raises, "train": train, "placement": placement,
          "mp_forward": mp_forward, "dense_step": dense_step,
-         "engine": engine, "convert": convert_round_trip, "wire": wire_ops}
+         "engine": engine, "convert": convert_round_trip, "wire": wire_ops,
+         "quantized": quantized}
 
 
 def main(rank: int, world: int, init_method: str, spec_path: str,
