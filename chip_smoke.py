@@ -312,6 +312,39 @@ Phases, each printing JSON lines before the last line:
      0.02 float32 sgd and int8 sgd, and cut Tiny int8 adagrad; the float32
      model's global weights through memory-mapped ``.npy`` files into a
      fresh model, bit for bit. About 130 s in all.
+  13. (after 12) the exchange wire formats and hot rows. 13a
+     (`hot_tiny_phase`): full-size Tiny V3 with ``hot_rows=HOT_ROWS``
+     (16,384 a bucket) at world 1, adagrad: one observed step, then
+     ``sync_hot_rows(admit=True)``, then 3 steps held against a CPU hot
+     trainer from the card's state (`train_against_cpu(..., hot=True)`:
+     the canonical touched rows as phase 5 holds them; the hot rows and
+     their accumulators by change, `hold_hot`, at their
+     `gradient_scale` conditioning, eps widened by the card's atomics
+     counts), launches 4 / 1 / 1 a step (the miss lookups' weighted
+     `lookup_combine`, bucket 1's segment sum and `adagrad_rows`); the
+     hit rate by bucket on the first held batch (`hot_stats`) and the
+     host ms of one batch's observation and of the admission; the step's
+     median beside a hot-less Tiny step's; one profiled step, the
+     profiler warmed by the step before (`warm_window`), with the card's
+     idle share and the device ms of the split, the hot gather and the
+     hot update (`StepWindow.range_ms` of the layer's ``hot:*`` ranges);
+     ``fit(hot_sync_every=2)`` for 4 steps;
+     one request of 65,536 rows through `InferenceEngine` against the CPU
+     engine on the synced weights. 13b (`hot_wire_phase`): Tiny at W = 2
+     over gloo with ``exchange_wire="bf16-sr"`` and the hot shard
+     (`hot_wire_rank`): the wired collectives probed on CUDA tensors
+     (`hot_wire_probe`), one observed step, rank 0's keys admitted on
+     both ranks, 3 steps; then world 1 (no wire) with rank 0's admitted
+     rows, each step from rank 0's MLP: losses within 2^-8, touched and
+     hot rows within what one rounding of each term can move them
+     (`hold_bounded`), the bytes and dtypes each collective moves beside
+     float32's, the stochastic rounding's device ms. 13c
+     (`wire_placement_phase`): 11e's tables (Criteo x 0.02, width 128)
+     and thresholds with combiner "sum" on 2 ranks over
+     ``exchange_wire="bf16"``: outputs within one bfloat16 rounding of
+     world 1's, every float payload bfloat16, each id payload at the
+     plan's id wire, the id bytes a rank step. 13b and 13c share one
+     spawn of 2 ranks (`wire_world_phase`, `wire_rank`).
   7. the kernels line (each kernel's launches by path, the world paths'
      summed over the ranks; `sgd_rows` with ``copy_ms``, an
      `index_select` + `index_copy_` of the same rows, as a second
@@ -326,6 +359,7 @@ is not beside this script.
 
 import contextlib
 import ctypes
+import gc
 import json
 import math
 import os
@@ -1407,9 +1441,66 @@ def dlrm_tap_cond(torch, model, batch, touched):
     return out
 
 
+def hot_arrays(torch, model, state):
+    """Per hot bucket of `model`'s layer, on the CPU: [its hot rows, then
+    the table-shaped tensors of its hot optimizer state]."""
+    layer = model.embedding
+    return [[layer._hot_entry(b)[1].detach().cpu().clone()]
+            + [x.detach().cpu().clone() for x in state["emb"]["hot"][i]
+               if torch.is_tensor(x)]
+            for i, b in enumerate(layer._hot_buckets)]
+
+
+def hold_hot(torch, label, after, other, before, cond, counts, steps=1,
+             term_eps=0.0):
+    """The hot shards of the card's trainer (`after`: `hot_arrays`)
+    against another trainer's (`other`), from `before`, by change, as
+    `hold` holds a table: per hot bucket, the bar widened by each
+    element's conditioning t/|g| (`cond`: `hot_scale`) and its eps by
+    (n - 1) 2^-24 for a row the card's atomics summed from n contributions
+    (`counts`: `hot_counts`) and by `term_eps` (`hot_eps`). Returns the
+    largest error held."""
+    check(len(cond) == len(counts) == len(after) == len(other),
+          f"{label}: {len(cond)} hot shards' conditioning and {len(counts)} "
+          f"counts for {len(after)} hot shards")
+    worst = 0.0
+    for b, (got_b, want_b, before_b, c, n) in enumerate(zip(
+            after, other, before, cond, counts)):
+        eps = hot_eps(torch, n, term_eps)
+        for i, (got, want, old) in enumerate(zip(got_b, want_b, before_b)):
+            err, _, _ = hold(torch, f"{label}: hot shard {b} "
+                             + ("rows" if i == 0 else f"state {i - 1}"),
+                             got, want, old, steps, "change", c, eps=eps)
+            worst = max(worst, err)
+    return worst
+
+
+def hold_bounded(torch, what, got, want, before, steps, bound):
+    """`got` against `want` (CPU tensors) within rtol 1e-4 of the change
+    from `before` plus `steps` ulps of the values, plus `bound` (per
+    element, broadcast): how far the difference between the two trainers
+    can move each element. Returns the largest |got - want|."""
+    got64, want64 = got.double(), want.double()
+    change = (want64 - before.double()).abs()
+    rounding = steps * ulp(torch, torch.maximum(
+        torch.maximum(got.abs(), want.abs()), before.abs())).double()
+    bar = TRAIN_TOL["rtol"] * change + rounding + bound.double()
+    diff = (got64 - want64).abs()
+    bad = diff > bar
+    if bool(bad.any()):
+        i = int((diff - bar).flatten().argmax())
+        raise SmokeFailure(
+            f"{what}: {int(bad.sum())} of {diff.numel()} elements disagree; "
+            f"worst {diff.flatten()[i].item()} against a change of "
+            f"{change.flatten()[i].item()} and a bound of "
+            f"{bar.flatten()[i].item()}")
+    return diff.max().item() if diff.numel() else 0.0
+
+
 def train_against_cpu(torch, capture, kind, mode, step, model, state,
                       cpu_step, cpu_model, batches, scaled=None,
-                      contrib=False, term_eps=0.0, tap_cond=None):
+                      contrib=False, term_eps=0.0, tap_cond=None,
+                      hot=False):
     """Drive the card's trainer over `batches`, each step held against a
     CPU trainer started from the card's state before it (the model runs
     chaotically at lr 0.01: over several steps the two trainers' rounding
@@ -1430,8 +1521,11 @@ def train_against_cpu(torch, capture, kind, mode, step, model, state,
     ReLU flips' by twice it. `tap_cond` (with `contrib`): a function
     (torch, cpu model, batch, touched) -> per bucket the tap gradients'
     own conditioning (`dlrm_tap_cond`), of which twice (the terms' and
-    the tap's own rounding) joins the row sums'. Returns the card's state
-    and a dict of what was held."""
+    the tap's own rounding) joins the row sums'. `hot` (with `scaled`):
+    the layer's hot shards too, each step (`hold_hot`: their conditioning
+    from the CPU's `gradient_scale`, the card's counts from its own hot
+    sums). Returns the card's state and a dict of what was held."""
+    from distributed_embeddings_tpu_torch.layers import dist_model_parallel
     from distributed_embeddings_tpu_torch.ops import sparse_update
     from distributed_embeddings_tpu_torch.training import gradient_scale
     out = dict(losses=[], cpu_losses=[], max_abs_err=0.0, changes=[],
@@ -1439,8 +1533,12 @@ def train_against_cpu(torch, capture, kind, mode, step, model, state,
     for batch in batches:
         cpu_model.load_state_dict(model.state_dict())
         cpu_state = to_cpu(torch, state)
-        (state, loss, touched, counts), masks = relu_masks(
-            model, lambda: run_trainer(step, model, state, [batch], capture))
+        hot_before = hot_arrays(torch, model, state) if hot else None
+        with (Capture(dist_model_parallel, "_dense_sum") if hot
+              else contextlib.nullcontext()) as card_hot:
+            (state, loss, touched, counts), masks = relu_masks(
+                model, lambda: run_trainer(step, model, state, [batch],
+                                           capture))
         touched = touched_rows(torch, model, touched)
         eps = [e + term_eps for e in sum_eps(torch, model, counts, touched)]
         before = trained_arrays(torch, cpu_model, cpu_state, touched)
@@ -1470,6 +1568,15 @@ def train_against_cpu(torch, capture, kind, mode, step, model, state,
                      or model.embedding.tp[int(k.rsplit(".", 1)[1])]
                      .data_ptr() in counts}
         cpu_after = trained_arrays(torch, cpu_model, cpu_state, touched)
+        if hot:
+            # the conditioning from the CPU's gradient scale, the counts
+            # from the card's sums (its atomics add them)
+            out["hot_err"] = max(out.get("hot_err", 0.0), hold_hot(
+                torch, kind, hot_arrays(torch, model, state),
+                hot_arrays(torch, cpu_model, cpu_state), hot_before,
+                hot_scale(torch, cpu_model.embedding, scale),
+                hot_counts(torch, card_hot.calls)))
+            del card_hot, hot_before
         del cpu_state
         err, change, moved = hold_trainers(
             torch, kind, trained_arrays(torch, model, state, touched),
@@ -3628,14 +3735,29 @@ class StepWindow:
         return (marks[self.WINDOW_MARKS[0]].start,
                 marks[self.WINDOW_MARKS[1]].start)
 
-    def profile(self):
+    def _device(self):
+        """The window and the device events inside it (without the device
+        side of the host's annotated ranges)."""
         from torch.autograd import DeviceType
         w0, w1 = self._window()
-        device = [e for e in self.prof.events()
-                  if e.device_type == DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False)
-                  and not e.name.startswith(ANNOTATED_RANGES)
-                  and w0 <= e.time_range.start and e.time_range.end <= w1]
+        return w0, w1, [e for e in self.prof.events()
+                        if e.device_type == DeviceType.CUDA
+                        and not getattr(e, "is_user_annotation", False)
+                        and not e.name.startswith(ANNOTATED_RANGES)
+                        and w0 <= e.time_range.start
+                        and e.time_range.end <= w1]
+
+    def unix_intervals(self):
+        """The window (start, end) and its device intervals in µs of the
+        Unix clock, the clock of the profiler's trace (`card_profile`)."""
+        w0, w1, device = self._device()
+        base = self.prof.profiler.kineto_results.trace_start_ns() / 1e3
+        return (base + w0, base + w1), [
+            (base + e.time_range.start, base + e.time_range.end)
+            for e in device]
+
+    def profile(self):
+        w0, w1, device = self._device()
         wall = w1 - w0
         busy = busy_union((e.time_range.start, e.time_range.end)
                           for e in device)
@@ -3667,6 +3789,17 @@ class StepWindow:
         return [(b - a) * 1e3 for i, (a, b) in enumerate(
             zip(self.ends, self.ends[1:]), start=1)
             if i >= 2 and i not in skip]
+
+
+def warm_window(torch, step_once) -> StepWindow:
+    """`step_once()` three times under a `StepWindow` whose window is the
+    third call: the first call's end starts the profiler, the second
+    warms it."""
+    window = StepWindow(torch, 1)
+    for i in range(3):
+        step_once()
+        window.on_step(i, None, None)
+    return window
 
 
 def dlrm_step_kernels(torch, cuda_lookup, cuda_sparse, model, batch, rate):
@@ -5333,6 +5466,898 @@ def checkpoint_phase(torch, cuda_lookup, counted):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------------ 13. wire formats and hot rows
+HOT_ROWS = 16384              # the hot shard's capacity a bucket
+HOT_WIRE = "bf16-sr"          # 13b's exchange wire
+HOT_FIT_STEPS = 4
+HOT_SYNC_EVERY = 2
+# one rounding of a term on 13b's wire: the forward's round to nearest
+# (2^-9 of it) and the gradient's stochastic rounding (a step, 2^-7 at
+# most), with room
+WIRE_TERM_EPS = 2.0 ** -7 + 2.0 ** -8
+WIRE_PLACEMENT = "bf16"       # 13c's exchange wire
+
+
+def hot_ranges():
+    """The layer's profiler ranges of the hot split, gather and update."""
+    from distributed_embeddings_tpu_torch.layers import dist_model_parallel
+    return (dist_model_parallel.HOT_SPLIT_RANGE,
+            dist_model_parallel.HOT_GATHER_RANGE,
+            dist_model_parallel.HOT_UPDATE_RANGE)
+
+
+def hot_tiny_phase(torch, cuda_lookup, cuda_sparse, counted):
+    """Phase 13a: full-size Tiny V3 with ``hot_rows=HOT_ROWS`` at world 1,
+    adagrad. One observed step (the hot sets empty), then
+    ``sync_hot_rows(admit=True)``, then TRAIN_STEPS steps held against a
+    CPU hot trainer from the card's state (`train_against_cpu` with the
+    hot shards: the canonical touched rows as phase 5 holds them, the hot
+    rows and their accumulators by change at their sums' conditioning);
+    launches 4 / 1 / 1 a step (the miss lookups' weighted
+    `lookup_combine`, bucket 1's segment sum and `adagrad_rows`; bucket 0
+    dense, the hot update torch operations); the hit rate by bucket on
+    the first held batch, and the host ms of observing one batch
+    (`observe_hot_ids`) and of the admission. Then the step timed beside
+    a hot-less Tiny step, one step profiled (`warm_window`: the card's
+    idle share, device ms of the split, the hot gather and the hot
+    update), `fit(hot_sync_every=HOT_SYNC_EVERY)` for HOT_FIT_STEPS steps,
+    and one request of BATCH rows through `InferenceEngine` held against
+    the CPU engine on the synced weights. Returns the launch counts by
+    path."""
+    from distributed_embeddings_tpu_torch.models.synthetic import (
+        SYNTHETIC_MODELS, InputGenerator, SyntheticModel)
+    from distributed_embeddings_tpu_torch.serving.engine import (
+        InferenceEngine)
+    from distributed_embeddings_tpu_torch.training import (
+        fit, make_sparse_train_step)
+    tiny = SYNTHETIC_MODELS["tiny"]
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    batches = list(InputGenerator(tiny, BATCH, alpha=1.05,
+                                  num_batches=1 + TRAIN_STEPS, seed=0))
+    model = SyntheticModel(tiny, device="cuda", hot_rows=HOT_ROWS,
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(0))
+    layer = model.embedding
+    init, step = make_sparse_train_step(model, "adagrad", lr=TRAIN_LR)
+    state = init(model)
+    check(layer._hot_buckets == list(range(len(layer.tp))),
+          f"hot_tiny: hot buckets {layer._hot_buckets}")
+    emit(phase="hot_setup", path="train_hot", seconds=time.perf_counter()
+         - t0, hot_rows=[layer.plan.tp_buckets[b].hot_rows
+                         for b in layer._hot_buckets])
+    # one observed step, the hot sets empty; then the admission
+    t0 = time.perf_counter()
+    layer.observe_hot_ids(batches[0][1])
+    host_ms = {"observe": (time.perf_counter() - t0) * 1e3}
+    _, state, _ = step(model, state, *batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state["emb"] = layer.sync_hot_rows(state["emb"], admit=True)
+    torch.cuda.synchronize()
+    host_ms["admit"] = (time.perf_counter() - t0) * 1e3
+    resident = {b: s["resident"] for b, s in layer.hot_stats().items()}
+    check(all(n == layer.plan.tp_buckets[b].hot_rows
+              for b, n in resident.items()),
+          f"hot_tiny: residents {resident} after the admission")
+    # the first held batch's ids observed against the resident sets: the
+    # hit rate the steps see
+    t0 = time.perf_counter()
+    layer.observe_hot_ids(batches[1][1])
+    host_ms["observe_resident"] = (time.perf_counter() - t0) * 1e3
+    stats = layer.hot_stats()
+
+    # the main path: counts to 0, drive, read; each step held
+    t0 = time.perf_counter()
+    cpu_model = SyntheticModel(tiny, device="cpu", hot_rows=HOT_ROWS,
+                               generator=torch.Generator().manual_seed(0))
+    _, cpu_step = make_sparse_train_step(cpu_model, "adagrad", lr=TRAIN_LR)
+    host_ms["cpu_model"] = (time.perf_counter() - t0) * 1e3
+    set_counts(cuda_lookup, *counted)
+    state, held = train_against_cpu(
+        torch, rows_capture(cuda_sparse, "adagrad"), "adagrad", "change",
+        step, model, state, cpu_step, cpu_model, batches[1:],
+        scaled="dense", hot=True)
+    torch.cuda.synchronize()
+    counts = {"train_hot": read_counts(cuda_lookup, *counted)}
+    want = {"lookup_combine": 4, "segment_sum_sorted": 1, "adagrad_rows": 1}
+    check(counts["train_hot"] == per_step(want, TRAIN_STEPS),
+          f"train_hot launches {counts['train_hot']}, want {want} per step")
+    emit(phase="main_path", path="train_hot", steps=TRAIN_STEPS,
+         seconds=time.perf_counter() - t0, launches=counts["train_hot"],
+         losses=held["losses"], cpu_losses=held["cpu_losses"],
+         max_abs_err=held["max_abs_err"], hot_max_abs_err=held["hot_err"],
+         table_change_median=held["changes"].median().item(),
+         table_change_max=held["changes"].max().item(),
+         table_changes_past_rounding=held["moved"],
+         relu_flips=held["relu_flips"], ok=True)
+    emit(phase="hot_stats", path="train_hot", hot_rows=HOT_ROWS,
+         hit_rate={b: s["hit_rate"] for b, s in stats.items()},
+         stats=stats, host_ms=host_ms)
+    del held
+
+    # the step beside a hot-less one (the same weights), then a profile
+    torch.cuda.reset_peak_memory_stats()
+    state = step_time(torch, step, model, state, batches[1:], "train_hot")
+    plain = SyntheticModel(tiny, device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(0))
+    p_init, p_step = make_sparse_train_step(plain, "adagrad", lr=TRAIN_LR)
+    step_time(torch, p_step, plain, p_init(plain), batches[1:],
+              "train_hotless")
+    del plain, p_init, p_step
+    torch.cuda.empty_cache()
+    holder = {"state": state}
+    del state
+
+    def step_once():
+        holder["state"] = step(model, holder["state"], *batches[1])[1]
+    window = warm_window(torch, step_once)
+    ranges = {n: window.range_ms(n) for n in hot_ranges()}
+    emit(phase="hot_profile", path="train_hot", ranges=ranges,
+         **window.profile())
+    for name, r in ranges.items():
+        check(r["calls"] > 0 and r["device_ms"] > 0,
+              f"train_hot: the profiled step's {name} range: {r}, want "
+              "calls with device ms")
+    del window
+
+    # fit with the hot cadence: observe, admit every HOT_SYNC_EVERY steps
+    set_counts(cuda_lookup, *counted)
+    t0 = time.perf_counter()
+    _, state, hist = fit(model, lambda s: batches[1 + s % TRAIN_STEPS],
+                         HOT_FIT_STEPS, "adagrad", lr=TRAIN_LR,
+                         opt_state=holder["state"], log_every=0,
+                         hot_sync_every=HOT_SYNC_EVERY)
+    torch.cuda.synchronize()
+    del holder
+    counts["train_hot_fit"] = read_counts(cuda_lookup, *counted)
+    check(counts["train_hot_fit"] == per_step(want, HOT_FIT_STEPS),
+          f"train_hot_fit launches {counts['train_hot_fit']}, want {want} "
+          "per step")
+    check(all(map(math.isfinite, hist["loss"])),
+          f"train_hot_fit: losses {hist['loss']}")
+    emit(phase="main_path", path="train_hot_fit", steps=HOT_FIT_STEPS,
+         seconds=time.perf_counter() - t0, launches=counts["train_hot_fit"],
+         losses=hist["loss"], hot_sync_every=HOT_SYNC_EVERY,
+         hot_stats=hist["hot_stats"],
+         max_memory_allocated=torch.cuda.max_memory_allocated(), ok=True)
+    # the synced weights served: the card's engine against the CPU's
+    num, cats, _ = batches[1]
+    engine = InferenceEngine(model, device="cuda")
+    set_counts(cuda_lookup, *counted)
+    got = engine.predict((num, cats)).cpu()
+    torch.cuda.synchronize()
+    counts["serve_hot"] = read_counts(cuda_lookup, *counted)
+    check(counts["serve_hot"] == per_step({"lookup_combine": 4}, 1),
+          f"serve_hot launches {counts['serve_hot']}, want 4 lookups")
+    cpu_model.load_state_dict(model.state_dict())
+    want_logits = InferenceEngine(cpu_model, device="cpu").predict(
+        (num, cats))
+    err = (got - want_logits).abs().max().item()
+    ok = bool(torch.isfinite(got).all()) and torch.allclose(
+        got, want_logits, **SLICE_TOL)
+    emit(phase="hot_serve", path="serve_hot", rows=BATCH, max_abs_err=err,
+         ok=ok)
+    check(ok, f"serve_hot: the engine disagrees with the CPU's by {err}")
+    del model, cpu_model, engine, layer, state
+    torch.cuda.empty_cache()
+    return counts
+
+
+def hot_wire_probe(torch, dev, rank, world):
+    """13b's probes of the wired collectives on CUDA tensors over the
+    process group: the bf16 all_to_all equals the bf16 cast of the float32
+    one bit for bit; the compressed reduce-scatter equals the rank-order
+    sum of the bf16-rounded blocks; stochastic rounding on the card is
+    bit-equal to its plain version on a CPU copy; int16 ids round-trip
+    through their bytes, clipped values included. Returns {probe: ok}."""
+    from distributed_embeddings_tpu_torch.ops import wire
+    from distributed_embeddings_tpu_torch.parallel.mesh import gather_stack
+    gen = torch.Generator(device=dev).manual_seed(100 + rank)
+    out = {}
+    x = torch.randn((world, 64, 16), generator=gen, device=dev) * 3.0
+    out["all_to_all_bf16"] = torch.equal(
+        wire.wire_all_to_all(x, "bf16"),
+        wire.wire_all_to_all(x, "f32").to(torch.bfloat16).float())
+    y = torch.randn((world * 32, 16), generator=gen, device=dev)
+    blocks = gather_stack(y).to(torch.bfloat16).float()[
+        :, rank * 32:(rank + 1) * 32]
+    want = blocks[0]
+    for r in range(1, world):
+        want = want + blocks[r]
+    out["reduce_scatter_bf16"] = torch.equal(
+        wire.wire_psum_scatter(y, "bf16"), want)
+    z = torch.randn((world, 1000, 24), generator=gen, device=dev) * 2.0 ** 6
+    out["stochastic_round"] = torch.equal(
+        wire.stochastic_round_bf16(z).view(torch.int16).cpu(),
+        wire.stochastic_round_bf16(z.cpu()).view(torch.int16))
+    ids = torch.randint(-40000, 40000, (world, 8, 3), generator=gen,
+                        device=dev, dtype=torch.int32)
+    ids[:, 0, 0] = -70000
+    ids[:, 1, 1] = 32767
+    got = wire.wire_id_all_to_all(ids, "int16")
+    sent = gather_stack(ids)[:, rank]
+    out["ids_int16"] = torch.equal(got, sent.clamp(-2**15, 2**15 - 1))
+    torch.cuda.synchronize()
+    return out
+
+
+def admitted_rows(layer) -> dict:
+    """The layer's hot-resident rows as {global table id: sorted rows}
+    (each key's table and row in its plan, `_hot_key_rows`; a
+    column-sliced table's rows once)."""
+    out: dict = {}
+    for b, (keys, _) in layer.hot_resident_rows().items():
+        for gtid, _, _, rows in layer._hot_key_rows(b, keys):
+            out.setdefault(gtid, set()).update(rows.tolist())
+    return {g: sorted(r) for g, r in out.items()}
+
+
+def hot_shard_rows(torch, layer, state, extra=()) -> dict:
+    """Each hot-resident row by (global table id, row), on the CPU:
+    {gtid: (rows, values [n, w], accumulators [n, w], *extra)}, each of
+    `extra` a per-hot-bucket tensor over the shard's positions sliced
+    alike (a table's rows in one bucket: Tiny slices no columns)."""
+    out: dict = {}
+    for i, b in enumerate(layer._hot_buckets):
+        ids, rows = layer._hot_entry(b)
+        parts = [rows.detach().cpu(), state["emb"]["hot"][i][0].cpu()] + [
+            x[i].cpu() for x in extra]
+        for gtid, _, m, local in layer._hot_key_rows(b, ids.long().cpu()):
+            check(gtid not in out, f"table {gtid} is column-sliced")
+            out[gtid] = (local, *[x[m] for x in parts])
+    return out
+
+
+def hot_scale(torch, layer, scale) -> list:
+    """Per hot bucket, t/|g| of its shard from `gradient_scale` (0
+    without terms, infinite where they cancel exactly), on the CPU."""
+    out = []
+    for b in layer._hot_buckets:
+        g, t = scale[f"embedding.hot.{b}"]
+        out.append(torch.where(t > 0, t / g.abs(), torch.zeros_like(t))
+                   .cpu())
+    return out
+
+
+def hot_counts(torch, calls) -> list:
+    """Per hot update of a step (the `_dense_sum` calls of the layer's hot
+    update, one per hot bucket in bucket order: ids, contributions, rows),
+    how many contributions each row of the shard took, on the CPU."""
+    from distributed_embeddings_tpu_torch.ops.sparse_update import _dense_sum
+    return [_dense_sum(*c[:3])[1].cpu() for c in calls]
+
+
+def hot_eps(torch, n, term_eps=0.0):
+    """`hold`'s eps for hot rows summed from n contributions each by the
+    card's atomics: SUM_EPS + (n - 1) 2^-24, plus `term_eps`, [rows, 1]."""
+    return (SUM_EPS + term_eps + (n.double() - 1).clamp_min(0)
+            * 2.0 ** -24)[:, None]
+
+
+def hot_wire_rank(torch, rank, world, dev):
+    """Rank `rank`'s part of phase 13b (`wire_rank`): the wired
+    collectives probed on CUDA tensors (`hot_wire_probe`); full-width Tiny
+    with ``hot_rows=HOT_ROWS`` and ``exchange_wire=HOT_WIRE``, tables and
+    MLP from `seed_weights`; one observed step on its slice of batch 0
+    (the hot sets empty), ``sync_hot_rows(admit=True)`` (rank 0's keys on
+    every rank), then TRAIN_STEPS adagrad steps over its slices (launches
+    counted, each collective's calls, bytes and dtypes recorded by
+    `wire_payloads`), its MLP and dense state before each, its touched
+    rows, its hot rows and their accumulators before and after, and the
+    hot ranges' and the stochastic rounding's device ms in a profiled
+    step. Returns the rank's results."""
+    from distributed_embeddings_tpu_torch.models.synthetic import (
+        SYNTHETIC_MODELS, InputGenerator, SyntheticModel)
+    from distributed_embeddings_tpu_torch.ops import (cuda_lookup, cuda_sparse,
+                                                      cuda_tiled,
+                                                      sparse_update, wire)
+    from distributed_embeddings_tpu_torch.parallel.staging import (
+        DeviceStager, dp_slice, stage_dp_batch)
+    from distributed_embeddings_tpu_torch.tools import cuda_feature_probe
+    from distributed_embeddings_tpu_torch.training import (
+        make_sparse_train_step)
+    out = {"rank": rank, "device": str(dev)}
+    out["probe"] = hot_wire_probe(torch, dev, rank, world)
+    check(all(out["probe"].values()),
+          f"rank {rank}: wired collectives {out['probe']}")
+    tiny = SYNTHETIC_MODELS["tiny"]
+    global_batches = list(InputGenerator(tiny, BATCH, alpha=1.05,
+                                         num_batches=1 + TRAIN_STEPS,
+                                         seed=0))
+    stager = DeviceStager(dev)
+    batches = [stage_dp_batch(b, stager) for b in global_batches]
+    model = SyntheticModel(tiny, device=dev, hot_rows=HOT_ROWS,
+                           exchange_wire=HOT_WIRE,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(rank))
+    seed_weights(torch, model, WORLD_SEED)
+    layer = model.embedding
+    out["wires"] = [(b.wire_dtype, b.id_wire_dtype)
+                    for b in layer.plan.tp_buckets]
+    init, step = make_sparse_train_step(model, "adagrad", lr=TRAIN_LR)
+    state = init(model)
+    layer.observe_hot_ids(dp_slice(global_batches[0][1]))
+    _, state, loss0 = step(model, state, *batches[0])
+    state["emb"] = layer.sync_hot_rows(state["emb"], admit=True)
+    out["loss0"] = float(loss0)
+    out["admitted"] = admitted_rows(layer)
+    out["hot_before"] = hot_shard_rows(torch, layer, state)
+    counted = (cuda_sparse, cuda_tiled, cuda_feature_probe)
+    capture = rows_capture(cuda_sparse, "adagrad")
+    set_counts(cuda_lookup, *counted)
+    losses, touched, dense_before = [], {}, []
+    with wire_payloads(torch) as payloads:
+        for batch in batches[1:]:
+            dense_before.append(to_cpu(torch, (
+                {n: p for n, p in model.named_parameters()
+                 if p.requires_grad}, state["dense"])))
+            state, loss, step_rows, _ = run_trainer(
+                step, model, state, [batch], capture)
+            losses += loss
+            for ptr, parts in step_rows.items():
+                touched.setdefault(ptr, []).extend(parts)
+    torch.cuda.synchronize()
+    out["launches"] = read_counts(cuda_lookup, *counted)
+    out["losses"] = losses
+    out["dense_before"] = dense_before
+    out["wire"] = {k: dict(v, calls=v["calls"] / TRAIN_STEPS,
+                           bytes=v["bytes"] / TRAIN_STEPS)
+                   for k, v in payloads.items()}
+    key = tuple((c.shape[1], False) for c in batches[0][1])
+    groups, _ = layer._exchange_groups_for_key(key)
+    out["groups"] = len(groups)
+    out["sort_buckets"] = sum(
+        sparse_update._pick("auto", *layer.tp[b].shape) != "dense"
+        for b in {g.bucket for g in groups})
+    # the ids a step sends: per group its [world, B_l, f_max, k] block
+    # at the id wire's bytes (the groups are unweighted: no weights)
+    out["id_bytes"] = sum(BATCH * g.f_max * g.k * wire_id_itemsize(
+        torch, layer, g.bucket) for g in groups)
+    out["id_bytes_int32"] = sum(BATCH * g.f_max * g.k for g in groups
+                                ) * 4
+    rows = touched_rows(torch, model, touched)
+    tables = {}
+    for pl_ in layer.plan.tp_placements:
+        if pl_.rank != rank:
+            continue
+        idx = rows[pl_.bucket]
+        idx = idx[(idx >= pl_.row_offset)
+                  & (idx < pl_.row_offset + pl_.rows)]
+        on_dev = idx.to(dev)
+        tables[layer.strategy.table_groups[1][pl_.table_id]] = (
+            idx - pl_.row_offset,
+            layer.tp[pl_.bucket].detach().index_select(0, on_dev).cpu(),
+            state["emb"]["tp"][pl_.bucket][0].index_select(
+                0, on_dev).cpu())
+    out["tables"] = tables
+    out["hot"] = hot_shard_rows(torch, layer, state)
+    out["mlp"] = {n: p.detach().cpu().clone() for n, p in
+                  model.named_parameters() if p.requires_grad}
+    holder = {"state": state}
+    del state
+
+    def step_once():
+        holder["state"] = step(model, holder["state"], *batches[1])[1]
+    window = warm_window(torch, step_once)
+    out["window_us"], out["device_intervals_us"] = (
+        window.unix_intervals())
+    prof = window.profile()
+    out["profile"] = dict(
+        wall_ms=prof["wall_ms"],
+        rank_device_busy_ms=prof["device_busy_ms"],
+        ranges={n: window.range_ms(n)
+                for n in hot_ranges() + (wire.SR_RANGE,)})
+    del window
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    return out
+
+
+def wire_id_itemsize(torch, layer, b) -> int:
+    """Bytes an id of bucket b crosses the id wire at: 2 on the int16 wire,
+    else its id dtype's."""
+    if layer.plan.tp_buckets[b].id_wire_dtype == "int16":
+        return 2
+    return torch.empty((), dtype=layer._id_dtype(b)).element_size()
+
+
+def hot_wire_phase(torch, ranks, ranks_s):
+    """Phase 13b: the ranks' `hot_wire_rank` results (`ranks`, from
+    `wire_world_phase`'s spawn, which took `ranks_s` s), then the world-1
+    hot trainer in
+    this process (float32, no wire) with the same weights: the probes;
+    the plan's wires; launches a rank step from its plan; step 0 from the
+    same weights, then rank 0's admitted rows admitted here
+    (`_hot_keys_of`), each held step from rank 0's MLP and dense state
+    before it; the losses within one bfloat16 rounding (2^-8 relative);
+    the ranks' admissions and hot rows the same; every touched row of the
+    ranks' tables and accumulators (from their seeds, over all 1 +
+    TRAIN_STEPS steps), and the hot rows and theirs (over the held steps),
+    within rtol 1e-4 of the change plus an ulp a step plus how far one
+    rounding of each term (WIRE_TERM_EPS, and SUM_EPS) can move the
+    element, summed over the steps (`hold_bounded`: adagrad's change moves
+    by lr eps t / sqrt(acc), its accumulator by 2 eps t |g|, with t and g
+    from `gradient_scale` on world 1, twice for room); every float
+    payload of the wire bfloat16; the bytes by
+    collective beside float32's (the float bytes twice, the ids at
+    4 bytes). Returns the ranks' launch counts, summed."""
+    from distributed_embeddings_tpu_torch.layers import dist_model_parallel
+    from distributed_embeddings_tpu_torch.models.synthetic import (
+        SYNTHETIC_MODELS, InputGenerator, SyntheticModel)
+    from distributed_embeddings_tpu_torch.ops import cuda_sparse
+    from distributed_embeddings_tpu_torch.training import (
+        SPARSE_HP, gradient_scale, make_sparse_train_step)
+    world = 2
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= world else "gloo"
+    label = f"world{world}_hot_wire"
+    emit(phase="world_setup", path=label, config="tiny", world=world,
+         backend=backend, device_count=cards, hot_rows=HOT_ROWS,
+         exchange_wire=HOT_WIRE)
+    summed = dict.fromkeys(ALL_KERNELS, 0)
+    for r in ranks:
+        check(all(w == HOT_WIRE for w, _ in r["wires"]),
+              f"{label}: rank {r['rank']} plans the wires {r['wires']}")
+        want_r = {"lookup_combine": r["groups"],
+                  "segment_sum_sorted": r["sort_buckets"],
+                  "adagrad_rows": r["sort_buckets"]}
+        check(r["launches"] == per_step(want_r, TRAIN_STEPS),
+              f"{label}: rank {r['rank']} launches {r['launches']}, "
+              f"want {want_r} per step")
+        for k, v in r["launches"].items():
+            summed[k] += v
+        floats = {n: [d for d in v["dtypes"]
+                      if d.startswith(("float", "bfloat"))]
+                  for n, v in r["wire"].items() if n != "all_reduce"}
+        check(all(d == ["bfloat16"] for d in floats.values() if d),
+              f"{label}: rank {r['rank']}'s wire moved {floats}")
+        check(r["admitted"] == ranks[0]["admitted"],
+              f"{label}: rank {r['rank']} admitted other rows than "
+              "rank 0")
+        for gtid, (rows_r, vals, acc) in r["hot"].items():
+            rows0, vals0, acc0 = ranks[0]["hot"][gtid]
+            check(torch.equal(rows_r, rows0) and torch.equal(vals, vals0)
+                  and torch.equal(acc, acc0),
+                  f"{label}: rank {r['rank']}'s hot rows of table "
+                  f"{gtid} differ from rank 0's")
+
+    # the world-1 hot trainer: the same weights, no wire
+    t0 = time.perf_counter()
+    tiny = SYNTHETIC_MODELS["tiny"]
+    batches = list(InputGenerator(tiny, BATCH, alpha=1.05,
+                                  num_batches=1 + TRAIN_STEPS, seed=0))
+    model = SyntheticModel(tiny, device="cuda", hot_rows=HOT_ROWS,
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(0))
+    seed_weights(torch, model, WORLD_SEED)
+    layer = model.embedding
+    strat = layer.strategy
+    placed = {strat.table_groups[1][pl_.table_id]: pl_
+              for pl_ in layer.plan.tp_placements}
+    dense = {n: p for n, p in model.named_parameters()
+             if p.requires_grad}
+    init, step = make_sparse_train_step(model, "adagrad", lr=TRAIN_LR)
+    state = init(model)
+    capture = rows_capture(cuda_sparse, "adagrad")
+    # per element, how far the wire can move it: each step's gradient
+    # g carries up to eps t of error (t the sum of its terms'
+    # magnitudes, `gradient_scale`), which moves adagrad's change by
+    # lr eps t / sqrt(acc) and its accumulator by 2 eps t |g|, twice
+    # for the room; summed over the steps (a sum of changes that cancel
+    # does not hide a step's error)
+    eps_ada = SPARSE_HP["adagrad"]["eps"]
+    bound, hot_bound, hot_n, losses = {}, None, None, []
+
+    def add_bound(key, g, t, acc, eps, into):
+        step_b = (2 * eps * TRAIN_LR * t / torch.sqrt(acc + eps_ada),
+                  2 * eps * t * (g.abs() + eps * t))
+        if key not in into:
+            into[key] = step_b
+        else:
+            into[key] = tuple(a + b for a, b in zip(into[key], step_b))
+    for s, batch in enumerate(batches):
+        if s:
+            mlp_r, dense_state_r = ranks[0]["dense_before"][s - 1]
+            with torch.no_grad():
+                for n, p in dense.items():
+                    p.copy_(mlp_r[n])
+                for n, a in state["dense"]["sum_of_squares"].items():
+                    a.copy_(dense_state_r["sum_of_squares"][n])
+        scale = gradient_scale(model, *batch)
+        with Capture(dist_model_parallel, "_dense_sum") as sums:
+            state, loss, _, _ = run_trainer(step, model, state, [batch],
+                                            capture)
+        losses += loss
+        eps = SUM_EPS + WIRE_TERM_EPS
+        for r in ranks:
+            for gtid, (idx, _, _) in r["tables"].items():
+                pl_ = placed[gtid]
+                g, t = scale[f"embedding.tp.{pl_.bucket}"]
+                at = (idx + pl_.row_offset).cuda()
+                acc = state["emb"]["tp"][pl_.bucket][0].index_select(
+                    0, at)
+                add_bound(gtid, g.index_select(0, at).double(),
+                          t.index_select(0, at).double(), acc.double(),
+                          eps, bound)
+        if s:
+            n = hot_counts(torch, sums.calls)
+            hot_n = n if hot_n is None else [
+                torch.maximum(a, b) for a, b in zip(hot_n, n)]
+            step_hot = {}
+            for i, b in enumerate(layer._hot_buckets):
+                g, t = scale[f"embedding.hot.{b}"]
+                e = hot_eps(torch, n[i], WIRE_TERM_EPS).to(g.device)
+                add_bound(i, g.double(), t.double(),
+                          state["emb"]["hot"][i][0].double(), e,
+                          step_hot)
+            hot_bound = step_hot if hot_bound is None else {
+                i: tuple(a + b for a, b in zip(hot_bound[i], v))
+                for i, v in step_hot.items()}
+        else:
+            state["emb"] = layer.sync_hot_rows(
+                state["emb"], new_keys=layer._hot_keys_of(
+                    ranks[0]["admitted"]))
+            check(admitted_rows(layer) == ranks[0]["admitted"],
+                  f"{label}: world 1 admitted other rows than the "
+                  "ranks")
+        del scale
+    torch.cuda.synchronize()
+    rank_losses = [ranks[0]["loss0"]] + ranks[0]["losses"]
+    check(all(abs(a - b) <= 2.0 ** -8 * abs(b)
+              for a, b in zip(rank_losses, losses)),
+          f"{label}: losses {rank_losses}, world 1 {losses}")
+    worst, held_rows, steps = 0.0, 0, 1 + TRAIN_STEPS
+    for r in ranks:
+        for gtid, (idx, vals, acc) in r["tables"].items():
+            pl_ = placed[gtid]
+            on_dev = (idx + pl_.row_offset).cuda()
+            before = table_rows(torch, strat, gtid, WORLD_SEED,
+                                "cuda").index_select(0, idx.cuda()).cpu()
+            b_tab, b_acc = (x.cpu() for x in bound[gtid])
+            worst = max(worst, hold_bounded(
+                torch, f"{label}: table {gtid}", vals,
+                layer.tp[pl_.bucket].detach().index_select(
+                    0, on_dev).cpu(), before, steps, b_tab))
+            hold_bounded(torch, f"{label}: table {gtid} accumulator",
+                         acc, state["emb"]["tp"][pl_.bucket][0]
+                         .index_select(0, on_dev).cpu(),
+                         torch.full_like(acc, 0.1), steps, b_acc)
+            held_rows += int(idx.numel())
+    # the hot rows by (table, row), from rank 0's after the admission
+    one = hot_shard_rows(torch, layer, state, (
+        [hot_bound[i][0] for i in range(len(layer._hot_buckets))],
+        [hot_bound[i][1] for i in range(len(layer._hot_buckets))]))
+    hot_worst = 0.0
+    for gtid, (rows_r, vals, acc) in ranks[0]["hot"].items():
+        rows1, vals1, acc1, b_tab, b_acc = one[gtid]
+        check(torch.equal(rows_r, rows1),
+              f"{label}: table {gtid}: other hot rows in world 1")
+        _, vals0, acc0 = ranks[0]["hot_before"][gtid]
+        hot_worst = max(hot_worst, hold_bounded(
+            torch, f"{label}: hot rows of table {gtid}", vals, vals1,
+            vals0, TRAIN_STEPS, b_tab))
+        hold_bounded(torch, f"{label}: hot accumulators of table "
+                     f"{gtid}", acc, acc1, acc0, TRAIN_STEPS, b_acc)
+    emit(phase="main_path", path=label, backend=backend, world=world,
+         exchange_wire=HOT_WIRE, hot_rows=HOT_ROWS, steps=TRAIN_STEPS,
+         ranks_seconds=ranks_s, world1_seconds=time.perf_counter() - t0,
+         launches_by_rank=[r["launches"] for r in ranks],
+         losses=rank_losses, world1_losses=losses, max_abs_err=worst,
+         hot_max_abs_err=hot_worst, touched_rows_held=held_rows,
+         hot_rows_held=sum(len(v[0]) for v in one.values()),
+         probe=ranks[0]["probe"], ok=True)
+    for r in ranks:
+        # float32's bytes of the same step: every wire float at 4
+        # bytes, the ids at their int32 width (the all-reduce is not
+        # the wire's)
+        a2a = r["wire"]["all_to_all_single"]["bytes"]
+        f32 = {n: (v["bytes"] if n == "all_reduce" else 2 * v["bytes"])
+               for n, v in r["wire"].items()}
+        f32["all_to_all_single"] = (2 * (a2a - r["id_bytes"])
+                                    + r["id_bytes_int32"])
+        emit(phase="hot_wire_payloads", path=label, rank=r["rank"],
+             step=r["wire"], id_bytes=r["id_bytes"],
+             f32_bytes=f32, profile=r["profile"],
+             max_memory_allocated=r["max_memory_allocated"])
+    if backend == "gloo":
+        emit(phase="world_card_profile", path=label, backend=backend,
+             **card_profile(ranks))
+    del model, layer, state
+    torch.cuda.empty_cache()
+    return summed
+
+
+@contextlib.contextmanager
+def collective_calls(torch):
+    """Within the block, every call the wire's collectives make of
+    `torch.distributed`, in order: (collective, input dtype, input
+    bytes)."""
+    import torch.distributed as dist
+    names = ("all_to_all_single", "all_gather_into_tensor",
+             "reduce_scatter_tensor")
+    real = {n: getattr(dist, n) for n in names}
+    seen = []
+
+    def recording(name):
+        def call(out, inp, *args, **kwargs):
+            seen.append((name, str(inp.dtype).replace("torch.", ""),
+                         inp.numel() * inp.element_size()))
+            return real[name](out, inp, *args, **kwargs)
+        return call
+    for n in names:
+        setattr(dist, n, recording(n))
+    try:
+        yield seen
+    finally:
+        for n in names:
+            setattr(dist, n, real[n])
+
+
+class WireLinear:
+    """13c's model: the layer's outputs times fixed coefficients (one
+    ``[B, w]`` array an input, this rank's slice), summed and averaged
+    over the rank's rows: a loss whose tap gradients are the coefficients
+    over the batch."""
+
+    def __init__(self, torch, layer, coefs):
+        from distributed_embeddings_tpu_torch.parallel.staging import dp_slice
+        self.embedding = layer
+        self.coefs = [c.to(layer.device) for c in dp_slice(
+            [torch.from_numpy(c) for c in coefs])]
+
+    def named_parameters(self):
+        return self.embedding.named_parameters()
+
+    def loss_fn(self, numerical, cats, labels, taps=None,
+                return_residuals=False):
+        outs, res = self.embedding(list(cats), taps=taps,
+                                   return_residuals=True)
+        loss = sum((o * c).sum() for o, c in zip(outs, self.coefs)) \
+            / self.coefs[0].shape[0]
+        return (loss, res) if return_residuals else loss
+
+
+def wire_placement_layer(torch, device, seed, **extra):
+    """13c's layer on `device`: DLRM x AMP_WORLD_SCALE's tables (Criteo
+    sizes, width 128, one-hot) with combiner "sum" (DLRM's are
+    passthroughs, which the planner keeps on the float32 wire, as the JAX
+    package's does), AMP_WORLD_KW's thresholds (11e's plan), the one-hot
+    gathers through lookup_combine, `extra` (the exchange wire); the
+    tables drawn by `seed_tables` alike at every world size."""
+    from distributed_embeddings_tpu_torch.layers.dist_model_parallel import (
+        DistributedEmbedding)
+    from distributed_embeddings_tpu_torch.layers.embedding import Embedding
+    from distributed_embeddings_tpu_torch.models.dlrm import (
+        dlrm_initializer, scaled_table_sizes)
+    layer = DistributedEmbedding(
+        [Embedding(v, 128, combiner="sum",
+                   embeddings_initializer=dlrm_initializer(), device="meta")
+         for v in scaled_table_sizes(AMP_WORLD_SCALE)], device=device,
+        lookup_path="pallas", **AMP_WORLD_KW, **extra,
+        generator=torch.Generator(device=device).manual_seed(seed))
+    seed_tables(torch, layer, PLACEMENT_SEED)
+    return layer
+
+
+def wire_placement_batch(layer):
+    """13c's global batch (a seeded ClickGenerator stream's first) and the
+    loss's coefficients."""
+    import numpy as np
+    from distributed_embeddings_tpu_torch.models.synthetic import (
+        ClickGenerator)
+    sizes = [c["input_dim"] for c in layer.strategy.global_configs]
+    num, cats, labels = ClickGenerator(sizes, 13, BATCH,
+                                       seed=PLACEMENT_SEED).batch(0)
+    rng = np.random.RandomState(PLACEMENT_SEED)
+    coefs = [rng.randn(BATCH, 128).astype(np.float32) for _ in sizes]
+    return (num, cats, labels), coefs
+
+
+def wire_placement_rank(torch, rank, world, dev, out_dir):
+    """Rank `rank`'s part of phase 13c (`wire_rank`):
+    `wire_placement_layer` with ``exchange_wire=WIRE_PLACEMENT``, its plan
+    and wires; the outputs of its slice of the batch; one sgd step of
+    `WireLinear` (launches counted; every collective call's dtype and
+    bytes, `collective_calls`, beside the ids each should send by the
+    plan: per tp group its [world, B_l, f_max, k] block, per row input its
+    [B_l] ids, at the id wire's bytes). The outputs go to ``out_dir``;
+    returns the rank's results."""
+    from distributed_embeddings_tpu_torch.ops import (cuda_lookup, cuda_sparse,
+                                                      cuda_tiled)
+    from distributed_embeddings_tpu_torch.parallel.staging import (
+        DeviceStager, stage_dp_batch)
+    from distributed_embeddings_tpu_torch.tools import cuda_feature_probe
+    from distributed_embeddings_tpu_torch.training import (
+        make_sparse_train_step)
+    out = {"rank": rank, "device": str(dev)}
+    layer = wire_placement_layer(torch, dev, rank,
+                                 exchange_wire=WIRE_PLACEMENT)
+    groups_ = layer.strategy.table_groups
+    out["plan"] = dict(dp=len(groups_[0]), tp=len(groups_[1]),
+                       placements=len(layer.plan.tp_placements),
+                       buckets=len(layer.plan.tp_buckets),
+                       row=len(groups_[2]))
+    out["wires"] = ([(b.wire_dtype, b.id_wire_dtype)
+                     for b in layer.plan.tp_buckets],
+                    [(t.wire_dtype, t.id_wire_dtype)
+                     for t in layer.plan.row_tables])
+    batch, coefs = wire_placement_batch(layer)
+    model = WireLinear(torch, layer, coefs)
+    num, cats, labels = stage_dp_batch(batch, DeviceStager(dev))
+    with torch.no_grad():
+        outs = layer(cats)
+    torch.save(torch.cat(outs, dim=1).cpu(),
+               os.path.join(out_dir, f"forward{rank}.pt"))
+    del outs
+    init, step = make_sparse_train_step(model, "sgd", lr=TRAIN_LR)
+    state = init(model)
+    counted = (cuda_sparse, cuda_tiled, cuda_feature_probe)
+    set_counts(cuda_lookup, *counted)
+    with collective_calls(torch) as calls, \
+            wire_payloads(torch) as payloads:
+        _, state, loss = step(model, state, num, cats, labels)
+    torch.cuda.synchronize()
+    out["launches"] = read_counts(cuda_lookup, *counted)
+    out["loss"] = float(loss)
+    out["calls"] = calls
+    out["wire"] = payloads
+    key = tuple((1, False) for _ in layer.strategy.input_groups[1])
+    tp_groups, _ = layer._exchange_groups_for_key(key)
+    out["groups"] = len(tp_groups)
+    out["tp_buckets_updated"] = len({g.bucket for g in tp_groups})
+    out["row_tables"] = len(layer.row)
+    b_l = BATCH // world
+    row_ids = [cats[i] for i in layer.strategy.input_groups[2]]
+    out["want_ids"] = (
+        [("uint8", 2 * BATCH * g.f_max * g.k)
+         if layer.plan.tp_buckets[g.bucket].id_wire_dtype == "int16"
+         else (str(layer._id_dtype(g.bucket)).replace("torch.", ""),
+               BATCH * g.f_max * g.k
+               * wire_id_itemsize(torch, layer, g.bucket))
+         for g in tp_groups],
+        [("uint8", 2 * b_l) if layer.plan.row_tables[
+            layer.strategy.map_groups[2][j]].id_wire_dtype == "int16"
+         else (str(c.dtype).replace("torch.", ""),
+               b_l * c.element_size())
+         for j, c in enumerate(row_ids)])
+    return out
+
+
+def wire_placement_phase(torch, ranks, ranks_s, tmp):
+    """Phase 13c: the ranks' `wire_placement_rank` results (`ranks`, from
+    `wire_world_phase`'s spawn, their outputs in `tmp`), then the world-1
+    layer (no wire) in this process with the same per-table
+    weights: the plan (PLACEMENT_PLAN) and its wires on each rank
+    (WIRE_PLACEMENT on every tp bucket and row table); each rank's
+    outputs against world 1's on its rows within one bfloat16 rounding
+    (2^-8 of the value: a tp output crosses the wire once, a row table's
+    one-hot output is one shard's rounded row plus zeros); the launches a
+    rank step (a `lookup_combine` a tp group and a row table, a
+    `segment_sum_sorted` and an `sgd_rows` a tp bucket and a row shard);
+    every float payload of the wire's collectives bfloat16; the id
+    payloads in order, each at the plan's id wire (an int16 bucket's ids
+    as 2 bytes an id); the id bytes a rank step. Returns the ranks'
+    launch counts, summed."""
+    world = PLACEMENT_WORLD
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= world else "gloo"
+    label = f"world{world}_placement_wire"
+    emit(phase="placement_setup", path=label, world=world, backend=backend,
+         device_count=cards, table_scale=AMP_WORLD_SCALE,
+         exchange_wire=WIRE_PLACEMENT, **AMP_WORLD_KW)
+    summed = dict.fromkeys(ALL_KERNELS, 0)
+    floats = ("float32", "bfloat16", "float16")
+    for r in ranks:
+        check(r["plan"] == PLACEMENT_PLAN,
+              f"{label}: rank {r['rank']} plans {r['plan']}, want "
+              f"{PLACEMENT_PLAN}")
+        check(all(w == WIRE_PLACEMENT for w, _ in r["wires"][0]
+                  + r["wires"][1]),
+              f"{label}: rank {r['rank']} plans the wires {r['wires']}")
+        want_r = {"lookup_combine": r["groups"] + r["row_tables"],
+                  "segment_sum_sorted": (r["tp_buckets_updated"]
+                                         + r["row_tables"]),
+                  "sgd_rows": r["tp_buckets_updated"] + r["row_tables"]}
+        check(r["launches"] == per_step(want_r, 1),
+              f"{label}: rank {r['rank']} launches {r['launches']}, "
+              f"want {want_r}")
+        for k, v in r["launches"].items():
+            summed[k] += v
+        moved = sorted({d for _, d, _ in r["calls"] if d in floats})
+        check(moved == ["bfloat16"],
+              f"{label}: rank {r['rank']}'s wire moved {moved}")
+        ids = [(d, n) for c, d, n in r["calls"]
+               if c == "all_to_all_single" and d not in floats]
+        gathered = [(d, n) for c, d, n in r["calls"]
+                    if c == "all_gather_into_tensor"
+                    and d not in floats]
+        check(ids == r["want_ids"][0] and gathered == r["want_ids"][1],
+              f"{label}: rank {r['rank']}'s id payloads {ids} / "
+              f"{gathered}, the plan's {r['want_ids']}")
+    # world 1: the same weights, no wire
+    layer = wire_placement_layer(torch, "cuda", 0)
+    (_, cats, _), _ = wire_placement_batch(layer)
+    b_l = BATCH // world
+    worst = 0.0
+    for r in range(world):
+        got = torch.load(os.path.join(tmp, f"forward{r}.pt"))
+        with torch.no_grad():
+            want = torch.cat(layer([c[r * b_l:(r + 1) * b_l]
+                                    for c in cats]), dim=1).cpu()
+        check(got.shape == want.shape,
+              f"{label}: rank {r} outputs {tuple(got.shape)}, want "
+              f"{tuple(want.shape)}")
+        err = (got - want).abs()
+        worst = max(worst, err.max().item())
+        check(bool((err <= 2.0 ** -8 * want.abs()).all()),
+              f"{label}: rank {r}'s embedding outputs differ from world "
+              f"1's by {err.max().item()}, past one bfloat16 rounding")
+    del layer
+    torch.cuda.empty_cache()
+    emit(phase="main_path", path=label, backend=backend, world=world,
+         exchange_wire=WIRE_PLACEMENT, ranks_seconds=ranks_s,
+         launches_by_rank=[r["launches"] for r in ranks],
+         losses_by_rank=[r["loss"] for r in ranks],
+         max_abs_err=worst, ok=True)
+    for r in ranks:
+        ids = [n for c, d, n in r["calls"] if d not in floats]
+        emit(phase="placement_wire", path=label, rank=r["rank"],
+             step=r["wire"], id_bytes=sum(ids),
+             int16_id_payloads=sum(d == "uint8" for _, d, _ in
+                                   r["calls"]),
+             buckets_int16=sum(i == "int16" for _, i in
+                               r["wires"][0] + r["wires"][1]))
+    return summed
+
+
+def wire_rank(rank, world, backend, init_method, out_dir):
+    """One rank of phases 13b and 13c, which share one spawn (as phase 8's
+    ranks are spawned): `hot_wire_rank`, then `wire_placement_rank`, in
+    one process group. Results go to ``out_dir``."""
+    import torch
+    check("jax" not in sys.modules, f"rank {rank} imported jax")
+    import torch.distributed as dist
+    from distributed_embeddings_tpu_torch.parallel.mesh import (
+        initialize_distributed)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // (world + 1)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    initialize_distributed(backend, init_method, world, rank)
+    try:
+        out = {"hot": hot_wire_rank(torch, rank, world, dev)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["placement"] = wire_placement_rank(torch, rank, world, dev,
+                                               out_dir)
+        check("jax" not in sys.modules, f"rank {rank} imported jax")
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def wire_world_phase(torch) -> dict:
+    """Phases 13b and 13c: `wire_rank` on 2 ranks (sharing the card over
+    gloo when it is the machine's only one), then `hot_wire_phase` and
+    `wire_placement_phase` on their results. Returns the launch counts
+    by path."""
+    check(PLACEMENT_WORLD == 2, "13b and 13c share a spawn of 2 ranks")
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_wire")
+    try:
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(torch, wire_rank, 2, backend, tmp, "world2_wire")
+        ranks_s = time.perf_counter() - t0
+        return {"world2_hot_wire": hot_wire_phase(
+                    torch, [r["hot"] for r in ranks], ranks_s),
+                "world2_placement_wire": wire_placement_phase(
+                    torch, [r["placement"] for r in ranks], ranks_s, tmp)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5916,6 +6941,14 @@ def main() -> int:
     quant_counts.update(full_counts)
     quant_counts.update(checkpoint_phase(torch, cuda_lookup, counted))
 
+    # ---- 13. the wire formats and hot rows: full Tiny with a hot shard at
+    # world 1 against the CPU, its step, profile, fit and engine (13a);
+    # at W = 2 over the bf16-sr wire against world 1 (13b); the placement
+    # DLRM x 0.02 over the bf16 wire at W = 2 (13c); counts to 0, drive,
+    # read in each
+    wire_counts = hot_tiny_phase(torch, cuda_lookup, cuda_sparse, counted)
+    wire_counts.update(wire_world_phase(torch))
+
     # ---- 7. result lines; the kernels of DLRM's step carry their times
     # at its shapes too (`at_dlrm_fit`), and at a row shard's of the
     # placement phase (`at_placement`); their worst error covers them
@@ -5951,7 +6984,7 @@ def main() -> int:
              "train_fused": fused_counts,
              **{f"train_tiled_{k}": c for k, c in tiled_counts.items()},
              **dense_counts, **dlrm_counts, **world_counts, **amp_counts,
-             **quant_counts}
+             **quant_counts, **wire_counts}
 
     def by_path(kname):
         return {p: c[kname] for p, c in paths.items() if c[kname]}

@@ -22,12 +22,17 @@ to one tensor, on every rank of a world of the same size:
   * the per-table model's (``SyntheticModel(distributed=False)``)
     ``embedding[t]['embeddings']`` -> ``embedding_layers.{t}.embeddings``.
 
-A tree that carries hot shards is refused.
+  * a hot-sharded layer's ``embedding['hot'][b]`` (None, or ``{'ids':
+    [H] int32, 'rows': [H, w]}`` for a hot bucket) -> the buffers
+    ``embedding.hot_ids_{b}`` and ``embedding.hot_rows_{b}``, the same on
+    every rank (replicated, not stacked).
 
 The sparse train step's optimizer state maps the same way
 (`opt_state_from_jax`, `opt_state_to_numpy`): ``emb['tp'][b]`` and
 ``emb['row'][t]`` are tuples of ``[world, rows_max, w]`` state arrays
-(adam adds its step count), and the dense part's optax state (over the
+(adam adds its step count), ``emb['hot'][i]`` (one per hot bucket, in
+bucket order) tuples of ``[H, w]`` arrays, every rank taking them whole,
+and the dense part's optax state (over the
 MLPs and ``embedding['dp']``) becomes the port's
 `training.DenseOptimizer` state, keyed by parameter name. Towards the JAX
 layout, at world size > 1, each rank-local array is gathered from every
@@ -91,10 +96,15 @@ def _stacked_payload(t: torch.Tensor) -> np.ndarray:
 
 def _embedding_state(tree: dict, emb: DistributedEmbedding,
                      prefix: str) -> Dict[str, torch.Tensor]:
-    extra = set(tree) - {"dp", "tp", "row", "tp_scale"}
+    extra = set(tree) - {"dp", "tp", "row", "tp_scale", "hot"}
     if extra:
         raise ValueError(f"embedding params carry {sorted(extra)}, which the "
                          "port does not hold yet")
+    hot = tree.get("hot")
+    if bool(emb._hot_buckets) != (hot is not None):
+        raise ValueError(
+            "the tree's hot shards do not match the layer's: hot buckets "
+            f"{emb._hot_buckets}, hot {'present' if hot else 'absent'}")
     quantized = emb.quantized_buckets
     if bool(quantized) != (tree.get("tp_scale") is not None):
         raise ValueError(
@@ -102,6 +112,22 @@ def _embedding_state(tree: dict, emb: DistributedEmbedding,
             f"quantized buckets {quantized}, tp_scale "
             f"{'present' if tree.get('tp_scale') is not None else 'absent'}")
     state = {}
+    for b, entry in enumerate(hot or []):
+        if (entry is None) != (b not in emb._hot_buckets):
+            raise ValueError(f"hot {b}: the tree and the layer disagree on "
+                             "whether the bucket is hot-sharded")
+        if entry is None:
+            continue
+        ids, rows = emb._hot_entry(b)
+        for name, arr, want in (("ids", entry["ids"], ids),
+                                ("rows", entry["rows"], rows)):
+            arr = np.asarray(arr)
+            if arr.shape != tuple(want.shape):
+                raise ValueError(f"hot {b} {name}: shape {arr.shape}, the "
+                                 f"port expects {tuple(want.shape)}")
+            state[f"{prefix}hot_{name}_{b}"] = torch.from_numpy(
+                np.array(arr, dtype=np.int32 if name == "ids"
+                         else np.float32, order="C"))
     for b, scale in enumerate(tree.get("tp_scale") or []):
         if b not in quantized:
             state[f"{prefix}tp_scale.{b}"] = torch.empty((0, 1))
@@ -170,6 +196,12 @@ def params_to_numpy(model) -> dict:
             tree["tp_scale"] = [
                 _stacked(s) if b in emb.quantized_buckets else None
                 for b, s in enumerate(emb.tp_scale)]
+        if emb._hot_buckets:
+            tree["hot"] = [
+                {"ids": _array(emb._hot_entry(b)[0]),
+                 "rows": _array(emb._hot_entry(b)[1])}
+                if b in emb._hot_buckets else None
+                for b in range(len(emb.tp))]
         return tree
 
     if isinstance(model, DistributedEmbedding):
@@ -219,10 +251,10 @@ def _tree_from_named(named: Dict[str, torch.Tensor], model) -> dict:
 def opt_state_from_jax(np_state: dict, model) -> dict:
     """The port's opt state (`training.make_sparse_train_step`) from the
     JAX package's, every leaf already ``np.asarray``-ed: ``{"emb": {"tp":
-    [(acc[world, rows, w],)], "row": [...]}, "dense": optax chain
-    state}`` (plus ``"count"`` under a schedule); this rank takes its
-    ``[rank]`` shard of each state array. Tensors land on `model`'s
-    device."""
+    [(acc[world, rows, w],)], "row": [...], "hot": [(acc[H, w],)]},
+    "dense": optax chain state}`` (plus ``"count"`` under a schedule);
+    this rank takes its ``[rank]`` shard of each stacked state array and
+    the hot shards' state whole. Tensors land on `model`'s device."""
     layer = model.embedding
     dev = layer.device
     emb = np_state["emb"]
@@ -235,6 +267,12 @@ def opt_state_from_jax(np_state: dict, model) -> dict:
     if len(row) != len(layer.row):
         raise ValueError(f"opt state for {len(row)} row-sliced tables, the "
                          f"port's plan has {len(layer.row)}")
+    hot = [tuple(_tensor(x).to(dev) if np.ndim(x) == 2
+                 else int(np.asarray(x)) for x in entry)
+           for entry in emb.get("hot", [])]
+    if len(hot) != (len(layer._hot_buckets) if "hot" in emb else 0):
+        raise ValueError(f"opt state for {len(hot)} hot shards, the layer "
+                         f"has {len(layer._hot_buckets)}")
     dense: dict = {}
     for part in np_state["dense"]:
         # optax states are NamedTuples: read their fields (`count` is also
@@ -253,6 +291,8 @@ def opt_state_from_jax(np_state: dict, model) -> dict:
         elif "count" in fields:
             dense["schedule_count"] = int(np.asarray(part.count))
     state = {"emb": {"tp": tp, "row": row}, "dense": dense}
+    if "hot" in emb:
+        state["emb"]["hot"] = hot
     if "count" in np_state:
         state["count"] = int(np.asarray(np_state["count"]))
     return state
@@ -275,6 +315,11 @@ def opt_state_to_numpy(opt_state: dict, model) -> dict:
     out = {"emb": {"tp": stacks(opt_state["emb"]["tp"]),
                    "row": stacks(opt_state["emb"].get("row", []))},
            "dense": dense}
+    if "hot" in opt_state["emb"]:
+        # replicated: every rank holds the whole [H, w] arrays
+        out["emb"]["hot"] = [tuple(_array(x) if torch.is_tensor(x)
+                                   else int(x) for x in entry)
+                             for entry in opt_state["emb"]["hot"]]
     if "count" in opt_state:
         out["count"] = int(opt_state["count"])
     return out

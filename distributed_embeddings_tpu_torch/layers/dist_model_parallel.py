@@ -37,8 +37,22 @@ at global batch size and the dp->mp exchange is skipped. The ranks are
 those of the default ``torch.distributed`` process group
 (`parallel.mesh.initialize_distributed`); with data-parallel input each
 rank passes its own slice of the global batch
-(`parallel.staging.stage_dp_batch`). Offload and hot rows come in later
-slices (ROADMAP Queue A) and raise NotImplementedError here.
+(`parallel.staging.stage_dp_batch`). Offload comes in a later slice
+(ROADMAP Queue A8) and raises NotImplementedError here. Every exchange
+takes its bucket's (or row table's) wire formats, ``wire_dtype`` and
+``id_wire_dtype`` (`ops.wire`; ``exchange_wire`` picks the float one).
+
+Hot rows (``hot_rows=H``, data-parallel input; the JAX package's hot
+shard): each combined bucket keeps a replicated hot shard, the buffers
+``hot_ids_{b}`` (its membership, flat keys ``rank * rows_max + row``
+sorted and padded with the sentinel ``world * rows_max``) and
+``hot_rows_{b}`` ``[H, w]``. A tp group of a hot bucket splits its send
+block against the membership before the exchange: hit lanes are served
+on the dp side from the hot rows, the misses take the exchange and the
+lookup, and the hot rows train through their own taps, a dense sum over
+the ranks and the optimizer's masked rule. `sync_hot_rows` writes them
+back and admits a new set (`observe_hot_ids`' trackers, or given keys);
+`get_weights` overlays them.
 
 Quantized storage (``storage_dtype`` "int8" or "fp8", the JAX package's
 HBM-resident quantized buckets): each tp bucket holds a 1-byte payload,
@@ -92,8 +106,8 @@ from distributed_embeddings_tpu_torch.ops import (cuda_lookup, cuda_tiled,
 from distributed_embeddings_tpu_torch.ops.embedding_ops import (
     GroupSort, RaggedIds, SparseIds, canonical_id_sort)
 from distributed_embeddings_tpu_torch.ops.sparse_update import (
-    QUANTIZED_ROW_KINDS, SparseOptimizer, SparseRowGrad, concat_grads,
-    update_consumes_sort)
+    QUANTIZED_ROW_KINDS, SparseOptimizer, SparseRowGrad, _dense_sum,
+    concat_grads, update_consumes_sort)
 from distributed_embeddings_tpu_torch.parallel import mesh as pg
 from distributed_embeddings_tpu_torch.parallel.plan import (ShardedPlan,
                                                             lower_strategy)
@@ -101,15 +115,22 @@ from distributed_embeddings_tpu_torch.parallel.planner import (
     DistEmbeddingStrategy)
 from distributed_embeddings_tpu_torch.utils.device import (
     DeviceLike, default_generator, resolve_compute_dtype, resolve_device)
+from distributed_embeddings_tpu_torch.utils.hotness import HotnessTracker
 from distributed_embeddings_tpu_torch.utils.initializers import (
     ConcatInitializer, get_initializer)
 
 __all__ = ["DistEmbeddingStrategy", "DistributedEmbedding", "TapResiduals",
-           "LOOKUP_PATHS", "QUANTIZED_LOOKUP_RANGE", "broadcast_variables"]
+           "LOOKUP_PATHS", "QUANTIZED_LOOKUP_RANGE", "HOT_SPLIT_RANGE",
+           "HOT_GATHER_RANGE", "HOT_UPDATE_RANGE", "broadcast_variables"]
 
 # the profiler range of every quantized bucket's lookup (a no-op unless a
 # profiler is on), so a trace reads its device time
 QUANTIZED_LOOKUP_RANGE = "quantized:lookup"
+# the hot split's ranges, likewise: the membership split of a send block,
+# the hit lanes' gather and combine, a hot bucket's update
+HOT_SPLIT_RANGE = "hot:split"
+HOT_GATHER_RANGE = "hot:gather"
+HOT_UPDATE_RANGE = "hot:update"
 
 # the JAX package's DET_LOOKUP_PATH values: "auto", "xla" and "pallas" take
 # the gather-combine kernel, "tiled" and "fused" the sorted-stream lookups
@@ -186,13 +207,17 @@ class TapResiduals:
     shard-local ids over the global batch, ``row_ids[j]`` ``[1, B, k]``,
     with ``rows_max`` (past the shard) where the id is not this rank's,
     their effective weights ``row_w[j]`` (the scale folded in) and
-    ``row_sort[j]``. `key` is the exchange-group cache key."""
+    ``row_sort[j]``. Per exchange group of a hot bucket, the hot split's
+    ``hot_pos[g]`` ``[1, world, B_l, f_g, k_g]`` (each lane's position in
+    the hot shard, H on a miss) and ``hot_w[g]`` (its effective hit
+    weight, 0 on a miss), None for other groups (and the lists None
+    without hot groups). `key` is the exchange-group cache key."""
 
     __slots__ = ("key", "tp_ids", "tp_w", "tp_sort", "row_ids", "row_w",
-                 "row_sort")
+                 "row_sort", "hot_pos", "hot_w")
 
     def __init__(self, key, tp_ids, tp_w, tp_sort=None, row_ids=(),
-                 row_w=(), row_sort=None):
+                 row_w=(), row_sort=None, hot_pos=None, hot_w=None):
         self.key = key
         self.tp_ids = tp_ids
         self.tp_w = tp_w
@@ -200,6 +225,8 @@ class TapResiduals:
         self.row_ids = list(row_ids)
         self.row_w = list(row_w)
         self.row_sort = row_sort
+        self.hot_pos = hot_pos
+        self.hot_w = hot_w
 
 
 class _PreparedInput:
@@ -219,10 +246,12 @@ class _ExchangeGroup:
     gather-combine. `sel`/`offs` are the JAX package's [world, f_max]
     planning constants and `counts` the slots each rank fills; on the
     device, `sel_t` is `sel` flattened destination-major (the send
-    block's member order) and `offs_t` this rank's row of `offs`."""
+    block's member order) and `offs_t` this rank's row of `offs`.
+    `hot_meta`: the hot split's constants of a hot bucket's group
+    (`DistributedEmbedding._hot_group_meta`), else None."""
 
     __slots__ = ("bucket", "k", "class_inputs", "sel", "offs", "counts",
-                 "f_max", "need_w", "sel_t", "offs_t")
+                 "f_max", "need_w", "sel_t", "offs_t", "hot_meta")
 
     def __init__(self, bucket, k, class_inputs, sel, offs, counts, f_max,
                  need_w, id_dtype, device, rank):
@@ -238,6 +267,7 @@ class _ExchangeGroup:
                                      device=device)
         self.offs_t = torch.as_tensor(offs[rank], dtype=id_dtype,
                                       device=device)
+        self.hot_meta = None
 
 
 class DistributedEmbedding(nn.Module):
@@ -272,13 +302,18 @@ class DistributedEmbedding(nn.Module):
     takes) is the dtype of the outputs, the exchanged activations and the
     taps; the tables stay float32 (see the module docstring).
 
+    ``exchange_wire`` (None = "f32", "bf16", "bf16-sr") is the float wire
+    of the combined buckets and row tables; ``hot_rows`` (with
+    ``dp_input=True``) the hot shard's capacity a combined bucket (see
+    the module docstring).
+
     Arguments of the JAX package that the port takes at their defaults
     only: ``use_custom_kernel`` (True; False, the JAX package's XLA
     lookup, has no counterpart: the port's lookups never fall back, ROADMAP
     North star), ``mesh`` (None; the ranks are the
-    process group's, A3), ``gpu_embedding_size`` (None, A8), ``hot_rows``
-    (A7), ``exchange_wire`` (f32, A6) and ``vocab_slack`` (A12): any other
-    value raises NotImplementedError naming its item.
+    process group's, A3), ``gpu_embedding_size`` (None, A8) and
+    ``vocab_slack`` (A12): any other value raises NotImplementedError
+    naming its item.
     """
 
     def __init__(self,
@@ -328,9 +363,6 @@ class DistributedEmbedding(nn.Module):
         unported = [
             (gpu_embedding_size is not None, "host offload "
              "(gpu_embedding_size)", "A8 (offload)"),
-            (bool(hot_rows), "hot_rows", "A7 (hot-row replication)"),
-            (exchange_wire not in (None, "f32"), "a non-f32 exchange_wire",
-             "A6 (wire formats)"),
             (bool(vocab_slack), "vocab_slack", "A12 (store and vocab)"),
         ]
         for hit, what, item in unported:
@@ -354,6 +386,8 @@ class DistributedEmbedding(nn.Module):
             row_slice_threshold=row_thr,
             data_parallel_threshold=dp_thr,
             input_hotness=input_max_hotness,
+            hot_rows=(hot_rows if dp_input else 0),
+            exchange_wire=exchange_wire,
             storage_dtype=storage_dtype)
         if self.strategy.table_groups[1] and not all(
                 self.strategy.local_configs):
@@ -407,6 +441,21 @@ class DistributedEmbedding(nn.Module):
                                      dtype=torch.float32, device=self.device),
                          requires_grad=False)
             for rt in self.plan.row_tables])
+        # the hot shards (hot-row replication): per hot bucket b, buffers
+        # ``hot_ids_{b}`` [H] int32, the sorted membership keys padded with
+        # the sentinel, and ``hot_rows_{b}`` [H, w] float32, the same on
+        # every rank; the trackers are made lazily by observe_hot_ids /
+        # sync_hot_rows
+        self._hot_buckets = [b for b, bk in enumerate(self.plan.tp_buckets)
+                             if bk.hot_rows > 0]
+        for b in self._hot_buckets:
+            bk = self.plan.tp_buckets[b]
+            self.register_buffer(f"hot_ids_{b}", torch.empty(
+                (bk.hot_rows,), dtype=torch.int32, device=self.device))
+            self.register_buffer(f"hot_rows_{b}", torch.empty(
+                (bk.hot_rows, bk.width), dtype=torch.float32,
+                device=self.device))
+        self._hot_trackers: dict = {}
         # dp tables whose layer class overrides forward run that forward
         # on their table (the JAX package's `_dp_custom_layers`); the
         # layers are not submodules: the table is `dp[j]` itself
@@ -518,9 +567,260 @@ class DistributedEmbedding(nn.Module):
             rows = rt.rows_per_rank[self.rank]
             get_initializer(rt.initializer)(table.data[:rows], gen)
             table.data[rows:].zero_()
+        self._reset_hot()
         if self.world_size > 1:
             for table in self.dp:
                 dist.broadcast(table.data, src=0)
+
+    # -------------------------------------------------- hot-row replication
+    def _hot_sentinel(self, b: int) -> int:
+        """Bucket b's membership sentinel: one past the flat key space
+        ``world * rows_max`` (no (rank, row) key reaches it, and sentinel
+        padding keeps the membership sorted)."""
+        return self.world_size * max(self.plan.tp_buckets[b].rows_max, 1)
+
+    def _hot_entry(self, b: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Hot bucket b's (membership [H] int32, rows [H, w] float32)."""
+        return getattr(self, f"hot_ids_{b}"), getattr(self, f"hot_rows_{b}")
+
+    @torch.no_grad()
+    def _reset_hot(self) -> None:
+        """Empty every hot shard: all-sentinel membership (every lookup
+        misses, as on a layer without hot rows) and zero rows."""
+        for b in self._hot_buckets:
+            ids, rows = self._hot_entry(b)
+            ids.fill_(self._hot_sentinel(b))
+            rows.zero_()
+
+    def hot_resident_rows(self) -> dict:
+        """{bucket: (sorted valid int64 keys [n], rows [n, w])} as numpy:
+        the hot-resident rows of each hot bucket, authoritative while
+        resident (the source of `get_weights`' overlay). Empty on a layer
+        without hot rows, and for a bucket with none resident."""
+        out = {}
+        for b in self._hot_buckets:
+            ids, rows = self._hot_entry(b)
+            keys = ids.detach().cpu().numpy().astype(np.int64)
+            valid = (keys >= 0) & (keys < self._hot_sentinel(b))
+            if valid.any():
+                out[b] = (keys[valid], rows.detach().cpu().numpy()[valid])
+        return out
+
+    def _hot_tracker(self, b: int) -> HotnessTracker:
+        tr = self._hot_trackers.get(b)
+        if tr is None:
+            tr = HotnessTracker(self.plan.tp_buckets[b].hot_rows,
+                                promote_threshold=1)
+            self._hot_trackers[b] = tr
+        return tr
+
+    @staticmethod
+    def _host_flat_ids(x) -> np.ndarray:
+        """One input (dense ids, an (ids, weights) tuple, RaggedIds or
+        SparseIds; numpy or tensors) flattened to its id stream, int64
+        numpy (a RaggedIds' values past ``row_splits[-1]`` left out)."""
+        def host(a):
+            return (a.detach().cpu().numpy() if torch.is_tensor(a)
+                    else np.asarray(a))
+        if isinstance(x, tuple) and len(x) == 2 and not isinstance(
+                x, RaggedIds):
+            x = x[0]
+        if isinstance(x, RaggedIds):
+            splits = host(x.row_splits).reshape(-1)
+            x = host(x.values).reshape(-1)[int(splits[0]):int(splits[-1])]
+        elif isinstance(x, SparseIds):
+            x = x.values
+        return host(x).reshape(-1).astype(np.int64)
+
+    def observe_hot_ids(self, inputs) -> dict:
+        """Host-side frequency observation for hot-row admission (the JAX
+        package's `observe_hot_ids`): `inputs` are the forward's per-feature
+        inputs (numpy or tensors); each valid id (within its slot's table
+        rows, as the device split requires) counts toward its flat key
+        ``rank * rows_max + row_offset + id`` in its bucket's tracker.
+        Pure host work; at world size > 1 each rank observes what it is
+        given (its slice of the batch), and `sync_hot_rows(admit=True)`
+        admits rank 0's choice on every rank. Returns {bucket: hit rate}
+        of the observed stream against each tracker's resident set."""
+        if not self._hot_buckets:
+            return {}
+        per_bucket: dict = {b: [] for b in self._hot_buckets}
+        seg_rows = {b: {(pl.rank, pl.row_offset): pl.rows
+                        for pl in self.plan.tp_placements if pl.bucket == b}
+                    for b in self._hot_buckets}
+        for pos, i in enumerate(self.strategy.input_groups[1]):
+            ids = self._host_flat_ids(inputs[i])
+            for (rank, b, slot_idx) in self.plan.tp_input_slots[pos]:
+                if b not in per_bucket:
+                    continue
+                bucket = self.plan.tp_buckets[b]
+                off = bucket.slots[rank][slot_idx].row_offset
+                rows = seg_rows[b].get((rank, off), 0)
+                v = ids[(ids >= 0) & (ids < rows)]
+                per_bucket[b].append(rank * max(bucket.rows_max, 1) + off + v)
+        rates = {}
+        for b, chunks in per_bucket.items():
+            if not chunks:
+                continue
+            tr = self._hot_tracker(b)
+            tr.lookup_slots(np.concatenate(chunks), observe=True)
+            rates[b] = tr.hit_rate
+        return rates
+
+    def hot_keys_from_counts(self, counts: Sequence) -> dict:
+        """Admission keys from per-input id frequencies: ``counts[i]`` a
+        [rows] array for input i (truncated to its table's rows), or None.
+        Keys shared by several inputs add up. Returns {bucket: the top-H
+        keys by count, hottest first} for ``sync_hot_rows(new_keys=)``."""
+        if len(counts) != self._n_inputs:
+            raise ValueError(
+                f"counts has {len(counts)} entries, expected "
+                f"{self._n_inputs} (one per input)")
+        agg: dict = {b: ([], []) for b in self._hot_buckets}
+        for pos, i in enumerate(self.strategy.input_groups[1]):
+            if counts[i] is None:
+                continue
+            c = np.asarray(counts[i], np.int64).reshape(-1)
+            table = self.strategy.input_table_map[i]
+            c = c[:int(self.strategy.global_configs[table]["input_dim"])]
+            for (rank, b, slot_idx) in self.plan.tp_input_slots[pos]:
+                if b not in agg:
+                    continue
+                bucket = self.plan.tp_buckets[b]
+                off = bucket.slots[rank][slot_idx].row_offset
+                agg[b][0].append(rank * max(bucket.rows_max, 1) + off
+                                 + np.arange(len(c), dtype=np.int64))
+                agg[b][1].append(c)
+        out = {}
+        for b, (keys_l, counts_l) in agg.items():
+            if not keys_l:
+                continue
+            uniq, inv = np.unique(np.concatenate(keys_l),
+                                  return_inverse=True)
+            tot = np.zeros(len(uniq), np.int64)
+            np.add.at(tot, inv, np.concatenate(counts_l))
+            nz = tot > 0
+            order = np.argsort(-tot[nz], kind="stable")[
+                :self.plan.tp_buckets[b].hot_rows]
+            out[b] = uniq[nz][order]
+        return out
+
+    def _broadcast_top_keys(self, new_keys: dict) -> dict:
+        """Rank 0's admission keys on every rank: per hot bucket one [H +
+        1] int64 broadcast (slot 0 flags whether rank 0 observed the
+        bucket, the rest its keys padded with -1). Every rank's masks
+        feeding the exchange then agree."""
+        out = {}
+        for b in self._hot_buckets:
+            cap = self.plan.tp_buckets[b].hot_rows
+            buf = np.full((cap + 1,), -1, np.int64)
+            if b in new_keys:
+                buf[0] = 1
+                k = np.asarray(new_keys[b], np.int64).reshape(-1)[:cap]
+                buf[1:1 + len(k)] = k
+            t = torch.from_numpy(buf).to(self.device)
+            dist.broadcast(t, src=0)
+            buf = t.cpu().numpy()
+            if buf[0] == 1:
+                keys = buf[1:]
+                out[b] = keys[keys >= 0]
+        return out
+
+    def _hot_local(self, b: int, keys: torch.Tensor):
+        """(mask, local rows) of the flat `keys` that fall in this rank's
+        shard of bucket b."""
+        rows_max = max(self.plan.tp_buckets[b].rows_max, 1)
+        keys = keys.long()
+        mine = (keys >= self.rank * rows_max) & (
+            keys < (self.rank + 1) * rows_max)
+        return mine, keys[mine] - self.rank * rows_max
+
+    def _hot_gather(self, b: int, table: torch.Tensor,
+                    keys: torch.Tensor) -> torch.Tensor:
+        """Rows [H, w] of the rank-local `table` of bucket b at the flat
+        `keys` (zero at sentinel keys), on every rank: each rank reads the
+        keys in its shard, one all-gather at world size > 1, and each key's
+        row taken from its owner's block (the values copied, not summed)."""
+        rows_max = max(self.plan.tp_buckets[b].rows_max, 1)
+        mine, local = self._hot_local(b, keys)
+        part = torch.zeros((keys.shape[0], table.shape[1]),
+                           dtype=table.dtype, device=table.device)
+        part[mine] = table.index_select(0, local)
+        if self.world_size == 1:
+            return part
+        stack = pg.gather_stack(part)                   # [world, H, w]
+        owner = (keys.long() // rows_max).clamp(0, self.world_size - 1)
+        return stack[owner, torch.arange(keys.shape[0],
+                                         device=table.device)]
+
+    @torch.no_grad()
+    def sync_hot_rows(self, opt_states: Optional[dict] = None,
+                      new_keys: Optional[dict] = None,
+                      admit: bool = False) -> Optional[dict]:
+        """The hot shards' consistency step (the JAX package's
+        `sync_hot_rows`, in place where it returns new trees): while rows
+        are hot-resident the hot shard (and its optimizer state) is
+        authoritative for them, the canonical rows taking no gradient.
+
+        1. Every resident row, and its table-shaped optimizer state rows
+           (``opt_states["emb"]``-style ``{"tp": [...], "hot": [...]}``),
+           is written back into its owner rank's bucket table.
+        2. With `new_keys` ({bucket: flat keys}) or ``admit=True`` (the
+           trackers' top keys from `observe_hot_ids`; at world size > 1
+           rank 0's, broadcast to every rank), each bucket admits a new
+           hot set: the keys deduplicated in caller order, truncated to H,
+           sorted and padded with the sentinel; its rows and state rows
+           gathered from the just-synced canonical tables, so admitting
+           changes no value. The bucket's tracker takes the new resident
+           set and restarts its hit statistics.
+
+        Collective at world size > 1. Returns `opt_states` (its tensors
+        updated in place; None stays None)."""
+        if not self._hot_buckets:
+            return opt_states
+        if admit and new_keys is None:
+            new_keys = {b: tr.top_keys()
+                        for b, tr in self._hot_trackers.items()}
+            if self.world_size > 1:
+                new_keys = self._broadcast_top_keys(new_keys)
+        hot_states = (list(opt_states.get("hot", []))
+                      if opt_states is not None else [])
+        for pos_h, b in enumerate(self._hot_buckets):
+            ids, rows = self._hot_entry(b)
+            h_cap = self.plan.tp_buckets[b].hot_rows
+            sent = self._hot_sentinel(b)
+            table = self.tp[b].data
+            can_st = (list(opt_states["tp"][b]) if opt_states is not None
+                      else [])
+            hot_st = (list(hot_states[pos_h]) if pos_h < len(hot_states)
+                      else [])
+            mine, local = self._hot_local(b, ids)
+            table.index_copy_(0, local, rows[mine])
+            pairs = [(cx, hx) for cx, hx in zip(can_st, hot_st)
+                     if torch.is_tensor(cx) and cx.dim() == 2]
+            for cx, hx in pairs:
+                cx.index_copy_(0, local, hx[mine])
+            if new_keys is None or b not in new_keys:
+                continue
+            keys = np.asarray(new_keys[b], np.int64).reshape(-1)
+            keys = keys[(keys >= 0) & (keys < sent)]
+            _, first = np.unique(keys, return_index=True)
+            keys = keys[np.sort(first)][:h_cap]
+            pad = np.full((h_cap,), sent, np.int32)
+            pad[:len(keys)] = np.sort(keys).astype(np.int32)
+            ids.copy_(torch.from_numpy(pad))
+            rows.copy_(self._hot_gather(b, table, ids))
+            for cx, hx in pairs:
+                hx.copy_(self._hot_gather(b, cx, ids))
+            tr = self._hot_tracker(b)
+            tr.set_resident(keys)
+            tr.reset_stats()
+        return opt_states
+
+    def hot_stats(self) -> dict:
+        """Per-bucket admission and hit statistics of the trackers ({}
+        until `observe_hot_ids` or `sync_hot_rows` has run)."""
+        return {b: tr.stats() for b, tr in self._hot_trackers.items()}
 
     # ----------------------------------------------------------- input prep
     def _prepare_one(self, x, max_hotness: Optional[int]) -> _PreparedInput:
@@ -621,9 +921,12 @@ class DistributedEmbedding(nn.Module):
                     offs[r, j_g] = s.row_offset
                     slot_map[(b, r, j)] = (g, j_g)
             need_w = any(key[i][1] for i in class_inputs)
-            groups.append(_ExchangeGroup(
+            grp = _ExchangeGroup(
                 b, k, class_inputs, sel, offs, [len(lst) for lst in ranks],
-                f_max, need_w, self._id_dtype(b), self.device, self.rank))
+                f_max, need_w, self._id_dtype(b), self.device, self.rank)
+            if b in self._hot_buckets:
+                grp.hot_meta = self._hot_group_meta(grp)
+            groups.append(grp)
         assembly = [
             [(rank, *slot_map[(bb, rank, jj)]) for (rank, bb, jj) in slots]
             for slots in self.plan.tp_input_slots
@@ -783,29 +1086,22 @@ class DistributedEmbedding(nn.Module):
             self._bucket_store_dtype(b))
         return rows.reshape(tuple(ids.shape) + (payload.shape[1],))
 
+    def _send_block(self, grp: _ExchangeGroup, x: torch.Tensor):
+        """The group's member inputs of `x` [B_l, n_g, k] selected into its
+        send block [world, B_l, f_max, k], destination-major (block r holds
+        rank r's slots)."""
+        return x.index_select(1, grp.sel_t).reshape(
+            x.shape[0], self.world_size, grp.f_max, grp.k).transpose(0, 1)
+
     def _padded_id_exchange(self, grp: _ExchangeGroup, ids: torch.Tensor,
                             w: Optional[torch.Tensor]):
-        """Fixed-shape dp->mp id (+weight) exchange: the group's member
-        inputs selected into the send block [world, B_l, f_max, k],
-        destination-major (block r holds rank r's slots), through
-        `wire.wire_id_all_to_all` (weights through `wire.wire_all_to_all`).
-        The blocks arrive source-major, so flattening them gives the
-        global batch in order: [B, f_max, k]. At world size 1 the
-        selection alone."""
-        world, b_l = self.world_size, ids.shape[0]
-        ids_x = ids.index_select(1, grp.sel_t)
-        w_x = None if w is None else w.index_select(1, grp.sel_t)
-        if world == 1:
-            return ids_x, w_x
-        bucket = self.plan.tp_buckets[grp.bucket]
-
-        def block(x):
-            return x.reshape(b_l, world, grp.f_max, grp.k).transpose(0, 1)
-        ids_x = wire.wire_id_all_to_all(block(ids_x), bucket.id_wire_dtype)
-        if w_x is not None:
-            w_x = wire.wire_all_to_all(block(w_x), bucket.wire_dtype)
-            w_x = w_x.reshape(-1, grp.f_max, grp.k)
-        return ids_x.reshape(-1, grp.f_max, grp.k), w_x
+        """Fixed-shape dp->mp id (+weight) exchange: the group's send
+        blocks (`_send_block`) through `_exchange_send`. The blocks arrive
+        source-major, so flattening them gives the global batch in order:
+        [B, f_max, k]. At world size 1 the selection alone."""
+        return self._exchange_send(
+            grp, self._send_block(grp, ids),
+            None if w is None else self._send_block(grp, w))
 
     def _tp_bucket_exchange(self, out: torch.Tensor,
                             wire_dtype: str = "f32") -> torch.Tensor:
@@ -819,7 +1115,8 @@ class DistributedEmbedding(nn.Module):
 
     def _forward_local(self, group_ids, group_w, groups, taps=None,
                        res_ids=None, res_w=None, res_sort=None,
-                       sort_plan=None, mp_input=False) -> List[torch.Tensor]:
+                       sort_plan=None, mp_input=False,
+                       hot_res=(None, None)) -> List[torch.Tensor]:
         """Per exchange group: id exchange, row-offset add, fused lookup
         over the global batch, exchange back. Returns per group the
         [world_src, B_l, f_max, wf] block. With `mp_input`, `group_ids` /
@@ -829,31 +1126,177 @@ class DistributedEmbedding(nn.Module):
         leaf that requires grad and appended to ``taps["tp"]`` before it
         is exchanged; with `res_ids`/`res_w`/`res_sort`, the group's
         absolute ids, effective weights and its `GroupSort` (where its
-        `sort_plan` entry asks for one, else None) are appended there."""
+        `sort_plan` entry asks for one, else None) are appended there.
+
+        A group of a hot bucket (JAX `_forward_local` :1540-1638) splits
+        its send block against the bucket's hot shard before the exchange
+        (`_hot_split_send`): hit lanes cross as the sentinel ``rows_max``
+        at weight 0 and are served on the dp side from the hot rows
+        (`_hot_contrib`, added to the returned block; with `taps` a leaf
+        appended to ``taps["hot"]``, None there for other groups); the
+        miss lanes take the exchange and a weighted lookup of the ids
+        clamped below ``rows_max``, while the residuals keep the raw
+        sentinel, which the update drops. `hot_res` (two lists, or Nones)
+        gets each group's hit positions and weights."""
         ex_list = []
+        hot_taps = None if taps is None else taps.get("hot")
         for g, grp in enumerate(groups):
             bucket = self.plan.tp_buckets[grp.bucket]
+            rows_max = max(bucket.rows_max, 1)
+            hot = (self._hot_entry(grp.bucket)
+                   if bucket.hot_rows and not mp_input else None)
+            hot_pos = hot_w = None
             if mp_input:
                 ids_x, w_x = group_ids[g], group_w[g]
+            elif hot is not None:
+                with record_function(HOT_SPLIT_RANGE):
+                    send, w_send, hot_pos, hot_w = self._hot_split_send(
+                        grp, group_ids[g], group_w[g], hot[0])
+                ids_x, w_x = self._exchange_send(grp, send, w_send)
+                if w_x is None:
+                    # unweighted: hit lanes arrive as exactly rows_max, so
+                    # the effective weights (0 or the mean scale) are
+                    # rebuilt here instead of crossing the wire
+                    _, scale = _effective_weights(None, grp.k,
+                                                  bucket.combiner)
+                    w_x = torch.where(
+                        ids_x == rows_max,
+                        torch.zeros((), dtype=torch.float32,
+                                    device=ids_x.device),
+                        torch.full((), scale, dtype=torch.float32,
+                                   device=ids_x.device))
             else:
                 ids_x, w_x = self._padded_id_exchange(grp, group_ids[g],
                                                       group_w[g])
             ids_x = ids_x + grp.offs_t[None, :, None]
             sort_g = None
             if sort_plan is not None and sort_plan[g]:
-                sort_g = canonical_id_sort(ids_x, max(bucket.rows_max, 1))
-            out = self._tp_group_out(grp, ids_x, w_x, presorted=sort_g)
+                sort_g = canonical_id_sort(ids_x, rows_max)
+            if hot is not None:
+                # w_x is the effective weight already (scale folded in,
+                # hits zeroed): a plain weighted sum
+                out = self._group_lookup(self.tp[grp.bucket],
+                                         ids_x.clamp_max(rows_max - 1), w_x,
+                                         "sum", presorted=sort_g)
+            else:
+                out = self._tp_group_out(grp, ids_x, w_x, presorted=sort_g)
             out = out.reshape((self.world_size, -1) + tuple(out.shape[1:]))
             if taps is not None:
                 out = out.detach().requires_grad_()
                 taps["tp"].append(out)
             if res_ids is not None:
-                eff_w, _ = _effective_weights(w_x, grp.k, bucket.combiner)
+                eff_w = (w_x if hot is not None else
+                         _effective_weights(w_x, grp.k, bucket.combiner)[0])
                 res_ids.append(ids_x[None])
                 res_w.append(None if eff_w is None else eff_w[None])
                 res_sort.append(sort_g)
-            ex_list.append(self._tp_bucket_exchange(out, bucket.wire_dtype))
+            ex = self._tp_bucket_exchange(out, bucket.wire_dtype)
+            if hot is not None:
+                with record_function(HOT_GATHER_RANGE):
+                    contrib = self._hot_contrib(hot[1], hot_pos, hot_w,
+                                                bucket.hot_rows)
+                if hot_taps is not None:
+                    contrib = contrib.detach().requires_grad_()
+                    hot_taps.append(contrib)
+                ex = ex + contrib.to(ex.dtype)
+            elif hot_taps is not None:
+                hot_taps.append(None)
+            if hot_res[0] is not None:
+                hot_res[0].append(None if hot_pos is None else hot_pos[None])
+                hot_res[1].append(None if hot_w is None else hot_w[None])
+            ex_list.append(ex)
         return ex_list
+
+    # ------------------------------------------------------- the hot split
+    def _hot_group_meta(self, grp: _ExchangeGroup):
+        """The group's hot-split constants on the device (JAX
+        `_hot_group_meta`): ``base [world, f_max]``, each send lane's flat
+        key base ``rank * rows_max + row_offset``; ``lane_valid``, False on
+        the f_max padding lanes (which repeat input 0 and must not hit);
+        ``lane_rows``, each lane's table rows, past which an id would fold
+        into a neighbouring table's keys and must miss. Built once a group,
+        with it (`_ExchangeGroup.hot_meta`)."""
+        rows_max = max(self.plan.tp_buckets[grp.bucket].rows_max, 1)
+        world = self.world_size
+        rows_of = {(pl.rank, pl.row_offset): pl.rows
+                   for pl in self.plan.tp_placements
+                   if pl.bucket == grp.bucket}
+        base = np.zeros((world, grp.f_max), np.int64)
+        lane_valid = np.zeros((world, grp.f_max), bool)
+        lane_rows = np.zeros((world, grp.f_max), np.int64)
+        for r in range(world):
+            base[r, :] = r * rows_max
+            for j in range(int(grp.counts[r])):
+                base[r, j] += int(grp.offs[r, j])
+                lane_valid[r, j] = True
+                lane_rows[r, j] = rows_of.get((r, int(grp.offs[r, j])), 0)
+        dev = self.device
+        return (torch.as_tensor(base, dtype=torch.int32, device=dev),
+                torch.as_tensor(lane_valid, device=dev),
+                torch.as_tensor(lane_rows, dtype=torch.int32, device=dev))
+
+    def _hot_split_send(self, grp: _ExchangeGroup, ids: torch.Tensor,
+                        w: Optional[torch.Tensor], hot_ids: torch.Tensor):
+        """The hot-membership split of one group's send block (JAX
+        `_hot_split_send` :1815-1876): the destination-major block
+        [world, B_l, f_max, k] of ids, and of effective weights (the mean
+        scale folded in) where the group has weights; each lane's flat key
+        searched in the sorted membership (`sorted_member_positions`, no
+        sort). A lane hits only where its id is valid for its lane (0 <=
+        id < the lane's table rows, on a real lane). Hit lanes leave the
+        miss path as the sentinel ``rows_max`` (which every lookup clamps
+        and the update drops: the canonical rows of resident ids are never
+        touched, which lazy adam needs) at weight 0. Returns (send ids,
+        send weights or None, hit positions (H on a miss), hit weights (0
+        on a miss))."""
+        bucket = self.plan.tp_buckets[grp.bucket]
+        rows_max = max(bucket.rows_max, 1)
+        eff, scale = _effective_weights(w, grp.k, bucket.combiner)
+        send = self._send_block(grp, ids)
+        base, lane_valid, lane_rows = grp.hot_meta
+        keys = send + base[:, None, :, None].to(send.dtype)
+        pos, hit = embedding_ops.sorted_member_positions(hot_ids, keys)
+        hit = (hit & lane_valid[:, None, :, None] & (send >= 0)
+               & (send < lane_rows[:, None, :, None]))
+        send_m = torch.where(hit, torch.full((), rows_max, dtype=send.dtype,
+                                             device=send.device), send)
+        hot_pos = torch.where(hit, pos, torch.full(
+            (), bucket.hot_rows, dtype=pos.dtype, device=pos.device))
+        zero = torch.zeros((), dtype=torch.float32, device=send.device)
+        if eff is None:
+            # unweighted: every lane's effective weight is the scale, which
+            # the receiver rebuilds; no weight block crosses the wire
+            return send_m, None, hot_pos, torch.where(
+                hit, torch.full((), scale, dtype=torch.float32,
+                                device=send.device), zero)
+        w_send = self._send_block(grp, eff * scale)
+        return (send_m, torch.where(hit, zero, w_send), hot_pos,
+                torch.where(hit, w_send, zero))
+
+    def _exchange_send(self, grp: _ExchangeGroup, send: torch.Tensor,
+                       w_send: Optional[torch.Tensor]):
+        """The dp->mp exchange of a send block [world, B_l, f_max, k] (and
+        its weights) over the bucket's wires (`wire.wire_id_all_to_all`,
+        `wire.wire_all_to_all`): ([B, f_max, k] ids, weights or None)."""
+        bucket = self.plan.tp_buckets[grp.bucket]
+        if self.world_size > 1:
+            send = wire.wire_id_all_to_all(send, bucket.id_wire_dtype)
+            if w_send is not None:
+                w_send = wire.wire_all_to_all(w_send, bucket.wire_dtype)
+        shape = (-1, grp.f_max, grp.k)
+        return (send.reshape(shape),
+                None if w_send is None else w_send.reshape(shape))
+
+    def _hot_contrib(self, hot_rows: torch.Tensor, hot_pos: torch.Tensor,
+                     hot_w: torch.Tensor, h_cap: int) -> torch.Tensor:
+        """The hit lanes' output [world, B_l, f_max, w] on the dp side (JAX
+        `_hot_contrib`): the hot rows at the hit positions (clamped below
+        H, at weight 0 on a miss), cast to the compute dtype, and their
+        weighted sum over the hotness in float32, rounded once."""
+        rows = self._cast(hot_rows[hot_pos.clamp_max(h_cap - 1).long()])
+        contrib = torch.einsum("rbfk,rbfkw->rbfw",
+                               hot_w.to(rows.dtype).float(), rows.float())
+        return contrib.to(rows.dtype)
 
     def _dp_forward(self, dp_prep) -> List[torch.Tensor]:
         """The data-parallel inputs: a local gather and combine on the
@@ -1008,15 +1451,18 @@ class DistributedEmbedding(nn.Module):
         partial output over the global batch, ``[B, (k,) w]``, each
         detached from the (gradient-free) tables and requiring grad, so
         that autograd delivers at each leaf the gradient the JAX package
-        reads at its zero tap on this rank.
+        reads at its zero tap on this rank; a hot-sharded layer's
+        ``taps["hot"]`` gets per exchange group the hit lanes' output
+        ``[world, B_l, f_max, w]`` (None for a group of a bucket without
+        a hot shard); a tapped forward whose container lacks it raises.
         return_residuals: also return the `TapResiduals` for
         `sparse_update`, as ``(outputs, residuals)``; inside
         `residual_sort_scope` they carry the groups' sorts."""
         if not self.dp_input:
             return self.forward_mp(inputs, taps, return_residuals)
         if taps is not None:
-            taps["tp"].clear()
-            taps["row"].clear()
+            for part in taps.values():
+                part.clear()
         prepped = self._prepare_inputs(inputs)
         strat = self.strategy
         batch = prepped[0].ids.shape[0]
@@ -1025,11 +1471,20 @@ class DistributedEmbedding(nn.Module):
         row_prep = [prepped[i] for i in strat.input_groups[2]]
         groups, assembly, group_ids, group_w = self._stack_groups(tp_prep,
                                                                   batch)
+        if (taps is not None and "hot" not in taps and any(
+                self.plan.tp_buckets[grp.bucket].hot_rows for grp in groups)):
+            # the split masks the resident rows' canonical gradients by
+            # design: their updates flow through the hot taps alone
+            raise ValueError(
+                "tapped hot-split forward needs taps['hot']: build the tap "
+                "container with make_taps() (it adds the hot entry when "
+                "hot_rows is active), or pass taps=None")
         res = ([], [], [], [], [], []) if return_residuals else (None,) * 6
+        hot_res = ([], []) if return_residuals else (None, None)
         sort_plan = self._sort_plan(groups) if return_residuals else None
         dp_outs = self._dp_forward(dp_prep)
         ex_list = self._forward_local(group_ids, group_w, groups, taps,
-                                      *res[:3], sort_plan)
+                                      *res[:3], sort_plan, hot_res=hot_res)
         tp_outs = self._assemble_tp_outputs(ex_list, tp_prep, batch, groups,
                                             assembly)
         row_outs = self._row_forward(row_prep, taps, *res[3:])
@@ -1037,7 +1492,11 @@ class DistributedEmbedding(nn.Module):
         outputs = [outputs[idx] for idx in strat.rev_group_ids]
         if return_residuals:
             key = tuple((p.k, p.weights is not None) for p in tp_prep)
-            return outputs, TapResiduals(key, *res[:3], *res[3:])
+            hot_pos, hot_w = hot_res
+            if not any(x is not None for x in hot_pos):
+                hot_pos = hot_w = None
+            return outputs, TapResiduals(key, *res[:3], *res[3:],
+                                         hot_pos=hot_pos, hot_w=hot_w)
         return outputs
 
     def _mp_prepare(self, inputs):
@@ -1113,8 +1572,8 @@ class DistributedEmbedding(nn.Module):
             raise ValueError("This layer was built with dp_input=True; "
                              "use forward() with data-parallel inputs")
         if taps is not None:
-            taps["tp"].clear()
-            taps["row"].clear()
+            for part in taps.values():
+                part.clear()
         own, reps, batch = self._mp_prepare(inputs)
         if not reps:
             return ([], TapResiduals((), [], [], [])) if return_residuals \
@@ -1209,6 +1668,11 @@ class DistributedEmbedding(nn.Module):
         if self.dp_input and len(inputs) != self._n_inputs:
             raise ValueError(
                 f"Expected {self._n_inputs} inputs, got {len(inputs)}")
+        if self._hot_buckets and self.dp_input:
+            # one entry per exchange group: a hot group's leaf is its hit
+            # contribution ``[world, B_l, f_max, w]`` on the dp side (whose
+            # gradient the hot shard's update consumes), None elsewhere
+            return {"tp": [], "row": [], "hot": []}
         return {"tp": [], "row": []}
 
     def init_sparse_state(self, opt: SparseOptimizer) -> dict:
@@ -1217,8 +1681,14 @@ class DistributedEmbedding(nn.Module):
         bucket], "row": [opt.init(shard) per row table]}``. Table-shaped
         state (adagrad's accumulator, adam's moments) is allocated directly
         on the tables' device at their shapes ``[rows_max, w]``."""
-        return {"tp": [opt.init(t.data) for t in self.tp],
-                "row": [opt.init(t.data) for t in self.row]}
+        out = {"tp": [opt.init(t.data) for t in self.tp],
+               "row": [opt.init(t.data) for t in self.row]}
+        if self._hot_buckets:
+            # the hot shards' state, the same on every rank (each applies
+            # the same summed update): one per hot bucket, in bucket order
+            out["hot"] = [opt.init(self._hot_entry(b)[1])
+                          for b in self._hot_buckets]
+        return out
 
     def _group_contrib(self, g: int, grp: _ExchangeGroup, res_tp_ids,
                        res_tp_w, tp_g) -> SparseRowGrad:
@@ -1276,7 +1746,9 @@ class DistributedEmbedding(nn.Module):
         `ops.sparse_update.quantized_row_update` under every strategy
         (``opt.quantized``, the same lr and hyperparameters), its payload
         and scales updated in place; adam refuses a layer with quantized
-        buckets, as in the JAX package. The dp tables are not touched
+        buckets, as in the JAX package. With ``tap_grads["hot"]`` and
+        ``opt_states["hot"]``, the hot shards too (`_hot_update`); their
+        hit lanes reach the buckets as the sentinel and are dropped. The dp tables are not touched
         here: they train with the dense parameters. `tap_grads` is
         ``{"tp": [grad of each taps["tp"] leaf], "row": [grad of each
         taps["row"] leaf]}``.
@@ -1332,7 +1804,62 @@ class DistributedEmbedding(nn.Module):
             sort_t = (residuals.row_sort[js[0]]
                       if len(js) == 1 and residuals.row_sort else None)
             new_row[t] = update(self.row[t].data, new_row[t], grads, sort_t)
-        return {**opt_states, "tp": new_tp, "row": new_row}
+        out = {**opt_states, "tp": new_tp, "row": new_row}
+        if (self._hot_buckets and residuals.hot_pos is not None
+                and tap_grads.get("hot") and "hot" in opt_states):
+            out["hot"] = self._hot_update(opt_states["hot"], groups,
+                                          tap_grads["hot"], residuals, opt)
+        return out
+
+    def _hot_update(self, hot_states, groups, hot_g, residuals,
+                    opt: SparseOptimizer) -> list:
+        """The hot shards' update (JAX `_sparse_update_body` :3215-3248):
+        per hot bucket, its groups' hit contributions (the hot taps'
+        gradients times the hit weights, at the hit positions) summed into
+        a dense [H, w] gradient with a count a row (`_dense_sum`); at world
+        size > 1 both summed over the ranks in one all-reduce, so every
+        rank holds the global gradient; then the optimizer's masked rule
+        on the rows whose count is above 0 (``opt.dense_rows``: its
+        `apply_dense_rows`), the same on every rank, in place. Returns the
+        new hot states."""
+        if opt.dense_rows is None:
+            raise ValueError(
+                f"sparse optimizer {opt.kind!r} carries no dense-rows rule "
+                "for the hot shards (build it with make_sparse_optimizer)")
+        new_states = list(hot_states)
+        for pos_h, b in enumerate(self._hot_buckets):
+            gs = [g for g, grp in enumerate(groups)
+                  if grp.bucket == b and residuals.hot_pos[g] is not None
+                  and hot_g[g] is not None]
+            if not gs:
+                continue
+            with record_function(HOT_UPDATE_RANGE):
+                new_states[pos_h] = self._hot_bucket_update(
+                    b, gs, hot_states[pos_h], hot_g, residuals, opt)
+        return new_states
+
+    def _hot_bucket_update(self, b: int, gs, state, hot_g, residuals,
+                           opt: SparseOptimizer) -> tuple:
+        """Hot bucket b's update from its groups `gs` (see `_hot_update`);
+        returns its new state."""
+        bucket = self.plan.tp_buckets[b]
+        wf = bucket.width
+        ids_l, con_l = [], []
+        for g in gs:
+            pos = residuals.hot_pos[g][0]            # [world, B_l, f, k]
+            wv = residuals.hot_w[g][0]
+            contrib = hot_g[g][..., None, :].float() * wv[..., None]
+            ids_l.append(pos.reshape(-1))
+            con_l.append(contrib.reshape(-1, wf))
+        g_dense, counts = _dense_sum(torch.cat(ids_l), torch.cat(con_l),
+                                     bucket.hot_rows)
+        if self.world_size > 1:
+            flat = torch.cat([g_dense, counts[:, None]], dim=1)
+            with record_function(pg.ALL_REDUCE_RANGE):
+                dist.all_reduce(flat)
+            g_dense, counts = flat[:, :wf], flat[:, wf]
+        return tuple(opt.dense_rows(self._hot_entry(b)[1], tuple(state),
+                                    g_dense, counts > 0))
 
     # --------------------------------------------------------- weights I/O
     # rows of a bucket gathered per collective: at most this many elements
@@ -1369,9 +1896,11 @@ class DistributedEmbedding(nn.Module):
         """Global per-table weights in original table order, as numpy:
         the dp tables as they are, each tp table from its placements'
         column slices in column order, each row-sliced table from the
-        ranks' shards in rank order (JAX `get_weights` :4412-4486). Always
-        float32: a quantized bucket's rows are decoded, as the JAX
-        package's portable dump is.
+        ranks' shards in rank order (JAX `get_weights` :4412-4486), with
+        the hot-resident rows written over their tables' rows (the hot
+        shard is authoritative for them while resident). Always float32: a
+        quantized bucket's rows are decoded, as the JAX package's portable
+        dump is.
 
         Collective at world size > 1: every rank calls it. Each bucket's
         and each row table's ``[world, rows_max, w]`` stack is gathered in
@@ -1418,7 +1947,50 @@ class DistributedEmbedding(nn.Module):
                     if r0 < hi:
                         out[gtid][starts[r] + r0:starts[r] + hi] = \
                             host[r, :hi - r0]
+        if keep:
+            self._overlay_hot(out)
         return out if keep else None
+
+    def _hot_key_rows(self, b: int, keys):
+        """Decode hot bucket b's flat keys (``rank * rows_max + local
+        row``, numpy or a CPU tensor) over its tp placements: a list of
+        (global table id, placement, mask, rows), one for each placement
+        that holds some of `keys`: `mask` marks those keys, `rows` are
+        their rows in the table. A column-sliced table has one entry a
+        slice. Inverse: `_hot_keys_of`."""
+        rows_max = max(self.plan.tp_buckets[b].rows_max, 1)
+        rank, local = keys // rows_max, keys % rows_max
+        out = []
+        for pl_ in self.plan.tp_placements:
+            if pl_.bucket != b:
+                continue
+            m = ((rank == pl_.rank) & (local >= pl_.row_offset)
+                 & (local < pl_.row_offset + pl_.rows))
+            if bool(m.any()):
+                out.append((self.strategy.table_groups[1][pl_.table_id],
+                            pl_, m, local[m] - pl_.row_offset))
+        return out
+
+    def _hot_keys_of(self, rows: dict) -> dict:
+        """{bucket: flat keys} of the rows {global table id: rows}, the
+        inverse of `_hot_key_rows` (each of a column-sliced table's slices
+        gets the keys of its bucket)."""
+        out: dict = {}
+        for pl_ in self.plan.tp_placements:
+            gtid = self.strategy.table_groups[1][pl_.table_id]
+            if gtid in rows:
+                rows_max = max(self.plan.tp_buckets[pl_.bucket].rows_max, 1)
+                out.setdefault(pl_.bucket, []).extend(
+                    pl_.rank * rows_max + pl_.row_offset + int(r)
+                    for r in rows[gtid])
+        return out
+
+    def _overlay_hot(self, out: List[np.ndarray]) -> None:
+        """Write the hot-resident rows (`hot_resident_rows`, authoritative
+        while resident) over their tables' rows in `out`, in place."""
+        for b, (keys, rows) in self.hot_resident_rows().items():
+            for gtid, pl_, m, local in self._hot_key_rows(b, keys):
+                out[gtid][local, pl_.col_start:pl_.col_end] = rows[m]
 
     @torch.no_grad()
     def set_weights(self, weights: Sequence) -> None:
@@ -1428,7 +2000,8 @@ class DistributedEmbedding(nn.Module):
         tp placements and its own rows of each row-sliced table (the
         shard's padding rows zero). A quantized bucket's rows are encoded,
         rounding to nearest (the JAX package's `encode_rows_np`), in
-        chunks of at most `ENCODE_CHUNK_ELEMS` elements."""
+        chunks of at most `ENCODE_CHUNK_ELEMS` elements. The hot sets
+        start empty, as in the JAX package."""
         strat = self.strategy
         if len(weights) != len(strat.global_configs):
             raise ValueError(f"Expected {len(strat.global_configs)} weights, "
@@ -1467,6 +2040,9 @@ class DistributedEmbedding(nn.Module):
             self.row[t][:rows].copy_(
                 host(weights[gtid], rows=slice(start, start + rows)))
             self.row[t][rows:].zero_()
+        # the global weights are the canonical tables: the hot sets start
+        # empty (admit again with sync_hot_rows)
+        self._reset_hot()
 
 
 def _local_tables(module: nn.Module) -> set:

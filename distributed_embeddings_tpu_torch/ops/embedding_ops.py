@@ -8,7 +8,8 @@ through the CUDA kernels in `ops.cuda_lookup` and `ops.cuda_tiled` instead.
 `GroupSort` / `canonical_id_sort` are the sort artifacts one exchange group's
 id stream shares between its lookup and its sparse update (sort folding),
 and `segment_bounds` turns a sorted stream's segment starts into the
-per-segment positions the sparse kernels walk.
+per-segment positions the sparse kernels walk. `sorted_member_positions`
+splits an id stream against a sorted key table (the hot-row split).
 """
 
 from typing import NamedTuple, Optional, Tuple, Union
@@ -247,3 +248,19 @@ def ragged_to_padded(ids: RaggedIds, max_hotness: int
     padded = ids.values[gather_pos]
     padded = torch.where(valid, padded, torch.zeros_like(padded))
     return padded, valid.to(torch.float32)
+
+
+def sorted_member_positions(sorted_keys: torch.Tensor, queries: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Membership of `queries` in a sorted key table by binary search (the
+    hot-row split's primitive; no sort): `sorted_keys` [H] ascending,
+    absent slots padded with a sentinel above every real query. Returns
+    (pos, hit): pos int32 of the queries' shape, the ``torch.searchsorted``
+    (left) position clipped to [0, H), meaningful where hit; hit True
+    where ``sorted_keys[pos]`` equals the query."""
+    h = sorted_keys.shape[0]
+    q = queries.to(sorted_keys.dtype).contiguous()
+    pos = torch.searchsorted(sorted_keys.contiguous(), q)
+    pos = pos.clamp(0, max(h - 1, 0))
+    hit = sorted_keys[pos] == q
+    return pos.to(torch.int32), hit

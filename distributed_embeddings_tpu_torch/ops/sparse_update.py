@@ -390,12 +390,16 @@ class SparseOptimizer(NamedTuple):
     hyperparameters are closed over, in `quantized` too: ``quantized(
     payload, scale, state, grad, store_dtype, presorted=None)`` is the
     same rule on a quantized table (`quantized_row_update`, in place;
-    returns the state), None for a kind that has none."""
+    returns the state), None for a kind that has none; ``dense_rows(
+    table, state, grad, mask)`` the same rule from a dense [rows, w]
+    gradient on the rows where `mask` is true (`apply_dense_rows`, in
+    place; returns the state), the hot shards' update."""
     kind: str
     init: Callable       # table -> state tuple
     update: Callable     # (table, state, SparseRowGrad, presorted=None)
                          #   -> (table, state)
     quantized: Optional[Callable] = None
+    dense_rows: Optional[Callable] = None
 
 
 def make_sparse_optimizer(kind: str, lr, strategy: str = "auto",
@@ -411,12 +415,17 @@ def make_sparse_optimizer(kind: str, lr, strategy: str = "auto",
                                         store_dtype, lr, presorted=presorted,
                                         **kw)[2]
         return quantized
+
+    def dense_rule(**kw):
+        def dense_rows(table, state, g, mask):
+            return apply_dense_rows(kind, table, state, g, mask, lr, **kw)[1]
+        return dense_rows
     if kind == "sgd":
         return SparseOptimizer(
             "sgd", lambda table: (),
             lambda table, state, g, presorted=None: (
                 sparse_sgd(table, g, lr, strategy, presorted), ()),
-            quantized_rule())
+            quantized_rule(), dense_rule())
     if kind == "adagrad":
         init_acc = hp.get("initial_accumulator_value", 0.1)
         eps = hp.get("eps", 1e-10)
@@ -430,7 +439,7 @@ def make_sparse_optimizer(kind: str, lr, strategy: str = "auto",
                                     strategy=strategy, presorted=presorted)
             return t, (acc,)
         return SparseOptimizer("adagrad", init, update,
-                               quantized_rule(eps=eps))
+                               quantized_rule(eps=eps), dense_rule(eps=eps))
     if kind == "adam":
         b1, b2 = hp.get("b1", 0.9), hp.get("b2", 0.999)
         eps = hp.get("eps", 1e-8)
@@ -447,7 +456,8 @@ def make_sparse_optimizer(kind: str, lr, strategy: str = "auto",
                                        g, lr, b1=b1, b2=b2, eps=eps,
                                        strategy=strategy, presorted=presorted)
             return t, (mu, nu, c)
-        return SparseOptimizer("adam", init, update)
+        return SparseOptimizer("adam", init, update, None,
+                               dense_rule(b1=b1, b2=b2, eps=eps))
     raise ValueError(f"Unknown sparse optimizer {kind!r}")
 
 

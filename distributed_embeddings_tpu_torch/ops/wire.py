@@ -1,10 +1,9 @@
 """The dp<->mp exchange collectives over ``torch.distributed``.
 
-Counterpart of ``distributed_embeddings_tpu/ops/wire.py`` at its default
-``f32`` wire (the bf16 activation wire and the int16 id wire are ROADMAP
-Queue A6; the true-splits ragged exchange is A5), and its row codec for
-quantized storage (below). As there, every exchange collective of the
-embedding layer lives in this module:
+Counterpart of ``distributed_embeddings_tpu/ops/wire.py``: the exchange
+wire formats (the true-splits ragged exchange is ROADMAP Queue A5) and its
+row codec for quantized storage (below). As there, every exchange
+collective of the embedding layer lives in this module:
 
   * `wire_all_to_all`: the mp->dp activation block (and the weight block
     of the dp->mp exchange), ``all_to_all_single`` split and concatenated
@@ -13,18 +12,10 @@ embedding layer lives in this module:
   * `wire_all_to_all_t`: its transpose, the same collective on the
     gradient (a split-0 / concat-0 all_to_all is its own transpose);
   * `wire_id_all_to_all`: the dp->mp id block, a plain collective (ids
-    carry no gradient). The planner names the int16 id wire for every
-    bucket whose ids fit it; the narrowing is A6's, and the ids move in
-    their own dtype meanwhile, which gives the same ids (the planner's
-    gate makes the int16 wire lossless, and its clip keeps an invalid id
-    invalid, as the lookups and updates treat every id past the table).
+    carry no gradient).
 
 Each takes ``[world, ...]`` with block r going to rank r and returns the
 blocks received, block s from rank s, over the default process group.
-Every collective moves its operand in the operand's own dtype, as the JAX
-package's ``f32`` wire runs the plain collective: under a 16-bit
-``compute_dtype`` the activations and their gradients move in it (half
-the bytes), the ids and the input weights as they come.
 
 The row-sliced tables' collectives, tiled over dim 0 (``[B_l, ...]`` on
 each rank <-> ``[world * B_l, ...]``, rank r's block at rows ``[r * B_l,
@@ -36,6 +27,33 @@ each rank <-> ``[world * B_l, ...]``, rank r's block at rows ``[r * B_l,
     (a sum over the ranks), whose backward is `wire_psum_scatter_t`, a
     tiled all_gather of the gradient;
   * `wire_id_all_gather`: the id broadcast, a plain collective.
+
+The float wire (`WIRE_FORMATS`, one per bucket, ``TPBucket.wire_dtype``):
+
+  * ``f32``: the plain collective on the operand in its own dtype (under
+    a 16-bit ``compute_dtype`` the activations and their gradients move
+    in it), byte for byte the collectives before the wire formats;
+  * ``bf16``: `encode_fwd` / `encode_bwd` round to bfloat16 (to nearest
+    even) right before the collective and the receiver casts back to the
+    operand's dtype, in both directions: one rounding a crossing, every
+    gather, combine and update at the caller's precision;
+  * ``bf16-sr``: bfloat16 forward, and the gradient rounded
+    stochastically (`stochastic_round_bf16`, the JAX package's keyless
+    hash of each element's bits and flat position, shared with the row
+    codec's draw: `_keyless_hash`).
+
+A compressed reduce-scatter (`wire_psum_scatter`, and `wire_all_gather`'s
+backward) runs as encode -> all_to_all -> decode -> a sum of the W blocks
+in the caller's dtype, added in rank order, so no add happens at wire
+precision and the order is the same on every backend.
+
+The id wire (`ID_WIRE_FORMATS`, ``TPBucket.id_wire_dtype``): the planner
+names ``int16`` for a bucket whose every legal wire value (the ids and the
+hot split's sentinel ``rows_max``) lies below `INT16_ID_MAX`;
+`encode_ids` clips (never wraps) to the int16 range, so an invalid id
+stays invalid, and `decode_ids` widens back. Neither gloo nor NCCL takes
+int16, so the narrowed ids cross as their bytes (``uint8``, twice the
+last dim) and are viewed back after.
 
 The tensors stay on their device: NCCL moves CUDA tensors directly, gloo
 stages them through host memory itself (gloo takes all three collective
@@ -70,28 +88,147 @@ from torch.profiler import record_function
 
 from distributed_embeddings_tpu_torch.utils.device import device_scalar
 
-__all__ = ["wire_all_to_all", "wire_all_to_all_t", "wire_id_all_to_all",
-           "wire_all_gather", "wire_psum_scatter", "wire_psum_scatter_t",
-           "wire_id_all_gather", "ragged_exchange", "EXCHANGE_RANGE",
-           "GATHER_RANGE", "SCATTER_RANGE", "STORE_DTYPES", "INT8_AMAX",
-           "FP8_AMAX", "resolve_store_dtype", "fp8_supported",
-           "payload_dtype", "store_itemsize", "store_scale_bytes",
-           "delta_row_bytes", "snapshot_row_bytes", "store_decode_bound",
-           "keyless_uniform", "writeback_scale", "encode_rows",
-           "decode_rows", "encode_rows_np", "decode_rows_np"]
+__all__ = ["WIRE_FORMATS", "ID_WIRE_FORMATS", "INT16_ID_MAX", "resolve_wire",
+           "wire_itemsize", "id_wire_itemsize", "encode_fwd", "encode_bwd",
+           "stochastic_round_bf16", "int16_id_wire_ok", "encode_ids",
+           "decode_ids", "wire_all_to_all", "wire_all_to_all_t",
+           "wire_id_all_to_all", "wire_all_gather", "wire_psum_scatter",
+           "wire_psum_scatter_t", "wire_id_all_gather", "ragged_exchange",
+           "EXCHANGE_RANGE", "GATHER_RANGE", "SCATTER_RANGE", "SR_RANGE",
+           "STORE_DTYPES", "INT8_AMAX", "FP8_AMAX", "resolve_store_dtype",
+           "fp8_supported", "payload_dtype", "store_itemsize",
+           "store_scale_bytes", "delta_row_bytes", "snapshot_row_bytes",
+           "store_decode_bound", "keyless_uniform", "writeback_scale",
+           "encode_rows", "decode_rows", "encode_rows_np", "decode_rows_np"]
 
 EXCHANGE_RANGE = "exchange:all_to_all"
 GATHER_RANGE = "exchange:all_gather"
 SCATTER_RANGE = "exchange:reduce_scatter"
+# the profiler range of every stochastic rounding (a no-op unless a
+# profiler is on), so a trace reads its device time
+SR_RANGE = "wire:stochastic_round"
+
+WIRE_FORMATS = ("f32", "bf16", "bf16-sr")
+ID_WIRE_FORMATS = ("int32", "int16")
+# clip ceiling of the int16 id wire: the planner admits a bucket only when
+# every legal wire value (valid ids and the hot sentinel rows_max) lies
+# strictly below it, so a clipped invalid id aliases neither
+INT16_ID_MAX = 2**15 - 1
+SR_WIRE_SALT = 0x9E3779B9
+_U32 = 0xFFFFFFFF
 
 
-def _check_wire(wire: str, *ported: str) -> None:
-    if wire not in ported:
-        raise NotImplementedError(
-            f"the {wire!r} exchange wire is not ported yet (ROADMAP Queue A6 "
-            "(wire formats))")
+def resolve_wire(name: Optional[str]) -> str:
+    """Validate and normalize a float wire format name (None -> 'f32')."""
+    if name is None or name == "":
+        return "f32"
+    if name not in WIRE_FORMATS:
+        raise ValueError(
+            f"unknown exchange wire format {name!r}; expected one of "
+            f"{WIRE_FORMATS}")
+    return name
 
 
+def _resolve_id_wire(name: str) -> str:
+    if name not in ID_WIRE_FORMATS:
+        raise ValueError(f"unknown id wire {name!r}; expected one of "
+                         f"{ID_WIRE_FORMATS}")
+    return name
+
+
+def wire_itemsize(name: str) -> int:
+    """Bytes per element the float wire moves."""
+    return 4 if resolve_wire(name) == "f32" else 2
+
+
+def id_wire_itemsize(name: str) -> int:
+    """Bytes per id the id wire moves."""
+    return 2 if name == "int16" else 4
+
+
+# ------------------------------------------------------------- encoders
+def _to_bf16(x: torch.Tensor) -> torch.Tensor:
+    """`x` cast to bfloat16, rounded to nearest even, a NaN as the quiet
+    NaN of its sign (0x7FC0 / 0xFFC0), as XLA casts it: torch's casts
+    store other NaN patterns, and the CPU's and the card's differ."""
+    if x.dtype == torch.bfloat16:
+        return x
+    out = x.to(torch.bfloat16)
+    if not x.is_floating_point():
+        return out
+    nan = torch.where(torch.signbit(x), -0x40, 0x7FC0).to(torch.int16)
+    return torch.where(torch.isnan(x), nan.view(torch.bfloat16), out)
+
+
+def encode_fwd(x: torch.Tensor, wire: str) -> torch.Tensor:
+    """Forward-direction wire encode: bfloat16, rounded to nearest even,
+    for both compressed formats; 'f32' is the identity."""
+    if wire == "f32":
+        return x
+    return _to_bf16(x)
+
+
+def encode_bwd(g: torch.Tensor, wire: str) -> torch.Tensor:
+    """Gradient-direction wire encode: 'bf16-sr' rounds stochastically
+    (`stochastic_round_bf16`), 'bf16' to nearest even; 'f32' is the
+    identity."""
+    if wire == "f32":
+        return g
+    if wire == "bf16-sr":
+        return stochastic_round_bf16(g)
+    return _to_bf16(g)
+
+
+def stochastic_round_bf16(x: torch.Tensor,
+                          salt: int = SR_WIRE_SALT) -> torch.Tensor:
+    """float32 -> bfloat16 rounded up with probability equal to the
+    distance to the lower neighbour (in units of the step): the JAX
+    package's ``stochastic_round_bf16``, bit for bit. With ``bits`` the
+    value's bit pattern and ``rnd`` the low 16 bits of `_keyless_hash`
+    (the element's bits and its flat position in `x`, with `salt`), the
+    result is the top half of ``bits + rnd`` (uint32, wrapping). The draw
+    depends on the position, so `x` must be the whole block the JAX
+    package encodes. Non-finite and non-float32 inputs take the plain
+    cast."""
+    if x.dtype != torch.float32:
+        return _to_bf16(x)
+    with record_function(SR_RANGE):
+        x = x.contiguous()
+        bits = x.view(torch.int32).to(torch.int64).bitwise_and_(_U32)
+        up = _keyless_hash(x, salt).bitwise_and_(0xFFFF).add_(bits)
+        up = up.bitwise_and_(_U32).bitwise_right_shift_(16)
+        # the top half as a signed 16-bit pattern, viewed as bfloat16
+        up = torch.where(up >= 0x8000, up - 0x10000, up).to(torch.int16)
+        return torch.where(torch.isfinite(x), up.view(torch.bfloat16),
+                           _to_bf16(x))
+
+
+def int16_id_wire_ok(max_wire_value: int) -> bool:
+    """True when every legal wire value (valid ids and the sentinel) lies
+    strictly below the int16 clip ceiling: the planner's gate for a
+    bucket's int16 id wire."""
+    return 0 <= max_wire_value < INT16_ID_MAX
+
+
+def encode_ids(ids: torch.Tensor, id_wire: str) -> torch.Tensor:
+    """Narrow an id block for the wire: 'int16' clips to ``[-2^15,
+    INT16_ID_MAX]`` (never wraps, so an out-of-range id stays out of
+    range), 'int32' is the identity."""
+    if id_wire != "int16":
+        return ids
+    return ids.clamp(-2**15, INT16_ID_MAX).to(torch.int16)
+
+
+def decode_ids(ids: torch.Tensor, id_wire: str,
+               dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """Widen a narrowed id block back to `dtype` ('int32' is the
+    identity)."""
+    if id_wire != "int16":
+        return ids
+    return ids.to(dtype)
+
+
+# ---------------------------------------------------------- collectives
 def _all_to_all(x: torch.Tensor) -> torch.Tensor:
     with record_function(EXCHANGE_RANGE):
         x = x.contiguous()
@@ -123,97 +260,149 @@ def _reduce_scatter(x: torch.Tensor) -> torch.Tensor:
         return out
 
 
+def _rank_order_sum(blocks: torch.Tensor) -> torch.Tensor:
+    """The sum over dim 0 of `blocks` [W, ...], block 0 first, one add a
+    block in the blocks' dtype."""
+    acc = blocks[0]
+    for r in range(1, blocks.shape[0]):
+        acc = acc + blocks[r]
+    return acc
+
+
 class _AllToAll(torch.autograd.Function):
-    """The float all_to_all with its transpose as backward."""
+    """The all_to_all over the float wire, its transpose (the same
+    collective over the gradient wire) as backward; each direction
+    decodes to the operand's dtype."""
 
     @staticmethod
-    def forward(ctx, x):
-        return _all_to_all(x)
+    def forward(ctx, x, wire):
+        ctx.wire = wire
+        if wire == "f32":
+            return _all_to_all(x)
+        return _all_to_all(encode_fwd(x, wire)).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        return wire_all_to_all_t(g, "f32")
+        return wire_all_to_all_t(g, ctx.wire), None
 
 
 def wire_all_to_all(x: torch.Tensor, wire: str = "f32") -> torch.Tensor:
     """``all_to_all`` (split 0 / concat 0) of a float block ``[world,
-    ...]``, differentiable: the backward runs the same collective on the
-    gradient."""
-    _check_wire(wire, "f32")
-    return _AllToAll.apply(x)
+    ...]`` over the float wire `wire`, differentiable: the backward runs
+    the same collective on the gradient (`wire_all_to_all_t`)."""
+    return _AllToAll.apply(x, resolve_wire(wire))
 
 
 def wire_all_to_all_t(g: torch.Tensor, wire: str = "f32") -> torch.Tensor:
     """Transpose of `wire_all_to_all`: the split-0 / concat-0 all_to_all
-    is its own transpose."""
-    _check_wire(wire, "f32")
-    return _all_to_all(g)
+    is its own transpose, over the gradient wire (`encode_bwd`)."""
+    wire = resolve_wire(wire)
+    if wire == "f32":
+        return _all_to_all(g)
+    return _all_to_all(encode_bwd(g, wire)).to(g.dtype)
+
+
+def _id_collective(collective, ids: torch.Tensor, id_wire: str):
+    """`collective` of an id block over the id wire: int16 ids cross as
+    their bytes (gloo and NCCL take no int16) and come back in the ids'
+    own dtype."""
+    if _resolve_id_wire(id_wire) != "int16":
+        return collective(ids)
+    enc = encode_ids(ids, id_wire).contiguous()
+    raw = enc.view(torch.uint8) if enc.dim() else enc.reshape(1).view(
+        torch.uint8)
+    out = collective(raw).view(torch.int16)
+    return decode_ids(out, id_wire, ids.dtype)
 
 
 def wire_id_all_to_all(ids: torch.Tensor, id_wire: str = "int32"
                        ) -> torch.Tensor:
-    """dp->mp id block ``all_to_all`` (split 0 / concat 0), in the ids'
-    own dtype (int32, or int64 for a bucket past the int32 range) on
-    either id wire ("int32", "int16")."""
-    _check_wire(id_wire, "int32", "int16")
-    return _all_to_all(ids)
+    """dp->mp id block ``all_to_all`` (split 0 / concat 0) over the id
+    wire: 'int16' narrows (`encode_ids`) and the block crosses as its
+    bytes; the ids come back in their own dtype."""
+    return _id_collective(_all_to_all, ids, id_wire)
 
 
 class _AllGather(torch.autograd.Function):
-    """The tiled float all_gather with its transpose, a tiled
-    reduce-scatter of the gradient, as backward."""
+    """The tiled float all_gather over the wire; its backward, the
+    transpose, is a tiled reduce-scatter of the gradient over the gradient
+    wire (at 'f32' the plain collective, else encode, all_to_all, decode
+    and the rank-order sum)."""
 
     @staticmethod
-    def forward(ctx, x):
-        return _all_gather(x)
+    def forward(ctx, x, wire):
+        ctx.wire = wire
+        if wire == "f32":
+            return _all_gather(x)
+        return _all_gather(encode_fwd(x, wire)).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        return _reduce_scatter(g)
+        if ctx.wire == "f32":
+            return _reduce_scatter(g), None
+        return _scatter_sum(encode_bwd(g, ctx.wire), g.dtype), None
 
 
 class _PsumScatter(torch.autograd.Function):
-    """The tiled float reduce-scatter with its transpose as backward."""
+    """The tiled reduce-scatter over the wire, its transpose
+    (`wire_psum_scatter_t`) as backward."""
 
     @staticmethod
-    def forward(ctx, x):
-        return _reduce_scatter(x)
+    def forward(ctx, x, wire):
+        ctx.wire = wire
+        if wire == "f32":
+            return _reduce_scatter(x)
+        return _scatter_sum(encode_fwd(x, wire), x.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        return wire_psum_scatter_t(g, "f32")
+        return wire_psum_scatter_t(g, ctx.wire), None
+
+
+def _scatter_sum(y: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The compressed reduce-scatter of the encoded `y` [world * B_l,
+    ...]: the ``[world, B_l, ...]`` blocks through one all_to_all, decoded
+    to `dtype`, then summed in rank order (`_rank_order_sum`)."""
+    world = dist.get_world_size()
+    if y.shape[0] % world:
+        raise ValueError(f"reduce-scatter of {y.shape[0]} rows over "
+                         f"{world} ranks")
+    blocks = _all_to_all(y.reshape((world, y.shape[0] // world)
+                                   + tuple(y.shape[1:])))
+    return _rank_order_sum(blocks.to(dtype))
 
 
 def wire_all_gather(x: torch.Tensor, wire: str = "f32") -> torch.Tensor:
     """Tiled all_gather over dim 0 of a float ``[B_l, ...]`` block ->
-    ``[world * B_l, ...]`` (the row-sliced path's weight broadcast),
-    differentiable: the backward reduce-scatters the gradient."""
-    _check_wire(wire, "f32")
-    return _AllGather.apply(x)
+    ``[world * B_l, ...]`` (the row-sliced path's weight broadcast) over
+    the float wire, differentiable: the backward reduce-scatters the
+    gradient."""
+    return _AllGather.apply(x, resolve_wire(wire))
 
 
 def wire_psum_scatter(x: torch.Tensor, wire: str = "f32") -> torch.Tensor:
     """Tiled reduce-scatter over dim 0: ``[world * B_l, ...]`` summed over
     the ranks, this rank keeping rows ``[rank * B_l, (rank + 1) * B_l)``
-    (the row-sliced path's partial-sum return), differentiable: the
-    backward is `wire_psum_scatter_t`."""
-    _check_wire(wire, "f32")
-    return _PsumScatter.apply(x)
+    (the row-sliced path's partial-sum return), over the float wire
+    (compressed: encode, all_to_all, decode, the rank-order sum),
+    differentiable: the backward is `wire_psum_scatter_t`."""
+    return _PsumScatter.apply(x, resolve_wire(wire))
 
 
 def wire_psum_scatter_t(g: torch.Tensor, wire: str = "f32") -> torch.Tensor:
     """Transpose of `wire_psum_scatter`: a tiled all_gather of the
-    gradient."""
-    _check_wire(wire, "f32")
-    return _all_gather(g)
+    gradient over the gradient wire."""
+    wire = resolve_wire(wire)
+    if wire == "f32":
+        return _all_gather(g)
+    return _all_gather(encode_bwd(g, wire)).to(g.dtype)
 
 
 def wire_id_all_gather(ids: torch.Tensor, id_wire: str = "int32"
                        ) -> torch.Tensor:
     """Tiled id all_gather over dim 0 (the row-sliced path's id
-    broadcast), in the ids' own dtype on either id wire."""
-    _check_wire(id_wire, "int32", "int16")
-    return _all_gather(ids)
+    broadcast) over the id wire, as `wire_id_all_to_all`."""
+    return _id_collective(_all_gather, ids, id_wire)
 
 
 def ragged_exchange(*args, **kwargs):
@@ -231,7 +420,6 @@ STORE_DTYPES = ("f32", "int8", "fp8")
 INT8_AMAX = 127.0
 FP8_AMAX = 448.0          # float8_e4m3fn's largest finite value
 SR_SALT = 0x85EBCA6B
-_U32 = 0xFFFFFFFF
 
 
 def fp8_supported() -> bool:
@@ -323,23 +511,30 @@ def writeback_scale(rows: torch.Tensor, store_dtype: str) -> torch.Tensor:
         np.float32(1.0) / np.float32(grid)), one)
 
 
-def keyless_uniform(y: torch.Tensor, salt: int = SR_SALT) -> torch.Tensor:
-    """The JAX package's keyless stochastic-rounding draw: for each element
-    of the float32 `y`, with its bit pattern ``bits`` and its flat position
-    ``i`` in `y` (as uint32), ``h = bits ^ (i * 2654435761 + salt)``, two
-    xor-shift-multiply rounds and a last xor-shift, then ``u = (h & 0xFFFF)
-    / 65536`` in [0, 1). uint32 arithmetic is emulated in int64, masked to
-    32 bits after every multiply (each product stays below 2^63). The draw
-    depends on the position, so `y` must be the very array the JAX package
-    encodes (a prefix of it gives the prefix's draws)."""
-    y = y.contiguous()
+def _keyless_hash(y: torch.Tensor, salt: int) -> torch.Tensor:
+    """The JAX package's keyless hash of each element of the float32 `y`
+    (contiguous): with its bit pattern ``bits`` and its flat position
+    ``i`` (as uint32), ``h = bits ^ (i * 2654435761 + salt)``, two
+    xor-shift-multiply rounds and a last xor-shift. uint32 arithmetic is
+    emulated in int64, masked to 32 bits after every multiply (each
+    product stays below 2^63); returns h as int64 in [0, 2^32)."""
     h = torch.arange(y.numel(), dtype=torch.int64, device=y.device)
     h = h.view(y.shape).bitwise_and_(_U32).mul_(2654435761).add_(salt)
     h.bitwise_and_(_U32).bitwise_xor_(
         y.view(torch.int32).to(torch.int64).bitwise_and_(_U32))
     h.bitwise_xor_(h >> 15).mul_(0x2C1B3C6D).bitwise_and_(_U32)
     h.bitwise_xor_(h >> 12).mul_(0x297A2D39).bitwise_and_(_U32)
-    h.bitwise_xor_(h >> 15)
+    return h.bitwise_xor_(h >> 15)
+
+
+def keyless_uniform(y: torch.Tensor, salt: int = SR_SALT) -> torch.Tensor:
+    """The JAX package's keyless stochastic-rounding draw: for each element
+    of the float32 `y`, ``u = (h & 0xFFFF) / 65536`` in [0, 1) with h its
+    `_keyless_hash`. The draw depends on the position, so `y` must be the
+    very array the JAX package encodes (a prefix of it gives the prefix's
+    draws)."""
+    y = y.contiguous()
+    h = _keyless_hash(y, salt)
     return h.bitwise_and_(0xFFFF).to(torch.float32).div_(65536.0)
 
 

@@ -19,7 +19,8 @@ from distributed_embeddings_tpu_torch.utils.device import (device_scalar,
                                                            resolve_device)
 
 __all__ = ["initialize_distributed", "world_size", "rank",
-           "average_across_ranks", "gather_stack", "ALL_REDUCE_RANGE"]
+           "sum_across_ranks", "average_across_ranks", "gather_stack",
+           "ALL_REDUCE_RANGE"]
 
 # the profiler range around the dense all-reduce (a no-op unless a
 # profiler is on), beside `ops.wire`'s exchange ranges
@@ -64,23 +65,31 @@ def rank() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
 
-def average_across_ranks(tensors: Sequence[torch.Tensor]
-                         ) -> List[torch.Tensor]:
-    """The mean over ranks of each tensor, through one all-reduce of one
-    flat float32 buffer (the dense gradients and the loss of a step).
-    Returns new tensors; at world size 1, the tensors themselves."""
+def sum_across_ranks(tensors: Sequence[torch.Tensor],
+                     mean: bool = False) -> List[torch.Tensor]:
+    """The sum over ranks of each tensor (the mean with `mean`), through
+    one all-reduce of one flat float32 buffer (the dense gradients and the
+    loss of a step). Returns new tensors; at world size 1, the tensors
+    themselves."""
     world = world_size()
     if world == 1 or not tensors:
         return list(tensors)
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
     with record_function(ALL_REDUCE_RANGE):
         dist.all_reduce(flat)
-    flat = flat / device_scalar(world, flat)
+    if mean:
+        flat = flat / device_scalar(world, flat)
     out, start = [], 0
     for t in tensors:
         out.append(flat[start:start + t.numel()].view(t.shape).to(t.dtype))
         start += t.numel()
     return out
+
+
+def average_across_ranks(tensors: Sequence[torch.Tensor]
+                         ) -> List[torch.Tensor]:
+    """The mean over ranks of each tensor (`sum_across_ranks`)."""
+    return sum_across_ranks(tensors, mean=True)
 
 
 def gather_stack(t: torch.Tensor) -> torch.Tensor:

@@ -13,13 +13,11 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from distributed_embeddings_tpu_torch.ops.wire import int16_id_wire_ok
 from distributed_embeddings_tpu_torch.parallel.planner import (
     DistEmbeddingStrategy)
 
 Config = Dict[str, Any]
-
-# clip ceiling of the int16 id wire (the JAX package's ops/wire.py)
-INT16_ID_MAX = 2**15 - 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,10 +120,9 @@ def _storage_eligibility(requested: str, hot_rows: int = 0) -> str:
 
 def _id_wire_dtype(rows_max: int) -> str:
     """'int16' where every legal wire value (ids and the hot sentinel
-    rows_max) sits strictly below the int16 clip ceiling."""
-    if 0 <= max(rows_max, 1) < INT16_ID_MAX:
-        return "int16"
-    return "int32"
+    rows_max) sits strictly below the int16 clip ceiling
+    (`ops.wire.int16_id_wire_ok`)."""
+    return "int16" if int16_id_wire_ok(max(rows_max, 1)) else "int32"
 
 
 def lower_strategy(strategy: DistEmbeddingStrategy) -> ShardedPlan:

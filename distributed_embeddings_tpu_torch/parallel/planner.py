@@ -17,17 +17,12 @@ Groups:
 
 from typing import Any, Dict, List, Optional, Sequence
 
-from distributed_embeddings_tpu_torch.ops.wire import resolve_store_dtype
+from distributed_embeddings_tpu_torch.ops.wire import (resolve_store_dtype,
+                                                      resolve_wire)
 from distributed_embeddings_tpu_torch.utils.initializers import (
     ConcatInitializer)
 
 Config = Dict[str, Any]
-
-# the float exchange-wire formats the planner accepts as requests (the JAX
-# package's ops/wire.py registry; the storage dtypes are `ops.wire`'s);
-# lowering gates them per bucket
-EXCHANGE_WIRE_FORMATS = ("f32", "bf16", "bf16-sr")
-
 
 def _table_size(config: Config) -> int:
     return config["input_dim"] * config["output_dim"]
@@ -81,12 +76,7 @@ class DistEmbeddingStrategy:
         self.data_parallel_threshold = data_parallel_threshold
         self.gpu_embedding_size = gpu_embedding_size
         self.hot_rows = 0 if hot_rows is None else max(0, int(hot_rows))
-        exchange_wire = exchange_wire or "f32"
-        if exchange_wire not in EXCHANGE_WIRE_FORMATS:
-            raise ValueError(
-                f"exchange_wire={exchange_wire!r}: expected one of "
-                f"{EXCHANGE_WIRE_FORMATS}")
-        self.exchange_wire = exchange_wire
+        self.exchange_wire = resolve_wire(exchange_wire)
         # the port's default stays f32 (the JAX package's DET_STORE_DTYPE
         # seam is ROADMAP Queue A15)
         self.storage_dtype = resolve_store_dtype(storage_dtype)

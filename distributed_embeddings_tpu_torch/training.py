@@ -19,9 +19,11 @@ process group with its slice of the global batch:
    (the activation exchange's and the reduce-scatter's backwards carry
    the latter to the ranks that own the rows);
 3. at world size W > 1 the step takes the gradient of the global-batch
-   mean, as the JAX package's SPMD step does: the tap gradients are
-   scaled by 1/W, and the dense gradients and the loss are averaged over
-   the ranks in one all-reduce (`parallel.mesh.average_across_ranks`);
+   mean, as the JAX package's SPMD step does: the backward starts from
+   1/W (each rank's loss is the mean over its slice), so the tap
+   gradients, and the wire's gradient encodes, are the JAX package's, and
+   the dense gradients are summed and the loss averaged over the ranks in
+   one all-reduce (`parallel.mesh.sum_across_ranks`);
 4. `ops.sparse_update.drain_sparse_apply` turns the tap gradients into
    row updates of the rank's tables and their optimizer state, in place,
    through the CUDA kernels on the card (deduplicated rows, or the raw
@@ -67,9 +69,9 @@ from distributed_embeddings_tpu_torch.ops.sparse_update import (
     SparseOptimizer, bias_corrections, check_strategy, dedup_sum,
     drain_sparse_apply, make_sparse_optimizer)
 from distributed_embeddings_tpu_torch.parallel.mesh import (
-    average_across_ranks)
+    average_across_ranks, sum_across_ranks)
 from distributed_embeddings_tpu_torch.parallel.staging import (
-    DeviceStager, ready, stage_dp_batch)
+    DeviceStager, dp_slice, ready, stage_dp_batch)
 from distributed_embeddings_tpu_torch.utils.device import device_scalar
 from distributed_embeddings_tpu_torch.utils.metrics import StreamingAUC
 from distributed_embeddings_tpu_torch.utils.pipeline import (
@@ -254,19 +256,31 @@ def make_sparse_train_step(model, optimizer: str = "adagrad", lr=0.01,
             loss, res = params.loss_fn(numerical, cats, labels, taps=taps,
                                        return_residuals=True)
         dense = _dense_params(params)
-        n_tp = len(taps["tp"])
+        n_tp, n_row = len(taps["tp"]), len(taps["row"])
+        # the hot split's leaves (one per hot exchange group, None at the
+        # others)
+        hot = [t for t in taps.get("hot", ()) if t is not None]
+        world = layer.world_size
+        # the gradient of the global-batch mean: each rank's loss is the
+        # mean over its slice, its share 1/W of it, so the backward (the
+        # wire's gradient encodes among it) sees the JAX package's
+        # numbers
+        seed = (None if world == 1 else torch.full(
+            (), 1.0 / world, dtype=loss.dtype, device=loss.device))
         grads = torch.autograd.grad(
-            loss, list(dense.values()) + taps["tp"] + taps["row"])
+            loss, list(dense.values()) + taps["tp"] + taps["row"] + hot,
+            grad_outputs=seed)
         g_taps = list(grads[len(dense):])
-        if layer.world_size > 1:
-            # the gradient of the global-batch mean: each rank's loss is
-            # the mean over its slice
-            scale = device_scalar(layer.world_size, loss)
-            g_taps = [g / scale for g in g_taps]
-            *grads, loss = average_across_ranks(
+        if world > 1:
+            *grads, loss = sum_across_ranks(
                 list(grads[:len(dense)]) + [loss.detach()])
+            loss = loss / device_scalar(world, loss)
         g_dense = dict(zip(dense, grads[:len(dense)]))
-        g_taps = {"tp": g_taps[:n_tp], "row": g_taps[n_tp:]}
+        g_hot = iter(g_taps[n_tp + n_row:])
+        g_taps = {"tp": g_taps[:n_tp], "row": g_taps[n_tp:n_tp + n_row]}
+        if "hot" in taps:
+            g_taps["hot"] = [None if t is None else next(g_hot)
+                             for t in taps["hot"]]
         new_state = {"emb": drain_sparse_apply(layer, opt_state["emb"],
                                                g_taps, res,
                                                sopt_for(opt_state)),
@@ -302,13 +316,14 @@ def gradient_scale(model, numerical, cats, labels) -> dict:
 
     Returns ``{name: (g, t)}`` for the MLP parameters (by parameter name)
     and the bucket tables (``"embedding.tp.<b>"``, table-shaped, zero on
-    rows the batch does not touch): ``g`` the gradient, ``t`` the sum of
-    the magnitudes of the terms that add up to it, i.e. the backward with
-    every weight, activation and upstream gradient taken by absolute value
-    and the ReLU masks kept. Where ``|g|`` is far below ``t`` the sum
-    cancels, and its low digits are set by the summation order: another
-    BLAS library or another device gives other digits. Comparisons of two
-    trainers use it to tell such elements apart. For a model whose dense
+    rows the batch does not touch), and a hot-sharded layer's hot shards
+    (``"embedding.hot.<b>"``, ``[H, w]``): ``g`` the gradient, ``t`` the
+    sum of the magnitudes of the terms that add up to it, i.e. the
+    backward with every weight, activation and upstream gradient taken by
+    absolute value and the ReLU masks kept. Where ``|g|`` is far below
+    ``t`` the sum cancels, and its low digits are set by the summation
+    order: another BLAS library or another device gives other digits.
+    Comparisons of two trainers use it to tell such elements apart. For a model whose dense
     part is one `mlp` over the concatenated embedding outputs and numerical
     features (`SyntheticModel`), with unweighted inputs."""
     mlp = getattr(model, "mlp", None)
@@ -329,8 +344,10 @@ def gradient_scale(model, numerical, cats, labels) -> dict:
             hook.remove()
     dense = _dense_params(model)
     logits = acts[-1][2]
+    hot = [t for t in taps.get("hot", ()) if t is not None]
     grads = torch.autograd.grad(
-        loss, [*dense.values(), *taps["tp"], logits], retain_graph=True)
+        loss, [*dense.values(), *taps["tp"], *hot, logits],
+        retain_graph=True)
     by_name = dict(zip(dense, grads))
     names = {id(mod): name for name, mod in model.named_modules()}
     scale = grads[-1].abs()        # d loss / d logit: one term per row
@@ -346,14 +363,46 @@ def gradient_scale(model, numerical, cats, labels) -> dict:
         scale = scale @ layer.w.detach().abs().t()
     # the MLP input takes the tap leaves' values by selection (and
     # averaging), so its cotangent carries the scale to the taps
-    tap_scale = torch.autograd.grad(acts[0][1], taps["tp"],
+    n_tp = len(taps["tp"])
+    tap_scale = torch.autograd.grad(acts[0][1], taps["tp"] + hot,
                                     grad_outputs=scale)
     tap_grads = grads[len(dense):-1]
-    for b, pair in enumerate(zip(_row_totals(model.embedding, res, tap_grads),
-                                 _row_totals(model.embedding, res,
-                                             tap_scale))):
+    for b, pair in enumerate(zip(
+            _row_totals(model.embedding, res, tap_grads[:n_tp]),
+            _row_totals(model.embedding, res, tap_scale[:n_tp]))):
         out[f"embedding.tp.{b}"] = pair
+    if hot:
+        for b, pair in zip(model.embedding._hot_buckets, zip(
+                _hot_totals(model.embedding, res, taps["hot"],
+                            tap_grads[n_tp:]),
+                _hot_totals(model.embedding, res, taps["hot"],
+                            tap_scale[n_tp:]))):
+            out[f"embedding.hot.{b}"] = pair
     return out
+
+
+def _hot_totals(emb, residuals, hot_taps, grads) -> list:
+    """Per hot bucket, its [H, w] shard's row totals of the hot taps'
+    `grads` (one per hot tap leaf) times the hit weights, at the hit
+    positions (the sums `sparse_update`'s hot update takes)."""
+    from distributed_embeddings_tpu_torch.ops.sparse_update import _dense_sum
+    groups, _ = emb._exchange_groups_for_key(residuals.key)
+    by_group = dict(zip([g for g, t in enumerate(hot_taps)
+                         if t is not None], grads))
+    totals = []
+    for b in emb._hot_buckets:
+        bucket = emb.plan.tp_buckets[b]
+        ids, con = [], []
+        for g, grp in enumerate(groups):
+            if grp.bucket != b or g not in by_group:
+                continue
+            w = residuals.hot_w[g][0]
+            ids.append(residuals.hot_pos[g][0].reshape(-1))
+            con.append((by_group[g][..., None, :].float() * w[..., None]
+                        ).reshape(-1, bucket.width))
+        totals.append(_dense_sum(torch.cat(ids), torch.cat(con),
+                                 bucket.hot_rows)[0])
+    return totals
 
 
 def apply_updates(params: Dict[str, torch.Tensor],
@@ -412,6 +461,12 @@ def make_train_step(loss_fn: Callable, optimizer,
                 "the dense step differentiates float tables; a layer with "
                 "quantized buckets (storage_dtype int8 / fp8) trains "
                 "through make_sparse_train_step")
+        if any(isinstance(m, DistributedEmbedding) and m._hot_buckets
+               for m in model.modules()):
+            raise ValueError(
+                "the dense step differentiates the parameters, and a hot "
+                "shard's rows are buffers that would not train; a layer "
+                "with hot_rows trains through make_sparse_train_step")
         params = _all_params(model)
         frozen = [p for p in params.values() if not p.requires_grad]
         for p in frozen:
@@ -513,7 +568,6 @@ def evaluate(model, data, steps: int = 16, preprocess=None,
 # fit arguments of the JAX package that the port does not cover yet, with
 # the value that means "unused" and the ROADMAP item that ports them
 _FIT_UNPORTED = {
-    "hot_sync_every": (0, "A7 (hot-row replication)"),
     "store": (None, "A12 (store and vocab)"),
     "publish_every": (None, "A12 (store and vocab)"),
     "publish_dir": (None, "A12 (store and vocab)"),
@@ -532,7 +586,7 @@ def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
         log_every: int = 100, log_fn: Callable = print, stage=None,
         sync_every: Optional[int] = None, preprocess=None,
         pipelined: bool = True, pipeline_depth: Optional[int] = None,
-        **unported):
+        hot_sync_every: int = 0, **unported):
     """The training loop (the JAX package's `fit`, which has ``params``
     where the port's model holds its own).
 
@@ -573,6 +627,16 @@ def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
       sync_every: read the loss back every N steps (None: 1 in a process
         group of more than one rank, keeping the ranks in lockstep, else
         0, never); also at `log_every` boundaries and at the end.
+      hot_sync_every: the hot-row cadence of a layer built with
+        ``hot_rows=`` (sparse steps only; 0, the default, is off): every
+        ``max(1, hot_sync_every // 8)`` steps the batch's ids feed
+        `observe_hot_ids`, from the host arrays the staging was handed (at
+        world size > 1 the rank's slice), so observing copies nothing from
+        the card; every `hot_sync_every` steps, before that step, the
+        pending losses are read and `sync_hot_rows(admit=True)` writes the
+        hot rows back and admits the hottest keys; after the last step a
+        sync without admission leaves the tables canonical, and history
+        gains ``"hot_stats"`` (`hot_stats`).
 
     Iterable data is taken as ``islice(iter(data), steps)``, so a shared
     source is never read past this run's steps. Returns (model,
@@ -608,6 +672,13 @@ def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
             cb.on_train_begin(model)
     if stage is None:
         stage = _default_stage(model)
+    hot_emb = getattr(model, "embedding", None)
+    hot_active = bool(sparse and hot_sync_every
+                      and getattr(hot_emb, "_hot_buckets", None))
+    hot_stride = max(1, hot_sync_every // 8) if hot_active else 0
+    if hot_active:
+        stage = _observed_stage(stage, _world(model) > 1
+                                and getattr(hot_emb, "dp_input", True))
     pipeline = None
     if not callable(data):
         pipeline = staged_batches(
@@ -625,8 +696,16 @@ def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
 
     try:
         for step in range(steps):
-            numerical, cats, labels = ready(
-                stage(data(step)) if pipeline is None else next(pipeline))
+            item = stage(data(step)) if pipeline is None else next(pipeline)
+            if hot_active:
+                item, host_cats = item
+                if step % hot_stride == 0:
+                    hot_emb.observe_hot_ids(list(host_cats))
+                if step and step % hot_sync_every == 0:
+                    drain()
+                    opt_state["emb"] = hot_emb.sync_hot_rows(
+                        opt_state["emb"], admit=True)
+            numerical, cats, labels = ready(item)
             model, opt_state, loss = step_fn(model, opt_state, numerical,
                                              list(cats), labels)
             pending.append(loss)
@@ -650,7 +729,22 @@ def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
             history["ingest_stages"] = pipeline.stage_summaries()
             pipeline.close()
     drain()
+    if hot_active:
+        # the tables canonical again (the hot rows written back; the hot
+        # sets stay resident)
+        opt_state["emb"] = hot_emb.sync_hot_rows(opt_state["emb"])
+        history["hot_stats"] = hot_emb.hot_stats()
     return model, opt_state, history
+
+
+def _observed_stage(stage: Callable, sliced: bool) -> Callable:
+    """`stage` for a run that observes hot ids: each batch staged, beside
+    its categorical inputs as the host holds them (the rank's slice when
+    `sliced`), for `observe_hot_ids`."""
+    def observed(batch):
+        cats = batch[1]
+        return stage(batch), (dp_slice(cats) if sliced else cats)
+    return observed
 
 
 class DistributedGradientTape:

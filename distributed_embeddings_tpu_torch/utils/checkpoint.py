@@ -14,11 +14,16 @@ layers:
     tensors). Restoring loads with ``weights_only=True`` onto the
     template's device and copies into the template's tensors. These files
     are the port's own: the JAX package's Orbax cannot read them, nor can
-    the port read Orbax's. The portable forms are the two below.
+    the port read Orbax's. A hot-sharded layer's state dict holds its hot
+    shards (membership and rows, buffers) and the train step's state
+    their optimizer state (``opt_state["emb"]["hot"]``), so a resume file
+    carries them, as the JAX package's Orbax save carries
+    ``params["hot"]``. The portable forms are the two below.
   * ``save_global_weights`` / ``load_global_weights``: one float32 array
     per original table, in original order (``np.savez``, or a directory
     of ``.npy`` files that `DistributedEmbedding.set_weights` memory-maps),
-    produced by ``get_weights`` (decoded from a quantized bucket) and
+    produced by ``get_weights`` (decoded from a quantized bucket, the
+    hot-resident rows written over their tables' rows) and
     consumed by ``set_weights`` (encoded into one); they survive topology
     and storage changes, and load in either package.
   * the stream container (``save_row_delta`` / ``load_row_delta`` /

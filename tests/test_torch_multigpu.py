@@ -23,9 +23,9 @@ compares one case:
 * `set_weights` / `get_weights` across ranks, `params_from_jax`,
   `broadcast_variables`, the training shims (`DistributedGradientTape`
   against the JAX package's, then a `DistributedOptimizer` sgd update),
-  an indivisible batch, and what stays unported at W > 1 (the ragged
-  exchange, the wires, hot rows, offload, the vocabulary slack, the
-  engine's cache: ROADMAP Queue A5, A6, A7, A8, A12, A13);
+  an indivisible batch, what builds at W > 1 (the wires and hot rows
+  among it) and what stays unported (the ragged exchange, offload, the
+  vocabulary slack, the engine's cache: ROADMAP Queue A5, A8, A12, A13);
 * at W = 2, a small DLRM's `evaluate` and three dense adagrad steps
   (``fit(sparse=False)``) over global click-stream batches;
 * the placement groups (the JAX package's `test_dist_model_parallel`
@@ -712,20 +712,20 @@ def test_training_shims_match_jax(world_run, world):
 
 @pytest.mark.parametrize("world", WORLDS)
 def test_what_stays_unported_raises(world_run, world):
-    """What the placement slice ported builds at W > 1 (column slicing,
-    fewer tables than ranks, the dp and row groups, model-parallel input,
-    the engine); what stays unported raises naming its ROADMAP item."""
+    """What the port builds at W > 1 (column slicing, fewer tables than
+    ranks, the dp and row groups, model-parallel input, the engine, the
+    wire formats, hot rows); what stays unported raises naming its
+    ROADMAP item."""
     ranks, _ = world_run(world)
     for r in ranks:
         res = r["raises"]
         assert "not divisible" in res["indivisible"]
         for key in ("column_threshold", "fewer_tables_than_ranks",
                     "data_parallel", "row_slice", "dp_input", "engine",
-                    "storage_dtype"):
+                    "storage_dtype", "exchange_wire", "bf16_all_gather",
+                    "hot_rows"):
             assert res[key] is None, (key, res[key])
         for key, item in (("ragged_exchange", "A5"),
-                          ("exchange_wire", "A6"),
-                          ("bf16_all_gather", "A6"), ("hot_rows", "A7"),
                           ("gpu_embedding_size", "A8"),
                           ("vocab_slack", "A12"), ("engine_cache", "A13")):
             assert f"ROADMAP Queue {item} " in (res[key] or ""), (key,

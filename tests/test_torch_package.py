@@ -215,7 +215,7 @@ def test_train_step_outside_the_slice_raises(kwargs):
 
 @pytest.mark.parametrize("kwargs", [
     dict(publish_every=4), dict(lookahead=1), dict(store=object()),
-    dict(vocab=object()), dict(hot_sync_every=4), dict(stale_ok=True),
+    dict(vocab=object()), dict(vocab_every=4), dict(stale_ok=True),
     dict(publish_dir="somewhere"), dict(registry=object()),
 ])
 def test_fit_outside_the_slice_raises(kwargs):
@@ -225,7 +225,7 @@ def test_fit_outside_the_slice_raises(kwargs):
 
 
 @pytest.mark.parametrize("name,default,other,item", [
-    ("hot_sync_every", 0, 4, "A7"), ("vocab_every", 16, 4, "A12"),
+    ("lookahead", None, 1, "A14"), ("vocab_every", 16, 4, "A12"),
 ])
 def test_fit_takes_the_reference_arguments_at_their_defaults(name, default,
                                                              other, item):
@@ -274,12 +274,28 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
 
 @pytest.mark.parametrize("kwargs", [
     dict(mesh=object(), world_size=2), dict(mesh=object()),
-    dict(exchange_wire="bf16-sr"), dict(gpu_embedding_size=100),
-    dict(hot_rows=8), dict(exchange_wire="bf16"), dict(vocab_slack=4),
+    dict(gpu_embedding_size=100), dict(vocab_slack=4),
 ])
 def test_features_outside_the_slice_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
         DistributedEmbedding(_tiny_tables(), device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs,wire,hot", [
+    (dict(exchange_wire="bf16-sr"), "bf16-sr", 0),
+    (dict(hot_rows=8), "f32", 8),
+    (dict(exchange_wire="bf16"), "bf16", 0),
+])
+def test_wire_and_hot_rows_build(kwargs, wire, hot):
+    """The wire formats and hot rows (ported with the wire slice): the
+    layer builds and its plan carries them on every combined bucket."""
+    layer = DistributedEmbedding(_tiny_tables(), device="cpu", **kwargs)
+    for bucket in layer.plan.tp_buckets:
+        assert bucket.wire_dtype == (wire if bucket.combiner else "f32")
+        assert bucket.hot_rows == (min(hot, sum(bucket.rows))
+                                   if bucket.combiner else 0)
+    assert layer._hot_buckets == [b for b, bk in enumerate(
+        layer.plan.tp_buckets) if bk.hot_rows]
 
 
 @pytest.mark.parametrize("storage_dtype,payload", [
@@ -390,6 +406,26 @@ def test_port_takes_every_jax_parameter_at_its_default(name):
     call(defaults)
     for param, value in defaults.items():
         call({param: value})
+
+
+@pytest.mark.parametrize("name", [
+    "sync_hot_rows", "observe_hot_ids", "hot_keys_from_counts",
+    "hot_resident_rows", "hot_stats", "make_taps", "init_sparse_state"])
+def test_layer_methods_take_the_jax_parameters(name):
+    """The hot-row methods (and `make_taps` and `init_sparse_state`, which
+    they extend) take the JAX layer's parameters, in order, with its
+    defaults; only `IDIOM` is left out (the port's layer holds its own
+    tables)."""
+    import inspect
+    pytest.importorskip("jax")
+    from distributed_embeddings_tpu.layers import dist_model_parallel as jd
+
+    def params(fn):
+        return [(n, p.default)
+                for n, p in inspect.signature(fn).parameters.items()
+                if n not in {"self"} | IDIOM]
+    assert params(getattr(DistributedEmbedding, name)) == params(
+        getattr(jd.DistributedEmbedding, name))
 
 
 @pytest.mark.parametrize("build,item", [

@@ -1,4 +1,5 @@
-"""One rank of `tests/test_torch_multigpu.py`: the port at world size > 1.
+"""One rank of `tests/test_torch_multigpu.py` and `tests/test_torch_wire.py`:
+the port at world size > 1.
 
 The test spawns the ranks with ``torch.multiprocessing`` (``spawn``), so
 each rank imports this module afresh; it imports torch and the port only,
@@ -202,10 +203,11 @@ def shims(spec) -> dict:
 
 
 def raises(spec) -> dict:
-    """The errors the slice gives at world size > 1 (None: no error):
+    """The errors the port gives at world size > 1 (None: no error):
     what it ported builds (column slicing, fewer tables than ranks, the dp
-    and row groups, model-parallel input, the engine); what it did not
-    raises NotImplementedError naming its ROADMAP item."""
+    and row groups, model-parallel input, the engine, the wire formats,
+    hot rows); what it did not raises NotImplementedError naming its
+    ROADMAP item."""
     out = {}
 
     def message(fn, kind=NotImplementedError):
@@ -487,6 +489,112 @@ def quantized(spec) -> dict:
                     torch.equal(x, y) for x, y in zip(a, b))}}
 
 
+def wire_parity(spec) -> dict:
+    """Each wired collective at each compressed float wire on this rank's
+    blocks (`spec[name]["x"][rank]`, cotangent ``["c"][rank]``): the
+    forward and the gradient autograd gives; the explicit transposes; the
+    int16 id collectives."""
+    rank = mesh.rank()
+    ops = {"all_to_all": wire.wire_all_to_all,
+           "all_gather": wire.wire_all_gather,
+           "psum_scatter": wire.wire_psum_scatter}
+    out = {}
+    for name_w in spec["wires"]:
+        for name, op in ops.items():
+            x = torch.from_numpy(spec[name]["x"][rank]).requires_grad_()
+            y = op(x, name_w)
+            (g,) = torch.autograd.grad(
+                y, x, grad_outputs=torch.from_numpy(spec[name]["c"][rank]))
+            out[(name_w, name)] = (y.detach().numpy(), g.numpy())
+        for name, op in (("all_to_all_t", wire.wire_all_to_all_t),
+                         ("psum_scatter_t", wire.wire_psum_scatter_t)):
+            out[(name_w, name)] = op(torch.from_numpy(spec[name][rank]),
+                                     name_w).numpy()
+    out["id_all_to_all"] = wire.wire_id_all_to_all(
+        torch.from_numpy(spec["ids_a2a"][rank]), "int16").numpy()
+    out["id_all_gather"] = wire.wire_id_all_gather(
+        torch.from_numpy(spec["ids_ag"][rank]), "int16").numpy()
+    return out
+
+
+@contextlib.contextmanager
+def _payload_bytes():
+    """Within the block, (collective, dtype, bytes) of every input the
+    wire's collectives send."""
+    names = ("all_to_all_single", "all_gather_into_tensor",
+             "reduce_scatter_tensor")
+    real = {n: getattr(dist, n) for n in names}
+    seen = []
+
+    def recording(name):
+        def call(out, inp, *args, **kwargs):
+            seen.append((name, str(inp.dtype),
+                         inp.numel() * inp.element_size()))
+            return real[name](out, inp, *args, **kwargs)
+        return call
+    for n in names:
+        setattr(dist, n, recording(n))
+    try:
+        yield seen
+    finally:
+        for n in names:
+            setattr(dist, n, real[n])
+
+
+def hot_wire(spec) -> dict:
+    """Hot rows over a compressed wire: steps of `_Linear` (its
+    coefficients `spec["coefs"]`) on this rank's slices, the keys
+    `spec["keys"]` admitted before step ``admit_at``
+    (after each rank observed its slice); after the steps, an admission
+    of the trackers' own top keys (``admit=True``: rank 0's, on every
+    rank). The layer's wires, the bytes each collective sent in a step."""
+    layer = DistributedEmbedding(
+        [Embedding(v, w, combiner=c, device="meta")
+         for v, w, c in spec["tables"]], device="cpu", **spec["kw"])
+    layer.set_weights(spec["weights"])
+    model = _Linear(layer, spec["coefs"])
+    init, step = training.make_sparse_train_step(model, spec["optimizer"],
+                                                 lr=spec["lr"])
+    state = init(model)
+    losses, payloads, scales = [], [], []
+    dummy = torch.zeros((model.coefs[0].shape[0], 1))
+    for i, cats in enumerate(spec["batches"]):
+        cats = stage_dp_batch(cats, CPU_STAGE)
+        layer.observe_hot_ids(cats)
+        if i == spec["admit_at"]:
+            state["emb"] = layer.sync_hot_rows(state["emb"],
+                                               new_keys=spec["keys"])
+        with torch.no_grad():
+            scale = torch.stack([(o * c).abs().sum() for o, c in zip(
+                layer(cats), model.coefs)]).sum() / dummy.shape[0]
+        scales.append(float(mesh.average_across_ranks([scale])[0]))
+        with _payload_bytes() as seen:
+            _, state, loss = step(model, state, dummy, cats, dummy)
+        payloads.append(seen)
+        losses.append(float(loss))
+    out = {"losses": losses, "loss_scales": scales, "payloads": payloads,
+           "weights": layer.get_weights(all_ranks=True),
+           "hot": {b: [t.numpy().copy() for t in layer._hot_entry(b)]
+                   for b in layer._hot_buckets},
+           "hot_state": [[t.numpy().copy() for t in entry
+                          if torch.is_tensor(t)]
+                         for entry in state["emb"]["hot"]],
+           "wires": [(b.wire_dtype, b.id_wire_dtype)
+                     for b in layer.plan.tp_buckets],
+           "id_blocks": [
+               (layer.plan.tp_buckets[grp.bucket].id_wire_dtype,
+                spec["coefs"][0].shape[0] * grp.f_max * grp.k)
+               for grp in layer._exchange_groups_for_key(
+                   tuple((np.asarray(c).shape[1], False)
+                         for c in spec["batches"][0]))[0]],
+           "top_keys": {b: tr.top_keys()
+                        for b, tr in layer._hot_trackers.items()}}
+    layer.sync_hot_rows(state["emb"], admit=True)
+    out["admitted"] = {b: layer._hot_entry(b)[0].numpy().copy()
+                       for b in layer._hot_buckets}
+    return out
+
+
 def dlrm(spec) -> dict:
     """A DLRM built on every rank (its constructor broadcasts rank 0's
     MLPs) and loaded from the JAX package's tree: the logits of this
@@ -526,7 +634,8 @@ KINDS = {"dlrm": dlrm, "dlrm_fit": dlrm_fit, "forward": forward,
          "raises": raises, "train": train, "placement": placement,
          "mp_forward": mp_forward, "dense_step": dense_step,
          "engine": engine, "convert": convert_round_trip, "wire": wire_ops,
-         "quantized": quantized}
+         "quantized": quantized, "wire_parity": wire_parity,
+         "hot_wire": hot_wire}
 
 
 def main(rank: int, world: int, init_method: str, spec_path: str,
@@ -550,4 +659,5 @@ def main(rank: int, world: int, init_method: str, spec_path: str,
 
 
 if __name__ == "__main__":
-    raise SystemExit("run by tests/test_torch_multigpu.py")
+    raise SystemExit("run by tests/test_torch_multigpu.py and "
+                     "tests/test_torch_wire.py")
