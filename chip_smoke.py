@@ -345,6 +345,29 @@ Phases, each printing JSON lines before the last line:
      world 1's, every float payload bfloat16, each id payload at the
      plan's id wire, the id bytes a rank step. 13b and 13c share one
      spawn of 2 ranks (`wire_world_phase`, `wire_rank`).
+  14. (after 13) host offload (``gpu_embedding_size``). 14a
+     (`offload_hold_phase`): DLRM at Criteo x 0.02 with a device budget
+     of x 0.4 of its elements, which sends its three largest tables to
+     pinned host memory, against the same model with every table on the
+     card, from one set of weights and MLPs: 3 sgd steps at the example's
+     schedule (losses at LOSS_TOL, the offloaded tables bit for bit;
+     launches 1 / 2 / 1 a step), 2 adagrad steps (the offloaded tables at
+     rtol 2e-5 / atol 2e-5, the JAX test's bar, their largest ulp
+     printed), then both at int8 storage, 2 sgd steps (losses at
+     LOSS_TOL, every offloaded element within one grid step a step of the
+     all-device model's, each host apply replayed bit for bit by the
+     numpy functions). 14b (`offload_full_phase`): the host's
+     MemAvailable, then DLRM at the MLPerf Criteo-1TB sizes in float32 with
+     ``gpu_embedding_size`` the x 0.4 tables' elements: its three largest
+     tables (61.2 GB) pinned on the host (`HostPin`: exactly their bytes),
+     the other 23 (34.9 GB) on the card; the build's seconds, the pinned
+     bytes, `memory_allocated` beside the device bucket's bytes; 22 sgd
+     steps through `fit` from a split-binary dataset (launches 1 / 2 / 1 a
+     step, checked), step times, samples/s, one profiled step (idle
+     share; the ``offload:lookup`` and ``offload:update`` ranges' host ms,
+     one call each; HtoD and DtoH copies; the bytes the layer moved), peak
+     memory, the on-card AUC against `auc_exact`, a 65,536-row request
+     through `InferenceEngine`.
   7. the kernels line (each kernel's launches by path, the world paths'
      summed over the ranks; `sgd_rows` with ``copy_ms``, an
      `index_select` + `index_copy_` of the same rows, as a second
@@ -357,6 +380,7 @@ Exits non-zero, printing no result, without a CUDA device or when the port
 is not beside this script.
 """
 
+import atexit
 import contextlib
 import ctypes
 import gc
@@ -3770,17 +3794,19 @@ class StepWindow:
                         by_kernel.items(), key=lambda kv: -kv[1])[:10]])
 
     def range_ms(self, name) -> dict:
-        """Device ms and calls of the window's host ranges called `name`
-        (the device time of the kernels launched inside them)."""
+        """Device ms, host ms and calls of the window's host ranges called
+        `name` (the device time of the kernels launched inside them; the
+        host clock across them)."""
         from torch.autograd import DeviceType
         w0, w1 = self._window()
-        ms, calls = 0.0, 0
+        ms, host_ms, calls = 0.0, 0.0, 0
         for e in self.prof.events():
             if e.device_type == DeviceType.CPU and e.name == name \
                     and w0 <= e.time_range.start <= w1:
                 ms += e.device_time_total / 1e3
+                host_ms += e.time_range.elapsed_us() / 1e3
                 calls += 1
-        return {"device_ms": ms, "calls": calls}
+        return {"device_ms": ms, "host_ms": host_ms, "calls": calls}
 
     def step_ms(self, skip=()):
         """Each step's time (end to end), but the first two, the traced
@@ -3870,6 +3896,27 @@ def dlrm_dataset(tmp, sizes, train_batches=DLRM_FIT_STEPS):
     return dataset
 
 
+# the split-binary datasets written so far in this run: (sizes, train
+# batches) -> (directory, dataset), each removed when the script exits
+_DATASETS: dict = {}
+
+
+def shared_dataset(sizes, train_batches=DLRM_FIT_STEPS):
+    """`dlrm_dataset` at `sizes` with `train_batches` train batches,
+    written once a run in a directory of its own and read again by every
+    phase that trains at those sizes (9 and 11c at x 0.4, 12b and 14b at
+    the full sizes: the same seeded stream)."""
+    key = (tuple(sizes), train_batches)
+    if key in _DATASETS:
+        emit(phase="dlrm_data", reused=True, rows=sum(sizes),
+             train_batches=train_batches)
+    else:
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_data")
+        atexit.register(shutil.rmtree, tmp, True)
+        _DATASETS[key] = (tmp, dlrm_dataset(tmp, sizes, train_batches))
+    return _DATASETS[key][1]
+
+
 def dlrm_card_auc(torch, model, test):
     """The on-card AUC of `model`'s logits over the DLRM_EVAL_STEPS test
     batches against the exact AUC and a CPU StreamingAUC of the same
@@ -3942,94 +3989,90 @@ def dlrm_fit_phase(torch, cuda_lookup, cuda_sparse, counted, rate):
         DLRM, make_lr_schedule, scaled_table_sizes)
     from distributed_embeddings_tpu_torch.training import fit
     sizes = scaled_table_sizes(DLRM_TABLE_SCALE)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_dlrm")
-    try:
-        dataset = dlrm_dataset(tmp, sizes)
-        evals = DLRM_FIT_STEPS // DLRM_EVAL_EVERY
-        want = {"lookup_combine": DLRM_FIT_STEPS + evals * DLRM_EVAL_STEPS,
-                "segment_sum_sorted": DLRM_FIT_STEPS,
-                "sgd_rows": DLRM_FIT_STEPS}
-        runs, counts = {}, {}
-        for pipelined in (True, False):
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            model = DLRM(sizes, device="cuda", lookup_path="pallas",
-                         generator=torch.Generator(device="cuda")
-                         .manual_seed(DLRM_SEED))
-            torch.cuda.synchronize()
-            build_s = time.perf_counter() - t0
-            train, test = dataset(False), dataset(True)
-            window = StepWindow(torch, DLRM_PROFILED_STEP)
-            set_counts(cuda_lookup, *counted)
-            t0 = time.perf_counter()
-            _, _, hist = fit(
-                model, train.raw_batches(DLRM_FIT_STEPS), DLRM_FIT_STEPS,
-                "sgd", lr=make_lr_schedule(*DLRM_LR),
-                preprocess=train.preprocess, pipelined=pipelined,
-                eval_data=lambda j: test[j % len(test)],
-                eval_every=DLRM_EVAL_EVERY, eval_steps=DLRM_EVAL_STEPS,
-                log_every=0, callbacks=[window])
-            torch.cuda.synchronize()
-            fit_s = time.perf_counter() - t0
-            label = "dlrm_fit" if pipelined else "dlrm_fit_serial"
-            counts[label] = read_counts(cuda_lookup, *counted)
-            check(counts[label] == per_step(want, 1),
-                  f"{label} launches {counts[label]}, want {want} "
-                  f"({DLRM_FIT_STEPS} steps, {evals} evals of "
-                  f"{DLRM_EVAL_STEPS} forwards)")
-            check(all(map(math.isfinite, hist["loss"])),
-                  f"{label}: non-finite losses {hist['loss']}")
-            skip = {s for s in range(DLRM_FIT_STEPS)
-                    if s % DLRM_EVAL_EVERY == 0}
-            step_ms = window.step_ms(skip)
-            med = statistics.median(step_ms)
-            profiled = window.profile()
-            emit(phase="main_path", path=label, steps=DLRM_FIT_STEPS,
-                 build_s=build_s, fit_s=fit_s, launches=counts[label],
-                 launches_per_step={k: counts[label][k] / DLRM_FIT_STEPS
-                                    for k in want},
-                 losses=hist["loss"], eval_auc=hist["eval_auc"],
-                 table_bytes=sum(t.numel() * 4 for t in model.embedding.tp),
-                 median_step_ms=med, samples_per_s=BATCH / (med / 1e3),
-                 step_ms=step_ms,
-                 max_memory_allocated=torch.cuda.max_memory_allocated(),
-                 ingest_stage_mean_ms={
-                     k: v["mean_ms"]
-                     for k, v in hist["ingest_stages"].items()},
-                 profiled_step=profiled)
-            runs[pipelined] = (hist["loss"], hist["eval_auc"],
-                               [table_digest(torch, t)
-                                for t in model.embedding.tp],
-                               {n: p.detach().clone() for n, p in
-                                model.named_parameters() if p.requires_grad})
-            if pipelined:
-                # the on-card AUC of the trained model's logits
-                card_auc = dlrm_card_auc(torch, model, test)
-                check(card_auc == hist["eval_auc"][-1],
-                      f"fit's last eval AUC {hist['eval_auc'][-1]} against "
-                      f"the phase's {card_auc}")
-                summary = dict(median_step_ms=med, card_auc=card_auc,
-                               eval_auc=hist["eval_auc"],
-                               losses=hist["loss"],
-                               max_memory_allocated=torch.cuda
-                               .max_memory_allocated(),
-                               profiled_step=profiled)
-            else:
-                step_kernels = dlrm_step_kernels(torch, cuda_lookup,
-                                                 cuda_sparse, model,
-                                                 train[0], rate)
-            del model, train, test
-            torch.cuda.empty_cache()
-        (l1, a1, d1, m1), (l2, a2, d2, m2) = runs[True], runs[False]
-        same = (l1 == l2 and a1 == a2 and d1 == d2
-                and all(torch.equal(m1[n], m2[n]) for n in m1))
-        emit(phase="dlrm_pipelined_vs_serial", bit_identical=same,
-             losses_equal=l1 == l2, eval_auc_equal=a1 == a2,
-             table_digests_equal=d1 == d2)
-        check(same, "the pipelined and the serial fit differ")
-        return counts, step_kernels, summary
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    dataset = shared_dataset(sizes)
+    evals = DLRM_FIT_STEPS // DLRM_EVAL_EVERY
+    want = {"lookup_combine": DLRM_FIT_STEPS + evals * DLRM_EVAL_STEPS,
+            "segment_sum_sorted": DLRM_FIT_STEPS,
+            "sgd_rows": DLRM_FIT_STEPS}
+    runs, counts = {}, {}
+    for pipelined in (True, False):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = DLRM(sizes, device="cuda", lookup_path="pallas",
+                     generator=torch.Generator(device="cuda")
+                     .manual_seed(DLRM_SEED))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        train, test = dataset(False), dataset(True)
+        window = StepWindow(torch, DLRM_PROFILED_STEP)
+        set_counts(cuda_lookup, *counted)
+        t0 = time.perf_counter()
+        _, _, hist = fit(
+            model, train.raw_batches(DLRM_FIT_STEPS), DLRM_FIT_STEPS,
+            "sgd", lr=make_lr_schedule(*DLRM_LR),
+            preprocess=train.preprocess, pipelined=pipelined,
+            eval_data=lambda j: test[j % len(test)],
+            eval_every=DLRM_EVAL_EVERY, eval_steps=DLRM_EVAL_STEPS,
+            log_every=0, callbacks=[window])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        label = "dlrm_fit" if pipelined else "dlrm_fit_serial"
+        counts[label] = read_counts(cuda_lookup, *counted)
+        check(counts[label] == per_step(want, 1),
+              f"{label} launches {counts[label]}, want {want} "
+              f"({DLRM_FIT_STEPS} steps, {evals} evals of "
+              f"{DLRM_EVAL_STEPS} forwards)")
+        check(all(map(math.isfinite, hist["loss"])),
+              f"{label}: non-finite losses {hist['loss']}")
+        skip = {s for s in range(DLRM_FIT_STEPS)
+                if s % DLRM_EVAL_EVERY == 0}
+        step_ms = window.step_ms(skip)
+        med = statistics.median(step_ms)
+        profiled = window.profile()
+        emit(phase="main_path", path=label, steps=DLRM_FIT_STEPS,
+             build_s=build_s, fit_s=fit_s, launches=counts[label],
+             launches_per_step={k: counts[label][k] / DLRM_FIT_STEPS
+                                for k in want},
+             losses=hist["loss"], eval_auc=hist["eval_auc"],
+             table_bytes=sum(t.numel() * 4 for t in model.embedding.tp),
+             median_step_ms=med, samples_per_s=BATCH / (med / 1e3),
+             step_ms=step_ms,
+             max_memory_allocated=torch.cuda.max_memory_allocated(),
+             ingest_stage_mean_ms={
+                 k: v["mean_ms"]
+                 for k, v in hist["ingest_stages"].items()},
+             profiled_step=profiled)
+        runs[pipelined] = (hist["loss"], hist["eval_auc"],
+                           [table_digest(torch, t)
+                            for t in model.embedding.tp],
+                           {n: p.detach().clone() for n, p in
+                            model.named_parameters() if p.requires_grad})
+        if pipelined:
+            # the on-card AUC of the trained model's logits
+            card_auc = dlrm_card_auc(torch, model, test)
+            check(card_auc == hist["eval_auc"][-1],
+                  f"fit's last eval AUC {hist['eval_auc'][-1]} against "
+                  f"the phase's {card_auc}")
+            summary = dict(median_step_ms=med, card_auc=card_auc,
+                           eval_auc=hist["eval_auc"],
+                           losses=hist["loss"],
+                           max_memory_allocated=torch.cuda
+                           .max_memory_allocated(),
+                           profiled_step=profiled)
+        else:
+            step_kernels = dlrm_step_kernels(torch, cuda_lookup,
+                                             cuda_sparse, model,
+                                             train[0], rate)
+        del model, train, test
+        torch.cuda.empty_cache()
+    (l1, a1, d1, m1), (l2, a2, d2, m2) = runs[True], runs[False]
+    same = (l1 == l2 and a1 == a2 and d1 == d2
+            and all(torch.equal(m1[n], m2[n]) for n in m1))
+    emit(phase="dlrm_pipelined_vs_serial", bit_identical=same,
+         losses_equal=l1 == l2, eval_auc_equal=a1 == a2,
+         table_digests_equal=d1 == d2)
+    check(same, "the pipelined and the serial fit differ")
+    return counts, step_kernels, summary
 
 
 def dlrm_against_cpu_phase(torch, cuda_lookup, cuda_sparse, counted,
@@ -4443,7 +4486,7 @@ def dlrm_amp_fit_phase(torch, cuda_lookup, cuda_sparse, counted, rate,
     builds = {}
     try:
         builds = start_one_hot_builds(kernel_build, tmp)
-        dataset = dlrm_dataset(tmp, sizes)
+        dataset = shared_dataset(sizes)
         evals = DLRM_FIT_STEPS // DLRM_EVAL_EVERY
         want = {"lookup_combine_bf16": (DLRM_FIT_STEPS
                                         + evals * DLRM_EVAL_STEPS),
@@ -5209,7 +5252,7 @@ def quantized_full_phase(torch, cuda_lookup, counted):
         emit(phase="model", config="dlrm_criteo_int8", rows=sum(sizes),
              build_s=build_s, payload_bytes=payload, scale_bytes=scales,
              memory_allocated=torch.cuda.memory_allocated())
-        dataset = dlrm_dataset(tmp, sizes, QUANT_FULL_STEPS)
+        dataset = shared_dataset(sizes, QUANT_FULL_STEPS)
         train, test = dataset(False), dataset(True)
         window = StepWindow(torch, QUANT_PROFILED_STEP)
         set_counts(cuda_lookup, *counted)
@@ -6358,6 +6401,503 @@ def wire_world_phase(torch) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---- 14: host offload
+# the device budget of phase 14's layers: the elements of DLRM's tables at
+# Criteo x 0.4 (phase 9's fit: 9,613,690,624 elements, 38.45 GB, with its
+# step at 47.28 GB peak); at the full sizes the three largest tables pass
+# it and go to host memory
+OFFLOAD_BUDGET_SCALE = 0.4
+OFFLOAD_FULL_STEPS = 22       # 2 warm + 20 timed, as 12b
+OFFLOAD_PROFILED_STEP = 4
+# host memory the full scale leaves beside its pinned tables (the
+# dataset, the step's staging and pending rows, the process): else the
+# largest scale of OFFLOAD_SCALES whose offloaded part fits in half of
+# MemAvailable
+OFFLOAD_HOST_SPARE = 16 * 2**30
+OFFLOAD_SCALES = (1.0, 0.9, 0.8, 0.7, 0.6, 0.5, 0.4, 0.3, 0.2, 0.1)
+OFFLOAD_HOLD_SCALE = DLRM_CPU_SCALE   # the holds: Criteo x 0.02
+OFFLOAD_HOLD_BUDGET = 0.4     # the holds' device budget: this share of
+                              # their elements (the three largest go)
+OFFLOAD_SGD_STEPS = 3
+OFFLOAD_ADAGRAD_STEPS = 2
+OFFLOAD_INT8_STEPS = 2
+OFFLOAD_TABLE_TOL = dict(rtol=2e-5, atol=2e-5)  # the JAX test's table bar
+# the port's `layers.dist_model_parallel.OFFLOAD_LOOKUP_RANGE` and
+# `OFFLOAD_UPDATE_RANGE`
+OFFLOAD_LOOKUP_RANGE = "offload:lookup"
+OFFLOAD_UPDATE_RANGE = "offload:update"
+
+
+def mem_available() -> int:
+    """The host's MemAvailable (/proc/meminfo), bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def offload_budget() -> int:
+    """14b's device budget in elements (OFFLOAD_BUDGET_SCALE's tables)."""
+    from distributed_embeddings_tpu_torch.models.dlrm import (
+        scaled_table_sizes)
+    return sum(scaled_table_sizes(OFFLOAD_BUDGET_SCALE)) * 128
+
+
+def offload_embedding(torch, sizes, device, budget, storage=None, gen=None):
+    """DLRM's embedding at `sizes` (width 128, the example's initializer)
+    with the device budget `budget` (None: every table on the device)."""
+    from distributed_embeddings_tpu_torch.layers.dist_model_parallel import (
+        DistributedEmbedding)
+    from distributed_embeddings_tpu_torch.layers.embedding import Embedding
+    from distributed_embeddings_tpu_torch.models.dlrm import dlrm_initializer
+    return DistributedEmbedding(
+        [Embedding(v, 128, embeddings_initializer=dlrm_initializer(),
+                   device="meta") for v in sizes],
+        strategy="memory_balanced", device=device, lookup_path="pallas",
+        gpu_embedding_size=budget, storage_dtype=storage, generator=gen)
+
+
+def offload_plan(torch, sizes, budget) -> dict:
+    """The plan of `offload_embedding` at `sizes` (a layer on the meta
+    device, which allocates nothing): the offloaded and the device
+    buckets' bytes and the offloaded tables' rows."""
+    layer = offload_embedding(torch, sizes, "meta", budget)
+    off = [b for b, bk in enumerate(layer.plan.tp_buckets) if bk.offload]
+    nbytes = [max(bk.rows_max, 1) * bk.width * 4
+              for bk in layer.plan.tp_buckets]
+    return dict(offloaded_buckets=off,
+                offloaded_bytes=sum(nbytes[b] for b in off),
+                device_bytes=sum(n for b, n in enumerate(nbytes)
+                                 if b not in off),
+                offloaded_rows=sorted(
+                    (sizes[layer.strategy.table_groups[1][pl.table_id]]
+                     for pl in layer.plan.tp_placements if pl.bucket in off),
+                    reverse=True))
+
+
+def offload_scale(torch) -> tuple:
+    """The table scale phase 14 trains at: the full sizes when the host's
+    MemAvailable holds their offloaded part and OFFLOAD_HOST_SPARE more,
+    else the largest of OFFLOAD_SCALES whose offloaded part fits in half
+    of it. Returns (scale, its plan, MemAvailable)."""
+    from distributed_embeddings_tpu_torch.models.dlrm import (
+        scaled_table_sizes)
+    avail = mem_available()
+    budget = offload_budget()
+    for scale in OFFLOAD_SCALES:
+        plan = offload_plan(torch, scaled_table_sizes(scale), budget)
+        room = (avail - OFFLOAD_HOST_SPARE if scale == 1.0 else avail / 2)
+        if plan["offloaded_bytes"] <= room:
+            return scale, plan, avail
+    raise SmokeFailure(f"MemAvailable {avail}: no table scale's offloaded "
+                       "part fits")
+
+
+def offload_dlrm(torch, sizes, device, budget, seed, storage=None):
+    """DLRM at the example's widths with its embedding rebuilt under the
+    device budget `budget` (and at `storage`), as the JAX example rebuilds
+    it (examples/dlrm/serve.py:103-113); built over 4-row stand-in tables,
+    so no table of `sizes` is drawn twice."""
+    from distributed_embeddings_tpu_torch.models.dlrm import DLRM
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = DLRM([4] * len(sizes), device=device, lookup_path="pallas",
+                 generator=gen)
+    model.embedding = offload_embedding(torch, sizes, device, budget,
+                                        storage, gen)
+    model.table_sizes = list(sizes)
+    return model
+
+
+def layer_table(torch, layer, gtid) -> tuple:
+    """Table `gtid` of a world-1 layer on the card, wherever its bucket
+    lives (a host bucket's rows copied up): (its float32 rows, decoded at
+    a quantized storage; their per-row scales, None at float32)."""
+    from distributed_embeddings_tpu_torch.ops import wire
+    pl = next(p for p in layer.plan.tp_placements
+              if layer.strategy.table_groups[1][p.table_id] == gtid)
+    rows = slice(pl.row_offset, pl.row_offset + pl.rows)
+    payload = layer.tp[pl.bucket].detach()[rows].to("cuda")
+    sd = layer.plan.tp_buckets[pl.bucket].storage_dtype
+    if sd == "f32":
+        return payload, None
+    scale = layer.tp_scale[pl.bucket].detach()[rows].to("cuda")
+    return wire.decode_rows(payload, scale, sd), scale
+
+
+def model_snapshot(torch, model) -> dict:
+    """A copy of every tensor of `model`'s state, each where it lives (a
+    host bucket's on the host), for `load_state_dict` to copy back."""
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+class HostApplyTap:
+    """Records each quantized host apply of `layer` (its
+    `_host_quantized_apply`, which still runs): the payload bytes, scales
+    and state of the touched rows before and after, and the pending rows,
+    so the port's numpy functions replay it (`replay_host_apply`)."""
+
+    def __init__(self, torch, layer):
+        self.torch, self.layer, self.calls = torch, layer, []
+        self.real = layer._host_quantized_apply
+
+    def __enter__(self):
+        self.layer._host_quantized_apply = self
+        return self
+
+    def __exit__(self, *exc):
+        del self.layer._host_quantized_apply
+
+    def _rows(self, b, ru):
+        layer = self.layer
+        raw = layer.tp[b].data.view(self.torch.uint8).numpy()
+        return raw[ru].copy(), layer.tp_scale[b].data.numpy()[ru].copy()
+
+    def __call__(self, b, arrays, rep, sums, valid, opt, kw):
+        import numpy as np
+        ru = rep[valid > 0].astype(np.int64)
+        payload, scale = self._rows(b, ru)
+        state = [np.copy(x[ru]) if np.ndim(x) else x for x in arrays]
+        self.real(b, arrays, rep, sums, valid, opt, kw)
+        after = self._rows(b, ru)
+        self.calls.append(dict(
+            b=b, sd=self.layer._bucket_store_dtype(b), payload=payload,
+            scale=scale, state=state, sums=sums[valid > 0].copy(),
+            kind=opt.kind, lr=opt.lr, kw=dict(kw), payload_after=after[0],
+            scale_after=after[1],
+            state_after=[np.copy(x[ru]) if np.ndim(x) else x
+                         for x in arrays]))
+
+
+def replay_host_apply(call):
+    """A recorded quantized host apply replayed on its touched rows by the
+    numpy functions (`ops.wire.decode_rows_np`, `ops.sparse_update.
+    host_apply_rows_inplace`, `ops.wire.encode_rows_np`): True when it
+    gives the card's rows, scales and state bit for bit."""
+    import numpy as np
+    from distributed_embeddings_tpu_torch.ops import sparse_update, wire
+    sd, m = call["sd"], len(call["sums"])
+    raw = call["payload"].view(np.int8) if sd == "int8" else call["payload"]
+    sub = np.ascontiguousarray(wire.decode_rows_np(raw, call["scale"], sd))
+    state = [np.copy(x) if np.ndim(x) else x for x in call["state"]]
+    st = ((state[0], state[1], state[2]) if call["kind"] == "adam"
+          else tuple(x for x in state if np.ndim(x)))
+    sparse_update.host_apply_rows_inplace(
+        call["kind"], sub, st, np.arange(m), call["sums"],
+        np.ones(m, np.float32), call["lr"], **call["kw"])
+    pay, scl = wire.encode_rows_np(sub, sd, sr=True)
+    return (np.asarray(pay).view(np.uint8).tobytes()
+            == call["payload_after"].tobytes()
+            and np.array_equal(scl, call["scale_after"])
+            and all(np.array_equal(np.asarray(a), np.asarray(b))
+                    for a, b in zip(state, call["state_after"])))
+
+
+def offload_pair_steps(torch, counting, models, kind, steps, batches, lr):
+    """`steps` sparse steps of `kind` on each model of `models` (the
+    offloaded one first) over the same staged batches. Returns each
+    model's losses and the launch counts of the first model's steps
+    (`counting`: ``(cuda_lookup, *counted)``, set to 0 just before)."""
+    from distributed_embeddings_tpu_torch.parallel.staging import (
+        DeviceStager)
+    from distributed_embeddings_tpu_torch.training import (
+        make_sparse_train_step)
+    stage = DeviceStager("cuda")
+    out, counts = [], None
+    for model in models:
+        init, step = make_sparse_train_step(model, kind, lr=lr)
+        state = init(model)
+        if counts is None:
+            set_counts(*counting)
+        losses = []
+        for s in range(steps):
+            num, cats, labels = stage(batches[s])
+            _, state, loss = step(model, state, num, list(cats), labels)
+            losses.append(float(loss))
+        torch.cuda.synchronize()
+        if counts is None:
+            counts = read_counts(*counting)
+        out.append(losses)
+        del state
+    return out, counts
+
+
+def offload_hold_phase(torch, cuda_lookup, counted) -> dict:
+    """14a: DLRM at Criteo x OFFLOAD_HOLD_SCALE with a device budget that
+    forces its largest tables to the host (OFFLOAD_HOLD_BUDGET of its
+    elements), on the card, against the same model with every table on the
+    card, from one source of weights (`get_weights` of the all-device
+    model into the other's `set_weights`; both reset from snapshots
+    between runs) and the same MLPs: OFFLOAD_SGD_STEPS sgd steps at the
+    example's schedule (losses at LOSS_TOL, every offloaded table bit for
+    bit) and OFFLOAD_ADAGRAD_STEPS adagrad steps (losses at LOSS_TOL, the
+    offloaded tables at OFFLOAD_TABLE_TOL, the JAX test's bar, with their
+    largest ulp distance: the card's adagrad takes an approximate
+    reciprocal square root, the host a correctly rounded one); then both
+    at int8 storage from the same float32 weights, OFFLOAD_INT8_STEPS sgd
+    steps (losses at LOSS_TOL; every offloaded element within one grid
+    step a step of the all-device model's, whose update fuses decode and
+    rule into one rounding and multiplies by its scale's reciprocal where
+    the host divides; each host apply replayed bit for bit by the numpy
+    functions). The tables are compared on the card. Launches of the
+    offloaded sgd steps: `lookup_combine` 1, `segment_sum_sorted` 1 + the
+    offloaded buckets, `sgd_rows` 1 a step. Returns the launch counts."""
+    import numpy as np
+    from distributed_embeddings_tpu_torch.models.dlrm import (
+        make_lr_schedule, scaled_table_sizes)
+    from distributed_embeddings_tpu_torch.models.synthetic import (
+        ClickGenerator)
+    t0 = time.perf_counter()
+    sizes = scaled_table_sizes(OFFLOAD_HOLD_SCALE)
+    budget = int(OFFLOAD_HOLD_BUDGET * sum(sizes) * 128)
+    dev = offload_dlrm(torch, sizes, "cuda", None, DLRM_SEED + 3)
+    off = offload_dlrm(torch, sizes, "cuda", budget, DLRM_SEED + 3)
+    layer = off.embedding
+    check(layer.offloaded_buckets and not dev.embedding.offloaded_buckets,
+          f"offload_hold: offloaded buckets {layer.offloaded_buckets}")
+    strat = layer.strategy
+    off_tables = sorted({strat.table_groups[1][pl.table_id]
+                         for pl in layer.plan.tp_placements
+                         if pl.bucket in layer.offloaded_buckets})
+    weights = dev.embedding.get_weights()
+    mlp = {k: v.clone() for k, v in dev.state_dict().items()
+           if not k.startswith("embedding.")}
+    off.load_state_dict(mlp, strict=False)
+    layer.set_weights(weights)
+    initial = [torch.from_numpy(weights[t]) for t in off_tables]
+    check(all(torch.equal(layer_table(torch, layer, t)[0].cpu(), w)
+              for t, w in zip(off_tables, initial)),
+          "offload_hold: set_weights/get_weights through the host buckets")
+    snaps = [(m, model_snapshot(torch, m)) for m in (off, dev)]
+    gen = ClickGenerator(sizes, 13, BATCH, seed=DLRM_SEED + 4)
+    batches = [gen.batch(s) for s in range(OFFLOAD_SGD_STEPS)]
+    del gen
+    pinned = all(layer.tp[b].is_pinned() and layer.tp[b].device.type == "cpu"
+                 for b in layer.offloaded_buckets)
+    emit(phase="offload_hold_model", scale=OFFLOAD_HOLD_SCALE,
+         budget_elements=budget, offloaded_tables=off_tables,
+         offloaded_rows=[sizes[t] for t in off_tables],
+         pinned_host_bytes=layer.pinned_host_bytes(),
+         host_tables_pinned=pinned, seconds=time.perf_counter() - t0)
+    check(pinned, "offload_hold: the offloaded tables are not pinned host "
+                  "tensors")
+    summary, counts = {}, None
+    for kind, steps, lr in (("sgd", OFFLOAD_SGD_STEPS,
+                             make_lr_schedule(*DLRM_LR)),
+                            ("adagrad", OFFLOAD_ADAGRAD_STEPS, TRAIN_LR)):
+        t1 = time.perf_counter()
+        for m, snap in snaps:
+            m.load_state_dict(snap)
+        (l_off, l_dev), launched = offload_pair_steps(
+            torch, (cuda_lookup, *counted), (off, dev), kind, steps, batches,
+            lr)
+        counts = counts or launched
+        got = [layer_table(torch, layer, t)[0] for t in off_tables]
+        want = [layer_table(torch, dev.embedding, t)[0] for t in off_tables]
+        ulp = max(max_ulp(torch, a, b) for a, b in zip(got, want))
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        close = all(torch.allclose(a, b, **OFFLOAD_TABLE_TOL)
+                    for a, b in zip(got, want))
+        moved = sum(int((a.cpu() != w).sum())
+                    for a, w in zip(got, initial))
+        losses_ok = np.allclose(l_off, l_dev, **LOSS_TOL)
+        summary[kind] = dict(losses=l_off, all_device_losses=l_dev,
+                             offloaded_elements_moved=moved,
+                             offloaded_bit_equal=equal, max_abs_err=err,
+                             max_ulp=ulp)
+        emit(phase="offload_hold", optimizer=kind, steps=steps,
+             seconds=time.perf_counter() - t1, **summary[kind],
+             tolerance=("bit" if kind == "sgd" else OFFLOAD_TABLE_TOL),
+             ok=losses_ok and (equal if kind == "sgd" else close))
+        check(losses_ok, f"offload_hold {kind}: losses {l_off} against the "
+                         f"all-device model's {l_dev}")
+        check(moved > 0, f"offload_hold {kind}: no offloaded element moved")
+        check(equal if kind == "sgd" else close,
+              f"offload_hold {kind}: offloaded tables {err} ({ulp} ulp) "
+              "from the all-device model's")
+        del got, want
+    want = {"lookup_combine": 1,
+            "segment_sum_sorted": 1 + len(layer.offloaded_buckets),
+            "sgd_rows": 1}
+    check(counts == per_step(want, OFFLOAD_SGD_STEPS),
+          f"offload_hold launches {counts}, want {want} per step")
+    del off, dev, snaps, layer
+    torch.cuda.empty_cache()
+    # int8: both models stored quantized, from the same float32 weights
+    t1 = time.perf_counter()
+    pair = [offload_dlrm(torch, sizes, "cuda", b, DLRM_SEED + 3,
+                         storage="int8") for b in (budget, None)]
+    for m in pair:
+        m.load_state_dict(mlp, strict=False)
+        m.embedding.set_weights(weights)
+    del weights
+    off8, dev8 = pair
+    layer8 = off8.embedding
+    with HostApplyTap(torch, layer8) as tap:
+        (l_off, l_dev), _ = offload_pair_steps(
+            torch, (cuda_lookup, *counted), pair, "sgd", OFFLOAD_INT8_STEPS,
+            batches, make_lr_schedule(*DLRM_LR))
+    replayed = [replay_host_apply(c) for c in tap.calls]
+    grid, equal_share = 0.0, []
+    for t in off_tables:
+        a, sa = layer_table(torch, layer8, t)
+        b, sb = layer_table(torch, dev8.embedding, t)
+        grid = max(grid, ((a - b).abs() / torch.maximum(sa, sb)).max().item())
+        equal_share.append(float((a == b).float().mean()))
+    losses_ok = np.allclose(l_off, l_dev, **LOSS_TOL)
+    grid_ok = grid <= OFFLOAD_INT8_STEPS * (1 + 1e-6)
+    ok = losses_ok and bool(replayed) and all(replayed) and grid_ok
+    emit(phase="offload_hold", optimizer="sgd", storage_dtype="int8",
+         steps=OFFLOAD_INT8_STEPS, seconds=time.perf_counter() - t1,
+         losses=l_off, all_device_losses=l_dev,
+         host_applies_replayed_bit_equal=sum(replayed),
+         host_applies=len(replayed),
+         touched_rows=[len(c["sums"]) for c in tap.calls],
+         max_grid_steps_from_all_device=grid,
+         bit_equal_share_by_table=equal_share, ok=ok)
+    check(losses_ok, f"offload_hold int8: losses {l_off} against the "
+                     f"all-device model's {l_dev}")
+    check(replayed and all(replayed), "offload_hold int8: a host apply the "
+                                      "numpy functions do not replay")
+    check(grid_ok, f"offload_hold int8: offloaded elements {grid} grid "
+                   "steps from the all-device model's")
+    del pair, off8, dev8, layer8, tap
+    torch.cuda.empty_cache()
+    return {"offload_hold": counts}
+
+
+class TrafficTap:
+    """A `fit` callback: the layer's cumulative `offload_traffic` at the
+    end of each step."""
+
+    def __init__(self, layer):
+        self.layer, self.at = layer, []
+
+    def on_step(self, step, model, loss):
+        self.at.append(dict(self.layer.offload_traffic))
+
+
+def offload_full_phase(torch, cuda_lookup, counted) -> dict:
+    """14b: DLRM at the example's widths at the MLPerf Criteo-1TB sizes
+    in float32 on one card, its embedding rebuilt with
+    ``gpu_embedding_size`` the elements of the x 0.4 tables: the three
+    largest tables (61.2 GB) in pinned host memory, the rest (34.9 GB) on
+    the card (the host's MemAvailable decides the scale first,
+    `offload_scale`). The build's and its page-locking's seconds (the
+    driver's ``cudaHostRegister``), the pinned bytes, MemAvailable after,
+    `memory_allocated` beside the device buckets' bytes; `fit` (sgd at
+    the example's schedule, batch 65,536, a seeded ClickGenerator stream
+    from a split-binary dataset, pipelined) for OFFLOAD_FULL_STEPS steps:
+    step times, samples/s, launches a step checked (`lookup_combine` 1,
+    `segment_sum_sorted` 1 + the offloaded buckets, `sgd_rows` 1), one
+    profiled step (the card's idle share, the host ms of the offloaded
+    lookup's and update's ranges, each one call, the HtoD copies and the
+    HtoD and DtoH device ms by category, the bytes the layer moved), peak
+    device memory;
+    the on-card AUC against `auc_exact`; a 65,536-row request through
+    `InferenceEngine`. Returns the launch counts."""
+    from distributed_embeddings_tpu_torch.models.dlrm import (
+        make_lr_schedule, scaled_table_sizes)
+    from distributed_embeddings_tpu_torch.serving.engine import (
+        InferenceEngine)
+    from distributed_embeddings_tpu_torch.training import fit
+    scale, plan, avail = offload_scale(torch)
+    sizes = scaled_table_sizes(scale)
+    emit(phase="offload_host", mem_available=avail, scale=scale,
+         full_scale=scale == 1.0, budget_elements=offload_budget(), **plan,
+         host_spare=OFFLOAD_HOST_SPARE)
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = offload_dlrm(torch, sizes, "cuda", offload_budget(), DLRM_SEED)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    layer = model.embedding
+    off = layer.offloaded_buckets
+    dev_bytes = sum(t.numel() * 4 for b, t in enumerate(layer.tp)
+                    if b not in off)
+    host_bytes = sum(layer.tp[b].numel() * 4 for b in off)
+    allocated = torch.cuda.memory_allocated() - before
+    pinned = layer.pinned_host_bytes()
+    emit(phase="model", config="dlrm_criteo_offload", scale=scale,
+         rows=sum(sizes), build_s=build_s,
+         pin_s=sum(p.seconds for p in layer._host_pins),
+         offloaded_buckets=off,
+         host_table_bytes=host_bytes, device_table_bytes=dev_bytes,
+         pinned_host_bytes=pinned, mem_available_after=mem_available(),
+         memory_allocated_by_build=allocated,
+         host_tables_pinned=all(layer.tp[b].is_pinned() for b in off))
+    check(off and off == plan["offloaded_buckets"] and host_bytes ==
+          plan["offloaded_bytes"], f"offload_full: buckets {off}, the "
+                                   f"plan's {plan}")
+    check(all(layer.tp[b].is_pinned() for b in off)
+          and host_bytes <= pinned < host_bytes + 4096 * len(off),
+          f"offload_full: {pinned} bytes pinned for {host_bytes}")
+    check(allocated < dev_bytes + 2**30,
+          f"offload_full: the build took {allocated} bytes on the card, its "
+          f"device buckets {dev_bytes}")
+    dataset = shared_dataset(sizes, OFFLOAD_FULL_STEPS)
+    train, test = dataset(False), dataset(True)
+    window = StepWindow(torch, OFFLOAD_PROFILED_STEP)
+    traffic = TrafficTap(layer)
+    set_counts(cuda_lookup, *counted)
+    t0 = time.perf_counter()
+    _, _, hist = fit(model, train.raw_batches(OFFLOAD_FULL_STEPS),
+                     OFFLOAD_FULL_STEPS, "sgd",
+                     lr=make_lr_schedule(*DLRM_LR),
+                     preprocess=train.preprocess, pipelined=True,
+                     log_every=0, callbacks=[window, traffic])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = {"offload_dlrm_full": read_counts(cuda_lookup, *counted)}
+    want = {"lookup_combine": 1, "segment_sum_sorted": 1 + len(off),
+            "sgd_rows": 1}
+    check(counts["offload_dlrm_full"] == per_step(want,
+                                                  OFFLOAD_FULL_STEPS),
+          f"offload_dlrm_full launches {counts['offload_dlrm_full']}, "
+          f"want {want} per step")
+    check(all(map(math.isfinite, hist["loss"])),
+          f"offload_dlrm_full: non-finite losses {hist['loss']}")
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = window.step_ms()
+    med = statistics.median(step_ms)
+    profiled = window.profile()
+    for name in (OFFLOAD_LOOKUP_RANGE, OFFLOAD_UPDATE_RANGE):
+        profiled[name] = window.range_ms(name)
+        check(profiled[name]["calls"] == 1,
+              f"offload_dlrm_full: the profiled step's {name} range: "
+              f"{profiled[name]}, want 1 call")
+    p = OFFLOAD_PROFILED_STEP
+    profiled["bytes"] = {k: traffic.at[p + 1][k] - traffic.at[p][k]
+                         for k in traffic.at[p]}
+    card_auc = dlrm_card_auc(torch, model, test)
+    engine = InferenceEngine(model, device="cuda")
+    num, cats, _ = test[0]
+    serve_ms = serve_latency_ms(torch, engine, (num, cats))
+    logits = engine.predict((num, cats))
+    check(tuple(logits.shape) == (BATCH, 1)
+          and bool(torch.isfinite(logits).all()),
+          "offload_dlrm_full: the engine's logits")
+    del engine, logits
+    emit(phase="main_path", path="offload_dlrm_full",
+         steps=OFFLOAD_FULL_STEPS, scale=scale, rows=sum(sizes),
+         build_s=build_s, fit_s=fit_s,
+         launches=counts["offload_dlrm_full"], losses=hist["loss"],
+         median_step_ms=med, samples_per_s=BATCH / (med / 1e3),
+         step_ms=step_ms, max_memory_allocated=peak,
+         device_table_bytes=dev_bytes, host_table_bytes=host_bytes,
+         other_memory_at_peak=peak - dev_bytes,
+         ingest_stage_mean_ms={k: v["mean_ms"] for k, v in
+                               hist["ingest_stages"].items()},
+         profiled_step=profiled, card_auc=card_auc, serve_rows=BATCH,
+         serve_ms=serve_ms, ok=True)
+    del model, train, test, layer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6949,6 +7489,14 @@ def main() -> int:
     wire_counts = hot_tiny_phase(torch, cuda_lookup, cuda_sparse, counted)
     wire_counts.update(wire_world_phase(torch))
 
+    # ---- 14. host offload: DLRM x 0.02 with its largest tables in host
+    # memory against the same model all on the card, f32 and int8 (14a);
+    # DLRM at the full Criteo-1TB sizes in float32 with its three largest
+    # tables in pinned host memory through `fit`, its AUC and engine (14b);
+    # counts to 0, drive, read in each
+    offload_counts = offload_hold_phase(torch, cuda_lookup, counted)
+    offload_counts.update(offload_full_phase(torch, cuda_lookup, counted))
+
     # ---- 7. result lines; the kernels of DLRM's step carry their times
     # at its shapes too (`at_dlrm_fit`), and at a row shard's of the
     # placement phase (`at_placement`); their worst error covers them
@@ -6984,7 +7532,7 @@ def main() -> int:
              "train_fused": fused_counts,
              **{f"train_tiled_{k}": c for k, c in tiled_counts.items()},
              **dense_counts, **dlrm_counts, **world_counts, **amp_counts,
-             **quant_counts, **wire_counts}
+             **quant_counts, **wire_counts, **offload_counts}
 
     def by_path(kname):
         return {p: c[kname] for p, c in paths.items() if c[kname]}

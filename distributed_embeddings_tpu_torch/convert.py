@@ -254,16 +254,19 @@ def opt_state_from_jax(np_state: dict, model) -> dict:
     [(acc[world, rows, w],)], "row": [...], "hot": [(acc[H, w],)]},
     "dense": optax chain state}`` (plus ``"count"`` under a schedule);
     this rank takes its ``[rank]`` shard of each stacked state array and
-    the hot shards' state whole. Tensors land on `model`'s device."""
+    the hot shards' state whole. Tensors land on `model`'s device, an
+    offloaded bucket's in host memory."""
     layer = model.embedding
     dev = layer.device
     emb = np_state["emb"]
 
-    def shards(entries):
-        return [tuple(_tensor(np.asarray(x)[layer.rank]).to(dev)
+    def shards(entries, place=lambda i, t: t.to(dev)):
+        return [tuple(place(i, _tensor(np.asarray(x)[layer.rank]))
                       if np.ndim(x) == 3 else int(np.asarray(x))
-                      for x in entry) for entry in entries]
-    tp, row = shards(emb["tp"]), shards(emb.get("row", []))
+                      for x in entry) for i, entry in enumerate(entries)]
+    # an offloaded bucket's state lives where its table does, on the host
+    tp = shards(emb["tp"], layer._bucket_tensor)
+    row = shards(emb.get("row", []))
     if len(row) != len(layer.row):
         raise ValueError(f"opt state for {len(row)} row-sliced tables, the "
                          f"port's plan has {len(layer.row)}")

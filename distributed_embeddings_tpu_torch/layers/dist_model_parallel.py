@@ -37,10 +37,28 @@ at global batch size and the dp->mp exchange is skipped. The ranks are
 those of the default ``torch.distributed`` process group
 (`parallel.mesh.initialize_distributed`); with data-parallel input each
 rank passes its own slice of the global batch
-(`parallel.staging.stage_dp_batch`). Offload comes in a later slice
-(ROADMAP Queue A8) and raises NotImplementedError here. Every exchange
+(`parallel.staging.stage_dp_batch`). Every exchange
 takes its bucket's (or row table's) wire formats, ``wire_dtype`` and
 ``id_wire_dtype`` (`ops.wire`; ``exchange_wire`` picks the float one).
+
+Host offload (``gpu_embedding_size=N``, the JAX package's offloaded
+buckets, the reference's tables on ``/CPU:0``): the planner flags the
+largest tables past a device budget of N elements; they form buckets of
+their own (`offloaded_buckets`), which live in host memory and never on the
+card: on a CUDA layer ``tp[b]`` (with ``tp_scale[b]`` and the optimizer
+state) is a page-locked CPU tensor of exactly its size (`HostPin`), on a
+CPU layer a plain one. ``.to()`` and ``.cuda()`` leave them where they
+are. An offloaded group's ids cross the exchange on the card as every
+group's do; then they come to the host, clamped into the bucket, and the
+rows are gathered (decoded, at a quantized storage), combined in float32
+into a pinned staging buffer and copied to the card without blocking
+(`_offload_group_out`, the profiler range `OFFLOAD_LOOKUP_RANGE`); the
+cast, the unweighted mean's scale and the tap follow on the card. The
+sparse update deduplicates the bucket's rows on the card
+(`ops.sparse_update.prepare_safe_grad`) and applies them to the host
+buffers in place (`ops.sparse_update.host_apply_rows_inplace`, range
+`OFFLOAD_UPDATE_RANGE`; a quantized bucket decodes its touched rows,
+applies the rule and re-encodes them with stochastic rounding).
 
 Hot rows (``hot_rows=H``, data-parallel input; the JAX package's hot
 shard): each combined bucket keeps a replicated hot shard, the buffers
@@ -106,22 +124,25 @@ from distributed_embeddings_tpu_torch.ops import (cuda_lookup, cuda_tiled,
 from distributed_embeddings_tpu_torch.ops.embedding_ops import (
     GroupSort, RaggedIds, SparseIds, canonical_id_sort)
 from distributed_embeddings_tpu_torch.ops.sparse_update import (
-    QUANTIZED_ROW_KINDS, SparseOptimizer, SparseRowGrad, _dense_sum,
-    concat_grads, update_consumes_sort)
+    HOST_APPLY_KINDS, QUANTIZED_ROW_KINDS, SparseOptimizer, SparseRowGrad,
+    _dense_sum, concat_grads, host_apply_rows_inplace, prepare_safe_grad,
+    update_consumes_sort)
 from distributed_embeddings_tpu_torch.parallel import mesh as pg
 from distributed_embeddings_tpu_torch.parallel.plan import (ShardedPlan,
                                                             lower_strategy)
 from distributed_embeddings_tpu_torch.parallel.planner import (
     DistEmbeddingStrategy)
 from distributed_embeddings_tpu_torch.utils.device import (
-    DeviceLike, default_generator, resolve_compute_dtype, resolve_device)
+    DeviceLike, HostPin, default_generator, pinned_empty,
+    resolve_compute_dtype, resolve_device)
 from distributed_embeddings_tpu_torch.utils.hotness import HotnessTracker
 from distributed_embeddings_tpu_torch.utils.initializers import (
     ConcatInitializer, get_initializer)
 
 __all__ = ["DistEmbeddingStrategy", "DistributedEmbedding", "TapResiduals",
            "LOOKUP_PATHS", "QUANTIZED_LOOKUP_RANGE", "HOT_SPLIT_RANGE",
-           "HOT_GATHER_RANGE", "HOT_UPDATE_RANGE", "broadcast_variables"]
+           "HOT_GATHER_RANGE", "HOT_UPDATE_RANGE", "OFFLOAD_LOOKUP_RANGE",
+           "OFFLOAD_UPDATE_RANGE", "broadcast_variables"]
 
 # the profiler range of every quantized bucket's lookup (a no-op unless a
 # profiler is on), so a trace reads its device time
@@ -131,6 +152,10 @@ QUANTIZED_LOOKUP_RANGE = "quantized:lookup"
 HOT_SPLIT_RANGE = "hot:split"
 HOT_GATHER_RANGE = "hot:gather"
 HOT_UPDATE_RANGE = "hot:update"
+# the host halves of an offloaded bucket: its lookup (ids to the host, the
+# gather and combine, the copy back) and its update's host apply
+OFFLOAD_LOOKUP_RANGE = "offload:lookup"
+OFFLOAD_UPDATE_RANGE = "offload:update"
 
 # the JAX package's DET_LOOKUP_PATH values: "auto", "xla" and "pallas" take
 # the gather-combine kernel, "tiled" and "fused" the sorted-stream lookups
@@ -305,13 +330,15 @@ class DistributedEmbedding(nn.Module):
     ``exchange_wire`` (None = "f32", "bf16", "bf16-sr") is the float wire
     of the combined buckets and row tables; ``hot_rows`` (with
     ``dp_input=True``) the hot shard's capacity a combined bucket (see
-    the module docstring).
+    the module docstring). ``gpu_embedding_size`` is the device budget
+    in elements of the table-parallel tables: the tables past it are
+    offloaded to host memory (see the module docstring).
 
     Arguments of the JAX package that the port takes at their defaults
     only: ``use_custom_kernel`` (True; False, the JAX package's XLA
     lookup, has no counterpart: the port's lookups never fall back, ROADMAP
     North star), ``mesh`` (None; the ranks are the
-    process group's, A3), ``gpu_embedding_size`` (None, A8) and
+    process group's, A3) and
     ``vocab_slack`` (A12): any other value raises NotImplementedError
     naming its item.
     """
@@ -360,15 +387,10 @@ class DistributedEmbedding(nn.Module):
                 f"world_size={world_size}, but the process group has "
                 f"{world} rank(s); start one with "
                 "parallel.mesh.initialize_distributed")
-        unported = [
-            (gpu_embedding_size is not None, "host offload "
-             "(gpu_embedding_size)", "A8 (offload)"),
-            (bool(vocab_slack), "vocab_slack", "A12 (store and vocab)"),
-        ]
-        for hit, what, item in unported:
-            if hit:
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP Queue {item})")
+        if vocab_slack:
+            raise NotImplementedError(
+                "vocab_slack is not ported yet (ROADMAP Queue A12 (store and "
+                "vocab))")
         self.device = resolve_device(device)
         self.world_size = world
         self.rank = pg.rank()
@@ -385,6 +407,7 @@ class DistributedEmbedding(nn.Module):
             column_slice_threshold=column_slice_threshold,
             row_slice_threshold=row_thr,
             data_parallel_threshold=dp_thr,
+            gpu_embedding_size=gpu_embedding_size,
             input_hotness=input_max_hotness,
             hot_rows=(hot_rows if dp_input else 0),
             exchange_wire=exchange_wire,
@@ -416,26 +439,29 @@ class DistributedEmbedding(nn.Module):
         # True while a train step's forward runs inside
         # `residual_sort_scope`: tapped forwards carry their groups' sorts
         self._fold_sort = False
+        # host offload: the pins of the offloaded buckets' page-locked
+        # tensors (a CUDA layer's), and the bytes their lookups and updates
+        # moved between the host and the card
+        self._host_pins: List[HostPin] = []
+        self._offload_enabled = any(b.offload for b in self.plan.tp_buckets)
+        self.offload_traffic = {"htod_bytes": 0, "dtoh_bytes": 0}
         self.dp = nn.ParameterList([
             nn.Parameter(torch.empty((cfg["input_dim"], cfg["output_dim"]),
                                      dtype=torch.float32, device=self.device))
             for cfg in self.strategy.dp_configs])
         self.tp = nn.ParameterList([
-            nn.Parameter(torch.empty((max(b.rows_max, 1), b.width),
-                                     dtype=wire.payload_dtype(
-                                         b.storage_dtype),
-                                     device=self.device),
-                         requires_grad=False)
-            for b in self.plan.tp_buckets])
+            nn.Parameter(self._bucket_empty(
+                b, (max(bk.rows_max, 1), bk.width),
+                wire.payload_dtype(bk.storage_dtype)), requires_grad=False)
+            for b, bk in enumerate(self.plan.tp_buckets)])
         # the per-row scales of the quantized buckets (an empty [0, 1]
         # placeholder at a float32 bucket's index)
         if self.quantized_buckets:
             self.tp_scale = nn.ParameterList([
-                nn.Parameter(torch.empty(
-                    (max(b.rows_max, 1) if b.storage_dtype != "f32" else 0,
-                     1), dtype=torch.float32, device=self.device),
-                    requires_grad=False)
-                for b in self.plan.tp_buckets])
+                nn.Parameter(self._bucket_empty(
+                    b, (max(bk.rows_max, 1) if bk.storage_dtype != "f32"
+                        else 0, 1), torch.float32), requires_grad=False)
+                for b, bk in enumerate(self.plan.tp_buckets)])
         self.row = nn.ParameterList([
             nn.Parameter(torch.empty((max(rt.rows_max, 1), rt.width),
                                      dtype=torch.float32, device=self.device),
@@ -477,6 +503,67 @@ class DistributedEmbedding(nn.Module):
         return [b for b, bk in enumerate(self.plan.tp_buckets)
                 if bk.storage_dtype != "f32"]
 
+    @property
+    def offloaded_buckets(self) -> List[int]:
+        """The buckets that live in host memory (``gpu_embedding_size``;
+        the JAX package's ``plan.tp_buckets[b].offload``)."""
+        return [b for b, bk in enumerate(self.plan.tp_buckets) if bk.offload]
+
+    def _host_empty(self, shape, dtype, held: bool = True) -> torch.Tensor:
+        """An uninitialized host tensor: page-locked, of exactly its size,
+        on a CUDA layer, plain on a CPU layer. With `held` (a table) the
+        layer keeps its `HostPin` for its own life; else (optimizer state,
+        which each train step's init makes anew) the registration goes
+        with the tensor (`pinned_empty`)."""
+        if self.device.type != "cuda":
+            return torch.empty(shape, dtype=dtype)
+        if not held:
+            return pinned_empty(shape, dtype)
+        pin = HostPin(shape, dtype)
+        self._host_pins.append(pin)
+        return pin.tensor
+
+    def _bucket_empty(self, b: int, shape, dtype) -> torch.Tensor:
+        """Uninitialized storage for bucket b: in host memory for an
+        offloaded bucket (on a layer with real storage), on the layer's
+        device otherwise."""
+        if self.plan.tp_buckets[b].offload and self.device.type != "meta":
+            return self._host_empty(shape, dtype)
+        return torch.empty(shape, dtype=dtype, device=self.device)
+
+    def _bucket_tensor(self, b: int, t: torch.Tensor) -> torch.Tensor:
+        """Optimizer state `t` where bucket b's tensors live: a copy in host
+        memory for an offloaded bucket (`_host_empty`), on the layer's
+        device otherwise."""
+        if self.plan.tp_buckets[b].offload:
+            return self._host_empty(tuple(t.shape), t.dtype,
+                                    held=False).copy_(t)
+        return t.to(self.device)
+
+    def pinned_host_bytes(self) -> int:
+        """The bytes this layer holds page-locked: its offloaded buckets'
+        tables and scales, on a CUDA layer (their optimizer state is the
+        train step's)."""
+        return sum(pin.nbytes for pin in self._host_pins if pin.ptr)
+
+    def _host_params(self) -> List[Tuple[nn.ParameterList, str]]:
+        """(list, key) of every parameter that lives on the host: the
+        offloaded buckets' tables and scales."""
+        lists = [self.tp] + ([self.tp_scale] if self.quantized_buckets
+                             else [])
+        return [(lst, str(b)) for lst in lists for b in self.offloaded_buckets]
+
+    def _apply(self, fn, recurse=True):
+        """`nn.Module._apply` (``.to()``, ``.cuda()``, ``.half()``, ...)
+        with the offloaded buckets held out: they stay in host memory."""
+        held = [(lst, key, lst._parameters.pop(key))
+                for lst, key in self._host_params()]
+        try:
+            return super()._apply(fn, recurse)
+        finally:
+            for lst, key, param in held:
+                lst._parameters[key] = param
+
     def _bucket_store_dtype(self, b: int) -> str:
         """Bucket b's storage dtype ('f32', 'int8' or 'fp8')."""
         return self.plan.tp_buckets[b].storage_dtype
@@ -517,9 +604,26 @@ class DistributedEmbedding(nn.Module):
         it); the rows past this rank's tables payload 0, scale 1, the
         encoding of zero rows. Shape-dependent initializers see the whole
         table's shape (``table_shape``, `utils.initializers`)."""
-        bucket = self.plan.tp_buckets[b]
         self.tp[b].view(torch.uint8).zero_()
         self.tp_scale[b].fill_(1.0)
+        self._init_chunks(b, gen, lambda row0, block: self._encode_into(
+            b, row0, block))
+
+    def _init_host_f32(self, b: int, gen: torch.Generator) -> None:
+        """Fill float32 offloaded bucket b of a CUDA layer: its rows drawn
+        on the card in chunks of at most `ENCODE_CHUNK_ELEMS` elements
+        and copied down (a host generator over tens of gigabytes would
+        take minutes); the rows past this rank's tables zero."""
+        tbl = self.tp[b].data
+        tbl[self.plan.tp_buckets[b].rows[self.rank]:].zero_()
+        self._init_chunks(b, gen, lambda row0, block: tbl[
+            row0:row0 + block.shape[0]].copy_(block))
+
+    def _init_chunks(self, b: int, gen: torch.Generator, write) -> None:
+        """Draw bucket b's tables on the layer's device in row chunks of at
+        most `ENCODE_CHUNK_ELEMS` elements, each handed to ``write(row0,
+        block)``."""
+        bucket = self.plan.tp_buckets[b]
         chunk = max(1, self.ENCODE_CHUNK_ELEMS // bucket.width)
         for (_, offset, rows, spec,
              _) in bucket.init_segments[self.rank]:
@@ -534,7 +638,7 @@ class DistributedEmbedding(nn.Module):
                                         device=self.device)
                     block.table_shape = (n, bucket.width)
                     init(block, gen)
-                    self._encode_into(b, start + r0, block)
+                    write(start + r0, block)
 
     # ------------------------------------------------------------------ init
     @torch.no_grad()
@@ -556,6 +660,9 @@ class DistributedEmbedding(nn.Module):
         for b, bucket in enumerate(self.plan.tp_buckets):
             if bucket.storage_dtype != "f32":
                 self._init_quantized(b, gen)
+                continue
+            if bucket.offload and self.device.type != "cpu":
+                self._init_host_f32(b, gen)
                 continue
             tbl = self.tp[b]
             for (_, row_offset, rows, init_spec,
@@ -968,7 +1075,9 @@ class DistributedEmbedding(nn.Module):
         (`canonical_id_sort`: sid, perm and segment starts)? Yes for a
         sorted lookup, and for the sparse update of a one-group bucket; a
         bucket whose update concatenates several groups gets no sort for
-        it alone: one group's sort cannot serve the concatenated stream."""
+        it alone: one group's sort cannot serve the concatenated stream.
+        An offloaded group never (its lookup runs on the host, and its
+        update's deduplication sorts afresh, as in the JAX package)."""
         if not self._fold_sort:
             return [False] * len(groups)
         kind, strategy = self._fold_sort
@@ -980,9 +1089,11 @@ class DistributedEmbedding(nn.Module):
             if kind is None:
                 return True
             return update_consumes_sort(kind, strategy, *self.tp[b].shape)
-        return [self._fwd_tiled_active(self.plan.tp_buckets[grp.bucket],
-                                       grp.k)
-                or (per_bucket[grp.bucket] == 1 and update_sorts(grp.bucket))
+        return [not self.plan.tp_buckets[grp.bucket].offload
+                and (self._fwd_tiled_active(self.plan.tp_buckets[grp.bucket],
+                                            grp.k)
+                     or (per_bucket[grp.bucket] == 1
+                         and update_sorts(grp.bucket)))
                 for grp in groups]
 
     def _row_sort_plan(self) -> List[bool]:
@@ -1061,6 +1172,69 @@ class DistributedEmbedding(nn.Module):
             out = self._group_lookup(self.tp[grp.bucket], ids_x, eff_w,
                                      combiner, presorted=presorted)
         return _scaled(out, scale)
+
+    def _to_host(self, *tensors: torch.Tensor) -> List[torch.Tensor]:
+        """`tensors` of the card copied to pinned host tensors, and the
+        host waits for them (the layer's device stream synchronized); on a
+        CPU layer the tensors themselves. Counts the bytes as
+        ``offload_traffic["dtoh_bytes"]``."""
+        if self.device.type != "cuda":
+            return list(tensors)
+        out = []
+        for t in tensors:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            self.offload_traffic["dtoh_bytes"] += h.numel() * h.element_size()
+            out.append(h)
+        torch.cuda.current_stream(self.device).synchronize()
+        return out
+
+    def _offload_group_out(self, grp: _ExchangeGroup, ids_x: torch.Tensor,
+                           w_x: Optional[torch.Tensor]) -> torch.Tensor:
+        """One offloaded group's bucket output [B, f, w_out] on the card
+        (JAX `_host_group_exchange` :1965-2053): the exchanged ids (and the
+        effective weights) come to the host, the ids clamped into [0,
+        rows_max - 1]; the rows are gathered from the host table (and
+        decoded there, at a quantized storage) and combined in float32 into
+        a pinned staging buffer, which is copied to the card without
+        blocking. The staging buffer comes from torch's caching host
+        allocator, which records an event behind that copy and hands the
+        block out again only once the event has completed, so no copy in
+        flight reads a reused buffer. Then, on the card, the cast to the
+        compute dtype and the mean's scale where the group has no weights
+        (explicit weights are normalized already: the JAX test's
+        weighted-mean regression). Runs in the profiler range
+        `OFFLOAD_LOOKUP_RANGE`."""
+        bucket = self.plan.tp_buckets[grp.bucket]
+        eff_w, scale = _effective_weights(w_x, grp.k, bucket.combiner)
+        with record_function(OFFLOAD_LOOKUP_RANGE):
+            b_sz, f, k = ids_x.shape
+            wf = bucket.width
+            rows_max = max(bucket.rows_max, 1)
+            host = self._to_host(
+                ids_x.clamp(0, rows_max - 1).reshape(-1).long(),
+                *(() if eff_w is None else (eff_w.float(),)))
+            flat = host[0]
+            if bucket.storage_dtype == "f32":
+                rows = self.tp[grp.bucket].data.index_select(0, flat)
+            else:
+                rows = self._quantized_rows(grp.bucket, flat)
+            out_h = torch.empty(
+                (b_sz, f, k * wf if bucket.combiner is None else wf),
+                dtype=torch.float32,
+                pin_memory=self.device.type == "cuda")
+            if bucket.combiner is None:
+                out_h.copy_(rows.view(out_h.shape))
+            else:
+                rows = rows.view(b_sz * f, k, wf)
+                if eff_w is not None:
+                    rows = rows * host[1].view(b_sz * f, k, 1)
+                torch.sum(rows, dim=1, out=out_h.view(b_sz * f, wf))
+            out = out_h.to(self.device, non_blocking=True)
+            if self.device.type == "cuda":
+                self.offload_traffic["htod_bytes"] += (
+                    out_h.numel() * out_h.element_size())
+        return _scaled(self._cast(out), scale)
 
     def _quantized_lookup(self, b: int, ids: torch.Tensor,
                           weights: Optional[torch.Tensor],
@@ -1178,6 +1352,8 @@ class DistributedEmbedding(nn.Module):
                 out = self._group_lookup(self.tp[grp.bucket],
                                          ids_x.clamp_max(rows_max - 1), w_x,
                                          "sum", presorted=sort_g)
+            elif bucket.offload:
+                out = self._offload_group_out(grp, ids_x, w_x)
             else:
                 out = self._tp_group_out(grp, ids_x, w_x, presorted=sort_g)
             out = out.reshape((self.world_size, -1) + tuple(out.shape[1:]))
@@ -1680,8 +1856,11 @@ class DistributedEmbedding(nn.Module):
         (the dp tables train densely): ``{"tp": [opt.init(table) per
         bucket], "row": [opt.init(shard) per row table]}``. Table-shaped
         state (adagrad's accumulator, adam's moments) is allocated directly
-        on the tables' device at their shapes ``[rows_max, w]``."""
-        out = {"tp": [opt.init(t.data) for t in self.tp],
+        on the tables' device at their shapes ``[rows_max, w]``; an
+        offloaded bucket's in host memory, page-locked on a CUDA layer and
+        filled there (the JAX package's ``init_host``)."""
+        out = {"tp": [self._host_state(b, opt) if b in self.offloaded_buckets
+                      else opt.init(t.data) for b, t in enumerate(self.tp)],
                "row": [opt.init(t.data) for t in self.row]}
         if self._hot_buckets:
             # the hot shards' state, the same on every rank (each applies
@@ -1689,6 +1868,22 @@ class DistributedEmbedding(nn.Module):
             out["hot"] = [opt.init(self._hot_entry(b)[1])
                           for b in self._hot_buckets]
         return out
+
+    def _host_state(self, b: int, opt: SparseOptimizer) -> tuple:
+        """Offloaded bucket b's optimizer state in host memory: each
+        table-shaped leaf of ``opt.init`` (probed on one row) allocated by
+        `_host_empty` and filled with its constant."""
+        probe = opt.init(torch.zeros((1, self.tp[b].shape[1]),
+                                     dtype=torch.float32))
+        out = []
+        for x in probe:
+            if torch.is_tensor(x) and x.dim() == 2:
+                host = self._host_empty(tuple(self.tp[b].shape), x.dtype,
+                                        held=False)
+                out.append(host.fill_(x.reshape(-1)[0]))
+            else:
+                out.append(x)
+        return tuple(out)
 
     def _group_contrib(self, g: int, grp: _ExchangeGroup, res_tp_ids,
                        res_tp_w, tp_g) -> SparseRowGrad:
@@ -1748,13 +1943,24 @@ class DistributedEmbedding(nn.Module):
         and scales updated in place; adam refuses a layer with quantized
         buckets, as in the JAX package. With ``tap_grads["hot"]`` and
         ``opt_states["hot"]``, the hot shards too (`_hot_update`); their
-        hit lanes reach the buckets as the sentinel and are dropped. The dp tables are not touched
-        here: they train with the dense parameters. `tap_grads` is
+        hit lanes reach the buckets as the sentinel and are dropped. An
+        offloaded bucket's rows are deduplicated on the card and applied
+        in host memory (`_host_bucket_update`), with the optimizer's lr,
+        which the train step rebuilds at each step's value under a
+        schedule; an optimizer without a host rule refuses a layer with
+        offloaded buckets, as in the JAX package. The dp tables are not
+        touched here: they train with the dense parameters. `tap_grads` is
         ``{"tp": [grad of each taps["tp"] leaf], "row": [grad of each
         taps["row"] leaf]}``.
         Returns the new state pytree (adam's step count is a new tuple
         entry; tensors are updated in place)."""
-        quantized = self.quantized_buckets
+        offloaded = self.offloaded_buckets
+        if offloaded and opt.kind not in HOST_APPLY_KINDS:
+            raise NotImplementedError(
+                f"sparse optimizer {opt.kind!r} has no host-memory apply "
+                f"rule for offloaded buckets (available: "
+                f"{sorted(HOST_APPLY_KINDS)})")
+        quantized = [b for b in self.quantized_buckets if b not in offloaded]
         if quantized and opt.kind not in QUANTIZED_ROW_KINDS:
             raise NotImplementedError(
                 f"sparse optimizer {opt.kind!r} has no master-weight-free "
@@ -1781,6 +1987,10 @@ class DistributedEmbedding(nn.Module):
                      for g in gs]
             sort_b = (residuals.tp_sort[gs[0]]
                       if len(gs) == 1 and residuals.tp_sort else None)
+            if b in offloaded:
+                new_tp[b] = self._host_bucket_update(
+                    b, concat_grads(grads), new_tp[b], opt)
+                continue
             if b in quantized:
                 if opt.quantized is None:
                     raise ValueError(
@@ -1810,6 +2020,68 @@ class DistributedEmbedding(nn.Module):
             out["hot"] = self._hot_update(opt_states["hot"], groups,
                                           tap_grads["hot"], residuals, opt)
         return out
+
+    def _host_bucket_update(self, b: int, grad: SparseRowGrad, state,
+                            opt: SparseOptimizer) -> tuple:
+        """Offloaded bucket b's update: the pending rows deduplicated on
+        the card (`prepare_safe_grad`, JAX `_host_bucket_pending`), copied
+        to the host, and applied to the host table and state in place (JAX
+        `_host_pershard_apply`: `host_apply_rows_inplace` at ``opt.lr``,
+        adam's count incremented here; a quantized bucket through
+        `_host_quantized_apply`). Runs in the profiler range
+        `OFFLOAD_UPDATE_RANGE` (the host half). Returns the new state."""
+        rows = max(self.plan.tp_buckets[b].rows_max, 1)
+        rep, sums, valid = prepare_safe_grad(grad.ids, grad.contribs, rows)
+        with record_function(OFFLOAD_UPDATE_RANGE):
+            rep, sums, valid = (t.numpy() for t in self._to_host(
+                rep, sums.contiguous(), valid))
+            hp = dict(opt.hp)
+            kw = {k: hp[k] for k in ("eps", "b1", "b2") if k in hp}
+            state = tuple(state)
+            if opt.kind == "adam":
+                state = (state[0], state[1], int(state[2]) + 1)
+            arrays = tuple(x.numpy() if torch.is_tensor(x) else x
+                           for x in state)
+            if self._bucket_store_dtype(b) == "f32":
+                host_apply_rows_inplace(opt.kind, self.tp[b].data.numpy(),
+                                        arrays, rep, sums, valid, opt.lr,
+                                        **kw)
+            else:
+                self._host_quantized_apply(b, arrays, rep, sums, valid, opt,
+                                           kw)
+        return state
+
+    def _host_quantized_apply(self, b: int, arrays, rep, sums, valid,
+                              opt: SparseOptimizer, kw: dict) -> None:
+        """A quantized offloaded bucket's touched-rows apply (JAX
+        `_host_quantized_touched_apply` :3526): exactly the touched rows
+        decoded into a compact float32 block (`wire.decode_rows_np`), the
+        host rule applied to it and to their state rows, and the block
+        re-encoded with stochastic rounding (`wire.encode_rows_np`, whose
+        scale divides) into the payload and scales in place."""
+        sd = self._bucket_store_dtype(b)
+        payload = self.tp[b].data
+        p_np = (payload.view(torch.uint8) if sd == "fp8" else payload).numpy()
+        sc_np = self._bucket_scale(b).data.numpy()
+        ok = valid > 0
+        ru = rep[ok].astype(np.int64)
+        m = int(ru.shape[0])
+        if m == 0:
+            return
+        sub = np.ascontiguousarray(wire.decode_rows_np(p_np[ru], sc_np[ru],
+                                                       sd))
+        tables = [x for x in arrays if getattr(x, "ndim", 0) >= 1]
+        subs = [np.ascontiguousarray(x[ru]) for x in tables]
+        st = ((subs[0], subs[1], arrays[2]) if opt.kind == "adam"
+              else tuple(subs))
+        host_apply_rows_inplace(opt.kind, sub, st, np.arange(m),
+                                np.ascontiguousarray(sums[ok]),
+                                np.ones(m, np.float32), opt.lr, **kw)
+        for x, x_sub in zip(tables, subs):
+            x[ru] = x_sub
+        pay, scl = wire.encode_rows_np(sub, sd, sr=True)
+        p_np[ru] = pay
+        sc_np[ru] = scl
 
     def _hot_update(self, hot_states, groups, hot_g, residuals,
                     opt: SparseOptimizer) -> list:
@@ -1880,15 +2152,20 @@ class DistributedEmbedding(nn.Module):
         rows, width = table.shape
         chunk = max(1, self.GATHER_CHUNK_ELEMS
                     // max(self.world_size * width, 1))
+
+        def part(t):
+            # a host table's chunk crosses the collective from the card
+            return t if self.world_size == 1 else t.to(self.device)
         for r0 in range(0, rows, chunk):
             r1 = min(rows, r0 + chunk)
             if store_dtype == "f32":
-                stack = pg.gather_stack(table[r0:r1])
+                stack = pg.gather_stack(part(table[r0:r1]))
             else:
                 stack = wire.decode_rows(
-                    pg.gather_stack(table[r0:r1].view(torch.int8)).view(
-                        table.dtype),
-                    pg.gather_stack(scale.detach()[r0:r1]), store_dtype)
+                    pg.gather_stack(part(table[r0:r1].view(torch.int8)))
+                    .view(table.dtype),
+                    pg.gather_stack(part(scale.detach()[r0:r1])),
+                    store_dtype)
             yield r0, r1, (stack.cpu().numpy() if keep else None)
 
     def get_weights(self, all_ranks: bool = False

@@ -39,10 +39,17 @@ A quantized table (int8 or fp8 payload and per-row float32 scales, the
 layer's ``storage_dtype``) takes `quantized_row_update` under every
 strategy: `dedup_sum`, then the touched rows decoded, the float32 sgd or
 adagrad rule, and a stochastically rounded re-encode (`ops.wire`).
+
+A table in host memory (a bucket offloaded past the layer's
+``gpu_embedding_size``) is updated in two halves: `prepare_safe_grad`
+deduplicates its stream on the card (`dedup_sum`), and
+`host_apply_rows_inplace`, the JAX package's numpy rules, applies the rows
+to the host buffers in place.
 """
 
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -57,7 +64,9 @@ __all__ = ["SparseRowGrad", "concat_grads", "dedup_sum", "sparse_sgd",
            "make_sparse_optimizer", "drain_sparse_apply",
            "apply_dense_rows", "update_consumes_sort", "bias_corrections",
            "quantized_row_update", "fma_f32", "STRATEGIES", "DENSE_ELEMS_MAX",
-           "QUANTIZED_ROW_KINDS", "QUANTIZED_UPDATE_RANGE"]
+           "QUANTIZED_ROW_KINDS", "QUANTIZED_UPDATE_RANGE",
+           "prepare_safe_grad", "host_apply_rows_inplace",
+           "HOST_APPLY_KINDS"]
 
 # strategies of the port: the deduplicated-row route, the raw-stream one
 # and the dense aggregation
@@ -381,6 +390,86 @@ def _quantized_row_update(kind, payload, scale, state, grad, store_dtype,
     return payload, scale, tuple(state)
 
 
+# ------------------------------------- host-memory (offloaded) row updates
+# the optimizers with a host-memory rule (the JAX package's
+# HOST_SPARSE_APPLY); `host_apply_rows_inplace` also takes "set"
+HOST_APPLY_KINDS = ("sgd", "adagrad", "adam")
+
+
+def prepare_safe_grad(ids: torch.Tensor, contribs: torch.Tensor, rows: int):
+    """`dedup_sum` of the stream made safe for an in-bounds host scatter
+    (the JAX package's `prepare_safe_grad`): the padded segments alias row
+    0 with zero sums. Returns (rep [N] in [0, rows), sums [N, w], valid [N]
+    float32 mask); a rule that is not additive (adam's moment decay) must
+    mask with `valid`."""
+    rep, sums = dedup_sum(ids, contribs, sentinel=rows)
+    valid = rep < rows
+    return (torch.where(valid, rep, torch.zeros_like(rep)),
+            torch.where(valid[:, None], sums,
+                        torch.zeros((), dtype=sums.dtype,
+                                    device=sums.device)),
+            valid.to(torch.float32))
+
+
+def host_apply_rows_inplace(kind: str, table: np.ndarray, state, rep, sums,
+                            valid, lr, **hp) -> None:
+    """Apply one shard's deduplicated rows (`prepare_safe_grad`'s, as
+    numpy) to host-resident numpy buffers IN PLACE: the JAX package's
+    `host_apply_rows_inplace`, its numpy rules product for product.
+    `table` and the array leaves of `state` are mutated; adam's count
+    (``state[2]``) must already be the incremented one (the caller
+    increments it). ``kind="set"`` writes `sums` as the rows' new values.
+    Refuses a buffer that is not float32 (TypeError) or not C-contiguous
+    (ValueError), as the JAX function does. The valid rows are unique, so
+    each rule updates its rows with one gather and one scatter (equal,
+    element for element, to the JAX function's ``np.add.at``)."""
+    arrays = [("table", table)] + [(f"state[{i}]", s)
+                                   for i, s in enumerate(state)
+                                   if getattr(s, "ndim", 0) >= 1]
+    bad = [a.dtype for _, a in arrays if a.dtype != np.float32]
+    if bad:
+        raise TypeError(
+            f"host_apply_rows_inplace is float32-only, got {bad}; a "
+            "quantized bucket decodes its touched rows first")
+    noncontig = [name for name, a in arrays if not a.flags["C_CONTIGUOUS"]]
+    if noncontig:
+        raise ValueError(
+            f"host_apply_rows_inplace requires C-contiguous buffers; "
+            f"{noncontig} are not (pass np.ascontiguousarray copies and "
+            "write them back)")
+    lr = float(lr)
+    ok = np.asarray(valid, dtype=np.float32) > 0.0
+    r = np.asarray(rep).astype(np.int64)[ok]
+    s = np.ascontiguousarray(sums, dtype=np.float32)[ok]
+    if kind == "set":
+        table[r] = s
+    elif kind == "sgd":
+        table[r] += (-lr * s).astype(np.float32)
+    elif kind == "adagrad":
+        (acc,) = state
+        eps = np.float32(hp.get("eps", 1e-10))
+        acc_r = acc[r] + s * s
+        acc[r] = acc_r
+        table[r] += (-lr * s / np.sqrt(acc_r + eps)).astype(np.float32)
+    elif kind == "adam":
+        mu, nu, count = state
+        b1 = np.float32(hp.get("b1", 0.9))
+        b2 = np.float32(hp.get("b2", 0.999))
+        eps = np.float32(hp.get("eps", 1e-8))
+        cf = np.float32(count)
+        c1 = np.float32(1.0) - b1 ** cf
+        c2 = np.float32(1.0) - b2 ** cf
+        mu_new = b1 * mu[r] + (np.float32(1.0) - b1) * s
+        nu_new = b2 * nu[r] + (np.float32(1.0) - b2) * s * s
+        mu[r] = mu_new
+        nu[r] = nu_new
+        table[r] += (-lr * (mu_new / c1) / (np.sqrt(nu_new / c2) + eps)
+                     ).astype(np.float32)
+    else:
+        raise NotImplementedError(
+            f"no host-memory apply rule for optimizer {kind!r}")
+
+
 # ------------------------------------------------- optimizer description
 class SparseOptimizer(NamedTuple):
     """A (init, update) pair over one table; ``update(table, state, grad,
@@ -393,13 +482,17 @@ class SparseOptimizer(NamedTuple):
     returns the state), None for a kind that has none; ``dense_rows(
     table, state, grad, mask)`` the same rule from a dense [rows, w]
     gradient on the rows where `mask` is true (`apply_dense_rows`, in
-    place; returns the state), the hot shards' update."""
+    place; returns the state), the hot shards' update. `lr` (a float)
+    and `hp` (sorted (name, value) pairs) are the rule's, which the host
+    apply of an offloaded bucket reads (the JAX package's fields)."""
     kind: str
     init: Callable       # table -> state tuple
     update: Callable     # (table, state, SparseRowGrad, presorted=None)
                          #   -> (table, state)
     quantized: Optional[Callable] = None
     dense_rows: Optional[Callable] = None
+    lr: float = 0.0
+    hp: tuple = ()
 
 
 def make_sparse_optimizer(kind: str, lr, strategy: str = "auto",
@@ -425,7 +518,7 @@ def make_sparse_optimizer(kind: str, lr, strategy: str = "auto",
             "sgd", lambda table: (),
             lambda table, state, g, presorted=None: (
                 sparse_sgd(table, g, lr, strategy, presorted), ()),
-            quantized_rule(), dense_rule())
+            quantized_rule(), dense_rule(), lr)
     if kind == "adagrad":
         init_acc = hp.get("initial_accumulator_value", 0.1)
         eps = hp.get("eps", 1e-10)
@@ -439,7 +532,8 @@ def make_sparse_optimizer(kind: str, lr, strategy: str = "auto",
                                     strategy=strategy, presorted=presorted)
             return t, (acc,)
         return SparseOptimizer("adagrad", init, update,
-                               quantized_rule(eps=eps), dense_rule(eps=eps))
+                               quantized_rule(eps=eps), dense_rule(eps=eps),
+                               lr, (("eps", eps),))
     if kind == "adam":
         b1, b2 = hp.get("b1", 0.9), hp.get("b2", 0.999)
         eps = hp.get("eps", 1e-8)
@@ -457,7 +551,8 @@ def make_sparse_optimizer(kind: str, lr, strategy: str = "auto",
                                        strategy=strategy, presorted=presorted)
             return t, (mu, nu, c)
         return SparseOptimizer("adam", init, update, None,
-                               dense_rule(b1=b1, b2=b2, eps=eps))
+                               dense_rule(b1=b1, b2=b2, eps=eps), lr,
+                               (("b1", b1), ("b2", b2), ("eps", eps)))
     raise ValueError(f"Unknown sparse optimizer {kind!r}")
 
 
@@ -465,6 +560,6 @@ def drain_sparse_apply(emb, state_emb: dict, tap_grads: dict, residuals,
                        opt: SparseOptimizer) -> dict:
     """Apply one batch's tap gradients to the embedding tables (the tail of
     every train step): `DistributedEmbedding.sparse_update`, in place.
-    Returns the new state pytree. Offloaded buckets are not ported (ROADMAP
-    Queue A8)."""
+    Returns the new state pytree (an offloaded bucket's rows applied in
+    host memory)."""
     return emb.sparse_update(state_emb, tap_grads, residuals, opt)

@@ -446,7 +446,8 @@ def make_train_step(loss_fn: Callable, optimizer,
     averaged over the ranks in one all-reduce. The loss is a 0-d tensor
     on the model's device. A layer with quantized buckets trains through
     the sparse step only: its payloads take no gradient (nor do they in
-    the JAX package), so the dense step refuses it."""
+    the JAX package), so the dense step refuses it; so it does a layer
+    with offloaded buckets, as the JAX package's does."""
     del donate
 
     def update(params, grads, state):
@@ -461,6 +462,15 @@ def make_train_step(loss_fn: Callable, optimizer,
                 "the dense step differentiates float tables; a layer with "
                 "quantized buckets (storage_dtype int8 / fp8) trains "
                 "through make_sparse_train_step")
+        if any(isinstance(m, DistributedEmbedding) and m.offloaded_buckets
+               for m in model.modules()):
+            raise ValueError(
+                "the dense step differentiates every table on the card; a "
+                "layer with offloaded buckets (gpu_embedding_size) keeps "
+                "them in host memory and trains through "
+                "make_sparse_train_step (the JAX package's dense step "
+                "refuses such a layer too: its host and device memory "
+                "spaces do not mix in one gradient)")
         if any(isinstance(m, DistributedEmbedding) and m._hot_buckets
                for m in model.modules()):
             raise ValueError(

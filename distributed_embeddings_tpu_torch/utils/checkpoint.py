@@ -11,8 +11,10 @@ layers:
     ``step_{N}/rank_{r}.pt``, with no gather, and rank 0 a ``meta.json``
     that names the tree's top-level keys (`checkpoint_keys`: a params-only
     save is told apart from ``{params, opt_state}`` without reading the
-    tensors). Restoring loads with ``weights_only=True`` onto the
-    template's device and copies into the template's tensors. These files
+    tensors). Restoring loads with ``weights_only=True`` (what was saved
+    from a card onto the template's device, what was saved from the host,
+    an offloaded bucket's table and state, on the host) and copies into
+    the template's tensors. These files
     are the port's own: the JAX package's Orbax cannot read them, nor can
     the port read Orbax's. A hot-sharded layer's state dict holds its hot
     shards (membership and rows, buffers) and the train step's state
@@ -278,15 +280,24 @@ def _copy_into(template, loaded, where: str):
 
 def restore_checkpoint(path: str, template: Any,
                        step: Optional[int] = None) -> Any:
-    """This rank's checkpoint, loaded with ``weights_only=True`` onto the
-    device of `template`'s first tensor and copied into `template`'s
-    tensors in place (e.g. ``{"params": model.state_dict(), "opt_state":
-    init_fn(model)}``, which restores the model itself). The template may
-    take a subset of the saved keys (``{"params": ...}`` of a full save).
-    Returns the template's structure with the loaded values."""
+    """This rank's checkpoint, loaded with ``weights_only=True`` and
+    copied into `template`'s tensors in place (e.g. ``{"params":
+    model.state_dict(), "opt_state": init_fn(model)}``, which restores the
+    model itself). Tensors saved from a card load onto the device of
+    `template`'s first tensor; tensors saved from the host (an offloaded
+    bucket's table and state among them) stay on the host until they are
+    copied, so a restore neither stages tables on the card that it could
+    not hold nor puts unpinned tensors in the place of pinned ones. The
+    template may take a subset of the saved keys (``{"params": ...}`` of a
+    full save). Returns the template's structure with the loaded values."""
     target = os.path.abspath(_step_dir(path, step))
-    loaded = torch.load(_rank_file(target),
-                        map_location=_first_device(template) or "cpu",
+    device = _first_device(template) or torch.device("cpu")
+
+    def place(storage, location):
+        if device.type == "cpu" or location.startswith("cpu"):
+            return storage
+        return storage.to(device=device)
+    loaded = torch.load(_rank_file(target), map_location=place,
                         weights_only=True)
     return _copy_into(template, loaded, target)
 

@@ -1,6 +1,10 @@
-"""Device selection for the port's entry points: the card unless asked."""
+"""Device selection for the port's entry points: the card unless asked;
+page-locked host memory for the tables that live on the host."""
 
-from typing import Optional, Union
+import mmap
+import time
+import weakref
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -87,3 +91,68 @@ def settle_cpu_vector_math() -> None:
     root estimate for ``sqrt``, about 3e-4 off). A one-element call, below
     the intra-op grain, settles the set-up on the calling thread."""
     torch.sqrt(torch.ones(1))
+
+
+# the host's page: a pinned region starts and ends on one
+HOST_PAGE = 4096
+
+
+class HostPin:
+    """A CPU tensor of `shape` and `dtype` in page-locked (pinned) host
+    memory of exactly its size (rounded up to a page): an anonymous
+    private mapping of its own, advised onto huge pages where the kernel
+    offers them, zero-filled by torch's parallel fill (which faults its
+    pages in on several threads, where the driver would on one), then
+    registered with the CUDA driver (``cudaHostRegister``) and
+    unregistered by `release` or when the pin is dropped. torch's caching
+    host allocator (``pin_memory=True``) rounds a block up to a power of
+    two, which at a table's size pins gigabytes more than the table. The
+    tensor's storage starts at the mapping, so ``is_pinned()`` sees the
+    registration; the tensor keeps the mapping alive, so its memory
+    outlives the registration (after `release` it is ordinary host
+    memory). ``seconds``: the host clock of mapping, filling and
+    registering."""
+
+    def __init__(self, shape: Sequence[int], dtype: torch.dtype):
+        start = time.perf_counter()
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        nbytes = int(np.prod(shape, dtype=np.int64)) * itemsize
+        span = -(-max(nbytes, 1) // HOST_PAGE) * HOST_PAGE
+        region = mmap.mmap(-1, span, flags=mmap.MAP_PRIVATE)
+        if hasattr(mmap, "MADV_HUGEPAGE"):
+            try:
+                region.madvise(mmap.MADV_HUGEPAGE)
+            except OSError:
+                pass
+        flat = torch.frombuffer(region, dtype=torch.uint8)
+        flat.zero_()
+        err = torch.cuda.cudart().cudaHostRegister(flat.data_ptr(), span, 0)
+        if int(err) != 0:
+            raise RuntimeError(
+                f"cudaHostRegister of {span} bytes failed ({err}): the host "
+                "cannot page-lock the table")
+        self.ptr, self.nbytes = flat.data_ptr(), span
+        self.tensor = flat[:nbytes].view(dtype).view(tuple(shape))
+        self.seconds = time.perf_counter() - start
+
+    def release(self) -> None:
+        """Unregister the mapping (its memory stays the tensor's)."""
+        if self.ptr:
+            ptr, self.ptr = self.ptr, 0
+            torch.cuda.cudart().cudaHostUnregister(ptr)
+
+    def __del__(self):
+        try:
+            self.release()
+        except Exception:  # noqa: BLE001 - the driver may be gone at exit
+            pass
+
+
+def pinned_empty(shape: Sequence[int], dtype: torch.dtype) -> torch.Tensor:
+    """An uninitialized `HostPin` tensor whose registration lasts as long
+    as the returned tensor object: its memory is unregistered when that
+    object is collected (a view kept longer holds ordinary host memory)."""
+    pin = HostPin(shape, dtype)
+    tensor, pin.tensor = pin.tensor, None
+    weakref.finalize(tensor, pin.release)
+    return tensor

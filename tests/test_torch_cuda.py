@@ -554,3 +554,89 @@ def test_stager_stages_in_a_thread_and_the_consumer_takes(gen):
         assert num.device.type == ids.device.type == "cuda"
         assert torch.equal(num.cpu(), torch.from_numpy(want[0]))
         assert torch.equal(ids.cpu(), torch.from_numpy(want[1][0]))
+
+
+OFFLOAD_SPECS = [(5000, 16), (40, 16), (5000, 16), (64, 16), (128, 16),
+                 (96, 16), (80, 16), (72, 16)]
+OFFLOAD_BUDGET = 2500 * 16
+
+
+def _offload_model(budget):
+    from distributed_embeddings_tpu_torch.layers.dist_model_parallel import (
+        DistributedEmbedding)
+    from distributed_embeddings_tpu_torch.layers.embedding import Embedding
+
+    class Model(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.embedding = DistributedEmbedding(
+                [Embedding(v, w, combiner="sum", device="meta")
+                 for v, w in OFFLOAD_SPECS],
+                device="cuda", gpu_embedding_size=budget)
+            self.w = torch.nn.Parameter(torch.linspace(
+                -1, 1, sum(w for _, w in OFFLOAD_SPECS),
+                device="cuda")[:, None])
+
+        def loss_fn(self, numerical, cats, labels, taps=None,
+                    return_residuals=False):
+            out = self.embedding(list(cats), taps=taps,
+                                 return_residuals=return_residuals)
+            outs, res = out if return_residuals else (out, None)
+            x = torch.cat([o.reshape(o.shape[0], -1) for o in outs], 1)
+            loss = torch.mean(((x @ self.w)[:, 0] - labels) ** 2)
+            return (loss, res) if return_residuals else loss
+    return Model()
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adagrad"])
+def test_offloaded_buckets_live_pinned_on_the_host(gen, optimizer):
+    """A CUDA layer's offloaded tables and their optimizer state are
+    page-locked CPU tensors of exactly their size, out of
+    `memory_allocated` and out of ``.to()``'s reach; two sparse steps on
+    the card move them as the same model all on the card moves its
+    tables (sgd bit for bit; adagrad within the JAX test's 2e-5: the card
+    takes an approximate reciprocal square root, the host a correctly
+    rounded one)."""
+    from distributed_embeddings_tpu_torch.training import (
+        make_sparse_train_step)
+    base = torch.cuda.memory_allocated()
+    off = _offload_model(OFFLOAD_BUDGET)
+    layer = off.embedding
+    assert layer.offloaded_buckets
+    host = [layer.tp[b] for b in layer.offloaded_buckets]
+    assert all(t.device.type == "cpu" and t.is_pinned() for t in host)
+    assert layer.pinned_host_bytes() == sum(
+        -(-t.numel() * 4 // 4096) * 4096 for t in host)
+    dev_bytes = sum(t.numel() * 4 for b, t in enumerate(layer.tp)
+                    if b not in layer.offloaded_buckets)
+    assert torch.cuda.memory_allocated() - base < dev_bytes + 2**20
+    off.to("cuda")
+    assert all(layer.tp[b] is t for b, t in zip(layer.offloaded_buckets,
+                                                  host))
+    dev = _offload_model(None)
+    weights = layer.get_weights()
+    dev.embedding.set_weights(weights)
+    rng = np.random.RandomState(0)
+    tables = []
+    for model in (off, dev):
+        init, step = make_sparse_train_step(model, optimizer, lr=0.05)
+        state = init(model)
+        if model is off:
+            for b in layer.offloaded_buckets:
+                assert all(x.device.type == "cpu" and x.is_pinned()
+                           for x in state["emb"]["tp"][b]
+                           if torch.is_tensor(x))
+        rng = np.random.RandomState(0)
+        for _ in range(2):
+            cats = [torch.as_tensor(rng.randint(0, v, size=(64, 2)),
+                                    device="cuda")
+                    for v, _ in OFFLOAD_SPECS]
+            labels = torch.as_tensor(rng.randn(64).astype(np.float32),
+                                     device="cuda")
+            step(model, state, None, cats, labels)
+        tables.append(model.embedding.get_weights())
+    for a, b in zip(*tables):
+        if optimizer == "sgd":
+            np.testing.assert_array_equal(a, b)
+        else:
+            np.testing.assert_allclose(a, b, rtol=2e-5, atol=2e-5)

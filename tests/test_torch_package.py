@@ -206,11 +206,25 @@ def test_sparse_wrappers_refuse_what_the_kernel_does_not_take(bad):
     pytest.param(dict(gpu_embedding_size=100, dist_strategy="basic"),
                  id="kwargs1")])
 def test_train_step_outside_the_slice_raises(kwargs):
-    """A model the train step would train, built with what the port has
-    not ported (host offload), raises at build time."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-        make_sparse_train_step(DLRM([10, 20], embedding_dim=8, device="cpu",
-                                    **kwargs))
+    """Host offload, the last case here that raised before it was ported
+    (ROADMAP Queue A8): a DLRM built with it builds its train step and
+    takes a step, and the table past the budget, in host memory, moves."""
+    model = DLRM([10, 20], embedding_dim=8, bottom_mlp_dims=(8,),
+                 top_mlp_dims=(8, 1), num_numerical_features=3,
+                 device="cpu", **kwargs)
+    emb = model.embedding
+    assert emb.offloaded_buckets
+    before = [emb.tp[b].detach().clone() for b in emb.offloaded_buckets]
+    init, step = make_sparse_train_step(model)
+    rng = np.random.RandomState(0)
+    batch = (rng.rand(4, 3).astype(np.float32),
+             [rng.randint(0, 10, 4), rng.randint(0, 20, 4)],
+             rng.randint(0, 2, 4).astype(np.float32))
+    _, _, loss = step(model, init(model), *batch)
+    assert np.isfinite(float(loss))
+    assert all(emb.tp[b].device.type == "cpu"
+               and not torch.equal(emb.tp[b], t)
+               for b, t in zip(emb.offloaded_buckets, before))
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -272,13 +286,25 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
                                    args["weights"])
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(mesh=object(), world_size=2), dict(mesh=object()),
-    dict(gpu_embedding_size=100), dict(vocab_slack=4),
+@pytest.mark.parametrize("kwargs,ported", [
+    pytest.param(dict(mesh=object(), world_size=2), False, id="kwargs0"),
+    pytest.param(dict(mesh=object()), False, id="kwargs1"),
+    pytest.param(dict(gpu_embedding_size=100), True, id="kwargs2"),
+    pytest.param(dict(vocab_slack=4), False, id="kwargs3"),
 ])
-def test_features_outside_the_slice_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-        DistributedEmbedding(_tiny_tables(), device="cpu", **kwargs)
+def test_features_outside_the_slice_raise(kwargs, ported):
+    """What the port has not ported raises naming its ROADMAP item; host
+    offload (A8), ported since, builds: the table past the budget is
+    offloaded, in host memory, and the forward runs."""
+    if not ported:
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
+            DistributedEmbedding(_tiny_tables(), device="cpu", **kwargs)
+        return
+    layer = DistributedEmbedding(_tiny_tables(), device="cpu", **kwargs)
+    assert layer.offloaded_buckets == [
+        b for b, bk in enumerate(layer.plan.tp_buckets) if bk.offload] != []
+    outs = layer([np.arange(4) % 10, np.arange(4) % 20])
+    assert [tuple(o.shape) for o in outs] == [(4, 8), (4, 8)]
 
 
 @pytest.mark.parametrize("kwargs,wire,hot", [
@@ -429,17 +455,34 @@ def test_layer_methods_take_the_jax_parameters(name):
 
 
 @pytest.mark.parametrize("build,item", [
-    (lambda: DistributedEmbedding(_tiny_tables(), device="cpu",
-                                  use_custom_kernel=False), "North star"),
-    (lambda: DLRM([10, 20], embedding_dim=8, device="cpu",
-                  gpu_embedding_size=100), "A8"),
-    (lambda: wire.ragged_exchange(), "A5"),
-    (lambda: InferenceEngine(_small_dlrm(), device="cpu",
-                             promote_threshold=5), "A13"),
+    pytest.param(lambda: DistributedEmbedding(
+        _tiny_tables(), device="cpu", use_custom_kernel=False), "North star",
+        id="build0-North star"),
+    pytest.param(lambda: DLRM([10, 20], embedding_dim=8,
+                              bottom_mlp_dims=(8,), top_mlp_dims=(8, 1),
+                              num_numerical_features=3, device="cpu",
+                              gpu_embedding_size=100), "A8",
+                 id="build1-A8"),
+    pytest.param(lambda: wire.ragged_exchange(), "A5", id="build2-A5"),
+    pytest.param(lambda: InferenceEngine(_small_dlrm(), device="cpu",
+                                         promote_threshold=5), "A13",
+                 id="build3-A13"),
 ])
 def test_refused_values_name_their_roadmap_item(build, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        build()
+    """What stays unported raises naming its ROADMAP item; A8 (host
+    offload), ported since, builds: a DLRM with a device budget holds its
+    table past it in host memory and serves its logits."""
+    if item != "A8":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+            build()
+        return
+    model = build()
+    assert model.embedding.offloaded_buckets
+    rng = np.random.RandomState(1)
+    with torch.no_grad():
+        logits = model(rng.rand(4, 3).astype(np.float32),
+                       [rng.randint(0, 10, 4), rng.randint(0, 20, 4)])
+    assert tuple(logits.shape) == (4, 1) and bool(torch.isfinite(logits).all())
 
 
 def _tiny_synthetic(**kw):

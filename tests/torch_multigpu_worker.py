@@ -1,5 +1,5 @@
-"""One rank of `tests/test_torch_multigpu.py` and `tests/test_torch_wire.py`:
-the port at world size > 1.
+"""One rank of `tests/test_torch_multigpu.py`, `tests/test_torch_wire.py`
+and `tests/test_torch_offload.py`: the port at world size > 1.
 
 The test spawns the ranks with ``torch.multiprocessing`` (``spawn``), so
 each rank imports this module afresh; it imports torch and the port only,
@@ -206,8 +206,8 @@ def raises(spec) -> dict:
     """The errors the port gives at world size > 1 (None: no error):
     what it ported builds (column slicing, fewer tables than ranks, the dp
     and row groups, model-parallel input, the engine, the wire formats,
-    hot rows); what it did not raises NotImplementedError naming its
-    ROADMAP item."""
+    hot rows, host offload); what it did not raises NotImplementedError
+    naming its ROADMAP item."""
     out = {}
 
     def message(fn, kind=NotImplementedError):
@@ -629,13 +629,61 @@ def dlrm_fit(spec) -> dict:
             "params": convert.params_to_numpy(model)}
 
 
+class _OffloadModel(torch.nn.Module):
+    """The JAX offload test's `TinyModel`: the outputs concatenated, a
+    linear head, the mean squared error."""
+
+    def __init__(self, spec):
+        super().__init__()
+        self.embedding = DistributedEmbedding(
+            [Embedding(v, w, combiner=c, device="meta")
+             for v, w, c in spec["tables"]],
+            device="cpu", gpu_embedding_size=spec["budget"])
+        self.w = torch.nn.Parameter(torch.from_numpy(spec["head"]))
+
+    def loss_fn(self, numerical, cats, labels, taps=None,
+                return_residuals=False):
+        out = self.embedding(list(cats), taps=taps,
+                             return_residuals=return_residuals)
+        outs, res = out if return_residuals else (out, None)
+        x = torch.cat([o.reshape(o.shape[0], -1) for o in outs], 1).float()
+        loss = torch.mean(((x @ self.w)[:, 0] - labels.reshape(-1)) ** 2)
+        return (loss, res) if return_residuals else loss
+
+
+def offload(spec) -> dict:
+    """Host offload at W > 1 (`gpu_embedding_size`): each rank's buckets
+    past the budget in its host memory; the forward of this rank's slice,
+    three sparse adagrad steps on global batches (each rank its slice),
+    the weights back."""
+    model = _OffloadModel(spec)
+    layer = model.embedding
+    layer.set_weights(spec["weights"])
+    with torch.no_grad():
+        outs = layer(stage_dp_batch(spec["inputs"], CPU_STAGE))
+    init, step = training.make_sparse_train_step(
+        model, "adagrad", lr=spec["lr"], strategy="sort")
+    state = init(model)
+    losses = []
+    for batch in spec["batches"]:
+        num, cats, labels = stage_dp_batch(batch, CPU_STAGE)
+        _, state, loss = step(model, state, num, cats, labels)
+        losses.append(float(loss))
+    return {"outputs": [o.numpy() for o in outs],
+            "offloaded": layer.offloaded_buckets,
+            "on_host": [layer.tp[b].device.type == "cpu"
+                        and state["emb"]["tp"][b][0].device.type == "cpu"
+                        for b in layer.offloaded_buckets],
+            "losses": losses, "weights": layer.get_weights(all_ranks=True)}
+
+
 KINDS = {"dlrm": dlrm, "dlrm_fit": dlrm_fit, "forward": forward,
          "weights": weights, "broadcast": broadcast, "shims": shims,
          "raises": raises, "train": train, "placement": placement,
          "mp_forward": mp_forward, "dense_step": dense_step,
          "engine": engine, "convert": convert_round_trip, "wire": wire_ops,
          "quantized": quantized, "wire_parity": wire_parity,
-         "hot_wire": hot_wire}
+         "hot_wire": hot_wire, "offload": offload}
 
 
 def main(rank: int, world: int, init_method: str, spec_path: str,
