@@ -34,7 +34,12 @@ Phases, each printing JSON lines before the last line:
      spill, ``one_hot_spills``), and `sgd_rows_kernel`'s, with those of
      its variants of SGD_ROWS_VARIANTS (copies of sparse_apply.cu built
      in the background from the start of 2a; ``sgd_rows_ptxas``,
-     ``sgd_rows_spills``).
+     ``sgd_rows_spills``). The native host library (``native/*.cpp``,
+     g++, built in a thread from the start of 2a): a ``native`` line with
+     its path, the hash in its name, the flags and the g++ version; a
+     last ``native`` line after phase 15 prints its calls by path
+     (`native.loader.calls`: ``integer_lookup``, ``prefetch``,
+     ``host_apply``).
   3. kernel: `lookup_combine` against its plain PyTorch version at the
      zoo's widths (8..256), hotness 1/10/30, sum/mean, weighted (with
      zero-weight slots) and unweighted, int32 and int64 ids, some of them
@@ -193,12 +198,19 @@ Phases, each printing JSON lines before the last line:
      after), read by `RawBinaryDataset` through ``fit(raw_batches,
      preprocess=, pipelined=True, eval_data=, eval_every=6,
      eval_steps=4)``, sparse sgd at the example's schedule, 12 steps;
-     then the same from the same weights with ``pipelined=False``:
-     losses, eval AUCs, tables (`table_digest`) and MLPs bit-identical.
-     Printed: launches (1 / 1 / 1 a step, 1 lookup a eval forward), step
+     then the same from the same weights with ``pipelined=False``, and
+     pipelined with the ``os.pread`` reader before and after them
+     (``use_native_prefetch=False``): losses, eval AUCs, tables
+     (`table_digest`) and MLPs bit-identical. Printed: launches (1 / 1 /
+     1 a step, 1 lookup a eval forward), step
      times and samples/s, peak memory, ingest stage means, one profiled
      step each (`StepWindow`: idle share, HtoD copies pageable / pinned),
      the on-card AUC against `auc_exact` (1e-3) and a CPU StreamingAUC.
+     The dataset is read through the native prefetcher: its calls checked
+     (every file of every train and eval batch), then every batch held
+     byte for byte against an ``os.pread`` reader of the same files, each
+     reader's mean ms a batch printed beside the pipelined `fit`'s
+     ``read`` stage mean through each reader (``prefetch_hold``).
      Then one more step's kernel calls held and timed (`dlrm_kernels`),
      and `sgd_rows` at its call as the source builds it and as each
      variant of SGD_ROWS_VARIANTS (2 rows a group; one pass's `rep`
@@ -356,7 +368,12 @@ Phases, each printing JSON lines before the last line:
      printed), then both at int8 storage, 2 sgd steps (losses at
      LOSS_TOL, every offloaded element within one grid step a step of the
      all-device model's, each host apply replayed bit for bit by the
-     numpy functions). 14b (`offload_full_phase`): the host's
+     numpy functions). Every float32 host apply runs the C++ loops
+     (`host_apply_rows_inplace`; its calls checked, one a step and
+     offloaded bucket) and is held against the numpy twin on the same rows
+     (`CppApplyTap`, `hold_cpp_applies`: sgd bit for bit, adagrad and adam
+     (adam on the first call's rows with seeded moments) at rtol / atol
+     1e-6 with the largest ulp). 14b (`offload_full_phase`): the host's
      MemAvailable, then DLRM at the MLPerf Criteo-1TB sizes in float32 with
      ``gpu_embedding_size`` the x 0.4 tables' elements: its three largest
      tables (61.2 GB) pinned on the host (`HostPin`: exactly their bytes),
@@ -367,7 +384,36 @@ Phases, each printing JSON lines before the last line:
      share; the ``offload:lookup`` and ``offload:update`` ranges' host ms,
      one call each; HtoD and DtoH copies; the bytes the layer moved), peak
      memory, the on-card AUC against `auc_exact`, a 65,536-row request
-     through `InferenceEngine`.
+     through `InferenceEngine`; the C++ applies counted (one a step) and
+     ``offload:update``'s host ms beside the numpy apply's 99.68
+     (NUMPY_UPDATE_HOST_MS); one step's
+     rows applied again by the C++ loops and by the numpy twin, timed
+     (`time_host_apply`, the plain yardstick).
+  15. (after 14) criteo_vocab (`criteo_vocab_phase`): the Criteo
+     example's on-the-fly vocabulary flow (`tools/criteo_example.py`) at
+     its full width: 26 `IntegerLookup`s of max_tokens 100,000 and 26
+     tables of 100,001 x 128 float32 (1.33 GB, 2.66 GB of adam state), MLP
+     512-256-1 over 13 + 26 x 128 inputs, batch 4,096 of the example's
+     synthetic zipf keys (seed 0), dense adam at lr 1e-3. Every batch's
+     keys through the C++ map and the numpy twin: ids, vocabularies,
+     counts and sizes equal batch for batch; 3 adam steps held against
+     the CPU from the card's weights and state, in two halves: the CPU
+     model's forward and backward under the card's ReLU masks (losses at
+     LOSS_TOL; every gradient, the card's caught at its optimizer, within
+     rtol 1e-5 plus 2 * 2**-24 of its terms' magnitudes through every
+     layer), then the CPU's adam twin on the card's gradient (the values
+     within rtol 1e-5 of the value or, where larger, its change, plus an
+     ulp; the moments bit for bit; rows adam does not move unchanged);
+     then the control: one more step with the card's gemms in TF32 (the
+     CPU on the card's ReLU masks whatever their margin) must fail the
+     gradient bar (``criteo_tf32_control``);
+     30 steps through the ingest pipeline and 30 inline from the same
+     weights: losses, vocabularies, tables and MLP bit for bit. No CUDA
+     kernel of the port runs on this path (checked); the native calls are
+     26 translations a step. Printed: step median and samples/s, the
+     ``lookup`` and ``stage`` means, one profiled step's idle share, peak
+     memory, vocabulary sizes; then `--bench_lookup` at 16,777,216 keys
+     (max_tokens 20,000,000): native and numpy keys/s, the host's CPUs.
   7. the kernels line (each kernel's launches by path, the world paths'
      summed over the ranks; `sgd_rows` with ``copy_ms``, an
      `index_select` + `index_copy_` of the same rows, as a second
@@ -1183,6 +1229,28 @@ def read_counts(cuda_lookup, *counted) -> dict:
     return out
 
 
+# the native host library's calls by path (`native.loader.calls`, read
+# just after each path that runs it); the run's `native` line prints them
+NATIVE_CALLS: dict = {}
+
+
+def set_native_calls():
+    """Every call count of the native host library to 0."""
+    from distributed_embeddings_tpu_torch.native import loader
+    for key in loader.calls:
+        loader.calls[key] = 0
+
+
+def read_native_calls(path=None) -> dict:
+    """The native host library's call counts (kept under `path` for the
+    `native` line)."""
+    from distributed_embeddings_tpu_torch.native import loader
+    calls = dict(loader.calls)
+    if path is not None:
+        NATIVE_CALLS[path] = calls
+    return calls
+
+
 def per_step(launched: dict, steps: int) -> dict:
     """The launch counts `steps` steps give when each step launches the
     kernels of `launched` so often and no other kernel."""
@@ -1207,7 +1275,7 @@ def ulp(torch, x):
 
 
 def hold(torch, what, got, want, before, steps, mode, cond=None, lr=None,
-         eps=SUM_EPS):
+         eps=SUM_EPS, mag=None, rtol=TRAIN_TOL["rtol"]):
     """The card's trainer (`got`) against the CPU trainer (`want`) after
     `steps` steps from `before`, on the same elements (CPU tensors).
     `cond` (optional): per element t/|g| of the step's gradient g and the
@@ -1216,40 +1284,66 @@ def hold(torch, what, got, want, before, steps, mode, cond=None, lr=None,
     BLAS), so the float32 sums differ by up to about SUM_EPS * t, and by
     SUM_EPS * t/|g| relative to g; above 1/ILL_SCALE the gradient is a
     sum that cancels, "ill".
-    mode "change": |change(got) - change(want)| within rtol 1e-4 of the
-    change plus `steps` ulps of the values (each step rounds once on each
-    side), plus, with `cond`, 2 * SUM_EPS * t/|g| of the change (a change
-    of sgd or adagrad carries its gradient's relative error, the
-    accumulator's square twice; `eps`, SUM_EPS by default, may be a tensor
-    broadcast over the elements: `sum_eps` widens it on rows that a dense
-    aggregation summed in another order); sgd and adagrad at batch 65,536
-    move
-    most table elements by far less than TRAIN_TOL's atol, where a value
-    check would not see a row left out. Sums that cancel exactly (g == 0
-    from terms, t/|g| infinite) are not held. mode "value": TRAIN_TOL
-    (adam moves each element by about lr per step), but, with `cond` and
-    adam's `lr`, 1e-2 * lr at ill elements: adam's step does not scale
-    with the gradient, so its low digits move such an element by a share
-    of lr. Returns (max |got - want| over the held elements,
-    |change(want)|, how many changes exceed the rounding allowance)."""
+    mode "change": |change(got) - change(want)| within `rtol` (1e-4 by
+    default) of the change plus `steps` ulps of the values (each step
+    rounds once on each side), plus, with `cond`, 2 * SUM_EPS * t/|g| of
+    the change (a change of sgd or adagrad carries its gradient's relative
+    error, the accumulator's square twice; `eps`, SUM_EPS by default, may
+    be a tensor broadcast over the elements: `sum_eps` widens it on rows
+    that a dense aggregation summed in another order); sgd and adagrad at
+    batch 65,536 move most table elements by far less than TRAIN_TOL's
+    atol, where a value check would not see a row left out. Sums that
+    cancel exactly (g == 0 from terms, t/|g| infinite) are not held.
+    mode "value": TRAIN_TOL (adam moves each element by about lr per
+    step), but, with `cond` and adam's `lr`, 1e-2 * lr at ill elements:
+    adam's step does not scale with the gradient, so its low digits move
+    such an element by a share of lr.
+    mode "gradient": `got` and `want` are one step's gradients (`before`
+    None), within `rtol` of `want` plus 2 * `eps` of `mag`, the sum of the
+    magnitudes of their terms (`training.mlp_magnitudes`).
+    mode "update": an update from the same gradient and state, within
+    `rtol` of the larger of the value and its change (adam moves an
+    element by about lr, more than an element near zero) plus `steps`
+    ulps of the values (the CPU's square root is rounded within an ulp,
+    not always to the nearest).
+    The arithmetic runs on the card where there is one (each operation is
+    elementwise and correctly rounded, so the bars and the verdict are the
+    CPU's to the bit), and `change` stays there. Returns (max |got - want|
+    over the held elements, |change(want)|, how many changes exceed the
+    rounding allowance, the largest share of its bar an element used)."""
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    if before is None:
+        before = torch.zeros_like(want)
+    got, want, before = (x.to(dev) for x in (got, want, before))
+    if cond is not None:
+        cond = cond.to(dev)
+    if torch.is_tensor(eps):
+        eps = eps.to(dev)
     got64, want64 = got.double(), want.double()
     change = (want64 - before.double()).abs()
     diff = (got64 - want64).abs()
     rounding = steps * ulp(torch, torch.maximum(
         torch.maximum(got.abs(), want.abs()), before.abs())).double()
     if mode == "change":
-        bar = TRAIN_TOL["rtol"] * change + rounding
+        bar = rtol * change + rounding
         if cond is not None:
             cond64 = cond.double()
             eps64 = (eps.double() if torch.is_tensor(eps)
-                     else torch.tensor(eps, dtype=torch.float64))
+                     else torch.tensor(eps, dtype=torch.float64,
+                                       device=dev))
             bar = torch.where(torch.isinf(cond64), math.inf,
                               bar + 2 * eps64 * cond64 * change)
-    else:
+    elif mode == "value":
         bar = TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * want64.abs()
         if cond is not None and lr is not None:
             bar = torch.where(cond > 1 / ILL_SCALE,
                               torch.full_like(bar, 1e-2 * lr), bar)
+    elif mode == "gradient":
+        bar = rtol * want64.abs() + 2 * eps * mag.to(dev).double()
+    elif mode == "update":
+        bar = rtol * torch.maximum(want64.abs(), change) + rounding
+    else:
+        raise ValueError(f"hold: unknown mode {mode!r}")
     bad = diff > bar
     if bool(bad.any()):
         i = int((diff - bar).flatten().argmax())
@@ -1257,11 +1351,14 @@ def hold(torch, what, got, want, before, steps, mode, cond=None, lr=None,
         raise SmokeFailure(
             f"{what}: {int(bad.sum())} of {diff.numel()} elements disagree "
             f"with the reference trainer; worst {diff.flatten()[i].item()} "
-            f"against a change of {change.flatten()[i].item()} "
-            f"(t/|g| {cond_i})")
+            f"against a bar of {bar.flatten()[i].item()} and a change of "
+            f"{change.flatten()[i].item()} (t/|g| {cond_i})")
     held = torch.isfinite(bar)
-    err = diff[held].max().item() if bool(held.any()) else 0.0
-    return err, change, int((change > rounding).sum())
+    if not bool(held.any()):
+        return 0.0, change, int((change > rounding).sum()), 0.0
+    share = torch.where(diff[held] > 0, diff[held] / bar[held], 0.0)
+    return (diff[held].max().item(), change,
+            int((change > rounding).sum()), share.max().item())
 
 
 def trained_arrays(torch, model, state, touched):
@@ -1307,7 +1404,7 @@ def hold_trainers(torch, label, after, cpu_after, before, touched, steps,
             g, t = g.index_select(0, rows), t.index_select(0, rows)
         return torch.where(t > 0, t / g.abs(), torch.zeros_like(t))
     for name, got in after[0].items():
-        err, _, _ = hold(torch, f"{label}: {name}", got, cpu_after[0][name],
+        err, *_ = hold(torch, f"{label}: {name}", got, cpu_after[0][name],
                          before[0][name], steps, "value", cond(name), lr)
         worst = max(worst, err)
     for b, (got_b, want_b, before_b) in enumerate(zip(after[1], cpu_after[1],
@@ -1319,7 +1416,7 @@ def hold_trainers(torch, label, after, cpu_after, before, touched, steps,
             what = f"{label}: bucket {b} " + ("table" if i == 0
                                                 else f"state {i - 1}")
             if i == 0:
-                err, change, n = hold(torch, what, got, want, old, steps,
+                err, change, n, _ = hold(torch, what, got, want, old, steps,
                                       mode, t_cond, lr, eps_b)
                 worst = max(worst, err)
                 table_change.append(change.flatten())
@@ -1492,7 +1589,7 @@ def hold_hot(torch, label, after, other, before, cond, counts, steps=1,
             after, other, before, cond, counts)):
         eps = hot_eps(torch, n, term_eps)
         for i, (got, want, old) in enumerate(zip(got_b, want_b, before_b)):
-            err, _, _ = hold(torch, f"{label}: hot shard {b} "
+            err, *_ = hold(torch, f"{label}: hot shard {b} "
                              + ("rows" if i == 0 else f"state {i - 1}"),
                              got, want, old, steps, "change", c, eps=eps)
             worst = max(worst, err)
@@ -1725,7 +1822,11 @@ def to_cpu(torch, tree):
         return {k: to_cpu(torch, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_cpu(torch, v) for v in tree)
-    return tree.detach().cpu().clone() if torch.is_tensor(tree) else tree
+    if not torch.is_tensor(tree):
+        return tree
+    tree = tree.detach()
+    # .cpu() of a card tensor is already a copy
+    return tree.clone() if tree.device.type == "cpu" else tree.cpu()
 
 
 def clone_tree(torch, tree):
@@ -2391,7 +2492,8 @@ def time_stream_calls(torch, cuda_tiled, kind, calls, rate):
         ms = device_ms(lambda: kernel(*got, *rest), reps=3)
         mhz = segment_tail.sm_clock_mhz(lambda: kernel(*got, *rest))
         chain = segment_tail.chain_ms(longest, mhz)
-        plain_ms = eager_ms(lambda: plain(*got, *rest), reps=3)
+        # 1-2 s a call: timed once, warmed by the call held above
+        plain_ms = eager_ms(lambda: plain(*got, *rest), reps=1, warmup=0)
         library_ms = None
         if kind == "sgd":
             ids = torch.empty_like(keys)
@@ -2937,7 +3039,7 @@ def world_phase(torch, name, world, model_kw, strategy):
                       "0's")
         worst = 0.0
         for n, p in dense.items():
-            err, _, _ = hold(torch, f"{label}: {n}", ranks[0]["mlp"][n],
+            err, *_ = hold(torch, f"{label}: {n}", ranks[0]["mlp"][n],
                              p.detach().cpu(), mlp_r[n], 1, "value")
             worst = max(worst, err)
         held_rows, changes, moved = 0, [], 0
@@ -2959,7 +3061,7 @@ def world_phase(torch, name, world, model_kw, strategy):
                         0, (idx + pl_.row_offset)).double()
                     eps = (SUM_EPS + (n_row - 1).clamp_min(0)
                            * 2.0 ** -24)[:, None]
-                err, change, n = hold(
+                err, change, n, _ = hold(
                     torch, f"{label}: table {gtid}", vals,
                     layer.tp[pl_.bucket].detach().index_select(
                         0, on_dev).cpu(), before, TRAIN_STEPS, "change",
@@ -3525,7 +3627,7 @@ def placement_phase(torch, cuda_lookup, cuda_sparse, counted,
                   for p in layer.plan.tp_placements}
         worst = 0.0
         for n, p in mlp.items():
-            err, _, _ = hold(torch, f"{label}: {n}", ranks[0]["mlp"][n],
+            err, *_ = hold(torch, f"{label}: {n}", ranks[0]["mlp"][n],
                              p.detach().cpu(), mlp_last[n], 1, "value")
             worst = max(worst, err)
         for gtid, t in ranks[0]["dp_tables"].items():
@@ -3534,7 +3636,7 @@ def placement_phase(torch, cuda_lookup, cuda_sparse, counted,
                                    + p1.rows].cpu()
             before = table_rows(torch, strat, gtid, PLACEMENT_SEED,
                                 "cuda").cpu()
-            err, _, _ = hold(torch, f"{label}: dp table {gtid}", t, want,
+            err, *_ = hold(torch, f"{label}: dp table {gtid}", t, want,
                              before, TRAIN_STEPS, "value")
             worst = max(worst, err)
         held_rows, changes, moved, held = 0, [], 0, {}
@@ -3557,7 +3659,7 @@ def placement_phase(torch, cuda_lookup, cuda_sparse, counted,
                 before = table_rows(torch, strat, gtid, PLACEMENT_SEED,
                                     "cuda").index_select(
                     0, rows.cuda())[:, c0:c1].cpu()
-                err, change, n = hold(
+                err, change, n, _ = hold(
                     torch, f"{label}: table {gtid} ({where[0]}, rank "
                     f"{r['rank']})", vals, want, before, TRAIN_STEPS,
                     "change", cond[at1][:, None])
@@ -3869,7 +3971,8 @@ def dlrm_step_kernels(torch, cuda_lookup, cuda_sparse, model, batch, rate):
 def dlrm_dataset(tmp, sizes, train_batches=DLRM_FIT_STEPS):
     """Write DLRM's seeded ClickGenerator stream (`train_batches` train
     batches, DLRM_EVAL_STEPS test batches) in the split-binary layout
-    under `tmp`; returns ``valid -> RawBinaryDataset`` of it."""
+    under `tmp`; returns ``(valid, native=True) -> RawBinaryDataset`` of
+    it (read through the native prefetcher, or with ``os.pread``)."""
     from distributed_embeddings_tpu_torch.models.data import (
         RawBinaryDataset)
     from distributed_embeddings_tpu_torch.models.synthetic import (
@@ -3888,11 +3991,12 @@ def dlrm_dataset(tmp, sizes, train_batches=DLRM_FIT_STEPS):
                    for d in ("train", "test")
                    for f in os.listdir(os.path.join(tmp, d))))
 
-    def dataset(valid):
+    def dataset(valid, native=True):
         return RawBinaryDataset(
             tmp, batch_size=BATCH, numerical_features=13,
             categorical_features=range(len(sizes)),
-            categorical_feature_sizes=sizes, valid=valid)
+            categorical_feature_sizes=sizes, valid=valid,
+            use_native_prefetch=native)
     return dataset
 
 
@@ -3977,8 +4081,11 @@ def dlrm_fit_phase(torch, cuda_lookup, cuda_sparse, counted, rate):
     ClickGenerator stream written to a temporary directory, read by
     `RawBinaryDataset`: ``raw_batches`` + ``preprocess``) with eval
     every DLRM_EVAL_EVERY steps, pipelined, then again from the same
-    weights with ``pipelined=False``: losses, eval AUCs, tables (by
-    `table_digest`) and MLPs bit-identical. The on-card AUC against
+    weights with ``pipelined=False``, and pipelined with the ``os.pread``
+    reader (``use_native_prefetch=False``) before and after the
+    prefetcher's runs (their ``read`` stage means beside the
+    prefetcher's): losses, eval AUCs, tables (by `table_digest`) and MLPs
+    bit-identical. The on-card AUC against
     `auc_exact` and a CPU `StreamingAUC` of the same logits. Then the
     step's kernels held and timed at its shapes (`dlrm_step_kernels`, on
     the serial run's model). Returns the launch counts of the pipelined
@@ -3994,8 +4101,12 @@ def dlrm_fit_phase(torch, cuda_lookup, cuda_sparse, counted, rate):
     want = {"lookup_combine": DLRM_FIT_STEPS + evals * DLRM_EVAL_STEPS,
             "segment_sum_sorted": DLRM_FIT_STEPS,
             "sgd_rows": DLRM_FIT_STEPS}
-    runs, counts = {}, {}
-    for pipelined in (True, False):
+    runs, counts, read_ms = {}, {}, {}
+    # the os.pread runs before and after the prefetcher's pipelined one
+    for label, pipelined, native_reads in (
+            ("dlrm_fit_pread", True, False), ("dlrm_fit", True, True),
+            ("dlrm_fit_serial", False, True),
+            ("dlrm_fit_pread_again", True, False)):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         model = DLRM(sizes, device="cuda", lookup_path="pallas",
@@ -4003,9 +4114,11 @@ def dlrm_fit_phase(torch, cuda_lookup, cuda_sparse, counted, rate):
                      .manual_seed(DLRM_SEED))
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
-        train, test = dataset(False), dataset(True)
+        train, test = dataset(False, native_reads), dataset(True,
+                                                            native_reads)
         window = StepWindow(torch, DLRM_PROFILED_STEP)
         set_counts(cuda_lookup, *counted)
+        set_native_calls()
         t0 = time.perf_counter()
         _, _, hist = fit(
             model, train.raw_batches(DLRM_FIT_STEPS), DLRM_FIT_STEPS,
@@ -4016,8 +4129,16 @@ def dlrm_fit_phase(torch, cuda_lookup, cuda_sparse, counted, rate):
             log_every=0, callbacks=[window])
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
-        label = "dlrm_fit" if pipelined else "dlrm_fit_serial"
         counts[label] = read_counts(cuda_lookup, *counted)
+        native = read_native_calls(label)
+        # each train batch's 28 files and each eval batch's, through the
+        # prefetcher (none with os.pread)
+        reads = (DLRM_FIT_STEPS + evals * DLRM_EVAL_STEPS) * (2 + len(sizes))
+        check((native["prefetch"] >= reads if native_reads
+               else native["prefetch"] == 0) and native["host_apply"] == 0,
+              f"{label}: native calls {native}, want "
+              f"{'at least ' + str(reads) if native_reads else 'no'} "
+              "prefetcher reads")
         check(counts[label] == per_step(want, 1),
               f"{label} launches {counts[label]}, want {want} "
               f"({DLRM_FIT_STEPS} steps, {evals} evals of "
@@ -4041,13 +4162,16 @@ def dlrm_fit_phase(torch, cuda_lookup, cuda_sparse, counted, rate):
              ingest_stage_mean_ms={
                  k: v["mean_ms"]
                  for k, v in hist["ingest_stages"].items()},
-             profiled_step=profiled)
-        runs[pipelined] = (hist["loss"], hist["eval_auc"],
-                           [table_digest(torch, t)
-                            for t in model.embedding.tp],
-                           {n: p.detach().clone() for n, p in
-                            model.named_parameters() if p.requires_grad})
+             native_calls=native, profiled_step=profiled)
         if pipelined:
+            read_ms.setdefault("native" if native_reads else "pread",
+                               []).append(
+                hist["ingest_stages"]["read"]["mean_ms"])
+        runs[label] = (hist["loss"], hist["eval_auc"],
+                       [table_digest(torch, t) for t in model.embedding.tp],
+                       {n: p.detach().clone() for n, p in
+                        model.named_parameters() if p.requires_grad})
+        if label == "dlrm_fit":
             # the on-card AUC of the trained model's logits
             card_auc = dlrm_card_auc(torch, model, test)
             check(card_auc == hist["eval_auc"][-1],
@@ -4059,20 +4183,59 @@ def dlrm_fit_phase(torch, cuda_lookup, cuda_sparse, counted, rate):
                            max_memory_allocated=torch.cuda
                            .max_memory_allocated(),
                            profiled_step=profiled)
-        else:
+        elif label == "dlrm_fit_serial":
             step_kernels = dlrm_step_kernels(torch, cuda_lookup,
                                              cuda_sparse, model,
                                              train[0], rate)
         del model, train, test
         torch.cuda.empty_cache()
-    (l1, a1, d1, m1), (l2, a2, d2, m2) = runs[True], runs[False]
-    same = (l1 == l2 and a1 == a2 and d1 == d2
-            and all(torch.equal(m1[n], m2[n]) for n in m1))
-    emit(phase="dlrm_pipelined_vs_serial", bit_identical=same,
-         losses_equal=l1 == l2, eval_auc_equal=a1 == a2,
-         table_digests_equal=d1 == d2)
-    check(same, "the pipelined and the serial fit differ")
+    (l1, a1, d1, m1) = runs["dlrm_fit"]
+    for other in ("dlrm_fit_serial", "dlrm_fit_pread",
+                  "dlrm_fit_pread_again"):
+        (l2, a2, d2, m2) = runs[other]
+        same = (l1 == l2 and a1 == a2 and d1 == d2
+                and all(torch.equal(m1[n], m2[n]) for n in m1))
+        emit(phase="dlrm_pipelined_vs_serial", against=other,
+             bit_identical=same, losses_equal=l1 == l2,
+             eval_auc_equal=a1 == a2, table_digests_equal=d1 == d2)
+        check(same, f"the pipelined fit and {other} differ")
+    prefetch_hold(dataset, read_ms)
     return counts, step_kernels, summary
+
+
+def prefetch_hold(dataset, fit_read_ms):
+    """Every train and test batch of a `dlrm_dataset` through the native
+    prefetcher (`read_raw` in order, its window of `prefetch_depth`
+    batches ahead) against an ``os.pread`` reader of the same files, byte
+    for byte, each reader timed over the pass (the files are in the page
+    cache: warm reads); printed beside the pipelined `fit`'s ``read``
+    stage mean through each reader (`fit_read_ms`)."""
+    out = {}
+    for valid in (False, True):
+        native, plain = dataset(valid), dataset(valid, native=False)
+        check(native._prefetcher is not None and plain._prefetcher is None,
+              "prefetch_hold: the readers are not the native and the "
+              "os.pread one")
+        ms = {"native": [], "pread": []}
+        for i in range(len(native)):
+            t0 = time.perf_counter()
+            got = native.read_raw(i)
+            t1 = time.perf_counter()
+            want = plain.read_raw(i)
+            ms["native"].append((t1 - t0) * 1e3)
+            ms["pread"].append((time.perf_counter() - t1) * 1e3)
+            check(len(got) == len(want) and all(
+                a.tobytes() == b.tobytes() for a, b in zip(got, want)),
+                  f"prefetch_hold: batch {i} (valid={valid}) differs from "
+                  "the os.pread reader's")
+        out["test" if valid else "train"] = dict(
+            batches=len(native), native_mean_ms=statistics.mean(ms["native"]),
+            pread_mean_ms=statistics.mean(ms["pread"]),
+            batch_bytes=sum(b.nbytes for b in got))
+        native.close()
+        plain.close()
+    emit(phase="prefetch_hold", bit_identical=True,
+         fit_read_stage_mean_ms=fit_read_ms, **out)
 
 
 def dlrm_against_cpu_phase(torch, cuda_lookup, cuda_sparse, counted,
@@ -6424,6 +6587,10 @@ OFFLOAD_INT8_STEPS = 2
 OFFLOAD_TABLE_TOL = dict(rtol=2e-5, atol=2e-5)  # the JAX test's table bar
 # the port's `layers.dist_model_parallel.OFFLOAD_LOOKUP_RANGE` and
 # `OFFLOAD_UPDATE_RANGE`
+# `offload:update`'s host ms when the numpy rules applied the offloaded
+# rows (the full smoke on an H100 80GB HBM3 at 700 W), printed beside the
+# C++ apply's
+NUMPY_UPDATE_HOST_MS = 99.68
 OFFLOAD_LOOKUP_RANGE = "offload:lookup"
 OFFLOAD_UPDATE_RANGE = "offload:update"
 
@@ -6572,7 +6739,7 @@ class HostApplyTap:
 def replay_host_apply(call):
     """A recorded quantized host apply replayed on its touched rows by the
     numpy functions (`ops.wire.decode_rows_np`, `ops.sparse_update.
-    host_apply_rows_inplace`, `ops.wire.encode_rows_np`): True when it
+    host_apply_rows_plain`, `ops.wire.encode_rows_np`): True when it
     gives the card's rows, scales and state bit for bit."""
     import numpy as np
     from distributed_embeddings_tpu_torch.ops import sparse_update, wire
@@ -6582,7 +6749,7 @@ def replay_host_apply(call):
     state = [np.copy(x) if np.ndim(x) else x for x in call["state"]]
     st = ((state[0], state[1], state[2]) if call["kind"] == "adam"
           else tuple(x for x in state if np.ndim(x)))
-    sparse_update.host_apply_rows_inplace(
+    sparse_update.host_apply_rows_plain(
         call["kind"], sub, st, np.arange(m), call["sums"],
         np.ones(m, np.float32), call["lr"], **call["kw"])
     pay, scl = wire.encode_rows_np(sub, sd, sr=True)
@@ -6591,6 +6758,102 @@ def replay_host_apply(call):
             and np.array_equal(scl, call["scale_after"])
             and all(np.array_equal(np.asarray(a), np.asarray(b))
                     for a, b in zip(state, call["state_after"])))
+
+
+class CppApplyTap:
+    """Records each host apply of the offloaded layer's float32 buckets
+    (`host_apply_rows_inplace`, the C++ loops, which still run): the
+    touched rows of the table and its state before and after, and the
+    pending rows, so `hold_cpp_applies` replays each by the numpy twin.
+    With `args_only`, it copies nothing and keeps the last call's
+    arguments (`last`: one step's rows, for `time_host_apply`)."""
+
+    def __init__(self, args_only=False):
+        from distributed_embeddings_tpu_torch.layers import (
+            dist_model_parallel)
+        self.module, self.calls = dist_model_parallel, []
+        self.real = dist_model_parallel.host_apply_rows_inplace
+        self.args_only, self.last = args_only, None
+
+    def __enter__(self):
+        self.module.host_apply_rows_inplace = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.host_apply_rows_inplace = self.real
+
+    def __call__(self, kind, table, state, rep, sums, valid, lr, **kw):
+        import numpy as np
+        if self.args_only:
+            self.last = ((kind, table, state, rep, sums, valid, lr), kw)
+            return self.real(kind, table, state, rep, sums, valid, lr, **kw)
+        ok = valid > 0
+        ru = rep[ok].astype(np.int64)
+
+        def rows():
+            return [np.copy(table[ru])] + [np.copy(x[ru]) for x in state
+                                           if np.ndim(x)]
+        before = rows()
+        self.real(kind, table, state, rep, sums, valid, lr, **kw)
+        self.calls.append(dict(
+            kind=kind, before=before, after=rows(),
+            sums=np.ascontiguousarray(sums[ok]), lr=lr, kw=dict(kw),
+            count=state[2] if kind == "adam" else None))
+
+
+def hold_cpp_applies(torch, calls) -> dict:
+    """Each recorded C++ host apply (`CppApplyTap`) against the numpy twin
+    (`host_apply_rows_plain`) on copies of the same rows before it: sgd
+    bit for bit; adagrad and adam within the JAX test's rtol and atol of
+    1e-6 (tests/test_host_apply.py), their largest ulp distance printed.
+    Adam, which no offloaded step here runs, is held on the first call's
+    rows with moments drawn from a seed and a step count of 3. Returns per
+    kind the calls, rows, largest abs and ulp distance and whether every
+    element was bit-equal."""
+    import numpy as np
+    from distributed_embeddings_tpu_torch.ops import sparse_update
+    out = {}
+
+    def held(kind, before, after, sums, lr, kw, count=None):
+        m = len(sums)
+        arrays = [np.copy(x) for x in before]
+        st = ((arrays[1], arrays[2], count) if kind == "adam"
+              else tuple(arrays[1:]))
+        sparse_update.host_apply_rows_plain(
+            kind, arrays[0], st, np.arange(m), sums, np.ones(m, np.float32),
+            lr, **kw)
+        equal = all(np.array_equal(a, b) for a, b in zip(after, arrays))
+        err = max(float(np.abs(a - b).max()) if a.size else 0.0
+                  for a, b in zip(after, arrays))
+        ulps = max(max_ulp(torch, torch.from_numpy(a), torch.from_numpy(b))
+                   if a.size else 0 for a, b in zip(after, arrays))
+        close = all(np.allclose(a, b, rtol=1e-6, atol=1e-6)
+                    for a, b in zip(after, arrays))
+        rec = out.setdefault(kind, dict(calls=0, rows=0, max_abs_err=0.0,
+                                        max_ulp=0, bit_equal=True))
+        rec["calls"] += 1
+        rec["rows"] += m
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["max_ulp"] = max(rec["max_ulp"], ulps)
+        rec["bit_equal"] &= equal
+        check(equal if kind == "sgd" else close,
+              f"host apply {kind}: the C++ loop and the numpy twin differ "
+              f"by {err} ({ulps} ulp) on {m} rows")
+    for call in calls:
+        held(call["kind"], call["before"], call["after"], call["sums"],
+             call["lr"], call["kw"], call["count"])
+    first = calls[0]
+    rng = np.random.RandomState(DLRM_SEED)
+    table = np.ascontiguousarray(first["before"][0])
+    mu = (rng.randn(*table.shape) * 0.01).astype(np.float32)
+    nu = (np.abs(rng.randn(*table.shape)) * 0.01).astype(np.float32)
+    before = [table.copy(), mu.copy(), nu.copy()]
+    m = len(first["sums"])
+    sparse_update.host_apply_rows_inplace(
+        "adam", table, (mu, nu, 3), np.arange(m), first["sums"],
+        np.ones(m, np.float32), 1e-3)
+    held("adam", before, [table, mu, nu], first["sums"], 1e-3, {}, 3)
+    return out
 
 
 def offload_pair_steps(torch, counting, models, kind, steps, batches, lr):
@@ -6681,16 +6944,24 @@ def offload_hold_phase(torch, cuda_lookup, counted) -> dict:
          host_tables_pinned=pinned, seconds=time.perf_counter() - t0)
     check(pinned, "offload_hold: the offloaded tables are not pinned host "
                   "tensors")
-    summary, counts = {}, None
+    summary, counts, cpp_applies = {}, None, []
     for kind, steps, lr in (("sgd", OFFLOAD_SGD_STEPS,
                              make_lr_schedule(*DLRM_LR)),
                             ("adagrad", OFFLOAD_ADAGRAD_STEPS, TRAIN_LR)):
         t1 = time.perf_counter()
         for m, snap in snaps:
             m.load_state_dict(snap)
-        (l_off, l_dev), launched = offload_pair_steps(
-            torch, (cuda_lookup, *counted), (off, dev), kind, steps, batches,
-            lr)
+        set_native_calls()
+        with CppApplyTap() as tap:
+            (l_off, l_dev), launched = offload_pair_steps(
+                torch, (cuda_lookup, *counted), (off, dev), kind, steps,
+                batches, lr)
+        native = read_native_calls(f"offload_hold_{kind}")
+        check(native["host_apply"] == steps * len(layer.offloaded_buckets)
+              == len(tap.calls),
+              f"offload_hold {kind}: native calls {native}, {len(tap.calls)}"
+              f" recorded applies, want {steps} a step and bucket")
+        cpp_applies.append(tap.calls)
         counts = counts or launched
         got = [layer_table(torch, layer, t)[0] for t in off_tables]
         want = [layer_table(torch, dev.embedding, t)[0] for t in off_tables]
@@ -6722,7 +6993,13 @@ def offload_hold_phase(torch, cuda_lookup, counted) -> dict:
             "sgd_rows": 1}
     check(counts == per_step(want, OFFLOAD_SGD_STEPS),
           f"offload_hold launches {counts}, want {want} per step")
-    del off, dev, snaps, layer
+    t1 = time.perf_counter()
+    held = hold_cpp_applies(torch, [c for calls in cpp_applies
+                                    for c in calls])
+    emit(phase="host_apply_hold", seconds=time.perf_counter() - t1,
+         tolerance=dict(sgd="bit", adagrad=dict(rtol=1e-6, atol=1e-6),
+                        adam=dict(rtol=1e-6, atol=1e-6)), **held, ok=True)
+    del off, dev, snaps, layer, cpp_applies
     torch.cuda.empty_cache()
     # int8: both models stored quantized, from the same float32 weights
     t1 = time.perf_counter()
@@ -6734,10 +7011,15 @@ def offload_hold_phase(torch, cuda_lookup, counted) -> dict:
     del weights
     off8, dev8 = pair
     layer8 = off8.embedding
+    set_native_calls()
     with HostApplyTap(torch, layer8) as tap:
         (l_off, l_dev), _ = offload_pair_steps(
             torch, (cuda_lookup, *counted), pair, "sgd", OFFLOAD_INT8_STEPS,
             batches, make_lr_schedule(*DLRM_LR))
+    native = read_native_calls("offload_hold_int8")
+    check(native["host_apply"] == len(tap.calls) > 0,
+          f"offload_hold int8: native calls {native} for {len(tap.calls)} "
+          "host applies")
     replayed = [replay_host_apply(c) for c in tap.calls]
     grid, equal_share = 0.0, []
     for t in off_tables:
@@ -6765,6 +7047,31 @@ def offload_hold_phase(torch, cuda_lookup, counted) -> dict:
     del pair, off8, dev8, layer8, tap
     torch.cuda.empty_cache()
     return {"offload_hold": counts}
+
+
+def time_host_apply(call) -> dict:
+    """One step's host apply (`CppApplyTap(args_only=True)`) timed again
+    on the live host table: the C++ loops (`host_apply_rows_inplace`) and the numpy twin
+    (`host_apply_rows_plain`, the plain yardstick) on the same rows, each
+    from the same table rows (restored after each), both results compared
+    (sgd: bit for bit)."""
+    import numpy as np
+    from distributed_embeddings_tpu_torch.ops import sparse_update
+    (kind, table, state, rep, sums, valid, lr), kw = call
+    ru = np.asarray(rep)[np.asarray(valid) > 0].astype(np.int64)
+    saved = table[ru].copy()
+    out, rows = {}, {}
+    for name, fn in (("cpp", sparse_update.host_apply_rows_inplace),
+                     ("plain", sparse_update.host_apply_rows_plain)):
+        t0 = time.perf_counter()
+        fn(kind, table, state, rep, sums, valid, lr, **kw)
+        out[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+        rows[name] = table[ru].copy()
+        table[ru] = saved
+    check(kind == "sgd" and np.array_equal(rows["cpp"], rows["plain"]),
+          "offload_full: the timed C++ apply and its numpy twin differ")
+    return dict(kind=kind, rows=int(ru.size), width=int(table.shape[1]),
+                bit_equal=True, **out)
 
 
 class TrafficTap:
@@ -6842,15 +7149,23 @@ def offload_full_phase(torch, cuda_lookup, counted) -> dict:
     window = StepWindow(torch, OFFLOAD_PROFILED_STEP)
     traffic = TrafficTap(layer)
     set_counts(cuda_lookup, *counted)
+    set_native_calls()
     t0 = time.perf_counter()
-    _, _, hist = fit(model, train.raw_batches(OFFLOAD_FULL_STEPS),
-                     OFFLOAD_FULL_STEPS, "sgd",
-                     lr=make_lr_schedule(*DLRM_LR),
-                     preprocess=train.preprocess, pipelined=True,
-                     log_every=0, callbacks=[window, traffic])
+    with CppApplyTap(args_only=True) as last_apply:
+        _, _, hist = fit(model, train.raw_batches(OFFLOAD_FULL_STEPS),
+                         OFFLOAD_FULL_STEPS, "sgd",
+                         lr=make_lr_schedule(*DLRM_LR),
+                         preprocess=train.preprocess, pipelined=True,
+                         log_every=0, callbacks=[window, traffic])
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     counts = {"offload_dlrm_full": read_counts(cuda_lookup, *counted)}
+    native = read_native_calls("offload_dlrm_full")
+    check(native["host_apply"] == OFFLOAD_FULL_STEPS * len(off)
+          and native["prefetch"] >= OFFLOAD_FULL_STEPS * (2 + len(sizes)),
+          f"offload_dlrm_full: native calls {native}, want "
+          f"{OFFLOAD_FULL_STEPS * len(off)} C++ applies and the prefetcher's "
+          "reads")
     want = {"lookup_combine": 1, "segment_sum_sorted": 1 + len(off),
             "sgd_rows": 1}
     check(counts["offload_dlrm_full"] == per_step(want,
@@ -6880,6 +7195,9 @@ def offload_full_phase(torch, cuda_lookup, counted) -> dict:
           and bool(torch.isfinite(logits).all()),
           "offload_dlrm_full: the engine's logits")
     del engine, logits
+    # one step's rows applied again by the C++ loops and by the numpy twin
+    profiled["host_apply_timed"] = time_host_apply(last_apply.last)
+    del last_apply
     emit(phase="main_path", path="offload_dlrm_full",
          steps=OFFLOAD_FULL_STEPS, scale=scale, rows=sum(sizes),
          build_s=build_s, fit_s=fit_s,
@@ -6891,11 +7209,425 @@ def offload_full_phase(torch, cuda_lookup, counted) -> dict:
          ingest_stage_mean_ms={k: v["mean_ms"] for k, v in
                                hist["ingest_stages"].items()},
          profiled_step=profiled, card_auc=card_auc, serve_rows=BATCH,
-         serve_ms=serve_ms, ok=True)
+         serve_ms=serve_ms, native_calls=native,
+         update_host_ms=dict(
+             cpp=profiled[OFFLOAD_UPDATE_RANGE]["host_ms"],
+             numpy_apply_before=NUMPY_UPDATE_HOST_MS), ok=True)
     del model, train, test, layer
     gc.collect()
     torch.cuda.empty_cache()
     return counts
+
+
+# ---- 15. the Criteo example's on-the-fly vocabulary flow at full width
+CRITEO_VOCAB = dict(n_cat=26, max_tokens=100_000, embedding_dim=128,
+                    mlp_dims=(512, 256, 1), n_num=13)
+CRITEO_VOCAB_BATCH = 4096
+CRITEO_VOCAB_LR = 1e-3        # the example's --lr
+CRITEO_VOCAB_SEED = 0
+CRITEO_VOCAB_STEPS = 30       # each of the pipelined and the serial run
+CRITEO_VOCAB_HELD = 3         # adam steps held against the CPU
+CRITEO_VOCAB_PROFILED = 4
+# the held steps' bar: dense_criteo's rtol (1e-5, no atol), and for a
+# gradient 2 CRITEO_SUM_EPS of its terms' magnitude t (`criteo_scale`):
+# one float32 rounding of t, which already sums the magnitudes of every
+# term through every layer, forward and backward (float32 rounding that
+# does not line up across a sum of n terms stays near 2**-24 / sqrt(n)
+# of it); a step with the card's gemms in TF32 (2**-11) crosses it
+# (`criteo_tf32_control`)
+CRITEO_TABLE_RTOL = 1e-5
+CRITEO_SUM_EPS = 2.0 ** -24
+BENCH_LOOKUP_KEYS = 16_777_216
+BENCH_LOOKUP_TOKENS = 20_000_000   # docs/parity.md's IntegerLookup run
+BENCH_LOOKUP_BATCH = 65536
+
+
+def criteo_translate_two_ways(batches) -> dict:
+    """Every batch's raw keys through the C++ map and through the numpy
+    twin (`IntegerLookup(use_native=False)`), one lookup a feature each,
+    via the example's lookup stage: after each batch the indices, and each
+    feature's vocabulary, counts and size, equal. Returns the pass's
+    record."""
+    import numpy as np
+    from distributed_embeddings_tpu_torch.tools import criteo_example as ce
+    n_cat, tokens = CRITEO_VOCAB["n_cat"], CRITEO_VOCAB["max_tokens"]
+    native = ce.make_lookups(n_cat, tokens, use_native=True)
+    twin = ce.make_lookups(n_cat, tokens, use_native=False)
+    stages = (ce.lookup_stage(native), ce.lookup_stage(twin))
+    t0 = time.perf_counter()
+    ms = {"native": 0.0, "numpy": 0.0}
+    for i, batch in enumerate(batches):
+        out = []
+        for name, stage in zip(ms, stages):
+            t1 = time.perf_counter()
+            out.append(stage(batch)[1])
+            ms[name] += (time.perf_counter() - t1) * 1e3
+        check(np.array_equal(out[0], out[1]),
+              f"criteo_vocab: batch {i}'s ids differ between the C++ map "
+              "and the numpy twin")
+        for j, (a, b) in enumerate(zip(native, twin)):
+            check(a.size == b.size and np.array_equal(a.counts(), b.counts())
+                  and a.get_vocabulary() == b.get_vocabulary(),
+                  f"criteo_vocab: batch {i} feature {j}: vocabulary, counts "
+                  "or size differ between the C++ map and the numpy twin")
+    rec = dict(batches=len(batches), keys=len(batches) * CRITEO_VOCAB_BATCH
+               * n_cat, seconds=time.perf_counter() - t0,
+               lookup_ms_per_batch={k: v / len(batches)
+                                    for k, v in ms.items()},
+               vocab_sizes=[lk.size for lk in native], identical=True)
+    emit(phase="criteo_translate", **rec)
+    return rec
+
+
+def criteo_scale(torch, model, numerical, idx, labels):
+    """`training.gradient_scale` for the Criteo example's model, taken to
+    the full depth: its loss and, per parameter, (g, t): the gradient and
+    the magnitude its rounding scales with. t is the backward by absolute
+    values with the ReLU masks kept (`training.mlp_magnitudes`), where
+    each layer's input is taken at its forward magnitude sum (A: the input
+    by absolute value through |w| and |b|, masked), not at its value, and
+    the logit's gradient carries the logit's magnitude sum through the
+    sigmoid's slope (at most 1/4) and the mean's 1/B: so t bounds, to
+    first order, the terms' own rounding from every layer before them as
+    well as the last sum's. A table's t sums each sample's input columns
+    of the MLP input's magnitude into its row. Updates nothing. Returns
+    (loss, {name: (g, t)})."""
+    from distributed_embeddings_tpu_torch.training import mlp_magnitudes
+    acts = []
+    hooks = [layer.register_forward_hook(
+        lambda mod, inp, out: acts.append((mod, inp[0], out)))
+        for layer in model.mlp]
+    params = dict(model.named_parameters())
+    flags = {n: p.requires_grad for n, p in params.items()}
+    for p in params.values():
+        p.requires_grad_(True)
+    try:
+        loss = model.loss_fn(numerical, idx, labels)
+        grads = torch.autograd.grad(loss, [*params.values(), acts[-1][2]])
+    finally:
+        for h in hooks:
+            h.remove()
+        for n, p in params.items():
+            p.requires_grad_(flags[n])
+    by_name = dict(zip(params, grads))
+    with torch.no_grad():
+        # forward magnitudes: A[i] the magnitude of layer i's input
+        mags = [acts[0][1].abs()]
+        for i, (layer, _, z) in enumerate(acts):
+            tz = mags[-1] @ layer.w.abs() + layer.b.abs()
+            mags.append(tz * (z > 0) if i < len(acts) - 1 else tz)
+        batch = acts[-1][2].shape[0]
+        out, scale = mlp_magnitudes(
+            model, acts, grads[-1].abs() + 0.25 * mags[-1] / batch, by_name,
+            inputs=mags)
+        n_num = numerical.shape[1]
+        ids = torch.as_tensor(idx).long()
+        for j, t in enumerate(model.tables):
+            w = t.output_dim
+            name = f"tables.{j}.embeddings"
+            out[name] = (by_name[name],
+                         torch.zeros_like(t.embeddings).index_add_(
+                             0, ids[:, j],
+                             scale[:, n_num + j * w:n_num + (j + 1) * w]))
+    return float(loss.detach()), out
+
+
+def criteo_vocab_held(torch, model, cpu_model, batches,
+                      flip_eps=SUM_EPS) -> dict:
+    """CRITEO_VOCAB_HELD adam steps of the example's flow on the card, each
+    held against the CPU from the card's weights and adam state before it,
+    in its two halves. The CPU model (the same code) runs the step's
+    forward and backward under the card's ReLU masks (`forced_relu`,
+    `criteo_scale`; a flip past `flip_eps`, SUM_EPS by default, fails):
+    the losses at LOSS_TOL, and each parameter's
+    gradient, the card's caught at its optimizer, by `hold`'s "gradient"
+    mode at CRITEO_TABLE_RTOL and CRITEO_SUM_EPS (a table's on the rows its
+    batch touched; the others are 0 on both). The CPU's adam twin
+    (`training.adam`, the same expressions) then updates, from the card's
+    gradient and state, the rows adam moves (a table's rows touched by
+    this step or an earlier one: the others have a zero gradient and zero
+    moments, so their step is 0) and the MLP: the card's values by
+    `hold`'s "update" mode at CRITEO_TABLE_RTOL and an ulp, its moments
+    bit for bit; the rows adam does not move unchanged on the card, bit
+    for bit. `batches` are translated (numerical, idx, labels) numpy
+    batches. The record keeps, per parameter, the largest share of its
+    gradient bar an element used."""
+    from distributed_embeddings_tpu_torch.parallel.staging import (
+        DeviceStager)
+    from distributed_embeddings_tpu_torch.tools import criteo_example as ce
+    from distributed_embeddings_tpu_torch.training import adam as dense_adam
+    lr = CRITEO_VOCAB_LR
+    opt, step = ce.make_step(lr)
+    twin = dense_adam(lr)
+    caught = {}
+    card_update = opt.update
+
+    def catching(params, grads, st):
+        caught["grads"] = grads
+        return card_update(params, grads, st)
+    opt.update = catching
+    state = opt.init(dict(model.named_parameters()))
+    stage = DeviceStager("cuda")
+    rec = dict(losses=[], cpu_losses=[], gradient_err=0.0, update_err=0.0,
+               gradient_bar_share={}, moving_rows=[], relu_flips=[])
+    for numerical, idx, labels in batches:
+        ids = torch.from_numpy(idx).long()
+        moving = {}
+        for j, t in enumerate(model.tables):
+            name = f"tables.{j}.embeddings"
+            earlier = (state["nu"][name] != 0).any(dim=1).nonzero().flatten()
+            moving[name] = torch.unique(torch.cat([ids[:, j],
+                                                   earlier.cpu()]))
+
+        def rows_of(name, x):
+            x = x.detach()
+            if name in moving:
+                x = x.index_select(0, moving[name].to(x.device))
+            return x.cpu().clone()
+        cpu_model.load_state_dict(model.state_dict())
+        params = dict(model.named_parameters())
+        before = {n: rows_of(n, p) for n, p in params.items()}
+        still = {}
+        for n in moving:
+            mask = torch.ones(params[n].shape[0], dtype=torch.bool,
+                              device=params[n].device)
+            mask[moving[n].to(mask.device)] = False
+            still[n] = (mask, params[n].detach()[mask].clone())
+        twin_state = {"count": state["count"],
+                      "mu": {n: rows_of(n, x) for n, x in state["mu"].items()},
+                      "nu": {n: rows_of(n, x) for n, x in state["nu"].items()}}
+        card_batch = stage((numerical, idx, labels))
+        (_, state, loss), masks = relu_masks(
+            model, lambda: step(model, state, *card_batch))
+        card_grads = {n: rows_of(n, g) for n, g in caught.pop("grads").items()}
+        with forced_relu(torch, cpu_model, masks, flip_eps) as flips:
+            cpu_loss, scale = criteo_scale(
+                torch, cpu_model, *(torch.from_numpy(x)
+                                    for x in (numerical, idx, labels)))
+        rec["losses"].append(float(loss))
+        rec["cpu_losses"].append(cpu_loss)
+        rec["relu_flips"].append(flips[-1])
+        # the backward: the card's gradients against the CPU's
+        for n, (g, t) in scale.items():
+            got = card_grads[n]
+            if n in moving:
+                g, t = rows_of(n, g), rows_of(n, t)
+            err, _, _, share = hold(
+                torch, f"criteo_vocab {n} gradient", got, g, None, 0,
+                "gradient", eps=CRITEO_SUM_EPS, mag=t, rtol=CRITEO_TABLE_RTOL)
+            rec["gradient_err"] = max(rec["gradient_err"], err)
+            rec["gradient_bar_share"][n] = max(
+                rec["gradient_bar_share"].get(n, 0.0), share)
+        # the update: the CPU twin on the card's gradient and state
+        want = {n: x.clone() for n, x in before.items()}
+        twin.update(want, card_grads, twin_state)
+        for n, p in params.items():
+            err, *_ = hold(torch, f"criteo_vocab {n} update", rows_of(n, p),
+                           want[n], before[n], 1, "update",
+                           rtol=CRITEO_TABLE_RTOL)
+            rec["update_err"] = max(rec["update_err"], err)
+            for moment in ("mu", "nu"):
+                check(torch.equal(rows_of(n, state[moment][n]),
+                                  twin_state[moment][n]),
+                      f"criteo_vocab {n}: adam's {moment} differs from the "
+                      "CPU twin's")
+            if n in still:
+                mask, old = still[n]
+                check(torch.equal(p.detach()[mask], old),
+                      f"criteo_vocab {n}: a row adam does not move changed")
+        rec["moving_rows"].append(sum(int(m.numel())
+                                      for m in moving.values()))
+        del before, still, twin_state, card_grads, scale, want
+        emit(phase="held_step", kind="criteo_vocab_adam",
+             loss=rec["losses"][-1], cpu_loss=cpu_loss, relu_flips=flips[-1])
+    check(torch.allclose(torch.tensor(rec["losses"]),
+                         torch.tensor(rec["cpu_losses"]), **LOSS_TOL),
+          f"criteo_vocab: losses {rec['losses']} against the CPU's "
+          f"{rec['cpu_losses']}")
+    return rec
+
+
+def criteo_tf32_control(torch, model, cpu_model, batch) -> str:
+    """The held step's control: one more step held as
+    `criteo_vocab_held` holds it, with the card's float32 gemms in TF32
+    (10-bit mantissas), which must come out not correct. The CPU takes
+    the card's ReLU masks whatever the flips' margin, so the gradient
+    bar, the only check of the MLP's gradients' precision, is what must
+    fail. Returns the failure."""
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        criteo_vocab_held(torch, model, cpu_model, [batch],
+                          flip_eps=math.inf)
+        failure = None
+    except SmokeFailure as e:
+        failure = str(e)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    emit(phase="criteo_tf32_control", failed=failure is not None,
+         failure=failure)
+    check(failure is not None and " gradient: " in failure,
+          f"criteo_vocab: the held step with the card's gemms in TF32 did "
+          f"not fail its gradient bar ({failure})")
+    return failure
+
+
+def criteo_vocab_phase(torch, cuda_lookup, counted) -> dict:
+    """15: `tools/criteo_example.py` at the example's full width: 26
+    features, `max_tokens` 100,000 (26 tables of 100,001 x 128 float32,
+    1.33 GB, and 2.66 GB of adam state), MLP 512-256-1 over 13 + 26 x 128
+    inputs, batch 4,096 of the example's synthetic zipf keys (seed 0).
+    The keys of every batch translated by the C++ map and by the numpy
+    twin, equal batch for batch (`criteo_translate_two_ways`); 3 adam
+    steps held against the CPU (`criteo_vocab_held`), and a fourth with
+    the card's gemms in TF32 that must fail (`criteo_tf32_control`); 30
+    steps through the
+    ingest pipeline (lookup and stage workers) and 30 inline, from the
+    same weights with fresh vocabularies: losses, vocabularies, tables and
+    MLP bit for bit. Printed: the step median and samples/s, the
+    ``lookup`` and ``stage`` means, one profiled step (idle share), peak
+    memory, the vocabulary sizes, the native calls (26 translations a
+    step; no CUDA kernel of the port runs on this path: a combiner-less
+    lookup is a gather, `jnp.take` in the JAX package); then the example's
+    ``--bench_lookup`` at BENCH_LOOKUP_KEYS keys (max_tokens
+    BENCH_LOOKUP_TOKENS): native and numpy keys/s and the host's CPUs.
+    Returns the launch counts."""
+    import itertools
+    from distributed_embeddings_tpu_torch.tools import criteo_example as ce
+    t_phase = time.perf_counter()
+    cfg = CRITEO_VOCAB
+    torch.cuda.reset_peak_memory_stats()
+    raw = list(itertools.islice(ce.synthetic_batches(
+        CRITEO_VOCAB_BATCH, cfg["n_num"], cfg["n_cat"], CRITEO_VOCAB_SEED),
+        CRITEO_VOCAB_STEPS))
+    translated = criteo_translate_two_ways(raw)
+    t0 = time.perf_counter()
+    model = ce.CriteoModel(**cfg, device="cuda", seed=CRITEO_VOCAB_SEED)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    initial = {k: v.clone() for k, v in model.state_dict().items()}
+    cpu_model = ce.CriteoModel(**cfg, device="cpu")
+    emit(phase="model", config="criteo_vocab", build_s=build_s,
+         tables=cfg["n_cat"], rows=cfg["max_tokens"] + 1,
+         table_bytes=sum(t.embeddings.numel() * 4 for t in model.tables),
+         mlp_in=cfg["n_num"] + cfg["n_cat"] * cfg["embedding_dim"])
+    # the held steps, on the first batches' translation
+    lookups = ce.make_lookups(cfg["n_cat"], cfg["max_tokens"])
+    stage = ce.lookup_stage(lookups)
+    t0 = time.perf_counter()
+    held = criteo_vocab_held(torch, model, cpu_model, [
+        stage(b) for b in raw[:CRITEO_VOCAB_HELD]])
+    emit(phase="main_path", path="criteo_vocab_held",
+         steps=CRITEO_VOCAB_HELD, seconds=time.perf_counter() - t0,
+         gradient_tolerance=dict(rtol=CRITEO_TABLE_RTOL,
+                                 plus="2 eps t", eps=CRITEO_SUM_EPS),
+         update_tolerance=dict(rtol=CRITEO_TABLE_RTOL, of="max(|value|, "
+                               "|change|)", plus="1 ulp", moments="bit",
+                               rows_not_moved="bit"), **held, ok=True)
+    criteo_tf32_control(torch, model, cpu_model,
+                        stage(raw[CRITEO_VOCAB_HELD]))
+    del cpu_model, lookups
+    gc.collect()
+    # pipelined, then serial, from the same weights and fresh vocabularies
+    runs, counts = {}, {}
+    for serial in (False, True):
+        label = "criteo_vocab_serial" if serial else "criteo_vocab"
+        model.load_state_dict(initial)
+        lookups = ce.make_lookups(cfg["n_cat"], cfg["max_tokens"])
+        # the serial run's window lies past its last step: it only times
+        timer = StepWindow(torch, CRITEO_VOCAB_STEPS + 1 if serial
+                           else CRITEO_VOCAB_PROFILED)
+        set_counts(cuda_lookup, *counted)
+        set_native_calls()
+        out = ce.train(model, lookups, raw, CRITEO_VOCAB_STEPS,
+                       lr=CRITEO_VOCAB_LR, serial=serial, log_every=0,
+                       callbacks=[timer])
+        counts[label] = read_counts(cuda_lookup, *counted)
+        native = read_native_calls(label)
+        check(not any(counts[label].values()),
+              f"{label}: a CUDA kernel of the port ran: {counts[label]}")
+        check(native == {"integer_lookup": cfg["n_cat"] * CRITEO_VOCAB_STEPS,
+                         "prefetch": 0, "host_apply": 0},
+              f"{label}: native calls {native}, want "
+              f"{cfg['n_cat']} translations a step")
+        check(all(map(math.isfinite, out["losses"])),
+              f"{label}: non-finite losses {out['losses']}")
+        step_ms = timer.step_ms()
+        med = statistics.median(step_ms)
+        line = dict(steps=CRITEO_VOCAB_STEPS, batch=CRITEO_VOCAB_BATCH,
+                    seconds=out["seconds"], median_step_ms=med,
+                    samples_per_s=CRITEO_VOCAB_BATCH / (med / 1e3),
+                    step_ms=step_ms, ingest_stage_mean_ms=out["stage_ms"],
+                    losses=out["losses"], vocab_sizes=out["vocab"],
+                    native_calls=native, launches=counts[label])
+        if not serial:
+            line.update(profiled_step=timer.profile(),
+                        max_memory_allocated=torch.cuda
+                        .max_memory_allocated())
+        emit(phase="main_path", path=label, **line)
+        runs[serial] = (out["losses"], out["vocab"],
+                        {k: v.clone() for k, v in
+                         model.state_dict().items()},
+                        [lk.get_vocabulary() for lk in lookups])
+        del out, lookups
+    (l1, v1, m1, g1), (l2, v2, m2, g2) = runs[False], runs[True]
+    same = (l1 == l2 and v1 == v2 and g1 == g2
+            and all(torch.equal(m1[k], m2[k]) for k in m1))
+    emit(phase="criteo_vocab_pipelined_vs_serial", bit_identical=same,
+         losses_equal=l1 == l2, vocab_equal=g1 == g2)
+    check(same, "criteo_vocab: the pipelined and the serial run differ")
+    del runs, m1, m2, model, initial
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bench = ce.bench_lookup(BENCH_LOOKUP_KEYS, BENCH_LOOKUP_BATCH,
+                            BENCH_LOOKUP_TOKENS, cfg["n_cat"],
+                            log_fn=lambda m: None)
+    emit(phase="bench_lookup", seconds=time.perf_counter() - t0,
+         cpu_count=os.cpu_count(), cpus_usable=len(os.sched_getaffinity(0)),
+         **bench)
+    check(bench["native_vocab_after"] > 1 and bench["numpy_keys_per_sec"] > 0,
+          f"bench_lookup: {bench}")
+    emit(phase="criteo_vocab_done", seconds=time.perf_counter() - t_phase)
+    return counts
+
+
+def start_native_build(loader) -> dict:
+    """`native.loader.build` in a thread of its own; `finish_native_build`
+    joins it."""
+    import threading
+    out: dict = {}
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            out["path"] = loader.build()
+        except Exception as e:  # noqa: BLE001 - raised when joined
+            out["error"] = e
+        out["seconds"] = time.perf_counter() - t0
+    out["thread"] = threading.Thread(target=run, daemon=True)
+    out["thread"].start()
+    return out
+
+
+def finish_native_build(loader, build) -> dict:
+    """Join the native build and load the library; prints the `native`
+    line (its path, the hash in its name, the flags, the g++ version, the
+    build's seconds). Returns that line's fields."""
+    build["thread"].join()
+    if "error" in build:
+        raise SmokeFailure(f"the native host library did not build: "
+                           f"{build['error']}")
+    loader.load()
+    path = build["path"]
+    fields = dict(library=os.path.relpath(path, REPO),
+                  hash=os.path.basename(path)[len("det_native-"):-3],
+                  sources=[os.path.relpath(os.path.join(loader.NATIVE_DIR,
+                                                        f), REPO)
+                           for f in loader.SOURCES],
+                  flags=list(loader.CXX_FLAGS), gxx=loader.gxx_version())
+    emit(phase="native", build_s=build["seconds"], **fields)
+    return fields
 
 
 def main() -> int:
@@ -6936,6 +7668,9 @@ def main() -> int:
     # variants (timed in phases 9 and 10) build in the background meanwhile
     emit(phase="nvcc", release=kernel_build.nvcc_version())
     sgd_builds = start_sgd_rows_builds(kernel_build)
+    # the native host library (g++) builds beside the ladder's nvccs
+    from distributed_embeddings_tpu_torch.native import loader
+    native_build = start_native_build(loader)
     t0 = time.perf_counter()
     set_counts(cuda_lookup, *counted)
     matrix = cuda_feature_probe.run_ladder("cuda")
@@ -6959,6 +7694,7 @@ def main() -> int:
     libs = kernel_build.build(KERNELS)
     emit(phase="build", seconds=time.perf_counter() - t0,
          libraries=[os.path.relpath(p, REPO) for p in libs.values()])
+    native_lib = finish_native_build(loader, native_build)
     # the one-hot kernel's instantiations: registers and spills
     one_hot_usage = {k: u for k, u in kernel_build.ptxas_usage(
         "lookup_combine").items() if "one_hot_kernel" in k}
@@ -7158,7 +7894,9 @@ def main() -> int:
          untouched_rows_checked=untouched, ok=True)
     del change, held
 
-    # step time, synchronized
+    # step time, synchronized; the peak from here on is the steps' (the
+    # held steps' comparisons above ran on the card too)
+    torch.cuda.reset_peak_memory_stats()
     times = []
     for i in range(12):
         num, cats, labels = batches[i % TRAIN_STEPS]
@@ -7497,6 +8235,13 @@ def main() -> int:
     offload_counts = offload_hold_phase(torch, cuda_lookup, counted)
     offload_counts.update(offload_full_phase(torch, cuda_lookup, counted))
 
+    # ---- 15. the Criteo example's on-the-fly vocabulary flow at full
+    # width: the keys through the C++ map and the numpy twin, 3 adam steps
+    # against the CPU, pipelined against serial, --bench_lookup; counts
+    # (and the native calls) to 0, drive, read
+    vocab_counts = criteo_vocab_phase(torch, cuda_lookup, counted)
+    emit(phase="native", **native_lib, calls_by_path=NATIVE_CALLS)
+
     # ---- 7. result lines; the kernels of DLRM's step carry their times
     # at its shapes too (`at_dlrm_fit`), and at a row shard's of the
     # placement phase (`at_placement`); their worst error covers them
@@ -7532,7 +8277,8 @@ def main() -> int:
              "train_fused": fused_counts,
              **{f"train_tiled_{k}": c for k, c in tiled_counts.items()},
              **dense_counts, **dlrm_counts, **world_counts, **amp_counts,
-             **quant_counts, **wire_counts, **offload_counts}
+             **quant_counts, **wire_counts, **offload_counts,
+             **vocab_counts}
 
     def by_path(kname):
         return {p: c[kname] for p, c in paths.items() if c[kname]}

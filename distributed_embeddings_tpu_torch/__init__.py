@@ -16,7 +16,11 @@ from distributed_embeddings_tpu_torch.layers.dist_model_parallel import (
     DistributedEmbedding,
     broadcast_variables,
 )
-from distributed_embeddings_tpu_torch.layers.embedding import Embedding
+from distributed_embeddings_tpu_torch.layers.embedding import (
+    ConcatOneHotEmbedding,
+    Embedding,
+    IntegerLookup,
+)
 from distributed_embeddings_tpu_torch.ops.embedding_ops import (
     RaggedIds,
     SparseIds,
@@ -42,6 +46,8 @@ __all__ = [
     "RaggedIds",
     "SparseIds",
     "Embedding",
+    "ConcatOneHotEmbedding",
+    "IntegerLookup",
     "dist_model_parallel",
     "DistEmbeddingStrategy",
     "DistributedEmbedding",

@@ -20,7 +20,9 @@ to one tensor, on every rank of a world of the same size:
   * ``mlp[i]['w']`` / ``['b']`` -> ``mlp.{i}.w`` / ``.b`` (likewise
     ``bottom_mlp`` / ``top_mlp`` for DLRM), in the same [in, out] layout;
   * the per-table model's (``SyntheticModel(distributed=False)``)
-    ``embedding[t]['embeddings']`` -> ``embedding_layers.{t}.embeddings``.
+    ``embedding[t]['embeddings']`` -> ``embedding_layers.{t}.embeddings``;
+  * a `ConcatOneHotEmbedding`'s ``{'params': [sum(sizes), w]}`` ->
+    ``params``.
 
   * a hot-sharded layer's ``embedding['hot'][b]`` (None, or ``{'ids':
     [H] int32, 'rows': [H, w]}`` for a hot bucket) -> the buffers
@@ -47,6 +49,8 @@ import torch
 
 from distributed_embeddings_tpu_torch.layers.dist_model_parallel import (
     DistributedEmbedding)
+from distributed_embeddings_tpu_torch.layers.embedding import (
+    ConcatOneHotEmbedding)
 from distributed_embeddings_tpu_torch.models.dlrm import MLP
 from distributed_embeddings_tpu_torch.ops import wire
 from distributed_embeddings_tpu_torch.parallel.mesh import gather_stack
@@ -164,7 +168,14 @@ def params_from_jax(np_params: dict, model) -> Dict[str, torch.Tensor]:
     configuration and world size, every leaf already ``np.asarray``-ed:
     the dp tables whole, this rank's shard of each bucket and row-sliced
     table. Load it with ``model.load_state_dict``
-    or `InferenceEngine.set_params`."""
+    or `InferenceEngine.set_params`. A `ConcatOneHotEmbedding` takes its
+    tree's ``params`` table."""
+    if isinstance(model, ConcatOneHotEmbedding):
+        arr = np.asarray(np_params["params"])
+        if arr.shape != tuple(model.params.shape):
+            raise ValueError(f"params: shape {arr.shape}, the port expects "
+                             f"{tuple(model.params.shape)}")
+        return {"params": _tensor(arr)}
     if isinstance(model, DistributedEmbedding):
         return _embedding_state(np_params, model, "")
     if getattr(model, "distributed", True):
@@ -204,6 +215,8 @@ def params_to_numpy(model) -> dict:
                 for b in range(len(emb.tp))]
         return tree
 
+    if isinstance(model, ConcatOneHotEmbedding):
+        return {"params": _array(model.params)}
     if isinstance(model, DistributedEmbedding):
         return emb_tree(model)
     tree = {"embedding": (

@@ -213,7 +213,9 @@ def _effective_weights(weights: Optional[torch.Tensor], k: int,
 
 def _overrides_forward(cls) -> bool:
     """True when a table's layer class carries its own forward semantics,
-    which the fused bucket lookup would silently ignore."""
+    which the fused bucket lookup would silently ignore; not a class
+    declaring ``det_gather_semantics = True`` (`ConcatOneHotEmbedding`, a
+    gather at offset ids)."""
     if cls is None or getattr(cls, "det_gather_semantics", False):
         return False
     return getattr(cls, "forward", None) not in (None, Embedding.forward,

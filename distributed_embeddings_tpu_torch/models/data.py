@@ -4,17 +4,18 @@ Counterpart of ``distributed_embeddings_tpu/models/data.py`` (the
 reference's data path, examples/dlrm/utils.py:116-307):
   * RawBinaryDataset: the split-binary Criteo-1TB layout (label.bin bool,
     numerical.bin float16, cat_{i}.bin in the smallest int dtype that fits
-    each table), read by position with ``os.pread``.
+    each table), read by position through the native prefetcher
+    (``native/io.cpp``: a pool of threads issuing ``pread`` ahead of the
+    consumer), or with ``os.pread`` when ``use_native_prefetch=False``.
   * DummyDataset: constant batches for benchmarking.
 
 Batches are numpy on the host, as the JAX package returns them: the
-ingest pipeline (`utils.pipeline`) stages them to the card. The JAX
-package reads through its native prefetcher (``native/io.cpp``) when that
-library loads and falls back to ``os.pread``; the port reads with
-``os.pread`` until its own native library exists (ROADMAP Queue A9). The
-bytes read, and so the batches, are the same.
+ingest pipeline (`utils.pipeline`) stages them to the card. Both readers
+give the same bytes, and so the same batches.
 """
 
+import ctypes
+import errno
 import math
 import os
 from typing import Optional, Sequence
@@ -77,16 +78,20 @@ class RawBinaryDataset:
         utils.py:260-266).
       categorical_feature_sizes: vocab size per table (selects each file's
         dtype).
-      prefetch_depth: batches the native prefetcher reads ahead; the
-        ``os.pread`` reader reads on demand and ignores it.
+      prefetch_depth: batches the native prefetcher keeps in flight
+        (1 or less: each read waits for itself); the ``os.pread`` reader
+        reads on demand and ignores it.
       drop_last_batch: floor instead of ceil the batch count.
       valid: read test/ instead of train/.
       offset / local_batch_size: slice [offset:offset+lbs] out of each
         global batch for data-parallel inputs (labels not sliced in
         `valid` mode, ids only with `dp_input`).
-      use_native_prefetch: accepted for the JAX package's signature; the
-        port has no native reader yet (ROADMAP Queue A9) and reads with
-        ``os.pread`` either way.
+      use_native_prefetch: read through the native prefetcher (its
+        library is built at first use, and a failed build raises); False
+        reads with ``os.pread``. Each read the prefetcher is given adds one
+        to ``native.loader.calls["prefetch"]``. A file the prefetcher
+        cannot open, a read that fails and a read cut short (a file
+        truncated after the dataset was built) raise OSError.
     """
 
     def __init__(self,
@@ -102,7 +107,6 @@ class RawBinaryDataset:
                  local_batch_size: int = -1,
                  dp_input: bool = False,
                  use_native_prefetch: bool = True):
-        del use_native_prefetch
         split = "test" if valid else "train"
         base = os.path.join(data_path, split)
         self.batch_size = batch_size
@@ -140,15 +144,97 @@ class RawBinaryDataset:
             if n != self._num_entries:
                 raise ValueError(f"Size mismatch in {path}: expected "
                                  f"{self._num_entries}, got {n}")
-        self._fds = [os.open(p, os.O_RDONLY) for p in self.paths]
+        self._fds = []
+        self._prefetcher = None
+        self._pending = {}
         self.prefetch_depth = min(prefetch_depth, self._num_entries)
+        if use_native_prefetch:
+            from distributed_embeddings_tpu_torch.native import loader
+            missing = [p for p in self.paths if not os.path.isfile(p)]
+            if missing:
+                raise FileNotFoundError(f"dataset files missing: {missing}")
+            # a read is cut at the file's end, as os.pread cuts it
+            self._sizes = [os.path.getsize(p) for p in self.paths]
+            self._lib = loader.load()
+            self._count = loader.count
+            names = (ctypes.c_char_p * len(self.paths))(
+                *[os.fsencode(p) for p in self.paths])
+            err = (ctypes.c_int64 * 2)()
+            self._prefetcher = self._lib.pf_create(names, len(self.paths), 4,
+                                                   err)
+            if not self._prefetcher:
+                path = self.paths[err[0]]
+                raise OSError(err[1], os.strerror(err[1]), path)
+        else:
+            self._fds = [os.open(p, os.O_RDONLY) for p in self.paths]
 
     def __len__(self):
         return self._num_entries
 
     def _read(self, file_idx: int, offset: int, size: int) -> np.ndarray:
-        data = os.pread(self._fds[file_idx], size, offset)
-        return np.frombuffer(data, np.uint8)
+        if self._prefetcher is None:
+            data = os.pread(self._fds[file_idx], size, offset)
+            return np.frombuffer(data, np.uint8)
+        buf = self._buffer(file_idx, offset, size)
+        self._count("prefetch")
+        got = self._lib.pf_read(self._prefetcher, file_idx, offset, buf.size,
+                                buf.ctypes.data)
+        return self._checked(got, file_idx, offset, buf)
+
+    def _checked(self, got: int, file_idx: int, offset: int,
+                 buf: np.ndarray) -> np.ndarray:
+        """`buf` if its read (`got`: bytes, or -errno) filled it, else
+        OSError."""
+        path = self.paths[file_idx]
+        if got < 0:
+            raise OSError(-got, os.strerror(-got), path)
+        if got != buf.size:
+            raise OSError(errno.EIO, f"read {got} of {buf.size} bytes at "
+                          f"offset {offset}: the file shrank after the "
+                          "dataset was built", path)
+        return buf
+
+    def _buffer(self, file_idx: int, offset: int, size: int) -> np.ndarray:
+        return np.empty((max(0, min(size, self._sizes[file_idx] - offset)),),
+                        np.uint8)
+
+    def _batch_reads(self, idx: int):
+        """(file, offset, size) of each read of batch `idx`."""
+        reads = [(0, idx * self._label_bytes, self._label_bytes)]
+        if self._num_file_idx is not None:
+            reads.append((self._num_file_idx, idx * self._num_bytes,
+                          self._num_bytes))
+        for cat_id in self.categorical_features:
+            nbytes = self._cat_bytes[cat_id]
+            reads.append((self._cat_file_idx[cat_id], idx * nbytes, nbytes))
+        return reads
+
+    def _start_batch(self, idx: int) -> None:
+        """Submit batch `idx`'s reads to the prefetcher; each buffer stays
+        referenced in `_pending` until its read is waited for."""
+        started = []
+        for file_idx, offset, size in self._batch_reads(idx):
+            buf = self._buffer(file_idx, offset, size)
+            self._count("prefetch")
+            req = self._lib.pf_submit(self._prefetcher, file_idx, offset,
+                                      buf.size, buf.ctypes.data)
+            started.append((req, file_idx, offset, buf))
+        self._pending[idx] = started
+
+    def _finish_batch(self, idx: int):
+        """Batch `idx`'s buffers, once every read of it has ended (the
+        buffers are written until then); OSError for a read that failed
+        or came back short."""
+        done = [(self._lib.pf_wait(self._prefetcher, req), file_idx, offset,
+                 buf) for req, file_idx, offset, buf in self._pending.pop(idx)]
+        return [self._checked(*d) for d in done]
+
+    def _drain(self) -> None:
+        """Wait for every read in flight (their buffers are written until
+        then)."""
+        for idx in list(self._pending):
+            for req, *_ in self._pending.pop(idx):
+                self._lib.pf_wait(self._prefetcher, req)
 
     def preprocess(self, bufs):
         """Decode raw byte buffers (from `read_raw`) into a batch
@@ -179,18 +265,23 @@ class RawBinaryDataset:
 
     def read_raw(self, idx: int):
         """Raw per-file byte buffers for batch `idx`, the read stage: pure
-        I/O with no decoding. ``ds[idx]`` is ``preprocess(read_raw(idx))``."""
+        I/O with no decoding. ``ds[idx]`` is ``preprocess(read_raw(idx))``.
+        Through the native prefetcher, batches ``idx + 1 ..`` up to
+        `prefetch_depth` in all are read ahead while the caller decodes
+        this one; a batch outside that window restarts it there."""
         if idx >= self._num_entries:
             raise IndexError
-        bufs = [self._read(0, idx * self._label_bytes, self._label_bytes)]
-        if self._num_file_idx is not None:
-            bufs.append(self._read(self._num_file_idx, idx * self._num_bytes,
-                                   self._num_bytes))
-        for cat_id in self.categorical_features:
-            nbytes = self._cat_bytes[cat_id]
-            bufs.append(self._read(self._cat_file_idx[cat_id], idx * nbytes,
-                                   nbytes))
-        return bufs
+        if self._prefetcher is None or self.prefetch_depth <= 1:
+            return [self._read(*r) for r in self._batch_reads(idx)]
+        if idx not in self._pending:
+            self._drain()
+            for i in range(idx, min(idx + self.prefetch_depth,
+                                    self._num_entries)):
+                self._start_batch(i)
+        nxt = idx + self.prefetch_depth
+        if nxt < self._num_entries and nxt not in self._pending:
+            self._start_batch(nxt)
+        return self._finish_batch(idx)
 
     def raw_batches(self, steps: Optional[int] = None):
         """Generator over raw (undecoded) batches, wrapping indices: the
@@ -203,7 +294,12 @@ class RawBinaryDataset:
         return self.preprocess(self.read_raw(idx))
 
     def close(self):
-        """Close the files; idempotent."""
+        """Wait for the reads in flight and stop the prefetcher, or close
+        the files; idempotent."""
+        if self._prefetcher is not None:
+            self._drain()
+            prefetcher, self._prefetcher = self._prefetcher, None
+            self._lib.pf_destroy(prefetcher)
         fds, self._fds = self._fds, []
         for fd in fds:
             os.close(fd)

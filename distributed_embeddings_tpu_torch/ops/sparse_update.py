@@ -43,8 +43,9 @@ adagrad rule, and a stochastically rounded re-encode (`ops.wire`).
 A table in host memory (a bucket offloaded past the layer's
 ``gpu_embedding_size``) is updated in two halves: `prepare_safe_grad`
 deduplicates its stream on the card (`dedup_sum`), and
-`host_apply_rows_inplace`, the JAX package's numpy rules, applies the rows
-to the host buffers in place.
+`host_apply_rows_inplace`, the C++ loops of ``native/host_apply.cpp`` (the
+JAX package's), applies the rows to the host buffers in place
+(`host_apply_rows_plain`, the JAX package's numpy rules, is their twin).
 """
 
 from typing import Callable, NamedTuple, Optional
@@ -66,6 +67,7 @@ __all__ = ["SparseRowGrad", "concat_grads", "dedup_sum", "sparse_sgd",
            "quantized_row_update", "fma_f32", "STRATEGIES", "DENSE_ELEMS_MAX",
            "QUANTIZED_ROW_KINDS", "QUANTIZED_UPDATE_RANGE",
            "prepare_safe_grad", "host_apply_rows_inplace",
+           "host_apply_rows_plain",
            "HOST_APPLY_KINDS"]
 
 # strategies of the port: the deduplicated-row route, the raw-stream one
@@ -411,18 +413,11 @@ def prepare_safe_grad(ids: torch.Tensor, contribs: torch.Tensor, rows: int):
             valid.to(torch.float32))
 
 
-def host_apply_rows_inplace(kind: str, table: np.ndarray, state, rep, sums,
-                            valid, lr, **hp) -> None:
-    """Apply one shard's deduplicated rows (`prepare_safe_grad`'s, as
-    numpy) to host-resident numpy buffers IN PLACE: the JAX package's
-    `host_apply_rows_inplace`, its numpy rules product for product.
-    `table` and the array leaves of `state` are mutated; adam's count
-    (``state[2]``) must already be the incremented one (the caller
-    increments it). ``kind="set"`` writes `sums` as the rows' new values.
-    Refuses a buffer that is not float32 (TypeError) or not C-contiguous
-    (ValueError), as the JAX function does. The valid rows are unique, so
-    each rule updates its rows with one gather and one scatter (equal,
-    element for element, to the JAX function's ``np.add.at``)."""
+def _host_apply_check(table: np.ndarray, state) -> None:
+    """The refusals of the host apply: a buffer that is not float32
+    (TypeError) or not C-contiguous (ValueError), as the JAX function
+    refuses them (the C++ loops read raw pointers with a dense row-major
+    stride)."""
     arrays = [("table", table)] + [(f"state[{i}]", s)
                                    for i, s in enumerate(state)
                                    if getattr(s, "ndim", 0) >= 1]
@@ -437,6 +432,75 @@ def host_apply_rows_inplace(kind: str, table: np.ndarray, state, rep, sums,
             f"host_apply_rows_inplace requires C-contiguous buffers; "
             f"{noncontig} are not (pass np.ascontiguousarray copies and "
             "write them back)")
+
+
+def _adam_corrections(count, b1, b2):
+    """Adam's float32 bias corrections ``1 - b ** count`` for the
+    already incremented count."""
+    cf = np.float32(count)
+    return (np.float32(1.0) - np.float32(b1) ** cf,
+            np.float32(1.0) - np.float32(b2) ** cf)
+
+
+def host_apply_rows_inplace(kind: str, table: np.ndarray, state, rep, sums,
+                            valid, lr, **hp) -> None:
+    """Apply one shard's deduplicated rows (`prepare_safe_grad`'s, as
+    numpy) to host-resident numpy buffers IN PLACE, through the C++ loops
+    of ``native/host_apply.cpp`` (``ha_sgd`` / ``ha_adagrad`` /
+    ``ha_adam``): the JAX package's `host_apply_rows_inplace`. `table` and
+    the array leaves of `state` are mutated; adam's count (``state[2]``)
+    must already be the incremented one (the caller increments it).
+    ``kind="set"`` writes `sums` as the rows' new values (a masked
+    assignment, in numpy). Refuses a buffer that is not float32
+    (TypeError) or not C-contiguous (ValueError), as the JAX function
+    does; a native library that does not build raises. Each C++ call adds
+    one to ``native.loader.calls["host_apply"]``. `host_apply_rows_plain`
+    is its numpy twin."""
+    import ctypes
+
+    from distributed_embeddings_tpu_torch.native import loader
+    _host_apply_check(table, state)
+    if kind not in ("set", *HOST_APPLY_KINDS):
+        raise NotImplementedError(
+            f"no host-memory apply rule for optimizer {kind!r}")
+    n, w = sums.shape
+    rep = np.ascontiguousarray(rep, dtype=np.int32)
+    sums = np.ascontiguousarray(sums, dtype=np.float32)
+    valid = np.ascontiguousarray(valid, dtype=np.float32)
+    if kind == "set":
+        ok = valid > 0.0
+        table[rep[ok]] = sums[ok]
+        return
+    lib = loader.load()
+
+    def ptr(a):
+        return ctypes.c_void_p(a.ctypes.data)
+    lr = float(lr)
+    loader.count("host_apply")
+    if kind == "sgd":
+        lib.ha_sgd(ptr(table), w, ptr(rep), ptr(sums), ptr(valid), n, lr)
+    elif kind == "adagrad":
+        (acc,) = state
+        lib.ha_adagrad(ptr(table), ptr(acc), w, ptr(rep), ptr(sums),
+                       ptr(valid), n, lr, float(hp.get("eps", 1e-10)))
+    else:
+        mu, nu, count = state
+        b1 = float(hp.get("b1", 0.9))
+        b2 = float(hp.get("b2", 0.999))
+        c1, c2 = _adam_corrections(count, b1, b2)
+        lib.ha_adam(ptr(table), ptr(mu), ptr(nu), w, ptr(rep), ptr(sums),
+                    ptr(valid), n, lr, b1, b2, float(c1), float(c2),
+                    float(hp.get("eps", 1e-8)))
+
+
+def host_apply_rows_plain(kind: str, table: np.ndarray, state, rep, sums,
+                          valid, lr, **hp) -> None:
+    """The numpy twin of `host_apply_rows_inplace`: the JAX package's
+    numpy rules, product for product, with the same refusals. The valid
+    rows are unique, so each rule updates its rows with one gather and one
+    scatter (equal, element for element, to the JAX function's
+    ``np.add.at``)."""
+    _host_apply_check(table, state)
     lr = float(lr)
     ok = np.asarray(valid, dtype=np.float32) > 0.0
     r = np.asarray(rep).astype(np.int64)[ok]
@@ -456,9 +520,7 @@ def host_apply_rows_inplace(kind: str, table: np.ndarray, state, rep, sums,
         b1 = np.float32(hp.get("b1", 0.9))
         b2 = np.float32(hp.get("b2", 0.999))
         eps = np.float32(hp.get("eps", 1e-8))
-        cf = np.float32(count)
-        c1 = np.float32(1.0) - b1 ** cf
-        c2 = np.float32(1.0) - b2 ** cf
+        c1, c2 = _adam_corrections(count, b1, b2)
         mu_new = b1 * mu[r] + (np.float32(1.0) - b1) * s
         nu_new = b2 * nu[r] + (np.float32(1.0) - b2) * s * s
         mu[r] = mu_new

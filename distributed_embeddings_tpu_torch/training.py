@@ -79,7 +79,8 @@ from distributed_embeddings_tpu_torch.utils.pipeline import (
 
 __all__ = ["DenseOptimizer", "sgd", "adagrad", "adam",
            "make_sparse_train_step", "make_train_step", "apply_updates",
-           "fit", "evaluate", "gradient_scale", "DistributedGradientTape",
+           "fit", "evaluate", "gradient_scale", "mlp_magnitudes",
+           "DistributedGradientTape",
            "DistributedOptimizer", "BroadcastGlobalVariablesCallback",
            "broadcast_variables"]
 
@@ -349,18 +350,8 @@ def gradient_scale(model, numerical, cats, labels) -> dict:
         loss, [*dense.values(), *taps["tp"], *hot, logits],
         retain_graph=True)
     by_name = dict(zip(dense, grads))
-    names = {id(mod): name for name, mod in model.named_modules()}
-    scale = grads[-1].abs()        # d loss / d logit: one term per row
-    out = {}
-    for i in reversed(range(len(acts))):
-        layer, a, z = acts[i]
-        if i < len(acts) - 1:
-            scale = scale * (z > 0)
-        name = names[id(layer)]
-        out[f"{name}.w"] = (by_name[f"{name}.w"],
-                            a.detach().abs().t() @ scale)
-        out[f"{name}.b"] = (by_name[f"{name}.b"], scale.sum(0))
-        scale = scale @ layer.w.detach().abs().t()
+    # d loss / d logit: one term per row
+    out, scale = mlp_magnitudes(model, acts, grads[-1].abs(), by_name)
     # the MLP input takes the tap leaves' values by selection (and
     # averaging), so its cotangent carries the scale to the taps
     n_tp = len(taps["tp"])
@@ -379,6 +370,30 @@ def gradient_scale(model, numerical, cats, labels) -> dict:
                             tap_scale[n_tp:]))):
             out[f"embedding.hot.{b}"] = pair
     return out
+
+
+def mlp_magnitudes(model, acts, scale, grads, inputs=None):
+    """The backward of one MLP by absolute values, the ReLU masks kept:
+    from `scale` (the magnitude of d loss / d logit, ``[B, 1]``) through
+    the layers `acts` recorded (``(layer, input, output)`` in forward
+    order, each a `model` submodule ending in `.w` and `.b`), the sum t of
+    the magnitudes of the terms of each weight's and bias's gradient.
+    `inputs` are the magnitudes taken for the layers' inputs (default: each
+    input by absolute value). Returns ``({"<layer>.w" / ".b": (g, t)}``
+    with g from `grads` (by parameter name), the magnitude carried to the
+    MLP's input)``."""
+    names = {id(mod): name for name, mod in model.named_modules()}
+    out = {}
+    for i in reversed(range(len(acts))):
+        layer, a, z = acts[i]
+        if i < len(acts) - 1:
+            scale = scale * (z > 0)
+        name = names[id(layer)]
+        m = a.detach().abs() if inputs is None else inputs[i]
+        out[f"{name}.w"] = (grads[f"{name}.w"], m.t() @ scale)
+        out[f"{name}.b"] = (grads[f"{name}.b"], scale.sum(0))
+        scale = scale @ layer.w.detach().abs().t()
+    return out, scale
 
 
 def _hot_totals(emb, residuals, hot_taps, grads) -> list:

@@ -565,13 +565,14 @@ def test_dlrm_takes_the_strategy_under_both_names(monkeypatch):
 # ------------------------------------------- the reference's public names
 def test_top_level_names_match_the_reference():
     """The original library's top-level names (as the JAX package's
-    `test_top_level_api_matches_reference` lists them; IntegerLookup comes
-    with its module) exist in the port, the version is the reference's,
-    and `dist_model_parallel` is the layer's module."""
+    `test_top_level_api_matches_reference` lists them) exist in the port,
+    the version is the reference's, and `dist_model_parallel` is the
+    layer's module."""
     import distributed_embeddings_tpu as jax_pkg
     import distributed_embeddings_tpu_torch as port
     from distributed_embeddings_tpu_torch.layers import dist_model_parallel
-    for name in ["embedding_lookup", "Embedding", "dist_model_parallel",
+    for name in ["embedding_lookup", "Embedding", "IntegerLookup",
+                 "dist_model_parallel",
                  "DistEmbeddingStrategy", "DistributedEmbedding",
                  "broadcast_variables", "DistributedGradientTape",
                  "DistributedOptimizer", "BroadcastGlobalVariablesCallback",
