@@ -414,6 +414,36 @@ Phases, each printing JSON lines before the last line:
      ``lookup`` and ``stage`` means, one profiled step's idle share, peak
      memory, vocabulary sizes; then `--bench_lookup` at 16,777,216 keys
      (max_tokens 20,000,000): native and numpy keys/s, the host's CPUs.
+  16. (after 15) store_vocab (`store_vocab_phase`): the table store and
+     the dynamic vocabulary (ROADMAP A12). Full-size Tiny V3 built with
+     ``vocab_slack=8192`` (450,560 more rows), adagrad at 0.01, batches
+     of 65,536 of phase 5's power-law ids whose 7 managed tables (the
+     shared 10,000 x 8, the four one-hot 10,000 x 8, the two one-hot
+     100,000 x 16) carry raw keys, a quarter of each table's ranks moved
+     to fresh keys every 4 steps (`drifting_raw_batches`). ``fit`` for 24
+     pipelined steps with ``store=TableStore(layer), publish_every=4``
+     into a temporary directory and ``vocab=VocabManager(admit_threshold
+     2, decay 0.98), vocab_every=4``: launches 4 / 1 / 1 a step; every
+     maintain cycle held (`MaintainHold`: each evicted key's stash bit-equal
+     to its row before the cycle, each newly bound row zeros or its
+     stashed row, its accumulator rows zero, occupancy at most the high
+     watermark), admissions and evictions both above 0. A second full
+     Tiny on the card (another seed) polls the directory after each
+     publish (`ConsumerHold`): every bucket `torch.equal` to the
+     publisher's at every version. A consumer-side manager loads the
+     newest sidecar; an engine over the consumer (the publisher's MLP
+     copied in) serves a 65,536-row request of raw keys with logits
+     bit-equal to the publisher's engine; `restore_from_published` into
+     the consumer equals the publisher's tables; the same 24 steps from
+     the same initial weights with ``pipelined=False`` and publishing off
+     give bit-identical losses, tables and accumulators (both runs under
+     `deterministic_sums`: bucket 0's dense `index_add_` otherwise adds
+     in another order each run). Printed: step median (steps with no
+     maintain or publish), host ms of translation with observation, of
+     the store's observation and of each cycle, publish / apply seconds
+     and bytes by file, restore seconds, version lag, churn and fallback
+     hit rate by table, peak memory, the temp directory's free space
+     before the phase and the bytes written.
   7. the kernels line (each kernel's launches by path, the world paths'
      summed over the ranks; `sgd_rows` with ``copy_ms``, an
      `index_select` + `index_copy_` of the same rows, as a second
@@ -1713,7 +1743,12 @@ def train_against_cpu(torch, capture, kind, mode, step, model, state,
         out["moved"] += moved
         out["touched"].append(touched)
         if scale is not None:
-            for g, t in scale.values():
+            for name, (g, t) in scale.items():
+                if name.startswith("embedding.tp."):
+                    # a bucket's totals are zero off the step's touched
+                    # rows: count over those, not over the whole table
+                    at = touched[int(name.rsplit(".", 1)[1])].to(t.device)
+                    g, t = g.index_select(0, at), t.index_select(0, at)
                 ill = (t > 0) & (g.abs() < ILL_SCALE * t)
                 out["ill"] += int(ill.sum())
                 out["with_gradient"] += int((t > 0).sum())
@@ -7592,6 +7627,446 @@ def criteo_vocab_phase(torch, cuda_lookup, counted) -> dict:
     return counts
 
 
+# ---- 16. the table store and the dynamic vocabulary at full width
+STORE_VOCAB_SLACK = 8192      # rows reserved past each Tiny table: 450,560
+STORE_VOCAB_STEPS = 24
+STORE_VOCAB_EVERY = 4         # vocab_every, publish_every and the drift
+STORE_VOCAB_DRIFT = 0.25      # share of a managed table's ranks each drift
+STORE_VOCAB_ADMIT = 2
+STORE_VOCAB_DECAY = 0.98
+# Tiny's embedding configs whose tables the manager takes: the shared
+# 10,000 x 8 (its hotness-1 and hotness-10 inputs), the four one-hot
+# 10,000 x 8 and the two one-hot 100,000 x 16 (7 of 55 tables: the
+# tracker's Python loop costs about 3 us a unique key, ROADMAP D9)
+STORE_VOCAB_CONFIGS = (0, 6, 7)
+STORE_VOCAB_SEED = 0
+STORE_VOCAB_CONSUMER_SEED = 1
+
+
+def managed_tiny_tables(tiny) -> list:
+    """The global table ids of STORE_VOCAB_CONFIGS' tables in `tiny`."""
+    out, start = [], 0
+    for i, cfg in enumerate(tiny.embedding_configs):
+        if i in STORE_VOCAB_CONFIGS:
+            out.extend(range(start, start + cfg.num_tables))
+        start += cfg.num_tables
+    return out
+
+
+def drifting_raw_batches(tiny, managed, steps) -> list:
+    """`steps` + 1 batches of phase 5's power-law ids (alpha 1.05, seed
+    STORE_VOCAB_SEED) whose managed tables' ids are raw keys: rank r of
+    table t is the key ``r + 10^9 (1 + epoch_t[r])`` (bench.py's
+    `run_vocab_bench`); before every STORE_VOCAB_EVERY-th batch a
+    STORE_VOCAB_DRIFT share of each managed table's ranks, drawn by a
+    second seeded generator, moves to fresh keys."""
+    import numpy as np
+    from distributed_embeddings_tpu_torch.models.synthetic import (
+        InputGenerator, expand_embedding_configs)
+    tables, table_map, _ = expand_embedding_configs(tiny)
+    gen = InputGenerator(tiny, BATCH, alpha=1.05, num_batches=steps + 1,
+                         seed=STORE_VOCAB_SEED)
+    drift = np.random.RandomState(STORE_VOCAB_SEED + 1)
+    epoch = {t: np.zeros((tables[t][0],), np.int64) for t in managed}
+    out = []
+    for i, (num, cats, labels) in enumerate(gen.batches):
+        if i and i % STORE_VOCAB_EVERY == 0:
+            for ep in epoch.values():
+                ep[drift.choice(len(ep), int(len(ep) * STORE_VOCAB_DRIFT),
+                                replace=False)] += 1
+        cats = list(cats)
+        for inp, t in enumerate(table_map):
+            if t in epoch:
+                ids = cats[inp].numpy().astype(np.int64)
+                cats[inp] = ids + 10 ** 9 * (1 + epoch[t][ids])
+        out.append((num, cats, labels))
+    return out
+
+
+def timed_method(obj, name) -> list:
+    """Replace ``obj.name`` by a wrapper that records each call's host ms
+    in the returned list."""
+    real = getattr(obj, name)
+    sink = []
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return real(*args, **kwargs)
+        finally:
+            sink.append((time.perf_counter() - t0) * 1e3)
+    setattr(obj, name, timed)
+    return sink
+
+
+class MaintainHold:
+    """Phase 16's holds around every `VocabManager.maintain` cycle (the
+    instance's method replaced): before the cycle, each managed table's
+    bound keys, their rows on the card and its stash; after it, each
+    evicted key's stash entry bit-equal to its row from before, each newly
+    bound key's row zeros or its stashed row from before, bit for bit, its
+    accumulator rows zero, and occupancy at most the high watermark. The
+    cycle's host ms and its evictions, admissions and restores are
+    kept."""
+
+    def __init__(self, torch, mgr):
+        self.torch, self.mgr = torch, mgr
+        self.real = mgr.maintain
+        mgr.maintain = self
+        self.ms, self.cycles = [], []
+
+    def __call__(self, params=None, opt_states=None):
+        import numpy as np
+        torch, mgr = self.torch, self.mgr
+        before = {}
+        for t, mv in mgr.vocabs.items():
+            keys = mv.resident_keys()
+            before[t] = (keys, mgr._gather_table_rows(
+                t, np.asarray(mv.binding.lookup(keys))), dict(mv.stash))
+        t0 = time.perf_counter()
+        out = self.real(params, opt_states)
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        cycle = {}
+        for t, mv in mgr.vocabs.items():
+            keys, rows, stash = before[t]
+            now = mv.resident_keys()
+            gone = ~np.isin(keys, now)
+            if gone.any():
+                kept = np.stack([mv.stash[int(k)] for k in keys[gone]])
+                check(kept.tobytes() == rows[gone].tobytes(),
+                      f"store_vocab: table {t}: a stashed row differs from "
+                      "its row before the cycle")
+            new = now[~np.isin(now, keys)]
+            restored = 0
+            if len(new):
+                rows_new = np.asarray(mv.binding.lookup(new))
+                got = mgr._gather_table_rows(t, rows_new)
+                want = np.zeros_like(got)
+                for i, k in enumerate(new.tolist()):
+                    if k in stash:
+                        want[i] = stash[k]
+                        restored += 1
+                check(got.tobytes() == want.tobytes(),
+                      f"store_vocab: table {t}: a newly bound row is neither "
+                      "zeros nor its stashed row")
+                for bucket, flat, _, _ in mgr._flat_keys(t, rows_new):
+                    rows_max = max(mgr.emb.plan.tp_buckets[bucket].rows_max,
+                                   1)
+                    acc = opt_states["tp"][bucket][0]
+                    idx = torch.as_tensor(flat % rows_max, device=acc.device)
+                    check(bool((acc.index_select(0, idx) == 0).all()),
+                          f"store_vocab: table {t}: an admitted slot's "
+                          "accumulator row is not zero")
+            check(mv.occupancy <= mgr.high_watermark + 1e-9,
+                  f"store_vocab: table {t}: occupancy {mv.occupancy} past "
+                  f"the high watermark {mgr.high_watermark}")
+            cycle[t] = {"evicted": int(gone.sum()), "admitted": len(new),
+                        "restored": restored,
+                        "occupancy": round(mv.occupancy, 4)}
+        self.cycles.append(cycle)
+        return out
+
+
+class ConsumerHold:
+    """Phase 16's consumer, an `on_step` callback of the publisher's `fit`:
+    after every step it synchronizes and stamps the time; after a step
+    that published, it polls the publish directory (`DeltaConsumer`) and
+    holds every bucket of the consumer layer bit-equal to the publisher's
+    (`torch.equal` on the card)."""
+
+    def __init__(self, torch, store, cons):
+        self.torch, self.store, self.cons = torch, store, cons
+        self.stamps, self.versions = [], []
+
+    def hold(self):
+        torch = self.torch
+        pub, con = self.store.emb, self.cons.store.emb
+        for b, (a, c) in enumerate(zip(pub.tp, con.tp)):
+            check(torch.equal(a, c), f"store_vocab: consumer bucket {b} "
+                  f"differs from the publisher's at version "
+                  f"{self.cons.store.version}")
+
+    def poll(self):
+        if self.store.version != self.cons.store.version:
+            check(self.cons.poll(), "store_vocab: a publish the consumer "
+                  "did not see")
+            check(self.cons.store.version == self.store.version,
+                  f"store_vocab: consumer at {self.cons.store.version}, "
+                  f"publisher at {self.store.version}")
+            self.hold()
+            self.versions.append(self.cons.store.version)
+
+    def on_step(self, step, model, loss):
+        self.torch.cuda.synchronize()
+        self.stamps.append(time.perf_counter())
+        self.poll()
+
+
+@contextlib.contextmanager
+def deterministic_sums(torch):
+    """torch's deterministic algorithms for phase 16's two runs: Tiny's
+    bucket 0 takes the dense update, whose `index_add_` the card's atomics
+    otherwise add in another order each run (warn_only: an operation
+    without a deterministic form runs as it is); uninitialized memory is
+    not filled."""
+    import warnings
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    det = getattr(torch.utils, "deterministic", None)
+    fill = getattr(det, "fill_uninitialized_memory", None)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    if fill is not None:
+        det.fill_uninitialized_memory = False
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        if fill is not None:
+            det.fill_uninitialized_memory = fill
+
+
+def store_vocab_model(torch, tiny, seed):
+    from distributed_embeddings_tpu_torch.models.synthetic import (
+        SyntheticModel)
+    return SyntheticModel(tiny, device="cuda", vocab_slack=STORE_VOCAB_SLACK,
+                          generator=torch.Generator(device="cuda")
+                          .manual_seed(seed))
+
+
+def store_vocab_phase(torch, cuda_lookup, counted) -> dict:
+    """16: the table store and the dynamic vocabulary (ROADMAP A12) at full
+    width. Full-size Tiny V3 built with ``vocab_slack=STORE_VOCAB_SLACK``
+    (450,560 more rows), adagrad at TRAIN_LR, batches of BATCH rows of
+    phase 5's power-law ids whose 7 managed tables (STORE_VOCAB_CONFIGS)
+    take raw keys that drift (`drifting_raw_batches`). The publisher:
+    ``fit(..., STORE_VOCAB_STEPS steps, store=TableStore(layer),
+    publish_every=4, publish_dir=<temp>, vocab=VocabManager(7 tables,
+    admit_threshold 2, decay 0.98), vocab_every=4)``, pipelined; launches
+    4 / 1 / 1 a step (`lookup_combine` / `segment_sum_sorted` /
+    `adagrad_rows`, as in phase 5); every maintain cycle held
+    (`MaintainHold`); admissions and evictions both above 0. The consumer:
+    a second full-size Tiny (another seed) polled after each publish
+    (`ConsumerHold`), every bucket bit-equal to the publisher's at every
+    applied version. Then a consumer-side manager loads the newest
+    sidecar, and an engine over the consumer model (the publisher's MLP
+    copied in: the stream carries tables) serves a BATCH-row request of
+    raw keys with logits bit-equal to the publisher's engine;
+    `restore_from_published` into the consumer equals the publisher's
+    final tables; and the same steps from the same initial weights with
+    ``pipelined=False`` and publishing off give bit-identical losses,
+    tables and accumulators (both runs under `deterministic_sums`).
+    Printed: the step median (steps with no maintain or publish), host ms
+    of a step's translation with observation, of the store's observation
+    and of a maintain cycle; each publish's seconds, kind and bytes, each
+    apply's seconds; restore seconds, the version lag; admissions,
+    evictions, occupancy and fallback hit rate by table; peak memory, the
+    temp directory's free space before the phase and the bytes written.
+    Returns the launch counts."""
+    from distributed_embeddings_tpu_torch.models.synthetic import (
+        SYNTHETIC_MODELS)
+    from distributed_embeddings_tpu_torch.serving.engine import (
+        InferenceEngine)
+    from distributed_embeddings_tpu_torch.store import (
+        DeltaConsumer, TableStore, restore_from_published)
+    from distributed_embeddings_tpu_torch.training import (
+        fit, make_sparse_train_step)
+    from distributed_embeddings_tpu_torch.vocab import (
+        VocabManager, latest_vocab_state)
+    t_phase = time.perf_counter()
+    tiny = SYNTHETIC_MODELS["tiny"]
+    managed = managed_tiny_tables(tiny)
+    steps = STORE_VOCAB_STEPS
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_store")
+    pub_dir = os.path.join(tmp, "stream")
+    disk = shutil.disk_usage(tmp)._asdict()
+    mgr_kw = dict(tables=managed, admit_threshold=STORE_VOCAB_ADMIT,
+                  decay=STORE_VOCAB_DECAY)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        batches = drifting_raw_batches(tiny, managed, steps)
+        data_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        model = store_vocab_model(torch, tiny, STORE_VOCAB_SEED)
+        layer = model.embedding
+        initial = [table_digest(torch, t) for t in layer.tp]
+        consumer = store_vocab_model(torch, tiny, STORE_VOCAB_CONSUMER_SEED)
+        init, _ = make_sparse_train_step(model, "adagrad", lr=TRAIN_LR)
+        state = init(model)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        slack = sum(c.get("vocab_slack", 0)
+                    for c in layer.strategy.global_configs)
+        check(slack == 55 * STORE_VOCAB_SLACK,
+              f"store_vocab: {slack} slack rows")
+        emit(phase="store_vocab_setup", path="store_vocab", tmp=tmp,
+             disk_before=disk, data_s=data_s, build_s=build_s,
+             managed_tables=managed, slack_rows=slack,
+             buckets=[list(t.shape) for t in layer.tp],
+             table_bytes=sum(t.numel() * 4 for t in layer.tp))
+
+        store = TableStore(layer, opt_states=state["emb"])
+        mgr = VocabManager(layer, **mgr_kw)
+        maint = MaintainHold(torch, mgr)
+        translate_ms = timed_method(mgr, "translate")
+        observe_ms = timed_method(store, "observe")
+        publish_ms = timed_method(store, "publish")
+        cstore = TableStore(consumer.embedding)
+        apply_ms = timed_method(cstore, "apply_published")
+        cons = DeltaConsumer(cstore, pub_dir)
+        hold = ConsumerHold(torch, store, cons)
+
+        # the main path: counts to 0, drive, read
+        set_counts(cuda_lookup, *counted)
+        set_native_calls()
+        t0 = time.perf_counter()
+        with deterministic_sums(torch):
+            _, state, hist = fit(
+                model, batches[:steps], steps, "adagrad", lr=TRAIN_LR,
+                opt_state=state, store=store,
+                publish_every=STORE_VOCAB_EVERY, publish_dir=pub_dir,
+                vocab=mgr, vocab_every=STORE_VOCAB_EVERY, log_every=0,
+                callbacks=[hold])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = read_counts(cuda_lookup, *counted)
+        read_native_calls("store_vocab")
+        want = {"lookup_combine": 4, "segment_sum_sorted": 1,
+                "adagrad_rows": 1}
+        check(counts == per_step(want, steps),
+              f"store_vocab launches {counts}, want {want} per step")
+        # a publish after the loop (the tail cycle's rebinds) is polled here
+        hold.poll()
+        hold.hold()
+        published = hist["published"]
+        kinds = [p["kind"] for p in published]
+        check(kinds[0] == "snapshot" and set(kinds[1:]) == {"delta"}
+              and len(kinds) >= steps // STORE_VOCAB_EVERY,
+              f"store_vocab: published {kinds}")
+        st = hist["vocab_stats"]
+        check(st["admissions"] > 0 and st["evictions"] > 0,
+              f"store_vocab: admissions {st['admissions']}, evictions "
+              f"{st['evictions']}")
+        losses = hist["loss"]
+        check(all(map(math.isfinite, losses)), f"non-finite losses {losses}")
+        # steps with neither a maintain cycle (at its start) nor a publish
+        # (at its end): each one's wall time from the step before's end
+        plain = [(hold.stamps[s] - hold.stamps[s - 1]) * 1e3
+                 for s in range(1, steps)
+                 if s % STORE_VOCAB_EVERY not in (0, STORE_VOCAB_EVERY - 1)]
+        emit(phase="main_path", path="store_vocab", steps=steps,
+             seconds=fit_s, launches=counts, losses=losses,
+             step_median_ms=statistics.median(plain), step_ms=plain,
+             samples_per_s=BATCH / (statistics.median(plain) / 1e3),
+             consumer_versions=hold.versions, ok=True)
+        files = sorted(os.listdir(pub_dir))
+        written = sum(os.path.getsize(os.path.join(pub_dir, f))
+                      for f in files)
+        stats = cons.stats()
+        emit(phase="store_vocab_stream", path="store_vocab",
+             publishes=[{"kind": p["kind"], "version": p["version"],
+                         "bytes": p["bytes"], "rows": p["rows"],
+                         "seconds": ms / 1e3}
+                        for p, ms in zip(published, publish_ms)],
+             applies=[{"kind": a["kind"], "version": a["version"],
+                       "bytes": a["bytes"], "rows": a["rows"],
+                       "seconds": ms / 1e3}
+                      for a, ms in zip(cons.applied, apply_ms)],
+             snapshot_bytes=published[0]["bytes"],
+             delta_bytes_mean=statistics.mean(
+                 [p["bytes"] for p in published[1:]]),
+             full_table_bytes=store.full_table_bytes(),
+             files=len(files), bytes_written=written,
+             sidecar_bytes=sum(os.path.getsize(os.path.join(pub_dir, f))
+                               for f in files if f.startswith("vocab_")),
+             version_lag_max=stats["staleness_versions_max"],
+             staleness_s_max=stats["staleness_s_max"], ok=True)
+        emit(phase="store_vocab_vocab", path="store_vocab",
+             translate_observe_ms=translate_ms, store_observe_ms=observe_ms,
+             maintain_ms=maint.ms, cycles=maint.cycles,
+             admissions=st["admissions"], evictions=st["evictions"],
+             occupancy=st["occupancy"],
+             fallback_hit_rate=st["fallback_hit_rate"],
+             tables={t: {k: s[k] for k in (
+                 "capacity", "bound", "occupancy", "admissions", "evictions",
+                 "fallback_hit_rate", "stashed")}
+                 for t, s in st["tables"].items()}, ok=True)
+
+        # the sidecar and the engines over raw keys
+        mgr_c = VocabManager(consumer.embedding, **mgr_kw)
+        side = latest_vocab_state(pub_dir, upto=cstore.version)
+        check(side is not None, "store_vocab: no sidecar")
+        mgr_c.load_state(side)
+        for t in managed:
+            check(mgr_c.vocabs[t].resident_keys().tobytes()
+                  == mgr.vocabs[t].resident_keys().tobytes(),
+                  f"store_vocab: table {t}: the sidecar's binding differs")
+        with torch.no_grad():
+            consumer.mlp.load_state_dict(model.mlp.state_dict())
+        num, cats, _ = batches[steps]
+        got = InferenceEngine(consumer, device="cuda",
+                              vocab_manager=mgr_c).predict((num, cats))
+        want_logits = InferenceEngine(model, device="cuda",
+                                      vocab_manager=mgr).predict((num, cats))
+        check(torch.equal(got, want_logits),
+              "store_vocab: the consumer engine's logits differ")
+        request_fallback = mgr_c.stats()["fallback_hit_rate"]
+
+        # restore from the stream into the consumer
+        t0 = time.perf_counter()
+        rstore = restore_from_published(consumer.embedding, pub_dir)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(rstore.version == store.version,
+              f"store_vocab: restored v{rstore.version}, published "
+              f"v{store.version}")
+        hold.hold()
+        peak = torch.cuda.max_memory_allocated()
+        del consumer, cstore, cons, rstore, mgr_c, hold
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the serial control: the same steps from the same initial weights,
+        # publishing off
+        serial = store_vocab_model(torch, tiny, STORE_VOCAB_SEED)
+        check([table_digest(torch, t) for t in serial.embedding.tp]
+              == initial, "store_vocab: the serial model's initial tables "
+              "differ")
+        s_init, _ = make_sparse_train_step(serial, "adagrad", lr=TRAIN_LR)
+        s_state = s_init(serial)
+        t0 = time.perf_counter()
+        with deterministic_sums(torch):
+            _, s_state, s_hist = fit(
+                serial, batches[:steps], steps, "adagrad", lr=TRAIN_LR,
+                opt_state=s_state,
+                vocab=VocabManager(serial.embedding, **mgr_kw),
+                vocab_every=STORE_VOCAB_EVERY, log_every=0, pipelined=False)
+        torch.cuda.synchronize()
+        serial_s = time.perf_counter() - t0
+        check(s_hist["loss"] == losses, "store_vocab: serial losses differ")
+        for b, (a, c) in enumerate(zip(layer.tp, serial.embedding.tp)):
+            check(torch.equal(a, c),
+                  f"store_vocab: serial bucket {b} differs")
+            check(torch.equal(state["emb"]["tp"][b][0],
+                              s_state["emb"]["tp"][b][0]),
+                  f"store_vocab: serial accumulator {b} differs")
+        emit(phase="store_vocab_check", path="store_vocab",
+             engine_rows=BATCH, engine_bit_equal=True,
+             request_fallback_hit_rate=request_fallback,
+             restore_s=restore_s, restore_bit_equal=True,
+             serial_s=serial_s, serial_bit_equal=True,
+             max_memory_allocated=peak,
+             seconds=time.perf_counter() - t_phase, ok=True)
+        del serial, s_state, model, state, layer, store, mgr, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"store_vocab": counts}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def start_native_build(loader) -> dict:
     """`native.loader.build` in a thread of its own; `finish_native_build`
     joins it."""
@@ -8240,6 +8715,13 @@ def main() -> int:
     # against the CPU, pipelined against serial, --bench_lookup; counts
     # (and the native calls) to 0, drive, read
     vocab_counts = criteo_vocab_phase(torch, cuda_lookup, counted)
+
+    # ---- 16. the table store and the dynamic vocabulary: full Tiny with
+    # vocab slack trained through `fit` under a VocabManager while it
+    # publishes row deltas a second Tiny on the card consumes bit for bit;
+    # the engine over raw keys, the restore, the serial control; counts to
+    # 0, drive, read
+    store_counts = store_vocab_phase(torch, cuda_lookup, counted)
     emit(phase="native", **native_lib, calls_by_path=NATIVE_CALLS)
 
     # ---- 7. result lines; the kernels of DLRM's step carry their times
@@ -8278,7 +8760,7 @@ def main() -> int:
              **{f"train_tiled_{k}": c for k, c in tiled_counts.items()},
              **dense_counts, **dlrm_counts, **world_counts, **amp_counts,
              **quant_counts, **wire_counts, **offload_counts,
-             **vocab_counts}
+             **vocab_counts, **store_counts}
 
     def by_path(kname):
         return {p: c[kname] for p, c in paths.items() if c[kname]}

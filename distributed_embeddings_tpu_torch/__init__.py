@@ -32,11 +32,14 @@ from distributed_embeddings_tpu_torch.parallel.mesh import (
     initialize_distributed)
 from distributed_embeddings_tpu_torch.serving.batcher import MicroBatcher
 from distributed_embeddings_tpu_torch.serving.engine import InferenceEngine
+from distributed_embeddings_tpu_torch import store, vocab
+from distributed_embeddings_tpu_torch.store import DeltaConsumer, TableStore
 from distributed_embeddings_tpu_torch.training import (
     BroadcastGlobalVariablesCallback, DistributedGradientTape,
     DistributedOptimizer, fit, make_sparse_train_step)
 from distributed_embeddings_tpu_torch.utils.device import (
     settle_cpu_vector_math)
+from distributed_embeddings_tpu_torch.vocab import VocabManager
 
 settle_cpu_vector_math()
 
@@ -53,6 +56,11 @@ __all__ = [
     "DistributedEmbedding",
     "InferenceEngine",
     "MicroBatcher",
+    "store",
+    "TableStore",
+    "DeltaConsumer",
+    "vocab",
+    "VocabManager",
     "make_sparse_optimizer",
     "make_sparse_train_step",
     "fit",

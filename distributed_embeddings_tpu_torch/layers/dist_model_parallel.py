@@ -211,6 +211,20 @@ def _effective_weights(weights: Optional[torch.Tensor], k: int,
     return weights / denom, 1.0
 
 
+def sorted_unique(keys: np.ndarray) -> np.ndarray:
+    """``np.unique(keys)`` of a 1-D array by one sort and a neighbour
+    mask. numpy 2.3's `np.unique` dedups through a hash table first, many
+    times slower on millions of distinct int64 keys, as one Tiny batch's
+    touched rows are."""
+    keys = np.sort(np.asarray(keys).reshape(-1))
+    if len(keys) < 2:
+        return keys
+    keep = np.empty((len(keys),), bool)
+    keep[0] = True
+    np.not_equal(keys[1:], keys[:-1], out=keep[1:])
+    return keys[keep]
+
+
 def _overrides_forward(cls) -> bool:
     """True when a table's layer class carries its own forward semantics,
     which the fused bucket lookup would silently ignore; not a class
@@ -336,13 +350,19 @@ class DistributedEmbedding(nn.Module):
     in elements of the table-parallel tables: the tables past it are
     offloaded to host memory (see the module docstring).
 
+    ``vocab_slack`` (None or 0 = off) pre-reserves that many physical rows
+    past each table-parallel table's configured rows, for a
+    `vocab.VocabManager` to bind new raw keys to at run time: the planner
+    inflates every such table's ``input_dim`` by it (``vocab_base_rows``
+    keeps the configured rows), so `init`, `get_weights`, `set_weights`
+    and `convert` all see ``input_dim + vocab_slack`` rows, and no tensor
+    ever changes shape as keys come and go.
+
     Arguments of the JAX package that the port takes at their defaults
     only: ``use_custom_kernel`` (True; False, the JAX package's XLA
     lookup, has no counterpart: the port's lookups never fall back, ROADMAP
-    North star), ``mesh`` (None; the ranks are the
-    process group's, A3) and
-    ``vocab_slack`` (A12): any other value raises NotImplementedError
-    naming its item.
+    North star) and ``mesh`` (None; the ranks are the process group's,
+    A3): any other value raises NotImplementedError naming its item.
     """
 
     def __init__(self,
@@ -389,10 +409,6 @@ class DistributedEmbedding(nn.Module):
                 f"world_size={world_size}, but the process group has "
                 f"{world} rank(s); start one with "
                 "parallel.mesh.initialize_distributed")
-        if vocab_slack:
-            raise NotImplementedError(
-                "vocab_slack is not ported yet (ROADMAP Queue A12 (store and "
-                "vocab))")
         self.device = resolve_device(device)
         self.world_size = world
         self.rank = pg.rank()
@@ -413,6 +429,7 @@ class DistributedEmbedding(nn.Module):
             input_hotness=input_max_hotness,
             hot_rows=(hot_rows if dp_input else 0),
             exchange_wire=exchange_wire,
+            vocab_slack=vocab_slack,
             storage_dtype=storage_dtype)
         if self.strategy.table_groups[1] and not all(
                 self.strategy.local_configs):
@@ -565,6 +582,12 @@ class DistributedEmbedding(nn.Module):
         finally:
             for lst, key, param in held:
                 lst._parameters[key] = param
+
+    def _bucket_memory_kind(self, b: int) -> Optional[str]:
+        """Bucket b's host memory kind, the JAX package's: "pinned_host"
+        for an offloaded bucket (its tensors live in host memory), None
+        for one on the layer's device."""
+        return "pinned_host" if self.plan.tp_buckets[b].offload else None
 
     def _bucket_store_dtype(self, b: int) -> str:
         """Bucket b's storage dtype ('f32', 'int8' or 'fp8')."""
@@ -775,6 +798,44 @@ class DistributedEmbedding(nn.Module):
             tr.lookup_slots(np.concatenate(chunks), observe=True)
             rates[b] = tr.hit_rate
         return rates
+
+    def touched_row_keys(self, inputs) -> dict:
+        """The rows one batch's sparse update may write, on the host (the
+        JAX package's `touched_row_keys`, the weight-streaming producer's
+        accounting): {("tp", b): sorted unique int64 flat keys ``rank *
+        rows_max + row``, ("row", t): sorted unique global row ids}.
+
+        A tight superset: ids past their table or negative are left out
+        (the update drops them), while hot-hit lanes (they move the hot
+        shard, the merged value a delta must carry) and zero-weight lanes
+        (lazy adam moves moments on an id's presence) are kept. The dp
+        tables never appear: they train densely and are published whole.
+        `inputs` are the forward's per-feature inputs, numpy or tensors."""
+        if len(inputs) != self._n_inputs:
+            raise ValueError(
+                f"Expected {self._n_inputs} inputs, got {len(inputs)}")
+        seg_rows = {(pl.bucket, pl.rank, pl.row_offset): pl.rows
+                    for pl in self.plan.tp_placements}
+        per: dict = {}
+        for pos, i in enumerate(self.strategy.input_groups[1]):
+            ids = self._host_flat_ids(inputs[i])
+            for (rank, b, slot_idx) in self.plan.tp_input_slots[pos]:
+                bucket = self.plan.tp_buckets[b]
+                off = bucket.slots[rank][slot_idx].row_offset
+                rows = seg_rows.get((b, rank, off), 0)
+                v = ids[(ids >= 0) & (ids < rows)]
+                if len(v):
+                    per.setdefault(("tp", b), []).append(
+                        rank * max(bucket.rows_max, 1) + off + v)
+        for j, i in enumerate(self.strategy.input_groups[2]):
+            t = self.strategy.map_groups[2][j]
+            total = int(sum(self.plan.row_tables[t].rows_per_rank))
+            ids = self._host_flat_ids(inputs[i])
+            v = ids[(ids >= 0) & (ids < total)]
+            if len(v):
+                per.setdefault(("row", t), []).append(v)
+        return {k: sorted_unique(np.concatenate(chunks))
+                for k, chunks in per.items()}
 
     def hot_keys_from_counts(self, counts: Sequence) -> dict:
         """Admission keys from per-input id frequencies: ``counts[i]`` a

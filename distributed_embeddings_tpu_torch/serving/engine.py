@@ -12,9 +12,10 @@ outputs are all-gathered, so every rank returns the whole request's, as
 the JAX engine returns a global array. A model with quantized buckets
 (``storage_dtype``) is served through the same forward, whose lookup
 decodes the gathered rows; warmup and padding do not depend on the tables'
-storage. The hot-row cache, the versioned
-table store and the vocabulary manager of the JAX engine are not ported
-yet (ROADMAP Queue A13 / A12).
+storage. With a `vocab.VocabManager`, each request's raw keys are
+translated to rows, query-only, before they are staged. The hot-row cache,
+the engine's own table store and delta streaming of the JAX engine are not
+ported yet (ROADMAP Queue A13).
 """
 
 import math
@@ -62,11 +63,14 @@ class InferenceEngine:
         (``serve/predicts``, ``serve/rows_served``, ``serve/rows_padded``).
       donate_batch: accepted, with no effect: nothing is donated in
         PyTorch, and the engine's staged copies are its own.
-      cache_capacity (0), promote_threshold (2), replica (None) and
-        vocab_manager (None): the JAX package's hot-row cache, fleet label
-        and vocabulary; only these defaults are taken, any other value
-        raises NotImplementedError (ROADMAP Queue A13, serving remainder,
-        and A12, store and vocab).
+      vocab_manager: optional `vocab.VocabManager` over this model's
+        layer: `predict` takes raw keys and translates them query-only
+        (misses serve the fallback row; nothing is admitted or counted).
+        A manager built over another layer raises ValueError.
+      cache_capacity (0), promote_threshold (2) and replica (None): the
+        JAX package's hot-row cache and fleet label; only these defaults
+        are taken, any other value raises NotImplementedError (ROADMAP
+        Queue A13, serving remainder).
 
     Requests are staged to the device through a
     `parallel.staging.DeviceStager`: one pinned copy a request on a side
@@ -92,8 +96,6 @@ class InferenceEngine:
         if replica is not None:
             raise _not_ported("fleet replicas (replica)",
                               "A13 (serving remainder)")
-        if vocab_manager is not None:
-            raise _not_ported("vocab_manager", "A12 (store and vocab)")
         self.device = resolve_device(device)
         if isinstance(model, DistributedEmbedding):
             self._model = None
@@ -101,6 +103,12 @@ class InferenceEngine:
         else:
             self._model = model
             self.embedding = model.embedding
+        if vocab_manager is not None and getattr(
+                vocab_manager, "emb", None) is not self.embedding:
+            raise ValueError(
+                "vocab_manager was built over a different layer; the "
+                "binding's physical rows are plan-specific")
+        self.vocab = vocab_manager
         if self.embedding.world_size > 1 and not self.embedding.dp_input:
             raise ValueError("an InferenceEngine at world size > 1 serves "
                              "data-parallel input: build the model with "
@@ -204,6 +212,9 @@ class InferenceEngine:
         else:
             numerical, cats = batch
             cats = list(cats)
+        if self.vocab is not None:
+            # raw keys -> rows, query-only
+            cats = self.vocab.translate(cats)
         prepped = self._normalize(cats)
         first = prepped[0]
         b = (first[0] if isinstance(first, tuple) else first).shape[0]

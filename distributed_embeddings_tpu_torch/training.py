@@ -59,8 +59,10 @@ the accumulator at 0, and its Adam groups the bias correction differently.
 """
 
 import itertools
+import os
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from distributed_embeddings_tpu_torch.layers.dist_model_parallel import (
@@ -76,6 +78,7 @@ from distributed_embeddings_tpu_torch.utils.device import device_scalar
 from distributed_embeddings_tpu_torch.utils.metrics import StreamingAUC
 from distributed_embeddings_tpu_torch.utils.pipeline import (
     DEFAULT_DEPTH, staged_batches)
+from distributed_embeddings_tpu_torch.vocab.manager import vocab_state_path
 
 __all__ = ["DenseOptimizer", "sgd", "adagrad", "adam",
            "make_sparse_train_step", "make_train_step", "apply_updates",
@@ -294,11 +297,21 @@ def make_sparse_train_step(model, optimizer: str = "adagrad", lr=0.01,
     return init_fn, step_fn
 
 
+def _zeros_like(t: torch.Tensor) -> torch.Tensor:
+    """Zeros of `t`'s shape and dtype on its device. On the CPU from
+    numpy's zeroed allocation, whose pages the OS maps on first write: a
+    table-sized buffer of which a step writes a few rows costs those
+    rows, not the table (a full Tiny bucket is 4.5 GB)."""
+    if t.device.type != "cpu":
+        return torch.zeros_like(t)
+    return torch.from_numpy(np.zeros(tuple(t.shape), np.float32)).to(t.dtype)
+
+
 def _row_totals(emb, residuals, tap_grads) -> list:
     """Per bucket, a table-shaped tensor holding each row's total of the
     tap gradients' contributions (the rows `sparse_update` would update)."""
     ptrs = [t.data_ptr() for t in emb.tp]
-    totals: list = [torch.zeros_like(t.detach()) for t in emb.tp]
+    totals: list = [_zeros_like(t.detach()) for t in emb.tp]
 
     def record(table, state, grad):
         rep, sums = dedup_sum(grad.ids, grad.contribs, table.shape[0])
@@ -593,11 +606,6 @@ def evaluate(model, data, steps: int = 16, preprocess=None,
 # fit arguments of the JAX package that the port does not cover yet, with
 # the value that means "unused" and the ROADMAP item that ports them
 _FIT_UNPORTED = {
-    "store": (None, "A12 (store and vocab)"),
-    "publish_every": (None, "A12 (store and vocab)"),
-    "publish_dir": (None, "A12 (store and vocab)"),
-    "vocab": (None, "A12 (store and vocab)"),
-    "vocab_every": (16, "A12 (store and vocab)"),
     "lookahead": (None, "A14 (lookahead)"),
     "stale_ok": (False, "A14 (lookahead)"),
     "registry": (None, "A15 (obs)"),
@@ -611,7 +619,10 @@ def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
         log_every: int = 100, log_fn: Callable = print, stage=None,
         sync_every: Optional[int] = None, preprocess=None,
         pipelined: bool = True, pipeline_depth: Optional[int] = None,
-        hot_sync_every: int = 0, **unported):
+        hot_sync_every: int = 0, store=None,
+        publish_every: Optional[int] = None,
+        publish_dir: Optional[str] = None, vocab=None,
+        vocab_every: int = 16, **unported):
     """The training loop (the JAX package's `fit`, which has ``params``
     where the port's model holds its own).
 
@@ -662,6 +673,32 @@ def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
         hot rows back and admits the hottest keys; after the last step a
         sync without admission leaves the tables canonical, and history
         gains ``"hot_stats"`` (`hot_stats`).
+      store / publish_every / publish_dir: weight streaming (sparse steps
+        only): with a `store.TableStore` over ``model.embedding`` and
+        `publish_every` N (None: 0, off), every step's touched rows
+        accumulate on the host (`TableStore.observe`) and every N steps,
+        after the step and before the callbacks, the store commits and
+        publishes the next stream file into `publish_dir` (the first a
+        snapshot); leftover steps publish once more at the end. History
+        gains ``"published"`` (the publish infos).
+      vocab / vocab_every: dynamic vocabulary (sparse steps only): with a
+        `vocab.VocabManager` over ``model.embedding`` every batch's
+        categorical inputs are raw keys. Each step, first every
+        `vocab_every` steps (0: never) one admission / eviction cycle
+        (`VocabManager.maintain`, the optimizer state's rows of rebound
+        slots zeroed), then the batch translated to rows with observation,
+        then the store's observation, then the step; after the last step
+        a tail cycle. With publishing, rebound rows join the next delta
+        and each publish writes the binding sidecar ``vocab_v{version}.npz``
+        (`vocab.vocab_state_path`, ``full=False``) before its stream file.
+        History gains ``"vocab_stats"``.
+      With `vocab` or publishing, the ingest pipeline reads and
+      preprocesses in its workers but stages nothing: translation and
+      observation run on this loop's thread, on the host arrays, after the
+      step's maintain cycle (a batch translated ahead would carry the
+      binding from before it, and its gradient would land on a rebound
+      row's new tenant), and the batch is staged after them. Pipelined and
+      serial runs stay bit-identical.
 
     Iterable data is taken as ``islice(iter(data), steps)``, so a shared
     source is never read past this run's steps. Returns (model,
@@ -677,6 +714,19 @@ def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
         if value != unused:
             raise NotImplementedError(
                 f"fit({name}=...) is not ported yet (ROADMAP Queue {item})")
+    publish_every = publish_every or 0
+    publishing = bool(sparse and store is not None and publish_every)
+    if publishing and publish_dir is None:
+        raise ValueError("publish_every requires publish_dir")
+    if vocab is not None and not sparse:
+        raise ValueError("vocab management requires the sparse path "
+                         "(sparse=True)")
+    if vocab is not None and vocab.emb is not getattr(model, "embedding",
+                                                      None):
+        # the manager's flat row keys are plan-specific
+        raise ValueError(
+            "vocab manager was built over a different layer than "
+            "model.embedding; binding rows are plan-specific")
     if sparse:
         init_fn, step_fn = make_sparse_train_step(
             model, optimizer, lr=lr, dense_optimizer=dense_optimizer)
@@ -704,24 +754,61 @@ def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
     if hot_active:
         stage = _observed_stage(stage, _world(model) > 1
                                 and getattr(hot_emb, "dp_input", True))
+    # with a vocabulary or a publisher the loop translates and observes
+    # each host batch itself, then stages it
+    host_loop = vocab is not None or publishing
     pipeline = None
     if not callable(data):
         pipeline = staged_batches(
-            itertools.islice(iter(data), steps), stage,
+            itertools.islice(iter(data), steps),
+            (lambda batch: batch) if host_loop else stage,
             preprocess=preprocess,
             depth=DEFAULT_DEPTH if pipeline_depth is None
             else pipeline_depth, pipelined=pipelined)
     history: dict = {"loss": []}
     pending = []
+    steps_since_publish = 0
 
     def drain():
         if pending:
             history["loss"].extend(torch.stack(pending).tolist())
             pending.clear()
 
+    def publish_now():
+        drain()
+        store.commit(None, opt_state["emb"],
+                     touched=(vocab.drain_touched() if vocab is not None
+                              else None))
+        if vocab is not None:
+            # the binding for the version about to publish, written before
+            # the stream file: a consumer that sees the rows sees it too
+            os.makedirs(publish_dir, exist_ok=True)
+            vocab.save_state(vocab_state_path(publish_dir, store.version),
+                             full=False)
+        history.setdefault("published", []).append(
+            store.publish(publish_dir))
+
     try:
         for step in range(steps):
-            item = stage(data(step)) if pipeline is None else next(pipeline)
+            if pipeline is not None:
+                item = next(pipeline)
+            else:
+                item = data(step)
+                if not host_loop:
+                    item = stage(item)
+            if host_loop:
+                numerical, cats, labels = item
+                if vocab is not None:
+                    # maintain before translating: a batch translated
+                    # before the cycle could carry an evicted key's row
+                    if vocab_every and step and step % vocab_every == 0:
+                        opt_state["emb"] = vocab.maintain(
+                            None, opt_state["emb"])
+                    cats = vocab.translate(list(cats), observe=True)
+                if publishing:
+                    # every step: a delta must cover every row it moved
+                    store.observe(list(cats))
+                item = stage((numerical, cats, labels))
             if hot_active:
                 item, host_cats = item
                 if step % hot_stride == 0:
@@ -734,6 +821,11 @@ def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
             model, opt_state, loss = step_fn(model, opt_state, numerical,
                                              list(cats), labels)
             pending.append(loss)
+            if publishing:
+                steps_since_publish += 1
+                if steps_since_publish >= publish_every:
+                    publish_now()
+                    steps_since_publish = 0
             if sync_every and (step + 1) % sync_every == 0:
                 drain()
             if log_every and step % log_every == 0:
@@ -759,6 +851,14 @@ def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
         # sets stay resident)
         opt_state["emb"] = hot_emb.sync_hot_rows(opt_state["emb"])
         history["hot_stats"] = hot_emb.hot_stats()
+    if vocab is not None:
+        if vocab_every:
+            # keys that crossed the threshold since the last cycle
+            opt_state["emb"] = vocab.maintain(None, opt_state["emb"])
+        history["vocab_stats"] = vocab.stats()
+    if publishing and (steps_since_publish
+                       or (vocab is not None and vocab.pending_publication)):
+        publish_now()
     return model, opt_state, history
 
 

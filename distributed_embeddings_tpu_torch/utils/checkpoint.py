@@ -127,7 +127,10 @@ def _note_legacy(path: str) -> None:
 
 
 def _array_crc(arr) -> int:
-    return zlib.crc32(np.ascontiguousarray(arr).tobytes()) & 0xFFFFFFFF
+    """crc32 of an array's raw bytes, read in place (a table-sized
+    payload is not copied into a bytes object first)."""
+    flat = np.ascontiguousarray(arr).reshape(-1)
+    return zlib.crc32(flat.view(np.uint8)) & 0xFFFFFFFF
 
 
 def _header_crc(meta: dict) -> int:

@@ -23,9 +23,11 @@ compares one case:
 * `set_weights` / `get_weights` across ranks, `params_from_jax`,
   `broadcast_variables`, the training shims (`DistributedGradientTape`
   against the JAX package's, then a `DistributedOptimizer` sgd update),
-  an indivisible batch, what builds at W > 1 (the wires, hot rows and
-  host offload among it) and what stays unported (the ragged exchange,
-  the vocabulary slack, the engine's cache: ROADMAP Queue A5, A12, A13);
+  an indivisible batch, what builds at W > 1 (the wires, hot rows, host
+  offload and the vocabulary slack among it), what refuses a world above
+  one (the vocabulary manager, the store's producer) and what stays
+  unported (the ragged exchange, the store's consumer across ranks, the
+  engine's cache: ROADMAP Queue A5, A13);
 * at W = 2, a small DLRM's `evaluate` and three dense adagrad steps
   (``fit(sparse=False)``) over global click-stream batches;
 * the placement groups (the JAX package's `test_dist_model_parallel`
@@ -714,8 +716,10 @@ def test_training_shims_match_jax(world_run, world):
 def test_what_stays_unported_raises(world_run, world):
     """What the port builds at W > 1 (column slicing, fewer tables than
     ranks, the dp and row groups, model-parallel input, the engine, the
-    wire formats, hot rows, host offload); what stays unported raises
-    naming its ROADMAP item."""
+    wire formats, hot rows, host offload, the vocabulary slack); what
+    stays unported raises naming its ROADMAP item (the store's consumer
+    across ranks is A13's engine); the vocabulary manager and the store's
+    producer refuse a world above one."""
     ranks, _ = world_run(world)
     for r in ranks:
         res = r["raises"]
@@ -723,10 +727,12 @@ def test_what_stays_unported_raises(world_run, world):
         for key in ("column_threshold", "fewer_tables_than_ranks",
                     "data_parallel", "row_slice", "dp_input", "engine",
                     "storage_dtype", "exchange_wire", "bf16_all_gather",
-                    "hot_rows", "gpu_embedding_size"):
+                    "hot_rows", "gpu_embedding_size", "vocab_slack"):
             assert res[key] is None, (key, res[key])
+        for key in ("vocab_manager", "store_producer"):
+            assert "single-process" in (res[key] or ""), (key, res[key])
         for key, item in (("ragged_exchange", "A5"),
-                          ("vocab_slack", "A12"), ("engine_cache", "A13")):
+                          ("store_consumer", "A13"), ("engine_cache", "A13")):
             assert f"ROADMAP Queue {item} " in (res[key] or ""), (key,
                                                                   res[key])
         assert "process group" in res["world_size"]

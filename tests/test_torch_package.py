@@ -227,15 +227,47 @@ def test_train_step_outside_the_slice_raises(kwargs):
                for b, t in zip(emb.offloaded_buckets, before))
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(publish_every=4), dict(lookahead=1), dict(store=object()),
-    dict(vocab=object()), dict(vocab_every=4), dict(stale_ok=True),
-    dict(publish_dir="somewhere"), dict(registry=object()),
+@pytest.mark.parametrize("kwargs,ported", [
+    pytest.param(dict(publish_every=4), True, id="kwargs0"),
+    pytest.param(dict(lookahead=1), False, id="kwargs1"),
+    pytest.param(dict(store=object()), True, id="kwargs2"),
+    pytest.param(dict(vocab=object()), True, id="kwargs3"),
+    pytest.param(dict(vocab_every=4), True, id="kwargs4"),
+    pytest.param(dict(stale_ok=True), False, id="kwargs5"),
+    pytest.param(dict(publish_dir="somewhere"), True, id="kwargs6"),
+    pytest.param(dict(registry=object()), False, id="kwargs7"),
 ])
-def test_fit_outside_the_slice_raises(kwargs):
+def test_fit_outside_the_slice_raises(kwargs, ported):
+    """What `fit` has not ported raises naming its ROADMAP item. The
+    weight-streaming and vocabulary arguments (A12) are ported: alone they
+    are accepted, as in the JAX package (a store without a cadence, a
+    cadence without a store, a directory or a maintenance cadence without
+    the rest publish nothing), and they raise the JAX `ValueError`s: a
+    cadence with a store but no directory, a manager over another layer,
+    a manager with the dense step."""
+    from distributed_embeddings_tpu_torch.store import TableStore
+    from distributed_embeddings_tpu_torch.vocab import VocabManager
     model = DLRM([10, 20], embedding_dim=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-        fit(model, [], 0, **kwargs)
+    if not ported:
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
+            fit(model, [], 0, **kwargs)
+        return
+    if "vocab" in kwargs:
+        other = DistributedEmbedding(_tiny_tables(), device="cpu",
+                                     vocab_slack=4)
+        with pytest.raises(ValueError, match="different layer"):
+            fit(model, [], 0, vocab=VocabManager(other, use_native=False))
+        with pytest.raises(ValueError, match="sparse"):
+            fit(model, [], 0, sparse=False,
+                vocab=VocabManager(model.embedding, use_native=False))
+        return
+    if "store" in kwargs:
+        kwargs = dict(store=TableStore(model.embedding))
+    history = fit(model, [], 0, **kwargs)[2]
+    assert "published" not in history and "vocab_stats" not in history
+    if "publish_every" in kwargs:
+        with pytest.raises(ValueError, match="publish_dir"):
+            fit(model, [], 0, store=TableStore(model.embedding), **kwargs)
 
 
 @pytest.mark.parametrize("name,default,other,item", [
@@ -243,10 +275,15 @@ def test_fit_outside_the_slice_raises(kwargs):
 ])
 def test_fit_takes_the_reference_arguments_at_their_defaults(name, default,
                                                              other, item):
-    """The JAX `fit`'s arguments without a port yet: the default is
-    accepted, any other value raises naming the ROADMAP item."""
+    """The JAX `fit`'s arguments: the default is accepted; another value
+    raises naming the ROADMAP item while the argument is unported
+    (lookahead, A14), and is accepted once ported (vocab_every, A12)."""
     model = DLRM([10, 20], embedding_dim=8, device="cpu")
     fit(model, [], 0, **{name: default})
+    if item == "A12":
+        history = fit(model, [], 0, **{name: other})[2]
+        assert history["loss"] == [] and "vocab_stats" not in history
+        return
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP Queue {item}[ ,]"):
         fit(model, [], 0, **{name: other})
@@ -290,19 +327,26 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
     pytest.param(dict(mesh=object(), world_size=2), False, id="kwargs0"),
     pytest.param(dict(mesh=object()), False, id="kwargs1"),
     pytest.param(dict(gpu_embedding_size=100), True, id="kwargs2"),
-    pytest.param(dict(vocab_slack=4), False, id="kwargs3"),
+    pytest.param(dict(vocab_slack=4), True, id="kwargs3"),
 ])
 def test_features_outside_the_slice_raise(kwargs, ported):
     """What the port has not ported raises naming its ROADMAP item; host
-    offload (A8), ported since, builds: the table past the budget is
-    offloaded, in host memory, and the forward runs."""
+    offload (A8) and the vocabulary slack (A12), ported since, build: the
+    table past the budget is offloaded, in host memory; every table holds
+    its slack rows past its configured ones; and the forward runs."""
     if not ported:
         with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
             DistributedEmbedding(_tiny_tables(), device="cpu", **kwargs)
         return
     layer = DistributedEmbedding(_tiny_tables(), device="cpu", **kwargs)
-    assert layer.offloaded_buckets == [
-        b for b, bk in enumerate(layer.plan.tp_buckets) if bk.offload] != []
+    if "vocab_slack" in kwargs:
+        assert [w.shape for w in layer.get_weights()] == [(14, 8), (24, 8)]
+        assert [c["vocab_base_rows"] for c in
+                layer.strategy.global_configs] == [10, 20]
+    else:
+        assert layer.offloaded_buckets == [
+            b for b, bk in enumerate(layer.plan.tp_buckets)
+            if bk.offload] != []
     outs = layer([np.arange(4) % 10, np.arange(4) % 20])
     assert [tuple(o.shape) for o in outs] == [(4, 8), (4, 8)]
 
@@ -348,9 +392,11 @@ def test_world_size_without_a_process_group_raises():
 
 def test_engine_features_outside_the_slice_raise():
     layer = DistributedEmbedding(_tiny_tables(), device="cpu")
-    for kwargs in (dict(cache_capacity=16), dict(vocab_manager=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-            InferenceEngine(layer, device="cpu", **kwargs)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
+        InferenceEngine(layer, device="cpu", cache_capacity=16)
+    # the vocabulary (A12) is ported: a manager of another layer refuses
+    with pytest.raises(ValueError, match="different layer"):
+        InferenceEngine(layer, device="cpu", vocab_manager=object())
     eng = InferenceEngine(layer, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
         eng.poll_updates("somewhere")
@@ -576,7 +622,8 @@ def test_top_level_names_match_the_reference():
                  "DistEmbeddingStrategy", "DistributedEmbedding",
                  "broadcast_variables", "DistributedGradientTape",
                  "DistributedOptimizer", "BroadcastGlobalVariablesCallback",
-                 "__version__"]:
+                 "store", "TableStore", "DeltaConsumer", "vocab",
+                 "VocabManager", "__version__"]:
         assert hasattr(port, name) and name in port.__all__, name
     assert port.__version__ == jax_pkg.__version__ == "0.1.0"
     assert port.dist_model_parallel is dist_model_parallel

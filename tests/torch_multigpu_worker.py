@@ -206,8 +206,10 @@ def raises(spec) -> dict:
     """The errors the port gives at world size > 1 (None: no error):
     what it ported builds (column slicing, fewer tables than ranks, the dp
     and row groups, model-parallel input, the engine, the wire formats,
-    hot rows, host offload); what it did not raises NotImplementedError
-    naming its ROADMAP item."""
+    hot rows, host offload, the vocabulary slack); what it did not raises
+    NotImplementedError naming its ROADMAP item, and what is
+    single-process by design (the vocabulary manager, the store's
+    producer) raises saying so."""
     out = {}
 
     def message(fn, kind=NotImplementedError):
@@ -236,6 +238,16 @@ def raises(spec) -> dict:
                     ("gpu_embedding_size", dict(gpu_embedding_size=100)),
                     ("vocab_slack", dict(vocab_slack=4))):
         out[key] = message(lambda: _layer(spec, **kw))
+    # the vocabulary manager and the store's producer are single-process;
+    # the consumer across ranks is the engine's (A13)
+    from distributed_embeddings_tpu_torch.store import TableStore
+    from distributed_embeddings_tpu_torch.vocab import VocabManager
+    slack = _layer(spec, vocab_slack=4)
+    out["vocab_manager"] = message(lambda: VocabManager(slack))
+    out["store_producer"] = message(
+        lambda: TableStore(slack).observe([]))
+    out["store_consumer"] = message(
+        lambda: TableStore(slack).apply_published("unused"))
     out["ragged_exchange"] = message(wire.ragged_exchange)
     out["bf16_all_gather"] = message(
         lambda: wire.wire_all_gather(torch.zeros(2, 2), "bf16"))
