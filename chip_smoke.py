@@ -388,7 +388,16 @@ Phases, each printing JSON lines before the last line:
      ``offload:update``'s host ms beside the numpy apply's 99.68
      (NUMPY_UPDATE_HOST_MS); one step's
      rows applied again by the C++ loops and by the numpy twin, timed
-     (`time_host_apply`, the plain yardstick).
+     (`time_host_apply`, the plain yardstick). 14c (`cached_serving_phase`,
+     inside 14b on its trained model): `InferenceEngine(cache_capacity=
+     1,048,576, promote_threshold=2)`, a `HotRowCache` (0.5 GiB of slots)
+     over the offloaded bucket, beside the uncached engine; 12 seeded
+     ClickGenerator requests of 65,536 rows (another seed than training's):
+     each request's logits `torch.equal` to the uncached engine's, hits
+     and promotions above 0, `lookup_combine` once a forward (the device
+     bucket); the hit rate by request and cumulative, promotions,
+     evictions, serve ms and the offloaded lookup's host ms cached beside
+     uncached, the HtoD bytes of each run, the slots' bytes.
   15. (after 14) criteo_vocab (`criteo_vocab_phase`): the Criteo
      example's on-the-fly vocabulary flow (`tools/criteo_example.py`) at
      its full width: 26 `IntegerLookup`s of max_tokens 100,000 and 26
@@ -443,7 +452,27 @@ Phases, each printing JSON lines before the last line:
      the store's observation and of each cycle, publish / apply seconds
      and bytes by file, restore seconds, version lag, churn and fallback
      hit rate by table, peak memory, the temp directory's free space
-     before the phase and the bytes written.
+     before the phase and the bytes written. 16b (`FleetHold`, a callback
+     beside `ConsumerHold`; the host's MemAvailable checked first): two
+     replicas, r0 and r1, each an embedding-only engine over a full-size
+     Tiny layer with the same slack and its width-16 bucket (4.5 GB)
+     pinned on the host under a 262,144-row `HotRowCache`, a query-only
+     `VocabManager` over the 7 tables, one registry, behind
+     `FleetRouter(canaries=1, reference_weights=<the publisher's weights
+     at the version just published>)`; r1 joins after the third publish
+     and catches up through the snapshot and the deltas. After every
+     other publish (every one took ~150 s in all, past the 90 s allowed)
+     the router promotes the version at parity 0.0, then 8
+     requests of 4,096 rows of the step's raw keys go through `submit` /
+     `flush` (`lookup_combine` once a forward for each of bucket 0's
+     groups), each output `torch.equal` to the serving replica's layer
+     forward with the cache scope off and within rtol 1e-6 / atol 1e-7 of
+     the publisher's layer on the same translation; at the end no shed,
+     no router error, no degraded reason, no poll error. Printed: the
+     promoted versions, the pin, the catch-up and apply seconds by kind,
+     each cache's hit rate, promotions and slots patched from deltas, the
+     pinned bytes, the largest ulp gap to the publisher, the fleet's
+     seconds.
   7. the kernels line (each kernel's launches by path, the world paths'
      summed over the ranks; `sgd_rows` with ``copy_ms``, an
      `index_select` + `index_copy_` of the same rows, as a second
@@ -7120,6 +7149,122 @@ class TrafficTap:
         self.at.append(dict(self.layer.offload_traffic))
 
 
+# 14c: the hot-row cache over the offloaded bucket of 14b's model
+OFFLOAD_CACHE_ROWS = 1_048_576     # 0.5 GiB of slots at width 128
+OFFLOAD_CACHE_THRESHOLD = 2
+OFFLOAD_SERVE_REQUESTS = 12
+OFFLOAD_SERVE_SEED = DLRM_SEED + 7  # not the training stream's seed
+
+
+def restore_counts(saved: dict, cuda_lookup, *counted):
+    """Every launch count of `cuda_lookup` and the `counted` modules back
+    to `saved` (`read_counts`' form)."""
+    for module in (cuda_lookup, *counted):
+        for key in module.launches:
+            module.launches[key] = saved[key]
+
+
+def cached_serving_phase(torch, cuda_lookup, counted, model, sizes) -> dict:
+    """14c: 14b's trained model (its offloaded bucket in pinned host
+    memory) served through `InferenceEngine(cache_capacity=
+    OFFLOAD_CACHE_ROWS, promote_threshold=2)`, a `HotRowCache` over each
+    offloaded bucket, beside the uncached engine on the same model.
+    OFFLOAD_SERVE_REQUESTS requests of BATCH rows, seeded ClickGenerator
+    batches (power law, alpha 1.05, OFFLOAD_SERVE_SEED); the cached run
+    is the main path (counts to 0, drive, read: `lookup_combine` once a
+    forward, for the device bucket), then the uncached run. Each
+    request's logits `torch.equal` to the uncached engine's; hits and
+    promotions both above 0. Printed: the hit rate by request and
+    cumulative, promotions, evictions, serve ms (a synchronized `predict`)
+    cached beside uncached, the host ms of the offloaded lookup
+    (`_offload_group_out`, the cached path inside it) cached beside
+    uncached, the HtoD bytes the layer moved in each run, the slots'
+    bytes, the phase's seconds. Returns the launch counts."""
+    import numpy as np
+    from distributed_embeddings_tpu_torch.models.synthetic import (
+        ClickGenerator)
+    from distributed_embeddings_tpu_torch.serving.engine import (
+        InferenceEngine)
+    t_phase = time.perf_counter()
+    layer = model.embedding
+    gen = ClickGenerator(sizes, 13, BATCH, seed=OFFLOAD_SERVE_SEED)
+    requests = [gen.batch(i)[:2] for i in range(OFFLOAD_SERVE_REQUESTS)]
+    cached = InferenceEngine(model, device="cuda",
+                             cache_capacity=OFFLOAD_CACHE_ROWS,
+                             promote_threshold=OFFLOAD_CACHE_THRESHOLD)
+    plain = InferenceEngine(model, device="cuda")
+    for engine in (cached, plain):
+        engine.warmup([BATCH], example=requests[0])
+    torch.cuda.synchronize()
+    check(set(cached.caches) == set(layer.offloaded_buckets),
+          f"offload_serve: caches over {sorted(cached.caches)}, offloaded "
+          f"{layer.offloaded_buckets}")
+    slot_bytes = sum(c.slots.numel() * c.slots.element_size()
+                     for c in cached.caches.values())
+    runs = {}
+    for name, engine in (("cached", cached), ("plain", plain)):
+        lookup_ms = timed_method(layer, "_offload_group_out")
+        htod = layer.offload_traffic["htod_bytes"]
+        outs, serve_ms, hit_rate, cumulative = [], [], [], []
+        before = (0, 0)
+        if name == "cached":
+            set_counts(cuda_lookup, *counted)
+        for num, cats in requests:
+            t0 = time.perf_counter()
+            outs.append(engine.predict((num, cats)))
+            torch.cuda.synchronize()
+            serve_ms.append((time.perf_counter() - t0) * 1e3)
+            st = engine.cache_stats()
+            hits, misses = st["hits"] - before[0], st["misses"] - before[1]
+            before = (st["hits"], st["misses"])
+            hit_rate.append(hits / max(hits + misses, 1))
+            cumulative.append(st["hits"] / max(st["hits"] + st["misses"], 1))
+        if name == "cached":
+            counts = read_counts(cuda_lookup, *counted)
+        del layer._offload_group_out
+        runs[name] = dict(outs=outs, serve_ms=serve_ms, hit_rate=hit_rate,
+                          cumulative=cumulative, lookup_ms=list(lookup_ms),
+                          htod_bytes=layer.offload_traffic["htod_bytes"]
+                          - htod)
+    want = {"lookup_combine": 1}
+    check(counts == per_step(want, OFFLOAD_SERVE_REQUESTS),
+          f"offload_serve_cached launches {counts}, want {want} a forward")
+    for i, (a, b) in enumerate(zip(runs["cached"]["outs"],
+                                   runs["plain"]["outs"])):
+        check(tuple(a.shape) == (BATCH, 1) and bool(torch.isfinite(a).all())
+              and torch.equal(a, b),
+              f"offload_serve: request {i}'s cached logits differ from the "
+              "uncached engine's")
+    st = cached.cache_stats()
+    per = list(st["buckets"].values())
+    promotions = sum(c["promotions"] for c in per)
+    evictions = sum(c["evictions"] for c in per)
+    check(st["hits"] > 0 and promotions > 0,
+          f"offload_serve: hits {st['hits']}, promotions {promotions}")
+    emit(phase="main_path", path="offload_serve_cached",
+         requests=OFFLOAD_SERVE_REQUESTS, rows=BATCH,
+         cache_rows=OFFLOAD_CACHE_ROWS,
+         promote_threshold=OFFLOAD_CACHE_THRESHOLD, slot_bytes=slot_bytes,
+         launches=counts, bit_equal=True,
+         hit_rate_by_request=runs["cached"]["hit_rate"],
+         hit_rate_cumulative=runs["cached"]["cumulative"],
+         hit_rate=st["hit_rate"], hits=st["hits"], misses=st["misses"],
+         promotions=promotions, evictions=evictions,
+         resident=sum(c["resident"] for c in per),
+         serve_ms={k: runs[k]["serve_ms"] for k in runs},
+         serve_ms_median={k: statistics.median(runs[k]["serve_ms"])
+                          for k in runs},
+         offload_lookup_host_ms={k: runs[k]["lookup_ms"] for k in runs},
+         offload_lookup_host_ms_median={
+             k: statistics.median(runs[k]["lookup_ms"]) for k in runs},
+         htod_bytes={k: runs[k]["htod_bytes"] for k in runs},
+         seconds=time.perf_counter() - t_phase, ok=True)
+    del cached, plain, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"offload_serve_cached": counts}
+
+
 def offload_full_phase(torch, cuda_lookup, counted) -> dict:
     """14b: DLRM at the example's widths at the MLPerf Criteo-1TB sizes
     in float32 on one card, its embedding rebuilt with
@@ -7230,6 +7375,9 @@ def offload_full_phase(torch, cuda_lookup, counted) -> dict:
           and bool(torch.isfinite(logits).all()),
           "offload_dlrm_full: the engine's logits")
     del engine, logits
+    # 14c: the same model served through the hot-row cache
+    counts.update(cached_serving_phase(torch, cuda_lookup, counted, model,
+                                       sizes))
     # one step's rows applied again by the C++ loops and by the numpy twin
     profiled["host_apply_timed"] = time_host_apply(last_apply.last)
     del last_apply
@@ -7827,6 +7975,252 @@ def deterministic_sums(torch):
             det.fill_uninitialized_memory = fill
 
 
+# 16b: a serving fleet over phase 16's stream
+STORE_FLEET_CACHE_ROWS = 262_144     # 16 MiB of slots at width 16
+STORE_FLEET_REQUESTS = 8
+STORE_FLEET_ROWS = 4096
+STORE_FLEET_JOIN_AFTER = 3           # r1 joins after the third publish
+# the router steps at every other publish: stepped at every one, 16b took
+# about 150 s on the card (a canary step 16-33 s), past the 90 s allowed
+STORE_FLEET_STEP_EVERY = 2
+STORE_FLEET_TOL = dict(rtol=1e-6, atol=1e-7)
+STORE_FLEET_SEEDS = {"r0": 2, "r1": 3}
+STORE_FLEET_HOST_SPARE = 16 * 2**30
+
+
+def fleet_budget(tiny) -> int:
+    """The device budget (elements) that keeps Tiny's width-8 tables,
+    with their vocabulary slack, on the card: every width-16 table, each
+    larger than all of them, goes to host memory as one bucket."""
+    from distributed_embeddings_tpu_torch.models.synthetic import (
+        expand_embedding_configs)
+    tables, _, _ = expand_embedding_configs(tiny)
+    return sum((rows + STORE_VOCAB_SLACK) * w for rows, w in tables
+               if w == 8)
+
+
+def fleet_replica(torch, tiny, mgr_kw, registry, name, example):
+    """One replica of 16b: an embedding-only engine over a full-size Tiny
+    layer built as phase 16 builds it, with ``gpu_embedding_size`` =
+    `fleet_budget` (its width-16 bucket in pinned host memory) and a
+    STORE_FLEET_CACHE_ROWS-row `HotRowCache` over that bucket; a
+    query-only `VocabManager` over the managed tables, the shared
+    registry, ``replica=name``; warmed at STORE_FLEET_ROWS on `example`
+    (raw keys, translated by the manager)."""
+    from distributed_embeddings_tpu_torch.models.synthetic import (
+        SyntheticModel)
+    from distributed_embeddings_tpu_torch.serving.engine import (
+        InferenceEngine)
+    from distributed_embeddings_tpu_torch.vocab import VocabManager
+    layer = SyntheticModel(
+        tiny, device="cuda", vocab_slack=STORE_VOCAB_SLACK,
+        gpu_embedding_size=fleet_budget(tiny),
+        generator=torch.Generator(device="cuda").manual_seed(
+            STORE_FLEET_SEEDS[name])).embedding
+    engine = InferenceEngine(layer, device="cuda",
+                             cache_capacity=STORE_FLEET_CACHE_ROWS,
+                             vocab_manager=VocabManager(layer, **mgr_kw),
+                             registry=registry, replica=name)
+    engine.warmup([STORE_FLEET_ROWS],
+                  example=engine.vocab.translate(example))
+    return engine
+
+
+def host_cats(cats) -> list:
+    """A batch's categorical inputs as numpy arrays."""
+    return [c.numpy() if hasattr(c, "numpy") else c for c in cats]
+
+
+class FleetHold:
+    """16b, an `on_step` callback of the publisher's `fit` after
+    `ConsumerHold`: two replicas (`fleet_replica`) behind one
+    `FleetRouter(pub_dir, canaries=1, reference_weights=...)`, the
+    reference the publisher's `get_weights` at the version just published.
+    r0 joins before the first publish; r1 after the STORE_FLEET_JOIN_AFTER-th
+    (its catch-up through the snapshot and the deltas timed). After every
+    STORE_FLEET_STEP_EVERY-th publish: `router.step()` promotes the
+    version at parity 0.0; STORE_FLEET_REQUESTS requests of
+    STORE_FLEET_ROWS rows of the step's raw keys go through
+    `submit` / `flush` (launch counts to 0, drive, read; the publisher's
+    counts restored after); each request's outputs `torch.equal` to the
+    serving replica's layer forward with the cache scope off and within
+    STORE_FLEET_TOL of the publisher's layer on the same query-only
+    translation (the largest ulp gap kept)."""
+
+    def __init__(self, torch, store, model, pub_dir, tiny, mgr_kw, batches,
+                 counting):
+        from distributed_embeddings_tpu_torch.fleet import FleetRouter
+        from distributed_embeddings_tpu_torch.obs.registry import (
+            MetricRegistry)
+        t0 = time.perf_counter()
+        self.torch, self.store, self.model = torch, store, model
+        self.batches, self.counting = batches, counting
+        self.registry = MetricRegistry()
+        example = host_cats(batches[0][1])
+        example = [c[:STORE_FLEET_ROWS] for c in example]
+        self.engines = {}
+        for name in ("r0", "r1"):
+            t1 = time.perf_counter()
+            self.engines[name] = fleet_replica(torch, tiny, mgr_kw,
+                                               self.registry, name, example)
+            emit(phase="store_fleet_replica", replica=name,
+                 seconds=time.perf_counter() - t1,
+                 pinned_bytes=self.engines[name].embedding
+                 .pinned_host_bytes(), mem_available=mem_available())
+        self.applies = {"snapshot": [], "delta": []}
+        for eng in self.engines.values():
+            self._time_applies(eng.store)
+        self.router = FleetRouter(pub_dir, registry=self.registry,
+                                  canaries=1,
+                                  reference_weights=self.reference)
+        self.router.add_replica("r0", self.engines["r0"])
+        self.build_s = time.perf_counter() - t0
+        pub_layer = model.embedding
+        for eng in self.engines.values():
+            layer = eng.embedding
+            check([(p.table_id, p.bucket, p.row_offset, p.rows)
+                   for p in layer.plan.tp_placements]
+                  == [(p.table_id, p.bucket, p.row_offset, p.rows)
+                      for p in pub_layer.plan.tp_placements]
+                  and len(layer.offloaded_buckets) == 1
+                  and list(eng.caches) == layer.offloaded_buckets,
+                  f"store_fleet: the replica's plan differs from the "
+                  f"publisher's, or offloads {layer.offloaded_buckets}")
+        self.seen = store.version
+        self.publishes = 0
+        self.promotes, self.catch_up_s, self.seconds = [], None, 0.0
+        self.launches = {k: 0 for k in read_counts(*counting)}
+        self.forwards, self.max_ulp = 0, 0
+
+    def _time_applies(self, store):
+        real = store.apply_published
+
+        def timed(path):
+            t0 = time.perf_counter()
+            info = real(path)
+            self.applies[info["kind"]].append(time.perf_counter() - t0)
+            return info
+        store.apply_published = timed
+
+    def reference(self, version):
+        """The publisher's weights at `version`: the router steps right
+        after a publish, so only the current version has them."""
+        return self.store.get_weights() if version == self.store.version \
+            else None
+
+    def on_step(self, step, model, loss):
+        self.poll(step)
+
+    def poll(self, step):
+        if self.store.version == self.seen:
+            return
+        self.seen = self.store.version
+        self.publishes += 1
+        t0 = time.perf_counter()
+        saved = read_counts(*self.counting)
+        try:
+            if self.publishes == STORE_FLEET_JOIN_AFTER:
+                t1 = time.perf_counter()
+                self.router.add_replica("r1", self.engines["r1"])
+                self.catch_up_s = time.perf_counter() - t1
+                m = self.router._members["r1"]
+                check(m.state == "serving"
+                      and m.engine.store.version == self.router.pinned_version,
+                      f"store_fleet: r1 {m.state} at v{m.engine.store.version}"
+                      f", pinned v{self.router.pinned_version}")
+            if self.publishes % STORE_FLEET_STEP_EVERY:
+                return
+            ev = self.router.step()["event"]
+            check(ev is not None and ev["event"] == "promote"
+                  and ev["version"] == self.store.version
+                  and ev["parity_devs"] == [0.0],
+                  f"store_fleet: at v{self.store.version} the router "
+                  f"stepped {ev}; errors {self.router.errors}")
+            self.promotes.append(ev["version"])
+            t1 = time.perf_counter()
+            self.serve(step)
+            emit(phase="store_fleet_step", version=ev["version"],
+                 catch_up_s=self.catch_up_s,
+                 step_s=t1 - t0, serve_s=time.perf_counter() - t1)
+        finally:
+            restore_counts(saved, *self.counting)
+            self.seconds += time.perf_counter() - t0
+
+    def serve(self, step):
+        torch = self.torch
+        cats = host_cats(self.batches[step][1])
+        reqs = [[c[i * STORE_FLEET_ROWS:(i + 1) * STORE_FLEET_ROWS]
+                 for c in cats] for i in range(STORE_FLEET_REQUESTS)]
+        batches = sum(m.batcher.batches
+                      for m in self.router._members.values())
+        set_counts(*self.counting)
+        routed = [self.router.submit(r) for r in reqs]
+        check(all(routed), f"store_fleet: shed {routed}")
+        out = self.router.flush()
+        torch.cuda.synchronize()
+        counts = read_counts(*self.counting)
+        forwards = sum(m.batcher.batches
+                       for m in self.router._members.values()) - batches
+        for k, v in counts.items():
+            self.launches[k] += v
+        self.forwards += forwards
+        layer = self.engines["r0"].embedding
+        for r, req in zip(routed, reqs):
+            eng = self.engines[r.replica]
+            ids = eng.vocab.translate(req)
+            with torch.no_grad():
+                plain = eng.embedding(ids)
+                ref = self.model.embedding(ids)
+            for i, (a, b, c) in enumerate(zip(out[r.handle], plain, ref)):
+                check(torch.equal(a, b),
+                      f"store_fleet: {r.replica}'s output {i} differs from "
+                      "its layer's uncached forward")
+                check(torch.allclose(a, c, **STORE_FLEET_TOL),
+                      f"store_fleet: {r.replica}'s output {i} is off the "
+                      "publisher's layer")
+                self.max_ulp = max(self.max_ulp, max_ulp(torch, a, c))
+        groups, _ = layer._exchange_groups_for_key(tuple(
+            (1 if x.ndim == 1 else x.shape[1], False)
+            for x in [ids[i] for i in layer.strategy.input_groups[1]]))
+        on_card = sum(1 for g in groups if g.bucket not in layer.offloaded_buckets)
+        want = {"lookup_combine": on_card}
+        check(counts == per_step(want, forwards),
+              f"store_fleet launches {counts} over {forwards} forwards, "
+              f"want {want} a forward")
+
+    def finish(self) -> dict:
+        """The end checks and the printed line's fields."""
+        router, reg = self.router, self.registry
+        check(router.shed == 0 and router.errors == [],
+              f"store_fleet: {router.shed} sheds, errors {router.errors}")
+        for name, eng in self.engines.items():
+            check(not eng.degraded_reasons(),
+                  f"store_fleet: {name} degraded {eng.degraded_reasons()}")
+            check(reg.counter("serve/poll_errors_total",
+                              replica=name).value == 0,
+                  f"store_fleet: {name} poll errors: {eng.last_poll_error}")
+        caches = {}
+        for name, eng in self.engines.items():
+            (b, cache), = eng.caches.items()
+            caches[name] = dict(bucket=b, hit_rate=cache.hit_rate,
+                                hits=cache.hits, misses=cache.misses,
+                                promotions=cache.promotions,
+                                evictions=cache.evictions,
+                                patched=cache.patched,
+                                refreshes=cache.refreshes,
+                                version=eng.store.version)
+        return dict(publishes=self.publishes, promotes=self.promotes,
+                    pinned_version=router.pinned_version,
+                    step_every=STORE_FLEET_STEP_EVERY,
+                    catch_up_s=self.catch_up_s, apply_s=self.applies,
+                    caches=caches, launches=self.launches,
+                    forwards=self.forwards, max_ulp_publisher=self.max_ulp,
+                    pinned_bytes=sum(e.embedding.pinned_host_bytes()
+                                     for e in self.engines.values()),
+                    build_s=self.build_s, seconds=self.seconds,
+                    stats=router.stats())
+
+
 def store_vocab_model(torch, tiny, seed):
     from distributed_embeddings_tpu_torch.models.synthetic import (
         SyntheticModel)
@@ -7908,6 +8302,14 @@ def store_vocab_phase(torch, cuda_lookup, counted) -> dict:
              table_bytes=sum(t.numel() * 4 for t in layer.tp))
 
         store = TableStore(layer, opt_states=state["emb"])
+        # 16b: the fleet's replicas hold their width-16 bucket pinned
+        host_need = 2 * sum(t.numel() * 4 for t in layer.tp[1:])
+        avail = mem_available()
+        check(avail > host_need + STORE_FLEET_HOST_SPARE,
+              f"store_fleet: {avail} bytes of host memory available, the "
+              f"replicas pin {host_need} (+ {STORE_FLEET_HOST_SPARE} spare)")
+        fleet = FleetHold(torch, store, model, pub_dir, tiny, mgr_kw,
+                          batches, (cuda_lookup, *counted))
         mgr = VocabManager(layer, **mgr_kw)
         maint = MaintainHold(torch, mgr)
         translate_ms = timed_method(mgr, "translate")
@@ -7928,7 +8330,7 @@ def store_vocab_phase(torch, cuda_lookup, counted) -> dict:
                 opt_state=state, store=store,
                 publish_every=STORE_VOCAB_EVERY, publish_dir=pub_dir,
                 vocab=mgr, vocab_every=STORE_VOCAB_EVERY, log_every=0,
-                callbacks=[hold])
+                callbacks=[hold, fleet])
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         counts = read_counts(cuda_lookup, *counted)
@@ -7940,6 +8342,13 @@ def store_vocab_phase(torch, cuda_lookup, counted) -> dict:
         # a publish after the loop (the tail cycle's rebinds) is polled here
         hold.poll()
         hold.hold()
+        fleet.poll(steps)
+        emit(phase="main_path", path="store_fleet", mem_available=avail,
+             requests=STORE_FLEET_REQUESTS, rows=STORE_FLEET_ROWS,
+             cache_rows=STORE_FLEET_CACHE_ROWS, **fleet.finish(), ok=True)
+        fleet_counts = dict(fleet.launches)
+        del fleet
+        gc.collect()
         published = hist["published"]
         kinds = [p["kind"] for p in published]
         check(kinds[0] == "snapshot" and set(kinds[1:]) == {"delta"}
@@ -8062,7 +8471,7 @@ def store_vocab_phase(torch, cuda_lookup, counted) -> dict:
         del serial, s_state, model, state, layer, store, mgr, batches
         gc.collect()
         torch.cuda.empty_cache()
-        return {"store_vocab": counts}
+        return {"store_vocab": counts, "store_fleet": fleet_counts}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -30,9 +30,10 @@ from distributed_embeddings_tpu_torch.ops.sparse_update import (
     make_sparse_optimizer)
 from distributed_embeddings_tpu_torch.parallel.mesh import (
     initialize_distributed)
-from distributed_embeddings_tpu_torch.serving.batcher import MicroBatcher
-from distributed_embeddings_tpu_torch.serving.engine import InferenceEngine
-from distributed_embeddings_tpu_torch import store, vocab
+from distributed_embeddings_tpu_torch import fleet, serving, store, vocab
+from distributed_embeddings_tpu_torch.serving import (HotRowCache,
+                                                      InferenceEngine,
+                                                      MicroBatcher)
 from distributed_embeddings_tpu_torch.store import DeltaConsumer, TableStore
 from distributed_embeddings_tpu_torch.training import (
     BroadcastGlobalVariablesCallback, DistributedGradientTape,
@@ -54,8 +55,11 @@ __all__ = [
     "dist_model_parallel",
     "DistEmbeddingStrategy",
     "DistributedEmbedding",
+    "serving",
     "InferenceEngine",
+    "HotRowCache",
     "MicroBatcher",
+    "fleet",
     "store",
     "TableStore",
     "DeltaConsumer",

@@ -51,9 +51,12 @@ CPU layer a plain one. ``.to()`` and ``.cuda()`` leave them where they
 are. An offloaded group's ids cross the exchange on the card as every
 group's do; then they come to the host, clamped into the bucket, and the
 rows are gathered (decoded, at a quantized storage), combined in float32
-into a pinned staging buffer and copied to the card without blocking
-(`_offload_group_out`, the profiler range `OFFLOAD_LOOKUP_RANGE`); the
-cast, the unweighted mean's scale and the tap follow on the card. The
+in a fixed order (`embedding_ops.ordered_row_sum`) into a pinned staging
+buffer and copied to the card without blocking (`_offload_group_out`, the
+profiler range `OFFLOAD_LOOKUP_RANGE`); the cast, the unweighted mean's
+scale and the tap follow on the card. A forward without taps consults the
+override scoped by `offload_lookup_scope` first (the serving hot-row
+cache, `serving.cache`). The
 sparse update deduplicates the bucket's rows on the card
 (`ops.sparse_update.prepare_safe_grad`) and applies them to the host
 buffers in place (`ops.sparse_update.host_apply_rows_inplace`, range
@@ -122,7 +125,7 @@ from distributed_embeddings_tpu_torch.layers.embedding import Embedding
 from distributed_embeddings_tpu_torch.ops import (cuda_lookup, cuda_tiled,
                                                   embedding_ops, wire)
 from distributed_embeddings_tpu_torch.ops.embedding_ops import (
-    GroupSort, RaggedIds, SparseIds, canonical_id_sort)
+    GroupSort, RaggedIds, SparseIds, canonical_id_sort, ordered_row_sum)
 from distributed_embeddings_tpu_torch.ops.sparse_update import (
     HOST_APPLY_KINDS, QUANTIZED_ROW_KINDS, SparseOptimizer, SparseRowGrad,
     _dense_sum, concat_grads, host_apply_rows_inplace, prepare_safe_grad,
@@ -464,6 +467,9 @@ class DistributedEmbedding(nn.Module):
         self._host_pins: List[HostPin] = []
         self._offload_enabled = any(b.offload for b in self.plan.tp_buckets)
         self.offload_traffic = {"htod_bytes": 0, "dtoh_bytes": 0}
+        # the serving seam (`offload_lookup_scope`): consulted for the
+        # offloaded groups of a forward without taps
+        self._offload_lookup_override = None
         self.dp = nn.ParameterList([
             nn.Parameter(torch.empty((cfg["input_dim"], cfg["output_dim"]),
                                      dtype=torch.float32, device=self.device))
@@ -1252,15 +1258,42 @@ class DistributedEmbedding(nn.Module):
         torch.cuda.current_stream(self.device).synchronize()
         return out
 
-    def _offload_group_out(self, grp: _ExchangeGroup, ids_x: torch.Tensor,
-                           w_x: Optional[torch.Tensor]) -> torch.Tensor:
+    def offload_lookup_scope(self, lookup_fn):
+        """Scope an offloaded-bucket lookup override over forwards (JAX
+        `offload_lookup_scope` :2055): ``lookup_fn(g, grp, table, ids_x,
+        eff_w) -> out | None`` is consulted for every offloaded exchange
+        group of a forward without taps (a tapped training forward always
+        takes the host path), with the group's index, its
+        `_ExchangeGroup`, the bucket's at-rest table, its exchanged
+        absolute ids [B, f, k] and its effective weights (or None); it
+        returns the group's output [B, f, w_out] (cast and scaled), or
+        None for the host path. The serving hot-row cache's seam
+        (`serving.cache`). Re-entrant on one layer, not thread-safe."""
+
+        @contextlib.contextmanager
+        def scope():
+            prev = self._offload_lookup_override
+            self._offload_lookup_override = lookup_fn
+            try:
+                yield self
+            finally:
+                self._offload_lookup_override = prev
+        return scope()
+
+    def _offload_group_out(self, g: int, grp: _ExchangeGroup,
+                           ids_x: torch.Tensor, w_x: Optional[torch.Tensor],
+                           tapped: bool) -> torch.Tensor:
         """One offloaded group's bucket output [B, f, w_out] on the card
-        (JAX `_host_group_exchange` :1965-2053): the exchanged ids (and the
-        effective weights) come to the host, the ids clamped into [0,
-        rows_max - 1]; the rows are gathered from the host table (and
-        decoded there, at a quantized storage) and combined in float32 into
-        a pinned staging buffer, which is copied to the card without
-        blocking. The staging buffer comes from torch's caching host
+        (JAX `_offload_group_out` :2079 and `_host_group_exchange`
+        :1965-2053): the scoped override's output, where one is scoped,
+        the forward is not `tapped` and the override returns one; else the
+        host path. There the exchanged ids (and the effective weights) come
+        to the host, the ids clamped into [0, rows_max - 1]; the rows are
+        gathered from the host table (and decoded there, at a quantized
+        storage) and combined in float32 (`ordered_row_sum`: the weight
+        products first, each rounded, then the k terms added left to
+        right) into a pinned staging buffer, which is copied to the card
+        without blocking. The staging buffer comes from torch's caching host
         allocator, which records an event behind that copy and hands the
         block out again only once the event has completed, so no copy in
         flight reads a reused buffer. Then, on the card, the cast to the
@@ -1270,6 +1303,11 @@ class DistributedEmbedding(nn.Module):
         `OFFLOAD_LOOKUP_RANGE`."""
         bucket = self.plan.tp_buckets[grp.bucket]
         eff_w, scale = _effective_weights(w_x, grp.k, bucket.combiner)
+        if not tapped and self._offload_lookup_override is not None:
+            out = self._offload_lookup_override(g, grp, self.tp[grp.bucket],
+                                                ids_x, eff_w)
+            if out is not None:
+                return out
         with record_function(OFFLOAD_LOOKUP_RANGE):
             b_sz, f, k = ids_x.shape
             wf = bucket.width
@@ -1289,10 +1327,10 @@ class DistributedEmbedding(nn.Module):
             if bucket.combiner is None:
                 out_h.copy_(rows.view(out_h.shape))
             else:
-                rows = rows.view(b_sz * f, k, wf)
-                if eff_w is not None:
-                    rows = rows * host[1].view(b_sz * f, k, 1)
-                torch.sum(rows, dim=1, out=out_h.view(b_sz * f, wf))
+                ordered_row_sum(
+                    rows.view(b_sz * f, k, wf),
+                    None if eff_w is None else host[1].view(b_sz * f, k),
+                    out=out_h.view(b_sz * f, wf))
             out = out_h.to(self.device, non_blocking=True)
             if self.device.type == "cuda":
                 self.offload_traffic["htod_bytes"] += (
@@ -1416,7 +1454,8 @@ class DistributedEmbedding(nn.Module):
                                          ids_x.clamp_max(rows_max - 1), w_x,
                                          "sum", presorted=sort_g)
             elif bucket.offload:
-                out = self._offload_group_out(grp, ids_x, w_x)
+                out = self._offload_group_out(g, grp, ids_x, w_x,
+                                              tapped=taps is not None)
             else:
                 out = self._tp_group_out(grp, ids_x, w_x, presorted=sort_g)
             out = out.reshape((self.world_size, -1) + tuple(out.shape[1:]))

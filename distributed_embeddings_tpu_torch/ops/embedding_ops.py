@@ -10,6 +10,9 @@ id stream shares between its lookup and its sparse update (sort folding),
 and `segment_bounds` turns a sorted stream's segment starts into the
 per-segment positions the sparse kernels walk. `sorted_member_positions`
 splits an id stream against a sorted key table (the hot-row split).
+`miss_only_ids` and `masked_two_source_gather` are the serving hot-row
+cache's row selection, `ordered_row_sum` the fixed-order combine that the
+offloaded lookup and the cache share.
 """
 
 from typing import NamedTuple, Optional, Tuple, Union
@@ -264,3 +267,59 @@ def sorted_member_positions(sorted_keys: torch.Tensor, queries: torch.Tensor
     pos = pos.clamp(0, max(h - 1, 0))
     hit = sorted_keys[pos] == q
     return pos.to(torch.int32), hit
+
+
+def miss_only_ids(ids: torch.Tensor, slot_idx: torch.Tensor) -> torch.Tensor:
+    """Cache-hit lanes' ids set to row 0 for the miss-side table gather
+    (JAX `miss_only_ids` :273): lanes with ``slot_idx >= 0`` are served
+    from the cache's slots, so the fallback gather reads one dummy row
+    for them instead of their own and the table sees no traffic in
+    proportion to the hits. Shapes broadcast elementwise."""
+    return torch.where(slot_idx >= 0, torch.zeros((), dtype=ids.dtype,
+                                                  device=ids.device), ids)
+
+
+def masked_two_source_gather(slots: torch.Tensor, slot_idx: torch.Tensor,
+                             fallback_rows: torch.Tensor) -> torch.Tensor:
+    """Rows from a cache tensor or from pre-gathered fallback rows (JAX
+    `masked_two_source_gather` :284): lanes with ``slot_idx >= 0`` take
+    ``slots[slot_idx]``, the others the matching row of `fallback_rows`.
+
+    Args:
+      slots: [capacity, width] cached rows.
+      slot_idx: [...] integer slot per lane, negative = miss.
+      fallback_rows: [..., width] rows for the miss lanes (the hit lanes'
+        values are ignored).
+
+    Returns [..., width] in `fallback_rows`' dtype."""
+    hit = slot_idx >= 0
+    safe = slot_idx.clamp(0, slots.shape[0] - 1).long()
+    cached = slots[safe].to(fallback_rows.dtype)
+    return torch.where(hit[..., None], cached, fallback_rows)
+
+
+def ordered_row_sum(rows: torch.Tensor, weights: Optional[torch.Tensor],
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The combine of an offloaded bucket's rows, [M, k, w] -> [M, w], in
+    one fixed order on every device: term j is ``rows[:, j]`` (times
+    ``weights[:, j]``, [M, k], where given: its own rounding, never fused
+    with the add), and the terms are added left to right, ``((t0 + t1) +
+    t2) + ...``, each add rounded. The host path (`DistributedEmbedding.
+    _offload_group_out`) and the cached path on the card
+    (`serving.cache.cached_group_lookup`) both combine through it, so
+    their outputs agree bit for bit; ``torch.sum`` picks its order per
+    device and shape. `out`, if given, receives the result."""
+    k = rows.shape[1]
+
+    def term(j):
+        r = rows[:, j]
+        return r if weights is None else r * weights[:, j, None]
+    acc = term(0)
+    if out is not None:
+        out.copy_(acc)
+        acc = out
+    elif weights is None:
+        acc = acc.clone()
+    for j in range(1, k):
+        acc.add_(term(j))
+    return acc

@@ -7,7 +7,9 @@ queue exceeds the largest shape), runs the engine, waits for the device and
 hands each request its own slice of the results. Synchronous and
 single-threaded: the caller decides when to flush. Per-request queueing +
 compute latency lands in the ``serve/request_seconds`` histogram; every
-flush records batch occupancy (true rows over padded rows).
+flush records batch occupancy (true rows over padded rows) and the
+engine's cache hit rate. `queue_depth` and `queued_rows` are the
+instruments the fleet's admission control sheds on (`fleet.admission`).
 """
 
 import time
@@ -37,12 +39,17 @@ class MicroBatcher:
         largest warmed shape, else 1024).
       clock: injectable time source (seconds) for latency accounting.
       registry: optional `MetricRegistry` for ``serve/request_seconds``,
-        ``serve/requests``, ``serve/batches`` and ``serve/batch_occupancy``.
+        ``serve/requests``, ``serve/batches``, ``serve/batch_occupancy``
+        and ``serve/cache_hit_rate``.
+      replica: optional replica name: every family above then carries a
+        ``replica=`` label, so one registry hosts a fleet's batchers.
+        Default: the engine's own ``replica``.
     """
 
     def __init__(self, engine, max_batch: Optional[int] = None,
                  clock: Callable[[], float] = time.perf_counter,
-                 registry: Optional[MetricRegistry] = None):
+                 registry: Optional[MetricRegistry] = None,
+                 replica: Optional[str] = None):
         self.engine = engine
         warmed = getattr(engine, "_warmed", [])
         self.max_batch = int(max_batch or (max(warmed) if warmed else 1024))
@@ -51,7 +58,12 @@ class MicroBatcher:
         self._next_handle = 0
         self._metrics = registry if registry is not None \
             else MetricRegistry()
-        self.latency = self._metrics.histogram("serve/request_seconds")
+        if replica is None:
+            replica = getattr(engine, "replica", None)
+        self.replica = replica
+        self._labels = {} if replica is None else {"replica": str(replica)}
+        self.latency = self._metrics.histogram("serve/request_seconds",
+                                               **self._labels)
         self.requests = 0
         self.batches = 0
         self.queue_depth_max = 0
@@ -76,13 +88,19 @@ class MicroBatcher:
         self._next_handle += 1
         self._queue.append((handle, numerical, cats, rows, self.clock()))
         self.requests += 1
-        self._metrics.counter("serve/requests").inc()
+        self._metrics.counter("serve/requests", **self._labels).inc()
         self.queue_depth_max = max(self.queue_depth_max, len(self._queue))
         return handle
 
     @property
     def queue_depth(self) -> int:
         return len(self._queue)
+
+    @property
+    def queued_rows(self) -> int:
+        """True rows queued now (the row-level signal admission control
+        sheds on, beside `queue_depth`)."""
+        return sum(req[3] for req in self._queue)
 
     def _concat(self, parts: List):
         if isinstance(parts[0], tuple):
@@ -114,7 +132,7 @@ class MicroBatcher:
             done = self.clock()
             padded = self.engine._target_batch(rows)
             self.batches += 1
-            self._metrics.counter("serve/batches").inc()
+            self._metrics.counter("serve/batches", **self._labels).inc()
             self._occupancy_rows += rows
             self._padded_rows += padded
             start = 0
@@ -122,14 +140,20 @@ class MicroBatcher:
                 results[handle] = _slice_rows(out, slice(start, start + n))
                 start += n
                 self.latency.record(done - t_in)
-        self._metrics.gauge("serve/batch_occupancy").set(
+        m = self._metrics
+        m.gauge("serve/batch_occupancy", **self._labels).set(
             self._occupancy_rows / self._padded_rows
             if self._padded_rows else 0.0)
+        caches = getattr(self.engine, "caches", {}) or {}
+        hits = sum(c.hits for c in caches.values())
+        misses = sum(c.misses for c in caches.values())
+        m.gauge("serve/cache_hit_rate", **self._labels).set(
+            hits / (hits + misses) if hits + misses else 0.0)
         return results
 
     def summary(self) -> dict:
-        """Serving metrics: latency percentiles, batch occupancy and queue
-        depth."""
+        """Serving metrics: latency percentiles, batch occupancy, queue
+        depth and the engine's cache hit rate."""
         occ = (self._occupancy_rows / self._padded_rows
                if self._padded_rows else 0.0)
         return {
@@ -138,5 +162,6 @@ class MicroBatcher:
             "queue_depth": self.queue_depth,
             "queue_depth_max": self.queue_depth_max,
             "batch_occupancy": round(occ, 4),
+            "hit_rate": self.engine.cache_stats()["hit_rate"],
             **self.latency.summary(),
         }

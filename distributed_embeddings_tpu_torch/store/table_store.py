@@ -39,7 +39,9 @@ applying a delta to it raises.
 
 The producer (`observe`, `publish`, `read_rows`) and `apply_published`
 are single-process: at world size > 1 they raise (each rank holds only its
-own rows; the engine across ranks is ROADMAP Queue A13). Not ported: the
+own rows; the engine's consumer across ranks is ROADMAP Queue A13b; at
+world size 1 `serving.InferenceEngine` owns a store and consumes the
+stream through it). Not ported: the
 fault points and the lineage recorder of the JAX store (A15); the port
 reads no environment, so ``snapshot_every`` defaults to 0 and
 ``delta_dtype`` to "f32". Eager PyTorch has nothing to retrace, so the row
@@ -540,7 +542,7 @@ class TableStore:
             raise NotImplementedError(
                 "TableStore.apply_published at world size > 1 is the "
                 "engine across ranks, not ported yet (ROADMAP Queue A13 "
-                "(serving remainder))")
+                "(A13b: the stream's apply across ranks))")
         meta, arrays = ckpt.load_row_delta(path)
         if "crc" not in meta:
             self._metrics.counter("store/legacy_files_total").inc()

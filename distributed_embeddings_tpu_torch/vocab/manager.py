@@ -379,7 +379,12 @@ class VocabManager:
         table-parallel tables whose buckets are on the device and hold no
         hot rows (a hot shard's write-back and a rebind would fight over
         rows); the other tables pass through untranslated.
-      tables: optional subset of global table ids to manage.
+      tables: optional subset of global table ids to manage. Unlike the
+        JAX package's manager, an explicit subset may name tables of a
+        host-offloaded bucket, for the query-only role of a serving
+        replica (`translate`, `load_state`, `stats`; `serving.
+        InferenceEngine(vocab_manager=)`): `maintain`, which rewrites
+        rows, refuses them.
       admit_threshold: the recent decayed count at which an unknown key is
         bound (None: `default_admit_threshold`, 2).
       decay: the tracker's aging factor per observed batch (1.0: all-time
@@ -444,6 +449,7 @@ class VocabManager:
                 f"need 0 < low_watermark <= high_watermark <= 1, got "
                 f"{low_watermark}/{high_watermark}")
         self.emb = emb
+        self._query_only: List[int] = []
         self.on_miss = on_miss
         self.high_watermark = float(high_watermark)
         self.low_watermark = float(low_watermark)
@@ -459,7 +465,12 @@ class VocabManager:
             managed = eligible
         else:
             managed = [int(t) for t in tables]
-            bad = [t for t in managed if t not in eligible]
+            # an offloaded table is translated (query-only), never rebound
+            with_offloaded = self._eligible_tables(offloaded=True)
+            self._query_only = [t for t in managed if t in with_offloaded
+                                and t not in eligible]
+            bad = [t for t in managed if t not in eligible
+                   and t not in self._query_only]
             if bad:
                 raise ValueError(
                     f"tables {bad} are not manageable (must be "
@@ -524,18 +535,20 @@ class VocabManager:
             m.gauge("vocab/occupancy", table=gtid).set(mv.occupancy)
 
     # ---------------------------------------------------------- geometry
-    def _eligible_tables(self) -> List[int]:
-        """Manageable: table-parallel, not offloaded, and not in a hot
-        bucket. While a row is hot-resident the hot shard is authoritative
-        and the canonical row stale: eviction would stash the stale copy,
-        and the old tenant's hot row would overwrite a rebound row at the
-        next write-back. A table is managed by at most one of the two."""
+    def _eligible_tables(self, offloaded: bool = False) -> List[int]:
+        """Manageable: table-parallel, not offloaded (unless `offloaded`:
+        the query-only role), and not in a hot bucket. While a row is
+        hot-resident the hot shard is authoritative and the canonical row
+        stale: eviction would stash the stale copy, and the old tenant's
+        hot row would overwrite a rebound row at the next write-back. A
+        table is managed by at most one of the two."""
         out = []
         for t_local, gtid in enumerate(self.emb.strategy.table_groups[1]):
             pls = [pl for pl in self.emb.plan.tp_placements
                    if pl.table_id == t_local]
             if pls and not any(
-                    self.emb.plan.tp_buckets[pl.bucket].offload
+                    (self.emb.plan.tp_buckets[pl.bucket].offload
+                     and not offloaded)
                     or self.emb.plan.tp_buckets[pl.bucket].hot_rows > 0
                     for pl in pls):
                 out.append(gtid)
@@ -682,6 +695,12 @@ class VocabManager:
         if params is not None:
             raise ValueError("maintain(params=...): the port's layer holds "
                              "its own tables; pass None")
+        if self._query_only:
+            raise ValueError(
+                f"tables {self._query_only} live in host-offloaded buckets: "
+                "this manager translates them for serving (query-only) but "
+                "does not rebind their rows; maintain the vocabulary on a "
+                "layer that keeps them on the device")
         self.maintain_cycles += 1
         for gtid, mv in self.vocabs.items():
             cap_rows = int(self.high_watermark * (mv.capacity - 1))

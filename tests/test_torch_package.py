@@ -390,20 +390,24 @@ def test_world_size_without_a_process_group_raises():
     assert (layer.world_size, layer.rank) == (1, 0)
 
 
-def test_engine_features_outside_the_slice_raise():
+def test_engine_features_outside_the_slice_raise(tmp_path):
+    """The serving tier (A13) is ported at world size 1: the cache
+    arguments, the replica label and the stream's calls build and run (a
+    layer without offloaded buckets has no cache to build); a vocabulary
+    manager of another layer still refuses."""
     layer = DistributedEmbedding(_tiny_tables(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-        InferenceEngine(layer, device="cpu", cache_capacity=16)
-    # the vocabulary (A12) is ported: a manager of another layer refuses
+    eng = InferenceEngine(layer, device="cpu", cache_capacity=16)
+    assert eng.caches == {} and eng.cache_stats()["hit_rate"] == 0.0
     with pytest.raises(ValueError, match="different layer"):
         InferenceEngine(layer, device="cpu", vocab_manager=object())
-    eng = InferenceEngine(layer, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-        eng.poll_updates("somewhere")
+    assert eng.poll_updates(str(tmp_path / "somewhere")) == []
+    assert not eng.degraded_reasons() and eng.refresh() == 0
     for kwargs in (dict(promote_threshold=3), dict(replica="r1")):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue A13"):
-            InferenceEngine(layer, device="cpu", **kwargs)
+        e = InferenceEngine(layer, device="cpu", **kwargs)
+        out = e.predict([np.arange(4), np.arange(4)])
+        assert [tuple(o.shape) for o in out] == [(4, 8), (4, 8)]
+    assert e.replica == "r1"
+    assert e._metrics.counter("serve/predicts", replica="r1").value == 1
 
 
 # ------------------------------------------------ the JAX package's signatures
@@ -480,6 +484,69 @@ def test_port_takes_every_jax_parameter_at_its_default(name):
         call({param: value})
 
 
+SERVING_SIGNATURES = [
+    ("serving.cache", "HotRowCache", "__init__"),
+    ("serving.cache", "HotRowCache", "lookup_slots"),
+    ("serving.cache", "HotRowCache", "refresh_from"),
+    ("serving.cache", "HotRowCache", "apply_rows"),
+    ("serving.cache", "HotRowCache", "invalidate"),
+    ("serving.cache", "HotRowCache", "stats"),
+    ("serving.cache", None, "cached_group_lookup"),
+    ("serving.engine", "InferenceEngine", "predict"),
+    ("serving.engine", "InferenceEngine", "warmup"),
+    ("serving.engine", "InferenceEngine", "set_params"),
+    ("serving.engine", "InferenceEngine", "refresh"),
+    ("serving.engine", "InferenceEngine", "reanchor_published"),
+    ("serving.engine", "InferenceEngine", "apply_delta"),
+    ("serving.engine", "InferenceEngine", "poll_updates"),
+    ("serving.engine", "InferenceEngine", "degraded_reasons"),
+    ("serving.engine", "InferenceEngine", "update_stats"),
+    ("serving.engine", "InferenceEngine", "cache_stats"),
+    ("serving.batcher", "MicroBatcher", "__init__"),
+    ("serving.batcher", "MicroBatcher", "submit"),
+    ("serving.batcher", "MicroBatcher", "flush"),
+    ("serving.batcher", "MicroBatcher", "summary"),
+    ("fleet.ring", None, "stable_hash64"),
+    ("fleet.ring", "HashRing", "__init__"),
+    ("fleet.ring", "HashRing", "route"),
+    ("fleet.ring", "HashRing", "assignments"),
+    ("fleet.admission", "RouteResult", "__init__"),
+    ("fleet.admission", "AdmissionController", "__init__"),
+    ("fleet.admission", "AdmissionController", "shed_reason"),
+    ("fleet.rollout", "CanaryController", "__init__"),
+    ("fleet.rollout", "CanaryController", "advance"),
+    ("fleet.rollout", "CanaryController", "candidate"),
+    ("fleet.router", "FleetRouter", "__init__"),
+    ("fleet.router", "FleetRouter", "add_replica"),
+    ("fleet.router", "FleetRouter", "remove_replica"),
+    ("fleet.router", "FleetRouter", "submit"),
+    ("fleet.router", "FleetRouter", "flush"),
+    ("fleet.router", "FleetRouter", "step"),
+    ("fleet.router", "FleetRouter", "stats"),
+]
+
+
+@pytest.mark.parametrize("module,cls,name", SERVING_SIGNATURES,
+                         ids=[f"{c or m}.{n}"
+                              for m, c, n in SERVING_SIGNATURES])
+def test_serving_names_take_the_jax_parameters(module, cls, name):
+    """The serving tier's public names (the cache, the engine's stream
+    calls, the batcher, the fleet) take the JAX package's parameters, in
+    order, with its defaults."""
+    import importlib
+    import inspect
+    pytest.importorskip("jax")
+
+    def params(pkg):
+        mod = importlib.import_module(f"{pkg}.{module}")
+        fn = getattr(getattr(mod, cls), name) if cls else getattr(mod, name)
+        return [(n, p.default)
+                for n, p in inspect.signature(fn).parameters.items()
+                if n not in {"self"} | IDIOM]
+    assert params("distributed_embeddings_tpu_torch") == params(
+        "distributed_embeddings_tpu")
+
+
 @pytest.mark.parametrize("name", [
     "sync_hot_rows", "observe_hot_ids", "hot_keys_from_counts",
     "hot_resident_rows", "hot_stats", "make_taps", "init_sparse_state"])
@@ -517,10 +584,20 @@ def test_layer_methods_take_the_jax_parameters(name):
 def test_refused_values_name_their_roadmap_item(build, item):
     """What stays unported raises naming its ROADMAP item; A8 (host
     offload), ported since, builds: a DLRM with a device budget holds its
-    table past it in host memory and serves its logits."""
-    if item != "A8":
+    table past it in host memory and serves its logits; so does A13 (the
+    engine's promote_threshold), whose engine serves a DLRM's logits."""
+    if item not in ("A8", "A13"):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             build()
+        return
+    if item == "A13":
+        engine = build()
+        rng = np.random.RandomState(1)
+        logits = engine.predict((rng.rand(4, 3).astype(np.float32),
+                                 [rng.randint(0, 10, 4),
+                                  rng.randint(0, 20, 4)]))
+        assert tuple(logits.shape) == (4, 1)
+        assert bool(torch.isfinite(logits).all())
         return
     model = build()
     assert model.embedding.offloaded_buckets
@@ -623,7 +700,8 @@ def test_top_level_names_match_the_reference():
                  "broadcast_variables", "DistributedGradientTape",
                  "DistributedOptimizer", "BroadcastGlobalVariablesCallback",
                  "store", "TableStore", "DeltaConsumer", "vocab",
-                 "VocabManager", "__version__"]:
+                 "VocabManager", "serving", "InferenceEngine",
+                 "HotRowCache", "MicroBatcher", "__version__"]:
         assert hasattr(port, name) and name in port.__all__, name
     assert port.__version__ == jax_pkg.__version__ == "0.1.0"
     assert port.dist_model_parallel is dist_model_parallel

@@ -5,7 +5,11 @@ published), weights carried across from the JAX package, requests padded to
 the warmed shapes. Logits agree within rtol/atol 1e-5: the MLPs run through
 different CPU BLAS libraries. Both engines get ``example=`` in warmup: the
 JAX engine's default warmup block is one column wide for `SyntheticModel`
-(ROADMAP Queue C).
+(ROADMAP Queue C). The fleet's instruments: the batcher's ``replica=``
+labels (by default the engine's), `queued_rows` against the JAX batcher's,
+and the ``serve/cache_hit_rate`` gauge and `summary()`'s hit rate over a
+cached engine (tests/test_serving.py's offloaded tables) against the JAX
+batcher over the JAX cached engine.
 """
 
 import numpy as np
@@ -101,3 +105,78 @@ def test_engine_counts_rows_and_strips_checkpoints(engines):
     assert snap["serve/rows_served"] == pe.rows_served
     state = pe._model.state_dict()
     pe.set_params({"params": state, "opt_state": None})
+
+
+# ------------------------------------------------ the fleet's instruments
+def test_batcher_replica_labels_and_queued_rows(engines):
+    """Two replicas' batchers on one registry: ``replica=`` (by default
+    the engine's) keeps their families apart and leaves the unlabeled one
+    untouched; `queued_rows` counts the true rows queued, as the JAX
+    batcher does, and drops to 0 on flush."""
+    from distributed_embeddings_tpu_torch.obs.registry import MetricRegistry
+    je, pe, num, cats = engines
+    reg = MetricRegistry()
+    reps = {name: InferenceEngine(pe._model, device="cpu", registry=reg,
+                                  replica=name) for name in ("ra", "rb")}
+    for e in reps.values():
+        e.warmup(SIZES, example=(num, cats))
+    batchers = {n: MicroBatcher(e, registry=reg) for n, e in reps.items()}
+    assert batchers["ra"].replica == "ra"
+    jb = JaxBatcher(je)
+    spans = [(0, 3), (3, 8), (8, 10), (10, 17)]
+    for name, b in batchers.items():
+        for lo, hi in spans[:4 if name == "ra" else 1]:
+            req = (num[lo:hi], [c[lo:hi] for c in cats])
+            b.submit(req)
+            if name == "ra":
+                jb.submit(req)
+    assert batchers["ra"].queued_rows == jb.queued_rows == 17
+    assert batchers["ra"].queue_depth == 4
+    for b in batchers.values():
+        b.flush()
+    jb.flush()
+    assert batchers["ra"].queued_rows == 0 and batchers["ra"].queue_depth_max == 4
+    assert reg.histogram("serve/request_seconds", replica="ra").count == 4
+    assert reg.histogram("serve/request_seconds", replica="rb").count == 1
+    assert reg.counter("serve/requests", replica="ra").value == 4
+    assert reg.counter("serve/batches", replica="rb").value == 1
+    assert reg.counter("serve/predicts", replica="rb").value == 1
+    assert reg.histogram("serve/request_seconds").count == 0
+    assert reg.gauge("serve/cache_hit_rate", replica="ra").value == 0.0
+    assert batchers["ra"].summary()["hit_rate"] == jb.summary()["hit_rate"]
+
+
+def test_batcher_records_the_cache_hit_rate():
+    """Over a cached engine the flush sets ``serve/cache_hit_rate`` to the
+    engine's hit rate and `summary()` carries it, equal to the JAX
+    batcher's over the JAX cached engine on the same requests."""
+    from distributed_embeddings_tpu.serving import (
+        InferenceEngine as JaxCachedEngine)
+    from distributed_embeddings_tpu_torch.obs.registry import MetricRegistry
+    from test_serving import SPECS, _zipf
+    from test_torch_serving_cache import BATCH, _assert_bit_equal, _pair
+    layer, jl, params = _pair()
+    reg = MetricRegistry()
+    eng = InferenceEngine(layer, device="cpu", cache_capacity=256,
+                          promote_threshold=1, registry=reg, replica="c0")
+    jeng = JaxCachedEngine(jl, params, cache_capacity=256,
+                           promote_threshold=1)
+    eng.warmup([BATCH])
+    jeng.warmup([BATCH])
+    pb, jb = MicroBatcher(eng, max_batch=BATCH, registry=reg), JaxBatcher(
+        jeng, max_batch=BATCH)
+    rng = np.random.RandomState(5)
+    for _ in range(3):
+        handles = []
+        for n in (3, 5, 2, 7, 4):
+            req = [_zipf(rng, v, n) for v, _, _ in SPECS]
+            handles.append((pb.submit(req), jb.submit(req)))
+        pres, jres = pb.flush(), jb.flush()
+        for hp, hj in handles:
+            _assert_bit_equal(pres[hp], jres[hj], "batched request")
+    hits, misses = eng.cache_stats()["hits"], eng.cache_stats()["misses"]
+    assert hits > 0
+    assert reg.gauge("serve/cache_hit_rate", replica="c0").value == \
+        hits / (hits + misses)
+    assert pb.summary()["hit_rate"] == jb.summary()["hit_rate"]
+    assert pb.batches == jb.batches == 6
