@@ -473,6 +473,38 @@ Phases, each printing JSON lines before the last line:
      each cache's hit rate, promotions and slots patched from deltas, the
      pinned bytes, the largest ulp gap to the publisher, the fleet's
      seconds.
+  17. (inside 16, on its stream) stream_world (`stream_world_phase`, A13b):
+     the serving tier at W = 2, two ranks sharing the card over gloo
+     (`stream_world_rank`). Each builds full-size Tiny at W = 2 with
+     phase 16's ``vocab_slack`` and ``gpu_embedding_size=fleet_budget``
+     (its 35.2M-row width-16 bucket share, 2.25 GB, pinned on the host)
+     under a 262,144-row `HotRowCache` (16b's), and consumes phase 16's
+     publish directory with ``poll_updates(upto=v)`` for each published
+     version v in turn (the snapshot, then every delta). At every version:
+     each table's digest (`placement_digests`, the rank's own rows,
+     reduced on the card) equal to the world-1 publisher's at that version
+     (`ConsumerHold` records them), then STREAM_WORLD_REQUESTS new
+     requests of STREAM_WORLD_ROWS rows of physical power-law ids, each
+     rank's cached
+     output `torch.equal` to an uncached engine's over the same layer, and
+     both ranks' cache stats and slot keys equal. Printed: the hit rate,
+     promotions, evictions, serve ms cached and uncached, the snapshot's
+     and the deltas' apply seconds, the launches (2 a forward: the
+     width-8 bucket's two groups) and the phase's seconds.
+  18. (after 16) lookahead (`lookahead_phase`, A14): full-size Tiny V3,
+     adagrad at 0.01, batches of 65,536 (phase 5's ids), LOOKAHEAD_STEPS
+     steps through `LookaheadEngine(lookahead=0)` and the same steps from
+     the same initial weights through ``lookahead=1`` (``patch_capacity``
+     the batch: every stale sample patched), both under
+     `deterministic_sums`: every loss equal and every bucket's and
+     accumulator's digest (on the card) equal step by step; then
+     LOOKAHEAD_TIMED steps each way timed outside `deterministic_sums`
+     and one profiled step each way (idle share); then ``stale_ok=True``
+     on a fresh model (finite losses). Printed: step ms both ways, the
+     profiles, the patched samples and fallback recomputes a step, the
+     launches a step both ways, and the host ms of the engine's two host
+     walks (`touched_row_keys` of one batch, `prefetch_stale_mask` of the
+     next against it) with the stale share they give.
   7. the kernels line (each kernel's launches by path, the world paths'
      summed over the ranks; `sgd_rows` with ``copy_ms``, an
      `index_select` + `index_copy_` of the same rows, as a second
@@ -3851,18 +3883,20 @@ def write_split_binary(root, split, batches, sizes):
             os.path.join(base, f"cat_{i}.bin"))
 
 
-def table_digest(torch, t):
+def table_digest(torch, t, device=None):
     """An exact fingerprint of a float32 table: the wrapping int64 sum of
     its bit patterns times odd weights that differ by position (row
-    chunks of 2^24 elements); any one element's change moves it."""
+    chunks of 2^24 elements); any one element's change moves it. With
+    `device`, each chunk of a host table is reduced there."""
     rows, width = t.shape
+    dev = t.device if device is None else device
     chunk = max(1, (1 << 24) // width)
-    col = torch.arange(width, device=t.device, dtype=torch.int64) * 2 + 1
-    total = torch.zeros((), dtype=torch.int64, device=t.device)
+    col = torch.arange(width, device=dev, dtype=torch.int64) * 2 + 1
+    total = torch.zeros((), dtype=torch.int64, device=dev)
     for r0 in range(0, rows, chunk):
         r1 = min(rows, r0 + chunk)
-        bits = t[r0:r1].detach().view(torch.int32).to(torch.int64)
-        weight = (torch.arange(r0, r1, device=t.device,
+        bits = t[r0:r1].detach().to(dev).view(torch.int32).to(torch.int64)
+        weight = (torch.arange(r0, r1, device=dev,
                                dtype=torch.int64)[:, None] * (2 * width)
                   + col)
         total += (bits * weight).sum()
@@ -7925,6 +7959,8 @@ class ConsumerHold:
     def __init__(self, torch, store, cons):
         self.torch, self.store, self.cons = torch, store, cons
         self.stamps, self.versions = [], []
+        # the publisher's table digests at each consumed version (phase 17)
+        self.digests = {}
 
     def hold(self):
         torch = self.torch
@@ -7943,6 +7979,8 @@ class ConsumerHold:
                   f"publisher at {self.store.version}")
             self.hold()
             self.versions.append(self.cons.store.version)
+            self.digests[self.store.version] = placement_digests(
+                self.torch, self.store.emb)
 
     def on_step(self, step, model, loss):
         self.torch.cuda.synchronize()
@@ -8229,7 +8267,7 @@ def store_vocab_model(torch, tiny, seed):
                           .manual_seed(seed))
 
 
-def store_vocab_phase(torch, cuda_lookup, counted) -> dict:
+def store_vocab_phase(torch, cuda_lookup, counted, consume=None) -> dict:
     """16: the table store and the dynamic vocabulary (ROADMAP A12) at full
     width. Full-size Tiny V3 built with ``vocab_slack=STORE_VOCAB_SLACK``
     (450,560 more rows), adagrad at TRAIN_LR, batches of BATCH rows of
@@ -8257,6 +8295,8 @@ def store_vocab_phase(torch, cuda_lookup, counted) -> dict:
     apply's seconds; restore seconds, the version lag; admissions,
     evictions, occupancy and fallback hit rate by table; peak memory, the
     temp directory's free space before the phase and the bytes written.
+    Then ``consume(publish_dir, versions, digests)`` (phase 17), whose
+    launch counts by path join the phase's, before the directory goes.
     Returns the launch counts."""
     from distributed_embeddings_tpu_torch.models.synthetic import (
         SYNTHETIC_MODELS)
@@ -8433,6 +8473,7 @@ def store_vocab_phase(torch, cuda_lookup, counted) -> dict:
               f"v{store.version}")
         hold.hold()
         peak = torch.cuda.max_memory_allocated()
+        versions, digests = hold.versions, hold.digests
         del consumer, cstore, cons, rstore, mgr_c, hold
         gc.collect()
         torch.cuda.empty_cache()
@@ -8471,9 +8512,347 @@ def store_vocab_phase(torch, cuda_lookup, counted) -> dict:
         del serial, s_state, model, state, layer, store, mgr, batches
         gc.collect()
         torch.cuda.empty_cache()
-        return {"store_vocab": counts, "store_fleet": fleet_counts}
+        out = {"store_vocab": counts, "store_fleet": fleet_counts}
+        if consume is not None:
+            out.update(consume(pub_dir, versions, digests))
+        return out
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---- 17. the serving tier across ranks (A13b) on phase 16's stream
+STREAM_WORLD = 2
+STREAM_WORLD_REQUESTS = 2          # a version: cached, then uncached
+STREAM_WORLD_ROWS = 4096           # 16b's request
+STREAM_WORLD_SEED = 5              # the layer's initial tables (overwritten)
+STREAM_WORLD_REQUEST_SEED = 9      # the requests' power-law ids
+
+
+def placement_digests(torch, layer) -> dict:
+    """`table_digest` of each table slice this rank holds, by (global
+    table id, first column): a host bucket's rows reduced on the card,
+    so a layer at any world size and any plan compares table by table
+    with another's."""
+    out = {}
+    for pl in layer.plan.tp_placements:
+        if pl.rank != layer.rank:
+            continue
+        gtid = layer.strategy.table_groups[1][pl.table_id]
+        part = layer.tp[pl.bucket][pl.row_offset:pl.row_offset + pl.rows,
+                                   pl.col_start:pl.col_end]
+        out[(gtid, pl.col_start)] = table_digest(torch, part,
+                                                 device=torch.device("cuda"))
+    return out
+
+
+def stream_world_rank(rank, world, backend, init_method, out_dir):
+    """One rank of phase 17 (see the module docstring): the spec (the
+    publish directory, its versions, the requests) from
+    ``out_dir/spec.pt``; the results to ``out_dir/rank<r>.pt``."""
+    import hashlib
+
+    import torch
+    check("jax" not in sys.modules, f"rank {rank} imported jax")
+    import torch.distributed as dist
+    from distributed_embeddings_tpu_torch.models.synthetic import (
+        SYNTHETIC_MODELS, SyntheticModel)
+    from distributed_embeddings_tpu_torch.ops import (cuda_lookup,
+                                                      cuda_sparse,
+                                                      cuda_tiled)
+    from distributed_embeddings_tpu_torch.parallel.mesh import (
+        initialize_distributed)
+    from distributed_embeddings_tpu_torch.serving.engine import (
+        InferenceEngine)
+    from distributed_embeddings_tpu_torch.tools import cuda_feature_probe
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // (world + 1)))
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    initialize_distributed(backend, init_method, world, rank)
+    counted = (cuda_sparse, cuda_tiled, cuda_feature_probe)
+    try:
+        spec = torch.load(os.path.join(out_dir, "spec.pt"),
+                          weights_only=False)
+        tiny = SYNTHETIC_MODELS["tiny"]
+        t0 = time.perf_counter()
+        layer = SyntheticModel(
+            tiny, device=dev, vocab_slack=STORE_VOCAB_SLACK,
+            gpu_embedding_size=fleet_budget(tiny),
+            generator=torch.Generator(device=dev).manual_seed(
+                STREAM_WORLD_SEED)).embedding
+        engine = InferenceEngine(layer, device=dev,
+                                 cache_capacity=STORE_FLEET_CACHE_ROWS)
+        plain = InferenceEngine(layer, device=dev)
+        for eng in (engine, plain):
+            eng.warmup([STREAM_WORLD_ROWS], example=spec["requests"][0])
+        torch.cuda.synchronize()
+        out = {"build_s": time.perf_counter() - t0,
+               "offloaded": layer.offloaded_buckets,
+               "buckets": [(list(t.shape), t.device.type)
+                           for t in layer.tp],
+               "pinned_bytes": layer.pinned_host_bytes(), "versions": []}
+        # the main path: counts to 0, drive, read
+        set_counts(cuda_lookup, *counted)
+        per = len(spec["requests"]) // len(spec["versions"])
+        for n, v in enumerate(spec["versions"]):
+            t1 = time.perf_counter()
+            infos = engine.poll_updates(spec["pub_dir"], upto=v)
+            torch.cuda.synchronize()
+            apply_s = time.perf_counter() - t1
+            row = {"version": v, "apply_s": apply_s,
+                   "infos": [(i["kind"], i["version"]) for i in infos],
+                   "store_version": engine.store.version,
+                   "degraded": sorted(engine.degraded_reasons()),
+                   "poll_error": engine.last_poll_error,
+                   "digests": placement_digests(torch, layer),
+                   "cached_ms": [], "plain_ms": [], "equal": []}
+            for req in spec["requests"][n * per:(n + 1) * per]:
+                t1 = time.perf_counter()
+                got = engine.predict(req)
+                torch.cuda.synchronize()
+                row["cached_ms"].append((time.perf_counter() - t1) * 1e3)
+                t1 = time.perf_counter()
+                want = plain.predict(req)
+                torch.cuda.synchronize()
+                row["plain_ms"].append((time.perf_counter() - t1) * 1e3)
+                row["equal"].append(all(torch.equal(a, b)
+                                        for a, b in zip(got, want)))
+            row["cache"] = engine.cache_stats()
+            row["slot_keys"] = {
+                b: hashlib.sha256(c._slot_keys.tobytes()).hexdigest()
+                for b, c in engine.caches.items()}
+            out["versions"].append(row)
+        out["counts"] = read_counts(cuda_lookup, *counted)
+        out["forwards"] = 2 * len(spec["requests"])
+        out["update_stats"] = engine.update_stats(spec["pub_dir"])
+        check("jax" not in sys.modules, f"rank {rank} imported jax")
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def stream_world_phase(torch, pub_dir, versions, digests) -> dict:
+    """Phase 17 (see the module docstring), on phase 16's publish
+    directory: `stream_world_rank` on STREAM_WORLD ranks, held against
+    the publisher's digests at each of its `versions`. Returns the launch
+    counts by path (summed over the ranks)."""
+    from distributed_embeddings_tpu_torch.models.synthetic import (
+        SYNTHETIC_MODELS, InputGenerator)
+    t_phase = time.perf_counter()
+    tiny = SYNTHETIC_MODELS["tiny"]
+    backend = ("nccl" if torch.cuda.device_count() >= STREAM_WORLD
+               else "gloo")
+    requests = [[c.numpy() for c in cats] for _, cats, _ in InputGenerator(
+        tiny, STREAM_WORLD_ROWS, alpha=1.05,
+        num_batches=STREAM_WORLD_REQUESTS * len(versions),
+        seed=STREAM_WORLD_REQUEST_SEED)]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_stream")
+    try:
+        torch.save({"pub_dir": pub_dir, "versions": list(versions),
+                    "requests": requests}, os.path.join(tmp, "spec.pt"))
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(torch, stream_world_rank, STREAM_WORLD, backend,
+                            tmp, "world2_stream")
+        ranks_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r, res in enumerate(ranks):
+        check(len(res["offloaded"]) == 1 and res["buckets"][
+            res["offloaded"][0]][1] == "cpu",
+            f"stream_world: rank {r} offloads {res['offloaded']} of "
+            f"{res['buckets']}")
+    first = versions[0]
+    for i, v in enumerate(versions):
+        rows = [res["versions"][i] for res in ranks]
+        want = [("snapshot" if v == first else "delta", v)]
+        for r, row in enumerate(rows):
+            check(row["infos"] == want and row["store_version"] == v
+                  and not row["degraded"] and row["poll_error"] is None,
+                  f"stream_world: rank {r} at version {v}: applied "
+                  f"{row['infos']}, store {row['store_version']}, degraded "
+                  f"{row['degraded']}, {row['poll_error']}")
+            check(all(row["equal"]), f"stream_world: rank {r} at version "
+                  f"{v}: cached outputs differ from the uncached engine's")
+        check(rows[0]["cache"] == rows[1]["cache"]
+              and rows[0]["slot_keys"] == rows[1]["slot_keys"],
+              f"stream_world: the ranks' caches differ at version {v}: "
+              f"{rows[0]['cache']} / {rows[1]['cache']}")
+        held = {}
+        for row in rows:
+            check(not set(held) & set(row["digests"]),
+                  f"stream_world: two ranks hold a table at version {v}")
+            held.update(row["digests"])
+        check(held == digests[v], f"stream_world: table digests at version "
+              f"{v} differ from the publisher's: "
+              f"{sorted(k for k in digests[v] if held.get(k) != digests[v][k])}")
+    counts = {}
+    for res in ranks:
+        for k, c in res["counts"].items():
+            counts[k] = counts.get(k, 0) + c
+    forwards = sum(res["forwards"] for res in ranks)
+    check(counts["lookup_combine"] == 2 * forwards
+          and sum(counts.values()) == counts["lookup_combine"],
+          f"stream_world launches {counts} over {forwards} rank forwards, "
+          "want lookup_combine 2 a forward (the width-8 bucket's groups)")
+    check(ranks[0]["update_stats"] == ranks[1]["update_stats"],
+          "stream_world: the ranks' update_stats differ")
+    last = ranks[0]["versions"][-1]["cache"]["buckets"]
+    applies = ranks[0]["versions"]
+    emit(phase="main_path", path="world2_stream", world=STREAM_WORLD,
+         backend=backend, versions=list(versions),
+         rows=STREAM_WORLD_ROWS, requests_a_version=STREAM_WORLD_REQUESTS,
+         launches=counts, forwards=forwards,
+         hit_rate=[res["versions"][-1]["cache"]["hit_rate"]
+                   for res in ranks],
+         hit_rate_by_version=[row["cache"]["hit_rate"] for row in applies],
+         promotions=[b["promotions"] for b in last.values()],
+         evictions=[b["evictions"] for b in last.values()],
+         cached_ms=[ms for row in applies for ms in row["cached_ms"]],
+         uncached_ms=[ms for row in applies for ms in row["plain_ms"]],
+         cached_median_ms=statistics.median(
+             ms for row in applies for ms in row["cached_ms"]),
+         uncached_median_ms=statistics.median(
+             ms for row in applies for ms in row["plain_ms"]),
+         snapshot_apply_s=[res["versions"][0]["apply_s"] for res in ranks],
+         delta_apply_s=[[row["apply_s"] for row in res["versions"][1:]]
+                        for res in ranks],
+         build_s=[res["build_s"] for res in ranks],
+         pinned_bytes=[res["pinned_bytes"] for res in ranks],
+         update_stats=ranks[0]["update_stats"], ranks_s=ranks_s,
+         seconds=time.perf_counter() - t_phase, ok=True)
+    return {"world2_stream": counts}
+
+
+# ---- 18. lookahead training (A14) at world 1
+LOOKAHEAD_STEPS = 6          # held steps a depth
+LOOKAHEAD_TIMED = 4          # then timed, outside `deterministic_sums`
+LOOKAHEAD_SEED = 0
+
+
+def lookahead_digests(torch, model, state) -> list:
+    """Each bucket's and each accumulator's `table_digest`, on the card."""
+    return ([table_digest(torch, t) for t in model.embedding.tp]
+            + [table_digest(torch, s[0]) for s in state["emb"]["tp"]])
+
+
+def lookahead_run(torch, cuda_lookup, counted, batches, label, **kw):
+    """LOOKAHEAD_STEPS synchronized steps of a fresh full Tiny through a
+    `LookaheadEngine` (`kw`) under `deterministic_sums`, counts to 0
+    first; then LOOKAHEAD_TIMED more, timed, outside it (its deterministic
+    `index_add_` takes ~170 ms of a step); then two under the profiler
+    (`profile_step`). Returns (losses, digests after each held step, the
+    timed steps' ms, the held steps' launches, the engine stats after the
+    timed steps, and for a patching run the host ms of the engine's two
+    host walks on the first two batches and the stale share they give,
+    else None)."""
+    from distributed_embeddings_tpu_torch.models.synthetic import (
+        SYNTHETIC_MODELS, SyntheticModel)
+    from distributed_embeddings_tpu_torch.schedule import LookaheadEngine
+    model = SyntheticModel(SYNTHETIC_MODELS["tiny"], device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(LOOKAHEAD_SEED))
+    eng = LookaheadEngine(model, "adagrad", lr=TRAIN_LR, **kw)
+    eng.init()
+    torch.cuda.synchronize()
+    losses, digests, times = [], [], []
+    set_counts(cuda_lookup, *counted)
+    with deterministic_sums(torch):
+        for i in range(LOOKAHEAD_STEPS):
+            loss = eng.step(batches[i], batches[i + 1])
+            losses.append(float(loss))
+            digests.append(lookahead_digests(torch, model, eng.opt_state))
+    counts = read_counts(cuda_lookup, *counted)
+    for i in range(LOOKAHEAD_STEPS, LOOKAHEAD_STEPS + LOOKAHEAD_TIMED):
+        t0 = time.perf_counter()
+        eng.step(batches[i], batches[i + 1])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    stats = dict(eng.stats)
+    at = {"i": LOOKAHEAD_STEPS + LOOKAHEAD_TIMED}
+
+    def step_once():
+        i = at["i"]
+        eng.step(batches[i], batches[i + 1])
+        at["i"] += 1
+    profile_step(torch, step_once, label)
+    host_ms = None
+    if kw.get("lookahead") and not kw.get("stale_ok"):
+        emb = model.embedding
+        ids = [[c.numpy() for c in batches[i][1]] for i in (0, 1)]
+        t0 = time.perf_counter()
+        touched = emb.touched_row_keys(ids[0])
+        t1 = time.perf_counter()
+        stale = emb.prefetch_stale_mask(ids[1], touched)
+        t2 = time.perf_counter()
+        host_ms = {"touched_row_keys": (t1 - t0) * 1e3,
+                   "prefetch_stale_mask": (t2 - t1) * 1e3,
+                   "stale_share": float(stale.mean())}
+    return losses, digests, times, counts, stats, host_ms
+
+
+def lookahead_phase(torch, cuda_lookup, counted) -> dict:
+    """Phase 18 (see the module docstring). Returns the launch counts by
+    path."""
+    from distributed_embeddings_tpu_torch.models.synthetic import (
+        SYNTHETIC_MODELS, InputGenerator)
+    t_phase = time.perf_counter()
+    batches = list(InputGenerator(
+        SYNTHETIC_MODELS["tiny"], BATCH, alpha=1.05,
+        num_batches=LOOKAHEAD_STEPS + LOOKAHEAD_TIMED + 3, seed=0))
+    runs = {}
+    for label, kw in (("lookahead0", dict(lookahead=0)),
+                      ("lookahead1", dict(lookahead=1,
+                                          patch_capacity=BATCH))):
+        runs[label] = lookahead_run(torch, cuda_lookup, counted, batches,
+                                    label, **kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+    (l0, d0, t0_ms, c0, _, _), (l1, d1, t1_ms, c1, st, host_ms) = (
+        runs["lookahead0"], runs["lookahead1"])
+    check(l0 == l1, f"lookahead: losses {l1} differ from depth 0's {l0}")
+    for i, (a, b) in enumerate(zip(d0, d1)):
+        check(a == b, f"lookahead: step {i}: the tables or accumulators "
+              "differ from depth 0's")
+    check(all(map(math.isfinite, l1)), f"non-finite losses {l1}")
+    want0 = {"lookup_combine": 4, "segment_sum_sorted": 1,
+             "adagrad_rows": 1}
+    check(c0 == per_step(want0, LOOKAHEAD_STEPS),
+          f"lookahead0 launches {c0}, want {want0} a step")
+    check(c1["segment_sum_sorted"] == LOOKAHEAD_STEPS
+          and c1["adagrad_rows"] == LOOKAHEAD_STEPS
+          and c1["lookup_combine"] >= 4 * LOOKAHEAD_STEPS
+          and sum(c1.values()) == c1["lookup_combine"]
+          + 2 * LOOKAHEAD_STEPS,
+          f"lookahead1 launches {c1}")
+    # the stale run: a fresh model, no patch
+    ls, _, ts_ms, cs, sts, _ = lookahead_run(
+        torch, cuda_lookup, counted, batches, "lookahead1_stale_ok",
+        lookahead=1, stale_ok=True)
+    check(all(map(math.isfinite, ls)) and sts["patched_steps"] == 0,
+          f"lookahead stale_ok: losses {ls}, stats {sts}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(phase="main_path", path="lookahead", steps=LOOKAHEAD_STEPS,
+         timed_steps=LOOKAHEAD_TIMED, batch=BATCH, losses=l1,
+         bit_equal=True,
+         step_ms={"lookahead0": t0_ms, "lookahead1": t1_ms,
+                  "stale_ok": ts_ms},
+         step_median_ms={"lookahead0": statistics.median(t0_ms),
+                         "lookahead1": statistics.median(t1_ms),
+                         "stale_ok": statistics.median(ts_ms)},
+         launches={"lookahead0": c0, "lookahead1": c1, "stale_ok": cs},
+         launches_a_step={k: {n: c / LOOKAHEAD_STEPS for n, c in v.items()
+                              if c}
+                          for k, v in (("lookahead0", c0),
+                                       ("lookahead1", c1),
+                                       ("stale_ok", cs))},
+         patched_samples_a_step=st["patched_samples"] / (
+             LOOKAHEAD_STEPS + LOOKAHEAD_TIMED),
+         patched_steps=st["patched_steps"],
+         fallback_recomputes=st["cold_fills"] + st["patch_overflows"],
+         host_ms=host_ms, stats=st, stale_ok_losses=ls, stale_ok_stats=sts,
+         stale_ok_max_loss_gap=max(abs(a - b) for a, b in zip(ls, l0)),
+         seconds=time.perf_counter() - t_phase, ok=True)
+    return {"lookahead0": c0, "lookahead1": c1, "lookahead1_stale_ok": cs}
 
 
 def start_native_build(loader) -> dict:
@@ -9130,8 +9509,19 @@ def main() -> int:
     # publishes row deltas a second Tiny on the card consumes bit for bit;
     # the engine over raw keys, the restore, the serial control; counts to
     # 0, drive, read
-    store_counts = store_vocab_phase(torch, cuda_lookup, counted)
+    # ---- 17. the serving tier across ranks: 2 ranks consume phase 16's
+    # stream into full Tiny, cached over its offloaded bucket, held at
+    # every version against the publisher's tables and the uncached engine
+    store_counts = store_vocab_phase(
+        torch, cuda_lookup, counted,
+        consume=lambda pub_dir, versions, digests: stream_world_phase(
+            torch, pub_dir, versions, digests))
     emit(phase="native", **native_lib, calls_by_path=NATIVE_CALLS)
+
+    # ---- 18. lookahead training at world 1: full Tiny through the
+    # pipeline at depth 1 bit-equal to depth 0, profiled both ways, and
+    # stale_ok; counts to 0, drive, read in each run
+    lookahead_counts = lookahead_phase(torch, cuda_lookup, counted)
 
     # ---- 7. result lines; the kernels of DLRM's step carry their times
     # at its shapes too (`at_dlrm_fit`), and at a row shard's of the
@@ -9169,7 +9559,7 @@ def main() -> int:
              **{f"train_tiled_{k}": c for k, c in tiled_counts.items()},
              **dense_counts, **dlrm_counts, **world_counts, **amp_counts,
              **quant_counts, **wire_counts, **offload_counts,
-             **vocab_counts, **store_counts}
+             **vocab_counts, **store_counts, **lookahead_counts}
 
     def by_path(kname):
         return {p: c[kname] for p, c in paths.items() if c[kname]}

@@ -470,6 +470,9 @@ class DistributedEmbedding(nn.Module):
         # the serving seam (`offload_lookup_scope`): consulted for the
         # offloaded groups of a forward without taps
         self._offload_lookup_override = None
+        # the lookahead seam (`staged_exchange_scope`): the carried group
+        # blocks and row partials a forward consumes in place of lookups
+        self._staged_exchange = None
         self.dp = nn.ParameterList([
             nn.Parameter(torch.empty((cfg["input_dim"], cfg["output_dim"]),
                                      dtype=torch.float32, device=self.device))
@@ -1738,6 +1741,8 @@ class DistributedEmbedding(nn.Module):
         `residual_sort_scope` they carry the groups' sorts."""
         if not self.dp_input:
             return self.forward_mp(inputs, taps, return_residuals)
+        if self._staged_exchange is not None:
+            return self._forward_staged(inputs, taps, return_residuals)
         if taps is not None:
             for part in taps.values():
                 part.clear()
@@ -1919,6 +1924,195 @@ class DistributedEmbedding(nn.Module):
             tp_final.append(self._restore_shape(out, p, cfg.get("combiner"),
                                                 out.shape[-1]))
         return tp_final
+
+    # ------------------------------------------------ lookahead staging
+    def _lookahead_world(self, what: str) -> None:
+        if self.world_size > 1:
+            raise NotImplementedError(
+                f"{what} is single-process: the ranks are processes, whose "
+                "patch bookkeeping this port does not coordinate (the JAX "
+                "package refuses lookahead under multi-process runs too); "
+                "lookahead across ranks waits for NCCL (ROADMAP Queue A3)")
+
+    @contextlib.contextmanager
+    def staged_exchange_scope(self, ex_list, row_outs=()):
+        """Scope forwards over prefetched exchange artifacts (JAX
+        `staged_exchange_scope` :2457): inside it the data-parallel
+        `forward` skips the id exchange and the table lookups and consumes
+        `ex_list`, per exchange group the carried block ``[world, B_l,
+        f_max, w_out]`` (the tap leaves of an earlier tapped forward, the
+        mp side), and `row_outs`, the row-sliced inputs' carried partials
+        ``[B, (k,) w]``, each through its activation exchange (the identity
+        at world size 1); only the dp lookups and the output assembly run
+        live. The forward is tapless: differentiating it in the carried
+        blocks gives their gradients, which are the tap gradients
+        (`exchange_transpose`). The lookahead pipeline's dense stage
+        (`schedule.LookaheadEngine`). Re-entrant, not thread-safe."""
+        prev = self._staged_exchange
+        self._staged_exchange = (list(ex_list), list(row_outs))
+        try:
+            yield self
+        finally:
+            self._staged_exchange = prev
+
+    def _forward_staged(self, inputs, taps, return_residuals):
+        """`forward` under `staged_exchange_scope` (JAX `_apply_staged`):
+        the dp lookups live, the carried blocks in place of the tp
+        groups' and the row tables' lookups, the same assembly."""
+        if taps is not None or return_residuals:
+            raise ValueError(
+                "staged_exchange_scope forwards are tapless by design: the "
+                "tables' gradients reach the sparse update through the "
+                "engine's drain-stage transpose, not taps")
+        if self._hot_buckets:
+            raise NotImplementedError(
+                "staged_exchange_scope does not support hot-row replicated "
+                "buckets (the replicated hot shard updates densely every "
+                "step, so prefetched activations cannot be patched from "
+                "the touched-row set)")
+        if self._dp_custom_layers:
+            raise NotImplementedError(
+                "staged_exchange_scope does not support custom embedding "
+                "layer classes on dp tables")
+        prepped = self._prepare_inputs(inputs)
+        strat = self.strategy
+        batch = prepped[0].ids.shape[0]
+        dp_prep = [prepped[i] for i in strat.input_groups[0]]
+        tp_prep = [prepped[i] for i in strat.input_groups[1]]
+        row_prep = [prepped[i] for i in strat.input_groups[2]]
+        groups, assembly = (self._exchange_groups(tp_prep) if tp_prep
+                            else ([], []))
+        ex_list, row_outs = self._staged_exchange
+        if len(ex_list) != len(groups) or len(row_outs) != len(row_prep):
+            raise ValueError(
+                f"staged exchange artifacts do not match this batch's "
+                f"plan: got {len(ex_list)} group blocks / {len(row_outs)} "
+                f"row partials, expected {len(groups)} / {len(row_prep)}")
+        ex_list = [self._tp_bucket_exchange(
+            ex, self.plan.tp_buckets[grp.bucket].wire_dtype)
+            for ex, grp in zip(ex_list, groups)]
+        outputs = (self._dp_forward(dp_prep)
+                   + self._assemble_tp_outputs(ex_list, tp_prep, batch,
+                                               groups, assembly))
+        for j, (out, p) in enumerate(zip(row_outs, row_prep)):
+            rt = self.plan.row_tables[strat.map_groups[2][j]]
+            if self.world_size > 1:
+                out = wire.wire_psum_scatter(out, rt.wire_dtype)
+            outputs.append(self._restore_shape(out, p, rt.combiner,
+                                               rt.width))
+        return [outputs[idx] for idx in strat.rev_group_ids]
+
+    def exchange_transpose(self, g_ex, g_row, key) -> dict:
+        """The drain stage's tap gradients (JAX `exchange_transpose`
+        :2540) from the gradients of the carried blocks and partials, in
+        the order `sparse_update` takes them: ``{"tp": [per exchange group
+        ...], "row": [per row-sliced input ...]}``. The carried blocks are
+        the tap leaves themselves (the mp side), and the staged forward
+        ran their activation exchange, so autograd's backward has already
+        moved their gradients back: the transpose is a check of the
+        layout of `key`'s groups and a relabel."""
+        groups, _ = self._exchange_groups_for_key(key)
+        if len(g_ex) != len(groups) \
+                or len(g_row) != len(self.strategy.input_groups[2]):
+            raise ValueError(
+                f"got {len(g_ex)} group / {len(g_row)} row cotangents, the "
+                f"plan has {len(groups)} exchange groups / "
+                f"{len(self.strategy.input_groups[2])} row inputs")
+        return {"tp": list(g_ex), "row": list(g_row)}
+
+    @torch.no_grad()
+    def patch_staged_carry(self, ex_list, residuals: TapResiduals,
+                           patch_idx) -> list:
+        """Overwrite the carried blocks of the samples `patch_idx` (a [P]
+        index array into the batch) with their lookups against the
+        current tables (JAX `patch_staged_carry` :2598, which scatters a
+        re-exchanged sub-batch): per exchange group, the samples' ids and
+        effective weights from the prefetch's `residuals` (the same ids
+        and weights that lookup read) through the group's lookup
+        (`lookup_combine` on the card), scaled as `_tp_group_out` scales,
+        written in place. A lookup's row depends on that row's ids alone,
+        so a patched sample equals its row of a fresh prefetch bit for bit.
+        World size 1 (`LookaheadEngine` refuses more). Returns
+        `ex_list`."""
+        self._lookahead_world("patch_staged_carry")
+        idx = torch.as_tensor(np.asarray(patch_idx, np.int64),
+                              device=self.device)
+        if not idx.numel():
+            return ex_list
+        groups, _ = self._exchange_groups_for_key(residuals.key)
+        for g, grp in enumerate(groups):
+            bucket = self.plan.tp_buckets[grp.bucket]
+            ids = residuals.tp_ids[g][0].index_select(0, idx)
+            w = residuals.tp_w[g]
+            if w is not None:
+                w = w[0].index_select(0, idx)
+            scale = (_effective_weights(None, grp.k, bucket.combiner)[1]
+                     if w is None else 1.0)
+            out = self._group_lookup(
+                self.tp[grp.bucket], ids, w,
+                None if bucket.combiner is None else "sum")
+            ex_list[g].index_copy_(1, idx, _scaled(out, scale)[None])
+        return ex_list
+
+    def prefetch_stale_mask(self, inputs, touched) -> np.ndarray:
+        """Which samples of a prefetched batch read a row that the
+        previous batch's sparse update wrote (JAX `prefetch_stale_mask`
+        :2641): a host [B] bool mask from the batch's ids (numpy or
+        tensors) and that batch's `touched_row_keys`, by the same key walk
+        (a tp id's flat key ``rank * rows_max + row_offset + id``, a
+        row-sliced id its global row; ids past their table or negative
+        are dropped by the update and never match), kept per sample.
+        Dense ids and (ids, weights) tuples only."""
+        if len(inputs) != self._n_inputs:
+            raise ValueError(
+                f"Expected {self._n_inputs} inputs, got {len(inputs)}")
+
+        def host_2d(x):
+            base = x[0] if isinstance(x, tuple) and len(x) == 2 \
+                and not isinstance(x, RaggedIds) else x
+            if isinstance(base, (RaggedIds, SparseIds)):
+                raise NotImplementedError(
+                    "prefetch_stale_mask supports dense id inputs only")
+            ids = self._host_flat_ids(x)
+            return ids.reshape(len(base), -1)
+
+        def member(keys, t):
+            pos = np.minimum(np.searchsorted(t, keys), len(t) - 1)
+            return t[pos] == keys
+
+        seg_rows = {(pl.bucket, pl.rank, pl.row_offset): pl.rows
+                    for pl in self.plan.tp_placements}
+        mask = None
+        for pos, i in enumerate(self.strategy.input_groups[1]):
+            ids = host_2d(inputs[i])
+            if mask is None:
+                mask = np.zeros(ids.shape[0], bool)
+            for (rank, b, slot_idx) in self.plan.tp_input_slots[pos]:
+                t = touched.get(("tp", b))
+                if t is None or not len(t):
+                    continue
+                bucket = self.plan.tp_buckets[b]
+                off = bucket.slots[rank][slot_idx].row_offset
+                rows = seg_rows.get((b, rank, off), 0)
+                valid = (ids >= 0) & (ids < rows)
+                keys = rank * max(bucket.rows_max, 1) + off + ids
+                mask |= (valid & member(keys, t)).any(axis=1)
+        for j, i in enumerate(self.strategy.input_groups[2]):
+            t_id = self.strategy.map_groups[2][j]
+            t = touched.get(("row", t_id))
+            ids = host_2d(inputs[i])
+            if mask is None:
+                mask = np.zeros(ids.shape[0], bool)
+            if t is None or not len(t):
+                continue
+            total = int(sum(self.plan.row_tables[t_id].rows_per_rank))
+            valid = (ids >= 0) & (ids < total)
+            mask |= (valid & member(ids, t)).any(axis=1)
+        if mask is None:
+            # no model-parallel input: nothing prefetched, nothing stale
+            x = inputs[0]
+            mask = np.zeros(len(x[0] if isinstance(x, tuple) else x), bool)
+        return mask
 
     @staticmethod
     def _restore_shape(out, p: _PreparedInput, combiner, width):

@@ -7,6 +7,9 @@ mp ranks). Here the ranks are the processes of the default
 `world_size` and `rank` read it (1 and 0 without one), and
 `average_across_ranks` is the data-parallel gradient all-reduce the
 JAX package's sharded autodiff inserts for replicated parameters.
+`broadcast_object` and `gather_objects` move small host objects (a
+directory listing, a stream file's header, each rank's outcome of a
+read) so that every rank decides alike.
 """
 
 from typing import List, Optional, Sequence
@@ -20,7 +23,7 @@ from distributed_embeddings_tpu_torch.utils.device import (device_scalar,
 
 __all__ = ["initialize_distributed", "world_size", "rank",
            "sum_across_ranks", "average_across_ranks", "gather_stack",
-           "ALL_REDUCE_RANGE"]
+           "broadcast_object", "gather_objects", "ALL_REDUCE_RANGE"]
 
 # the profiler range around the dense all-reduce (a no-op unless a
 # profiler is on), beside `ops.wire`'s exchange ranges
@@ -104,3 +107,23 @@ def gather_stack(t: torch.Tensor) -> torch.Tensor:
                       dtype=t.dtype, device=t.device)
     dist.all_gather_into_tensor(out, t)
     return out.view((world,) + tuple(t.shape))
+
+
+def broadcast_object(obj, src: int = 0):
+    """Rank `src`'s picklable `obj` on every rank (each rank passes its
+    own, which only `src`'s replaces); `obj` itself at world size 1."""
+    if world_size() == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=src)
+    return box[0]
+
+
+def gather_objects(obj) -> list:
+    """Every rank's picklable `obj`, in rank order, on every rank;
+    ``[obj]`` at world size 1."""
+    if world_size() == 1:
+        return [obj]
+    out = [None] * world_size()
+    dist.all_gather_object(out, obj)
+    return out

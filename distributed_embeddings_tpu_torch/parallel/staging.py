@@ -35,6 +35,10 @@ where it stages it. The leaves are on the device, so the layers'
 ``torch.as_tensor(..., device=)`` copies nothing. On a CPU device the
 stager only turns the leaves into tensors.
 
+`DoubleBufferSlots` is the lookahead pipeline's two-slot carry
+(`schedule.LookaheadEngine`): one batch's prefetched artifacts kept
+while the step makes the next batch's.
+
 `dp_slice` cuts a rank's contiguous slice ``[r * B_l, (r + 1) * B_l)`` of
 a global batch (as `InputGenerator` makes it), and `stage_dp_batch` stages
 it. Rank r's slice is the r-th block of the global batch in both
@@ -51,8 +55,8 @@ from distributed_embeddings_tpu_torch.parallel import mesh
 from distributed_embeddings_tpu_torch.utils.device import (DeviceLike,
                                                            resolve_device)
 
-__all__ = ["DeviceStager", "StagedBatch", "ready", "dp_slice",
-           "stage_dp_batch"]
+__all__ = ["DeviceStager", "StagedBatch", "ready", "DoubleBufferSlots",
+           "dp_slice", "stage_dp_batch"]
 
 # byte alignment of each leaf inside the pinned and the device buffer
 ALIGN = 16
@@ -191,6 +195,53 @@ class DeviceStager:
             n = t.numel() * t.element_size()
             out.append(dev[off:off + n].view(t.dtype).view(t.shape))
         return out, event, dev
+
+
+class DoubleBufferSlots:
+    """The two-slot carry of the lookahead pipeline (JAX
+    `DoubleBufferSlots` :54): `stage(tree, tag)` installs the carry just
+    made (the previous one moves to the retired slot, the one before it
+    is returned: it is dropped); `current` and `tag` read the live slot;
+    `take()` pops it for the step that consumes it (it moves to the
+    retired slot); `clear()` empties both (a flush after the tables moved
+    outside the pipeline). The tag is an opaque identity (the engine
+    passes the batch the carry was made for), so the consumer can tell
+    that the carry is its batch's. PyTorch donates no buffer: the retired
+    slot keeps the last carry alive until the next stage, as the JAX
+    package's slot keeps the donated one."""
+
+    def __init__(self):
+        self._live = None        # (tag, tree)
+        self._retired = None     # the previous (tag, tree)
+
+    def stage(self, tree: Any, tag: Any = None) -> Optional[Any]:
+        """Install `tree` as the live carry; returns the evicted tree."""
+        evicted = self._retired[1] if self._retired is not None else None
+        self._retired = self._live
+        self._live = (tag, tree)
+        return evicted
+
+    @property
+    def current(self) -> Optional[Any]:
+        return self._live[1] if self._live is not None else None
+
+    @property
+    def tag(self) -> Optional[Any]:
+        return self._live[0] if self._live is not None else None
+
+    def take(self) -> Optional[Any]:
+        """Pop the live carry for consumption (it moves to the retired
+        slot)."""
+        if self._live is None:
+            return None
+        tag_tree = self._live
+        self._retired = tag_tree
+        self._live = None
+        return tag_tree[1]
+
+    def clear(self) -> None:
+        self._live = None
+        self._retired = None
 
 
 def dp_slice(batch: Any) -> Any:

@@ -26,10 +26,19 @@ The cache keeps those rows on the card:
 Slots are written by row (`_update_slots`: an ``index_copy_`` from a
 pinned staging buffer), never re-uploaded whole. A quantized bucket is
 decoded as its rows are read: slots hold float32 rows (the JAX package's
-decode seam). Rows are keyed by ``rank * rows_max + row``; at world size >
-1 each rank holds only its own rows and the admission would have to agree
-across ranks, which is not ported (ROADMAP Queue A13, A13b): the cache
-refuses such a layer.
+decode seam). Rows are keyed by ``rank * rows_max + row``.
+
+At world size > 1 every rank serves the same request, so every rank's
+tracker observes the same global key stream (the engine's `_group_keys`
+mirrors every destination shard's exchanged ids) and makes the same
+admissions, evictions and slot numbers, which are the JAX cache's (its
+slots are replicated over the mesh); no collective is needed. Each rank
+writes into its slots only the rows of keys in its own world slice, read
+from its own shard of the bucket, and its lookup reads only the slots of
+its own shard's lanes, which never hold another slice's key; a slot of
+another slice's key holds whatever it held, and no lane of this rank
+reads it. The refresh and the delta patches likewise touch only this
+rank's keys; the stats are the same on every rank.
 """
 
 from typing import Dict, Optional
@@ -50,14 +59,6 @@ __all__ = ["CACHE_LOOKUP_RANGE", "HotRowCache", "cached_group_lookup"]
 # the profiler range of one cached group lookup (the ids to the host, the
 # miss rows' gather and copy, the two-source gather and the combine)
 CACHE_LOOKUP_RANGE = "cache:lookup"
-
-
-def across_ranks(what: str) -> NotImplementedError:
-    """The refusal of a serving feature at world size > 1."""
-    return NotImplementedError(
-        f"{what} at world size > 1 is not ported yet (ROADMAP Queue A13 "
-        "(A13b: the cache's admission and the stream's apply across "
-        "ranks))")
 
 
 def _pinned(shape, dtype, cuda: bool) -> torch.Tensor:
@@ -84,7 +85,8 @@ class HotRowCache:
     """Device-resident cache over one offloaded bucket's rows.
 
     Args:
-      emb: the `DistributedEmbedding` owning the bucket (world size 1).
+      emb: the `DistributedEmbedding` owning the bucket (any world size;
+        this rank's shard of it).
       bucket: index into ``emb.plan.tp_buckets`` (must be offloaded).
       capacity: the rows the slots hold.
       promote_threshold: access count at which a row can be promoted (>=
@@ -105,8 +107,6 @@ class HotRowCache:
             raise ValueError(
                 f"bucket {bucket} is not host-offloaded; a hot-row cache "
                 "only makes sense over a host-resident table")
-        if emb.world_size > 1:
-            raise across_ranks("the HotRowCache")
         self.emb = emb
         self.bucket = bucket
         self.capacity = int(capacity)
@@ -182,12 +182,16 @@ class HotRowCache:
         """The device-resident ``[capacity, width]`` row tensor."""
         return self._slots
 
+    def _own(self, keys: np.ndarray) -> np.ndarray:
+        """True on the keys of this rank's world slice."""
+        return np.asarray(keys, np.int64) // self.rows_max == self.emb.rank
+
     def _read_rows(self, table: Optional[torch.Tensor], keys: np.ndarray,
                    scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Table rows for `keys` ([M] int64) gathered on the host into a
-        pinned buffer, decoded to float32 from a quantized bucket (through
-        `scale`, default the bucket's own); `table` defaults to the
-        layer's bucket."""
+        """Table rows for `keys` ([M] int64, this rank's) gathered on the
+        host into a pinned buffer, decoded to float32 from a quantized
+        bucket (through `scale`, default the bucket's own); `table`
+        defaults to the layer's bucket (this rank's shard)."""
         emb, b = self.emb, self.bucket
         table = emb.tp[b] if table is None else table
         if scale is None:
@@ -215,24 +219,31 @@ class HotRowCache:
     def admit(self, table: Optional[torch.Tensor] = None,
               scale: Optional[torch.Tensor] = None) -> int:
         """Run the admission policy against the current counters, copying
-        the newly promoted rows out of `table` (default: the layer's
-        bucket; decoded through `scale` at a quantized storage). Returns
-        the rows promoted."""
+        the newly promoted rows of this rank's keys out of `table`
+        (default: the layer's bucket; decoded through `scale` at a
+        quantized storage). Returns the rows promoted (on every rank)."""
         plan = self._tracker.plan_admissions()
         if not plan:
             return 0
         keys = np.asarray([k for _, k in plan], np.int64)
-        rows = self._read_rows(table, keys, scale=scale)
-        self._update_slots([s for s, _ in plan], rows)
+        own = self._own(keys)
+        if own.any():
+            rows = self._read_rows(table, keys[own], scale=scale)
+            self._update_slots(np.asarray([s for s, _ in plan])[own], rows)
         return self._tracker.commit_admissions(plan)
+
+    def _own_residents(self) -> np.ndarray:
+        """The slots holding keys of this rank's world slice."""
+        keys = self._slot_keys
+        return np.flatnonzero((keys >= 0) & self._own(keys))
 
     def refresh(self, table: Optional[torch.Tensor] = None,
                 scale: Optional[torch.Tensor] = None) -> int:
-        """Re-copy every resident row from `table` (default: the layer's
-        bucket) into the slots: required after anything mutates the
-        bucket. Prefer `refresh_from(store)` where a `TableStore` owns the
-        tables. Returns the rows refreshed."""
-        resident = np.flatnonzero(self._slot_keys >= 0)
+        """Re-copy every resident row of this rank's keys from `table`
+        (default: the layer's bucket) into the slots: required after
+        anything mutates the bucket. Prefer `refresh_from(store)` where a
+        `TableStore` owns the tables. Returns the rows refreshed."""
+        resident = self._own_residents()
         if len(resident):
             rows = self._read_rows(table, self._slot_keys[resident],
                                    scale=scale)
@@ -241,12 +252,14 @@ class HotRowCache:
         return int(len(resident))
 
     def refresh_from(self, store) -> int:
-        """Re-copy every resident row through the table store's versioned
-        `read_rows`, and record the store version the residents now
-        reflect (`refreshed_version`). Returns the rows refreshed."""
-        resident = np.flatnonzero(self._slot_keys >= 0)
+        """Re-copy every resident row of this rank's keys through the
+        table store's versioned rank-local read (`read_local_rows`), and
+        record the store version the residents now reflect
+        (`refreshed_version`). Returns the rows refreshed."""
+        resident = self._own_residents()
         if len(resident):
-            rows = store.read_rows(self.bucket, self._slot_keys[resident])
+            rows = store.read_local_rows(self.bucket,
+                                         self._slot_keys[resident])
             self._update_slots(resident, rows)
         self.refreshes += 1
         self.refreshed_version = store.version
@@ -254,11 +267,12 @@ class HotRowCache:
 
     def apply_rows(self, keys: np.ndarray, rows: np.ndarray) -> int:
         """A row delta's payload written into the resident slots among
-        `keys` (the publisher's merged rows, so no table read happens);
-        counters and stats are untouched. Returns the slots updated."""
+        `keys` of this rank's world slice (the publisher's merged rows, so
+        no table read happens); counters and stats are untouched. Returns
+        the slots updated."""
         keys = np.asarray(keys, np.int64).reshape(-1)
         slot = self._tracker.lookup_slots(keys, observe=False)
-        m = slot >= 0
+        m = (slot >= 0) & self._own(keys)
         if m.any():
             self._update_slots(slot[m], np.asarray(rows)[m])
         self.patched += int(m.sum())
@@ -310,15 +324,15 @@ def cached_group_lookup(emb, grp, table_h, slots, ids_g, slot_g, w_g,
     Args:
       table_h: the bucket's host table (its payload at quantized storage).
       slots: [capacity, width] device-resident cached rows.
-      ids_g: [B, f, k] exchanged absolute rows.
-      slot_g: [B * f * k] integer slot indices on the host (-1 = miss).
+      ids_g: [B, f, k] exchanged absolute rows (this rank's shard's lanes
+        over the global batch).
+      slot_g: [B * f * k] integer slot indices on the host (-1 = miss),
+        this rank's row of the engine's slot map.
       w_g: [B, f, k] effective weights or None.
       scale_h: the bucket's per-row scale at quantized storage (default
         the layer's).
 
     Returns [B, f, w_out]: the group's output, as the host path's."""
-    if emb.world_size > 1:
-        raise across_ranks("cached_group_lookup")
     b = grp.bucket
     bucket = emb.plan.tp_buckets[b]
     k, wf = grp.k, bucket.width

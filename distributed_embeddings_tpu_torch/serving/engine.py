@@ -11,15 +11,16 @@ lookup decodes the gathered rows. With a `vocab.VocabManager`, each
 request's raw keys are translated to rows, query-only, before they are
 staged.
 
-At world size 1 the engine is the JAX engine's whole serving tier:
+The engine is the JAX engine's whole serving tier:
 
   * **Hot-row caches.** ``cache_capacity`` puts a `serving.cache.
     HotRowCache` over each offloaded bucket (an int for every one, a
     ``{bucket: rows}`` dict for some); each request first admits the rows
     whose counts crossed ``promote_threshold`` (once a cache, see
     `_cache_slots`), then maps its keys to slots
-    (`_group_keys`: the host mirror of the exchanged ids, padding rows
-    masked so they never count), then runs the forward inside the layer's
+    (`_group_keys`: the host mirror of every shard's exchanged ids,
+    padding rows masked so they never count), then runs the forward
+    inside the layer's
     `offload_lookup_scope`, where `cached_group_lookup` serves the group.
     The cached outputs equal the host path's bit for bit. `warmup`
     observes nothing.
@@ -42,10 +43,18 @@ At world size 1 the engine is the JAX engine's whole serving tier:
 At world size > 1 serving is collective: every rank calls `predict` with
 the same request, which is padded to a multiple of the world; each rank
 forwards its slice and the outputs are all-gathered, so every rank returns
-the whole request's, as the JAX engine returns a global array. Caches and
-the stream's apply there are collective work not ported yet (ROADMAP Queue
-A13, A13b): they raise. Not ported: the fault points, the flight recorder
-and its lineage and the ``serve/predict`` span (A15).
+the whole request's, as the JAX engine returns a global array. So is
+every table write: `apply_delta`, `poll_updates`, `reanchor_published`,
+`set_params` and `refresh` are called by every rank alike. The caches
+need no collective (every rank's tracker sees the same keys and decides
+alike; each rank fills and refreshes the slots of its own keys,
+`serving.cache`); the stream's apply agrees across ranks before it
+writes (`store.table_store`), so a read that fails on one rank leaves
+every rank at the same version, with the same `degraded_reasons()`,
+`last_poll_error` type and ``serve/poll_errors_total``. A rank's slot
+patch that fails refreshes the caches on every rank. Not ported: the
+fault points, the flight recorder and its lineage and the
+``serve/predict`` span (A15).
 """
 
 import contextlib
@@ -58,11 +67,12 @@ import torch
 from distributed_embeddings_tpu_torch.layers.dist_model_parallel import (
     DistributedEmbedding)
 from distributed_embeddings_tpu_torch.obs.registry import MetricRegistry
-from distributed_embeddings_tpu_torch.parallel.mesh import gather_stack
+from distributed_embeddings_tpu_torch.parallel.mesh import (gather_objects,
+                                                            gather_stack)
 from distributed_embeddings_tpu_torch.parallel.staging import (DeviceStager,
                                                                dp_slice)
 from distributed_embeddings_tpu_torch.serving.cache import (
-    HotRowCache, across_ranks, cached_group_lookup)
+    HotRowCache, cached_group_lookup)
 from distributed_embeddings_tpu_torch.store import (
     DeltaConsumer, TableStore, restore_from_published)
 from distributed_embeddings_tpu_torch.utils.device import (DeviceLike,
@@ -102,7 +112,6 @@ class InferenceEngine:
       device: where the model runs (None = cuda); the model must live there.
       cache_capacity: rows of device cache per offloaded bucket (0: none,
         the host path); a ``{bucket: rows}`` dict caches some buckets.
-        World size 1 only.
       promote_threshold: access count before a row can be promoted.
       donate_batch: accepted, with no effect: nothing is donated in
         PyTorch, and the engine's staged copies are its own.
@@ -148,8 +157,6 @@ class InferenceEngine:
             raise ValueError("an InferenceEngine at world size > 1 serves "
                              "data-parallel input: build the model with "
                              "dp_input=True")
-        if emb.world_size > 1 and _wants_cache(cache_capacity):
-            raise across_ranks("the HotRowCache (cache_capacity)")
         if _wants_cache(cache_capacity) and not emb.dp_input:
             raise ValueError("the hot-row cache serves data-parallel input: "
                              "build the model with dp_input=True")
@@ -200,10 +207,6 @@ class InferenceEngine:
             params = params["params"]       # checkpoint dict: strip opt state
         self._module.load_state_dict(params)
 
-    def _single_process(self, what: str) -> None:
-        if self.embedding.world_size > 1:
-            raise across_ranks(f"InferenceEngine.{what}")
-
     def _normalize(self, cats: Sequence) -> List:
         """Validate one request's per-feature inputs and return them as
         numpy arrays: [B] / [B, k] integer ids, or (ids, weights) tuples."""
@@ -251,30 +254,38 @@ class InferenceEngine:
         return self._stager(tree)
 
     def _group_keys(self, grp, tp_prepped, batch: int, true_rows: int):
-        """Host mirror of the exchanged ids of one group at world size 1
-        (JAX `_group_keys` :245): the flat row keys [B * f * k] the
-        group's lookup reads, in the exchanged block's order, and their
-        validity, False on the batch's padding rows (and on any f padding
-        lane), which never count."""
+        """Host mirror of one group's exchanged ids (JAX `_group_keys`
+        :245): the flat row keys ``[world, B * f * k]`` each destination
+        shard r's lookup reads, ``r * rows_max + row`` in its exchanged
+        block's order, and their validity, False on the batch's padding
+        rows and on the f padding lanes of a shard with fewer slots, which
+        never count. Every rank serves the same request, so every rank
+        builds the whole mirror from it alone."""
+        world = self.embedding.world_size
         rows_max = max(self.embedding.plan.tp_buckets[grp.bucket].rows_max,
                        1)
-        ids = np.zeros((batch, grp.f_max, grp.k), np.int64)
-        valid = np.zeros((batch, grp.f_max, grp.k), bool)
-        for j in range(grp.counts[0]):
-            member = _ids_of(tp_prepped[grp.class_inputs[int(grp.sel[0, j])]])
-            member = np.asarray(member, np.int64).reshape(
-                member.shape[0], -1)                     # [b, k], b <= batch
-            ids[:member.shape[0], j, :] = member + int(grp.offs[0, j])
-            valid[:true_rows, j, :] = True
+        ids = np.zeros((world, batch, grp.f_max, grp.k), np.int64)
+        valid = np.zeros((world, batch, grp.f_max, grp.k), bool)
+        for r in range(world):
+            for j in range(grp.counts[r]):
+                member = _ids_of(
+                    tp_prepped[grp.class_inputs[int(grp.sel[r, j])]])
+                member = np.asarray(member, np.int64).reshape(
+                    member.shape[0], -1)                 # [b, k], b <= batch
+                ids[r, :member.shape[0], j, :] = member + int(grp.offs[r, j])
+                valid[r, :true_rows, j, :] = True
         np.clip(ids, 0, rows_max - 1, out=ids)
-        return ids.reshape(-1), valid.reshape(-1)
+        keys = ids + (np.arange(world, dtype=np.int64)[:, None, None, None]
+                      * rows_max)
+        return keys.reshape(world, -1), valid.reshape(world, -1)
 
     def _cache_slots(self, prepped: List, target: int, true_rows: int,
                      observe: bool) -> Dict[int, torch.Tensor]:
-        """Per cached exchange group g, the request's slot indices (host
-        int32): each cache's admission first (a batch already hits the
-        rows that just crossed the threshold), then each group's lookup,
-        which observes. A cache admits once a request, before any of its
+        """Per cached exchange group g, this rank's row of the request's
+        slot indices (host int32; every shard's keys are looked up, so
+        every rank's tracker observes the same stream): each cache's
+        admission first (a batch already hits the rows that just crossed
+        the threshold), then each group's lookup, which observes. A cache admits once a request, before any of its
         groups' lookups: the JAX engine admits before each group's
         lookup, so a bucket with groups of two hotnesses can evict, at its
         second group's admission, a row its first group's lanes were
@@ -294,7 +305,7 @@ class InferenceEngine:
             cache = self.caches[grp.bucket]
             keys, valid = self._group_keys(grp, tp, target, true_rows)
             out[g] = torch.from_numpy(
-                cache.lookup_slots(keys, valid, observe=observe))
+                cache.lookup_slots(keys, valid, observe=observe)[emb.rank])
         return out
 
     def _predict_padded(self, numerical, prepped: List, target: int,
@@ -412,7 +423,8 @@ class InferenceEngine:
         stripped to its params. The swap goes through the table store
         (`TableStore.replace`: a version bump, the delta chain broken, so
         the next stream file consumed must be a snapshot). The cached rows
-        hold the old values until `refresh` (``refresh=True`` runs it)."""
+        hold the old values until `refresh` (``refresh=True`` runs it).
+        At world size > 1 every rank passes its own model's state dict."""
         self._load(params)
         self.store.replace()
         if refresh:
@@ -420,9 +432,9 @@ class InferenceEngine:
 
     def refresh(self) -> int:
         """Re-copy every cached row from the tables through the store's
-        versioned read (the consistency step after a table write). Returns
-        the rows refreshed over all buckets."""
-        self._single_process("refresh")
+        versioned read (the consistency step after a table write); at
+        world size > 1 each rank its own keys' rows. Returns the rows
+        this rank refreshed over all buckets."""
         return sum(cache.refresh_from(self.store)
                    for cache in self.caches.values())
 
@@ -434,8 +446,8 @@ class InferenceEngine:
         store adopts the publisher's version space (its version, its
         per-table versions, the chain unbroken), so the next poll chains
         deltas from the restored version. Returns that version; raises
-        when the stream holds no snapshot at or below `upto`."""
-        self._single_process("reanchor_published")
+        when the stream holds no snapshot at or below `upto`. Collective
+        at world size > 1."""
         restored = restore_from_published(self.embedding, publish_dir,
                                           upto=upto)
         self.store.replace()
@@ -450,8 +462,8 @@ class InferenceEngine:
         place through the store, then patch the resident cache slots from
         the delta's payload (refresh them after a snapshot), so cached
         serving stays bit-equal at the new version. Returns the store's
-        apply info."""
-        self._single_process("apply_delta")
+        apply info. Collective at world size > 1 (every rank the same
+        file)."""
         info = self.store.apply_published(path)
         self._absorb_apply(info)
         return info
@@ -475,8 +487,10 @@ class InferenceEngine:
         ``io_transient`` (from the consumer), ``vocab_sidecar`` (the
         binding sidecar unreadable: the previous binding keeps
         translating), ``cache_patch`` (a slot patch failed: the caches
-        were refreshed from the store instead)."""
-        self._single_process("poll_updates")
+        were refreshed from the store instead). Collective at world size >
+        1: every rank polls the same directory and ends with the same
+        version and the same reasons and counts (see the module
+        docstring)."""
         consumer = self._consumers.get(publish_dir)
         if consumer is None:
             consumer = DeltaConsumer(self.store, publish_dir)
@@ -485,15 +499,20 @@ class InferenceEngine:
         infos: List[dict] = []
         try:
             infos = consumer.poll(upto=upto)
+            patch_error = None
             for info in infos:
-                if "cache_patch" in reasons:
-                    break            # the refresh below covers the rest
                 try:
                     self._absorb_apply(info)
                 except Exception as e:  # noqa: BLE001 - degrade, never crash
-                    self._note_poll_error(e)
-                    reasons.add("cache_patch")
-            if "cache_patch" in reasons:
+                    patch_error = f"{type(e).__name__}: {e}"
+                    break            # the refresh below covers the rest
+            if self.embedding.world_size > 1:
+                # one rank's failed patch refreshes every rank's caches
+                patch_error = next((p for p in gather_objects(patch_error)
+                                    if p is not None), None)
+            if patch_error is not None:
+                self._note_poll_error(patch_error)
+                reasons.add("cache_patch")
                 # the tables moved with every file; re-read the residents
                 # once, so cached serving holds no pre-apply rows
                 for cache in self.caches.values():
@@ -523,8 +542,9 @@ class InferenceEngine:
         self._degraded_active = frozenset(reasons)
         return infos
 
-    def _note_poll_error(self, e: BaseException) -> None:
-        self.last_poll_error = f"{type(e).__name__}: {e}"[:300]
+    def _note_poll_error(self, e) -> None:
+        self.last_poll_error = (e if isinstance(e, str)
+                                else f"{type(e).__name__}: {e}")[:300]
         self._metrics.counter("serve/poll_errors_total",
                               **self._labels).inc()
 

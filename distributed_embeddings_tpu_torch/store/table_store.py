@@ -23,7 +23,9 @@ on the train step's optimizer state (``opt_states``, the
     full snapshot; the others carry the union of touched keys since the
     last publish with their merged rows, and the dp tables whole.
   * **In-place consumption.** A consumer store applies a stream file into
-    its layer's tensors: a bucket on the card by an index write on the
+    its layer's tensors (a delta's bucket keys re-keyed onto its own
+    placement where the header records another, `_translate_delta`: the
+    port's publisher is world 1, its consumers may not be): a bucket on the card by an index write on the
     card (`padded_scatter_rows`), an offloaded bucket through
     `ops.sparse_update.host_apply_rows_inplace(kind="set")` on its host
     buffers, a quantized bucket re-encoded (round to nearest even,
@@ -37,11 +39,21 @@ the publisher's `get_weights` bit for bit at every consumed version. A
 consumer with hot-resident rows of its own would shadow those writes:
 applying a delta to it raises.
 
-The producer (`observe`, `publish`, `read_rows`) and `apply_published`
-are single-process: at world size > 1 they raise (each rank holds only its
-own rows; the engine's consumer across ranks is ROADMAP Queue A13b; at
-world size 1 `serving.InferenceEngine` owns a store and consumes the
-stream through it). Not ported: the
+The producer (`observe`, `publish`, `read_rows`) is single-process: at
+world size > 1 it raises (each rank holds only its own rows and batch
+slice). Consuming is collective there: every rank applies the same file
+(`apply_published`), each writing its own rows (a bucket's keys of its
+world slice, a row-sliced table's rows in ``[row_base[r], row_base[r +
+1])``, the dp tables whole, a snapshot through `set_weights`). Every rank
+reads and decodes the file first; the ranks then agree on the outcome
+(`parallel.mesh.gather_objects`), and only if every read succeeded does
+any rank write, so a read that fails on one rank fails the apply on
+every rank alike, with the same error type, and leaves them all at the
+same version. `DeltaConsumer` and `restore_from_published` take the
+directory listing and the stream files' headers from rank 0
+(`parallel.mesh.broadcast_object`), so every rank chooses the same file.
+`serving.InferenceEngine` owns a store and consumes the stream through
+it at any world size. Not ported: the
 fault points and the lineage recorder of the JAX store (A15); the port
 reads no environment, so ``snapshot_every`` defaults to 0 and
 ``delta_dtype`` to "f32". Eager PyTorch has nothing to retrace, so the row
@@ -63,6 +75,7 @@ from distributed_embeddings_tpu_torch.obs.registry import MetricRegistry
 from distributed_embeddings_tpu_torch.ops import wire
 from distributed_embeddings_tpu_torch.ops.sparse_update import (
     host_apply_rows_inplace)
+from distributed_embeddings_tpu_torch.parallel import mesh
 from distributed_embeddings_tpu_torch.utils import checkpoint as ckpt
 
 __all__ = ["DeltaChainError", "DeltaConsumer", "TableStore",
@@ -166,11 +179,11 @@ def _host_set_rows(table: torch.Tensor, r_idx: np.ndarray,
 
 def _bucket_rows(emb, b: int, keys: np.ndarray) -> np.ndarray:
     """Bucket `b`'s canonical rows at flat `keys` (``rank * rows_max +
-    row``) as float32 numpy, decoded from a quantized bucket; the read the
-    store (`TableStore.read_rows`, which overlays the hot rows) and the
-    vocabulary manager share."""
+    row``, this rank's) as float32 numpy, decoded from a quantized bucket;
+    the read the store (`TableStore.read_rows`, which overlays the hot
+    rows) and the vocabulary manager share."""
     rows_max = max(emb.plan.tp_buckets[b].rows_max, 1)
-    w_idx, r_idx = keys // rows_max, keys % rows_max
+    w_idx, r_idx = keys // rows_max - emb.rank, keys % rows_max
     out = padded_gather_rows(emb.tp[b].detach(), w_idx, r_idx)
     sd = emb._bucket_store_dtype(b)
     if sd != "f32":
@@ -180,14 +193,27 @@ def _bucket_rows(emb, b: int, keys: np.ndarray) -> np.ndarray:
 
 
 @torch.no_grad()
+def _set_row_rows(emb, t: int, keys: np.ndarray, rows) -> None:
+    """Write float32 `rows` at global row ids `keys` of row-sliced table
+    `t` (JAX `_apply_row_rows`): this rank keeps the rows in
+    ``[row_base[rank], row_base[rank + 1])``, at their shard-local index;
+    the others drop."""
+    base = np.asarray(emb.plan.row_tables[t].row_base, np.int64)
+    w_idx = np.searchsorted(base, keys, side="right") - 1
+    padded_scatter_rows(emb.row[t].data, w_idx - emb.rank,
+                        keys - base[w_idx], rows)
+
+
+@torch.no_grad()
 def _set_bucket_rows(emb, b: int, keys: np.ndarray, rows) -> None:
     """Write float32 `rows` at flat `keys` into bucket `b`, in place: on
     the card by an index write, in host memory through `_host_set_rows`;
     a quantized bucket re-encodes the rows at its storage dtype (round to
     nearest even: the write is deterministic), payload and scale
-    together. Keys of other ranks drop."""
+    together. Keys of other ranks' world slices drop."""
     rows_max = max(emb.plan.tp_buckets[b].rows_max, 1)
-    w_idx, r_idx = keys // rows_max, keys % rows_max
+    # the rank-local table is the stack of one: this rank's slice at 0
+    w_idx, r_idx = keys // rows_max - emb.rank, keys % rows_max
     sd = emb._bucket_store_dtype(b)
     targets = [(emb.tp[b].data, rows)]
     if sd != "f32":
@@ -221,6 +247,123 @@ def scan_published(directory: str) -> List[Tuple[int, str, str]]:
             out.append((int(m.group(1)), m.group(2),
                         os.path.join(directory, name)))
     return sorted(out)
+
+
+# the error types an outcome keeps across ranks, most specific first (a
+# `StreamIntegrityError` is a ValueError, a `DeltaChainError` a
+# RuntimeError); any other failure agrees as a RuntimeError
+_AGREED_ERRORS = (DeltaChainError, ckpt.StreamIntegrityError, OSError,
+                  ValueError, RuntimeError)
+
+
+def _error_kind(e: BaseException) -> int:
+    return next((i for i, cls in enumerate(_AGREED_ERRORS)
+                 if isinstance(e, cls)), len(_AGREED_ERRORS) - 1)
+
+
+def _raise_agreed(outcomes: list, err: Optional[BaseException]) -> None:
+    """Raise the first failed rank's outcome, ``(kind, message)`` or None
+    each, as the same error type on every rank (chained to this rank's
+    own `err`, if it failed too)."""
+    failed = [(r, o) for r, o in enumerate(outcomes) if o is not None]
+    if failed:
+        r, (kind, msg) = failed[0]
+        raise _AGREED_ERRORS[kind](f"rank {r}: {msg}") from err
+
+
+def _agreed(emb, fn):
+    """``fn()`` on every rank, then the ranks agree on the outcome: its
+    result where every rank succeeded, else the first failed rank's error
+    type and message raised on every rank (`_raise_agreed`). At world
+    size 1, ``fn()`` as it is."""
+    if emb.world_size == 1:
+        return fn()
+    try:
+        out, err = fn(), None
+    except Exception as e:  # noqa: BLE001 - agreed, then raised
+        out, err = None, e
+    _raise_agreed(mesh.gather_objects(
+        None if err is None
+        else (_error_kind(err), f"{type(err).__name__}: {err}"[:300])), err)
+    return out
+
+
+def _from_rank0(emb, fn):
+    """``fn()`` on rank 0 (a directory listing, a header read), its result
+    or its error type and message the same on every rank. At world size
+    1, ``fn()`` as it is."""
+    if emb.world_size == 1:
+        return fn()
+    out = None
+    if emb.rank == 0:
+        try:
+            out = (None, fn())
+        except Exception as e:  # noqa: BLE001 - broadcast, then raised
+            out = ((_error_kind(e), f"{type(e).__name__}: {e}"[:300]),
+                   None)
+    failed, value = mesh.broadcast_object(out)
+    _raise_agreed([failed], None)
+    return value
+
+
+def _plan_record(emb) -> dict:
+    """The layer's table-parallel placement as a delta's header records it
+    (``meta["plan"]``): per placement ``[bucket, rank, row_offset, rows,
+    global table id, col_start, col_end]``, and each bucket's
+    ``rows_max``; a bucket's flat keys mean rows only under its plan."""
+    strat = emb.strategy
+    return {"tp": sorted(
+        [int(pl.bucket), int(pl.rank), int(pl.row_offset), int(pl.rows),
+         int(strat.table_groups[1][pl.table_id]), int(pl.col_start),
+         int(pl.col_end)] for pl in emb.plan.tp_placements),
+        "rows_max": [max(int(b.rows_max), 1) for b in emb.plan.tp_buckets]}
+
+
+def _translate_delta(emb, plan: dict, tp_parts: dict) -> dict:
+    """A delta's bucket rows {("tp", b): (keys, rows)}, keyed under the
+    publisher's `plan` (its header's record), re-keyed onto `emb`'s plan:
+    each key to its table and row, then to where `emb` holds that table,
+    {("tp", b): (flat keys, rows)} of its buckets (a column slice of the
+    table each, cut from the row), {("row", t): (global rows, rows)} of
+    its row-sliced tables and {("dp_rows", j): (rows ids, rows)} of its
+    dp tables. A table that `emb` slices across two of the publisher's
+    column slices raises ValueError."""
+    strat = emb.strategy
+    width = {g: int(c["output_dim"]) for g, c in
+             enumerate(strat.global_configs)}
+    mine: Dict[int, list] = {}
+    for pl in emb.plan.tp_placements:
+        rows_max = max(emb.plan.tp_buckets[pl.bucket].rows_max, 1)
+        mine.setdefault(strat.table_groups[1][pl.table_id], []).append(
+            (pl.col_start, pl.col_end, "tp", pl.bucket,
+             pl.rank * rows_max + pl.row_offset))
+    for kind, group in (("row", 2), ("dp_rows", 0)):
+        for idx, gtid in enumerate(strat.table_groups[group]):
+            mine.setdefault(gtid, []).append((0, width[gtid], kind, idx, 0))
+    parts: Dict[Tuple[str, int], list] = {}
+    for (_, b), (keys, rows) in tp_parts.items():
+        rows_max = plan["rows_max"][b]
+        rank, local = keys // rows_max, keys % rows_max
+        for pb, prank, off, n, gtid, c0, c1 in plan["tp"]:
+            if pb != b:
+                continue
+            sel = (rank == prank) & (local >= off) & (local < off + n)
+            if not sel.any():
+                continue
+            r, part = local[sel] - off, rows[sel]
+            for q0, q1, kind, idx, base in mine[gtid]:
+                if q1 <= c0 or q0 >= c1:
+                    continue                 # another slice of the table
+                if q0 < c0 or q1 > c1:
+                    raise ValueError(
+                        f"table {gtid}: columns [{q0}, {q1}) here span the "
+                        f"publisher's column slices ([{c0}, {c1}) one of "
+                        "them): its rows cannot be re-keyed")
+                parts.setdefault((kind, idx), []).append(
+                    (base + r, part[:, q0 - c0:q1 - c0]))
+    return {k: (np.concatenate([a for a, _ in v]),
+                np.ascontiguousarray(np.concatenate([c for _, c in v])))
+            for k, v in parts.items()}
 
 
 def _multi_rank(emb, what: str, item: str) -> NotImplementedError:
@@ -284,6 +427,8 @@ class TableStore:
                 tables.append(gtid)
         self._row_tables = list(strat.table_groups[2])
         self._dp_tables = list(strat.table_groups[0])
+        # the placement a delta's flat keys are read under
+        self._plan = _plan_record(emb)
         # producer: touched flat keys since the last publish, and the
         # (kind, index) touched since the last commit (per-table versions)
         self._pending: Dict[Tuple[str, int], np.ndarray] = {}
@@ -380,6 +525,21 @@ class TableStore:
         quantized bucket) with the hot-resident rows written over them,
         equal to what `get_weights` reports for those rows."""
         self._require_single_process("read_rows")
+        return self._merged_rows(b, keys)
+
+    def read_local_rows(self, b: int, keys) -> np.ndarray:
+        """`read_rows` of keys in this rank's world slice only (the
+        serving cache's refresh at any world size: each rank holds its own
+        rows); a key of another rank raises ValueError."""
+        keys = np.asarray(keys, np.int64).reshape(-1)
+        rows_max = max(self.emb.plan.tp_buckets[b].rows_max, 1)
+        if np.any(keys // rows_max != self.emb.rank):
+            raise ValueError(
+                f"read_local_rows: keys outside rank {self.emb.rank}'s "
+                "world slice")
+        return self._merged_rows(b, keys)
+
+    def _merged_rows(self, b: int, keys) -> np.ndarray:
         keys = np.asarray(keys, np.int64).reshape(-1)
         out = _bucket_rows(self.emb, b, keys)
         overlay = self.emb.hot_resident_rows().get(b)
@@ -456,7 +616,8 @@ class TableStore:
         dd = self.delta_dtype
         meta = {"version": self.version,
                 "base_version": self._published_version,
-                "published_at": time.time(), "dtype": dd, "sig": self._sig}
+                "published_at": time.time(), "dtype": dd, "sig": self._sig,
+                "plan": self._plan}
         arrays: Dict[str, np.ndarray] = {}
 
         def enc(name, rows):
@@ -530,22 +691,27 @@ class TableStore:
                 "consumer: resident hot rows would shadow the canonical "
                 "writes (sync_hot_rows and drop residency first)")
 
-    @torch.no_grad()
     def apply_published(self, path: str) -> dict:
         """Apply one stream file (delta or snapshot) into the layer in
         place. A delta needs ``meta["base_version"] == self.version``
         (`DeltaChainError` otherwise: resync from a snapshot); a snapshot
-        applies from any version. Returns {"kind", "version", "rows",
-        "bytes", "published_at", "payload"}: payload maps ("tp", b) to a
-        delta's (keys, rows)."""
-        if self.emb.world_size > 1:
-            raise NotImplementedError(
-                "TableStore.apply_published at world size > 1 is the "
-                "engine across ranks, not ported yet (ROADMAP Queue A13 "
-                "(A13b: the stream's apply across ranks))")
+        applies from any version. Collective at world size > 1: every rank
+        passes the same file, reads and decodes it, and writes its rows
+        only once every rank's read succeeded (see the module docstring).
+        Returns {"kind", "version", "rows", "bytes", "published_at",
+        "payload"}: payload maps ("tp", b) to a delta's (keys, rows)."""
+        meta, n_bytes, tables = _agreed(
+            self.emb, lambda: self._read_published(path))
+        return self._write_published(meta, n_bytes, tables)
+
+    def _read_published(self, path: str):
+        """A stream file's header, checked against this store (the model's
+        signature, the chain, the hot set), its bytes, and its arrays
+        decoded to float32: the per-table weights of a snapshot, {(kind,
+        index): (keys, rows)} and {("dp", j): table} of a delta. Writes
+        nothing."""
+        n_bytes = os.path.getsize(path)
         meta, arrays = ckpt.load_row_delta(path)
-        if "crc" not in meta:
-            self._metrics.counter("store/legacy_files_total").inc()
         self._check_sig(meta, path)
         stream_dtype = meta.get("dtype", "f32")
 
@@ -560,52 +726,75 @@ class TableStore:
                     "stream damage")
             return wire.decode_rows_np(arrays[name], scale, stream_dtype)
 
-        payload: Dict[Tuple[str, int], Tuple[np.ndarray, np.ndarray]] = {}
         if meta["kind"] == "snapshot":
-            tables = [dec(f"table{i}") for i in range(self._n_tables)]
-            del arrays
+            return meta, n_bytes, [dec(f"table{i}")
+                                   for i in range(self._n_tables)]
+        if self._chain_broken:
+            raise DeltaChainError(
+                f"{path}: this store's tables were replaced out of band "
+                "after its last snapshot; a version match alone cannot "
+                "prove the delta chains from them: resync from a "
+                "snapshot")
+        if meta["base_version"] != self.version:
+            raise DeltaChainError(
+                f"{path}: delta base_version {meta['base_version']} != "
+                f"consumer version {self.version}; resync from a "
+                "snapshot")
+        self._hot_resident_guard()
+        out = {}
+        for name in sorted(arrays):
+            m = re.match(r"^(tp|row)(\d+)_keys$", name)
+            if m:
+                kind, idx = m.group(1), int(m.group(2))
+                n = len(self.emb.tp if kind == "tp" else self.emb.row)
+                if idx >= n:
+                    raise ValueError(
+                        f"{path}: carries {kind} table {idx}, which this "
+                        f"layer does not have ({n})")
+                out[(kind, idx)] = (np.asarray(arrays[name], np.int64),
+                                    dec(f"{kind}{idx}_rows"))
+        plan = meta.get("plan")
+        if plan is not None and plan != self._plan:
+            # published under another placement (a world-1 publisher's
+            # stream at world size > 1): its bucket keys re-keyed here
+            out = _translate_delta(self.emb, plan, out)
+        for j in range(len(self.emb.dp)):
+            name = f"dp{j}_full"
+            if name in arrays:
+                out[("dp", j)] = np.asarray(arrays[name], np.float32)
+        return meta, n_bytes, out
+
+    @torch.no_grad()
+    def _write_published(self, meta: dict, n_bytes: int, tables) -> dict:
+        payload: Dict[Tuple[str, int], Tuple[np.ndarray, np.ndarray]] = {}
+        if "crc" not in meta:
+            self._metrics.counter("store/legacy_files_total").inc()
+        if meta["kind"] == "snapshot":
             self.emb.set_weights(tables)
             n_rows = sum(t.shape[0] for t in tables)
-            del tables
             self._chain_broken = False         # a snapshot re-anchors
         else:
-            if self._chain_broken:
-                raise DeltaChainError(
-                    f"{path}: this store's tables were replaced out of band "
-                    "after its last snapshot; a version match alone cannot "
-                    "prove the delta chains from them: resync from a "
-                    "snapshot")
-            if meta["base_version"] != self.version:
-                raise DeltaChainError(
-                    f"{path}: delta base_version {meta['base_version']} != "
-                    f"consumer version {self.version}; resync from a "
-                    "snapshot")
-            self._hot_resident_guard()
             n_rows = 0
-            for name in sorted(arrays):
-                m = re.match(r"^(tp|row)(\d+)_keys$", name)
-                if not m:
+            for (kind, idx), part in tables.items():
+                if kind == "dp":
+                    self.emb.dp[idx].data.copy_(torch.from_numpy(part))
+                    n_rows += part.shape[0]
                     continue
-                kind, idx = m.group(1), int(m.group(2))
-                if kind == "row":
-                    raise ValueError(
-                        f"{path}: carries row-sliced table {idx}, which this "
-                        "world-1 layer does not have")
-                keys = np.asarray(arrays[name], np.int64)
-                rows = dec(f"{kind}{idx}_rows")
+                keys, rows = part
                 n_rows += len(keys)
-                _set_bucket_rows(self.emb, idx, keys, rows)
-                payload[("tp", idx)] = (keys, rows)
-            for j, table in enumerate(self.emb.dp):
-                name = f"dp{j}_full"
-                if name in arrays:
-                    table.data.copy_(torch.from_numpy(
-                        np.asarray(arrays[name], np.float32)))
-                    n_rows += arrays[name].shape[0]
+                if kind == "dp_rows":
+                    table = self.emb.dp[idx].data
+                    table[torch.as_tensor(keys, device=table.device)] = \
+                        torch.from_numpy(rows).to(table.device)
+                elif kind == "row":
+                    _set_row_rows(self.emb, idx, keys, rows)
+                else:
+                    _set_bucket_rows(self.emb, idx, keys, rows)
+                    payload[("tp", idx)] = (keys, rows)
         self.version = int(meta["version"])
         self._published_version = None     # consumers never publish onward
         info = {"kind": meta["kind"], "version": self.version,
-                "rows": n_rows, "bytes": os.path.getsize(path),
+                "rows": n_rows, "bytes": n_bytes,
                 "published_at": meta.get("published_at"),
                 "payload": payload}
         m = self._metrics
@@ -661,7 +850,10 @@ class DeltaConsumer:
     # ------------------------------------------------------------ internals
     def _visible(self, upto: Optional[int] = None
                  ) -> List[Tuple[int, str, str]]:
-        self._last_scan = scan_published(self.directory)
+        # rank 0's listing on every rank: the ranks choose alike while the
+        # publisher writes
+        self._last_scan = _from_rank0(
+            self.store.emb, lambda: scan_published(self.directory))
         files = [f for f in self._last_scan if f[2] not in self.quarantined]
         if upto is not None:
             files = [f for f in files if f[0] <= upto]
@@ -672,10 +864,12 @@ class DeltaConsumer:
         self.quarantined[path] = reason[:300]
         self._degraded.add("corrupt_stream")
         self.store._metrics.counter("store/corrupt_files_total").inc()
-        warnings.warn(
-            f"stream file quarantined (corrupt, will re-anchor on the next "
-            f"snapshot): {path}: {reason[:200]}", RuntimeWarning,
-            stacklevel=3)
+        if self.store.emb.rank == 0:
+            # every rank skips the file; one says so
+            warnings.warn(
+                f"stream file quarantined (corrupt, will re-anchor on the "
+                f"next snapshot): {path}: {reason[:200]}", RuntimeWarning,
+                stacklevel=3)
 
     def _backoff(self, attempt: int) -> None:
         self._retries_total += 1
@@ -711,7 +905,9 @@ class DeltaConsumer:
         meta = self._meta_cache.get(path)
         if meta is None:
             meta, _ = self._retried(
-                lambda: ckpt.load_row_delta_meta(path), path)
+                lambda: _from_rank0(self.store.emb,
+                                    lambda: ckpt.load_row_delta_meta(path)),
+                path)
             if meta is not None:
                 self._meta_cache[path] = meta
         return meta
@@ -741,7 +937,9 @@ class DeltaConsumer:
         info, status = self._retried(
             lambda: self.store.apply_published(path), path)
         if status == "ok":
-            self._apply_seconds += time.perf_counter() - t0
+            # rank 0's clock on every rank: the accounting agrees
+            self._apply_seconds += _from_rank0(
+                self.store.emb, lambda: time.perf_counter() - t0)
             return info, "applied"
         return None, status
 
@@ -796,8 +994,9 @@ class DeltaConsumer:
                 break                        # transient: next poll retries
             self._rows_applied += info["rows"]
             if info.get("published_at"):
-                self._lag_seconds.append(
-                    max(time.time() - info["published_at"], 0.0))
+                self._lag_seconds.append(_from_rank0(
+                    self.store.emb,
+                    lambda: max(time.time() - info["published_at"], 0.0)))
                 self.store._metrics.histogram(
                     "store/publish_to_apply_seconds").record(
                         self._lag_seconds[-1])
@@ -851,8 +1050,9 @@ def restore_from_published(emb, directory: str,
                            upto: Optional[int] = None) -> TableStore:
     """Rebuild `emb`'s tables from a publish stream, in place: the newest
     snapshot (at most `upto` when given) and every chained delta after it.
+    Collective at world size > 1 (rank 0's listing, every apply agreed).
     Returns a consumer `TableStore` at the reconstructed version."""
-    files = scan_published(directory)
+    files = _from_rank0(emb, lambda: scan_published(directory))
     if upto is not None:
         files = [f for f in files if f[0] <= upto]
     snaps = [f for f in files if f[1] == "snapshot"]

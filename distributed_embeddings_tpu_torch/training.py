@@ -228,25 +228,11 @@ def make_sparse_train_step(model, optimizer: str = "adagrad", lr=0.01,
         numerical features and labels.
     """
     del donate
-    check_strategy(strategy)
-    if optimizer not in SPARSE_HP:
-        raise ValueError(f"Unknown optimizer {optimizer!r}")
-    sparse_hp = SPARSE_HP[optimizer]
-    scheduled = callable(lr)
-    sopt = make_sparse_optimizer(optimizer, 0.0 if scheduled else lr,
-                                 strategy=strategy, **sparse_hp)
-    if dense_optimizer is None:
-        dense_optimizer = {"sgd": sgd, "adagrad": adagrad,
-                           "adam": adam}[optimizer](lr)
-
-    def sopt_for(opt_state):
-        if not scheduled:
-            return sopt
-        return make_sparse_optimizer(optimizer, lr(opt_state["count"]),
-                                     strategy=strategy, **sparse_hp)
+    scheduled, sopt_for, dense_optimizer = _sparse_optimizer_setup(
+        optimizer, lr, strategy, dense_optimizer)
 
     def init_fn(params) -> dict:
-        state = {"emb": params.embedding.init_sparse_state(sopt),
+        state = {"emb": params.embedding.init_sparse_state(sopt_for(None)),
                  "dense": dense_optimizer.init(_dense_params(params))}
         if scheduled:
             state["count"] = 0
@@ -259,42 +245,86 @@ def make_sparse_train_step(model, optimizer: str = "adagrad", lr=0.01,
         with layer.residual_sort_scope(fold_sort, optimizer, strategy):
             loss, res = params.loss_fn(numerical, cats, labels, taps=taps,
                                        return_residuals=True)
-        dense = _dense_params(params)
         n_tp, n_row = len(taps["tp"]), len(taps["row"])
         # the hot split's leaves (one per hot exchange group, None at the
         # others)
         hot = [t for t in taps.get("hot", ()) if t is not None]
-        world = layer.world_size
-        # the gradient of the global-batch mean: each rank's loss is the
-        # mean over its slice, its share 1/W of it, so the backward (the
-        # wire's gradient encodes among it) sees the JAX package's
-        # numbers
-        seed = (None if world == 1 else torch.full(
-            (), 1.0 / world, dtype=loss.dtype, device=loss.device))
-        grads = torch.autograd.grad(
-            loss, list(dense.values()) + taps["tp"] + taps["row"] + hot,
-            grad_outputs=seed)
-        g_taps = list(grads[len(dense):])
-        if world > 1:
-            *grads, loss = sum_across_ranks(
-                list(grads[:len(dense)]) + [loss.detach()])
-            loss = loss / device_scalar(world, loss)
-        g_dense = dict(zip(dense, grads[:len(dense)]))
+        loss, dense, g_dense, g_taps = _gradients(
+            params, loss, taps["tp"] + taps["row"] + hot)
         g_hot = iter(g_taps[n_tp + n_row:])
         g_taps = {"tp": g_taps[:n_tp], "row": g_taps[n_tp:n_tp + n_row]}
         if "hot" in taps:
             g_taps["hot"] = [None if t is None else next(g_hot)
                              for t in taps["hot"]]
-        new_state = {"emb": drain_sparse_apply(layer, opt_state["emb"],
-                                               g_taps, res,
-                                               sopt_for(opt_state)),
-                     "dense": dense_optimizer.update(dense, g_dense,
-                                                     opt_state["dense"])}
-        if scheduled:
-            new_state["count"] = opt_state["count"] + 1
-        return params, new_state, loss.detach()
+        return params, _drain(layer, opt_state, g_taps, res,
+                              sopt_for(opt_state), dense_optimizer, dense,
+                              g_dense, scheduled), loss
 
     return init_fn, step_fn
+
+
+def _sparse_optimizer_setup(optimizer: str, lr, strategy: str,
+                            dense_optimizer: Optional[DenseOptimizer]):
+    """The one construction of a sparse step's optimizers (JAX
+    `_sparse_optimizer_setup`), shared by `make_sparse_train_step` and the
+    lookahead engine: (scheduled, ``sopt_for(opt_state)`` -> the sparse
+    optimizer at the step's learning rate, the dense optimizer)."""
+    check_strategy(strategy)
+    if optimizer not in SPARSE_HP:
+        raise ValueError(f"Unknown optimizer {optimizer!r}")
+    sparse_hp = SPARSE_HP[optimizer]
+    scheduled = callable(lr)
+    sopt = make_sparse_optimizer(optimizer, 0.0 if scheduled else lr,
+                                 strategy=strategy, **sparse_hp)
+    if dense_optimizer is None:
+        dense_optimizer = {"sgd": sgd, "adagrad": adagrad,
+                           "adam": adam}[optimizer](lr)
+
+    def sopt_for(opt_state):
+        if not scheduled or opt_state is None:
+            return sopt
+        return make_sparse_optimizer(optimizer, lr(opt_state["count"]),
+                                     strategy=strategy, **sparse_hp)
+    return scheduled, sopt_for, dense_optimizer
+
+
+def _gradients(model, loss: torch.Tensor, leaves: list):
+    """A sparse step's backward: (the loss, detached; the dense parameters
+    ``{name: tensor}``; their gradients; the gradients of `leaves`, the
+    tap leaves or a lookahead carry's blocks). At world size W > 1 the
+    gradient of the global-batch mean, as the JAX package's SPMD step
+    takes it: each rank's loss is the mean over its slice, its share 1/W
+    of it, so the backward (the wire's gradient encodes among it) sees
+    the JAX package's numbers; the dense gradients are then summed and
+    the loss averaged over the ranks in one all-reduce."""
+    dense = _dense_params(model)
+    world = model.embedding.world_size
+    seed = (None if world == 1 else torch.full(
+        (), 1.0 / world, dtype=loss.dtype, device=loss.device))
+    grads = torch.autograd.grad(loss, list(dense.values()) + list(leaves),
+                                grad_outputs=seed)
+    g_leaves = list(grads[len(dense):])
+    grads = list(grads[:len(dense)])
+    loss = loss.detach()
+    if world > 1:
+        *grads, loss = sum_across_ranks(grads + [loss])
+        loss = loss / device_scalar(world, loss)
+    return loss, dense, dict(zip(dense, grads)), g_leaves
+
+
+def _drain(layer, opt_state: dict, g_taps: dict, res, sopt,
+           dense_optimizer: DenseOptimizer, dense: dict, g_dense: dict,
+           scheduled: bool) -> dict:
+    """A sparse step's updates, in place: the tap gradients into the
+    tables' rows and their state (`drain_sparse_apply`), then the dense
+    optimizer. Returns the new optimizer state."""
+    new_state = {"emb": drain_sparse_apply(layer, opt_state["emb"], g_taps,
+                                           res, sopt),
+                 "dense": dense_optimizer.update(dense, g_dense,
+                                                 opt_state["dense"])}
+    if scheduled:
+        new_state["count"] = opt_state["count"] + 1
+    return new_state
 
 
 def _zeros_like(t: torch.Tensor) -> torch.Tensor:
@@ -606,8 +636,6 @@ def evaluate(model, data, steps: int = 16, preprocess=None,
 # fit arguments of the JAX package that the port does not cover yet, with
 # the value that means "unused" and the ROADMAP item that ports them
 _FIT_UNPORTED = {
-    "lookahead": (None, "A14 (lookahead)"),
-    "stale_ok": (False, "A14 (lookahead)"),
     "registry": (None, "A15 (obs)"),
 }
 
@@ -622,7 +650,8 @@ def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
         hot_sync_every: int = 0, store=None,
         publish_every: Optional[int] = None,
         publish_dir: Optional[str] = None, vocab=None,
-        vocab_every: int = 16, **unported):
+        vocab_every: int = 16, lookahead: int = 0, stale_ok: bool = False,
+        **unported):
     """The training loop (the JAX package's `fit`, which has ``params``
     where the port's model holds its own).
 
@@ -699,14 +728,22 @@ def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
       binding from before it, and its gradient would land on a rebound
       row's new tenant), and the batch is staged after them. Pipelined and
       serial runs stay bit-identical.
+      lookahead / stale_ok: with ``lookahead=1`` the steps run through a
+      `schedule.LookaheadEngine` (sparse steps only), which prefetches
+      each next batch's lookups beside the step's dense stage, bit-equal
+      to ``lookahead=0`` (the default; no environment sets it) unless
+      `stale_ok`. The loop then pulls one batch ahead and hands the engine
+      host batches, which it stages itself; a `vocab` translates each
+      batch when it is pulled (so maintenance cycles are refused:
+      ``vocab_every`` must be 0), and hot rows are refused, as in the JAX
+      package. History gains ``"lookahead_stats"``.
 
     Iterable data is taken as ``islice(iter(data), steps)``, so a shared
     source is never read past this run's steps. Returns (model,
     opt_state, history): ``history["loss"]`` as floats, ``"eval_auc"``
     with `eval_every`, ``"ingest_stages"`` (per-stage wall-time summaries)
-    for iterable data. Every other argument of the JAX package's `fit` is
-    taken at its default only, and raises NotImplementedError naming its
-    ROADMAP item otherwise."""
+    for iterable data. `registry` is taken at its default only, and
+    raises NotImplementedError naming its ROADMAP item otherwise."""
     for name, value in unported.items():
         if name not in _FIT_UNPORTED:
             raise TypeError(f"fit() got an unexpected argument {name!r}")
@@ -727,7 +764,37 @@ def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
         raise ValueError(
             "vocab manager was built over a different layer than "
             "model.embedding; binding rows are plan-specific")
-    if sparse:
+    la_engine = None
+    if lookahead:
+        # what the pipeline cannot carry is refused here, as the JAX
+        # package's fit refuses it
+        if not sparse:
+            raise ValueError(
+                "lookahead requires the sparse tapped path (sparse=True)")
+        if hot_sync_every or getattr(getattr(model, "embedding", None),
+                                     "_hot_buckets", None):
+            raise NotImplementedError(
+                "lookahead>0 does not compose with hot-row replication: "
+                "the replicated hot shard moves densely every step, so "
+                "prefetched activations cannot be patched from the "
+                "touched-row set (at most one of hot_rows / lookahead per "
+                "run)")
+        if vocab is not None and vocab_every:
+            raise NotImplementedError(
+                "lookahead>0 does not compose with VocabManager "
+                "maintenance cycles (vocab_every != 0): a same-window "
+                "evict+rebind would invalidate physical rows the engine "
+                "already prefetched; run with vocab_every=0 "
+                "(translate-only) or lookahead=0")
+        from distributed_embeddings_tpu_torch.schedule import (
+            LookaheadEngine)
+        la_engine = LookaheadEngine(
+            model, optimizer, lr=lr, dense_optimizer=dense_optimizer,
+            lookahead=lookahead, stale_ok=stale_ok)
+        if opt_state is None:
+            opt_state = la_engine.init()
+        la_engine.opt_state = opt_state
+    elif sparse:
         init_fn, step_fn = make_sparse_train_step(
             model, optimizer, lr=lr, dense_optimizer=dense_optimizer)
         if opt_state is None:
@@ -755,8 +822,9 @@ def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
         stage = _observed_stage(stage, _world(model) > 1
                                 and getattr(hot_emb, "dp_input", True))
     # with a vocabulary or a publisher the loop translates and observes
-    # each host batch itself, then stages it
-    host_loop = vocab is not None or publishing
+    # each host batch itself, then stages it; under lookahead the engine
+    # stages the host batches
+    host_loop = vocab is not None or publishing or la_engine is not None
     pipeline = None
     if not callable(data):
         pipeline = staged_batches(
@@ -788,15 +856,34 @@ def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
         history.setdefault("published", []).append(
             store.publish(publish_dir))
 
+    def pull(s):
+        if pipeline is not None:
+            item = next(pipeline)
+        else:
+            item = data(s)
+            if not host_loop:
+                item = stage(item)
+        if la_engine is not None and vocab is not None:
+            # translated when pulled: the engine prefetches a batch a step
+            # before it runs it (maintenance is refused, so the binding is
+            # the one the step would see)
+            numerical, cats, labels = item
+            item = (numerical, vocab.translate(list(cats), observe=True),
+                    labels)
+        return item
+
+    next_item = None
     try:
         for step in range(steps):
-            if pipeline is not None:
-                item = next(pipeline)
+            if la_engine is not None:
+                item = next_item if next_item is not None else pull(step)
+                next_item = pull(step + 1) if step + 1 < steps else None
             else:
-                item = data(step)
-                if not host_loop:
-                    item = stage(item)
-            if host_loop:
+                item = pull(step)
+            if la_engine is not None:
+                if publishing:
+                    store.observe(list(item[1]))
+            elif host_loop:
                 numerical, cats, labels = item
                 if vocab is not None:
                     # maintain before translating: a batch translated
@@ -817,9 +904,13 @@ def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
                     drain()
                     opt_state["emb"] = hot_emb.sync_hot_rows(
                         opt_state["emb"], admit=True)
-            numerical, cats, labels = ready(item)
-            model, opt_state, loss = step_fn(model, opt_state, numerical,
-                                             list(cats), labels)
+            if la_engine is not None:
+                loss = la_engine.step(item, next_item)
+                opt_state = la_engine.opt_state
+            else:
+                numerical, cats, labels = ready(item)
+                model, opt_state, loss = step_fn(model, opt_state, numerical,
+                                                 list(cats), labels)
             pending.append(loss)
             if publishing:
                 steps_since_publish += 1
@@ -846,6 +937,8 @@ def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
             history["ingest_stages"] = pipeline.stage_summaries()
             pipeline.close()
     drain()
+    if la_engine is not None:
+        history["lookahead_stats"] = dict(la_engine.stats)
     if hot_active:
         # the tables canonical again (the hot rows written back; the hot
         # sets stay resident)

@@ -24,10 +24,17 @@ compares one case:
   `broadcast_variables`, the training shims (`DistributedGradientTape`
   against the JAX package's, then a `DistributedOptimizer` sgd update),
   an indivisible batch, what builds at W > 1 (the wires, hot rows, host
-  offload and the vocabulary slack among it), what refuses a world above
-  one (the vocabulary manager, the store's producer) and what stays
-  unported (the ragged exchange, the store's consumer across ranks, the
-  engine's cache: ROADMAP Queue A5, A13);
+  offload, the vocabulary slack and the engine's cache among it), what
+  refuses a world above one (the vocabulary manager, the store's
+  producer) and what stays unported (the ragged exchange: ROADMAP Queue
+  A5);
+* the serving tier across ranks: the JAX package's
+  `test_engine_streaming_consumption` on a layer with an offloaded
+  bucket (cached), a row-sliced and a dp table, the stream files written
+  by the JAX store on the mesh, replayed stage by stage against the JAX
+  engine there (outputs, cache stats, slot keys and weights bit-equal, on
+  every rank), with a payload read failing on rank 1 only (every rank
+  at the same version with the same degraded reasons);
 * at W = 2, a small DLRM's `evaluate` and three dense adagrad steps
   (``fit(sparse=False)``) over global click-stream batches;
 * the placement groups (the JAX package's `test_dist_model_parallel`
@@ -89,10 +96,19 @@ from distributed_embeddings_tpu.models import synthetic as jax_synth  # noqa: E4
 from distributed_embeddings_tpu.parallel.mesh import create_mesh  # noqa: E402
 from distributed_embeddings_tpu.serving.engine import (  # noqa: E402
     InferenceEngine as JaxInferenceEngine)
+from distributed_embeddings_tpu.store import (  # noqa: E402
+    TableStore as JaxTableStore)
 from distributed_embeddings_tpu_torch import training as pt_training  # noqa: E402
+from distributed_embeddings_tpu_torch.layers.dist_model_parallel import (  # noqa: E402
+    DistributedEmbedding as PtDistributedEmbedding)
+from distributed_embeddings_tpu_torch.layers.embedding import (  # noqa: E402
+    Embedding as PtEmbedding)
+from distributed_embeddings_tpu_torch.store import (  # noqa: E402
+    TableStore as PtTableStore)
 from distributed_embeddings_tpu_torch.models import synthetic as pt_synth  # noqa: E402
 
 import torch_multigpu_worker as worker  # noqa: E402
+from test_serving import _zipf  # noqa: E402
 from test_torch_training import (STATE_TOL,  # noqa: E402
                                  _assert_adam_step_close,
                                  _assert_tree_close, _jax_dense_state,
@@ -258,7 +274,8 @@ def _forward_cases(world, mesh):
              "weights": ("weights", {**spec, "weights": weights}),
              "broadcast": ("broadcast", {"config": TRAIN_CONFIG}),
              "raises": ("raises", {**spec, "column": 100,
-                                   "indivisible": [np.zeros(BATCH + 1)]})}
+                                   "indivisible": [np.zeros(BATCH + 1)],
+                                   "lookahead": LOOKAHEAD_REFUSALS})}
     return cases, {"outputs": outs, "tree": tree, "weights": weights}
 
 
@@ -379,6 +396,125 @@ def _mp_case(world, mesh):
             "params": _np(model_params),
             "batch": (num.numpy(), cats, labels.numpy()), "lr": LR}
     return spec, {"outputs": outs}
+
+
+# the lookahead engine's refusals that need dp tables, which a single rank
+# never plans: name -> (tables (rows, width, combiner, scaled), placement
+# arguments, the reason the JAX engine gives,
+# tests/test_torch_lookahead.py)
+LOOKAHEAD_REFUSALS = {
+    "all_dp": ([(32, 8, "sum", False), (16, 8, "sum", False)],
+               dict(data_parallel_threshold=10_000), "nothing to prefetch"),
+    "custom_dp": (PLACEMENTS["custom_dp"][0], PLACEMENTS["custom_dp"][2],
+                  "custom embedding layer classes"),
+}
+
+# the serving tier across ranks: tests/test_serving.py's tables (two
+# 5000-row tables past the device budget, each rank's offloaded bucket,
+# fed at hotness 2), a 40-row dp table and an 8000-row row-sliced one
+STREAM_TABLES = [(5000, 16, "sum"), (40, 16, "sum"), (5000, 16, "sum"),
+                 (64, 16, "sum"), (128, 16, "sum"), (96, 16, "sum"),
+                 (80, 16, "sum"), (72, 16, "sum"), (8000, 16, "sum")]
+STREAM_KW = dict(gpu_embedding_size=2500 * 16, data_parallel_threshold=700,
+                 row_slice_threshold=100_000)
+STREAM_HOTNESS = [2, 1, 2, 1, 1, 1, 1, 1, 1]
+STREAM_ROWS = 16
+STREAM_CAPACITY = 12
+
+
+def _stream_request(rng, zipf: bool) -> list:
+    """One request: the JAX test's hot ids (0..3, and 4..7 as the second
+    id of a hotness-2 input), or zipf ids over each table."""
+    out = []
+    for (rows, _, _), k in zip(STREAM_TABLES, STREAM_HOTNESS):
+        if zipf:
+            ids = _zipf(rng, rows, STREAM_ROWS * k).reshape(STREAM_ROWS, k)
+        else:
+            base = np.tile(np.arange(4, dtype=np.int32), STREAM_ROWS // 4)
+            ids = np.stack([base + 4 * j for j in range(k)], 1)
+        out.append(ids[:, 0].astype(np.int32) if k == 1
+                   else ids.astype(np.int32))
+    return out
+
+
+def _stream_case(world, mesh, tmp):
+    """`test_engine_streaming_consumption` on a W-device mesh: the JAX
+    store publishes a snapshot (v1), a delta on the hot rows (v2) and two
+    more deltas (v3, v4: the second chains from the version the
+    consumer's `set_params` gives it); the JAX engine then runs the
+    worker's stages (`torch_multigpu_worker.stream`) in its order."""
+    rng = np.random.RandomState(4)
+    jl = JaxDistributedEmbedding(
+        [JaxEmbedding(r, w, combiner=c) for r, w, c in STREAM_TABLES],
+        mesh=mesh, **STREAM_KW)
+    assert jl._offload_enabled and jl.plan.row_tables \
+        and jl.strategy.table_groups[0]
+    w0 = [rng.randn(r, w).astype(np.float32) * 0.1
+          for r, w, _ in STREAM_TABLES]
+    w1 = [w.copy() for w in w0]
+    for w in w1:
+        w[:8] += 1.0
+    hot = [_stream_request(rng, False)]
+    zipf = [_stream_request(rng, True) for _ in range(2)]
+    d = str(tmp / f"stream{world}")
+    prod = JaxTableStore(jl, jl.set_weights(w0))
+    prod.commit(prod.params)
+    assert prod.publish(d)["kind"] == "snapshot"
+    touched = jl.touched_row_keys(hot[0])
+    assert ("row", 0) in touched
+    prod.commit(jl.set_weights(w1), touched=touched)
+    assert prod.publish(d)["kind"] == "delta"
+    paths = []
+    for _ in range(2):
+        prod.commit(prod.params, touched=touched)
+        paths.append(prod.publish(d))
+    assert [p["base_version"] for p in paths] == [2, 3]
+    zeros = [np.zeros_like(w) for w in w0]
+    eng = JaxInferenceEngine(jl, jl.set_weights(zeros),
+                             cache_capacity=STREAM_CAPACITY,
+                             promote_threshold=1)
+    ref = {}
+
+    def stage(name, infos, requests=()):
+        outs = [[np.asarray(a) for a in eng.predict(req)]
+                for req in requests]
+        ref[name] = {"infos": [(i["kind"], i["version"]) for i in infos],
+                     "outputs": outs, "cache": eng.cache_stats(),
+                     "slot_keys": {b: c._slot_keys.copy()
+                                   for b, c in eng.caches.items()},
+                     "version": eng.store.version,
+                     "weights": eng.store.get_weights()}
+    stage("snapshot", eng.poll_updates(d, upto=1), hot)
+    stage("delta", eng.poll_updates(d, upto=2), hot + zipf)
+    eng.set_params(jl.set_weights(w0), refresh=True)
+    stage("set_params", [], hot)
+    stage("reanchor", eng.poll_updates(d, upto=4), hot)
+    v = eng.reanchor_published(d, upto=2)
+    stage("reanchored", [{"kind": "reanchor", "version": v}], hot)
+    assert ref["delta"]["cache"]["buckets"] and any(
+        b["evictions"] for b in ref["delta"]["cache"]["buckets"].values())
+    # the port's publisher is world 1: its placement differs from the
+    # ranks' (the dp and row-sliced tables are table-parallel there), so
+    # its delta's bucket keys are re-keyed on every rank
+    pub = PtDistributedEmbedding(
+        [PtEmbedding(r, w, combiner=c, device="meta")
+         for r, w, c in STREAM_TABLES], device="cpu", **STREAM_KW)
+    pub.set_weights(w0)
+    pstore = PtTableStore(pub)
+    port_dir = str(tmp / f"port{world}")
+    pstore.commit()
+    pstore.publish(port_dir)
+    ref["port"] = [pub.get_weights()]
+    pub.set_weights(w1)
+    pstore.commit(touched=pub.touched_row_keys(
+        [np.arange(8, dtype=np.int32)] * len(STREAM_TABLES)))
+    assert pstore.publish(port_dir)["kind"] == "delta"
+    ref["port"].append(pub.get_weights())
+    spec = {"tables": STREAM_TABLES, "kw": STREAM_KW, "zeros": zeros,
+            "weights": w0, "capacity": STREAM_CAPACITY, "dir": d,
+            "hot": hot, "zipf": zipf, "aliasing": paths[1]["path"],
+            "port_dir": port_dir}
+    return spec, ref
 
 
 def _placed_model_case(world, mesh):
@@ -622,6 +758,9 @@ def world_run(tmp_path_factory):
             cases["wire"] = ("wire", {"seed": world})
             spec, refs["shims"] = _shims_case(world, mesh)
             cases["shims"] = ("shims", spec)
+            spec, refs["stream"] = _stream_case(
+                world, mesh, tmp_path_factory.mktemp("stream"))
+            cases["stream"] = ("stream", spec)
             if world == 2:
                 spec, refs["quantized"] = _quantized_case(
                     world, mesh, tmp_path_factory.mktemp("checkpoints"))
@@ -715,11 +854,12 @@ def test_training_shims_match_jax(world_run, world):
 @pytest.mark.parametrize("world", WORLDS)
 def test_what_stays_unported_raises(world_run, world):
     """What the port builds at W > 1 (column slicing, fewer tables than
-    ranks, the dp and row groups, model-parallel input, the engine, the
-    wire formats, hot rows, host offload, the vocabulary slack); what
-    stays unported raises naming its ROADMAP item (the store's consumer
-    across ranks is A13's engine); the vocabulary manager and the store's
-    producer refuse a world above one."""
+    ranks, the dp and row groups, model-parallel input, the engine and
+    its hot-row cache, the wire formats, hot rows, host offload, the
+    vocabulary slack); what stays unported raises naming its ROADMAP
+    item; the vocabulary manager and the store's producer refuse a world
+    above one; the store's consumer is collective: a file that one rank
+    cannot read fails on every rank with the same error."""
     ranks, _ = world_run(world)
     for r in ranks:
         res = r["raises"]
@@ -727,15 +867,97 @@ def test_what_stays_unported_raises(world_run, world):
         for key in ("column_threshold", "fewer_tables_than_ranks",
                     "data_parallel", "row_slice", "dp_input", "engine",
                     "storage_dtype", "exchange_wire", "bf16_all_gather",
-                    "hot_rows", "gpu_embedding_size", "vocab_slack"):
+                    "hot_rows", "gpu_embedding_size", "vocab_slack",
+                    "engine_cache"):
             assert res[key] is None, (key, res[key])
         for key in ("vocab_manager", "store_producer"):
             assert "single-process" in (res[key] or ""), (key, res[key])
-        for key, item in (("ragged_exchange", "A5"),
-                          ("store_consumer", "A13"), ("engine_cache", "A13")):
-            assert f"ROADMAP Queue {item} " in (res[key] or ""), (key,
-                                                                  res[key])
+        assert "ROADMAP Queue A5 " in (res["ragged_exchange"] or "")
+        # lookahead: the JAX engine's reasons, and the multi-process one
+        for name, (_, _, reason) in LOOKAHEAD_REFUSALS.items():
+            assert reason in (res[f"lookahead_{name}"] or ""), name
+        assert "single-process" in (res["lookahead_world"] or "")
+        assert "NCCL (ROADMAP Queue A3)" in res["lookahead_world"]
+        assert (res["store_consumer"] or "").startswith(
+            "rank 0: FileNotFoundError"), res["store_consumer"]
         assert "process group" in res["world_size"]
+
+
+STREAM_STAGES = ("snapshot", "delta", "set_params", "reanchor",
+                 "reanchored")
+
+
+@pytest.mark.parametrize("stage", STREAM_STAGES)
+@pytest.mark.parametrize("world", WORLDS)
+def test_stream_consumption_matches_jax(world_run, world, stage):
+    """The serving tier across ranks (`torch_multigpu_worker.stream`)
+    against the JAX engine on the mesh, stage by stage: the files
+    applied, every output bit-equal (and equal to the uncached engine's
+    on the same layer), the cache stats and every slot's key, the store
+    version and the global weights bit-equal, on every rank."""
+    ranks, refs = world_run(world)
+    want = refs["stream"][stage]
+    for rank, r in enumerate(ranks):
+        got = r["stream"][stage]
+        assert got["infos"] == want["infos"], rank
+        assert got["uncached_equal"] == [True] * len(want["outputs"])
+        for g_req, w_req in zip(got["outputs"], want["outputs"],
+                                strict=True):
+            for g, w in zip(g_req, w_req, strict=True):
+                np.testing.assert_array_equal(g, w)
+        assert got["cache"] == want["cache"], rank
+        assert got["slot_keys"].keys() == want["slot_keys"].keys()
+        for b, keys in want["slot_keys"].items():
+            np.testing.assert_array_equal(got["slot_keys"][b], keys)
+        assert got["version"] == want["version"]
+        for g, w in zip(got["weights"], want["weights"], strict=True):
+            np.testing.assert_array_equal(g, w)
+        assert got["update_stats"] == ranks[0]["stream"][stage][
+            "update_stats"]
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_world1_publisher_stream_rekeyed_across_ranks(world_run, world):
+    """The port's own publisher is world 1: every rank re-keys its
+    deltas' bucket keys onto the rank's placement (its dp and row-sliced
+    tables among them) and holds the publisher's weights bit for bit at
+    each version, cached serving equal to uncached."""
+    ranks, refs = world_run(world)
+    for r in ranks:
+        got = r["stream"]["port_stream"]
+        assert [g["infos"] for g in got] == [[("snapshot", 1)],
+                                             [("delta", 2)]]
+        for g, want in zip(got, refs["stream"]["port"], strict=True):
+            assert g["degraded"] == [] and all(g["uncached_equal"])
+            for a, b in zip(g["weights"], want, strict=True):
+                np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_stream_read_fault_agrees_across_ranks(world_run, world):
+    """Rank 1's payload reads fail while the others' succeed: every rank
+    stays at the snapshot's version with the same degraded reasons, the
+    same error type and the same poll error count (a transient error:
+    retried, then `io_transient`; another: `poll_error`); the next sound
+    poll catches every rank up; a delta that chains only by version after
+    `set_params` is refused on every rank."""
+    ranks, _ = world_run(world)
+    for name, reasons, kind, errors in (
+            ("transient", ["io_transient"], None, 0),
+            ("error", ["io_transient", "poll_error"], "RuntimeError", 1)):
+        for r in ranks:
+            got = r["stream"][name]
+            assert got["infos"] == [] and got["version"] == 1, name
+            assert got["degraded"] == reasons, (name, got["degraded"])
+            assert (got["last_poll_error"] or "").split(":")[0] == \
+                (kind or ""), got["last_poll_error"]
+            assert got["poll_errors"] == errors
+            assert got["update_stats"] == ranks[0]["stream"][name][
+                "update_stats"]
+    for r in ranks:
+        assert "rank 1: KeyError" in r["stream"]["error"]["last_poll_error"]
+        assert r["stream"]["delta"]["degraded"] == []
+        assert "out of band" in (r["stream"]["aliasing_refused"] or "")
 
 
 def _per_table(layer, tree):

@@ -229,11 +229,11 @@ def test_train_step_outside_the_slice_raises(kwargs):
 
 @pytest.mark.parametrize("kwargs,ported", [
     pytest.param(dict(publish_every=4), True, id="kwargs0"),
-    pytest.param(dict(lookahead=1), False, id="kwargs1"),
+    pytest.param(dict(lookahead=1), True, id="kwargs1"),
     pytest.param(dict(store=object()), True, id="kwargs2"),
     pytest.param(dict(vocab=object()), True, id="kwargs3"),
     pytest.param(dict(vocab_every=4), True, id="kwargs4"),
-    pytest.param(dict(stale_ok=True), False, id="kwargs5"),
+    pytest.param(dict(stale_ok=True), True, id="kwargs5"),
     pytest.param(dict(publish_dir="somewhere"), True, id="kwargs6"),
     pytest.param(dict(registry=object()), False, id="kwargs7"),
 ])
@@ -265,6 +265,7 @@ def test_fit_outside_the_slice_raises(kwargs, ported):
         kwargs = dict(store=TableStore(model.embedding))
     history = fit(model, [], 0, **kwargs)[2]
     assert "published" not in history and "vocab_stats" not in history
+    assert ("lookahead_stats" in history) == ("lookahead" in kwargs)
     if "publish_every" in kwargs:
         with pytest.raises(ValueError, match="publish_dir"):
             fit(model, [], 0, store=TableStore(model.embedding), **kwargs)
@@ -275,18 +276,14 @@ def test_fit_outside_the_slice_raises(kwargs, ported):
 ])
 def test_fit_takes_the_reference_arguments_at_their_defaults(name, default,
                                                              other, item):
-    """The JAX `fit`'s arguments: the default is accepted; another value
-    raises naming the ROADMAP item while the argument is unported
-    (lookahead, A14), and is accepted once ported (vocab_every, A12)."""
+    """The JAX `fit`'s arguments: the default is accepted, and so is
+    another value once the argument is ported (vocab_every, A12;
+    lookahead, A14: its engine's stats join the history)."""
     model = DLRM([10, 20], embedding_dim=8, device="cpu")
     fit(model, [], 0, **{name: default})
-    if item == "A12":
-        history = fit(model, [], 0, **{name: other})[2]
-        assert history["loss"] == [] and "vocab_stats" not in history
-        return
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP Queue {item}[ ,]"):
-        fit(model, [], 0, **{name: other})
+    history = fit(model, [], 0, **{name: other})[2]
+    assert history["loss"] == [] and "vocab_stats" not in history
+    assert ("lookahead_stats" in history) == (item == "A14")
 
 
 def test_fit_sync_every_reads_the_loss_every_n_steps():

@@ -27,11 +27,16 @@ both packages:
   port's uncached decode-at-gather path and to the JAX cached engine (its
   path is green on a one-device mesh), the slots bit-equal to the rows the
   JAX cache decodes for the same keys;
-* the world > 1 refusal, and no new module importing jax.
+* at world size > 1: a rank fills, patches and refreshes only the slots
+  of its own world slice's keys; the engine's `_group_keys` (every
+  shard's keys, ``[world, B * f * k]``) against the JAX engine's on a
+  2- and a 4-device mesh (the serving path across ranks runs in
+  `tests/test_torch_multigpu.py`'s spawns); no new module importing jax.
 """
 
 import ast
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -56,6 +61,10 @@ from distributed_embeddings_tpu_torch.layers.dist_model_parallel import (  # noq
 from distributed_embeddings_tpu_torch.layers.embedding import Embedding  # noqa: E402
 from distributed_embeddings_tpu_torch.obs.registry import MetricRegistry  # noqa: E402
 from distributed_embeddings_tpu_torch.ops import embedding_ops  # noqa: E402
+from distributed_embeddings_tpu_torch.parallel.plan import (  # noqa: E402
+    lower_strategy)
+from distributed_embeddings_tpu_torch.parallel.planner import (  # noqa: E402
+    DistEmbeddingStrategy)
 from distributed_embeddings_tpu_torch.serving import (  # noqa: E402
     HotRowCache, InferenceEngine)
 from distributed_embeddings_tpu_torch.training import (  # noqa: E402
@@ -431,16 +440,91 @@ def test_int8_bucket_serves_through_the_decode_seam():
                                   _bits(ref))
 
 
-def test_cache_refuses_a_world_above_one():
-    layer = _layer()
+def test_cache_fills_only_its_ranks_keys():
+    """At world size > 1 each rank fills and refreshes only the slots of
+    keys in its own world slice, from its own shard, while its tracker
+    admits every key the request carries (the same admissions on every
+    rank): here the layer's rank is set to 1 of 2, so keys ``rows_max +
+    row`` are its own and the row keys of slice 0 are another rank's.
+    A bucket on the card is refused."""
+    layer, _, _ = _pair()
     b = layer.offloaded_buckets[0]
-    layer.world_size = 2
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A13"):
-        HotRowCache(layer, b, capacity=4)
-    layer.world_size = 1
+    rows_max = layer.plan.tp_buckets[b].rows_max
+    cache = HotRowCache(layer, b, capacity=8, promote_threshold=1)
+    layer.world_size, layer.rank = 2, 1
+    try:
+        own = np.arange(3, dtype=np.int64) + rows_max + 5
+        other = np.arange(3, dtype=np.int64) + 7
+        cache.lookup_slots(np.concatenate([own, other]))
+        assert cache.admit() == 6
+        slot_own = cache.lookup_slots(own, observe=False)
+        slot_other = cache.lookup_slots(other, observe=False)
+        assert (slot_own >= 0).all() and (slot_other >= 0).all()
+        table = layer.tp[b].detach()
+        np.testing.assert_array_equal(cache.slots.numpy()[slot_own],
+                                      table[own - rows_max].numpy())
+        np.testing.assert_array_equal(cache.slots.numpy()[slot_other], 0.0)
+        patch = np.full((6, cache.width), 3.0, np.float32)
+        assert cache.apply_rows(np.concatenate([own, other]), patch) == 3
+        np.testing.assert_array_equal(cache.slots.numpy()[slot_other], 0.0)
+        assert cache.refresh() == 3
+        np.testing.assert_array_equal(cache.slots.numpy()[slot_own],
+                                      table[own - rows_max].numpy())
+        assert cache.stats()["resident"] == 6
+    finally:
+        layer.world_size, layer.rank = 1, 0
     with pytest.raises(ValueError, match="not host-offloaded"):
         HotRowCache(layer, [i for i in range(len(layer.tp))
                             if i != b][0], capacity=4)
+
+
+class _PlanOnly:
+    """What `DistributedEmbedding._exchange_groups_for_key` reads of a
+    layer: the port's plan of `specs` at `world` ranks, built without a
+    process group."""
+
+    def __init__(self, specs, world, **kw):
+        strat = DistEmbeddingStrategy(
+            [Embedding(v, w, combiner=c, device="meta") for v, w, c in specs],
+            world, "auto", **kw)
+        self.strategy, self.plan = strat, lower_strategy(strat)
+        self.world_size, self.rank = world, 0
+        self.device = torch.device("cpu")
+        self._groups_cache, self._hot_buckets = {}, []
+
+    def _id_dtype(self, b):
+        return torch.int32
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_group_keys_match_jax_across_ranks(world):
+    """The engine's host mirror of every shard's exchanged ids at W > 1
+    (`_group_keys`: ``[world, B * f * k]`` keys ``r * rows_max + row``
+    and their validity) equals the JAX engine's on a W-device mesh, for
+    every exchange group of a request padded from 13 rows to 16 (multi-hot
+    and one-hot inputs, ids past their tables clipped)."""
+    rng = np.random.RandomState(world)
+    specs = MEAN_SPECS
+    hot = [3, 1, 3, 1, 2, 1, 1, 3]
+    cats = [rng.randint(0, v + 4, size=(13, k) if k > 1 else (13,))
+            .astype(np.int32) for (v, _, _), k in zip(specs, hot)]
+    jl = JaxDistributedEmbedding(
+        [JaxEmbedding(v, w, combiner=c) for v, w, c in specs],
+        mesh=create_mesh(jax.devices()[:world]), gpu_embedding_size=BUDGET)
+    jeng = JaxEngine(jl, jl.set_weights(_weights(specs)), cache_capacity=8)
+    key, jtp = jeng._tp_key(jeng._normalize(cats))
+    jgroups, _ = jl._exchange_groups_for_key(key)
+    stub = _PlanOnly(specs, world, gpu_embedding_size=BUDGET)
+    tp = [cats[i] for i in stub.strategy.input_groups[1]]
+    groups, _ = DistributedEmbedding._exchange_groups_for_key(stub, key)
+    assert len(groups) == len(jgroups) > 1
+    eng = SimpleNamespace(embedding=stub)
+    for grp, jgrp in zip(groups, jgroups):
+        keys, valid = InferenceEngine._group_keys(eng, grp, tp, 16, 13)
+        jkeys, jvalid = jeng._group_keys(jgrp, jtp, 16, 13)
+        assert keys.shape == (world, 16 * grp.f_max * grp.k)
+        np.testing.assert_array_equal(keys, jkeys)
+        np.testing.assert_array_equal(valid, jvalid)
 
 
 def test_new_modules_import_no_jax():

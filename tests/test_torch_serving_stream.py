@@ -20,7 +20,9 @@ tests/test_serving.py's offloaded tables with a hot-row cache:
 * a serving replica's query-only `VocabManager` over a table of an
   offloaded bucket (the port takes it; `maintain` refuses it): the
   binding loaded from the sidecar, the raw keys served bit-equal;
-* at world size > 1 the stream's apply raises naming ROADMAP Queue A13.
+* the collective apply's agreement: a failed read raises its type on
+  every rank and writes nothing (the W = 2 and 4 paths run in
+  `tests/test_torch_multigpu.py`'s spawns).
 """
 
 import warnings
@@ -40,7 +42,9 @@ from distributed_embeddings_tpu_torch.layers.embedding import Embedding  # noqa:
 from distributed_embeddings_tpu_torch.obs.registry import MetricRegistry  # noqa: E402
 from distributed_embeddings_tpu_torch.serving import InferenceEngine  # noqa: E402
 from distributed_embeddings_tpu_torch.store import (  # noqa: E402
-    DeltaChainError, TableStore)
+    DeltaChainError, TableStore, table_store)
+from distributed_embeddings_tpu_torch.utils.checkpoint import (  # noqa: E402
+    StreamIntegrityError)
 from distributed_embeddings_tpu_torch.vocab import (  # noqa: E402
     VocabManager, vocab_state_path)
 
@@ -340,21 +344,61 @@ def test_another_models_stream_is_a_poll_error(tmp_path):
     assert reg.gauge("serve/degraded", reason="poll_error").value == 1
 
 
-def test_stream_refuses_a_world_above_one(tmp_path):
+@pytest.mark.parametrize("err,cls", [
+    (OSError("busy"), OSError),
+    (StreamIntegrityError("bad crc"), StreamIntegrityError),
+    (DeltaChainError("base 3"), DeltaChainError),
+    (ValueError("another model"), ValueError),
+    (KeyError("k"), RuntimeError)])
+def test_stream_read_failures_agree_by_type(err, cls):
+    """The agreement a collective apply makes before any rank writes
+    (`table_store._raise_agreed`): the first failed rank's error is
+    raised on every rank as its type, so every rank's consumer retries a
+    transient read, quarantines a corrupt file or fails the poll alike
+    (any other type agrees as a RuntimeError)."""
+    msg = f"{type(err).__name__}: {err}"
+    outcomes = [None, (table_store._error_kind(err), msg),
+                (table_store._error_kind(OSError()), "OSError: later")]
+    with pytest.raises(cls) as info:
+        table_store._raise_agreed(outcomes, None)
+    assert type(info.value) is cls
+    assert str(info.value) == f"rank 1: {msg}"
+    table_store._raise_agreed([None, None], None)
+
+
+def test_stream_read_fault_writes_nothing(tmp_path, monkeypatch):
+    """A collective apply (the layer's world size set to 2; with no
+    process group the agreement is this rank's) whose payload read fails
+    writes nothing: a corrupt delta is quarantined, the version and the
+    tables stay, the engine reports ``corrupt_stream``; the other ranks'
+    reads of the stream's listing and headers are rank 0's."""
+    d = str(tmp_path)
+    w0 = _weights()
+    pub = _Publisher("pt", d, w0)
     eng, _ = _engines()
+    pub.snapshot(w0)
+    assert [i["kind"] for i in eng.poll_updates(d)] == ["snapshot"]
+    pub.delta(_bump(w0, 1.0))
+    before = eng.store.get_weights()
+    real = table_store.ckpt.load_row_delta
+
+    def damaged(path, *args, **kwargs):
+        if "delta" in path:
+            raise StreamIntegrityError("injected: payload crc")
+        return real(path, *args, **kwargs)
+    monkeypatch.setattr(table_store.ckpt, "load_row_delta", damaged)
     eng.embedding.world_size = 2
     try:
-        for call in (lambda: eng.poll_updates(str(tmp_path)),
-                     lambda: eng.apply_delta("unused"),
-                     eng.refresh,
-                     lambda: eng.reanchor_published(str(tmp_path))):
-            with pytest.raises(NotImplementedError,
-                               match="ROADMAP Queue A13 "):
-                call()
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A13 "):
-            InferenceEngine(eng.embedding, device="cpu", cache_capacity=16)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            assert eng.poll_updates(d) == []
     finally:
         eng.embedding.world_size = 1
+    assert eng.store.version == 1
+    assert eng.degraded_reasons() == frozenset({"corrupt_stream"})
+    for a, b in zip(eng.store.get_weights(), before):
+        np.testing.assert_array_equal(a, b)
+    assert eng.update_stats(d)["quarantined_files"] == 1
 
 
 def test_query_only_manager_translates_an_offloaded_table(tmp_path):

@@ -1,7 +1,9 @@
 """The port's table store against the JAX package's `store`, at world 1.
 
-Mirrors tests/test_store.py case for case (its engine streaming case is
-ROADMAP Queue A13) and the green store cases of tests/test_store_dtype.py,
+Mirrors tests/test_store.py case for case (its engine streaming case runs
+in tests/test_torch_serving_stream.py at world 1 and in
+tests/test_torch_multigpu.py at W = 2 and 4) and the green store cases of
+tests/test_store_dtype.py,
 on a one-device JAX mesh, whose flat keys are the port's at world 1:
 `touched_row_keys` equal to the JAX layer's, key for key; after the same
 steps the published keys equal and the rows within rtol 1e-4 / atol 1e-5
@@ -11,7 +13,10 @@ guards (`DeltaChainError`, the signature guard, `replace`); a flipped byte
 quarantined and the chain re-anchored on the next snapshot;
 `restore_from_published`; the hot overlay of `read_rows`; an offloaded
 float32 bucket and int8 buckets, in host memory and on the device, read and
-written bit-equal to the JAX store's.
+written bit-equal to the JAX store's; a delta re-keyed onto a consumer of
+another placement (its header records the publisher's), and a table whose
+column slices cannot be re-keyed refused; the producer's refusal of a world
+above one, and the consumer's apply agreed across ranks.
 """
 
 import os
@@ -43,7 +48,7 @@ from distributed_embeddings_tpu_torch.store import (  # noqa: E402
     DeltaChainError, DeltaConsumer, TableStore, restore_from_published,
     scan_published)
 from distributed_embeddings_tpu_torch.store.table_store import (  # noqa: E402
-    padded_gather_rows, padded_scatter_rows)
+    _translate_delta, padded_gather_rows, padded_scatter_rows)
 from distributed_embeddings_tpu_torch.training import (  # noqa: E402
     make_sparse_train_step)
 from distributed_embeddings_tpu_torch.utils import checkpoint  # noqa: E402
@@ -760,11 +765,74 @@ def test_offloaded_float32_bucket_applies_through_the_host_seam(tmp_path):
     _assert_tables_bit_equal(c_emb.get_weights(), emb.get_weights())
 
 
+def test_delta_rekeyed_onto_another_placement(tmp_path):
+    """A delta's bucket keys mean rows only under its publisher's
+    placement, which its header records (``meta["plan"]``): a consumer
+    whose layer places the tables otherwise (here the two 16-wide tables
+    in a host-offloaded bucket of their own, against one fused bucket a
+    width) re-keys the rows onto its own buckets and ends bit-equal to
+    the publisher at every version, and so do its cached serving's slots;
+    a consumer of the same placement applies the keys as they are."""
+    rng = np.random.RandomState(41)
+    pub = _layer(combiner="sum")
+    pub.set_weights(_weights(3))
+    store = TableStore(pub)
+    d = str(tmp_path)
+    store.commit()
+    store.publish(d)
+    other = _layer(combiner="sum", gpu_embedding_size=1000)
+    assert len(other.tp) != len(pub.tp) and other.offloaded_buckets
+    same = _layer(combiner="sum")
+    from distributed_embeddings_tpu_torch.serving import InferenceEngine
+    eng = InferenceEngine(other, device="cpu", cache_capacity=64,
+                          promote_threshold=1)
+    cons = DeltaConsumer(TableStore(same), d)
+    cats = _cats(rng)
+    for step in range(3):
+        assert eng.poll_updates(d) and cons.poll()
+        _assert_tables_bit_equal(other.get_weights(), pub.get_weights())
+        _assert_tables_bit_equal(same.get_weights(), pub.get_weights())
+        got = eng.predict(cats)
+        with torch.no_grad():
+            want = pub(cats)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), step
+        with torch.no_grad():
+            for t in pub.tp:
+                t[:7] += 0.5 + step
+        store.commit(touched=pub.touched_row_keys(
+            [np.arange(7, dtype=np.int32)] * len(SIZES)))
+        assert store.publish(d)["kind"] == "delta"
+    assert [i["kind"] for i in eng.poll_updates(d)] == ["delta"]
+    _assert_tables_bit_equal(other.get_weights(), pub.get_weights())
+    assert eng.cache_stats()["hits"] > 0
+    assert all(c.patched for c in eng.caches.values())
+
+
+def test_delta_rekeying_refuses_split_columns():
+    """A table whose columns the consumer holds across two of the
+    publisher's column slices cannot be re-keyed row by row."""
+    emb = _layer(sizes=[(20, 8), (30, 8)], combiner="sum")
+    # the publisher's: table 0 in two 4-wide column slices (bucket 0),
+    # table 1 whole (bucket 1)
+    plan = {"tp": [[0, 0, 0, 20, 0, 0, 4], [0, 0, 20, 20, 0, 4, 8],
+                   [1, 0, 0, 30, 1, 0, 8]], "rows_max": [40, 30]}
+    out = _translate_delta(emb, plan, {("tp", 1): (
+        np.asarray([3], np.int64), np.ones((1, 8), np.float32))})
+    (kind, b), (keys, rows) = next(iter(out.items()))
+    assert kind == "tp" and rows.shape == (1, 8)
+    assert keys[0] == emb.plan.tp_placements[1].row_offset + 3
+    with pytest.raises(ValueError, match="column slices"):
+        _translate_delta(emb, plan, {("tp", 0): (
+            np.asarray([1], np.int64), np.ones((1, 4), np.float32))})
+
+
 def test_producer_refuses_a_world_above_one():
     """The producer is single-process: at world size > 1 `observe`,
-    `publish` and `read_rows` raise, and `apply_published` names A13 (the
-    W = 2 spawn of tests/test_torch_multigpu.py runs the same refusals in
-    a real process group)."""
+    `publish` and `read_rows` raise; `apply_published` is collective
+    there, and a file no rank can read raises the first rank's error type
+    on every rank (the W = 2 spawn of tests/test_torch_multigpu.py runs
+    both in a real process group)."""
     emb = _layer()
     store = TableStore(emb)
     emb.world_size = 2
@@ -773,8 +841,9 @@ def test_producer_refuses_a_world_above_one():
                  lambda: store.read_rows(0, np.arange(2))):
         with pytest.raises(NotImplementedError, match="single-process"):
             call()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A13"):
+    with pytest.raises(OSError, match="^rank 0: FileNotFoundError"):
         store.apply_published("unused")
+    assert store.version == 0
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         emb.world_size = 1

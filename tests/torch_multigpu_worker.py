@@ -205,11 +205,12 @@ def shims(spec) -> dict:
 def raises(spec) -> dict:
     """The errors the port gives at world size > 1 (None: no error):
     what it ported builds (column slicing, fewer tables than ranks, the dp
-    and row groups, model-parallel input, the engine, the wire formats,
-    hot rows, host offload, the vocabulary slack); what it did not raises
-    NotImplementedError naming its ROADMAP item, and what is
-    single-process by design (the vocabulary manager, the store's
-    producer) raises saying so."""
+    and row groups, model-parallel input, the engine and its cache, the
+    wire formats, hot rows, host offload, the vocabulary slack); what it
+    did not raises NotImplementedError naming its ROADMAP item, and what
+    is single-process by design (the vocabulary manager, the store's
+    producer) raises saying so; the store's consumer raises the same
+    error on every rank."""
     out = {}
 
     def message(fn, kind=NotImplementedError):
@@ -239,7 +240,7 @@ def raises(spec) -> dict:
                     ("vocab_slack", dict(vocab_slack=4))):
         out[key] = message(lambda: _layer(spec, **kw))
     # the vocabulary manager and the store's producer are single-process;
-    # the consumer across ranks is the engine's (A13)
+    # the consumer is collective: a missing file fails on every rank alike
     from distributed_embeddings_tpu_torch.store import TableStore
     from distributed_embeddings_tpu_torch.vocab import VocabManager
     slack = _layer(spec, vocab_slack=4)
@@ -247,15 +248,31 @@ def raises(spec) -> dict:
     out["store_producer"] = message(
         lambda: TableStore(slack).observe([]))
     out["store_consumer"] = message(
-        lambda: TableStore(slack).apply_published("unused"))
+        lambda: TableStore(slack).apply_published("unused"), OSError)
     out["ragged_exchange"] = message(wire.ragged_exchange)
     out["bf16_all_gather"] = message(
         lambda: wire.wire_all_gather(torch.zeros(2, 2), "bf16"))
-    out["engine_cache"] = message(
-        lambda: InferenceEngine(_layer(spec), device="cpu",
-                                cache_capacity=16))
+
+    def cached_engine():
+        eng = InferenceEngine(_layer(spec, gpu_embedding_size=100),
+                              device="cpu", cache_capacity=16)
+        if not eng.caches:
+            raise AssertionError("the engine built no cache")
+    out["engine_cache"] = message(cached_engine, Exception)
     out["world_size"] = message(
         lambda: _layer(spec, world_size=mesh.world_size() + 1), ValueError)
+    # lookahead refuses every world above one, after the refusals of what
+    # it cannot carry at all
+    from types import SimpleNamespace
+
+    from distributed_embeddings_tpu_torch.schedule import LookaheadEngine
+    for name, (tables, kw, _) in spec["lookahead"].items():
+        layer = _placed({"tables": tables, "table_map": None, "kw": kw})
+        out[f"lookahead_{name}"] = message(
+            lambda: LookaheadEngine(SimpleNamespace(embedding=layer)),
+            Exception)
+    out["lookahead_world"] = message(
+        lambda: LookaheadEngine(SimpleNamespace(embedding=_layer(spec))))
     return out
 
 
@@ -689,13 +706,117 @@ def offload(spec) -> dict:
             "losses": losses, "weights": layer.get_weights(all_ranks=True)}
 
 
+def _faulty_reads(rank: int, error):
+    """On rank `rank` only, every stream file's payload read raises
+    `error` (the header reads stay sound); restored by the caller."""
+    from distributed_embeddings_tpu_torch.store import table_store
+    real = table_store.ckpt.load_row_delta
+
+    def read(path, *args, **kwargs):
+        if mesh.rank() == rank:
+            raise error
+        return real(path, *args, **kwargs)
+    table_store.ckpt.load_row_delta = read
+    return lambda: setattr(table_store.ckpt, "load_row_delta", real)
+
+
+def stream(spec) -> dict:
+    """The JAX package's `test_engine_streaming_consumption` at W > 1
+    (the stream files were written by the JAX store on a W-device mesh):
+    a cached engine over a layer with an offloaded bucket, a row-sliced
+    table and a dp table consumes the snapshot (``upto=1``), serves the
+    hot requests; one rank's payload read fails, transiently, then with
+    another error; the delta (``upto=2``); `set_params(refresh=True)`
+    breaks the chain; the aliasing delta refused; the re-anchoring poll.
+    After each stage: this engine's outputs, whether they equal the
+    uncached engine's, the cache stats and slot keys, the versions, the
+    degradation, the global weights."""
+    layer = DistributedEmbedding(
+        [Embedding(r, w, combiner=c, device="meta")
+         for r, w, c in spec["tables"]], device="cpu", **spec["kw"])
+    layer.set_weights(spec["zeros"])
+    eng = InferenceEngine(layer, device="cpu",
+                          cache_capacity=spec["capacity"],
+                          promote_threshold=1)
+    plain = InferenceEngine(layer, device="cpu")
+    d = spec["dir"]
+    stages = {}
+
+    def serve(requests, eng=eng):
+        outs, same = [], []
+        for req in requests:
+            got = eng.predict(req)
+            same.append(all(torch.equal(a, b) for a, b in
+                             zip(got, plain.predict(req))))
+            outs.append([a.numpy() for a in got])
+        return outs, same
+
+    def stage(name, infos, requests=()):
+        outs, same = serve(requests)
+        stages[name] = {
+            "infos": [(i["kind"], i["version"]) for i in infos],
+            "outputs": outs, "uncached_equal": same,
+            "cache": eng.cache_stats(),
+            "slot_keys": {b: c._slot_keys.copy()
+                          for b, c in eng.caches.items()},
+            "version": eng.store.version,
+            "table_versions": list(eng.store.table_versions),
+            "degraded": sorted(eng.degraded_reasons()),
+            "last_poll_error": eng.last_poll_error,
+            "poll_errors": eng._metrics.counter(
+                "serve/poll_errors_total").value,
+            "update_stats": eng.update_stats(d),
+            "weights": layer.get_weights(all_ranks=True)}
+
+    stage("snapshot", eng.poll_updates(d, upto=1), spec["hot"])
+    restore = _faulty_reads(1, OSError("injected: the disk is busy"))
+    try:
+        stage("transient", eng.poll_updates(d, upto=2))
+    finally:
+        restore()
+    restore = _faulty_reads(1, KeyError("injected"))
+    try:
+        stage("error", eng.poll_updates(d, upto=2))
+    finally:
+        restore()
+    stage("delta", eng.poll_updates(d, upto=2), spec["hot"] + spec["zipf"])
+    with torch.no_grad():
+        layer.set_weights(spec["weights"])
+    eng.set_params(layer.state_dict(), refresh=True)
+    stage("set_params", [], spec["hot"])
+    from distributed_embeddings_tpu_torch.store import DeltaChainError
+    try:
+        eng.store.apply_published(spec["aliasing"])
+        refused = None
+    except DeltaChainError as e:
+        refused = str(e)
+    stages["aliasing_refused"] = refused
+    stage("reanchor", eng.poll_updates(d, upto=4), spec["hot"])
+    v = eng.reanchor_published(d, upto=2)
+    stage("reanchored", [{"kind": "reanchor", "version": v}], spec["hot"])
+    # the port's world-1 publisher's stream, re-keyed onto this placement
+    eng = InferenceEngine(layer, device="cpu",
+                          cache_capacity=spec["capacity"],
+                          promote_threshold=1)
+    stages["port_stream"] = []
+    for v in (1, 2):
+        infos = eng.poll_updates(spec["port_dir"], upto=v)
+        _, same = serve(spec["hot"], eng)
+        stages["port_stream"].append({
+            "infos": [(i["kind"], i["version"]) for i in infos],
+            "degraded": sorted(eng.degraded_reasons()),
+            "uncached_equal": same,
+            "weights": layer.get_weights(all_ranks=True)})
+    return stages
+
+
 KINDS = {"dlrm": dlrm, "dlrm_fit": dlrm_fit, "forward": forward,
          "weights": weights, "broadcast": broadcast, "shims": shims,
          "raises": raises, "train": train, "placement": placement,
          "mp_forward": mp_forward, "dense_step": dense_step,
          "engine": engine, "convert": convert_round_trip, "wire": wire_ops,
          "quantized": quantized, "wire_parity": wire_parity,
-         "hot_wire": hot_wire, "offload": offload}
+         "hot_wire": hot_wire, "offload": offload, "stream": stream}
 
 
 def main(rank: int, world: int, init_method: str, spec_path: str,
