@@ -505,6 +505,24 @@ Phases, each printing JSON lines before the last line:
      launches a step both ways, and the host ms of the engine's two host
      walks (`touched_row_keys` of one batch, `prefetch_stale_mask` of the
      next against it) with the stale share they give.
+  19. (after 18) obs (`obs_phase`, A15a): full-size Tiny V3, adagrad at
+     0.01, OBS_STEPS batches of 65,536 power-law rows through
+     ``fit(registry=reg, store=, publish_every=4, publish_dir=)`` inside
+     `utils.profiling.trace`, under `deterministic_sums`: launches 4 / 1
+     / 1 a ``train/step`` span; the capture's device time by span
+     (`obs.attribution`, the sum identity exact in ns, ``train/step``'s
+     time above 0). A second Tiny in an `InferenceEngine(registry=reg)`
+     applies the stream (digests equal the publisher's) and serves 4
+     requests of 4,096 rows through a `MicroBatcher` (4 launches a
+     ``serve/predict`` span, logits equal to the publisher's engine's).
+     The port's tier-1 SLO rules give no finding; the flight recorder's
+     export balances; each version's lineage runs commit -> publish ->
+     scan -> apply -> serve; the JSONL line and the Prometheus text
+     parse; the ``exchange/*`` gauges equal a fresh report. Then the same
+     steps with no registry, no profiler and no store: losses and every
+     digest equal. Printed (``obs_attribution``, ``main_path`` ``obs``): device
+     seconds by span, unattributed, total, the top device ops; the step
+     ms of both runs; one span's host µs; the phase's seconds.
   7. the kernels line (each kernel's launches by path, the world paths'
      summed over the ranks; `sgd_rows` with ``copy_ms``, an
      `index_select` + `index_copy_` of the same rows, as a second
@@ -2137,8 +2155,9 @@ SELECT_RANGE = "index_select@"
 # (phase 8; the top level imports no part of the package)
 EXCHANGE_RANGE = "exchange:all_to_all"
 # host ranges whose device-side spans are annotations, not device work
+# (the `obs.span` paths of `fit` and `InferenceEngine.predict` among them)
 ANNOTATED_RANGES = (SELECT_RANGE, "exchange:", "gloo:", "nccl:",
-                    "quantized:")
+                    "quantized:", "train/", "serve/")
 
 
 def by_category(by_kernel):
@@ -8855,6 +8874,432 @@ def lookahead_phase(torch, cuda_lookup, counted) -> dict:
     return {"lookahead0": c0, "lookahead1": c1, "lookahead1_stale_ok": cs}
 
 
+# ---- 19. observability (A15a) at world 1
+OBS_STEPS = 8                # fit steps of the bit-equality pair (the
+                             # tier-1 rules want 8 train/step spans)
+OBS_PUBLISH_EVERY = 4        # two versions, each through to serving
+OBS_PROD_STEPS = 16          # steps a run of the production-route pair
+                             # (a fit's first ~4 steps are slower)
+OBS_REQUESTS = 4             # served through a MicroBatcher, one a forward
+OBS_REQUEST_ROWS = 4096
+OBS_SEED = 0
+OBS_CONSUMER_SEED = 1
+OBS_SPAN_REPS = 5000         # spans timed alone for their host cost
+OBS_RULES = os.path.join(REPO, "distributed_embeddings_tpu_torch", "tools",
+                         "slo_tier1.json")
+# a Prometheus text line: name, optional labels, value
+PROM_LINE = re.compile(r'^[a-zA-Z0-9_:]+(\{([a-zA-Z0-9_]+="(\\.|[^"\\])*")'
+                       r'(,[a-zA-Z0-9_]+="(\\.|[^"\\])*")*\})? \S+$')
+
+
+class StepStamps:
+    """`fit` callback: after every step it synchronizes and stamps the
+    time (the same in every run of phase 19)."""
+
+    def __init__(self, torch):
+        self.torch, self.stamps = torch, []
+
+    def on_train_begin(self, model):
+        self.torch.cuda.synchronize()
+        self.stamps.append(time.perf_counter())
+
+    def on_step(self, step, model, loss):
+        self.torch.cuda.synchronize()
+        self.stamps.append(time.perf_counter())
+
+    def plain_ms(self, publish_every=0):
+        """Each step's ms, less the steps a run publishing every
+        `publish_every` publishes after."""
+        return [(self.stamps[s + 1] - self.stamps[s]) * 1e3
+                for s in range(len(self.stamps) - 1)
+                if not publish_every or (s + 1) % publish_every]
+
+
+def obs_fit_run(torch, cuda_lookup, counted, batches, model=None,
+                state=None, pub_dir=None, registry=None, logdir=None,
+                deterministic=True):
+    """One `fit` over `batches` (a fresh full Tiny from OBS_SEED, or
+    `model` with its optimizer `state`), counts to 0 first; under
+    `deterministic_sums` unless `deterministic` is false; with `pub_dir`,
+    publishing every OBS_PUBLISH_EVERY steps there through a
+    `TableStore`; with `logdir`, inside `utils.profiling.trace(logdir)`.
+    Returns (model, optimizer state, history, launches, the step stamps,
+    seconds)."""
+    from distributed_embeddings_tpu_torch.models.synthetic import (
+        SYNTHETIC_MODELS, SyntheticModel)
+    from distributed_embeddings_tpu_torch.store import TableStore
+    from distributed_embeddings_tpu_torch.training import fit
+    from distributed_embeddings_tpu_torch.utils import profiling
+    if model is None:
+        model = SyntheticModel(SYNTHETIC_MODELS["tiny"], device="cuda",
+                               generator=torch.Generator(device="cuda")
+                               .manual_seed(OBS_SEED))
+    store = None if pub_dir is None else TableStore(model.embedding)
+    stamps = StepStamps(torch)
+    torch.cuda.synchronize()
+    set_counts(cuda_lookup, *counted)
+    t0 = time.perf_counter()
+    capture = (profiling.trace(logdir) if logdir is not None
+               else contextlib.nullcontext())
+    det = (deterministic_sums(torch) if deterministic
+           else contextlib.nullcontext())
+    with det, capture:
+        _, state, hist = fit(model, batches, len(batches), "adagrad",
+                             lr=TRAIN_LR, opt_state=state, store=store,
+                             publish_every=OBS_PUBLISH_EVERY if store
+                             else None, publish_dir=pub_dir,
+                             registry=registry, log_every=0,
+                             callbacks=[stamps])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts(cuda_lookup, *counted)
+    del store
+    return model, state, hist, counts, stamps, seconds
+
+
+def span_host_us(obs) -> float:
+    """µs of host time one empty span costs (registry histogram, flight
+    recorder edges, `record_function` and the NVTX range), outside any
+    profiler; the recorder is reset after."""
+    reg = obs.MetricRegistry()
+    with obs.span("warm", reg):
+        pass
+    t0 = time.perf_counter()
+    for _ in range(OBS_SPAN_REPS):
+        with obs.span("obs/overhead", reg):
+            pass
+    us = (time.perf_counter() - t0) / OBS_SPAN_REPS * 1e6
+    obs.reset_default_recorder()
+    return us
+
+
+def obs_lineage_ok(rec, versions) -> dict:
+    """Each published version's lineage phases in the recorder's order;
+    fails unless every one runs commit -> publish -> scan -> apply ->
+    serve."""
+    want = ["commit", "publish", "scan", "apply", "serve"]
+    phases = {v: [] for v in versions}
+    for ph, _, _, _, cat, eid, args in rec.events():
+        if cat == "version" and eid in phases:
+            phases[eid].append((args or {}).get("phase"))
+    check(all(p == want for p in phases.values()),
+          f"obs: lineage {phases}, want {want} for every version")
+    check(rec.lineage_open_versions() == [],
+          f"obs: lineage still open {rec.lineage_open_versions()}")
+    return phases
+
+
+def obs_attribute(obs, logdir, reg, what: str) -> dict:
+    """`obs.attribution.attribute_logdir` of a capture of `fit`, onto
+    `reg`; fails unless the identity holds exactly in integer ns and
+    ``train/step`` (with its nested spans) has device time. Returns the
+    attribution with ``parse_s``, ``train_step_s`` and
+    ``unattributed_dtoh_s`` (the part of the unattributed time that is
+    device-to-host copies) added."""
+    t0 = time.perf_counter()
+    att = obs.attribution.attribute_logdir(logdir, registry=reg)
+    att["parse_s"] = time.perf_counter() - t0
+    ns = att["ns"]
+    check(sum(ns["spans"].values()) + ns["unattributed"] == ns["total"],
+          f"obs: {what}: attribution identity broken: {ns}")
+    step_ns = sum(v for p, v in ns["spans"].items()
+                  if p == "train/step" or p.startswith("train/step/"))
+    check(step_ns > 0 and att["op_source"] == "device",
+          f"obs: {what}: train/step has {step_ns} ns of device time "
+          f"({att['op_source']})")
+    att["train_step_s"] = step_ns / 1e9
+    att["unattributed_dtoh_s"] = sum(
+        sec for n, sec in att["unattributed_top_ops"] if "DtoH" in n)
+    return att
+
+
+def emit_attribution(att: dict, path: str, route: str):
+    """The `obs_attribution` line of one capture."""
+    emit(phase="obs_attribution", path=path, route=route,
+         device_s_by_span=dict(sorted(att["spans"].items(),
+                                      key=lambda kv: -kv[1])),
+         unattributed_s=att["unattributed_seconds"],
+         unattributed_dtoh_s=att["unattributed_dtoh_s"],
+         unattributed_other_s=att["unattributed_seconds"]
+         - att["unattributed_dtoh_s"],
+         unattributed_top_ops=[[n[:80], sec] for n, sec
+                               in att["unattributed_top_ops"]],
+         ambiguous_s=att["ambiguous_seconds"],
+         total_s=att["total_device_seconds"],
+         train_step_s=att["train_step_s"],
+         coverage_frac=att["coverage_frac"],
+         device_ops=att["device_op_count"],
+         launch_matched=att["launch_matched"], placement=att["placement"],
+         collectives=att["collectives"],
+         categories_s=att["categories_seconds"],
+         top_ops=[[n[:80], sec] for n, sec in att["top_ops"]],
+         span_windows=att["span_window_count"], trace_file=att["trace_file"],
+         parse_s=att["parse_s"], ok=True)
+
+
+def obs_phase(torch, cuda_lookup, counted) -> dict:
+    """19: observability (ROADMAP A15a) at full width. Full-size Tiny V3,
+    adagrad at TRAIN_LR, batches of BATCH power-law rows (alpha 1.05,
+    seed 0).
+
+    The bit-equality pair, under `deterministic_sums`: OBS_STEPS steps of
+    ``fit(registry=reg, store=TableStore(layer),
+    publish_every=OBS_PUBLISH_EVERY, publish_dir=<temp>)`` inside
+    `utils.profiling.trace(logdir)` (launches 4 / 1 / 1 a ``train/step``
+    span; its capture attributed by span as the deterministic control,
+    `obs_attribute`). A second full Tiny in an
+    `InferenceEngine(registry=reg)` polls the stream (every bucket's
+    digest the publisher's) and serves OBS_REQUESTS requests of
+    OBS_REQUEST_ROWS rows through a `MicroBatcher` on the same registry
+    (4 launches a ``serve/predict`` span, outputs equal to the
+    publisher's engine's on the same requests). Then: the port's tier-1
+    rule file gives no finding; the flight recorder's export balances;
+    each published version's lineage runs commit -> publish -> scan ->
+    apply -> serve; the JSONL line and the Prometheus dump parse; the
+    ``exchange/*`` gauges equal a fresh `exchange_padding_report`. Then
+    the same steps from the same seed with ``registry=None``, no profiler
+    and no store (it reads the tables and writes none; the snapshot's
+    write and read are most of the phase's time): every loss and every
+    bucket's and accumulator's digest equal.
+
+    The production pair, on the control's model and state, the route a
+    user's `fit` takes (no `deterministic_sums`): OBS_PROD_STEPS steps
+    with a registry of their own inside the profiler, then as many with
+    neither. The two differ in the telemetry alone, so their step ms
+    give its overhead; the first's capture is the step's device time by
+    span on the production route, the backward's kernels (launched from
+    autograd's own thread) placed through the thread of their forward.
+    Launches 4 / 1 / 1 a step in each.
+
+    Printed: each capture's device seconds by span, unattributed (and its
+    device-to-host copies apart), ambiguous and total, the placement
+    rules, the top device ops; the step ms of all four runs (publishing
+    steps left out); one span's host µs and the phase's seconds. Returns
+    the launch counts (``obs_fit``, ``obs_serve``,
+    ``obs_fit_production``)."""
+    from distributed_embeddings_tpu_torch import obs
+    from distributed_embeddings_tpu_torch.models.synthetic import (
+        SYNTHETIC_MODELS, InputGenerator, SyntheticModel)
+    from distributed_embeddings_tpu_torch.serving.batcher import MicroBatcher
+    from distributed_embeddings_tpu_torch.serving.engine import (
+        InferenceEngine)
+    t_phase = time.perf_counter()
+    tiny = SYNTHETIC_MODELS["tiny"]
+    batches = list(InputGenerator(tiny, BATCH, alpha=1.05,
+                                  num_batches=OBS_STEPS, seed=0))
+    # the production pair takes them over again
+    prod_batches = (batches * -(-OBS_PROD_STEPS // OBS_STEPS))[
+        :OBS_PROD_STEPS]
+    num, cats, _ = InputGenerator(tiny, BATCH, alpha=1.05, num_batches=1,
+                                  seed=1)[0]
+    requests = [(num[i * OBS_REQUEST_ROWS:(i + 1) * OBS_REQUEST_ROWS],
+                 [c[i * OBS_REQUEST_ROWS:(i + 1) * OBS_REQUEST_ROWS]
+                  for c in cats]) for i in range(OBS_REQUESTS)]
+    span_us = span_host_us(obs)
+    want = {"lookup_combine": 4, "segment_sum_sorted": 1, "adagrad_rows": 1}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs")
+    try:
+        pub_dir = os.path.join(tmp, "stream")
+        logdir = os.path.join(tmp, "profile")
+        reg = obs.MetricRegistry()
+        obs.reset_default_recorder()
+        # the instrumented run: counts to 0, drive, read
+        model, state, hist, fit_counts, stamps, fit_s = obs_fit_run(
+            torch, cuda_lookup, counted, batches[:OBS_STEPS],
+            pub_dir=pub_dir, registry=reg, logdir=logdir)
+        digests = lookahead_digests(torch, model, state)
+        del state
+        snap = reg.snapshot()
+        steps = snap["histograms"]["span_seconds{span=train/step}"]["count"]
+        check(steps == OBS_STEPS and hist["metrics_snapshot"] == snap
+              and "metrics_error" not in hist,
+              f"obs: {steps} train/step spans, metrics_error "
+              f"{hist.get('metrics_error')}")
+        labels = [k for k in snap["histograms"]
+                  if k.startswith("span_seconds{span=train/step/update/")]
+        check(labels == ["span_seconds{span=train/step/update/pallas+xla}"],
+              f"obs: update spans {labels}, want Tiny's two routes "
+              "(bucket 0 dense, bucket 1 by rows)")
+        check(fit_counts == per_step(want, steps),
+              f"obs_fit launches {fit_counts}, want {want} a train/step span")
+        check(all(map(math.isfinite, hist["loss"])),
+              f"non-finite losses {hist['loss']}")
+        versions = [p["version"] for p in hist["published"]]
+        check(versions == [1, 2], f"obs: published versions {versions}")
+        att = obs_attribute(obs, logdir, reg, "deterministic control")
+        # the exchange gauges against a fresh report at the run's batch
+        rep = model.embedding.exchange_padding_report(batch=BATCH)
+        gauges = reg.snapshot()["gauges"]
+        bad = [f for f in obs.instrument.EXCHANGE_GAUGE_FIELDS
+               if gauges[f"exchange/{f}"] != rep[f]]
+        bad += [f"{f}{{group={gi}}}" for gi, e in enumerate(rep["groups"])
+                for f in obs.instrument.EXCHANGE_GROUP_GAUGE_FIELDS
+                if gauges[f"exchange/{f}{{bucket={e['bucket']},group={gi}}}"]
+                != e[f]]
+        check(not bad, f"obs: exchange gauges differ from the report: {bad}")
+        # the publisher's engine on the same requests: the reference
+        ref_engine = InferenceEngine(model, device="cuda")
+        ref_batcher = MicroBatcher(ref_engine, max_batch=OBS_REQUEST_ROWS)
+        handles = [ref_batcher.submit(r) for r in requests]
+        ref = ref_batcher.flush()
+        ref_out = [ref[h].cpu() for h in handles]
+        mlp = {k: v.detach().cpu() for k, v in model.mlp.state_dict().items()}
+        del model, ref_engine, ref_batcher, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the consumer: a second Tiny polls the stream, then serves
+        t0 = time.perf_counter()
+        consumer = SyntheticModel(tiny, device="cuda",
+                                  generator=torch.Generator(device="cuda")
+                                  .manual_seed(OBS_CONSUMER_SEED))
+        consumer.mlp.load_state_dict(mlp)
+        engine = InferenceEngine(consumer, device="cuda", registry=reg)
+        applied = [i["version"] for i in engine.poll_updates(pub_dir)]
+        torch.cuda.synchronize()
+        poll_s = time.perf_counter() - t0
+        check(applied == versions and not engine.degraded_reasons(),
+              f"obs: the engine applied {applied}, degraded "
+              f"{sorted(engine.degraded_reasons())}")
+        got = [table_digest(torch, t) for t in consumer.embedding.tp]
+        check(got == digests[:len(got)],
+              "obs: the consumer's tables differ from the publisher's")
+        batcher = MicroBatcher(engine, max_batch=OBS_REQUEST_ROWS,
+                               registry=reg)
+        set_counts(cuda_lookup, *counted)
+        handles = [batcher.submit(r) for r in requests]
+        out = batcher.flush()
+        torch.cuda.synchronize()
+        serve_counts = read_counts(cuda_lookup, *counted)
+        served = [out[h].cpu() for h in handles]
+        predicts = reg.snapshot()["histograms"][
+            "span_seconds{span=serve/predict}"]["count"]
+        check(serve_counts == per_step({"lookup_combine": 4}, predicts)
+              and predicts == OBS_REQUESTS,
+              f"obs_serve launches {serve_counts} over {predicts} "
+              "serve/predict spans, want 4 each")
+        check(all(tuple(o.shape) == (OBS_REQUEST_ROWS, 1)
+                  and bool(torch.isfinite(o).all())
+                  and torch.equal(o, r) for o, r in zip(served, ref_out)),
+              "obs: served logits differ from the publisher's engine's")
+        del engine, batcher, consumer, out
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the registry's outputs: rules, recorder, lineage, exports
+        final = reg.snapshot()
+        findings = obs.evaluate_rules(obs.load_rules(OBS_RULES), final)
+        check(not findings, f"obs: SLO findings {[f.fid for f in findings]}")
+        rec = obs.default_recorder()
+        doc = rec.to_chrome_trace()
+        depth = {}
+        for ev in doc["traceEvents"]:
+            if ev["ph"] in "BE":
+                depth[ev["tid"]] = depth.get(ev["tid"], 0) + (
+                    1 if ev["ph"] == "B" else -1)
+                check(depth[ev["tid"]] >= 0, "obs: an E without its B")
+        opened = sorted(e["id"] for e in doc["traceEvents"] if e["ph"] == "b")
+        closed = sorted(e["id"] for e in doc["traceEvents"] if e["ph"] == "e")
+        check(not any(depth.values()) and opened == closed,
+              f"obs: the recorder's export does not balance: {depth}, "
+              f"{opened} / {closed}")
+        trace_path = os.path.join(tmp, "recorder.json")
+        rec.export(trace_path)
+        with open(trace_path) as f:
+            json.load(f)
+        lineage = obs_lineage_ok(rec, versions)
+        jsonl = os.path.join(tmp, "metrics.jsonl")
+        reg.export_jsonl(jsonl, extra={"source": "chip_smoke"}, fsync=True)
+        with open(jsonl) as f:
+            line = json.loads(f.read().splitlines()[-1])
+        prom = reg.to_prometheus()
+        bad = [ln for ln in prom.splitlines()
+               if not ln.startswith("#") and not PROM_LINE.match(ln)]
+        check(line["counters"] == final["counters"] and not bad,
+              f"obs: the exports do not parse: {bad[:3]}")
+        shutil.rmtree(pub_dir, ignore_errors=True)
+
+        # the control: the same steps, no registry, no profiler (and no
+        # store: publishing reads the tables and writes none)
+        model, state, chist, ctrl_counts, cstamps, ctrl_s = obs_fit_run(
+            torch, cuda_lookup, counted, batches[:OBS_STEPS])
+        check(chist["loss"] == hist["loss"],
+              f"obs: losses with the registry and profiler {hist['loss']} "
+              f"differ from without {chist['loss']}")
+        check(lookahead_digests(torch, model, state) == digests,
+              "obs: the tables or accumulators differ with the registry "
+              "and profiler")
+        check(ctrl_counts == fit_counts,
+              f"obs: control launches {ctrl_counts} != {fit_counts}")
+
+        # the production pair on the control's model: the telemetry on,
+        # then off
+        prod_log = os.path.join(tmp, "profile_production")
+        preg = obs.MetricRegistry()
+        model, state, phist, prod_counts, pstamps, prod_s = obs_fit_run(
+            torch, cuda_lookup, counted, prod_batches,
+            model=model, state=state, registry=preg, logdir=prod_log,
+            deterministic=False)
+        model, state, qhist, plain_counts, qstamps, plain_s = obs_fit_run(
+            torch, cuda_lookup, counted, prod_batches,
+            model=model, state=state, deterministic=False)
+        del model, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        for what, h, c in (("production", phist, prod_counts),
+                           ("production control", qhist, plain_counts)):
+            check(c == per_step(want, OBS_PROD_STEPS),
+                  f"obs {what} launches {c}, want {want} a step")
+            check(all(map(math.isfinite, h["loss"])),
+                  f"obs {what}: non-finite losses {h['loss']}")
+        patt = obs_attribute(obs, prod_log, preg, "production")
+        check(patt["placement"].get("forward_thread", 0) > 0,
+              f"obs: production: no backward kernel placed through its "
+              f"forward's thread (placement {patt['placement']})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    step_ms = stamps.plain_ms(OBS_PUBLISH_EVERY)
+    ctrl_ms = cstamps.plain_ms(OBS_PUBLISH_EVERY)
+    prod_ms, plain_ms = pstamps.plain_ms(), qstamps.plain_ms()
+    emit_attribution(att, "obs_fit", "deterministic_sums")
+    emit_attribution(patt, "obs_fit_production", "production")
+    emit(phase="main_path", path="obs", steps=OBS_STEPS, batch=BATCH,
+         losses=hist["loss"], bit_equal=True,
+         production_steps=OBS_PROD_STEPS,
+         production_losses=phist["loss"] + qhist["loss"],
+         launches={"obs_fit": fit_counts, "obs_serve": serve_counts,
+                   "control": ctrl_counts,
+                   "obs_fit_production": prod_counts,
+                   "production_control": plain_counts},
+         spans={"train/step": steps, "serve/predict": predicts},
+         step_ms={"instrumented": step_ms, "control": ctrl_ms,
+                  "production_instrumented": prod_ms,
+                  "production_control": plain_ms},
+         step_median_ms={"instrumented": statistics.median(step_ms),
+                         "control": statistics.median(ctrl_ms),
+                         "production_instrumented":
+                         statistics.median(prod_ms),
+                         "production_control": statistics.median(plain_ms)},
+         telemetry_overhead_ms=statistics.median(prod_ms)
+         - statistics.median(plain_ms),
+         span_host_us=span_us, span_host_us_a_step=2 * span_us,
+         fit_s={"instrumented": fit_s, "control": ctrl_s,
+                "production_instrumented": prod_s,
+                "production_control": plain_s},
+         poll_s=poll_s, versions=versions,
+         lineage={str(v): p for v, p in lineage.items()},
+         recorder_events=len(doc["traceEvents"]),
+         recorder_dropped=rec.dropped, slo_findings=0,
+         prometheus_lines=len(prom.splitlines()),
+         gauges={k: v for k, v in final["gauges"].items()
+                 if k.startswith(("kernels/", "train/", "device/total",
+                                  "device/unattributed", "store/"))},
+         counters=final["counters"],
+         seconds=time.perf_counter() - t_phase, ok=True)
+    return {"obs_fit": fit_counts, "obs_serve": serve_counts,
+            "obs_fit_production": prod_counts}
+
+
 def start_native_build(loader) -> dict:
     """`native.loader.build` in a thread of its own; `finish_native_build`
     joins it."""
@@ -9523,6 +9968,12 @@ def main() -> int:
     # stale_ok; counts to 0, drive, read in each run
     lookahead_counts = lookahead_phase(torch, cuda_lookup, counted)
 
+    # ---- 19. observability: full Tiny through `fit(registry=)` under the
+    # profiler, publishing to an engine on the same registry; device time
+    # by span, the rules, the recorder, the lineage; bit-equal to the same
+    # steps without; counts to 0, drive, read in each
+    obs_counts = obs_phase(torch, cuda_lookup, counted)
+
     # ---- 7. result lines; the kernels of DLRM's step carry their times
     # at its shapes too (`at_dlrm_fit`), and at a row shard's of the
     # placement phase (`at_placement`); their worst error covers them
@@ -9559,7 +10010,8 @@ def main() -> int:
              **{f"train_tiled_{k}": c for k, c in tiled_counts.items()},
              **dense_counts, **dlrm_counts, **world_counts, **amp_counts,
              **quant_counts, **wire_counts, **offload_counts,
-             **vocab_counts, **store_counts, **lookahead_counts}
+             **vocab_counts, **store_counts, **lookahead_counts,
+             **obs_counts}
 
     def by_path(kname):
         return {p: c[kname] for p, c in paths.items() if c[kname]}

@@ -20,9 +20,11 @@ for it:
 
 A canary that cannot reach the candidate yet (its delta chain waits for
 the publisher's next snapshot) is pending, not bad: the next tick retries.
-The port has no fault seam (``fleet.canary_apply``) and no flight recorder
-yet (ROADMAP Queue A15): a rollback is driven by a `reference_weights`
-that disagrees with what a canary applied.
+Promotes and rollbacks land on the flight recorder as
+``fleet/canary_promote`` / ``fleet/canary_rollback`` instants. The port
+has no fault seam (``fleet.canary_apply``) yet (ROADMAP Queue A15b): a
+rollback is driven by a `reference_weights` that disagrees with what a
+canary applied.
 """
 
 from typing import Callable, List, Optional, Sequence
@@ -30,6 +32,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 
 from distributed_embeddings_tpu_torch.obs.registry import MetricRegistry
+from distributed_embeddings_tpu_torch.obs.trace import default_recorder
 from distributed_embeddings_tpu_torch.store import scan_published
 
 __all__ = ["CanaryController"]
@@ -120,6 +123,7 @@ class CanaryController:
             return None
         canaries = members[:min(self.canaries, len(members))]
         rest = members[len(canaries):]
+        rec = default_recorder()
 
         results, reached_all = [], True
         for m in canaries:
@@ -144,6 +148,8 @@ class CanaryController:
             event = {"event": "promote", "version": target,
                      "canaries": [r["replica"] for r in results],
                      "parity_devs": [r["parity_dev"] for r in results]}
+            rec.instant("fleet/canary_promote", version=target,
+                        canaries=",".join(r["replica"] for r in results))
             self._metrics.counter("fleet/promotes_total").inc()
             self._metrics.gauge("fleet/pinned_version").set(target)
         elif reached_all or any(not r["ok"] and r["reached"]
@@ -161,6 +167,9 @@ class CanaryController:
                      "parity_devs": [r["parity_dev"] for r in results],
                      "degraded": sorted({d for r in results
                                          for d in r["degraded"]})}
+            rec.instant("fleet/canary_rollback", version=target,
+                        pinned=self.pinned_version,
+                        failed=",".join(event["failed"]))
             self._metrics.counter("fleet/rollbacks_total").inc()
             self._metrics.gauge("fleet/bad_versions").set(
                 len(self.bad_versions))

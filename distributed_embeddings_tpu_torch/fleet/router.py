@@ -19,8 +19,10 @@ owns N replicas (each an `InferenceEngine` and a `MicroBatcher`):
 Synchronous and single-threaded like `MicroBatcher`: the caller decides
 when to `flush()` and when to `step()`. `submit`, `flush` and `step` never
 raise: failures become typed sheds, dropped handles or counted control
-errors. The port reads no environment (64 ring positions a member, as the
-JAX package's default) and has no flight recorder yet (ROADMAP Queue A15).
+errors. Membership changes land on the flight recorder as
+``fleet/replica_join``, ``fleet/replica_enter`` and ``fleet/replica_leave``
+instants. The port reads no environment (64 ring positions a member, as
+the JAX package's default).
 """
 
 from typing import Any, Dict, List, Optional, Tuple
@@ -32,6 +34,7 @@ from distributed_embeddings_tpu_torch.fleet.admission import (
 from distributed_embeddings_tpu_torch.fleet.ring import HashRing
 from distributed_embeddings_tpu_torch.fleet.rollout import CanaryController
 from distributed_embeddings_tpu_torch.obs.registry import MetricRegistry
+from distributed_embeddings_tpu_torch.obs.trace import default_recorder
 from distributed_embeddings_tpu_torch.serving.batcher import MicroBatcher
 
 __all__ = ["FleetRouter"]
@@ -132,6 +135,9 @@ class FleetRouter:
                 return False
         m.state = "serving"
         self.ring.add(m.name)
+        default_recorder().instant(
+            "fleet/replica_enter", replica=m.name,
+            version=int(m.engine.store.version), pinned=pinned)
         self._metrics.gauge("fleet/replicas").set(len(self._serving()))
         return True
 
@@ -147,6 +153,8 @@ class FleetRouter:
                                registry=self._metrics, replica=name)
         m = _Member(name, engine, batcher)
         self._members[name] = m
+        default_recorder().instant("fleet/replica_join", replica=name,
+                                   pinned=self.rollout.pinned_version)
         self._try_enter(m)
 
     def remove_replica(self, name: str) -> Dict[int, Any]:
@@ -159,6 +167,7 @@ class FleetRouter:
             return {}
         self.ring.remove(name)
         m.state = "left"
+        default_recorder().instant("fleet/replica_leave", replica=name)
         self._metrics.gauge("fleet/replicas").set(len(self._serving()))
         drained: Dict[int, Any] = {}
         try:

@@ -510,6 +510,10 @@ class DistributedEmbedding(nn.Module):
                 (bk.hot_rows, bk.width), dtype=torch.float32,
                 device=self.device))
         self._hot_trackers: dict = {}
+        # the exchange each (bucket, f_max, k) group took at world size > 1
+        # ("padded": the ragged exchange is ROADMAP A5), for
+        # `exchange_padding_report`
+        self._exchange_path_taken: dict = {}
         # dp tables whose layer class overrides forward run that forward
         # on their table (the JAX package's `_dp_custom_layers`); the
         # layers are not submodules: the table is `dp[j]` itself
@@ -1113,6 +1117,204 @@ class DistributedEmbedding(nn.Module):
         self._groups_cache[key] = res = (groups, assembly)
         return res
 
+    def exchange_padding_report(self, hotness=None, hot_hit_rate=None,
+                                batch: int = 1, vocab=None,
+                                lookahead: int = 0,
+                                delta_dtype: Optional[str] = None) -> dict:
+        """Static accounting of the dp->mp exchange's volume, field for
+        field the JAX layer's (``distributed_embeddings_tpu/layers/
+        dist_model_parallel.py`` `exchange_padding_report`, whose
+        docstring sets out every field); plain arithmetic over the plan.
+
+        Per sample: ``true_ids`` (the reference's true-splits volume, sum
+        over groups of the ranks' slots times k), ``exchanged_ids`` (the
+        padded exchange's, world * f_max * k a group) and their
+        ``ratio``; the byte accounting at each bucket's wire dtypes
+        (``exchanged_bytes``, ``true_bytes``, ``act_bytes`` against
+        ``act_bytes_f32``, ``act_wire_reduction``, ``id_narrowed_groups``);
+        under hot rows ``hot_hit_ids`` / ``true_ids_post_hot`` at the
+        trackers' measured hit rate (or `hot_hit_rate`); at global batch
+        `batch`, ``touched_rows_per_step`` (bounded by the bucket's rows)
+        and ``delta_bytes_per_step`` through `ops.wire.delta_row_bytes`
+        at `delta_dtype` (None: "f32", the JAX default; the port reads no
+        environment), each bucket's ``storage_dtype``; with a
+        `vocab.VocabManager`, ``occupancy``, ``slack_rows`` and
+        ``evictions_per_step``; with ``lookahead > 0`` the worst-case
+        patch rows and bytes (``prefetch_patch_*``). ``path_taken`` /
+        ``exchange_paths`` name the exchange each group ran ("padded" at
+        world size > 1, recorded by the forward; none at world 1).
+        """
+        tp_inputs = self.strategy.input_groups[1]
+        delta_dtype = wire.resolve_store_dtype(delta_dtype)
+        if hotness is None:
+            mh = self.input_max_hotness or [None] * self._n_inputs
+            hotness = [mh[i] or 1 for i in tp_inputs]
+        if len(hotness) != len(tp_inputs):
+            raise ValueError(
+                f"hotness has {len(hotness)} entries, expected "
+                f"{len(tp_inputs)} (one per tp input)")
+
+        def rate_for(b):
+            if b not in self._hot_buckets:
+                return None
+            if isinstance(hot_hit_rate, dict):
+                return float(hot_hit_rate.get(b, 0.0))
+            if hot_hit_rate is not None:
+                return float(hot_hit_rate)
+            tr = self._hot_trackers.get(b)
+            return tr.hit_rate if tr is not None else 0.0
+
+        # per-step denominator of the eviction rates: observing
+        # translations (one a training step), else maintain cycles
+        steps = max(getattr(vocab, "observe_steps", 0)
+                    or getattr(vocab, "maintain_cycles", 0), 1) \
+            if vocab is not None else 1
+
+        def bucket_vocab(b):
+            """(occupancy, slack_rows, evictions_per_step) of bucket b:
+            live rows / capacity rows over its tables (managed tables read
+            their binding; a table without a manager has its build rows
+            live and its slack dead)."""
+            tids = sorted({self.strategy.table_groups[1][pl.table_id]
+                           for pl in self.plan.tp_placements
+                           if pl.bucket == b})
+            live = cap = 0
+            ev = 0.0
+            for gtid in tids:
+                cfg = self.strategy.global_configs[gtid]
+                rows = int(cfg["input_dim"])
+                cap += rows
+                mv = vocab.vocabs.get(gtid) if vocab is not None else None
+                if mv is not None:
+                    live += 1 + mv.bound    # the fallback row is live
+                    ev += mv.evictions / steps
+                else:
+                    live += rows - int(cfg.get("vocab_slack", 0))
+            return ((live / cap) if cap else 1.0,
+                    self.plan.tp_buckets[b].slack_rows, ev)
+
+        vocab_by_bucket = {b: bucket_vocab(b)
+                           for b in range(len(self.plan.tp_buckets))}
+        groups, _ = self._exchange_groups_for_key(
+            tuple((int(h), False) for h in hotness))
+        world = self.world_size
+        report, true_tot, ex_tot, hot_tot = [], 0, 0, 0
+        touched_tot, delta_bytes_tot = 0, 0
+        patch_rows_tot, patch_bytes_tot = 0, 0
+        ex_bytes_tot, true_bytes_tot = 0, 0
+        act_bytes_tot, act_bytes_f32_tot = 0, 0
+        id_narrowed = []
+        for gi, g in enumerate(groups):
+            bucket = self.plan.tp_buckets[g.bucket]
+            true_ids = sum(g.counts) * g.k
+            ex_ids = world * g.f_max * g.k
+            true_tot += true_ids
+            ex_tot += ex_ids
+            # the id wire at the bucket's id dtype plus the combined
+            # activations' return at its float wire, forward, per sample
+            w_out = bucket.width * (1 if bucket.combiner is not None
+                                    else g.k)
+            id_b = wire.id_wire_itemsize(bucket.id_wire_dtype)
+            wire_b = wire.wire_itemsize(bucket.wire_dtype)
+            act_ex = world * g.f_max * w_out
+            act_true = sum(g.counts) * w_out
+            ex_bytes = ex_ids * id_b + act_ex * wire_b
+            true_bytes = true_ids * id_b + act_true * wire_b
+            ex_bytes_tot += ex_bytes
+            true_bytes_tot += true_bytes
+            act_bytes_tot += act_ex * wire_b
+            act_bytes_f32_tot += act_ex * 4
+            if bucket.id_wire_dtype == "int16":
+                id_narrowed.append(gi)
+            occ, slack, ev = vocab_by_bucket[g.bucket]
+            entry = {
+                "bucket": g.bucket, "hotness": g.k, "f_max": g.f_max,
+                "features_per_rank": list(g.counts),
+                "true_ids": true_ids, "exchanged_ids": ex_ids,
+                "wire_dtype": bucket.wire_dtype,
+                "id_wire_dtype": bucket.id_wire_dtype,
+                "storage_dtype": bucket.storage_dtype,
+                "act_width": w_out,
+                "act_bytes": act_ex * wire_b,
+                "act_bytes_f32": act_ex * 4,
+                "exchanged_bytes": ex_bytes,
+                "true_bytes": true_bytes,
+                "weight_bytes_if_weighted": ex_ids * wire_b,
+                "occupancy": round(occ, 4),
+                "slack_rows": slack,
+                "evictions_per_step": round(ev, 4),
+                "path_taken": self._exchange_path_taken.get(
+                    (g.bucket, g.f_max, g.k)),
+            }
+            rate = rate_for(g.bucket)
+            if rate is not None:
+                hot_ids = int(round(true_ids * rate))
+                hot_tot += hot_ids
+                entry["hot_hit_ids"] = hot_ids
+                entry["true_ids_post_hot"] = true_ids - hot_ids
+            # the rows the group's update writes a step (post-hot ids at
+            # the batch, bounded by the bucket's rows); the delta bytes
+            # add the hot hits back (the merged view republishes them)
+            post_hot = entry.get("true_ids_post_hot", true_ids)
+            touched = min(int(batch) * post_hot,
+                          world * max(bucket.rows_max, 1))
+            hot_pub = min(int(batch) * entry.get("hot_hit_ids", 0),
+                          bucket.hot_rows)
+            entry["touched_rows_per_step"] = touched
+            entry["delta_bytes_per_step"] = (
+                (touched + hot_pub)
+                * wire.delta_row_bytes(bucket.width, delta_dtype))
+            touched_tot += touched
+            delta_bytes_tot += entry["delta_bytes_per_step"]
+            # lookahead's worst case: every row the previous step touched
+            # patched again, one id and one activation slot a row
+            patch_rows = touched if lookahead > 0 else 0
+            entry["prefetch_patch_rows_per_step"] = patch_rows
+            entry["prefetch_patch_bytes_per_step"] = (
+                patch_rows * (id_b + w_out * wire_b))
+            patch_rows_tot += patch_rows
+            patch_bytes_tot += entry["prefetch_patch_bytes_per_step"]
+            report.append(entry)
+        buckets = self.plan.tp_buckets
+        return {"groups": report, "true_ids": true_tot,
+                "exchanged_ids": ex_tot,
+                "ratio": (ex_tot / true_tot) if true_tot else 1.0,
+                "exchanged_bytes": ex_bytes_tot,
+                "true_bytes": true_bytes_tot,
+                "act_bytes": act_bytes_tot,
+                "act_bytes_f32": act_bytes_f32_tot,
+                "act_wire_reduction": (act_bytes_f32_tot / act_bytes_tot
+                                       if act_bytes_tot else 1.0),
+                "wire_dtypes": {b: bk.wire_dtype
+                                for b, bk in enumerate(buckets)},
+                "id_narrowed_groups": id_narrowed,
+                "hot_hit_ids": hot_tot,
+                "true_ids_post_hot": true_tot - hot_tot,
+                "hot_hit_rates": {b: rate_for(b) for b in self._hot_buckets},
+                "touched_rows_per_step": touched_tot,
+                "delta_bytes_per_step": delta_bytes_tot,
+                "delta_dtype": delta_dtype,
+                "storage_dtypes": {b: bk.storage_dtype
+                                   for b, bk in enumerate(buckets)},
+                "lookahead": int(lookahead),
+                "prefetch_patch_rows_per_step": patch_rows_tot,
+                "prefetch_patch_bytes_per_step": patch_bytes_tot,
+                # each bucket once (a bucket can serve several hotness
+                # groups): occupancy weighted by capacity, the rest summed
+                "occupancy": round(
+                    sum(vocab_by_bucket[b][0] * max(buckets[b].rows_max, 1)
+                        for b in vocab_by_bucket)
+                    / max(sum(max(buckets[b].rows_max, 1)
+                              for b in vocab_by_bucket), 1), 4)
+                if vocab_by_bucket else 1.0,
+                "slack_rows": sum(v[1] for v in vocab_by_bucket.values()),
+                # evictions from the manager, not a bucket sum: a table
+                # column-sliced over several buckets evicts a row once
+                "evictions_per_step": round(
+                    sum(mv.evictions for mv in vocab.vocabs.values())
+                    / steps, 4) if vocab is not None else 0.0,
+                "exchange_paths": dict(self._exchange_path_taken)}
+
     # ---------------------------------------------------------- sort folding
     @contextlib.contextmanager
     def residual_sort_scope(self, enabled: bool = True,
@@ -1561,6 +1763,8 @@ class DistributedEmbedding(nn.Module):
         `wire.wire_all_to_all`): ([B, f_max, k] ids, weights or None)."""
         bucket = self.plan.tp_buckets[grp.bucket]
         if self.world_size > 1:
+            self._exchange_path_taken[(grp.bucket, grp.f_max, grp.k)] = \
+                "padded"
             send = wire.wire_id_all_to_all(send, bucket.id_wire_dtype)
             if w_send is not None:
                 w_send = wire.wire_all_to_all(w_send, bucket.wire_dtype)

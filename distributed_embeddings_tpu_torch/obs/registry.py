@@ -1,23 +1,41 @@
-"""Process-local metric registry: counters, gauges and latency histograms.
+"""Process-local metric registry: ONE namespace for runtime telemetry.
 
-The part of ``distributed_embeddings_tpu/obs/registry.py`` the serving path
-reads, copied: named instruments with labeled families, the geometric-bucket
-`LatencyHistogram`, and a point-in-time ``snapshot()``. Instruments are
-plain Python objects updated from host-side code.
+Counterpart of ``distributed_embeddings_tpu/obs/registry.py``, copied (the
+port imports nothing of the JAX package): named counters, gauges and
+histograms with labeled families (``table=``, ``group=``, ``stage=``), a
+point-in-time ``snapshot()`` dict every caller can embed (``fit`` history,
+`chip_smoke.py`), JSONL append export for soak runs, and a Prometheus-style
+text dump for scraping.
+
+`LatencyHistogram`, the geometric-bucket histogram of the serving path and
+the ingest pipeline, is the registry's histogram type
+(``utils.metrics`` re-exports it). Components obtain instruments through a
+registry, so a composed run has one metric namespace.
+
+Sharing model: `MetricRegistry()` is instantiable (a component given no
+registry makes a private one) and `default_registry()` is the
+process-local instance callers use to unify a run (`training.fit` threads
+ONE registry through the pipeline, lookahead engine, store and vocabulary
+manager it drives). Instruments are plain Python objects updated from
+host-side code only.
 """
 
+import json
+import os
+import re
 import threading
-from typing import Dict, Tuple
+import time
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
 __all__ = ["Counter", "Gauge", "LatencyHistogram", "MetricRegistry",
-           "metric_key"]
+           "default_registry", "reset_default_registry", "metric_key"]
 
 
 def metric_key(name: str, labels: Dict[str, object]) -> str:
     """Canonical flat key: ``name`` or ``name{k=v,...}`` with labels
-    sorted."""
+    sorted — the snapshot/export key AND the address SLO rules use."""
     if not labels:
         return name
     inner = ",".join(f"{k}={labels[k]}" for k in sorted(labels))
@@ -25,7 +43,7 @@ def metric_key(name: str, labels: Dict[str, object]) -> str:
 
 
 class Counter:
-    """Monotonic count."""
+    """Monotonic count (requests, admissions, publish bytes...)."""
 
     __slots__ = ("name", "labels", "value")
 
@@ -39,7 +57,7 @@ class Counter:
 
 
 class Gauge:
-    """Point-in-time value."""
+    """Point-in-time value (occupancy, version lag, compile count...)."""
 
     __slots__ = ("name", "labels", "value")
 
@@ -53,9 +71,20 @@ class Gauge:
 
 
 class LatencyHistogram:
-    """Geometric-bucket latency histogram with percentile estimates: O(1)
-    `record`, fixed memory; percentiles interpolate within the winning
-    bucket (< 7.5% edge error at 32 buckets per decade)."""
+    """Geometric-bucket latency histogram with percentile estimates.
+
+    O(1) `record`, fixed memory (`~bins_per_decade * decades` int64 slots),
+    so a long-lived server can keep one per metric without unbounded
+    per-request lists. Percentiles interpolate within the winning bucket —
+    with the default 32 buckets/decade the edge-quantization error is
+    < 7.5%, far below the run-to-run variance of real serving latencies.
+
+    Usage (through a registry):
+      h = registry.histogram("serve/request_seconds")
+      h.record(0.0123)                  # seconds
+      h.percentile(99)                  # seconds
+      h.summary()                       # {"count", "p50_ms", ...}
+    """
 
     def __init__(self, lo: float = 1e-6, hi: float = 120.0,
                  bins_per_decade: int = 32):
@@ -78,6 +107,26 @@ class LatencyHistogram:
         self._total += s
         self._max = max(self._max, s)
 
+    def merge(self, other: "LatencyHistogram") -> "LatencyHistogram":
+        """Fold another histogram's counts into this one (in place;
+        returns self for chaining). Lets per-rep/per-stage histograms
+        aggregate into one distribution — e.g. an ingest pipeline's
+        per-stage timings across repeated runs — instead of
+        only the last rep surviving. Bucket layouts must match exactly
+        (same lo/hi/bins_per_decade): merging differently-edged
+        histograms would silently misfile counts."""
+        if (self.lo, self.bins, self._ratio) != (other.lo, other.bins,
+                                                 other._ratio):
+            raise ValueError(
+                "cannot merge LatencyHistograms with different bucket "
+                f"layouts: (lo={self.lo}, bins={self.bins}, "
+                f"ratio={self._ratio}) vs (lo={other.lo}, "
+                f"bins={other.bins}, ratio={other._ratio})")
+        self._counts += other._counts
+        self._total += other._total
+        self._max = max(self._max, other._max)
+        return self
+
     @property
     def count(self) -> int:
         return int(self._counts.sum())
@@ -94,6 +143,8 @@ class LatencyHistogram:
             return self._max
         hi = self._edges[idx]
         lo = self._edges[idx - 1] if idx else 0.0
+        # linear interpolation inside the bucket by rank position, capped
+        # by the true max so a wide top bucket cannot report p99 > max
         prev = cum[idx - 1] if idx else 0
         frac = (rank - prev) / max(self._counts[idx], 1)
         return float(min(lo + (hi - lo) * frac, self._max))
@@ -114,9 +165,21 @@ _LabelKey = Tuple[Tuple[str, object], ...]
 
 
 class MetricRegistry:
-    """Named counters/gauges/histograms with labeled families:
-    ``counter(name, **labels)`` returns the one instrument for that (name,
-    labels); one name means one kind."""
+    """Named counters/gauges/histograms with labeled families.
+
+    ``counter(name, **labels)`` (and gauge/histogram) returns the ONE
+    instrument for that (name, labels) — repeated calls are a lookup,
+    so components can resolve their instruments per event without
+    holding references. Kinds live in separate namespaces (requesting a
+    gauge where a counter exists raises: one name means one thing).
+    For histograms the first creation's bucket layout wins; a later
+    request with a different layout raises rather than silently
+    misfiling.
+
+    Instrument updates are single-writer-cheap plain attribute writes;
+    the registry's own map is lock-protected so pipeline worker threads
+    can resolve instruments concurrently.
+    """
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -126,7 +189,8 @@ class MetricRegistry:
         key = (kind, name, tuple(sorted(labels.items())))
         with self._lock:
             for other in ("counter", "gauge", "histogram"):
-                if other != kind and (other, name, key[2]) in self._metrics:
+                if other != kind and (other, name,
+                                      key[2]) in self._metrics:
                     raise ValueError(
                         f"metric {metric_key(name, labels)!r} already "
                         f"registered as a {other}, requested as {kind}")
@@ -144,21 +208,134 @@ class MetricRegistry:
         return self._resolve("gauge", name, labels,
                              lambda: Gauge(name, labels))
 
-    def histogram(self, name: str, **labels) -> LatencyHistogram:
-        return self._resolve("histogram", name, labels, LatencyHistogram)
+    def histogram(self, name: str, lo: float = 1e-6, hi: float = 120.0,
+                  bins_per_decade: int = 32, **labels) -> LatencyHistogram:
+        h = self._resolve("histogram", name, labels,
+                          lambda: LatencyHistogram(
+                              lo=lo, hi=hi,
+                              bins_per_decade=bins_per_decade))
+        # full layout check (lo, ratio AND bin count — bins derive from
+        # hi, so a differing hi alone must also refuse): the same triple
+        # merge() guards on
+        want_bins = int(np.ceil(np.log10(hi / lo) * bins_per_decade)) + 1
+        if (h.lo, h.bins, h._ratio) != (float(lo), want_bins,
+                                        10.0 ** (1.0 / bins_per_decade)):
+            raise ValueError(
+                f"histogram {metric_key(name, labels)!r} exists with a "
+                "different bucket layout (first creation wins; merging "
+                "layouts would misfile counts)")
+        return h
+
+    # ------------------------------------------------------------ views
+    def _by_kind(self, kind: str):
+        with self._lock:
+            items = [(name, key_labels, m) for (k, name, key_labels), m
+                     in self._metrics.items() if k == kind]
+        return sorted(items, key=lambda t: (t[0], t[1]))
 
     def snapshot(self) -> dict:
-        """``{"counters": {key: int}, "gauges": {key: float},
-        "histograms": {key: summary-dict}}`` with flat
-        ``name{label=value,...}`` keys."""
-        with self._lock:
-            items = sorted(self._metrics.items(),
-                           key=lambda kv: (kv[0][1], kv[0][2]))
-        out = {"counters": {}, "gauges": {}, "histograms": {}}
-        for (kind, name, kl), m in items:
-            key = metric_key(name, dict(kl))
-            if kind == "histogram":
-                out["histograms"][key] = m.summary()
-            else:
-                out[kind + "s"][key] = m.value
-        return out
+        """Point-in-time dict of every instrument: ``{"counters":
+        {key: int}, "gauges": {key: float}, "histograms": {key:
+        summary-dict}}`` with ``name{label=value,...}`` flat keys —
+        the schema `obs.slo` rules address and callers embed."""
+        return {
+            "counters": {metric_key(n, dict(kl)): m.value
+                         for n, kl, m in self._by_kind("counter")},
+            "gauges": {metric_key(n, dict(kl)): m.value
+                       for n, kl, m in self._by_kind("gauge")},
+            "histograms": {metric_key(n, dict(kl)): m.summary()
+                           for n, kl, m in self._by_kind("histogram")},
+        }
+
+    def export_jsonl(self, path: str, extra: Optional[dict] = None,
+                     fsync: bool = False) -> dict:
+        """Append one timestamped snapshot line to `path` (creating it);
+        the soak-run export format: one JSON object per line, so a
+        watcher can tail it and `obs.slo.evaluate_rules` can window
+        over the parsed lines. Returns the line's dict.
+
+        The line is FLUSHED to the OS before the file closes — a
+        crashed soak must not lose the tail lines its SLO window
+        evaluates over (the postmortem reads the last written step).
+        ``fsync=True`` additionally fsyncs, for the final/explicit
+        export of a run (per-line fsync would put a disk barrier on the
+        snapshot cadence; per-line flush already survives a process
+        crash, and the closing export survives power loss)."""
+        line = {"ts": round(time.time(), 3), **(extra or {}),
+                **self.snapshot()}
+        with open(path, "a") as f:
+            f.write(json.dumps(line) + "\n")
+            f.flush()
+            if fsync:
+                os.fsync(f.fileno())
+        return line
+
+    def to_prometheus(self) -> str:
+        """Prometheus text exposition of the registry: counters as
+        ``*_total``, gauges verbatim, histograms as summaries
+        (quantile series + ``_count``/``_sum``). Metric names sanitize
+        ``/`` and other non-identifier characters to ``_``; label
+        VALUES escape per the text-format spec (backslash, double
+        quote, newline) — degraded reasons and quarantine paths put
+        arbitrary filesystem strings into labels, and one unescaped
+        quote makes the whole exposition unparseable."""
+        def sane(name: str) -> str:
+            return re.sub(r"[^a-zA-Z0-9_:]", "_", name)
+
+        def esc(value: object) -> str:
+            # the exposition-format escape set, in spec order:
+            # backslash first (or the others' escapes double-escape)
+            return (str(value).replace("\\", "\\\\")
+                    .replace('"', '\\"').replace("\n", "\\n"))
+
+        def fmt_labels(labels: dict, extra: Optional[dict] = None) -> str:
+            merged = {**labels, **(extra or {})}
+            if not merged:
+                return ""
+            inner = ",".join(f'{sane(str(k))}="{esc(merged[k])}"'
+                             for k in sorted(merged))
+            return "{" + inner + "}"
+
+        out = []
+        for name, kl, m in self._by_kind("counter"):
+            mn = sane(name) + "_total"
+            out.append(f"# TYPE {mn} counter")
+            out.append(f"{mn}{fmt_labels(dict(kl))} {m.value}")
+        for name, kl, m in self._by_kind("gauge"):
+            mn = sane(name)
+            out.append(f"# TYPE {mn} gauge")
+            out.append(f"{mn}{fmt_labels(dict(kl))} {m.value}")
+        for name, kl, m in self._by_kind("histogram"):
+            mn = sane(name)
+            labels = dict(kl)
+            out.append(f"# TYPE {mn} summary")
+            for q in (0.5, 0.95, 0.99):
+                v = m.percentile(q * 100)
+                out.append(f"{mn}{fmt_labels(labels, {'quantile': q})} "
+                           f"{v:.9f}")
+            out.append(f"{mn}_count{fmt_labels(labels)} {m.count}")
+            out.append(f"{mn}_sum{fmt_labels(labels)} {m._total:.9f}")
+        return "\n".join(out) + ("\n" if out else "")
+
+
+_default_lock = threading.Lock()
+_default: Optional[MetricRegistry] = None
+
+
+def default_registry() -> MetricRegistry:
+    """The process-local registry callers share. Long-lived processes composing
+    several independent runs should create per-run `MetricRegistry`
+    instances instead — counts here accumulate for the process
+    lifetime (that is the point)."""
+    global _default
+    with _default_lock:
+        if _default is None:
+            _default = MetricRegistry()
+        return _default
+
+
+def reset_default_registry() -> None:
+    """Drop the process-local registry (tests)."""
+    global _default
+    with _default_lock:
+        _default = None

@@ -133,6 +133,12 @@ def parse_ptxas(log: str) -> Dict[str, Dict[str, int]]:
     return usage
 
 
+def loaded() -> frozenset:
+    """The names whose libraries `load` has loaded in this process."""
+    with _LOCK:
+        return frozenset(_LIBS)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     with _LOCK:

@@ -93,6 +93,25 @@ def _pick(strategy: str, rows: int, width: int) -> str:
     return "dense" if rows * width <= DENSE_ELEMS_MAX else "sort"
 
 
+def update_family(kind: str, strategy: str, table: torch.Tensor,
+                  quantized: bool = False) -> str:
+    """The JAX package's name (its `active_scatter_impl` labels) of the
+    family a table's sparse update runs in: "xla" for plain PyTorch (a
+    table held on the CPU) and for the dense aggregation (`index_add_`,
+    the library scatter); "tiled" for the raw-stream kernels; "pallas"
+    for the deduplicated rows (`segment_sum_sorted`, then the row rule;
+    a quantized bucket's update is `dedup_sum` too)."""
+    if table.device.type != "cuda":
+        return "xla"
+    if quantized:
+        return "pallas"
+    if strategy == "tiled":
+        return "tiled"
+    dense = (strategy == "dense" if kind == "sgd"
+             else _pick(strategy, table.shape[0], table.shape[1]) == "dense")
+    return "xla" if dense else "pallas"
+
+
 def update_consumes_sort(kind: str, strategy: str, rows: int,
                          width: int) -> bool:
     """Would the update of a [rows, width] table use a presorted

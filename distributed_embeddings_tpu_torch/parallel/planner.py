@@ -78,7 +78,7 @@ class DistEmbeddingStrategy:
         self.hot_rows = 0 if hot_rows is None else max(0, int(hot_rows))
         self.exchange_wire = resolve_wire(exchange_wire)
         # the port's default stays f32 (the JAX package's DET_STORE_DTYPE
-        # seam is ROADMAP Queue A15)
+        # seam is ROADMAP Queue A15c)
         self.storage_dtype = resolve_store_dtype(storage_dtype)
 
         self.global_configs = []

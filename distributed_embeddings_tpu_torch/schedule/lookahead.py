@@ -53,8 +53,13 @@ buckets, quantized buckets, custom dp layer classes, a plan with nothing
 to prefetch, ragged and sparse inputs, and more than one rank (the ranks
 are processes; lookahead across ranks waits for NCCL, ROADMAP A3).
 ``lookahead=0`` is the sparse step itself (`make_sparse_train_step`).
-Not ported: the metric registry (A15); the port reads no environment, so
-there is no ``DET_LOOKAHEAD``.
+`stats` is mirrored into the `registry`: the ``lookahead/steps``,
+``lookahead/cold_fills``, ``lookahead/patch_overflows``,
+``lookahead/patched_steps`` and ``lookahead/patched_samples`` counters and
+the ``lookahead/patched_samples_max`` gauge (eager PyTorch compiles
+nothing, so the JAX engine's ``lookahead/compiles`` gauges have no
+counterpart). The port reads no environment, so there is no
+``DET_LOOKAHEAD``.
 """
 
 from typing import Optional
@@ -64,6 +69,7 @@ import torch
 
 from distributed_embeddings_tpu_torch.layers.dist_model_parallel import (
     TapResiduals)
+from distributed_embeddings_tpu_torch.obs.registry import MetricRegistry
 from distributed_embeddings_tpu_torch.ops.embedding_ops import (RaggedIds,
                                                                 SparseIds)
 from distributed_embeddings_tpu_torch.parallel.staging import (
@@ -118,6 +124,8 @@ class LookaheadEngine:
         stale.
       patch_capacity: the most stale samples a step patches (default
         batch // 8); more fall back to a fresh prefetch.
+      registry: the `obs.MetricRegistry` the ``lookahead/*`` metrics land
+        in (`fit` passes its run's); default a private one.
 
     Use::
 
@@ -137,7 +145,8 @@ class LookaheadEngine:
                  dense_optimizer=None, strategy: str = "auto",
                  lookahead: int = 1, stale_ok: bool = False,
                  patch_capacity: Optional[int] = None,
-                 donate: Optional[bool] = None, fold_sort: bool = True):
+                 donate: Optional[bool] = None, fold_sort: bool = True,
+                 registry: Optional[MetricRegistry] = None):
         if lookahead not in (0, 1):
             raise ValueError(
                 f"lookahead={lookahead}: only depths 0 and 1 are "
@@ -151,6 +160,9 @@ class LookaheadEngine:
         self.stats = {"steps": 0, "cold_fills": 0, "patch_overflows": 0,
                       "patched_steps": 0, "patched_samples": 0,
                       "patched_samples_max": 0}
+        # the registry mirror of `stats`, updated from this host body only
+        self._metrics = (registry if registry is not None
+                         else MetricRegistry())
         self._init_fn, self._base_step = make_sparse_train_step(
             model, optimizer, lr=lr, dense_optimizer=dense_optimizer,
             strategy=strategy, donate=donate, fold_sort=fold_sort)
@@ -297,6 +309,7 @@ class LookaheadEngine:
                 else self._stager((num, list(cats), labels)))
             idx = np.zeros((0,), np.int64)
             self.stats[cold] += 1
+            self._metrics.counter(f"lookahead/{cold}").inc()
         elif len(idx):
             emb.patch_staged_carry(carry["ex"], carry["res"], idx)
         nxt = (self._prefetch_ahead(next_batch) if next_batch is not None
@@ -326,9 +339,15 @@ class LookaheadEngine:
             # while the card runs the step
             self._prev_touched = emb.touched_row_keys(host)
         self.stats["steps"] += 1
+        m = self._metrics
+        m.counter("lookahead/steps").inc()
         if len(idx):
             self.stats["patched_steps"] += 1
             self.stats["patched_samples"] += int(len(idx))
             self.stats["patched_samples_max"] = max(
                 self.stats["patched_samples_max"], int(len(idx)))
+            m.counter("lookahead/patched_steps").inc()
+            m.counter("lookahead/patched_samples").inc(int(len(idx)))
+            m.gauge("lookahead/patched_samples_max").set(
+                self.stats["patched_samples_max"])
         return loss

@@ -52,9 +52,16 @@ alike; each rank fills and refreshes the slots of its own keys,
 writes (`store.table_store`), so a read that fails on one rank leaves
 every rank at the same version, with the same `degraded_reasons()`,
 `last_poll_error` type and ``serve/poll_errors_total``. A rank's slot
-patch that fails refreshes the caches on every rank. Not ported: the
-fault points, the flight recorder and its lineage and the
-``serve/predict`` span (A15).
+patch that fails refreshes the caches on every rank.
+
+Telemetry: each `predict` runs under ``span("serve/predict")`` (a
+``span_seconds`` histogram, a profiler range, the flight recorder's
+edges), and its first answer at or above a store version closes that
+version's lineage track. Each newly active degradation reason lands on
+the flight recorder as a ``serve/degraded_entry`` instant and, with
+``postmortem_dir``, dumps a postmortem artifact (`obs.trace.
+dump_postmortem`) once per entry. Not ported: the fault points (ROADMAP
+A15b).
 """
 
 import contextlib
@@ -66,7 +73,9 @@ import torch
 
 from distributed_embeddings_tpu_torch.layers.dist_model_parallel import (
     DistributedEmbedding)
+from distributed_embeddings_tpu_torch.obs import trace as obs_trace
 from distributed_embeddings_tpu_torch.obs.registry import MetricRegistry
+from distributed_embeddings_tpu_torch.obs.spans import span as obs_span
 from distributed_embeddings_tpu_torch.parallel.mesh import (gather_objects,
                                                             gather_stack)
 from distributed_embeddings_tpu_torch.parallel.staging import (DeviceStager,
@@ -127,6 +136,11 @@ class InferenceEngine:
         reports through too (``store/*``).
       replica: optional replica name: every ``serve/*`` family then
         carries a ``replica=`` label (``store/*`` stays unlabeled).
+      postmortem_dir: where `poll_updates` writes a postmortem artifact
+        (`obs.trace.dump_postmortem`: the flight recorder, the registry
+        snapshot, the poll's context) on each newly active degradation
+        reason; None (default) writes none. The JAX package's
+        ``DET_OBS_POSTMORTEM_DIR``. `postmortems` lists the paths.
 
     Requests are staged to the device through a
     `parallel.staging.DeviceStager`: one pinned copy a request on a side
@@ -137,7 +151,8 @@ class InferenceEngine:
                  cache_capacity=0, promote_threshold: int = 2,
                  donate_batch: bool = False, vocab_manager=None,
                  registry: Optional[MetricRegistry] = None,
-                 replica: Optional[str] = None):
+                 replica: Optional[str] = None,
+                 postmortem_dir: Optional[str] = None):
         del donate_batch
         self.device = resolve_device(device)
         if isinstance(model, DistributedEmbedding):
@@ -181,6 +196,10 @@ class InferenceEngine:
         # serve/degraded{reason=} gauges
         self._degraded_active: frozenset = frozenset()
         self.last_poll_error: Optional[str] = None
+        self.postmortem_dir = postmortem_dir
+        self.postmortems: List[str] = []
+        # the newest version a predict answered at (the lineage's serve)
+        self._lineage_served_version = 0
         self.caches: Dict[int, HotRowCache] = {}
         off = emb.offloaded_buckets
         if isinstance(cache_capacity, dict):
@@ -353,19 +372,20 @@ class InferenceEngine:
         sliced to the request's true batch size, on the engine's device
         (the launch is asynchronous on a card). Collective at world size
         > 1: every rank passes the same request and gets every row's
-        outputs."""
+        outputs. Runs under ``span("serve/predict")``."""
         if self._model is None:
             numerical, cats = None, list(batch)
         else:
             numerical, cats = batch
             cats = list(cats)
-        if self.vocab is not None:
-            # raw keys -> rows, query-only
-            cats = self.vocab.translate(cats)
-        prepped = self._normalize(cats)
-        b = _ids_of(prepped[0]).shape[0]
-        target = self._target_batch(b)
-        out = self._predict_padded(numerical, prepped, target, b)
+        with obs_span("serve/predict", self._metrics):
+            if self.vocab is not None:
+                # raw keys -> rows, query-only
+                cats = self.vocab.translate(cats)
+            prepped = self._normalize(cats)
+            b = _ids_of(prepped[0]).shape[0]
+            target = self._target_batch(b)
+            out = self._predict_padded(numerical, prepped, target, b)
         self.n_predicts += 1
         self.rows_served += b
         self.rows_padded += target - b
@@ -373,6 +393,15 @@ class InferenceEngine:
         m.counter("serve/predicts", **lb).inc()
         m.counter("serve/rows_served", **lb).inc(b)
         m.counter("serve/rows_padded", **lb).inc(target - b)
+        if self.store.version > self._lineage_served_version:
+            # the first predict at >= V closes V's lineage track, and every
+            # still-open version below it (applied in one burst)
+            v = self.store.version
+            self._lineage_served_version = v
+            rec = obs_trace.default_recorder()
+            for ov in rec.lineage_open_versions():
+                if ov <= v:
+                    rec.lineage(ov, "serve", served_at_version=v)
         if isinstance(out, torch.Tensor):
             return out[:b]
         return [a[:b] for a in out]
@@ -539,7 +568,28 @@ class InferenceEngine:
         for r in self._degraded_active - reasons:
             self._metrics.gauge("serve/degraded", reason=r,
                                 **self._labels).set(0)
+        entered = frozenset(reasons) - self._degraded_active
         self._degraded_active = frozenset(reasons)
+        if entered:
+            # a degraded entry is the incident: an instant on the flight
+            # recorder, and a postmortem a newly active reason
+            rec = obs_trace.default_recorder()
+            for r in sorted(entered):
+                rec.instant("serve/degraded_entry", reason=r,
+                            error=self.last_poll_error)
+            if self.postmortem_dir is not None:
+                for r in sorted(entered):
+                    try:
+                        self.postmortems.append(obs_trace.dump_postmortem(
+                            self.postmortem_dir, f"degraded:{r}",
+                            registry=self._metrics,
+                            extra={"publish_dir": publish_dir,
+                                   "store_version": self.store.version,
+                                   "last_poll_error": self.last_poll_error,
+                                   "active_reasons": sorted(reasons)}))
+                    except Exception as e:  # noqa: BLE001 - counted, as
+                        # every poll failure is: poll_updates never raises
+                        self._note_poll_error(e)
         return infos
 
     def _note_poll_error(self, e) -> None:

@@ -53,9 +53,12 @@ same version. `DeltaConsumer` and `restore_from_published` take the
 directory listing and the stream files' headers from rank 0
 (`parallel.mesh.broadcast_object`), so every rank chooses the same file.
 `serving.InferenceEngine` owns a store and consumes the stream through
-it at any world size. Not ported: the
-fault points and the lineage recorder of the JAX store (A15); the port
-reads no environment, so ``snapshot_every`` defaults to 0 and
+it at any world size. Each version's life lands on the flight recorder
+(`obs.trace.default_recorder`) as one lineage track: `commit` opens it,
+`publish`, a consumer's first scan that sees it and `apply` mark it, and
+the engine's first predict at or above it closes it. Not ported: the
+fault points of the JAX store (ROADMAP A15b); the port reads no
+environment, so ``snapshot_every`` defaults to 0 and
 ``delta_dtype`` to "f32". Eager PyTorch has nothing to retrace, so the row
 helpers pad nothing.
 """
@@ -72,6 +75,7 @@ import torch
 from distributed_embeddings_tpu_torch.layers.dist_model_parallel import (
     sorted_unique)
 from distributed_embeddings_tpu_torch.obs.registry import MetricRegistry
+from distributed_embeddings_tpu_torch.obs.trace import default_recorder
 from distributed_embeddings_tpu_torch.ops import wire
 from distributed_embeddings_tpu_torch.ops.sparse_update import (
     host_apply_rows_inplace)
@@ -441,6 +445,12 @@ class TableStore:
         self._chain_broken = False
         self._swept_dirs: set = set()
 
+    def use_registry(self, registry) -> None:
+        """Rebind the store's metrics onto `registry` (`training.fit` puts
+        its publisher on the run's registry). Counts already in the
+        previous registry stay there."""
+        self._metrics = registry
+
     # ------------------------------------------------------------- state
     @property
     def opt_states(self) -> Optional[dict]:
@@ -499,6 +509,9 @@ class TableStore:
             for gtid in gtids:
                 self.table_versions[gtid] = self.version
         self._since_commit = set()
+        # a commit opens version V's lineage track: publish, scan, apply
+        # and serve land on it
+        default_recorder().lineage(self.version, "commit")
         return self.version
 
     def replace(self, params=None, opt_states: Optional[dict] = None) -> int:
@@ -674,6 +687,9 @@ class TableStore:
         m.gauge("store/bytes", dtype=dd).set(
             self._published_bytes_by_dtype[dd])
         m.gauge("store/version", role="publisher").set(self.version)
+        default_recorder().lineage(self.version, "publish",
+                                   kind=meta["kind"], bytes=info["bytes"],
+                                   rows=n_rows)
         return info
 
     # --------------------------------------------------------- consuming
@@ -802,6 +818,8 @@ class TableStore:
         m.counter("store/apply_bytes").inc(info["bytes"])
         m.counter("store/apply_rows").inc(n_rows)
         m.gauge("store/version", role="consumer").set(self.version)
+        default_recorder().lineage(self.version, "apply",
+                                   kind=meta["kind"], rows=n_rows)
         return info
 
 
@@ -846,6 +864,8 @@ class DeltaConsumer:
         self._retries_total = 0
         self._degraded: set = set()
         self._last_scan: List[Tuple[int, str, str]] = []
+        # versions this consumer has stamped "scan" on their lineage track
+        self._lineage_scanned: set = set()
 
     # ------------------------------------------------------------ internals
     def _visible(self, upto: Optional[int] = None
@@ -951,6 +971,10 @@ class DeltaConsumer:
                             if p in live}
         for p in [p for p in self.quarantined if p not in live]:
             del self.quarantined[p]
+        # applied versions never stamp again (a stamp needs version >
+        # store.version): the set holds the versions in flight
+        self._lineage_scanned = {v for v in self._lineage_scanned
+                                 if v > self.store.version}
 
     def degraded_reasons(self) -> frozenset:
         """The current degradation set (empty = healthy):
@@ -965,6 +989,14 @@ class DeltaConsumer:
         unreadable file. `upto` caps consumption at a version: staleness
         and health are measured against the cap."""
         files = self._visible(upto)
+        # lineage: the first time this consumer's scan sees a version it
+        # has not applied (the scan -> apply gap is the consumer's half
+        # of staleness)
+        for version, _, _ in files:
+            if (version > self.store.version
+                    and version not in self._lineage_scanned):
+                self._lineage_scanned.add(version)
+                default_recorder().lineage(version, "scan")
         newer = [f for f in files if f[0] > self.store.version]
         if not newer and not self.store._chain_broken:
             self._evict_meta_cache()

@@ -60,16 +60,19 @@ the accumulator at 0, and its Adam groups the bias correction differently.
 
 import itertools
 import os
+import time
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
+from distributed_embeddings_tpu_torch.obs.registry import MetricRegistry
+from distributed_embeddings_tpu_torch.obs.spans import span
 from distributed_embeddings_tpu_torch.layers.dist_model_parallel import (
     DistributedEmbedding, _local_tables, broadcast_variables)
 from distributed_embeddings_tpu_torch.ops.sparse_update import (
     SparseOptimizer, bias_corrections, check_strategy, dedup_sum,
-    drain_sparse_apply, make_sparse_optimizer)
+    drain_sparse_apply, make_sparse_optimizer, update_family)
 from distributed_embeddings_tpu_torch.parallel.mesh import (
     average_across_ranks, sum_across_ranks)
 from distributed_embeddings_tpu_torch.parallel.staging import (
@@ -633,11 +636,18 @@ def evaluate(model, data, steps: int = 16, preprocess=None,
     return auc.result(state)
 
 
-# fit arguments of the JAX package that the port does not cover yet, with
-# the value that means "unused" and the ROADMAP item that ports them
-_FIT_UNPORTED = {
-    "registry": (None, "A15 (obs)"),
-}
+def update_impl_label(model, optimizer: str, strategy: str = "auto") -> str:
+    """The ``update/{impl}`` span's label: the JAX package's name of each
+    family the sparse step's tables update in (`update_family`), joined
+    by "+" in sorted order where the buckets take several (full Tiny on
+    the card: "pallas+xla", its small bucket aggregated densely). A CPU
+    run is "xla", as the JAX package's CPU `fit` is."""
+    layer = model.embedding
+    fams = {update_family(optimizer, strategy, t,
+                          quantized=bk.storage_dtype != "f32")
+            for t, bk in zip(layer.tp, layer.plan.tp_buckets)}
+    fams |= {update_family(optimizer, strategy, t) for t in layer.row}
+    return "+".join(sorted(fams)) or "xla"
 
 
 def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
@@ -651,7 +661,8 @@ def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
         publish_every: Optional[int] = None,
         publish_dir: Optional[str] = None, vocab=None,
         vocab_every: int = 16, lookahead: int = 0, stale_ok: bool = False,
-        **unported):
+        registry: Optional[MetricRegistry] = None,
+        obs_export: Optional[str] = None, obs_trace: Optional[str] = None):
     """The training loop (the JAX package's `fit`, which has ``params``
     where the port's model holds its own).
 
@@ -687,7 +698,7 @@ def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
         callable's batches are staged inline.
       pipeline_depth: the bound of each inter-stage queue (None: 2, the
         JAX package's default; its ``DET_PIPELINE_DEPTH`` tune seam is
-        ROADMAP Queue A15).
+        ROADMAP Queue A15c).
       log_every / log_fn: log the loss every `log_every` steps.
       sync_every: read the loss back every N steps (None: 1 in a process
         group of more than one rank, keeping the ranks in lockstep, else
@@ -737,20 +748,34 @@ def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
       batch when it is pulled (so maintenance cycles are refused:
       ``vocab_every`` must be 0), and hot rows are refused, as in the JAX
       package. History gains ``"lookahead_stats"``.
+      registry: the run's ONE metric namespace (`obs.MetricRegistry`;
+        None: a private one for this run). `fit` threads it through the
+        ingest pipeline (``ingest/stage_seconds{stage=}``) and the
+        lookahead engine (``lookahead/*``), and, only when one is passed
+        here, rebinds the publishing `store` and the `vocab` manager onto
+        it (`use_registry`). Its own loop records each step under
+        ``span("train/step")`` with a nested ``span("update/<impl>")``
+        (`update_impl_label`, or "dense"), the ``train/steps`` and
+        ``train/examples`` counters and the ``train/examples_per_sec``
+        and ``train/publish_cadence_steps`` gauges; at the run's end the
+        ``kernels/gate_verdict{impl=}`` gauges (`obs.export_kernel_gauges`)
+        and the ``exchange/*`` gauges of `exchange_padding_report` at the
+        run's batch (`obs.export_exchange_gauges`). The final snapshot is
+        ``history["metrics_snapshot"]``; an error while exporting gauges
+        is kept in ``history["metrics_error"]``.
+      obs_export: a path: the final snapshot is appended there as one
+        JSONL line (`MetricRegistry.export_jsonl`, fsynced). The JAX
+        package's ``DET_OBS_EXPORT``.
+      obs_trace: a path: the flight recorder's window is written there as
+        a Chrome trace (`obs.FlightRecorder.export`). The JAX package's
+        ``DET_OBS_TRACE``.
 
     Iterable data is taken as ``islice(iter(data), steps)``, so a shared
     source is never read past this run's steps. Returns (model,
     opt_state, history): ``history["loss"]`` as floats, ``"eval_auc"``
     with `eval_every`, ``"ingest_stages"`` (per-stage wall-time summaries)
-    for iterable data. `registry` is taken at its default only, and
-    raises NotImplementedError naming its ROADMAP item otherwise."""
-    for name, value in unported.items():
-        if name not in _FIT_UNPORTED:
-            raise TypeError(f"fit() got an unexpected argument {name!r}")
-        unused, item = _FIT_UNPORTED[name]
-        if value != unused:
-            raise NotImplementedError(
-                f"fit({name}=...) is not ported yet (ROADMAP Queue {item})")
+    for iterable data, ``"metrics_snapshot"``."""
+    reg = registry if registry is not None else MetricRegistry()
     publish_every = publish_every or 0
     publishing = bool(sparse and store is not None and publish_every)
     if publishing and publish_dir is None:
@@ -790,7 +815,7 @@ def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
             LookaheadEngine)
         la_engine = LookaheadEngine(
             model, optimizer, lr=lr, dense_optimizer=dense_optimizer,
-            lookahead=lookahead, stale_ok=stale_ok)
+            lookahead=lookahead, stale_ok=stale_ok, registry=reg)
         if opt_state is None:
             opt_state = la_engine.init()
         la_engine.opt_state = opt_state
@@ -809,6 +834,18 @@ def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
             opt_state = opt.init(_all_params(model))
     if sync_every is None:
         sync_every = 1 if _world(model) > 1 else 0
+    # one metric namespace a run: with an explicit registry the store and
+    # the manager the caller built report into it too (without one they
+    # keep the registry they were built with)
+    if registry is not None:
+        if store is not None:
+            store.use_registry(reg)
+        if vocab is not None:
+            vocab.use_registry(reg)
+    if publishing:
+        reg.gauge("train/publish_cadence_steps").set(publish_every)
+    update_impl = (update_impl_label(model, optimizer) if sparse
+                   else "dense")
     for cb in callbacks:
         if hasattr(cb, "on_train_begin"):
             cb.on_train_begin(model)
@@ -832,7 +869,7 @@ def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
             (lambda batch: batch) if host_loop else stage,
             preprocess=preprocess,
             depth=DEFAULT_DEPTH if pipeline_depth is None
-            else pipeline_depth, pipelined=pipelined)
+            else pipeline_depth, pipelined=pipelined, registry=reg)
     history: dict = {"loss": []}
     pending = []
     steps_since_publish = 0
@@ -873,6 +910,9 @@ def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
         return item
 
     next_item = None
+    examples_total = 0
+    world = _world(model)
+    t_run0 = time.perf_counter()
     try:
         for step in range(steps):
             if la_engine is not None:
@@ -904,14 +944,22 @@ def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
                     drain()
                     opt_state["emb"] = hot_emb.sync_hot_rows(
                         opt_state["emb"], admit=True)
-            if la_engine is not None:
-                loss = la_engine.step(item, next_item)
-                opt_state = la_engine.opt_state
-            else:
-                numerical, cats, labels = ready(item)
-                model, opt_state, loss = step_fn(model, opt_state, numerical,
-                                                 list(cats), labels)
+            # host time of the step's launches (the card runs behind them)
+            with span("train/step", reg), span(f"update/{update_impl}", reg):
+                if la_engine is not None:
+                    labels = item[2]
+                    loss = la_engine.step(item, next_item)
+                    opt_state = la_engine.opt_state
+                else:
+                    numerical, cats, labels = ready(item)
+                    model, opt_state, loss = step_fn(
+                        model, opt_state, numerical, list(cats), labels)
             pending.append(loss)
+            # a rank's labels are its slice of the global batch
+            n_ex = len(labels) * world
+            examples_total += n_ex
+            reg.counter("train/steps").inc()
+            reg.counter("train/examples").inc(n_ex)
             if publishing:
                 steps_since_publish += 1
                 if steps_since_publish >= publish_every:
@@ -952,7 +1000,46 @@ def fit(model, data, steps: int, optimizer: str = "adagrad", lr=0.01,
     if publishing and (steps_since_publish
                        or (vocab is not None and vocab.pending_publication)):
         publish_now()
+    _export_run_metrics(reg, model, history, examples_total, steps,
+                        time.perf_counter() - t_run0, vocab, lookahead,
+                        obs_export, obs_trace)
     return model, opt_state, history
+
+
+def _export_run_metrics(reg, model, history: dict, examples_total: int,
+                        steps: int, elapsed: float, vocab, lookahead,
+                        obs_export: Optional[str],
+                        obs_trace: Optional[str]) -> None:
+    """`fit`'s run-end telemetry: the throughput gauge, the kernel and
+    ``exchange/*`` gauges (last, so the occupancy is the tail cycle's),
+    the snapshot in `history`, and the optional exports. The gauges are
+    accounting: an error exporting them is kept in
+    ``history["metrics_error"]``, as in the JAX package."""
+    from distributed_embeddings_tpu_torch.obs import instrument
+    from distributed_embeddings_tpu_torch.obs.trace import default_recorder
+    reg.gauge("train/examples_per_sec").set(
+        examples_total / max(elapsed, 1e-9))
+    try:
+        instrument.export_kernel_gauges(reg)
+    except Exception as e:  # noqa: BLE001 - accounting never kills a run
+        history["metrics_error"] = str(e)[:200]
+    emb = getattr(model, "embedding", None)
+    if emb is not None and hasattr(emb, "exchange_padding_report"):
+        try:
+            instrument.export_exchange_gauges(
+                reg, emb, batch=max(examples_total // max(steps, 1), 1),
+                vocab=vocab, lookahead=int(lookahead or 0))
+        except Exception as e:  # noqa: BLE001 - accounting never kills a run
+            history["metrics_error"] = str(e)[:200]
+    history["metrics_snapshot"] = reg.snapshot()
+    if obs_export:
+        # the run's final line: fsynced
+        reg.export_jsonl(obs_export, extra={"source": "fit"}, fsync=True)
+    if obs_trace:
+        try:
+            default_recorder().export(obs_trace)
+        except Exception as e:  # noqa: BLE001 - accounting never kills a run
+            history["metrics_error"] = str(e)[:200]
 
 
 def _observed_stage(stage: Callable, sliced: bool) -> Callable:

@@ -38,7 +38,7 @@ layers:
     either package load, verified, in the other.
 
 Not ported yet: the ``store.load`` fault hooks of the loaders (ROADMAP
-Queue A15).
+Queue A15b).
 """
 
 import json

@@ -9,6 +9,10 @@ device, with the trapezoidal integration on the host at the end.
 The histograms are float32, as the JAX package keeps them: each bin adds
 0.0 / 1.0 counts, exact up to 2^24 a bin, so the order of the additions
 (``index_add_``'s atomics on a card) does not change them.
+
+`LatencyHistogram`, the host-side histogram of serving latencies and
+ingest stages, lives in `obs.registry` and is re-exported here, as the JAX
+package does.
 """
 
 from typing import NamedTuple
@@ -16,11 +20,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from distributed_embeddings_tpu_torch.obs.registry import LatencyHistogram
 from distributed_embeddings_tpu_torch.parallel import mesh
 from distributed_embeddings_tpu_torch.utils.device import (DeviceLike,
                                                            resolve_device)
 
-__all__ = ["AUCState", "StreamingAUC", "auc_exact"]
+__all__ = ["AUCState", "StreamingAUC", "auc_exact", "LatencyHistogram"]
 
 
 class AUCState(NamedTuple):

@@ -17,15 +17,16 @@ Contract (the JAX package's):
   * Clean shutdown: `close()` (or exhaustion, or the context manager)
     stops and joins every worker.
   * Accounting: per-stage wall time lands in an
-    ``ingest/stage_seconds{stage=...}`` histogram of a private
+    ``ingest/stage_seconds{stage=...}`` histogram of the `registry` given
+    (`training.fit` passes its run's) or of a private
     `obs.registry.MetricRegistry` (`stage_summaries()` reads them), and
-    each stage body runs under
-    ``torch.profiler.record_function("ingest/<stage>")``, so profiler
-    traces show where ingestion time goes.
+    each stage body runs under ``obs.spans.annotation("ingest/<stage>")``
+    (``torch.profiler.record_function``), so profiler traces show where
+    ingestion time goes.
 
 The JAX package's transient-error retry and its fault-injection hook
 (``faults.check_raise("ingest.stage")``) are not ported (ROADMAP Queue
-A15): a stage's exception propagates at once.
+A15b): a stage's exception propagates at once.
 """
 
 import queue as queue_lib
@@ -34,9 +35,8 @@ import time
 import warnings
 from typing import Any, Callable, Iterable, Optional, Sequence, Tuple
 
-from torch.profiler import record_function
-
 from distributed_embeddings_tpu_torch.obs.registry import MetricRegistry
+from distributed_embeddings_tpu_torch.obs.spans import annotation
 
 __all__ = ["IngestPipeline", "SerialPipeline", "staged_batches",
            "READ_STAGE", "DEFAULT_DEPTH"]
@@ -44,7 +44,7 @@ __all__ = ["IngestPipeline", "SerialPipeline", "staged_batches",
 # name of the implicit first stage (pulling the source iterator)
 READ_STAGE = "read"
 # the bound of each inter-stage queue when `fit` is given none (the JAX
-# package's default; its DET_PIPELINE_DEPTH tune seam is ROADMAP A15)
+# package's default; its DET_PIPELINE_DEPTH tune seam is ROADMAP A15c)
 DEFAULT_DEPTH = 2
 
 _END = object()          # end-of-stream sentinel
@@ -62,7 +62,7 @@ class _Failure:
 
 
 def _annotate(name: str):
-    return record_function(f"ingest/{name}")
+    return annotation(f"ingest/{name}")
 
 
 def _stage_names(stages):
@@ -74,8 +74,8 @@ def _stage_names(stages):
     return stages, names
 
 
-def _histograms(names):
-    reg = MetricRegistry()
+def _histograms(names, registry: Optional[MetricRegistry]):
+    reg = registry if registry is not None else MetricRegistry()
     return {n: reg.histogram("ingest/stage_seconds", stage=n) for n in names}
 
 
@@ -91,6 +91,9 @@ class IngestPipeline:
         ``("stage", DeviceStager(device).stage)``). One persistent
         worker thread per stage, applied in order.
       depth: bound of every inter-stage queue (2 = double buffer).
+      registry: the `obs.MetricRegistry` the per-stage histograms live in
+        (``ingest/stage_seconds{stage=}``); default a private one. Each
+        stage's histogram has one writer thread either way.
 
     Iterate it like any iterator; `close()` runs on exhaustion and on
     ``with`` exit, and is idempotent. A worker exception surfaces at the
@@ -99,7 +102,8 @@ class IngestPipeline:
     """
 
     def __init__(self, source: Iterable,
-                 stages: Sequence[Tuple[str, Callable]], depth: int = 2):
+                 stages: Sequence[Tuple[str, Callable]], depth: int = 2,
+                 registry: Optional[MetricRegistry] = None):
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
         self._stages, names = _stage_names(stages)
@@ -107,7 +111,7 @@ class IngestPipeline:
         self._depth = int(depth)
         self._stop = threading.Event()
         self._closed = False
-        self._hists = _histograms(names)
+        self._hists = _histograms(names, registry)
         # queues[0] feeds stage 0; queues[-1] feeds the consumer
         self._queues = [queue_lib.Queue(maxsize=self._depth)
                         for _ in range(len(self._stages) + 1)]
@@ -271,10 +275,11 @@ class SerialPipeline:
     bit-identical to this iteration order) and ``fit(pipelined=False)``."""
 
     def __init__(self, source: Iterable,
-                 stages: Sequence[Tuple[str, Callable]]):
+                 stages: Sequence[Tuple[str, Callable]],
+                 registry: Optional[MetricRegistry] = None):
         self._source = iter(source)
         self._stages, names = _stage_names(stages)
-        self._hists = _histograms(names)
+        self._hists = _histograms(names, registry)
 
     def __iter__(self):
         return self
@@ -303,7 +308,8 @@ class SerialPipeline:
 
 def staged_batches(data: Iterable, stage: Callable,
                    preprocess: Optional[Callable] = None,
-                   depth: int = DEFAULT_DEPTH, pipelined: bool = True) -> Any:
+                   depth: int = DEFAULT_DEPTH, pipelined: bool = True,
+                   registry: Optional[MetricRegistry] = None) -> Any:
     """The train and eval loops' pipeline: [preprocess ->] stage.
 
     Args:
@@ -316,11 +322,13 @@ def staged_batches(data: Iterable, stage: Callable,
       depth: per-queue bound.
       pipelined: False returns the serial (inline) form, with identical
         output: the A/B switch `training.fit(pipelined=...)` exposes.
+      registry: the `obs.MetricRegistry` of the per-stage histograms
+        (see `IngestPipeline`).
     """
     stages = []
     if preprocess is not None:
         stages.append(("preprocess", preprocess))
     stages.append(("stage", stage))
     if pipelined:
-        return IngestPipeline(data, stages, depth=depth)
-    return SerialPipeline(data, stages)
+        return IngestPipeline(data, stages, depth=depth, registry=registry)
+    return SerialPipeline(data, stages, registry=registry)

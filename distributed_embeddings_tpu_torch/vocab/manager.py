@@ -507,10 +507,20 @@ class VocabManager:
         # at write time, so bounded by the bucket, not the run)
         self._touched: Dict[Tuple[str, int], np.ndarray] = {}
         self.maintain_cycles = 0
+        # observing translations, one a training step in `fit`: the "per
+        # step" denominator of `exchange_padding_report`'s eviction rate
+        self.observe_steps = 0
         self._replan_warned: set = set()
         self._metrics = registry if registry is not None \
             else MetricRegistry()
         self._exported = {"admissions": 0, "evictions": 0}
+
+    def use_registry(self, registry) -> None:
+        """Rebind the metrics onto `registry` (`training.fit` unifies a
+        run's namespace through it). The counter baselines carry over, so
+        only the admissions and evictions after the rebind land in the
+        new registry."""
+        self._metrics = registry
 
     def _export_metrics(self) -> None:
         adm = sum(mv.admissions for mv in self.vocabs.values())
@@ -607,6 +617,8 @@ class VocabManager:
         if len(inputs) != self.emb._n_inputs:
             raise ValueError(
                 f"expected {self.emb._n_inputs} inputs, got {len(inputs)}")
+        if observe:
+            self.observe_steps += 1
         per_table_raws: Dict[int, List[np.ndarray]] = {}
         out = []
         for i, x in enumerate(inputs):

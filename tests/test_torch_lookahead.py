@@ -342,8 +342,13 @@ def test_step_and_fit_refusals():
         fit(model, batches, 2, lookahead=1, hot_sync_every=2, log_every=0)
     with pytest.raises(ValueError, match="sparse"):
         fit(model, batches, 2, lookahead=1, sparse=False, log_every=0)
-    with pytest.raises(NotImplementedError, match="A15"):
-        fit(model, batches, 2, registry=object(), log_every=0)
+    # the registry (A15a) is ported: the engine's counters land in it
+    from distributed_embeddings_tpu_torch.obs import MetricRegistry
+    reg = MetricRegistry()
+    fit(model, batches, 2, lookahead=1, registry=reg, log_every=0)
+    counters = reg.snapshot()["counters"]
+    assert counters["lookahead/steps"] == counters["train/steps"] == 2
+    assert counters["lookahead/cold_fills"] == 1
 
 
 def test_jax_engine_refuses_dp_tables_alike():

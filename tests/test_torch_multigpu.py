@@ -321,7 +321,9 @@ def _placement_case(world, mesh, name):
     return spec, {"outputs": outs, "tree": _np(params), "weights": weights,
                   "groups": jl.strategy.table_groups,
                   "placements": len(jl.plan.tp_placements),
-                  "buckets": len(jl.plan.tp_buckets)}
+                  "buckets": len(jl.plan.tp_buckets),
+                  # after the forward: its exchange paths are recorded
+                  "report": jl.exchange_padding_report()}
 
 
 def _amp_placement_case(world, mesh):
@@ -1099,12 +1101,14 @@ def test_placement_plan_and_weights_match_jax(world_run, world, name):
     `set_weights` puts every table where the JAX package does (the trees
     gathered back are equal, dp, tp and row leaves), and `get_weights`
     gives the tables back (on every rank with all_ranks, on rank 0 by
-    default)."""
+    default). Every rank's `exchange_padding_report` after the forward is
+    the JAX layer's, field for field."""
     ranks, refs = world_run(world)
     ref = refs[f"placement:{name}"]
     for rank, r in enumerate(ranks):
         res = r[f"placement:{name}"]
         assert res["groups"] == ref["groups"]
+        assert res["report"] == ref["report"]
         assert (res["placements"], res["buckets"]) == (ref["placements"],
                                                        ref["buckets"])
         for group in ("dp", "tp", "row"):

@@ -235,7 +235,7 @@ def test_train_step_outside_the_slice_raises(kwargs):
     pytest.param(dict(vocab_every=4), True, id="kwargs4"),
     pytest.param(dict(stale_ok=True), True, id="kwargs5"),
     pytest.param(dict(publish_dir="somewhere"), True, id="kwargs6"),
-    pytest.param(dict(registry=object()), False, id="kwargs7"),
+    pytest.param(dict(registry=object()), True, id="kwargs7"),
 ])
 def test_fit_outside_the_slice_raises(kwargs, ported):
     """What `fit` has not ported raises naming its ROADMAP item. The
@@ -244,7 +244,8 @@ def test_fit_outside_the_slice_raises(kwargs, ported):
     cadence without a store, a directory or a maintenance cadence without
     the rest publish nothing), and they raise the JAX `ValueError`s: a
     cadence with a store but no directory, a manager over another layer,
-    a manager with the dense step."""
+    a manager with the dense step. So is the registry (A15a): a run's
+    metrics land in the one passed, and its snapshot in the history."""
     from distributed_embeddings_tpu_torch.store import TableStore
     from distributed_embeddings_tpu_torch.vocab import VocabManager
     model = DLRM([10, 20], embedding_dim=8, device="cpu")
@@ -263,7 +264,13 @@ def test_fit_outside_the_slice_raises(kwargs, ported):
         return
     if "store" in kwargs:
         kwargs = dict(store=TableStore(model.embedding))
+    if "registry" in kwargs:
+        from distributed_embeddings_tpu_torch.obs import MetricRegistry
+        kwargs = dict(registry=MetricRegistry())
     history = fit(model, [], 0, **kwargs)[2]
+    if "registry" in kwargs:
+        assert history["metrics_snapshot"] == kwargs["registry"].snapshot()
+        assert "metrics_error" not in history
     assert "published" not in history and "vocab_stats" not in history
     assert ("lookahead_stats" in history) == ("lookahead" in kwargs)
     if "publish_every" in kwargs:

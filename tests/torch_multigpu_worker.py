@@ -280,8 +280,9 @@ def placement(spec) -> dict:
     """A layer of every placement group (dp, column-sliced tp, row): its
     plan, the forward of this rank's slice with the weights written by
     `set_weights`, the same from the JAX package's tree
-    (`convert.params_from_jax`), the tree back (`params_to_numpy`) and the
-    weights back (`get_weights`, gathered a few rows at a time)."""
+    (`convert.params_from_jax`), the tree back (`params_to_numpy`), the
+    weights back (`get_weights`, gathered a few rows at a time) and the
+    layer's `exchange_padding_report`."""
     layer = _placed(spec)
     layer.set_weights(spec["weights"])
     batch = stage_dp_batch(spec["inputs"], CPU_STAGE)
@@ -294,6 +295,8 @@ def placement(spec) -> dict:
         again = [_host(o) for o in loaded(batch)]
     layer.GATHER_CHUNK_ELEMS = 64
     return {"groups": layer.strategy.table_groups,
+            # after the forward, which records each group's exchange path
+            "report": layer.exchange_padding_report(),
             "placements": len(layer.plan.tp_placements),
             "buckets": len(layer.plan.tp_buckets),
             "outputs": outs, "dtypes": [str(o.dtype) for o in out_t],
